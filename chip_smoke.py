@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``paddlepaddle_tpu_torch``) on one NVIDIA
+Hopper card and check it. Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failed check raises and the exit
+code is non-zero):
+
+1. ``env``     card name and power limit (nvidia-smi), torch / CUDA
+               versions. TF32 is switched off for matmuls and cuDNN, so
+               every f32 comparison below is full f32.
+2. ``build``   builds every kernel in ``ops/kernels/csrc`` (one nvcc per
+               source, in parallel) and reports time and ptxas' resource use.
+3. ``kernel``  each kernel against its plain PyTorch version on the card:
+               small shapes (W=1 and W=3, f32 atol 1e-5, bf16 atol 2e-2,
+               ragged lens with 0 and a zeroed table row) and the main-path
+               shape (h=32, kvh=8, hd=128, ps=64, 8 slots, lens 64-2000);
+               CUDA-event timings (median, L2 flushed between launches) of
+               the kernel, the plain version and SDPA on the pre-gathered
+               view, beside the memory/compute bound.
+4. ``engine_parity``  a tiny fp32 Llama served greedily by the port engine
+               on the card (kernel) and on the CPU (plain version): equal
+               tokens.
+5. ``serve``   the main path at full width: Llama-3-8B (bf16, seeded random
+               weights) behind ``ServingEngine(max_batch_size=8,
+               kv_page_size=64, max_len=2048, decode_chunk=16)`` answering
+               24 requests (prompts 64-1536, budgets 32-128, two sampled);
+               every future must complete with its full length and in-vocab
+               tokens, and the paged-attention launch count must equal
+               32 layers x decode steps.
+
+Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
+line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int = 30, warmup: int = 3, flush=None) -> float:
+    """Median per-call DEVICE time from CUDA events. The GPU is first given
+    ~20 ms of queued work so that the host enqueues every timed call ahead
+    of the device, and the events then bracket device time only (not the
+    wrapper's Python). ``flush`` (a buffer larger than L2) is rewritten
+    between calls so each call finds L2 cold."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)            # ~20 ms of device spin
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return times[len(times) // 2]
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host time of one call (enqueue only, no sync), in µs."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)           # keep the device busy meanwhile
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens, dtype, zero_rows=()):
+    import numpy as np
+    import torch
+
+    pages = 1 + S * P
+    kp = torch.from_numpy(rng.standard_normal((pages, ps, kvh, hd),
+                                              dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal((pages, ps, kvh, hd),
+                                              dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((S, W, h, hd), dtype=np.float32))
+    pt = rng.permutation(np.arange(1, pages))[: S * P].reshape(S, P)
+    pt = pt.astype(np.int32)
+    for r in zero_rows:
+        pt[r] = 0
+    dev = "cuda"
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.from_numpy(pt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def phase_kernel():
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(0)
+    small = []
+    for hd in (64, 128):
+        for W in (1, 3):
+            for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+                args = paged_inputs(rng, 4, W, 8, 2, hd, 16, 3,
+                                    [5, 13, 0, 40], dtype, zero_rows=(2,))
+                kw = dict(rep=4, scale=hd ** -0.5)
+                got = pa.paged_attention(*args, **kw)
+                want = pa.paged_attention_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                small.append({"hd": hd, "W": W, "dtype": str(dtype)[6:],
+                              "max_abs_err": err, "atol": atol})
+                if not err <= atol:
+                    raise AssertionError(f"paged_attention small shape "
+                                         f"hd={hd} W={W} {dtype}: err {err} "
+                                         f"> {atol}")
+
+    # main-path shape: Llama-3-8B decode step, 8 slots, max_len 2048
+    S, W, h, kvh, hd, ps, P = 8, 1, 32, 8, 128, 64, 32
+    lens = rng.integers(64, 2001, S).tolist()
+    args = paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens, torch.bfloat16)
+    q, kp, vp, ptab, lens_t = args
+    kw = dict(rep=h // kvh, scale=hd ** -0.5)
+    got = pa.paged_attention(*args, **kw)
+    want = pa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"paged_attention main shape: err {err} > 2e-2")
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_ms = median_ms(lambda: pa.paged_attention(*args, **kw), flush=flush)
+    plain_ms = median_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                         flush=flush)
+    wrapper_us = host_us(lambda: pa.paged_attention(*args, **kw))
+    # yardstick only: SDPA on the pre-gathered view (gather not timed)
+    T = P * ps
+    kview = kp[ptab.long()].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
+    vview = vp[ptab.long()].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
+    qs = q.transpose(1, 2).contiguous()                       # [S, h, W, hd]
+    k_pos = torch.arange(T, device="cuda")
+    q_pos = lens_t.long()[:, None] + torch.arange(W, device="cuda")[None, :]
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # [S,1,W,T]
+    try:
+        library_ms = median_ms(lambda: tF.scaled_dot_product_attention(
+            qs, kview, vview, attn_mask=mask, scale=kw["scale"],
+            enable_gqa=True), flush=flush)
+    except (TypeError, RuntimeError):
+        kr = kview.repeat_interleave(h // kvh, dim=1)
+        vr = vview.repeat_interleave(h // kvh, dim=1)
+        library_ms = median_ms(lambda: tF.scaled_dot_product_attention(
+            qs, kr, vr, attn_mask=mask, scale=kw["scale"]), flush=flush)
+    del flush
+
+    # least time for the same work, from this run's lens: each visible key's
+    # K and V row read once, q read and out written once, the page-table
+    # entries and lens read once; operations are the f32 products of q.k and
+    # p.v over every visible key of every query row
+    item = q.element_size()
+    keys = [n + W for n in lens]
+    n_vis = [min(P, -(-k // ps)) for k in keys]
+    bytes_ = (sum(keys) * kvh * hd * 2 * item + 2 * q.numel() * item
+              + 4 * sum(n_vis) + 4 * S)
+    rows_keys = sum(n + w + 1 for n in lens for w in range(W))
+    flops = 2 * 2 * hd * h * rows_keys
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    record = {
+        "name": "paged_attention", "route": "cuda",
+        "source": "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
+        "replaces": "paddlepaddle_tpu/ops/kernels/paged_attention.py:104",
+        "launches": None, "max_abs_err": err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "shape": f"S{S} W{W} h{h} kvh{kvh} hd{hd} ps{ps} bf16 "
+                 f"lens {min(lens)}-{max(lens)}",
+        "bytes": bytes_, "flops": flops,
+    }
+    emit({"phase": "kernel", "small": small, "main_shape": record["shape"],
+          "lens": lens, "max_abs_err": err, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
+          "bound_share": record["bound_ms"] / kernel_ms})
+    return record
+
+
+def phase_engine_parity(pt_pkg):
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = pt_pkg.LlamaConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, dtype="float32")
+    cpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cpu", seed=1,
+                                        init_std=0.1)
+    gpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    specs = [(5, 8, None), (17, 4, None), (3, 10, 7), (40, 6, None)]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n, _, _ in specs]
+    outs = {}
+    launches0 = pa.paged_attention.launches
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng = pt_pkg.BatchDecodeEngine(model, max_slots=3, chunk=4,
+                                       page_size=16, device=dev)
+        reqs = [pt_pkg.GenerationRequest(p, mx, 0.0, 0, e)
+                for p, (_, mx, e) in zip(prompts, specs)]
+        eng.serve(reqs, timeout=300)
+        outs[dev] = [r.result.result(5).tolist() for r in reqs]
+    launches = pa.paged_attention.launches - launches0
+    equal = outs["cuda"] == outs["cpu"]
+    emit({"phase": "engine_parity", "equal": equal, "kernel_launches": launches,
+          "tokens": sum(len(o) for o in outs["cuda"])})
+    if not equal:
+        raise AssertionError(f"card vs CPU greedy tokens differ: "
+                             f"{outs['cuda']} vs {outs['cpu']}")
+    if launches == 0:
+        raise AssertionError("card engine never launched the kernel")
+
+
+def decode_breakdown(pt_pkg, eng, prompts):
+    """Where one decode chunk's time goes, all slots busy: the host wall of
+    an unprofiled chunk, then the device time by kernel from a
+    torch.profiler window over the next chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [pt_pkg.GenerationRequest(p[:128], 64) for p in prompts[:eng.S]]
+    for r in reqs:
+        if not eng._admit(r):
+            raise AssertionError("breakdown: admission failed")
+    eng._decode_chunk()                       # first tokens + a warm chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._decode_chunk()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._decode_chunk()
+        torch.cuda.synchronize()
+    by_kind = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    top = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        kind = ("paged_attention" if "paged_attn" in name else
+                "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                    "cutlass", "nvjet"))
+                else "other")
+        by_kind[kind] += ms
+        top[e.key[:80]] = top.get(e.key[:80], 0.0) + ms
+    while eng.busy_slots():
+        eng._decode_chunk()
+    busy = sum(by_kind.values())
+    return {"chunk_wall_ms": wall_ms, "steps": eng.chunk,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy > 0
+            else "not measured",
+            "device_ms_by_kind": by_kind,
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                   [:8])}
+
+
+def phase_serve(pt_pkg):
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    n_req = 24
+    plens = rng.integers(64, 1537, n_req)
+    budgets = rng.integers(32, 129, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in plens]
+    sampled = {5, 17}                       # temperature 0.8, top_k 50
+    failures = []
+    with pt_pkg.ServingEngine(model, max_batch_size=8, kv_page_size=64,
+                              max_len=2048, decode_chunk=16,
+                              device="cuda") as se:
+        eng = se.engine
+        # one short warm-up request (cuBLAS handles, allocator) before the
+        # counted run
+        se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        pa.paged_attention.launches = 0
+        steps0 = eng.stats["decode_steps"]
+        chunks0 = len(eng.chunk_ms)
+        t0 = time.perf_counter()
+        futs = [se.submit(p, max_new_tokens=int(b),
+                          temperature=0.8 if i in sampled else 0.0,
+                          top_k=50 if i in sampled else 0)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        outs = []
+        for i, f in enumerate(futs):
+            try:
+                outs.append(f.result(900))
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+                outs.append(None)
+        wall = time.perf_counter() - t0
+        launches = pa.paged_attention.launches
+        steps = eng.stats["decode_steps"] - steps0
+        chunk_ms = sorted(eng.chunk_ms[chunks0:])
+        peak = torch.cuda.max_memory_allocated()
+        # the decode path against the plain causal forward on the shortest
+        # greedy request: every emitted token within bf16 noise of the
+        # reference argmax logit
+        greedy = [i for i in range(n_req) if i not in sampled
+                  and outs[i] is not None]
+        i_chk = min(greedy, key=lambda i: plens[i])
+        seq = torch.as_tensor(outs[i_chk][:-1].astype(np.int64),
+                              device="cuda")[None]
+        with torch.no_grad():
+            lg = model(seq)[0, int(plens[i_chk]) - 1:].float()
+        emitted = torch.as_tensor(outs[i_chk][int(plens[i_chk]):]
+                                  .astype(np.int64), device="cuda")
+        gap = float((lg.max(-1).values
+                     - lg.gather(1, emitted[:, None])[:, 0]).max())
+    breakdown = decode_breakdown(pt_pkg, eng, prompts)
+    bad_len = [i for i, o in enumerate(outs) if o is not None
+               and len(o) != plens[i] + budgets[i]]
+    bad_tok = [i for i, o in enumerate(outs) if o is not None
+               and not ((o >= 0) & (o < cfg.vocab_size)).all()]
+    new_tokens = int(sum(len(o) - plens[i] for i, o in enumerate(outs)
+                         if o is not None))
+    slo = pt_pkg.slo_summary([f for f, o in zip(futs, outs) if o is not None])
+    emit({"phase": "serve", "model": "llama3_8b", "params": cfg.num_params(),
+          "init_s": init_s, "requests": n_req,
+          "completed": sum(o is not None for o in outs),
+          "failed": len(failures), "new_tokens": new_tokens, "wall_s": wall,
+          "tok_s": new_tokens / wall, "ttft_p50_ms": slo["ttft_p50_ms"],
+          "ttft_p99_ms": slo["ttft_p99_ms"], "tpot_ms": slo["tpot_ms"],
+          "decode_steps": steps, "decode_chunks": len(chunk_ms),
+          "decode_chunk_ms_p50": chunk_ms[len(chunk_ms) // 2] if chunk_ms
+          else None,
+          "decode_chunk_ms_max": chunk_ms[-1] if chunk_ms else None,
+          "paged_attention_launches": launches,
+          "expected_launches": cfg.num_hidden_layers * steps,
+          "peak_mem_gb": peak / 1e9, "greedy_check_logit_gap": gap,
+          "decode_breakdown": breakdown})
+    if failures:
+        raise AssertionError("requests failed: " + "; ".join(failures))
+    if bad_len or bad_tok:
+        raise AssertionError(f"wrong output length {bad_len} / out-of-vocab "
+                             f"tokens {bad_tok}")
+    if steps == 0 or launches != cfg.num_hidden_layers * steps:
+        raise AssertionError(f"paged_attention launched {launches} times, "
+                             f"expected {cfg.num_hidden_layers} x {steps}")
+    if not gap <= 0.25:
+        raise AssertionError(f"decode path disagrees with the plain forward: "
+                             f"an emitted token's logit is {gap} below the "
+                             "argmax")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script checks the "
+              "port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import paddlepaddle_tpu_torch as pt_pkg
+    from paddlepaddle_tpu_torch.ops.kernels import _build
+
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "tf32": False})
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": {n: {"seconds": b["seconds"], "cached": b["cached"],
+                          "ptxas": [ln.strip() for ln in
+                                    str(b["ptxas"]).splitlines()
+                                    if "Used" in ln or "spill" in ln][:48]}
+                      for n, b in built.items()}})
+
+    record = phase_kernel()
+    phase_engine_parity(pt_pkg)
+    record["launches"] = phase_serve(pt_pkg)
+    emit({"kernels": [record]})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,305 @@
+"""Llama-3-style decoder-only LM, forward/logits only (counterpart of
+``paddlepaddle_tpu/models/llama.py``).
+
+What is here: ``LlamaConfig`` with its presets, the fp32 rope tables and the
+NeoX rotate-half rope (scalar or per-row offsets), ``_cached_attention`` (the
+plain-PyTorch prefill attention), and the attention / MLP / decoder layer /
+model / causal-LM modules. The loss, ``generate`` and ``generate_cached``
+come with the training slice.
+
+Attention without a cache (``LlamaForCausalLM.forward(ids)``) runs through
+``_cached_attention`` over a fresh scratch cache at position 0, which is
+plain causal attention: the JAX package's flash-attention kernel belongs to
+the training path and is ported with it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..core.dtype import to_torch_dtype
+from ..device import DeviceLike, resolve_device
+from ..nn import functional as F
+from ..nn.common import Embedding, Linear
+from ..nn.norm import RMSNorm
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+            max_position_embeddings=8192, rope_theta=500000.0, dtype="bfloat16")
+
+    @staticmethod
+    def tiny(vocab_size=256, hidden_size=64, layers=2, heads=4, kv_heads=2,
+             max_len=128) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden_size=hidden_size,
+            intermediate_size=hidden_size * 3, num_hidden_layers=layers,
+            num_attention_heads=heads, num_key_value_heads=kv_heads,
+            max_position_embeddings=max_len)
+
+    def num_params(self) -> int:
+        h, i, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        kv = self.num_key_value_heads * self.head_dim
+        per_layer = h * h + 2 * h * kv + h * h + 3 * h * i + 2 * h
+        embed = v * h * (1 if self.tie_word_embeddings else 2)
+        return self.num_hidden_layers * per_layer + embed + h
+
+
+def rope_tables(head_dim: int, max_len: int, theta: float,
+                device: DeviceLike = "cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 cos/sin tables ``[max_len, head_dim]`` for NeoX-style rope."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / head_dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                      # [T, dim/2]
+    emb = torch.cat([freqs, freqs], dim=-1)               # [T, dim]
+    return torch.cos(emb), torch.sin(emb)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def rope_at(cos: torch.Tensor, sin: torch.Tensor,
+            offset: Union[int, torch.Tensor], seq: int, dtype: torch.dtype):
+    """cos/sin rows for positions ``offset .. offset+seq-1``, shaped to
+    broadcast over ``[b, seq, heads, d]``. ``offset`` is a scalar start or a
+    per-row ``[b]`` vector (ragged continuous batching). Positions are
+    clamped to the table as the reference's gather clamps them; the fp32
+    tables are cast to the activation dtype, as in the reference."""
+    T = cos.shape[0]
+    if isinstance(offset, torch.Tensor) and offset.dim() > 0:
+        idx = offset.long()[:, None] + torch.arange(
+            seq, device=cos.device)[None, :]               # [b, seq]
+        idx = idx.clamp(0, T - 1)
+        c, s = cos[idx][:, :, None, :], sin[idx][:, :, None, :]
+    else:
+        start = min(max(int(offset), 0), T - seq)
+        c = cos[start:start + seq][None, :, None, :]
+        s = sin[start:start + seq][None, :, None, :]
+    return c.to(dtype), s.to(dtype)
+
+
+def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return x * c + rotate_half(x) * s
+
+
+def _apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, offset: Union[int, torch.Tensor] = 0):
+    """NeoX rotate-half rope on ``[b, s, heads, d]`` q and k at positions
+    ``offset .. offset+s-1`` (see :func:`rope_at`)."""
+    c, s = rope_at(cos, sin, offset, q.shape[1], q.dtype)
+    return rotate(q, c, s), rotate(k, c, s)
+
+
+def _cached_attention(q, k_new, v_new, k_cache, v_cache, pos, n_rep: int,
+                      scale: float):
+    """Write new K/V at ``[pos, pos+s)`` and attend ``q`` over the valid
+    cache prefix — plain PyTorch, the prefill path.
+
+    ``q/k_new/v_new``: ``[b, s, heads, d]``; caches ``[b, L, kvh, d]``;
+    ``pos`` a scalar or a per-row ``[b]`` vector. The caches are updated IN
+    PLACE (where the reference returned new arrays) and returned as well.
+    GQA contracts the regrouped ``q [b, s, kvh, rep, d]`` against the
+    unrepeated cache; logits and softmax are f32, as in the reference.
+    Returns ``(out [b, s, h, d], k_cache, v_cache)``."""
+    b, s = q.shape[0], q.shape[1]
+    L = k_cache.shape[1]
+    dev = q.device
+    ar_s = torch.arange(s, device=dev)
+    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = pos.long()[:, None] + ar_s[None, :]                # [b, s]
+        k_cache[rows, cols] = k_new.to(k_cache.dtype)
+        v_cache[rows, cols] = v_new.to(v_cache.dtype)
+        q_pos = cols[:, :, None]                                  # [b, s, 1]
+    else:
+        p0 = int(pos)
+        k_cache[:, p0:p0 + s] = k_new.to(k_cache.dtype)
+        v_cache[:, p0:p0 + s] = v_new.to(v_cache.dtype)
+        q_pos = (p0 + ar_s)[None, :, None]                        # [1, s, 1]
+    k_pos = torch.arange(L, device=dev)[None, None, :]
+    valid = k_pos <= q_pos                                        # [b|1, s, L]
+    h, d = q.shape[2], q.shape[3]
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, s, kvh, n_rep, d)
+    logits = torch.einsum("bskrd,blkd->bkrsl", qg.float(),
+                          k_cache.float()) * scale
+    logits = logits.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrsl,blkd->bskrd",
+                       probs.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, s, h, d).to(q.dtype), k_cache, v_cache
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
+        super().__init__()
+        h = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        kv = self.num_kv_heads * self.head_dim
+        kw = dict(device=device, dtype=dtype)
+        self.q_proj = Linear(h, h, **kw)
+        self.k_proj = Linear(h, kv, **kw)
+        self.v_proj = Linear(h, kv, **kw)
+        self.o_proj = Linear(h, h, **kw)
+
+    def forward(self, x, cos, sin, cache: Cache, pos):
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q, k = _apply_rope(q, k, cos, sin, offset=pos)
+        out, kc, vc = _cached_attention(
+            q, k, v, cache[0], cache[1], pos,
+            self.num_heads // self.num_kv_heads, 1.0 / math.sqrt(self.head_dim))
+        return self.o_proj(out.reshape(b, s, -1)), (kc, vc)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        kw = dict(device=device, dtype=dtype)
+        self.gate_proj = Linear(h, i, **kw)
+        self.up_proj = Linear(h, i, **kw)
+        self.down_proj = Linear(i, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        eps = config.rms_norm_eps
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, **kw)
+        self.self_attn = LlamaAttention(config, **kw)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, **kw)
+        self.mlp = LlamaMLP(config, **kw)
+
+    def forward(self, x, cos, sin, cache: Cache, pos):
+        attn_out, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
+                                             cache, pos)
+        x = x + attn_out
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, new_cache
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      **kw)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, **kw)
+                                     for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        # fp32 rope tables, recomputed here rather than carried as state
+        # (non-persistent: they are not part of state_dict)
+        cos, sin = rope_tables(config.head_dim,
+                               config.max_position_embeddings,
+                               config.rope_theta, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids: torch.Tensor,
+                caches: Optional[List[Cache]] = None, pos=0):
+        """``caches=None``: causal attention over ``input_ids`` alone,
+        returns the final hidden states. With caches: write-through at
+        ``pos`` (scalar or per-row), returns ``(hidden, caches)``."""
+        x = self.embed_tokens(input_ids)
+        cos, sin = self.rope_cos, self.rope_sin
+        if caches is None:
+            b, s = input_ids.shape
+            cfg = self.config
+            shape = (b, s, cfg.num_key_value_heads, cfg.head_dim)
+            scratch = [(x.new_zeros(shape), x.new_zeros(shape))
+                       for _ in self.layers]
+            return self.forward(input_ids, scratch, 0)[0]
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, nc = layer(x, cos, sin, cache, pos)
+            new_caches.append(nc)
+        return self.norm(x), new_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM head over :class:`LlamaModel`.
+
+    ``device=None`` builds on the card (raises without CUDA). Weights are
+    drawn from a seeded generator on that device: N(0, ``init_std``) for
+    every matrix, ones for the norms. Parity tests overwrite them with the
+    JAX model's weights through :mod:`..convert`."""
+
+    def __init__(self, config: LlamaConfig, device: DeviceLike = None,
+                 seed: int = 0, init_std: float = 0.02):
+        super().__init__()
+        self.config = config
+        dev = resolve_device(device)
+        dtype = to_torch_dtype(config.dtype)
+        self.model = LlamaModel(config, device=dev, dtype=dtype)
+        self.lm_head = (None if config.tie_word_embeddings
+                        else Linear(config.hidden_size, config.vocab_size,
+                                    device=dev, dtype=dtype))
+        self.reset_parameters(seed, init_std)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.embed_tokens.weight.dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0, init_std: float = 0.02) -> None:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, init_std, generator=gen)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            return torch.matmul(hidden, self.model.embed_tokens.weight.T)
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.logits(self.model(input_ids))
