@@ -6,10 +6,16 @@ an obvious counterpart, and it is held against that package by parity tests
 on the CPU (``tests/test_torch_*.py``). The JAX package stays the reference;
 this package imports neither ``jax`` nor anything of ``paddlepaddle_tpu``.
 
-The first slice is the serving path: ``LlamaForCausalLM`` behind
-``ServingEngine`` -> ``BatchDecodeEngine`` with a paged KV pool, every
-decode-step attention going through a hand-written CUDA kernel
-(``ops/kernels/csrc/paged_attention.cu``).
+Two slices of the flagship Llama decoder are ported:
+
+* serving: ``LlamaForCausalLM`` behind ``ServingEngine`` ->
+  ``BatchDecodeEngine`` with a paged KV pool, every decode-step attention
+  going through a hand-written CUDA kernel
+  (``ops/kernels/csrc/paged_attention.cu``);
+* training: ``TrainStep`` (forward, next-token loss, backward,
+  ``ClipGradByGlobalNorm`` and an ``AdamW`` update with f32 masters), the
+  attention forward and backward going through hand-written CUDA kernels
+  (``ops/kernels/csrc/flash_attention.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no device given they raise (:mod:`.device`).
@@ -27,4 +33,7 @@ from .inference.serving import (  # noqa: F401
     ServingEngine,
     slo_summary,
 )
+from .jit.train import TrainStep  # noqa: F401
 from .models.llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .nn.clip import ClipGradByGlobalNorm  # noqa: F401
+from .optimizer import Adam, AdamW, lr  # noqa: F401

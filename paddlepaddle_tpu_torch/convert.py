@@ -11,11 +11,16 @@ The rope tables (``model.rope_cos`` / ``model.rope_sin``) are SKIPPED: the
 port recomputes them from the config (``models/llama.py`` ``rope_tables``)
 and keeps them out of its state; the parity tests hold the two tables
 against each other instead.
+
+:func:`load_jax_train_state` carries a JAX ``TrainStep``'s state
+(``paddlepaddle_tpu/jit/train.py:142``: params, the optimizer's ``slots``,
+``master`` and ``step``) into the port's ``TrainStep``, so that training
+resumed in either package computes the same thing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,7 +31,8 @@ SKIPPED = ("model.rope_cos", "model.rope_sin")
 def _to_tensor(a) -> torch.Tensor:
     """numpy -> torch, including ml_dtypes bfloat16 arrays (reinterpreted
     bit for bit through int16, since numpy has no native bfloat16)."""
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)   # keeps 0-d arrays 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
@@ -44,3 +50,25 @@ def load_jax_state(model: torch.nn.Module,
     """Copy converted weights into ``model`` (any device); every parameter
     must be covered and every shape must match (``strict=True``)."""
     model.load_state_dict(convert_state(jax_state), strict=True)
+
+
+def load_jax_train_state(step, jax_state: Mapping[str, object]) -> None:
+    """Load a JAX ``TrainStep.state_dict()`` into the port's
+    :class:`~paddlepaddle_tpu_torch.jit.train.TrainStep` ``step``: params
+    by name, the optimizer's per-parameter slots (``moment1``,
+    ``moment2``, ``beta1_pow``, ``beta2_pow``[, ``moment2_max``]), the f32
+    masters (None for parameters without one) and the step count."""
+    opt = jax_state["opt_state"]
+
+    def master(m) -> Optional[torch.Tensor]:
+        return None if m is None else _to_tensor(m)
+
+    step.set_state_dict({
+        "params": convert_state(jax_state["params"]),
+        "opt_state": {
+            "slots": {name: {k: _to_tensor(v) for k, v in slots.items()}
+                      for name, slots in opt["slots"].items()},
+            "master": {name: master(m) for name, m in opt["master"].items()},
+            "step": int(np.asarray(opt["step"])),
+        },
+    })

@@ -1,16 +1,18 @@
-"""Llama-3-style decoder-only LM, forward/logits only (counterpart of
-``paddlepaddle_tpu/models/llama.py``).
+"""Llama-3-style decoder-only LM: forward, logits and the next-token loss
+(counterpart of ``paddlepaddle_tpu/models/llama.py``).
 
 What is here: ``LlamaConfig`` with its presets, the fp32 rope tables and the
 NeoX rotate-half rope (scalar or per-row offsets), ``_cached_attention`` (the
-plain-PyTorch prefill attention), and the attention / MLP / decoder layer /
-model / causal-LM modules. The loss, ``generate`` and ``generate_cached``
-come with the training slice.
+plain-PyTorch prefill attention the decode engine uses), the cross-entropy
+rows ``_CERows`` and ``loss_from_logits``, and the attention / MLP / decoder
+layer / model / causal-LM modules. ``generate`` and ``generate_cached`` are
+not ported (ROADMAP A3).
 
-Attention without a cache (``LlamaForCausalLM.forward(ids)``) runs through
-``_cached_attention`` over a fresh scratch cache at position 0, which is
-plain causal attention: the JAX package's flash-attention kernel belongs to
-the training path and is ported with it.
+Attention without a cache (``LlamaForCausalLM.forward(ids[, labels])``, the
+training path) repeats the K/V heads and runs ``F.flash_attention(...,
+causal=True)``, as the reference does (:246-266): the flash kernels on the
+card, the plain version on the CPU. With a cache it runs
+``_cached_attention``, the path of the JAX engine's prefill.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from ..device import DeviceLike, resolve_device
 from ..nn import functional as F
 from ..nn.common import Embedding, Linear
 from ..nn.norm import RMSNorm
+from ..ops.kernels.flash_attention import (check_device,
+                                           flash_attention_supported)
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -162,6 +166,63 @@ def _cached_attention(q, k_new, v_new, k_cache, v_cache, pos, n_rep: int,
     return out.reshape(b, s, h, d).to(q.dtype), k_cache, v_cache
 
 
+_CE_CHUNK_ELEMS = 1 << 27          # f32 elements of one loss chunk (512 MB)
+
+
+class _CERows(torch.autograd.Function):
+    """Per-position NLL ``lse(logits) - logits[label]`` in f32 over logits
+    of the model's dtype (reference ``_ce_rows`` :33-59). The forward saves
+    only the logits and the ``[B, S]`` f32 lse; the backward rebuilds the
+    softmax rows in f32, so no f32 ``[B, S, V]`` residual crosses from
+    forward to backward. Rows are taken in chunks so the f32 temporaries
+    stay near ``_CE_CHUNK_ELEMS`` elements whatever the vocabulary."""
+
+    @staticmethod
+    def forward(ctx, lg, labels):
+        V = lg.shape[-1]
+        flat = lg.reshape(-1, V)
+        lab = labels.reshape(-1, 1)
+        lse = torch.empty(flat.shape[0], dtype=torch.float32,
+                          device=lg.device)
+        rows = max(1, _CE_CHUNK_ELEMS // V)
+        for i in range(0, flat.shape[0], rows):
+            lse[i:i + rows] = torch.logsumexp(flat[i:i + rows].float(), -1)
+        picked = flat.gather(1, lab)[:, 0].float()
+        lse = lse.reshape(labels.shape)
+        ctx.save_for_backward(lg, labels, lse)
+        return lse - picked.reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, labels, lse = ctx.saved_tensors
+        V = lg.shape[-1]
+        flat = lg.reshape(-1, V)
+        lab = labels.reshape(-1, 1)
+        lse, g = lse.reshape(-1, 1), g.reshape(-1, 1).float()
+        grad = torch.empty_like(flat)
+        rows = max(1, _CE_CHUNK_ELEMS // V)
+        for i in range(0, flat.shape[0], rows):
+            p = torch.exp(flat[i:i + rows].float() - lse[i:i + rows])
+            p.scatter_add_(1, lab[i:i + rows],
+                           torch.full_like(lse[i:i + rows], -1.0))
+            grad[i:i + rows] = (p * g[i:i + rows]).to(lg.dtype)
+        return grad.reshape(lg.shape), None
+
+
+def loss_from_logits(logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy in f32 (reference ``loss_from_logits``
+    :549): the label of position t is token t+1 (labels rolled by -1),
+    labels < 0 are ignored, the last position has no target, and the mean
+    is over the valid positions."""
+    seq = logits.shape[1]
+    lb_next = torch.roll(labels, -1, dims=1)
+    nll = _CERows.apply(logits, lb_next.clamp_min(0).long())
+    pos = torch.arange(seq, device=logits.device)[None, :]
+    valid = ((lb_next >= 0) & (pos < seq - 1)).float()
+    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
@@ -176,12 +237,23 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, kv, **kw)
         self.o_proj = Linear(h, h, **kw)
 
-    def forward(self, x, cos, sin, cache: Cache, pos):
+    def forward(self, x, cos, sin, cache: Optional[Cache] = None, pos=0):
+        """``cache=None``: causal self-attention over ``x`` alone through
+        ``F.flash_attention`` (K/V heads repeated first, so autograd sums
+        the repeated heads' gradients), returns the output. With a cache:
+        write-through at ``pos``, returns ``(output, new cache)``."""
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         q, k = _apply_rope(q, k, cos, sin, offset=pos)
+        if cache is None:
+            rep = self.num_heads // self.num_kv_heads
+            if rep > 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out, _ = F.flash_attention(q, k, v, causal=True)
+            return self.o_proj(out.reshape(b, s, -1))
         out, kc, vc = _cached_attention(
             q, k, v, cache[0], cache[1], pos,
             self.num_heads // self.num_kv_heads, 1.0 / math.sqrt(self.head_dim))
@@ -211,7 +283,11 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cos, sin, cache: Cache, pos):
+    def forward(self, x, cos, sin, cache: Optional[Cache] = None, pos=0):
+        """Returns ``x`` without a cache, ``(x, new cache)`` with one."""
+        if cache is None:
+            x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+            return x + self.mlp(self.post_attention_layernorm(x))
         attn_out, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
                                              cache, pos)
         x = x + attn_out
@@ -239,18 +315,16 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 caches: Optional[List[Cache]] = None, pos=0):
-        """``caches=None``: causal attention over ``input_ids`` alone,
-        returns the final hidden states. With caches: write-through at
-        ``pos`` (scalar or per-row), returns ``(hidden, caches)``."""
+        """``caches=None``: causal attention over ``input_ids`` alone
+        (flash attention), returns the final hidden states. With caches:
+        write-through at ``pos`` (scalar or per-row), returns
+        ``(hidden, caches)``."""
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos, self.rope_sin
         if caches is None:
-            b, s = input_ids.shape
-            cfg = self.config
-            shape = (b, s, cfg.num_key_value_heads, cfg.head_dim)
-            scratch = [(x.new_zeros(shape), x.new_zeros(shape))
-                       for _ in self.layers]
-            return self.forward(input_ids, scratch, 0)[0]
+            for layer in self.layers:
+                x = layer(x, cos, sin)
+            return self.norm(x)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
             x, nc = layer(x, cos, sin, cache, pos)
@@ -264,7 +338,9 @@ class LlamaForCausalLM(nn.Module):
     ``device=None`` builds on the card (raises without CUDA). Weights are
     drawn from a seeded generator on that device: N(0, ``init_std``) for
     every matrix, ones for the norms. Parity tests overwrite them with the
-    JAX model's weights through :mod:`..convert`."""
+    JAX model's weights through :mod:`..convert`. On the card the flash
+    kernels' support check runs here and raises on a configuration they do
+    not take."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  seed: int = 0, init_std: float = 0.02):
@@ -272,6 +348,14 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         dev = resolve_device(device)
         dtype = to_torch_dtype(config.dtype)
+        if dev.type == "cuda":
+            check_device(dev)
+            n = config.max_position_embeddings
+            ok, why = flash_attention_supported(config.head_dim, dtype, True,
+                                                n, n)
+            if not ok:
+                raise ValueError(f"flash attention kernels do not take this "
+                                 f"model: {why}")
         self.model = LlamaModel(config, device=dev, dtype=dtype)
         self.lm_head = (None if config.tie_word_embeddings
                         else Linear(config.hidden_size, config.vocab_size,
@@ -301,5 +385,13 @@ class LlamaForCausalLM(nn.Module):
             return torch.matmul(hidden, self.model.embed_tokens.weight.T)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.logits(self.model(input_ids))
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits ``[b, s, vocab]``, or with ``labels`` the next-token loss
+        (reference :361-369)."""
+        logits = self.logits(self.model(input_ids))
+        if labels is None:
+            return logits
+        return self.loss_from_logits(logits, labels)
+
+    loss_from_logits = staticmethod(loss_from_logits)

@@ -15,6 +15,10 @@ _PROBE = r"""
 import json, sys
 import paddlepaddle_tpu_torch as pt
 import paddlepaddle_tpu_torch.convert
+import paddlepaddle_tpu_torch.jit.train
+import paddlepaddle_tpu_torch.nn.clip
+import paddlepaddle_tpu_torch.ops.kernels.flash_attention
+import paddlepaddle_tpu_torch.optimizer.lr
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -29,7 +33,10 @@ if not torch.cuda.is_available():
             ("engine", lambda: pt.BatchDecodeEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
             ("serving", lambda: pt.ServingEngine(
-                pt.LlamaForCausalLM(cfg, device="cpu")))):
+                pt.LlamaForCausalLM(cfg, device="cpu"))),
+            ("train_step", lambda: pt.TrainStep(
+                pt.LlamaForCausalLM(cfg, device="cpu"), pt.AdamW(),
+                lambda m, ids, labels: m(ids, labels=labels)))):
         try:
             make()
             errors[name] = None
@@ -53,6 +60,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert got["bad"] == []
     # the prefix trap: the port's own modules are named paddlepaddle_tpu_torch*
     assert "paddlepaddle_tpu_torch.inference.decode_engine" in got["ports"]
+    for mod in ("jit.train", "optimizer.optimizers", "optimizer.lr", "nn.clip",
+                "ops.kernels.flash_attention"):
+        assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")
     for name, err in got["errors"].items():
