@@ -26,27 +26,51 @@ code is non-zero):
                phase's shape (b 4, s 2048, h 32, d 128, bf16, causal);
                timings of each kernel, the plain version and SDPA (forward;
                its backward for the two backward kernels), beside the bound.
-5. ``engine_parity``  a tiny fp32 Llama served greedily by the port engine
+5. ``gather_gemm_kernel``  the gather-GEMM expert-FFN kernel against its
+               plain version: 6 small cases (f32 atol 1e-5; bf16 within the
+               bound its bf16 rounding of the hidden activation implies;
+               planted drops, an empty expert, all-sentinel row blocks, C not
+               a multiple of the row block, T 1, the smallest (d, h) the
+               support check admits) and the moe_train shape (E 64, C 320,
+               d 2048, h 1408, bf16, slots from a routing of random x);
+               timings of the kernel, the plain version and the sorted
+               mode's composition (gather, two bmm, silu*mul, bmm), beside
+               the bound.
+6. ``engine_parity``  a tiny fp32 Llama served greedily by the port engine
                on the card (kernel) and on the CPU (plain version): equal
                tokens.
-6. ``train_parity``  a tiny fp32 Llama (d 64) trained 3 TrainStep steps on
+7. ``train_parity``  a tiny fp32 Llama (d 64) trained 3 TrainStep steps on
                the card and on the CPU from one state and one batch: losses
                within 1e-4, parameters within 5e-4 (half a step's move),
                flash launch counters moved.
-7. ``serve``   the serving path at full width: Llama-3-8B (bf16, seeded
+8. ``moe_parity``  a tiny fp32 MoE decoder (fused mode, d 256, h 128, 4
+               experts) trained 3 TrainStep steps on the card and on the CPU
+               from one state: losses within 1e-4, parameters within 5e-4,
+               the gather-GEMM counter moved by layers x steps.
+9. ``serve``   the serving path at full width: Llama-3-8B (bf16, seeded
                random weights) behind ``ServingEngine(max_batch_size=8,
                kv_page_size=64, max_len=2048, decode_chunk=16)`` answering
                24 requests (prompts 64-1536, budgets 32-128, two sampled);
                every future must complete with its full length and in-vocab
                tokens, and the paged-attention launch count must equal
                32 layers x decode steps.
-8. ``train``   the training path at full width: Llama-3-8B widths cut to 8
+10. ``train`` the training path at full width: Llama-3-8B widths cut to 8
                of 32 layers (memory), bf16 with f32 AdamW masters and a
                global-norm clip, batch 4 x 2048 fed 7 times (1 warm-up, 5
                timed, 1 profiled); losses finite and falling, each flash
                counter exactly layers x steps, no non-finite parameter;
                step time, tokens/s, MFU, peak memory and the device time by
                kind.
+11. ``moe_train``  the MoE decoder at DeepSeekMoE-16B widths (hidden 2048,
+               64 experts of width 1408, 2 shared, vocab 102400, top-2,
+               capacity factor 1.25, fused mode) cut to 4 of 28 layers
+               (memory), bf16 with f32 AdamW masters and a global-norm clip,
+               batch 4 x 2048 fed 7 times (1 warm-up, 5 timed, 1 profiled);
+               losses finite and falling, the gather-GEMM and flash counters
+               exactly layers x steps, no non-finite parameter; step time,
+               tokens/s, MFU on the active parameters, peak memory, device
+               time by kind and the share of routed entries each layer's
+               capacity dropped.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
@@ -65,6 +89,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 FLASH_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
+GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
 FLASH_REPLACES = {"flash_fwd": "paddlepaddle_tpu/ops/kernels/flash_attention.py:97",
                   "flash_bwd_dq": "paddlepaddle_tpu/ops/kernels/flash_attention.py:139",
                   "flash_bwd_dkv": "paddlepaddle_tpu/ops/kernels/flash_attention.py:172"}
@@ -390,6 +416,153 @@ def phase_flash_kernel():
     return records
 
 
+def gather_gemm_inputs(rng, T, E, d, h, dtype):
+    """x, wg, wu, wd on the card from numpy normals, scaled so that every
+    product is of order 1."""
+    import numpy as np
+    import torch
+
+    x = rng.standard_normal((T, d), dtype=np.float32)
+    banks = [rng.standard_normal(sh, dtype=np.float32) / np.sqrt(sh[1])
+             for sh in ((E, d, h), (E, d, h), (E, h, d))]
+    return [torch.from_numpy(a).to("cuda", dtype) for a in [x] + banks]
+
+
+def planted_slots(rng, T, E, C, empty=None):
+    """Token rows per slot from the port's capacity routing (top-2) of
+    planted logits: expert 0 is first for half the tokens (drops when
+    T > C), expert ``empty`` is never chosen (all its slots sentinels)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.parallel import moe as tmoe
+
+    lg = np.argsort(rng.random((T, E)), axis=1).astype(np.float32)
+    lg += rng.uniform(0, 0.1, (T, E)).astype(np.float32)
+    lg[: (T + 1) // 2, 0] = E + 1.0
+    if empty is not None:
+        lg[:, empty] = -10.0
+    _, _, _, valid, entry = tmoe._capacity_slot_maps(
+        torch.from_numpy(lg).cuda(), 2, E, C, T)
+    return torch.where(valid, entry % T, T).to(torch.int32)
+
+
+def gather_gemm_check(gg, x, slot, wg, wu, wd, C):
+    """Kernel against plain: (max abs error, max error / allowed), allowed
+    1e-5 in f32 and the kernel's derived bound in bf16."""
+    import torch
+
+    got = gg.gather_gemm_ffn(x, slot, wg, wu, wd, capacity=C)
+    want = gg.gather_gemm_ffn_plain(x, slot, wg, wu, wd, capacity=C)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        allowed = torch.full_like(err, 1e-5)
+    else:
+        allowed = gg.bf16_error_bound(x, slot, wg, wu, wd, capacity=C,
+                                      plain=want)
+    dead = slot >= x.shape[0]
+    if bool(got[dead].any()):
+        raise AssertionError("gather-GEMM: a sentinel slot's row is not zero")
+    return float(err.max()), float((err / allowed).max())
+
+
+MOE_E, MOE_C, MOE_T, MOE_D, MOE_H = 64, 320, 8192, 2048, 1408
+
+
+def phase_gather_gemm_kernel():
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import gather_gemm as gg
+    from paddlepaddle_tpu_torch.parallel import moe as tmoe
+
+    rng = np.random.default_rng(0)
+    small = []
+    # (T, E, C, d, h, empty): C 40 is not a multiple of the row block (32
+    # bf16, 16 f32), expert 3 is empty (all its blocks sentinels) and
+    # expert 0 overflows; (128, 128) is the smallest (d, h) admitted
+    for T, E, C, d, h, empty in ((48, 4, 40, 128, 128, 3),
+                                 (300, 6, 37, 256, 384, None),
+                                 (1, 2, 4, 128, 256, None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wg, wu, wd = gather_gemm_inputs(rng, T, E, d, h, dtype)
+            slot = planted_slots(rng, T, E, C, empty).cuda()
+            err, ratio = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
+            small.append({"T": T, "E": E, "C": C, "d": d, "h": h,
+                          "dtype": str(dtype)[6:], "max_abs_err": err,
+                          "err_over_allowed": ratio})
+            if not ratio <= 1.0:
+                raise AssertionError(f"gather-GEMM small case {small[-1]}")
+    lib = gg._library()
+    for h, bf in ((128, 1), (1408, 1), (1408, 0)):
+        want = gg.smem_bytes(h, torch.bfloat16 if bf else torch.float32)
+        if lib.gather_gemm_smem_bytes(h, bf) != want:
+            raise AssertionError("gather-GEMM: Python and CUDA disagree on "
+                                 "shared memory")
+
+    # main-path shape: one moe_train layer, slots from a routing of random
+    # x through a random gate (N(0, 0.02), as the model's init)
+    T, E, C, d, h = MOE_T, MOE_E, MOE_C, MOE_D, MOE_H
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(T, d, device="cuda", generator=gen).to(torch.bfloat16)
+    wg, wu = (torch.randn(E, d, h, device="cuda", generator=gen).mul_(0.02)
+              .to(torch.bfloat16) for _ in range(2))
+    wd = torch.randn(E, h, d, device="cuda", generator=gen).mul_(0.02) \
+        .to(torch.bfloat16)
+    gate_w = torch.randn(d, E, device="cuda", generator=gen).mul_(0.02)
+    _, _, _, valid, entry = tmoe._capacity_slot_maps(x.float() @ gate_w, 2,
+                                                     E, C, T)
+    slot = torch.where(valid, entry % T, T).to(torch.int32)
+    err, ratio = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
+    if not ratio <= 1.0:
+        raise AssertionError(f"gather-GEMM main shape: err {err}, "
+                             f"{ratio} of the bound")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_ms = median_ms(lambda: gg.gather_gemm_ffn(
+        x, slot, wg, wu, wd, capacity=C), flush=flush)
+    plain_ms = median_ms(lambda: gg.gather_gemm_ffn_plain(
+        x, slot, wg, wu, wd, capacity=C), reps=10, flush=flush)
+    # the sorted mode's composition (index gather, two bmm, silu*mul, bmm):
+    # a yardstick, not one library call
+    composition_ms = median_ms(lambda: tmoe._reference_expert_ffn(
+        x, entry, valid, wg, wu, wd), flush=flush)
+    wrapper_us = host_us(lambda: gg.gather_gemm_ffn(
+        x, slot, wg, wu, wd, capacity=C), reps=50)
+    del flush
+    # least time for this run's work: every weight read once, each token
+    # row that a filled slot reads read once, the slot indices read once,
+    # out written once; the products of the filled slots only
+    n_valid = int(valid.sum())
+    n_rows = int(torch.unique(slot[valid]).numel())
+    item = x.element_size()
+    bytes_ = 3 * E * d * h * item + n_rows * d * item + 4 * E * C \
+        + E * C * d * item
+    flops = 2 * n_valid * 3 * d * h
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    record = {
+        "name": "gather_gemm_ffn", "route": "cuda",
+        "source": GATHER_GEMM_SOURCE, "replaces": GATHER_GEMM_REPLACES,
+        "launches": None, "max_abs_err": err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"T{T} E{E} C{C} d{d} h{h} bf16",
+        "bytes": bytes_, "flops": flops}
+    emit({"phase": "gather_gemm_kernel", "small": small,
+          "main_shape": record["shape"], "filled_slots": n_valid,
+          "rows_read": n_rows, "max_abs_err": err,
+          "err_over_allowed": ratio, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "composition_ms": composition_ms,
+          "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
+          "bound_by": record["bound_by"],
+          "bound_ms_bytes": t_bytes, "bound_ms_operations": t_ops,
+          "bound_share": record["bound_ms"] / kernel_ms,
+          "tflops": flops / kernel_ms / 1e9})
+    return record
+
+
 def phase_engine_parity(pt_pkg):
     import numpy as np
     import torch
@@ -494,6 +667,62 @@ def phase_train_parity(pt_pkg):
                              f"train steps: {moved}")
 
 
+def moe_parity_config(pt_pkg):
+    return pt_pkg.MoEConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+        num_experts=4, num_experts_per_tok=2, num_shared_experts=1,
+        max_position_embeddings=128, dtype="float32", dispatch_mode="fused")
+
+
+def phase_moe_parity(pt_pkg):
+    """A tiny fp32 MoE decoder (fused mode) trained 3 TrainStep steps on the
+    card (gather-GEMM and flash kernels) and on the CPU (plain versions)
+    from one state and one batch (s 100). The gates are drawn N(0, 0.5) so
+    that router logits are far apart: an argmax that f32 noise could flip
+    between the two devices would reroute a token, which is no kernel
+    fault. Bounds as in train_parity."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import gather_gemm as gg
+
+    cfg = moe_parity_config(pt_pkg)
+    cpu_model = pt_pkg.MoEForCausalLM(cfg, device="cpu", seed=1)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(2)
+        for layer in cpu_model.layers:
+            layer.mlp.gate.weight.normal_(0.0, 0.5, generator=gen)
+    gpu_model = pt_pkg.MoEForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ids = np.random.default_rng(0).integers(0, 256, (4, 100))
+    losses = {}
+    gg.gather_gemm_ffn.launches = 0
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        opt = pt_pkg.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                           parameters=model.named_parameters(),
+                           grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+        step = pt_pkg.TrainStep(model, opt, llm_loss, device=dev)
+        losses[dev] = [float(step(ids, ids)) for _ in range(3)]
+    moved = gg.gather_gemm_ffn.launches
+    loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    cpu_sd = cpu_model.state_dict()
+    diffs = torch.cat([(p.detach().cpu() - cpu_sd[n]).abs().flatten()
+                       for n, p in gpu_model.state_dict().items()])
+    param_err = float(diffs.max())
+    emit({"phase": "moe_parity", "losses": losses, "loss_err": loss_err,
+          "param_err": param_err,
+          "params_within_1e-5": float((diffs <= 1e-5).float().mean()),
+          "gather_gemm_launches": moved})
+    if not (loss_err <= 1e-4 and param_err <= 5e-4):
+        raise AssertionError(f"card vs CPU MoE training differs: loss "
+                             f"{loss_err}, params {param_err}")
+    if moved != cfg.num_hidden_layers * 3:
+        raise AssertionError(f"gather-GEMM launched {moved} times in the "
+                             f"card's 3 steps, expected "
+                             f"{cfg.num_hidden_layers} x 3")
+
+
 TRAIN_LAYERS = 8      # Llama-3-8B widths at 8 of 32 layers: AdamW with f32
 #                       masters costs 16 bytes a parameter (45 GB here)
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -501,7 +730,8 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 def train_breakdown(step, ids, step_ms):
     """Device time of one profiled step by kind, and the device's idle share
-    against the median unprofiled step."""
+    against the median unprofiled step. The profiled step counts as a
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -509,7 +739,7 @@ def train_breakdown(step, ids, step_ms):
                              ProfilerActivity.CUDA]) as prof:
         step(ids, ids)
         torch.cuda.synchronize()
-    by_kind = {"matmul": 0.0, "flash": 0.0, "other": 0.0}
+    by_kind = {"matmul": 0.0, "flash": 0.0, "gather_gemm": 0.0, "other": 0.0}
     top = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -517,6 +747,7 @@ def train_breakdown(step, ids, step_ms):
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         kind = ("flash" if "flash_" in name and "kernel" in name else
+                "gather_gemm" if "gather_ffn_kernel" in name else
                 "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                     "cutlass", "nvjet"))
                 else "other")
@@ -589,6 +820,120 @@ def phase_train(pt_pkg):
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
     return launches
+
+
+MOE_TRAIN_LAYERS = 4     # DeepSeekMoE-16B widths at 4 of 28 layers: 2.77 B
+#                          parameters, 16 bytes each with f32 AdamW masters
+
+
+def moe_train_config(pt_pkg):
+    """DeepSeekMoE-16B's published widths (deepseek-ai/deepseek-moe-16b-base
+    config.json) as far as the JAX MoEForCausalLM expresses them; top-2
+    (published 6: any k > 1 is GShard top-2 there), 4 layers (published
+    28), no leading dense layer, renormalised top-2 gate values."""
+    return pt_pkg.MoEConfig(
+        vocab_size=102400, hidden_size=MOE_D, intermediate_size=MOE_H,
+        num_hidden_layers=MOE_TRAIN_LAYERS, num_attention_heads=16,
+        num_key_value_heads=16, num_experts=MOE_E, num_experts_per_tok=2,
+        num_shared_experts=2, capacity_factor=1.25,
+        max_position_embeddings=4096, rms_norm_eps=1e-6, rope_theta=10000.0,
+        aux_loss_weight=0.001, dtype="bfloat16", dispatch_mode="fused")
+
+
+def moe_drop_shares(model, ids):
+    """Share of routed entries each layer's capacity dropped, from one
+    forward without gradients (run after the counted steps)."""
+    import torch
+
+    from paddlepaddle_tpu_torch.parallel import moe as tmoe
+
+    shares = []
+
+    def hook(mlp, args):
+        x = args[0].reshape(-1, mlp.d_model)
+        logits = x.float() @ mlp.gate.weight.float()
+        soe = tmoe._capacity_slot_maps(logits, mlp.gate.topk, mlp.num_experts,
+                                       mlp.capacity(x.shape[0]),
+                                       x.shape[0])[2]
+        shares.append((soe < 0).float().mean())
+
+    handles = [layer.mlp.register_forward_pre_hook(hook)
+               for layer in model.layers]
+    with torch.no_grad():
+        model(ids)
+    for hd in handles:
+        hd.remove()
+    return [float(s) for s in shares]
+
+
+def phase_moe_train(pt_pkg):
+    """The MoE training slice at full width (see moe_train_config)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import gather_gemm as gg
+
+    cfg = moe_train_config(pt_pkg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = pt_pkg.MoEForCausalLM(cfg, device="cuda", seed=0, init_std=0.02)
+    opt = pt_pkg.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                       multi_precision=True,
+                       parameters=model.named_parameters(),
+                       grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+    step = pt_pkg.TrainStep(model, opt, llm_loss)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    reset_flash_launches()
+    gg.gather_gemm_ffn.launches = 0
+    losses, wall_ms = [], []
+    for _ in range(6):                       # 1 warm-up + 5 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, ids)
+        losses.append(float(loss))           # syncs
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    timed = sorted(wall_ms[1:])
+    step_ms = timed[len(timed) // 2]
+    breakdown = train_breakdown(step, ids, step_ms)
+    n_steps = len(wall_ms) + 1               # the profiled step included
+    launches = {"gather_gemm_ffn": gg.gather_gemm_ffn.launches,
+                **flash_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    drops = moe_drop_shares(model, ids)
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p).all())]
+    total = sum(p.numel() for p in model.parameters())
+    L, h = cfg.num_hidden_layers, cfg.hidden_size
+    inactive = L * (cfg.num_experts - cfg.num_experts_per_tok) * 3 * h \
+        * cfg.intermediate_size
+    active = total - inactive
+    flops_per_token = 6 * active + 12 * L * h * TRAIN_SEQ   # bench.py:291-299
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens / (step_ms / 1e3)
+    emit({"phase": "moe_train", "model": "deepseek-moe-16b widths",
+          "layers": L, "params": total, "params_active": active,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "capacity": model.layers[0].mlp.capacity(tokens),
+          "init_s": init_s, "steps": n_steps, "step_ms": step_ms,
+          "step_ms_all": wall_ms, "tokens_per_s": tok_s,
+          "mfu_active": tok_s * flops_per_token / BF16_FLOP_PER_S,
+          "peak_mem_gb": peak / 1e9, "losses": losses,
+          "launches": launches, "expected_launches": L * n_steps,
+          "drop_share_per_layer": drops, "nonfinite_params": bad,
+          "breakdown": breakdown})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE train losses not finite and falling: "
+                             f"{losses}")
+    if any(v != L * n_steps for v in launches.values()):
+        raise AssertionError(f"MoE train launches {launches}, expected "
+                             f"{L} x {n_steps}")
+    if bad:
+        raise AssertionError(f"non-finite parameters after MoE training: "
+                             f"{bad}")
+    return launches["gather_gemm_ffn"]
 
 
 def decode_breakdown(pt_pkg, eng, prompts):
@@ -776,15 +1121,20 @@ def main() -> int:
 
     record = phase_kernel()
     flash_records = phase_flash_kernel()
+    gg_record = phase_gather_gemm_kernel()
     phase_engine_parity(pt_pkg)
     phase_train_parity(pt_pkg)
+    phase_moe_parity(pt_pkg)
     record["launches"] = phase_serve(pt_pkg)
     gc.collect()                    # free the serving model before training
     torch.cuda.empty_cache()
     launches = phase_train(pt_pkg)
     for r in flash_records:
         r["launches"] = launches[r["name"]]
-    emit({"kernels": [record] + flash_records})
+    gc.collect()                    # free the Llama training model
+    torch.cuda.empty_cache()
+    gg_record["launches"] = phase_moe_train(pt_pkg)
+    emit({"kernels": [record] + flash_records + [gg_record]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ an obvious counterpart, and it is held against that package by parity tests
 on the CPU (``tests/test_torch_*.py``). The JAX package stays the reference;
 this package imports neither ``jax`` nor anything of ``paddlepaddle_tpu``.
 
-Two slices of the flagship Llama decoder are ported:
+Three slices are ported, two of the flagship Llama decoder and one of the
+MoE decoder:
 
 * serving: ``LlamaForCausalLM`` behind ``ServingEngine`` ->
   ``BatchDecodeEngine`` with a paged KV pool, every decode-step attention
@@ -15,7 +16,11 @@ Two slices of the flagship Llama decoder are ported:
 * training: ``TrainStep`` (forward, next-token loss, backward,
   ``ClipGradByGlobalNorm`` and an ``AdamW`` update with f32 masters), the
   attention forward and backward going through hand-written CUDA kernels
-  (``ops/kernels/csrc/flash_attention.cu``).
+  (``ops/kernels/csrc/flash_attention.cu``);
+* the MoE decoder: ``MoEForCausalLM`` over ``MoELayer`` (dispatch modes
+  sorted, fused, dropless, einsum) trained by the same ``TrainStep``; in
+  the fused mode every expert FFN forward goes through a hand-written CUDA
+  gather-GEMM kernel (``ops/kernels/csrc/gather_gemm.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no device given they raise (:mod:`.device`).
@@ -35,5 +40,7 @@ from .inference.serving import (  # noqa: F401
 )
 from .jit.train import TrainStep  # noqa: F401
 from .models.llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .models.moe import MoEConfig, MoEForCausalLM  # noqa: F401
 from .nn.clip import ClipGradByGlobalNorm  # noqa: F401
 from .optimizer import Adam, AdamW, lr  # noqa: F401
+from .parallel.moe import MoELayer  # noqa: F401

@@ -7,10 +7,11 @@ name for name: both packages use the same module tree
 keeps the paddle layout ``W: [in, out]``, so matrices copy across without a
 transpose. This function is the one place that owns that layout decision.
 
-The rope tables (``model.rope_cos`` / ``model.rope_sin``) are SKIPPED: the
-port recomputes them from the config (``models/llama.py`` ``rope_tables``)
-and keeps them out of its state; the parity tests hold the two tables
-against each other instead.
+The rope tables are SKIPPED: ``model.rope_cos`` / ``model.rope_sin`` of a
+Llama, and ``rope_cos`` / ``rope_sin`` at the root of an ``MoEForCausalLM``
+(``paddlepaddle_tpu/models/moe.py:114``). The port recomputes them from the
+config (``models/llama.py`` ``rope_tables``) and keeps them out of its
+state; the parity tests hold the two tables against each other instead.
 
 :func:`load_jax_train_state` carries a JAX ``TrainStep``'s state
 (``paddlepaddle_tpu/jit/train.py:142``: params, the optimizer's ``slots``,
@@ -25,7 +26,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-SKIPPED = ("model.rope_cos", "model.rope_sin")
+SKIPPED = ("model.rope_cos", "model.rope_sin", "rope_cos", "rope_sin")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -39,7 +40,8 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def convert_state(jax_state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``functional_state()`` of a JAX ``LlamaForCausalLM`` (as numpy) ->
+    """``functional_state()`` of a JAX ``LlamaForCausalLM`` or
+    ``MoEForCausalLM`` (as numpy) ->
     the port model's ``state_dict`` (CPU tensors, dtypes kept)."""
     return {name: _to_tensor(arr) for name, arr in jax_state.items()
             if name not in SKIPPED}

@@ -34,6 +34,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
+from ..ops.kernels import _build
 from ..ops.kernels import paged_attention as _pa
 from .kv_pool import PagePool, pages_needed
 from .robustness import KVCapacityError
@@ -122,7 +123,7 @@ class BatchDecodeEngine:
                 raise ValueError(
                     f"paged-attention kernel does not take this engine "
                     f"configuration: {reason}")
-            _pa.check_device(self.device)
+            _build.check_device(self.device)
             _pa.build()
             self.kernel = "cuda"
         self.P = pages_needed(self.L, self.page_size)        # pages per slot

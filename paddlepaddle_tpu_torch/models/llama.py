@@ -29,8 +29,8 @@ from ..device import DeviceLike, resolve_device
 from ..nn import functional as F
 from ..nn.common import Embedding, Linear
 from ..nn.norm import RMSNorm
-from ..ops.kernels.flash_attention import (check_device,
-                                           flash_attention_supported)
+from ..ops.kernels._build import check_device
+from ..ops.kernels.flash_attention import flash_attention_supported
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -223,6 +223,20 @@ def loss_from_logits(logits: torch.Tensor,
     return (nll * valid).sum() / valid.sum().clamp_min(1.0)
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int, init_std: float) -> None:
+    """Every parameter N(0, ``init_std``) from a generator on the model's
+    device seeded with ``seed``, except the norms' weights, which are ones."""
+    params = list(model.named_parameters())
+    gen = torch.Generator(device=params[0][1].device)
+    gen.manual_seed(int(seed))
+    for name, p in params:
+        if name.endswith("norm.weight"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, init_std, generator=gen)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
@@ -370,15 +384,8 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model.embed_tokens.weight.dtype
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0, init_std: float = 0.02) -> None:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, init_std, generator=gen)
+        init_weights(self, seed, init_std)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:

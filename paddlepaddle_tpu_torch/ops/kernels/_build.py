@@ -104,6 +104,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
     return {n: build_log[n] for n in names}
 
 
+def check_device(device) -> None:
+    """The kernels are built for ``sm_90a`` only: raise on any other card."""
+    import torch
+
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the port's CUDA kernels are built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _lock:

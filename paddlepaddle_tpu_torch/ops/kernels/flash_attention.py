@@ -129,15 +129,6 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float):
 # ---------------------------------------------------------------------------
 
 
-def check_device(device: torch.device) -> None:
-    """The kernels are built for ``sm_90a`` only: raise on any other card."""
-    cap = torch.cuda.get_device_capability(device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"flash attention kernels are built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}")
-
-
 def _check_cuda_args(causal: bool, q, k, v, *rest) -> None:
     """Raise on what the kernels do not take. ``rest`` holds further
     ``[b, s_q, h, d]`` tensors of q's dtype (dO)."""

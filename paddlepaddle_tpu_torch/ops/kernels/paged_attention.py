@@ -76,15 +76,6 @@ def paged_attention_supported(*, page_size: int, head_dim: int,
     return True, "ok"
 
 
-def check_device(device: torch.device) -> None:
-    """The kernel is built for ``sm_90a`` only: raise on any other card."""
-    cap = torch.cuda.get_device_capability(device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"paged_attention kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}")
-
-
 def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
                           scale: float) -> torch.Tensor:
     """The plain PyTorch version: gather each slot's logical view through

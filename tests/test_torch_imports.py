@@ -18,6 +18,9 @@ import paddlepaddle_tpu_torch.convert
 import paddlepaddle_tpu_torch.jit.train
 import paddlepaddle_tpu_torch.nn.clip
 import paddlepaddle_tpu_torch.ops.kernels.flash_attention
+import paddlepaddle_tpu_torch.ops.kernels.gather_gemm
+import paddlepaddle_tpu_torch.parallel.moe
+import paddlepaddle_tpu_torch.models.moe
 import paddlepaddle_tpu_torch.optimizer.lr
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -30,6 +33,8 @@ if not torch.cuda.is_available():
     cfg = pt.LlamaConfig.tiny()
     for name, make in (
             ("model", lambda: pt.LlamaForCausalLM(cfg)),
+            ("moe_model", lambda: pt.MoEForCausalLM(pt.MoEConfig.tiny())),
+            ("moe_layer", lambda: pt.MoELayer(8, 16, 2)),
             ("engine", lambda: pt.BatchDecodeEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
             ("serving", lambda: pt.ServingEngine(
@@ -61,7 +66,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     # the prefix trap: the port's own modules are named paddlepaddle_tpu_torch*
     assert "paddlepaddle_tpu_torch.inference.decode_engine" in got["ports"]
     for mod in ("jit.train", "optimizer.optimizers", "optimizer.lr", "nn.clip",
-                "ops.kernels.flash_attention"):
+                "ops.kernels.flash_attention", "ops.kernels.gather_gemm",
+                "parallel.moe", "models.moe"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")
