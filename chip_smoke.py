@@ -19,6 +19,16 @@ code is non-zero):
                CUDA-event timings (median, L2 flushed between launches) of
                the kernel, the plain version and SDPA on the pre-gathered
                view, beside the memory/compute bound.
+3q. ``kernel_int8``  the int8 variant of paged attention (kernel 1q: int8
+               pools, per-page, per-head f32 scales) against its plain
+               version: small shapes (W 1 and 3, q f32 atol 1e-5 and bf16
+               atol 2e-2, hd 64 and 128, lens with 0, a zeroed table row, a
+               zero-scale page) and, at q f32, against kernel 1 run over the
+               pools dequantized beforehand (expected bit-equal; the max
+               difference is printed); the main-path shape (h 32, kvh 8,
+               hd 128, ps 64, 8 slots, lens 64-2000, bf16 q) timed beside
+               kernel 1 at the same lens over bf16 pools, the plain version
+               and the dequantize-then-SDPA composition, with the bound.
 4. ``flash_kernel``  the flash-attention forward, dQ and dK/dV kernels
                against the plain forward and its autograd backward: 24 small
                cases (d 64/128, f32 atol 1e-5 / bf16 atol 2e-2, causal and
@@ -39,6 +49,11 @@ code is non-zero):
 6. ``engine_parity``  a tiny fp32 Llama served greedily by the port engine
                on the card (kernel) and on the CPU (plain version): equal
                tokens.
+6q. ``engine_parity_int8``  a tiny fp32 Llama with ``kv_quant="int8"``,
+               prefix requests and a pool of 5 pages, so prefixes spill to
+               the host tier and come back: card and CPU give equal tokens
+               and equal prefix / host counters, and the int8 kernel ran
+               layers x decode steps times.
 7. ``train_parity``  a tiny fp32 Llama (d 64) trained 3 TrainStep steps on
                the card and on the CPU from one state and one batch: losses
                within 1e-4, parameters within 5e-4 (half a step's move),
@@ -54,6 +69,19 @@ code is non-zero):
                every future must complete with its full length and in-vocab
                tokens, and the paged-attention launch count must equal
                32 layers x decode steps.
+9q. ``serve_int8``  Llama-3-8B (bf16, seeded weights) behind
+               ``ServingEngine(max_batch_size=8, kv_page_size=64,
+               max_len=2048, decode_chunk=16, kv_quant="int8",
+               kv_host_bytes=256 MiB)`` with a page pool that holds the 8
+               slots' private pages and two of four shared prefixes: 32
+               requests round-robin over four 1024-token system prompts,
+               each with a 64-512-token tail, ``prefix_len=1024``, budgets
+               32-128, two sampled. Every future completes at full length
+               with in-vocab tokens, prefixes spill and restore, and the
+               int8 kernel ran 32 layers x decode steps times; tok/s, TTFT,
+               TPOT, prefix and host counters, restore ms, KV bytes against
+               a bf16 pool of the same page count, and the decode device
+               time by kind with the idle share.
 10. ``train`` the training path at full width: Llama-3-8B widths cut to 8
                of 32 layers (memory), bf16 with f32 AdamW masters and a
                global-norm clip, batch 4 x 2048 fed 7 times (1 warm-up, 5
@@ -88,6 +116,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+PAGED_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
 FLASH_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
@@ -232,23 +262,14 @@ def phase_kernel():
             qs, kr, vr, attn_mask=mask, scale=kw["scale"]), flush=flush)
     del flush
 
-    # least time for the same work, from this run's lens: each visible key's
-    # K and V row read once, q read and out written once, the page-table
-    # entries and lens read once; operations are the f32 products of q.k and
-    # p.v over every visible key of every query row
+    # least time for the same work, from this run's lens (paged_work)
     item = q.element_size()
-    keys = [n + W for n in lens]
-    n_vis = [min(P, -(-k // ps)) for k in keys]
-    bytes_ = (sum(keys) * kvh * hd * 2 * item + 2 * q.numel() * item
-              + 4 * sum(n_vis) + 4 * S)
-    rows_keys = sum(n + w + 1 for n in lens for w in range(W))
-    flops = 2 * 2 * hd * h * rows_keys
+    bytes_, flops = paged_work(lens, W, h, kvh, hd, ps, P, item, item)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     record = {
         "name": "paged_attention", "route": "cuda",
-        "source": "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
-        "replaces": "paddlepaddle_tpu/ops/kernels/paged_attention.py:104",
+        "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
         "launches": None, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -260,6 +281,166 @@ def phase_kernel():
     emit({"phase": "kernel", "small": small, "main_shape": record["shape"],
           "lens": lens, "max_abs_err": err, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "library_ms": library_ms,
+          "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
+          "bound_share": record["bound_ms"] / kernel_ms})
+    return record
+
+
+def paged_work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales=False):
+    """Bytes and f32 operations the paged attention must move and do for
+    this run's lens: each visible key's K and V row read once (as codes
+    plus one f32 scale per visible page and KV head under int8), q read and
+    out written once, the page-table entries and lens read once; the
+    products of q.k and p.v over every visible key of every query row, and
+    under int8 one dequantizing product per visible K/V element."""
+    S = len(lens)
+    keys = [n + W for n in lens]
+    n_vis = [min(P, -(-k // ps)) for k in keys]
+    bytes_ = (sum(keys) * kvh * hd * 2 * kv_item + 2 * S * W * h * hd * q_item
+              + 4 * sum(n_vis) + 4 * S)
+    rows_keys = sum(n + w + 1 for n in lens for w in range(W))
+    flops = 2 * 2 * hd * h * rows_keys
+    if scales:
+        bytes_ += 2 * 4 * kvh * sum(n_vis)
+        flops += 2 * kvh * hd * sum(keys)
+    return bytes_, flops
+
+
+def int8_pools(kp, vp):
+    """int8 codes and per-page, per-head scales of f32 pools, quantized as
+    the engine's admission quantizes whole pages."""
+    from paddlepaddle_tpu_torch.inference.decode_engine import _kv_quant_pages
+
+    kq, ks = _kv_quant_pages(kp.float())
+    vq, vs = _kv_quant_pages(vp.float())
+    return kq, ks, vq, vs
+
+
+def dequantized(codes, scale):
+    return (codes.float() * scale[:, None, :, None]).contiguous()
+
+
+def phase_kernel_int8():
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(1)
+    small = []
+    bit_equal_diff = 0.0
+    for hd in (64, 128):
+        for W in (1, 3):
+            q, kp, vp, ptab, lens = paged_inputs(
+                rng, 4, W, 8, 2, hd, 16, 3, [5, 13, 0, 40], torch.float32,
+                zero_rows=(2,))
+            kq, ks, vq, vs = int8_pools(kp, vp)
+            zero = int(ptab[0, 0])                 # a zero-scale page in use
+            for c, sc in ((kq, ks), (vq, vs)):
+                c[zero] = 0
+                sc[zero] = 0.0
+            kw = dict(rep=4, scale=hd ** -0.5)
+            for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+                qd = q.to(dtype)
+                got = pa.paged_attention(qd, kq, vq, ptab, lens, k_scale=ks,
+                                         v_scale=vs, **kw)
+                want = pa.paged_attention_plain(qd, kq, vq, ptab, lens,
+                                                k_scale=ks, v_scale=vs, **kw)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                case = {"hd": hd, "W": W, "dtype": str(dtype)[6:],
+                        "max_abs_err": err, "atol": atol}
+                if dtype == torch.float32:
+                    one = pa.paged_attention(qd, dequantized(kq, ks),
+                                             dequantized(vq, vs), ptab, lens,
+                                             **kw)
+                    torch.cuda.synchronize()
+                    diff = float((got - one).abs().max())
+                    case["vs_kernel1_dequantized"] = diff
+                    bit_equal_diff = max(bit_equal_diff, diff)
+                    if not diff <= atol:
+                        raise AssertionError(
+                            f"int8 kernel vs kernel 1 over dequantized pools "
+                            f"hd={hd} W={W}: {diff} > {atol}")
+                small.append(case)
+                if not err <= atol:
+                    raise AssertionError(f"paged_attention int8 small shape "
+                                         f"hd={hd} W={W} {dtype}: err {err} "
+                                         f"> {atol}")
+    lib = pa._library()
+    for ps_, hd_, rows, item in ((64, 128, 4, 1), (16, 64, 12, 1),
+                                 (64, 128, 4, 2), (16, 64, 12, 4)):
+        if lib.paged_attention_smem_bytes(item, hd_, ps_, rows) != \
+                pa.smem_bytes(ps_, hd_, rows, item):
+            raise AssertionError("paged attention: Python and CUDA disagree "
+                                 "on shared memory")
+
+    # main-path shape: the serve_int8 decode step (Llama-3-8B, 8 slots)
+    S, W, h, kvh, hd, ps, P = 8, 1, 32, 8, 128, 64, 32
+    lens = rng.integers(64, 2001, S).tolist()
+    q, kp, vp, ptab, lens_t = paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens,
+                                           torch.bfloat16)
+    kq, ks, vq, vs = int8_pools(kp, vp)
+    kw = dict(rep=h // kvh, scale=hd ** -0.5)
+    qargs = (q, kq, vq, ptab, lens_t)
+    qkw = dict(kw, k_scale=ks, v_scale=vs)
+    got = pa.paged_attention(*qargs, **qkw)
+    want = pa.paged_attention_plain(*qargs, **qkw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"paged_attention int8 main shape: err {err} "
+                             "> 2e-2")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_ms = median_ms(lambda: pa.paged_attention(*qargs, **qkw),
+                          flush=flush)
+    kernel1_ms = median_ms(lambda: pa.paged_attention(q, kp, vp, ptab, lens_t,
+                                                      **kw), flush=flush)
+    plain_ms = median_ms(lambda: pa.paged_attention_plain(*qargs, **qkw),
+                         flush=flush)
+    wrapper_us = host_us(lambda: pa.paged_attention(*qargs, **qkw))
+    # yardstick only, not one library call: dequantize the gathered pages to
+    # bf16, then SDPA over the view
+    T = P * ps
+    idx = ptab.long()
+    k_pos = torch.arange(T, device="cuda")
+    q_pos = lens_t.long()[:, None] + torch.arange(W, device="cuda")[None, :]
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # [S,1,W,T]
+    qs = q.transpose(1, 2).contiguous()                       # [S, h, W, hd]
+
+    def composition():
+        views = []
+        for c, sc in ((kq, ks), (vq, vs)):
+            d = (c[idx].float() * sc[idx][:, :, None, :, None]).to(q.dtype)
+            views.append(d.reshape(S, T, kvh, hd).transpose(1, 2))
+        return tF.scaled_dot_product_attention(
+            qs, views[0], views[1], attn_mask=mask, scale=kw["scale"],
+            enable_gqa=True)
+
+    composition_ms = median_ms(composition, flush=flush)
+    del flush
+    bytes_, flops = paged_work(lens, W, h, kvh, hd, ps, P, q.element_size(),
+                               1, scales=True)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    record = {
+        "name": "paged_attention_int8", "route": "cuda",
+        "source": PAGED_SOURCE,
+        "replaces": PAGED_REPLACES + " (quantized)",
+        "launches": None, "max_abs_err": err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"S{S} W{W} h{h} kvh{kvh} hd{hd} ps{ps} bf16 q, int8 pools, "
+                 f"lens {min(lens)}-{max(lens)}",
+        "bytes": bytes_, "flops": flops}
+    emit({"phase": "kernel_int8", "small": small,
+          "max_diff_vs_kernel1_dequantized": bit_equal_diff,
+          "bit_equal_vs_kernel1_dequantized": bit_equal_diff == 0.0,
+          "main_shape": record["shape"], "lens": lens, "max_abs_err": err,
+          "kernel_ms": kernel_ms, "kernel1_bf16_pools_ms": kernel1_ms,
+          "plain_ms": plain_ms, "composition_ms": composition_ms,
           "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
           "bound_share": record["bound_ms"] / kernel_ms})
     return record
@@ -601,6 +782,70 @@ def phase_engine_parity(pt_pkg):
         raise AssertionError("card engine never launched the kernel")
 
 
+def phase_engine_parity_int8(pt_pkg):
+    """A tiny fp32 Llama serving int8 KV with prefix requests on one slot
+    and a pool of 5 usable pages (page 16): two 32-token prefixes take turns,
+    so each admission spills the other's prefix to the host tier and the
+    next one restores it. Card and CPU give equal tokens and counters."""
+    import numpy as np
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = pt_pkg.LlamaConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, dtype="float32")
+    cpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cpu", seed=1,
+                                        init_std=0.1)
+    gpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(3)
+    prefixes = [rng.integers(0, 256, (32,)) for _ in range(2)]
+    order = (0, 1, 0, 1, 0)
+    prompts = [np.concatenate([prefixes[i], rng.integers(0, 256, (9,))])
+               for i in order]
+    outs, counters = {}, {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng = pt_pkg.BatchDecodeEngine(
+            model, max_slots=1, chunk=4, page_size=16, num_pages=6,
+            kv_quant="int8", kv_host_bytes=1 << 22, device=dev)
+        reqs = [pt_pkg.GenerationRequest(p, 8, 0.0, 0, None, prefix_len=32)
+                for p in prompts]
+        pa.paged_attention.int8_launches = 0
+        eng.serve(reqs, timeout=300)
+        outs[dev] = [r.result.result(5).tolist() for r in reqs]
+        st = eng.kv_stats()
+        host = {k: st["host"][k] for k in ("entries", "spills", "restores",
+                                           "discards")}
+        counters[dev] = {"prefix": st["prefix"], "host": host,
+                         "restore_failures": eng.stats["restore_failures"],
+                         "decode_steps": eng.stats["decode_steps"],
+                         "int8_launches": pa.paged_attention.int8_launches}
+    equal = outs["cuda"] == outs["cpu"]
+    same = all(counters["cuda"][k] == counters["cpu"][k]
+               for k in ("prefix", "host", "restore_failures"))
+    expected = cfg.num_hidden_layers * counters["cuda"]["decode_steps"]
+    emit({"phase": "engine_parity_int8", "equal": equal,
+          "counters_equal": same, "counters": counters,
+          "expected_int8_launches": expected,
+          "tokens": sum(len(o) for o in outs["cuda"])})
+    if not equal:
+        raise AssertionError(f"int8 engine: card vs CPU greedy tokens "
+                             f"differ: {outs['cuda']} vs {outs['cpu']}")
+    if not same:
+        raise AssertionError(f"int8 engine: card vs CPU counters differ: "
+                             f"{counters}")
+    host = counters["cuda"]["host"]
+    if host["spills"] < 1 or host["restores"] < 1:
+        raise AssertionError(f"int8 engine: no spill/restore: {host}")
+    if counters["cuda"]["int8_launches"] != expected or expected == 0:
+        raise AssertionError(f"int8 kernel launched "
+                             f"{counters['cuda']['int8_launches']} times, "
+                             f"expected {expected}")
+    if counters["cpu"]["int8_launches"] != 0:
+        raise AssertionError("the CPU engine launched the int8 kernel")
+
+
 def flash_launches():
     from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -939,9 +1184,14 @@ def phase_moe_train(pt_pkg):
 def decode_breakdown(pt_pkg, eng, prompts):
     """Where one decode chunk's time goes, all slots busy: the host wall of
     an unprofiled chunk, then the device time by kernel from a
-    torch.profiler window over the next chunk."""
+    torch.profiler window over the next chunk. Under int8 KV the
+    quantize-scatter calls run inside a ``kv_quant_scatter`` range for that
+    window, so their kernels' device time (elementwise kernels, counted in
+    "other" as well) is read off the range."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddlepaddle_tpu_torch.inference import decode_engine as tde
 
     reqs = [pt_pkg.GenerationRequest(p[:128], 64) for p in prompts[:eng.S]]
     for r in reqs:
@@ -952,18 +1202,39 @@ def decode_breakdown(pt_pkg, eng, prompts):
     t0 = time.perf_counter()
     eng._decode_chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng._decode_chunk()
-        torch.cuda.synchronize()
-    by_kind = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    scatter = tde._kv_quant_scatter
+
+    def ranged(*args):
+        with record_function("kv_quant_scatter"):
+            return scatter(*args)
+
+    tde._kv_quant_scatter = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._decode_chunk()
+            torch.cuda.synchronize()
+    finally:
+        tde._kv_quant_scatter = scatter
+    by_kind = {"paged_attention": 0.0, "paged_attention_int8": 0.0,
+               "matmul": 0.0, "other": 0.0}
     top = {}
+    quant_ms = 0.0
     for e in prof.key_averages():
+        if e.key == "kv_quant_scatter":
+            # the CPU range's device time is its kernels'; the range's own
+            # span on the device timeline (idle gaps included) is not a
+            # kernel and is left out of every sum
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                quant_ms += e.device_time_total / 1e3
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        kind = ("paged_attention" if "paged_attn" in name else
+        kind = ("paged_attention_int8" if "paged_attn" in name
+                and ("signed char" in name or "int8" in name) else
+                "paged_attention" if "paged_attn" in name else
                 "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                     "cutlass", "nvjet"))
                 else "other")
@@ -972,13 +1243,17 @@ def decode_breakdown(pt_pkg, eng, prompts):
     while eng.busy_slots():
         eng._decode_chunk()
     busy = sum(by_kind.values())
-    return {"chunk_wall_ms": wall_ms, "steps": eng.chunk,
-            "device_busy_ms": busy if busy > 0 else "not measured",
-            "device_idle_share": 1 - busy / wall_ms if busy > 0
-            else "not measured",
-            "device_ms_by_kind": by_kind,
-            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
-                                   [:8])}
+    out = {"chunk_wall_ms": wall_ms, "steps": eng.chunk,
+           "device_busy_ms": busy if busy > 0 else "not measured",
+           "device_idle_share": 1 - busy / wall_ms if busy > 0
+           else "not measured",
+           "device_ms_by_kind": by_kind,
+           "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                  [:8])}
+    if eng.kv_quant == "int8":
+        out["kv_quant_scatter_device_ms"] = (quant_ms if quant_ms > 0
+                                             else "not measured")
+    return out
 
 
 def phase_serve(pt_pkg):
@@ -1091,6 +1366,118 @@ def phase_serve(pt_pkg):
     return launches
 
 
+SERVE_INT8 = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
+                  decode_chunk=16, kv_quant="int8", kv_host_bytes=256 << 20)
+SYSTEM_LEN, N_SYSTEMS, SERVE_INT8_REQUESTS = 1024, 4, 32
+
+
+def serve_int8_workload(vocab: int):
+    """Chat serving with a few system prompts whose working set exceeds the
+    device pool: four 1024-token system prompts (numpy seed 0), 32 requests
+    round-robin over them, each its system prompt plus a 64-512-token tail,
+    budgets 32-128. Returns (prompts, budgets, the page count that holds
+    the private pages of the first 8 requests, as prefix hits, beside two
+    of the four 16-page prefixes: the four prefixes do not fit beside a
+    full batch, so refcount-0 prefixes spill to the host tier and come
+    back)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    systems = [rng.integers(0, vocab, (SYSTEM_LEN,)) for _ in range(N_SYSTEMS)]
+    tails = rng.integers(64, 513, SERVE_INT8_REQUESTS)
+    budgets = rng.integers(32, 129, SERVE_INT8_REQUESTS)
+    prompts = [np.concatenate([systems[i % N_SYSTEMS],
+                               rng.integers(0, vocab, (int(t),))])
+               for i, t in enumerate(tails)]
+    ps = SERVE_INT8["kv_page_size"]
+    n_pfx = SYSTEM_LEN // ps
+    private = sum(-(-(SYSTEM_LEN + int(t) + int(b)) // ps) - n_pfx
+                  for t, b in list(zip(tails, budgets))[
+                      :SERVE_INT8["max_batch_size"]])
+    return prompts, budgets, 1 + private + 2 * n_pfx
+
+
+def phase_serve_int8(pt_pkg):
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, budgets, num_pages = serve_int8_workload(cfg.vocab_size)
+    plens = [len(p) for p in prompts]
+    sampled = {5, 17}                       # temperature 0.8, top_k 50
+    failures = []
+    with pt_pkg.ServingEngine(model, kv_num_pages=num_pages, device="cuda",
+                              **SERVE_INT8) as se:
+        eng = se.engine
+        se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)  # warm
+        pa.paged_attention.int8_launches = 0
+        steps0 = eng.stats["decode_steps"]
+        t0 = time.perf_counter()
+        futs = [se.submit(p, max_new_tokens=int(b), prefix_len=SYSTEM_LEN,
+                          temperature=0.8 if i in sampled else 0.0,
+                          top_k=50 if i in sampled else 0)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        outs = []
+        for i, f in enumerate(futs):
+            try:
+                outs.append(f.result(900))
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+                outs.append(None)
+        wall = time.perf_counter() - t0
+        launches = pa.paged_attention.int8_launches
+        steps = eng.stats["decode_steps"] - steps0
+        kv = eng.kv_stats()
+        restore_failures = eng.stats["restore_failures"]
+        peak = torch.cuda.max_memory_allocated()
+    breakdown = decode_breakdown(pt_pkg, eng, prompts)
+    bf16_page = (kv["page_size"] * 2 * cfg.num_key_value_heads * cfg.head_dim
+                 * 2 * cfg.num_hidden_layers)
+    bad_len = [i for i, o in enumerate(outs) if o is not None
+               and len(o) != plens[i] + budgets[i]]
+    bad_tok = [i for i, o in enumerate(outs) if o is not None
+               and not ((o >= 0) & (o < cfg.vocab_size)).all()]
+    new_tokens = int(sum(len(o) - plens[i] for i, o in enumerate(outs)
+                         if o is not None))
+    slo = pt_pkg.slo_summary([f for f, o in zip(futs, outs) if o is not None])
+    host = kv["host"]
+    emit({"phase": "serve_int8", "model": "llama3_8b", "init_s": init_s,
+          "engine": dict(SERVE_INT8, kv_num_pages=num_pages),
+          "requests": len(prompts), "completed": sum(o is not None
+                                                      for o in outs),
+          "failed": len(failures), "new_tokens": new_tokens, "wall_s": wall,
+          "tok_s": new_tokens / wall, "ttft_p50_ms": slo["ttft_p50_ms"],
+          "ttft_p99_ms": slo["ttft_p99_ms"], "tpot_ms": slo["tpot_ms"],
+          "decode_steps": steps, "int8_launches": launches,
+          "expected_int8_launches": cfg.num_hidden_layers * steps,
+          "prefix": kv["prefix"], "host": host,
+          "restore_failures": restore_failures,
+          "page_bytes": kv["page_bytes"], "kv_bytes": kv["kv_bytes"],
+          "bf16_page_bytes": bf16_page,
+          "bf16_kv_bytes": bf16_page * (kv["pages_total"] + 1),
+          "peak_mem_gb": peak / 1e9, "decode_breakdown": breakdown})
+    if failures:
+        raise AssertionError("requests failed: " + "; ".join(failures))
+    if bad_len or bad_tok:
+        raise AssertionError(f"wrong output length {bad_len} / out-of-vocab "
+                             f"tokens {bad_tok}")
+    if host["spills"] < 1 or host["restores"] < 1:
+        raise AssertionError(f"serve_int8: no spill/restore: {host}")
+    if steps == 0 or launches != cfg.num_hidden_layers * steps:
+        raise AssertionError(f"paged_attention int8 launched {launches} "
+                             f"times, expected {cfg.num_hidden_layers} x "
+                             f"{steps}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1120,13 +1507,18 @@ def main() -> int:
                       for n, b in built.items()}})
 
     record = phase_kernel()
+    int8_record = phase_kernel_int8()
     flash_records = phase_flash_kernel()
     gg_record = phase_gather_gemm_kernel()
     phase_engine_parity(pt_pkg)
+    phase_engine_parity_int8(pt_pkg)
     phase_train_parity(pt_pkg)
     phase_moe_parity(pt_pkg)
     record["launches"] = phase_serve(pt_pkg)
-    gc.collect()                    # free the serving model before training
+    gc.collect()                    # free the serving model
+    torch.cuda.empty_cache()
+    int8_record["launches"] = phase_serve_int8(pt_pkg)
+    gc.collect()                    # free the int8 serving model
     torch.cuda.empty_cache()
     launches = phase_train(pt_pkg)
     for r in flash_records:
@@ -1134,7 +1526,7 @@ def main() -> int:
     gc.collect()                    # free the Llama training model
     torch.cuda.empty_cache()
     gg_record["launches"] = phase_moe_train(pt_pkg)
-    emit({"kernels": [record] + flash_records + [gg_record]})
+    emit({"kernels": [record, int8_record] + flash_records + [gg_record]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

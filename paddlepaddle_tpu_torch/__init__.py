@@ -6,13 +6,17 @@ an obvious counterpart, and it is held against that package by parity tests
 on the CPU (``tests/test_torch_*.py``). The JAX package stays the reference;
 this package imports neither ``jax`` nor anything of ``paddlepaddle_tpu``.
 
-Three slices are ported, two of the flagship Llama decoder and one of the
+Four slices are ported, three of the flagship Llama decoder and one of the
 MoE decoder:
 
 * serving: ``LlamaForCausalLM`` behind ``ServingEngine`` ->
   ``BatchDecodeEngine`` with a paged KV pool, every decode-step attention
   going through a hand-written CUDA kernel
   (``ops/kernels/csrc/paged_attention.cu``);
+* serving's KV memory: shared-prefix hits (``submit(prefix_len=)``), int8
+  KV pages (``kv_quant="int8"``, attended by the same kernel's int8
+  variant) and a bounded host-RAM tier that spills and restores evicted
+  prefixes (``kv_host_bytes``);
 * training: ``TrainStep`` (forward, next-token loss, backward,
   ``ClipGradByGlobalNorm`` and an ``AdamW`` update with f32 masters), the
   attention forward and backward going through hand-written CUDA kernels

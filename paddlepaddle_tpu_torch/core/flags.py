@@ -2,8 +2,10 @@
 
 Counterpart of ``paddlepaddle_tpu/core/flags.py`` (same semantics: typed
 flags, ``FLAGS_xxx`` env override at definition, settable at runtime). Only
-the ``serving_*`` limits that ``ServingEngine`` resolves through ``_flag_or``
-are defined here; the rest arrive with the modules that read them.
+the ``serving_*`` flags the serving path reads are defined here: the limits
+``ServingEngine`` resolves through ``_flag_or`` and the KV-memory pair
+``BatchDecodeEngine`` resolves itself; the rest arrive with the modules that
+read them.
 """
 
 from __future__ import annotations
@@ -76,3 +78,17 @@ define_flag("serving_breaker_reset_s", 30.0,
             "seconds an open serving breaker waits before letting one "
             "half-open probe request through",
             env="PADDLE_SERVING_BREAKER_RESET_S")
+
+# KV-memory family (reference core/flags.py:321-333): int8 KV pages and the
+# host-RAM prefix tier. Constructor arguments win; "" / "off" and 0 are off.
+define_flag("serving_kv_quant", "",
+            "KV-cache quantization for the paged pool: 'int8' stores K/V "
+            "pages as int8 codes with per-page-per-head scales (about 2x "
+            "pages at a fixed byte budget); '' = full-precision KV",
+            env="PADDLE_SERVING_KV_QUANT")
+define_flag("serving_kv_host_bytes", 0,
+            "byte budget for the host-RAM prefix-cache spill tier: "
+            "refcount-0 prefix entries evicted from the device pool are "
+            "serialized to host RAM and restored into fresh device pages "
+            "on the next hit (0 = tier off, eviction discards)",
+            env="PADDLE_SERVING_KV_HOST_BYTES")

@@ -1,15 +1,30 @@
 """Continuous-batching decode engine — paged KV pool, ragged lengths.
 
-Port of ``paddlepaddle_tpu/inference/decode_engine.py`` for the paged layout
-with full-precision KV: ``BatchDecodeEngine(kv_layout="paged",
-kv_quant=None)``, no draft model, no mesh, no bundle.
+Port of ``paddlepaddle_tpu/inference/decode_engine.py`` for the paged
+layout: ``BatchDecodeEngine(kv_layout="paged")`` with full-precision or int8
+KV pages, shared-prefix hits and the host-RAM prefix tier; no draft model,
+no mesh, no bundle.
 
 * PAGED KV POOL: one ``[num_pages, page_size, kvh, hd]`` K and V buffer per
   layer plus a device page table ``[slots, max_len/page_size]`` int32.
   Admission reserves pages for the request's full prompt + budget from the
   host free list (:mod:`.kv_pool`), prefills the prompt, and writes the K/V
-  prefix page by page; retirement returns the pages and zeroes the slot's
-  table row so stray writes land in the null page 0.
+  page by page; retirement returns the pages and zeroes the slot's table row
+  so stray writes land in the null page 0.
+* INT8 KV (``kv_quant="int8"``): each pool entry is ``(codes int8
+  [pages, ps, kvh, hd], scale f32 [pages, kvh])``. Admission quantizes whole
+  pages (:func:`_kv_quant_pages`); decode quantizes this step's rows into
+  their pages with a running absmax scale (:func:`_kv_quant_scatter`), then
+  attends through the int8 variant of the kernel, which dequantizes each
+  element as ``codes * scale`` in f32. About 2x the pages of a bf16 pool at
+  a fixed byte budget.
+* SHARED PREFIXES (``prefix_cache=True``, requests with ``prefix_len``):
+  page-aligned prompt prefixes are content-hashed. A miss prefills in full
+  and pins the prefix pages read-only (ref-counted); a hit prefills ONLY the
+  tail against the cached pages. Refcount-0 entries stay cached and are
+  LRU-evicted when the free list runs dry; with ``kv_host_bytes`` they spill
+  to a bounded host-RAM tier as ``KVS1`` slabs and are restored into fresh
+  pages on the next hit (a slab that does not match is a logged miss).
 * DECODE: each step scatters its new K/V into their physical pages first,
   then attends through :func:`~..ops.kernels.paged_attention.paged_attention`,
   which walks the page table itself (the CUDA kernel on the card, the plain
@@ -19,12 +34,20 @@ kv_quant=None)``, no draft model, no mesh, no bundle.
 * The pools, the page table and the slot state are updated IN PLACE
   (``index_put_``) where the reference donated its buffers to XLA.
 
+One deliberate difference: under int8 every page of a new reservation
+starts at scale 0 (the prompt's rows padded with zeros over all of the
+slot's private pages). The reference zeroes the pages its prefill bucket
+covers and leaves a stale scale on reserved pages past it, which only
+coarsens their quantization; the two agree whenever the bucket covers the
+reservation.
+
 Options the port does not serve yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them; none is silently ignored.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import time
 from typing import Dict, List, Optional
@@ -32,18 +55,105 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.flags import flag_value
 from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
 from ..ops.kernels import _build
 from ..ops.kernels import paged_attention as _pa
-from .kv_pool import PagePool, pages_needed
+from .kv_pool import (
+    HostPrefixTier,
+    HostSlab,
+    PagePool,
+    PrefixCache,
+    deserialize_page_slab,
+    pages_needed,
+    prefix_hash,
+    serialize_page_slab,
+)
 from .robustness import KVCapacityError
+
+_log = logging.getLogger(__name__)
 
 
 def not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported to paddlepaddle_tpu_torch yet "
         f"(ROADMAP {item})")
+
+
+# -- int8 KV pages (kv_quant="int8"), reference decode_engine.py:70-132 ------
+# Symmetric absmax: each K/V page carries one f32 scale per KV head
+# ([num_pages, kvh] beside the pool), codes are int8 in [-127, 127], and a
+# value reads back as ``codes * scale`` in f32. torch.round and jnp.round
+# both round half to even, so codes and scales are bit-equal to the
+# reference's.
+
+def _kv_quant_pages(x: torch.Tensor):
+    """Quantize whole pages ``x [npg, ps, kvh, hd]`` (f32): per-(page, head)
+    absmax scale. Rows past the prompt must already be zero so that padding
+    never inflates a scale. Returns ``(codes int8, scale f32 [npg, kvh])``."""
+    scale = x.abs().amax(dim=(1, 3)) / 127.0
+    codes = torch.round(x / scale.clamp_min(1e-20)[:, None, :, None])
+    return codes.clamp_(-127, 127).to(torch.int8), scale
+
+
+def _kv_dequant_gather(codes: torch.Tensor, scale: torch.Tensor,
+                       idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Pages ``idx`` of an int8 pool read back: ``codes[idx] * scale[idx]``
+    in f32, cast to ``dtype`` (the engine's KV dtype)."""
+    g = codes[idx].float()
+    return (g * scale[idx][..., None, :, None]).to(dtype)
+
+
+def _kv_quant_scatter(codes: torch.Tensor, scales: torch.Tensor,
+                      new_rows: torch.Tensor, phys: torch.Tensor,
+                      off: torch.Tensor):
+    """Write ``new_rows [S, W, kvh, hd]`` (this step's K or V, already in
+    the engine's KV dtype) into the int8 pool at physical page ``phys`` and
+    in-page offset ``off`` (``[S, W]`` each), quantizing as they are
+    written, IN PLACE; returns ``(codes, scales)``.
+
+    The page scale is a running absmax: when a new row fits the existing
+    scale the rescale factor is exactly 1.0 and the page's codes are kept
+    bit for bit; only a growing absmax requantizes the page. Duplicate
+    targets across slots occur only on the null page 0, whose content is
+    never read unmasked (``index_put_`` picks one writer there)."""
+    S, W = phys.shape
+    sl = torch.arange(S, device=codes.device)
+    new_rows = new_rows.float()
+    for w in range(W):
+        pw, ow = phys[:, w], off[:, w]
+        new = new_rows[:, w]                                 # [S, kvh, hd]
+        old_scale = scales[pw]                               # [S, kvh]
+        new_scale = torch.maximum(old_scale, new.abs().amax(dim=-1) / 127.0)
+        safe = new_scale.clamp_min(1e-20)
+        q_new = torch.round(new / safe[..., None]).clamp_(-127, 127)
+        page = codes[pw].float()                             # [S, ps, kvh, hd]
+        factor = old_scale / safe                            # == 1.0 no-grow
+        page = torch.round(page * factor[:, None, :, None]).clamp_(-127, 127)
+        page = page.to(torch.int8)
+        page[sl, ow] = q_new.to(torch.int8)
+        codes[pw] = page
+        scales[pw] = new_scale
+    return codes, scales
+
+
+def _resolve_kv_quant(kv_quant: Optional[str]) -> Optional[str]:
+    """Argument wins over ``FLAGS_serving_kv_quant``; ``""``/``"off"`` mean
+    off. Only ``"int8"`` is served (reference :296-313)."""
+    if kv_quant is None:
+        kv_quant = flag_value("serving_kv_quant")
+    if kv_quant in (None, "", "off"):
+        return None
+    if kv_quant == "int4":
+        raise ValueError(
+            "kv_quant='int4': the int8 page format (codes + per-page-per-"
+            "head scales) is the shipped scheme; int4 packing is the named "
+            "follow-up seam on the same scale buffers, not served as int8")
+    if kv_quant != "int8":
+        raise ValueError(f"kv_quant={kv_quant!r}: 'int8' is the supported "
+                         "KV-cache scheme ('int4' is the named seam)")
+    return kv_quant
 
 
 def _stamp(req, attr: str, value=None) -> None:
@@ -72,7 +182,7 @@ class BatchDecodeEngine:
     def __init__(self, model, max_slots: int = 16, max_len: Optional[int] = None,
                  chunk: int = 16, quant: Optional[str] = None,
                  kv_layout: str = "paged", page_size: int = 64,
-                 num_pages: Optional[int] = None,
+                 num_pages: Optional[int] = None, prefix_cache: bool = True,
                  mesh=None, plan=None, bundle: Optional[str] = None,
                  draft=None, spec_k: int = 0, kv_quant: Optional[str] = None,
                  kv_host_bytes: Optional[int] = None,
@@ -84,14 +194,13 @@ class BatchDecodeEngine:
                 f"kv_layout must be 'paged' or 'contiguous', got {kv_layout!r}")
         if quant is not None:
             raise not_ported(f"quant={quant!r}", "A4.3")
-        if kv_quant not in (None, "", "off") or kv_host_bytes:
-            raise not_ported("kv_quant / kv_host_bytes", "A4.4")
         if draft is not None or spec_k:
             raise not_ported("speculative decoding (draft=/spec_k=)", "A4.5")
         if bundle is not None:
             raise not_ported("bundle=", "A6")
         if mesh is not None or plan is not None:
             raise not_ported("tensor-parallel serving (mesh=/plan=)", "A10")
+        self.kv_quant = _resolve_kv_quant(kv_quant)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -112,13 +221,15 @@ class BatchDecodeEngine:
         nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                        cfg.head_dim)
         dtype = model.dtype
+        self._kv_dtype = dtype     # scratch / dequant dtype, also under int8
         self.kernel = "plain"
         if self.device.type == "cuda":
-            # resolved once here: an unsupported config raises now, never a
-            # quiet downgrade to the plain version later
+            # resolved once here, for the variant this engine launches: an
+            # unsupported config raises now, never a quiet downgrade to the
+            # plain version later
             ok, reason = _pa.paged_attention_supported(
                 page_size=self.page_size, head_dim=hd, num_heads=nh,
-                num_kv_heads=kvh, dtype=dtype, w=1)
+                num_kv_heads=kvh, dtype=dtype, w=1, kv_quant=self.kv_quant)
             if not ok:
                 raise ValueError(
                     f"paged-attention kernel does not take this engine "
@@ -129,14 +240,30 @@ class BatchDecodeEngine:
         self.P = pages_needed(self.L, self.page_size)        # pages per slot
         n_pages = self.S * self.P + 1 if num_pages is None else int(num_pages)
         self.pool = PagePool(n_pages, self.page_size)
+        self.prefix = PrefixCache()
+        self.prefix_enabled = bool(prefix_cache)
         dev = self.device
         shape = (n_pages, self.page_size, kvh, hd)
-        self.caches = [(torch.zeros(shape, dtype=dtype, device=dev),
-                        torch.zeros(shape, dtype=dtype, device=dev))
-                       for _ in range(cfg.num_hidden_layers)]
+
+        def pool():
+            if self.kv_quant == "int8":
+                return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros((n_pages, kvh), dtype=torch.float32,
+                                    device=dev))
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        # per layer (K, V); under int8 each is (codes, scale)
+        self.caches = [(pool(), pool()) for _ in range(cfg.num_hidden_layers)]
         self.page_table = torch.zeros((self.S, self.P), dtype=torch.int32,
                                       device=dev)
         self._slot_pages: List[List[int]] = [[] for _ in range(self.S)]
+        self._slot_prefix: List[Optional[str]] = [None] * self.S
+        # host-RAM prefix spill tier: only where there are prefixes to spill
+        if kv_host_bytes is None:
+            kv_host_bytes = int(flag_value("serving_kv_host_bytes") or 0)
+        self.kv_host = (HostPrefixTier(int(kv_host_bytes))
+                        if kv_host_bytes and prefix_cache else None)
+        self._restore_ms: List[float] = []
         # device-resident per-slot state
         i32 = dict(dtype=torch.int32, device=dev)
         self.lens = torch.zeros(self.S, **i32)
@@ -151,9 +278,58 @@ class BatchDecodeEngine:
         self._host_slots = [_Slot() for _ in range(self.S)]
         self._first_pending: Dict[int, torch.Tensor] = {}  # slot -> 0-d
         self.stats = {"tokens_out": 0, "requests": 0, "decode_calls": 0,
-                      "decode_steps": 0, "peak_busy": 0}
+                      "decode_steps": 0, "peak_busy": 0,
+                      "restore_failures": 0}
         # host wall of the most recent decode chunks, queue to readback (ms)
         self.chunk_ms: List[float] = []
+
+    # -- KV observability ----------------------------------------------------
+    def _restore_percentile(self, q: float) -> Optional[float]:
+        """p-th percentile of recent host-tier restore latencies (ms)."""
+        if not self._restore_ms:
+            return None
+        xs = sorted(self._restore_ms)
+        return round(xs[min(len(xs) - 1, int(q * len(xs)))], 3)
+
+    def kv_stats(self) -> Dict[str, object]:
+        """KV-pool snapshot: page accounting, bytes (int8 codes plus their
+        scales under int8), prefix-cache hit data and the host tier's
+        spill/restore counters (reference :522)."""
+        cfg = self.cfg
+        kvh, hd, nl = (cfg.num_key_value_heads, cfg.head_dim,
+                       cfg.num_hidden_layers)
+        quant = self.kv_quant == "int8"
+        itemsize = 1 if quant else self._kv_dtype.itemsize
+        per_tok = 2 * kvh * hd * itemsize * nl
+        scale_bytes = 2 * kvh * 4 * nl if quant else 0
+        page_bytes = int(self.page_size * per_tok + scale_bytes)
+        pool, pfx = self.pool, self.prefix
+        host = {"enabled": False}
+        if self.kv_host is not None:
+            host = dict(self.kv_host.stats(), enabled=True,
+                        restore_ms_p50=self._restore_percentile(0.50),
+                        restore_ms_p99=self._restore_percentile(0.99))
+        return {
+            "layout": "paged",
+            "kv_quant": self.kv_quant or "off",
+            "page_size": self.page_size,
+            "pages_total": pool.usable,
+            "pages_free": pool.free_count,
+            "pages_used": pool.used,
+            "pages_peak": pool.peak_used,
+            "occupancy": round(pool.used / max(pool.usable, 1), 4),
+            "page_bytes": page_bytes,
+            "kv_bytes": int(pool.num_pages * page_bytes),
+            "prefix": {
+                "enabled": self.prefix_enabled,
+                "entries": len(pfx),
+                "cached_pages": pfx.cached_pages,
+                "hits": pfx.hits,
+                "misses": pfx.misses,
+                "evictions": pfx.evictions,
+            },
+            "host": host,
+        }
 
     # -- device pieces -------------------------------------------------------
     def _forward_paged(self, toks: torch.Tensor, lens: torch.Tensor):
@@ -162,7 +338,9 @@ class BatchDecodeEngine:
         physical pages, then attends through the page table. Positions past
         ``max_len`` are redirected to the null page, and the page index is
         clamped to the table, as in the reference (decode_engine.py:671-680).
-        Returns logits ``[S, W, V]``."""
+        Under int8 the rows are quantized into their pages first and the
+        kernel's int8 variant attends (reference :780-803). Returns logits
+        ``[S, W, V]``."""
         S, ps, P, L = self.S, self.page_size, self.P, self.L
         W = toks.shape[1]
         cfg = self.cfg
@@ -178,7 +356,7 @@ class BatchDecodeEngine:
         x = mdl.embed_tokens(toks.long())
         # rope rows for this step's positions, shared by every layer
         c, s = rope_at(mdl.rope_cos, mdl.rope_sin, lens, W, x.dtype)
-        for layer, (kp, vp) in zip(mdl.layers, self.caches):
+        for layer, (kc, vc) in zip(mdl.layers, self.caches):
             attn = layer.self_attn
             h_pre = layer.input_layernorm(x)
             q = attn.q_proj(h_pre).reshape(S, W, nh, hd)
@@ -187,10 +365,18 @@ class BatchDecodeEngine:
             q, k = rotate(q, c, s), rotate(k, c, s)
             # write first, then attend: the causal rule admits this step's
             # own positions. In place, where the reference donated the pool
-            kp.index_put_((phys, off), k.to(kp.dtype))
-            vp.index_put_((phys, off), v.to(vp.dtype))
-            out = _pa.paged_attention(q, kp, vp, self.page_table, lens,
-                                      rep=rep, scale=scale)
+            if self.kv_quant == "int8":
+                (kq, ksc), (vq, vsc) = kc, vc
+                _kv_quant_scatter(kq, ksc, k.to(self._kv_dtype), phys, off)
+                _kv_quant_scatter(vq, vsc, v.to(self._kv_dtype), phys, off)
+                out = _pa.paged_attention(q, kq, vq, self.page_table, lens,
+                                          rep=rep, scale=scale,
+                                          k_scale=ksc, v_scale=vsc)
+            else:
+                kc.index_put_((phys, off), k.to(kc.dtype))
+                vc.index_put_((phys, off), v.to(vc.dtype))
+                out = _pa.paged_attention(q, kc, vc, self.page_table, lens,
+                                          rep=rep, scale=scale)
             x = x + attn.o_proj(out.reshape(S, W, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.model.logits(mdl.norm(x))
@@ -230,41 +416,95 @@ class BatchDecodeEngine:
         self.top_ks[slot] = top_k
 
     def _admit_paged_impl(self, ids: np.ndarray, slot: int, temp: float,
-                          eos: int, budget: int, top_k: int) -> torch.Tensor:
-        """Prefill exactly the prompt's ``plen`` rows through scratch caches
-        (plain attention), sample the first token, and write the K/V prefix
-        page by page into the pages the host put in this slot's table row."""
+                          eos: int, budget: int, top_k: int,
+                          n_pfx: int = 0) -> torch.Tensor:
+        """Prefill through scratch caches (plain attention), sample the
+        first token, and write the K/V into this slot's private pages (the
+        ones in ``_slot_pages[slot]``, already in its table row).
+
+        ``n_pfx == 0``: prefill exactly the prompt's ``plen`` rows (reference
+        :880-930). ``n_pfx > 0``, a prefix hit (``_admit_prefix_program``
+        :932-1003): the ``n_pfx`` cached prefix pages are gathered into the
+        scratch caches as read-only context (dequantized and cast to the KV
+        dtype under int8, :957), only the tail is prefilled at
+        ``pos=aligned``, and only the tail's rows are written. The written
+        rows are padded with zeros over all the private pages, which under
+        int8 equals the reference's ``valid`` mask and starts every decode
+        page at scale 0."""
         dev = self.device
         plen = ids.shape[1]
         cfg = self.cfg
         kvh, hd, ps = cfg.num_key_value_heads, cfg.head_dim, self.page_size
-        dtype = self.caches[0][0].dtype
-        ids_t = torch.as_tensor(ids, dtype=torch.long).to(dev)
-        scratch = [(torch.zeros((1, plen, kvh, hd), dtype=dtype, device=dev),
-                    torch.zeros((1, plen, kvh, hd), dtype=dtype, device=dev))
-                   for _ in range(cfg.num_hidden_layers)]
-        hidden, scratch = self.model.model(ids_t, caches=scratch, pos=0)
-        row = self.model.logits(hidden[:, plen - 1]).float()   # [1, V]
+        dtype = self._kv_dtype
+        quant = self.kv_quant == "int8"
+        aligned = n_pfx * ps
+        tail = plen - aligned
+        ids_t = torch.as_tensor(ids[:, aligned:], dtype=torch.long).to(dev)
+        pfx = self.page_table[slot, :n_pfx].long()
+        scratch = []
+        for kc, vc in self.caches:
+            pair = []
+            for c in (kc, vc):
+                buf = torch.zeros((1, plen, kvh, hd), dtype=dtype, device=dev)
+                if n_pfx:
+                    buf[0, :aligned] = (
+                        _kv_dequant_gather(c[0], c[1], pfx, dtype) if quant
+                        else c[pfx]).reshape(aligned, kvh, hd)
+                pair.append(buf)
+            scratch.append(tuple(pair))
+        hidden, scratch = self.model.model(ids_t, caches=scratch, pos=aligned)
+        row = self.model.logits(hidden[:, tail - 1]).float()   # [1, V]
         first = self._sample(
             row, torch.full((1,), temp, dtype=torch.float32, device=dev),
             torch.full((1,), top_k, dtype=torch.int32, device=dev))[0]
-        npg = pages_needed(plen, ps)
-        pad = npg * ps - plen
-        dest = self.page_table[slot, :npg].long()
-        for (kp, vp), (ks, vs) in zip(self.caches, scratch):
-            kp[dest] = torch.nn.functional.pad(
-                ks[0], (0, 0, 0, 0, 0, pad)).reshape(npg, ps, kvh, hd)
-            vp[dest] = torch.nn.functional.pad(
-                vs[0], (0, 0, 0, 0, 0, pad)).reshape(npg, ps, kvh, hd)
+        private = self._slot_pages[slot]
+        npg = len(private)
+        dest = torch.as_tensor(private, dtype=torch.long, device=dev)
+        for (kc, vc), (ks, vs) in zip(self.caches, scratch):
+            for c, rows in ((kc, ks), (vc, vs)):
+                pages = torch.nn.functional.pad(
+                    rows[0, aligned:], (0, 0, 0, 0, 0, npg * ps - tail)
+                ).reshape(npg, ps, kvh, hd)
+                if quant:
+                    codes, scale = _kv_quant_pages(pages.float())
+                    c[0][dest] = codes
+                    c[1][dest] = scale
+                else:
+                    c[dest] = pages
         self._set_slot_state(slot, plen, temp, eos, budget, top_k, first)
         return first
 
     # -- host orchestration --------------------------------------------------
-    def _reserve_pages(self, plen: int, budget: int) -> Optional[List[int]]:
-        """Allocate the request's pages for its full prompt + budget.
-        None when the pool cannot satisfy it right now (the caller waits
-        for retirements); :class:`KVCapacityError` when it never could."""
+    def _prefix_plan(self, req, ids: np.ndarray, plen: int):
+        """(aligned, n_pfx, hash, entry) for a request's declared shared
+        prefix (reference :1356): only FULL pages are shared, and at least
+        one tail token must remain so the first sample has logits to read."""
+        pfx_len = int(getattr(req, "prefix_len", 0) or 0)
+        if not self.prefix_enabled or pfx_len <= 0:
+            return 0, 0, None, None
+        if pfx_len > plen:
+            raise ValueError(
+                f"prefix_len {pfx_len} exceeds the prompt length {plen}")
+        ps = self.page_size
+        aligned = (pfx_len // ps) * ps
+        if aligned == plen:
+            aligned -= ps            # keep >= 1 tail token to sample from
+        if aligned < ps:
+            return 0, 0, None, None  # too short to share a full page
+        h = prefix_hash(ids, aligned)
+        return aligned, aligned // ps, h, self.prefix.lookup(h)
+
+    def _reserve_pages(self, plen: int, budget: int, n_pfx_cached: int = 0,
+                       exclude: Optional[str] = None) -> Optional[List[int]]:
+        """Allocate the request's private pages: its full prompt + budget
+        minus the cached prefix pages it hits (reference :1377). None when
+        the pool cannot satisfy it right now (the caller waits for
+        retirements); :class:`KVCapacityError` when it never could, judged
+        on the TOTAL need. Refcount-0 prefixes are evicted LRU-first when
+        the free list runs dry, spilling to the host tier when there is
+        one; ``exclude`` protects the entry this request is about to hit."""
         total = pages_needed(plen + budget, self.page_size)
+        need = total - n_pfx_cached
         if total > self.pool.usable:
             raise KVCapacityError(
                 f"prompt {plen} + {budget} new tokens needs {total} KV "
@@ -272,20 +512,95 @@ class BatchDecodeEngine:
                 f"only {self.pool.usable} even when empty — raise "
                 "num_pages or shorten the request", pages_needed=total,
                 pages_capacity=self.pool.usable)
-        if self.pool.free_count < total:
-            return None
-        return self.pool.alloc(total)
+        if self.pool.free_count < need:
+            spill = self._spill_prefix if self.kv_host is not None else None
+            self.prefix.evict_until(self.pool, need, exclude=exclude,
+                                    spill=spill)
+            if self.pool.free_count < need:
+                return None
+        return self.pool.alloc(need)
+
+    # -- host-RAM prefix tier (reference :1411-1498) --------------------------
+    def _slab_meta(self) -> Dict[str, object]:
+        """The engine facts a slab must match to be restored: a mismatch
+        (another geometry, quant mode or dtype) is a logged miss, never
+        wrong KV."""
+        cfg = self.cfg
+        return {"page_size": self.page_size,
+                "kvh": cfg.num_key_value_heads, "hd": cfg.head_dim,
+                "layers": cfg.num_hidden_layers,
+                "kv_quant": self.kv_quant or "off",
+                "dtype": str(self._kv_dtype).replace("torch.", "")}
+
+    def _pool_tensors(self, kc, vc) -> List[torch.Tensor]:
+        """One layer's pool tensors in slab order: K, V or, under int8,
+        K codes, K scale, V codes, V scale."""
+        if self.kv_quant == "int8":
+            return [kc[0], kc[1], vc[0], vc[1]]
+        return [kc, vc]
+
+    def _spill_prefix(self, h: str, entry) -> bool:
+        """``evict_until``'s spill callback: serialize the entry's live
+        device pages (and scales) into a slab and hand it to the host tier,
+        BEFORE the pages return to the free list. False (the tier refused
+        a slab larger than its whole budget) makes it a true discard."""
+        idx = torch.as_tensor(entry.pages, dtype=torch.long,
+                              device=self.device)
+        arrays = [t[idx] for kc, vc in self.caches
+                  for t in self._pool_tensors(kc, vc)]
+        meta = dict(self._slab_meta(), length=int(entry.length),
+                    n_pages=len(entry.pages))
+        slab = HostSlab(serialize_page_slab(meta, arrays), entry.length,
+                        len(entry.pages), entry.last_used)
+        return self.kv_host.put(h, slab)
+
+    def _restore_prefix(self, h: str, slab: HostSlab,
+                        pfx_pages: List[int]) -> bool:
+        """Write a popped slab into freshly reserved device pages and
+        re-register the prefix at refcount 0 (the hit about to run takes
+        the slot's ref). False on any mismatch or corruption, checked
+        before any page is written: the caller serves a full-prefill miss."""
+        try:
+            meta, arrays = deserialize_page_slab(slab.blob)
+            want = dict(self._slab_meta(), length=meta.get("length"),
+                        n_pages=len(pfx_pages))
+            if meta != want:
+                raise ValueError(f"slab/engine mismatch: {meta} != {want}")
+            targets = [t for kc, vc in self.caches
+                       for t in self._pool_tensors(kc, vc)]
+            if len(arrays) != len(targets):
+                raise ValueError(f"slab holds {len(arrays)} arrays, the "
+                                 f"engine {len(targets)}")
+            for a, t in zip(arrays, targets):
+                if a.dtype != t.dtype or \
+                        tuple(a.shape) != (len(pfx_pages),) + tuple(t.shape[1:]):
+                    raise ValueError(f"slab array {a.dtype} {list(a.shape)} "
+                                     f"does not fit pool {t.dtype} "
+                                     f"{list(t.shape)}")
+            idx = torch.as_tensor(pfx_pages, dtype=torch.long,
+                                  device=self.device)
+            for a, t in zip(arrays, targets):
+                t[idx] = a.to(self.device)
+            entry = self.prefix.register(h, pfx_pages, int(meta["length"]))
+            entry.refcount = 0
+            return True
+        except Exception as e:  # noqa: BLE001 — any bad slab is a miss
+            self.stats["restore_failures"] += 1
+            _log.warning("host-tier slab %s failed to restore (%s: %s); "
+                         "serving the request as a full-prefill miss",
+                         h[:16], type(e).__name__, e)
+            return False
 
     @torch.no_grad()
     def _admit(self, req) -> bool:
         """Prefill ``req`` into a free slot; False when no slot (or no
-        pages) is free."""
+        pages) is free. A declared prefix is a hit (tail-only prefill), a
+        restore from the host tier followed by a hit, or a miss that
+        registers it (reference :1529-1640)."""
         free = [i for i, s in enumerate(self._host_slots) if s.req is None]
         if not free:
             return False
         slot = free[0]
-        if getattr(req, "prefix_len", None):
-            raise not_ported("prefix_len (prefix-cache hits)", "A4.1")
         ids = np.asarray(req.prompt_ids, np.int32).reshape(1, -1)
         plen = ids.shape[1]
         if plen + req.max_new_tokens > self.L:
@@ -299,21 +614,64 @@ class BatchDecodeEngine:
             raise ValueError(
                 f"top_k {top_k} exceeds the continuous engine's filter cap "
                 f"{self.TOP_K_CAP}")
-        pages = self._reserve_pages(plen, req.max_new_tokens)
-        if pages is None:
+        aligned, n_pfx, h, entry = self._prefix_plan(req, ids, plen)
+        hit = entry is not None
+        slab = None
+        if not hit and h is not None and self.kv_host is not None:
+            # device miss with a spilled copy: pop the slab BEFORE reserving
+            # (the reservation's own spills could push it over the host
+            # budget's LRU edge); from here it is restored or put back
+            slab = self.kv_host.pop(h)
+        try:
+            private = self._reserve_pages(
+                plen, req.max_new_tokens, n_pfx if hit else 0,
+                exclude=h if hit else None)
+        except BaseException:
+            if slab is not None:
+                self.kv_host.put_back(h, slab)
+            raise
+        if private is None:
+            if slab is not None:
+                self.kv_host.put_back(h, slab)
             return False              # pool dry: decode frees pages later
-        self._slot_pages[slot] = pages
+        if slab is not None:
+            # the no-prefix reservation covers prompt + budget in full: its
+            # first n_pfx pages become the restored prefix, the rest stay
+            # private, exactly a hit's split
+            t0 = time.perf_counter()
+            if self._restore_prefix(h, slab, private[:n_pfx]):
+                entry = self.prefix.lookup(h)
+                hit = True
+                private = private[n_pfx:]
+                self._restore_ms.append((time.perf_counter() - t0) * 1e3)
+                del self._restore_ms[:-512]
+        self._slot_pages[slot] = private
         row = np.zeros((self.P,), np.int32)
-        row[:len(pages)] = pages
+        if hit:
+            # safe: the reservation excluded this entry from eviction
+            self.prefix.ref(h)
+            row[:n_pfx] = entry.pages
+            row[n_pfx:n_pfx + len(private)] = private
+            self._slot_prefix[slot] = h
+        else:
+            row[:len(private)] = private
         self.page_table[slot] = torch.from_numpy(row).to(self.device)
         try:
             first = self._admit_paged_impl(
                 ids, slot, temp, -1 if eos is None else int(eos),
-                int(req.max_new_tokens), top_k)
+                int(req.max_new_tokens), top_k, n_pfx if hit else 0)
         except BaseException:
             # the reservation must not outlive a failed admission
             self._release_kv(slot)
             raise
+        if h is not None and not hit:
+            # MISS with a declared prefix: the full prefill just wrote the
+            # prefix pages; pin them shared (this slot holds the first ref)
+            # and keep only the tail and decode pages private
+            self.prefix.register(h, private[:n_pfx], aligned)
+            self.prefix.misses += 1
+            self._slot_pages[slot] = private[n_pfx:]
+            self._slot_prefix[slot] = h
         self._host_slots[slot] = _Slot(req, budget=int(req.max_new_tokens))
         self.stats["peak_busy"] = max(self.stats["peak_busy"],
                                       self.busy_slots())
@@ -323,13 +681,17 @@ class BatchDecodeEngine:
         return True
 
     def _release_kv(self, slot: int, zero_row: bool = True) -> None:
-        """Return a slot's pages to the free list and (by default) zero its
-        page-table row so later decode writes land in the null page.
-        Idempotent."""
+        """Return a slot's private pages to the free list, drop its prefix
+        ref, and (by default) zero its page-table row so later decode
+        writes land in the null page. Idempotent."""
         pages = self._slot_pages[slot]
         if pages:
             self.pool.free(pages)
             self._slot_pages[slot] = []
+        h = self._slot_prefix[slot]
+        if h is not None:
+            self.prefix.unref(h)
+            self._slot_prefix[slot] = None
         if zero_row:
             self.page_table[slot] = 0
 

@@ -2,12 +2,21 @@
 
 The port's own copy of the jax-free host half of
 ``paddlepaddle_tpu/inference/kv_pool.py``: ``pages_needed``, ``prefix_hash``,
-``PagePool`` (:245), ``PrefixEntry`` and ``PrefixCache`` (:317), unchanged.
+the ``KVS1`` page-slab format (``serialize_page_slab`` :55 /
+``deserialize_page_slab`` :91), ``HostSlab`` (:130), ``HostPrefixTier``
+(:149), ``PagePool`` (:245), ``PrefixEntry`` and ``PrefixCache`` (:317).
 The device half is the engine's ``[slots, max_len/page_size]`` int32 page
-table, which the paged-attention kernel walks itself. ``HostPrefixTier`` and
-the ``KVS1`` slab format arrive with int8 KV (ROADMAP A4.4).
+table, which the paged-attention kernel walks itself.
 
-The one engine thread owns every mutation (admission, retirement, eviction).
+The slab format is byte-identical to the reference's in both directions.
+Arrays are torch tensors or numpy arrays on the way in and CPU torch tensors
+on the way out: numpy has no bfloat16, so a bf16 tensor is written under the
+manifest name ``"bfloat16"`` as its raw 2-byte payload and read back into
+``torch.bfloat16`` through the same 16-bit view (the reference goes through
+``ml_dtypes``).
+
+The one engine thread owns every mutation (admission, retirement, eviction,
+spill, restore).
 
 Page 0 is the NULL page: every unmapped page-table entry points at it, so a
 scatter past a slot's reservation lands in one sacrificial page and a read
@@ -19,10 +28,16 @@ from __future__ import annotations
 
 import hashlib
 import itertools
-from typing import Callable, Dict, List, Optional
+import json
+import struct
+from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["PagePool", "PrefixCache", "PrefixEntry", "pages_needed",
-           "prefix_hash"]
+import numpy as np
+import torch
+
+__all__ = ["PagePool", "PrefixCache", "PrefixEntry", "HostPrefixTier",
+           "HostSlab", "pages_needed", "prefix_hash",
+           "serialize_page_slab", "deserialize_page_slab"]
 
 
 def pages_needed(tokens: int, page_size: int) -> int:
@@ -34,10 +49,199 @@ def prefix_hash(prompt_ids, aligned: int) -> str:
     """Content hash of the page-aligned shared prefix. Keyed by the token
     bytes AND the aligned length, so a prefix cached at 128 tokens never
     answers a lookup for its own 64-token head."""
-    import numpy as np
-
     ids = np.ascontiguousarray(np.asarray(prompt_ids, np.int32).reshape(-1))
     return f"{aligned}:" + hashlib.sha1(ids[:aligned].tobytes()).hexdigest()
+
+
+_SLAB_MAGIC = b"KVS1"
+# manifest dtype name <-> torch dtype: the names numpy (and ml_dtypes, for
+# bfloat16) give ``dtype.name`` in the reference
+_TORCH_OF_NAME = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+_NAME_OF_TORCH = {v: k for k, v in _TORCH_OF_NAME.items()}
+
+
+def _name_and_bytes(a) -> Tuple[str, List[int], bytes]:
+    """(manifest dtype name, shape, raw little-endian bytes) of one array."""
+    if isinstance(a, torch.Tensor):
+        # at least 1-d, as the reference's np.ascontiguousarray makes it
+        t = a.detach().to("cpu").contiguous().reshape(a.shape or (1,))
+        if t.dtype not in _NAME_OF_TORCH:
+            raise TypeError(f"page slab: unsupported dtype {t.dtype}")
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        return _NAME_OF_TORCH[t.dtype], list(t.shape), raw.tobytes()
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.dtype.name, list(a.shape), a.tobytes()
+
+
+def serialize_page_slab(meta: dict, arrays) -> bytes:
+    """Pack the physical content of a prefix's KV pages (per-layer page
+    tensors, their scales under int8) and the engine facts in ``meta`` into
+    one byte string, the reference's wire format:
+
+        [4B magic "KVS1"][u32 header_len][header JSON][raw array bytes...]
+
+    The header is ``{"meta": meta, "arrays": [{"dtype", "shape"}, ...]}``
+    as sorted-key JSON."""
+    manifest = []
+    chunks = []
+    for a in arrays:
+        name, shape, raw = _name_and_bytes(a)
+        manifest.append({"dtype": name, "shape": shape})
+        chunks.append(raw)
+    header = json.dumps({"meta": meta, "arrays": manifest},
+                        sort_keys=True).encode("utf-8")
+    out = bytearray()
+    out += _SLAB_MAGIC
+    out += struct.pack("<I", len(header))
+    out += header
+    for c in chunks:
+        out += c
+    return bytes(out)
+
+
+def deserialize_page_slab(blob: bytes) -> Tuple[dict, List[torch.Tensor]]:
+    """Inverse of :func:`serialize_page_slab`: ``(meta, [CPU tensor])``.
+    Raises ``ValueError`` on a bad magic, an unknown dtype, a truncated
+    payload or trailing bytes: a corrupt slab surfaces loudly, never as
+    wrong KV."""
+    if blob[:4] != _SLAB_MAGIC:
+        raise ValueError("page slab: bad magic (not a KVS1 slab)")
+    (hlen,) = struct.unpack("<I", blob[4:8])
+    header = json.loads(blob[8:8 + hlen].decode("utf-8"))
+    meta, manifest = header["meta"], header["arrays"]
+    arrays = []
+    off = 8 + hlen
+    for spec in manifest:
+        dt = _TORCH_OF_NAME.get(spec["dtype"])
+        if dt is None:
+            raise ValueError(f"page slab: unknown dtype {spec['dtype']!r}")
+        shape = tuple(int(n) for n in spec["shape"])
+        n = dt.itemsize * int(np.prod(shape, dtype=np.int64))
+        raw = blob[off:off + n]
+        if len(raw) != n:
+            raise ValueError("page slab: truncated array payload")
+        store = torch.int16 if dt == torch.bfloat16 else dt
+        t = torch.frombuffer(bytearray(raw), dtype=store) if n \
+            else torch.empty(0, dtype=store)
+        arrays.append(t.view(dt).reshape(shape))
+        off += n
+    if off != len(blob):
+        raise ValueError("page slab: trailing bytes after last array")
+    return meta, arrays
+
+
+class HostSlab:
+    """One spilled prefix resident in the host tier: its serialized page
+    slab plus the LRU stamp it carried on the device tier (so host-tier
+    discard order continues the device-tier LRU, not insertion order)."""
+
+    __slots__ = ("blob", "length", "n_pages", "stamp", "hits")
+
+    def __init__(self, blob: bytes, length: int, n_pages: int, stamp: int):
+        self.blob = blob
+        self.length = int(length)
+        self.n_pages = int(n_pages)
+        self.stamp = int(stamp)
+        self.hits = 0
+
+    @property
+    def nbytes(self) -> int:
+        return len(self.blob)
+
+
+class HostPrefixTier:
+    """Bounded host-RAM spill tier for refcount-0 prefix entries. The two
+    tiers are EXCLUSIVE: a prefix lives either in device pages
+    (:class:`PrefixCache`) or here as a serialized slab, never both;
+    restore pops the slab before device pages are written.
+
+    LRU spans both tiers: ``put`` carries the device entry's ``last_used``
+    stamp across, and when the byte budget is exceeded the smallest stamp is
+    discarded first. A host-tier discard is the TRUE eviction; the
+    device-tier "eviction" above it was only a spill."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        if self.max_bytes <= 0:
+            raise ValueError(
+                f"host tier byte budget must be > 0, got {max_bytes} "
+                "(use no tier at all for 'off')")
+        self._entries: Dict[str, HostSlab] = {}
+        self.used_bytes = 0
+        self.spills = 0      # slabs accepted into the tier
+        self.restores = 0    # slabs popped for device restore
+        self.discards = 0    # true evictions (budget pressure or rejects)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, h: str) -> bool:
+        return h in self._entries
+
+    def keys(self):
+        return list(self._entries.keys())
+
+    @property
+    def occupancy(self) -> float:
+        return self.used_bytes / self.max_bytes
+
+    def put(self, h: str, slab: HostSlab) -> bool:
+        """Admit a slab, discarding oldest-stamp entries until it fits.
+        Returns False (counted as a discard: the bytes are dropped) when
+        the slab alone exceeds the whole budget."""
+        if h in self._entries:
+            self.used_bytes -= self._entries.pop(h).nbytes
+        if slab.nbytes > self.max_bytes:
+            self.discards += 1
+            return False
+        while self.used_bytes + slab.nbytes > self.max_bytes:
+            victim = min(self._entries.items(),
+                         key=lambda kv: kv[1].stamp)[0]
+            self.used_bytes -= self._entries.pop(victim).nbytes
+            self.discards += 1
+        self._entries[h] = slab
+        self.used_bytes += slab.nbytes
+        self.spills += 1
+        return True
+
+    def pop(self, h: str) -> Optional[HostSlab]:
+        """Remove and return the slab for ``h`` (None on miss). The caller
+        is now its only owner: on a failed restore it either re-``put``s
+        the slab or accepts the discard."""
+        slab = self._entries.pop(h, None)
+        if slab is not None:
+            self.used_bytes -= slab.nbytes
+            slab.hits += 1
+            self.restores += 1
+        return slab
+
+    def put_back(self, h: str, slab: HostSlab) -> None:
+        """Undo a ``pop`` whose restore could not proceed (reservation dry,
+        admission rollback) without counting a second spill or a phantom
+        restore."""
+        if self.put(h, slab):
+            self.spills -= 1
+        self.restores -= 1
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self.used_bytes = 0
+
+    def stats(self) -> dict:
+        return {
+            "entries": len(self._entries),
+            "budget_bytes": self.max_bytes,
+            "used_bytes": self.used_bytes,
+            "occupancy": self.occupancy,
+            "spills": self.spills,
+            "restores": self.restores,
+            "discards": self.discards,
+        }
 
 
 class PagePool:

@@ -8,8 +8,10 @@ requests into free decode slots of :class:`~.decode_engine.BatchDecodeEngine`
 mid-flight, runs decode chunks, and the engine delivers each future when its
 slot retires.
 
-Ported: ``submit`` / ``generate`` / ``start`` / ``stop`` / context manager,
-the ``_check_admission`` validation with typed ``RequestValidationError`` /
+Ported: ``submit`` (with ``prefix_len`` for shared-prefix hits) /
+``generate`` / ``start`` / ``stop`` / context manager, the engine's
+``prefix_cache`` / ``kv_quant`` / ``kv_host_bytes`` options, the
+``_check_admission`` validation with typed ``RequestValidationError`` /
 ``KVCapacityError`` / ``ServerOverloadedError`` / ``CircuitOpenError``,
 ``max_queue`` / ``max_queue_wait_s`` shedding, and the breaker's success and
 failure bookkeeping around each decode chunk (a failed chunk fails its
@@ -173,6 +175,7 @@ class ServingEngine:
                  kv_layout: str = "paged",
                  kv_page_size: int = 64,
                  kv_num_pages: Optional[int] = None,
+                 prefix_cache: bool = True,
                  mesh=None, plan=None, bundle: Optional[str] = None,
                  draft=None, spec_k: int = 0,
                  kv_quant: Optional[str] = None,
@@ -216,7 +219,8 @@ class ServingEngine:
         self._engine = BatchDecodeEngine(
             model, max_slots=max_batch_size, max_len=max_len,
             chunk=decode_chunk, quant=quant, kv_layout=kv_layout,
-            page_size=kv_page_size, num_pages=kv_num_pages, mesh=mesh, plan=plan, bundle=bundle,
+            page_size=kv_page_size, num_pages=kv_num_pages,
+            prefix_cache=prefix_cache, mesh=mesh, plan=plan, bundle=bundle,
             draft=draft, spec_k=spec_k, kv_quant=kv_quant,
             kv_host_bytes=kv_host_bytes, device=device, seed=seed)
         self._max_len = self._engine.L
@@ -254,8 +258,14 @@ class ServingEngine:
             raise RequestValidationError(
                 f"top_k {req.top_k} exceeds the continuous engine's filter "
                 f"cap {self._top_k_cap}")
+        if req.prefix_len is not None and not 0 <= req.prefix_len <= plen:
+            raise RequestValidationError(
+                f"prefix_len {req.prefix_len} must be within the prompt "
+                f"(length {plen})")
         # page-pool capacity, not just max_len: a request needing more pages
-        # than the pool HOLDS is shed here instead of waiting forever
+        # than the pool HOLDS is shed here instead of waiting forever. Total
+        # need governs even on a prefix hit (the pinned prefix pages occupy
+        # capacity too), so this check is exact
         need = pages_needed(plen + req.max_new_tokens, self._kv_page_size)
         if need > self._kv_capacity:
             self._shed(KVCapacityError(
@@ -293,13 +303,14 @@ class ServingEngine:
                prefix_len: Optional[int] = None) -> GenerationResult:
         """Queue one generation request; raises a typed error instead of
         queueing when the request cannot (validation) or should not
-        (overload, open breaker) be served."""
+        (overload, open breaker) be served. ``prefix_len`` declares the
+        prompt's first tokens a shared prefix (a system prompt): its full
+        pages are cached and later requests with the same prefix prefill
+        only their tail."""
         if deadline_s is not None:
             raise not_ported("deadline_s", "A4.6")
-        if prefix_len is not None:
-            raise not_ported("prefix_len (prefix-cache hits)", "A4.1")
         req = GenerationRequest(prompt_ids, max_new_tokens, temperature,
-                                top_k, eos_token_id)
+                                top_k, eos_token_id, prefix_len=prefix_len)
         self._check_admission(req)
         if self._thread is None:
             self.start()  # lazy start: a future must always have a server

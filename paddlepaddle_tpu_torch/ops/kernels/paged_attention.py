@@ -2,7 +2,9 @@
 version, and the Hopper support check.
 
 Replaces the TPU kernel ``paged_attention`` / ``_paged_attn_kernel``
-(``paddlepaddle_tpu/ops/kernels/paged_attention.py:175`` / ``:104``); the
+(``paddlepaddle_tpu/ops/kernels/paged_attention.py:175`` / ``:104``) in both
+of its variants: full-precision pools (kernel 1) and int8 pools with
+per-page, per-head scales (kernel 1q, ``quantized=True`` :113-131). The
 kernel itself is ``csrc/paged_attention.cu`` (design, bound and known
 limits in its header). Shape contract, as on the TPU:
 
@@ -12,17 +14,21 @@ limits in its header). Shape contract, as on the TPU:
   null page);
 * ``page_table``  ``[S, P]`` int32 physical page per logical page;
 * ``lens``        ``[S]`` int32 slot length BEFORE this step's writes;
-  query w attends keys ``k_pos <= lens + w``.
+  query w attends keys ``k_pos <= lens + w``;
+* ``k_scale/v_scale`` ``[pages, kvh]`` float32, both or neither: given, the
+  pools hold int8 codes and element ``x`` of page ``p``, head ``g`` reads as
+  ``float(x) * scale[p, g]`` (no rounding to q's type).
 
 :func:`paged_attention` runs the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises. ``paged_attention.launches``
-counts kernel launches (never plain-version calls).
+counts full-precision kernel launches and ``paged_attention.int8_launches``
+int8 ones (never plain-version calls).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,13 +40,15 @@ MAX_W = 4                    # kernel is templated on W = 1..4
 MAX_ROWS = 32                # rep * W query rows per CTA (register budget)
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_QUANTS = (None, "int8")
 
 
 def smem_bytes(page_size: int, head_dim: int, rows: int,
                itemsize: int) -> int:
-    """Dynamic shared memory of one CTA (mirrors ``smem_bytes`` in the
-    CUDA source): two staged K pages (rows padded by 16 bytes) and two V
-    pages, plus the f32 query rows, score rows and per-row max/sum/rescale."""
+    """Dynamic shared memory of one CTA for pool elements of ``itemsize``
+    bytes (1 for int8 codes; mirrors ``smem_bytes`` in the CUDA source): two
+    staged K pages (rows padded by 16 bytes) and two V pages, plus the f32
+    query rows, score rows and per-row max/sum/rescale."""
     return (2 * page_size * (head_dim + 16 // itemsize) * itemsize
             + 2 * page_size * head_dim * itemsize
             + rows * (head_dim + page_size + 3) * 4)
@@ -48,13 +56,19 @@ def smem_bytes(page_size: int, head_dim: int, rows: int,
 
 def paged_attention_supported(*, page_size: int, head_dim: int,
                               num_heads: int, num_kv_heads: int,
-                              dtype: torch.dtype, w: int = 1) -> Tuple[bool, str]:
-    """(ok, reason): whether the Hopper kernel takes this configuration.
-    Re-derived for the card from ``paged_attention_supported``
+                              dtype: torch.dtype, w: int = 1,
+                              kv_quant: Optional[str] = None
+                              ) -> Tuple[bool, str]:
+    """(ok, reason): whether the Hopper kernel takes this configuration,
+    for full-precision pools of q's ``dtype`` or, ``kv_quant="int8"``, for
+    int8 pools (kernel 1q). Re-derived for the card from
+    ``paged_attention_supported``
     (``paddlepaddle_tpu/ops/kernels/paged_attention.py:70``): the TPU's
     8-row sublane and 128-lane rules become a warp-stride rule on
     ``head_dim``, a register bound on the query rows a CTA serves, and the
     227 KB shared-memory bound on the staged page."""
+    if kv_quant not in KV_QUANTS:
+        return False, f"kv_quant {kv_quant!r} (kernel takes None, 'int8')"
     if dtype not in _KERNEL_DTYPES:
         return False, f"dtype {dtype} (kernel takes float32, bfloat16)"
     if num_kv_heads < 1 or num_heads % num_kv_heads:
@@ -69,7 +83,8 @@ def paged_attention_supported(*, page_size: int, head_dim: int,
         return False, f"rep*W = {rows} query rows per KV head > {MAX_ROWS}"
     if page_size < 1:
         return False, f"page_size {page_size} < 1"
-    smem = smem_bytes(page_size, head_dim, rows, dtype.itemsize)
+    itemsize = 1 if kv_quant == "int8" else dtype.itemsize
+    smem = smem_bytes(page_size, head_dim, rows, itemsize)
     if smem > SMEM_LIMIT:
         return False, (f"page_size {page_size} needs {smem} B shared memory "
                        f"> {SMEM_LIMIT}")
@@ -77,12 +92,17 @@ def paged_attention_supported(*, page_size: int, head_dim: int,
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
-                          scale: float) -> torch.Tensor:
+                          scale: float, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
     """The plain PyTorch version: gather each slot's logical view through
     the page table (pages wholly past the visible window redirected to the
     null page, as the TPU kernel's index map did), mask ``k_pos > lens + w``
     with -1e30, one f32 softmax — the semantics of ``_ref_gqa_attention``
-    (``paddlepaddle_tpu/inference/decode_engine.py:713``)."""
+    (``paddlepaddle_tpu/inference/decode_engine.py:713``). With scales, each
+    gathered int8 page is dequantized in f32 as ``codes * scale`` (the TPU
+    kernel's :129-131), never rounded to q's dtype."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
     S, W, h, hd = q.shape
     ps, kvh = k_pool.shape[1], k_pool.shape[2]
     P = page_table.shape[1]
@@ -91,8 +111,12 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
     visible = (torch.arange(P, device=dev)[None, :] * ps
                <= lens[:, None] + (W - 1))
     pt = torch.where(visible, page_table.long(), 0)
-    kview = k_pool[pt].reshape(S, P * ps, kvh, hd).float()
-    vview = v_pool[pt].reshape(S, P * ps, kvh, hd).float()
+    kview, vview = k_pool[pt].float(), v_pool[pt].float()  # [S, P, ps, kvh, hd]
+    if k_scale is not None:
+        kview = kview * k_scale[pt][:, :, None, :, None]
+        vview = vview * v_scale[pt][:, :, None, :, None]
+    kview = kview.reshape(S, P * ps, kvh, hd)
+    vview = vview.reshape(S, P * ps, kvh, hd)
     qg = q.float().reshape(S, W, kvh, rep, hd) * scale
     att = torch.einsum("swgrd,stgd->swgrt", qg, kview)
     k_pos = torch.arange(P * ps, device=dev)
@@ -104,16 +128,22 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
     return out.reshape(S, W, h, hd).to(q.dtype)
 
 
-def _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep: int) -> None:
+def _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep: int,
+                     k_scale=None, v_scale=None) -> None:
     S, W, h, hd = q.shape
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("lens", lens)):
+    quant = k_scale is not None
+    tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("page_table", page_table), ("lens", lens)]
+    if quant:
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"pools {k_pool.dtype}/{v_pool.dtype} must match "
-                        f"q {q.dtype}")
+    pool_dtype = torch.int8 if quant else q.dtype
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError(f"pools {k_pool.dtype}/{v_pool.dtype} must be "
+                        f"{pool_dtype}" + ("" if quant else " (q's dtype)"))
     if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("page_table and lens must be int32")
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4 \
@@ -127,15 +157,21 @@ def _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep: int) -> None:
             or tuple(lens.shape) != (S,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lens "
                          f"{tuple(lens.shape)} do not fit {S} slots")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("lens", lens)):
+    if quant:
+        want = (k_pool.shape[0], kvh)
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name} must be float32 {list(want)}, got "
+                                 f"{t.dtype} {list(t.shape)}")
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     ok, reason = paged_attention_supported(
         page_size=k_pool.shape[1], head_dim=hd, num_heads=h,
-        num_kv_heads=kvh, dtype=q.dtype, w=W)
+        num_kv_heads=kvh, dtype=q.dtype, w=W,
+        kv_quant="int8" if quant else None)
     if not ok:
         raise ValueError(f"paged_attention kernel does not take this "
                          f"configuration: {reason}")
@@ -148,9 +184,11 @@ def _library() -> ctypes.CDLL:
         # bits by ctypes
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
             ctypes.c_float, ci, vp]
         lib.paged_attention_launch.restype = ci
+        lib.paged_attention_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
         lib.paged_attention_error_string.argtypes = [ci]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -164,23 +202,30 @@ def build() -> None:
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
-                    scale: float) -> torch.Tensor:
+                    scale: float, k_scale=None, v_scale=None) -> torch.Tensor:
     """Attend ``q [S, W, h, hd]`` over each slot's paged KV. Returns
-    ``out [S, W, h, hd]`` in q's dtype. CPU tensors take the plain version;
+    ``out [S, W, h, hd]`` in q's dtype. ``k_scale``/``v_scale`` (both or
+    neither) select the int8 variant. CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (no sync) or
     raise."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    kw = dict(rep=rep, scale=scale, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, page_table, lens,
-                                     rep=rep, scale=scale)
+        return paged_attention_plain(q, k_pool, v_pool, page_table, lens, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep)
+    _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep, k_scale,
+                     v_scale)
+    quant = k_scale is not None
     S, W, h, hd = q.shape
     out = torch.empty_like(q)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
         S, W, h, k_pool.shape[2], hd, k_pool.shape[1], page_table.shape[1],
         float(scale), _KERNEL_DTYPES[q.dtype], stream)
@@ -188,8 +233,12 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({msg})")
-    paged_attention.launches += 1
+    if quant:
+        paged_attention.int8_launches += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0

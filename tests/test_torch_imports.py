@@ -22,6 +22,7 @@ import paddlepaddle_tpu_torch.ops.kernels.gather_gemm
 import paddlepaddle_tpu_torch.parallel.moe
 import paddlepaddle_tpu_torch.models.moe
 import paddlepaddle_tpu_torch.optimizer.lr
+import paddlepaddle_tpu_torch.inference.kv_pool
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -37,6 +38,9 @@ if not torch.cuda.is_available():
             ("moe_layer", lambda: pt.MoELayer(8, 16, 2)),
             ("engine", lambda: pt.BatchDecodeEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
+            ("engine_int8", lambda: pt.BatchDecodeEngine(
+                pt.LlamaForCausalLM(cfg, device="cpu"), kv_quant="int8",
+                kv_host_bytes=1 << 20)),
             ("serving", lambda: pt.ServingEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
             ("train_step", lambda: pt.TrainStep(
@@ -67,7 +71,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "paddlepaddle_tpu_torch.inference.decode_engine" in got["ports"]
     for mod in ("jit.train", "optimizer.optimizers", "optimizer.lr", "nn.clip",
                 "ops.kernels.flash_attention", "ops.kernels.gather_gemm",
-                "parallel.moe", "models.moe"):
+                "ops.kernels.paged_attention", "inference.kv_pool",
+                "core.flags", "parallel.moe", "models.moe"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")
