@@ -36,6 +36,30 @@ code is non-zero):
                phase's shape (b 4, s 2048, h 32, d 128, bf16, causal);
                timings of each kernel, the plain version and SDPA (forward;
                its backward for the two backward kernels), beside the bound.
+4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV
+               kernels (5-7) against their plain versions on the same
+               inputs: 48 small cases (6 layouts: a padding tail with empty
+               segments first, in the middle and last; cu_q != cu_k; causal
+               rows with no key and a segment with no keys; 64 one-token
+               segments; a tile over five segments; t not a multiple of 8;
+               d 64/128, f32 atol 1e-5 / bf16 atol 2e-2 + rtol 1e-2,
+               causal and full) with rows without a key and keys without a
+               row exactly 0; one segment over the buffer against the dense
+               kernels (max difference printed); then the main path at
+               Llama-3-8B attention width (h 32, d 128, bf16) through the
+               public entries, counters from 0: (a) ``flash_attn_unpadded``
+               forward and backward on a packed batch (8192 tokens in
+               segments of 64-2048, one empty, a 64-row tail, causal; each
+               counter exactly 1), (b) chunked prefill (8 chunks of 256
+               against contexts of 512-4096, causal), (c)
+               ``variable_length_memory_efficient_attention`` at
+               [8, 32, 2048, 128] with lengths 64-2048 (full); (a) and (b)
+               against the plain versions in head chunks (atol 2e-2 + rtol
+               1e-2), (a) again in f32 (atol 1e-5), (c) per sequence;
+               timings at (a) of each kernel, the plain versions and one
+               PyTorch call (SDPA over nested jagged tensors if this torch
+               takes them causal, else with the block-diagonal mask),
+               beside the bound over the visible pairs.
 5. ``gather_gemm_kernel``  the gather-GEMM expert-FFN kernel against its
                plain version: 6 small cases (f32 atol 1e-5; bf16 within the
                bound its bf16 rounding of the hidden activation implies;
@@ -121,6 +145,11 @@ PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
 FLASH_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
+VARLEN_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
+VARLEN_REPLACES = {
+    "varlen_fwd": "paddlepaddle_tpu/ops/kernels/flash_varlen.py:123",
+    "varlen_bwd_dq": "paddlepaddle_tpu/ops/kernels/flash_varlen.py:156",
+    "varlen_bwd_dkv": "paddlepaddle_tpu/ops/kernels/flash_varlen.py:184"}
 FLASH_REPLACES = {"flash_fwd": "paddlepaddle_tpu/ops/kernels/flash_attention.py:97",
                   "flash_bwd_dq": "paddlepaddle_tpu/ops/kernels/flash_attention.py:139",
                   "flash_bwd_dkv": "paddlepaddle_tpu/ops/kernels/flash_attention.py:172"}
@@ -590,6 +619,429 @@ def phase_flash_kernel():
           "main_shape": records[0]["shape"], "main_errs": errs,
           "main_atol": main_atol,
           "ms": ms, "plain_ms": plain, "library_ms": library,
+          "bound_ms": {r["name"]: r["bound_ms"] for r in records},
+          "tflops": {r["name"]: r["flops"] / r["ms"] / 1e9 for r in records},
+          "bound_share": {r["name"]: r["bound_ms"] / r["ms"]
+                          for r in records}})
+    return records
+
+
+# packed varlen attention (kernels 5-7): small layouts as (lens_q, lens_k or
+# None for lens_q, t_q, t_k); t past a sum is a padding tail
+VARLEN_SMALL = {
+    "pad_empty": ([0, 5, 9, 0, 3, 20, 0], None, 48, 48),
+    "prefill": ([4, 6, 8, 3], [11, 6, 20, 9], 24, 48),
+    "qlong": ([0, 12, 5, 6], [0, 5, 0, 9], 24, 16),
+    "ones": ([1] * 64, None, 67, 67),
+    "mixed": ([3, 40, 7, 0, 5, 9, 100], [3, 40, 7, 2, 5, 9, 100], 171, 173),
+    "multi": ([700, 0, 129], [900, 64, 129], 837, 1101),
+}
+
+
+def varlen_cu(lens):
+    import numpy as np
+
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+def varlen_pairs(cu_q, cu_k, causal: bool) -> int:
+    """Visible (query, key) pairs of one head: per segment, every pair, or
+    under causal masking min(len_k, i + len_k - len_q + 1) keys for row i."""
+    import numpy as np
+
+    total = 0
+    for lq, lk in zip(np.diff(cu_q).tolist(), np.diff(cu_k).tolist()):
+        if causal:
+            i = np.arange(lq)
+            total += int(np.clip(i + lk - lq + 1, 0, lk).sum())
+        else:
+            total += lq * lk
+    return total
+
+
+def varlen_tiles(fv, cq, ck, tq, tk, causal, bm=64, bn=64):
+    """Key tiles of ``bn`` a CTA of ``bm`` query rows must stream to cover
+    its rows' visible keys (from its first visible key to its last), summed
+    over the CTAs, beside the tiles a loop over all of t_k takes."""
+    import torch
+    import torch.nn.functional as tF
+
+    mask = fv.varlen_mask(cq, ck, tq, tk, causal)
+    cols = torch.arange(tk, device=mask.device)
+    first = torch.where(mask, cols, tk).min(1).values
+    last = torch.where(mask, cols + 1, 0).max(1).values
+    pad = (-tq) % bm
+    first = tF.pad(first, (0, pad), value=tk).view(-1, bm).min(1).values
+    last = tF.pad(last, (0, pad), value=0).view(-1, bm).max(1).values
+    visited = int(((last - first).clamp(min=0) + bn - 1).div(
+        bn, rounding_mode="floor").sum())
+    return {"visited": visited,
+            "all_of_t": -(-tq // bm) * -(-tk // bn)}
+
+
+def varlen_launches():
+    from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    return {"varlen_fwd": fv.varlen_fwd.launches,
+            "varlen_bwd_dq": fv.varlen_bwd_dq.launches,
+            "varlen_bwd_dkv": fv.varlen_bwd_dkv.launches}
+
+
+def reset_varlen_launches() -> None:
+    from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    fv.varlen_fwd.launches = 0
+    fv.varlen_bwd_dq.launches = 0
+    fv.varlen_bwd_dkv.launches = 0
+
+
+def varlen_reference(fv, q, k, v, do, cq, ck, causal, got):
+    """The plain versions on the same inputs as the kernels: the forward on
+    q, k, v; the backward on the kernels' own lse and the delta of their
+    out, as the backward kernels get them. Heads go in chunks."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fv.varlen_attention_plain(q, k, v, cq, ck, causal, scale)
+    delta = fv.varlen_delta(got["out"], do)
+    dq, dk, dv = fv.varlen_bwd_plain(q, k, v, do, got["lse"], delta, cq, ck,
+                                     causal, scale)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def varlen_compare(fv, got, want, cq, ck, causal, atol, rtol=0.0):
+    """Max abs error of each tensor (lse on rows that see a key) and the
+    excess over ``atol + rtol * |want|``; raises unless rows that see no
+    key have out and dq exactly 0 and lse -1e30, and keys no row sees have
+    dk and dv exactly 0."""
+    tq, tk = got["out"].shape[0], got["dk"].shape[0]
+    mask = fv.varlen_mask(cq, ck, tq, tk, causal)
+    row_ok, key_ok = mask.any(1), mask.any(0)
+    errs, excess = {}, {}
+    for name in ("out", "lse", "dq", "dk", "dv"):
+        a, b_ = got[name].detach().float(), want[name].detach().float()
+        if name == "lse":
+            a, b_ = a[:, row_ok], b_[:, row_ok]
+        diff = (a - b_).abs()
+        errs[name] = float(diff.max()) if diff.numel() else 0.0
+        excess[name] = (float((diff - atol - rtol * b_.abs()).max())
+                        if diff.numel() else -atol)
+    zero = (bool((got["out"][~row_ok] == 0).all())
+            and bool((got["dq"][~row_ok] == 0).all())
+            and bool((got["lse"][:, ~row_ok] == -1e30).all())
+            and bool((got["dk"][~key_ok] == 0).all())
+            and bool((got["dv"][~key_ok] == 0).all()))
+    if not zero:
+        raise AssertionError("varlen kernels: a row without a key or a key "
+                             "without a row is not exactly 0")
+    return errs, excess, int((~row_ok).sum()), int((~key_ok).sum())
+
+
+def varlen_kernels(fv, q, k, v, do, cq, ck, causal):
+    scale = q.shape[-1] ** -0.5
+    out, lse = fv.varlen_fwd(q, k, v, cq, ck, causal, scale)
+    delta = fv.varlen_delta(out, do)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, cq, ck, causal, scale)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, cq, ck, causal, scale)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def packed_batch(rng, total, lo, hi):
+    """Segment lengths drawn from [lo, hi] until they sum to ``total`` (the
+    last one cut to fit)."""
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(min(rng.integers(lo, hi + 1), total - sum(lens))))
+    return lens
+
+
+def varlen_library_call(q, k, v, do, cu, causal):
+    """One PyTorch call computing the same function, for timing only:
+    SDPA over ``torch.nested`` jagged tensors of the non-empty segments if
+    this torch takes them (causal, forward and backward), else SDPA with the
+    block-diagonal (and causal) boolean mask over the valid tokens. Returns
+    (name, forward giving out [valid, h, d], backward of one output)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+
+    n = int(cu[-1])
+    leaves = [x[:n].detach().clone().requires_grad_(True) for x in (q, k, v)]
+    do = do[:n]
+
+    def backward(out):
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    offs = torch.tensor(sorted(set(cu.tolist())), dtype=torch.int64,
+                        device=q.device)
+    try:
+        nts = [torch.nested.nested_tensor_from_jagged(x, offs).transpose(1, 2)
+               for x in leaves]
+
+        def njt():
+            o = tF.scaled_dot_product_attention(*nts, is_causal=causal)
+            return o.transpose(1, 2).values()
+
+        backward(njt())
+        return "sdpa_nested_jagged", njt, backward
+    except (RuntimeError, NotImplementedError, ValueError, TypeError):
+        pass
+    seg = torch.repeat_interleave(
+        torch.arange(len(cu) - 1, device=q.device),
+        torch.from_numpy(np.diff(cu)).to(q.device))
+    mask = seg[:, None] == seg[None, :]
+    if causal:
+        mask &= torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    qh, kh, vh = (x.transpose(0, 1).unsqueeze(0) for x in leaves)
+
+    def masked():
+        o = tF.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        return o[0].transpose(0, 1)
+
+    return "sdpa_block_diagonal_mask", masked, backward
+
+
+def phase_flash_varlen_kernel():
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.incubate.nn import functional as incF
+    from paddlepaddle_tpu_torch.nn import functional as F
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+    rng = np.random.default_rng(0)
+    dev = "cuda"
+
+    def normals(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+
+    # small cases: every layout, d 64 / 128, f32 / bf16, causal and full
+    small = []
+    for name, (lens_q, lens_k, tq, tk) in VARLEN_SMALL.items():
+        cu_q = varlen_cu(lens_q)
+        cu_k = cu_q if lens_k is None else varlen_cu(lens_k)
+        cq, ck = (torch.from_numpy(c).to(dev) for c in (cu_q, cu_k))
+        for d in (64, 128):
+            # bf16 adds 1e-2 relative: gradients reach |x| >= 4 (a causal
+            # segment's first keys sum dO over ~100 rows), where one bf16
+            # ulp (2^-7 relative at the bottom of a binade) is 0.031
+            for dtype, atol, rtol in ((torch.float32, 1e-5, 0.0),
+                                      (torch.bfloat16, 2e-2, 1e-2)):
+                for causal in (True, False):
+                    q, do = (normals(tq, 3, d, dtype=dtype) for _ in range(2))
+                    k, v = (normals(tk, 3, d, dtype=dtype) for _ in range(2))
+                    got = varlen_kernels(fv, q, k, v, do, cq, ck, causal)
+                    want = varlen_reference(fv, q, k, v, do, cq, ck, causal,
+                                            got)
+                    torch.cuda.synchronize()
+                    errs, excess, dead_rows, dead_keys = varlen_compare(
+                        fv, got, want, cq, ck, causal, atol, rtol)
+                    small.append({"layout": name, "d": d,
+                                  "dtype": str(dtype)[6:], "causal": causal,
+                                  "atol": atol, "rtol": rtol,
+                                  "rows_without_key": dead_rows,
+                                  "keys_without_row": dead_keys, **errs})
+                    if max(excess.values()) > 0:
+                        raise AssertionError(
+                            f"varlen kernels small case {name} d={d} {dtype} "
+                            f"causal={causal}: {errs} beyond atol {atol} + "
+                            f"rtol {rtol}")
+
+    # one segment over the whole buffer is dense attention at [1, s, h, d]
+    cross = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            s, h, d = 1000, 4, 128
+            q, k, v, do = (normals(s, h, d, dtype=dtype) for _ in range(4))
+            cu = torch.tensor([0, s], dtype=torch.int32, device=dev)
+            got = varlen_kernels(fv, q, k, v, do, cu, cu, causal)
+            b4 = [x.unsqueeze(0) for x in (q, k, v, do)]
+            out, lse = fa.flash_fwd(*b4[:3], causal, d ** -0.5)
+            delta = fa.flash_delta(out, b4[3])
+            dq = fa.flash_bwd_dq(*b4, lse, delta, causal, d ** -0.5)
+            dk, dv = fa.flash_bwd_dkv(*b4, lse, delta, causal, d ** -0.5)
+            dense = {"out": out[0], "lse": lse, "dq": dq[0], "dk": dk[0],
+                     "dv": dv[0]}
+            torch.cuda.synchronize()
+            key = f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            cross[key] = max(float((got[n].float() - dense[n].float()).abs()
+                                   .max()) for n in dense)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            if not cross[key] <= tol:
+                raise AssertionError(f"varlen vs dense kernels {key}: "
+                                     f"{cross[key]} > {tol}")
+
+    # the main path at full width: Llama-3-8B attention (h 32, d 128, bf16)
+    # through the public entry points, counters from 0
+    h, d = 32, 128
+    bf = torch.bfloat16
+    lens_a = packed_batch(np.random.default_rng(0), 8192, 64, 2048)
+    lens_a.insert(len(lens_a) // 2, 0)               # one empty segment
+    cu_a = varlen_cu(lens_a)
+    t_a = int(cu_a[-1]) + 64                          # 64-row padding tail
+    qa, ka, va = (normals(t_a, h, d, dtype=bf) for _ in range(3))
+    proj_a = normals(t_a, h, d, dtype=torch.float32)
+    ctx_b = [int(x) for x in rng.integers(512, 4097, 8)]
+    cu_bq = varlen_cu([256] * 8)
+    cu_bk = varlen_cu(ctx_b)
+    qb = normals(int(cu_bq[-1]), h, d, dtype=bf)
+    kb, vb = (normals(int(cu_bk[-1]), h, d, dtype=bf) for _ in range(2))
+    proj_b = normals(int(cu_bq[-1]), h, d, dtype=torch.float32)
+    b_c, s_c = 8, 2048
+    lens_c = np.array([int(x) for x in rng.integers(64, 2049, b_c)])
+    qc, kc, vc = (normals(b_c, h, s_c, d, dtype=bf) for _ in range(3))
+    leaves_a = [x.clone().requires_grad_(True) for x in (qa, ka, va)]
+    leaves_b = [x.clone().requires_grad_(True) for x in (qb, kb, vb)]
+    torch.cuda.synchronize()
+
+    reset_varlen_launches()
+    t0 = time.perf_counter()
+    out_a, _ = F.flash_attn_unpadded(*leaves_a, cu_a, cu_a, causal=True)
+    (out_a.float() * proj_a).sum().backward()
+    after_a = varlen_launches()
+    out_b, _ = F.flash_attn_unpadded(*leaves_b, cu_bq, cu_bk, causal=True)
+    (out_b.float() * proj_b).sum().backward()
+    out_c = incF.variable_length_memory_efficient_attention(
+        qc, kc, vc, lens_c, lens_c)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = varlen_launches()
+    if after_a != {"varlen_fwd": 1, "varlen_bwd_dq": 1, "varlen_bwd_dkv": 1}:
+        raise AssertionError(f"(a) moved the varlen counters by {after_a}, "
+                             "expected 1 each")
+    if launches != {"varlen_fwd": 3, "varlen_bwd_dq": 2, "varlen_bwd_dkv": 2}:
+        raise AssertionError(f"varlen main path launched {launches}")
+
+    full_atol, full_rtol = 2e-2, 1e-2
+    checks = {}
+    for key, leaves, out, proj, cq_np, ck_np in (
+            ("a_packed", leaves_a, out_a, proj_a, cu_a, cu_a),
+            ("b_prefill", leaves_b, out_b, proj_b, cu_bq, cu_bk)):
+        cq, ck = (torch.from_numpy(c).to(dev) for c in (cq_np, ck_np))
+        do = proj.to(bf)
+        q, k, v = (x.detach() for x in leaves)
+        # the lse the public path's backward used (the forward kernel is
+        # deterministic)
+        lse = fv.varlen_fwd(q, k, v, cq, ck, True, d ** -0.5)[1]
+        got = {"out": out.detach(), "lse": lse, "dq": leaves[0].grad,
+               "dk": leaves[1].grad, "dv": leaves[2].grad}
+        want = varlen_reference(fv, q, k, v, do, cq, ck, True, got)
+        errs, excess, dead_rows, dead_keys = varlen_compare(
+            fv, got, want, cq, ck, True, full_atol, full_rtol)
+        checks[key] = {"errs": errs, "rows_without_key": dead_rows,
+                       "keys_without_row": dead_keys,
+                       "max_abs_grad": max(float(want[n].float().abs().max())
+                                           for n in ("dq", "dk", "dv"))}
+        del want
+        if max(excess.values()) > 0:
+            raise AssertionError(f"varlen full width {key}: {errs} beyond "
+                                 f"atol {full_atol} + rtol {full_rtol}")
+    # (a) in f32: the kernels' masking and tiling at full width, free of
+    # the bf16 rounding of p and ds that the bf16 check above allows for
+    cq = torch.from_numpy(cu_a).to(dev)
+    q32, k32, v32 = (x.detach().float() for x in leaves_a)
+    do32 = proj_a
+    got = varlen_kernels(fv, q32, k32, v32, do32, cq, cq, True)
+    want = varlen_reference(fv, q32, k32, v32, do32, cq, cq, True, got)
+    errs, excess, _, _ = varlen_compare(fv, got, want, cq, cq, True, 1e-5)
+    checks["a_packed_f32"] = {"errs": errs}
+    del got, want, q32, k32, v32
+    if max(excess.values()) > 0:
+        raise AssertionError(f"varlen full width a_packed in f32: {errs} > "
+                             "1e-5")
+    # (c): the padded batch against the plain forward of each sequence
+    err_c = 0.0
+    for i in range(b_c):
+        n = int(lens_c[i])
+        cu = torch.tensor([0, n], dtype=torch.int32, device=dev)
+        ref, _ = fv.varlen_attention_plain(
+            *(x[i, :, :n].transpose(0, 1) for x in (qc, kc, vc)), cu, cu,
+            False, d ** -0.5)
+        err_c = max(err_c, float((out_c[i, :, :n].transpose(0, 1).float()
+                                  - ref.float()).abs().max()))
+        if not bool((out_c[i, :, n:] == 0).all()):
+            raise AssertionError("incubate varlen: rows past a length not 0")
+    checks["c_incubate"] = {"out": err_c}
+    if not err_c <= full_atol:
+        raise AssertionError(f"incubate varlen at full width: {err_c}")
+    del out_b, leaves_b, qc, kc, vc, out_c
+
+    # timings at (a): the kernels on their own inputs, L2 flushed
+    cq = torch.from_numpy(cu_a).to(dev)
+    do_a = proj_a.to(bf)
+    scale = d ** -0.5
+    out, lse = fv.varlen_fwd(qa, ka, va, cq, cq, True, scale)
+    delta = fv.varlen_delta(out, do_a)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = {
+        "varlen_fwd": median_ms(lambda: fv.varlen_fwd(
+            qa, ka, va, cq, cq, True, scale), flush=flush),
+        "varlen_bwd_dq": median_ms(lambda: fv.varlen_bwd_dq(
+            qa, ka, va, do_a, lse, delta, cq, cq, True, scale), flush=flush),
+        "varlen_bwd_dkv": median_ms(lambda: fv.varlen_bwd_dkv(
+            qa, ka, va, do_a, lse, delta, cq, cq, True, scale), flush=flush),
+    }
+    plain_fwd = median_ms(lambda: fv.varlen_attention_plain(
+        qa, ka, va, cq, cq, True, scale), reps=5, warmup=1, flush=flush)
+    # one plain pass computes dq, dk and dv together: it is the plain
+    # version of both backward kernels
+    plain_bwd = median_ms(lambda: fv.varlen_bwd_plain(
+        qa, ka, va, do_a, lse, delta, cq, cq, True, scale), reps=5, warmup=1,
+        flush=flush)
+    lib_name, lib_fn, lib_bwd_fn = varlen_library_call(qa, ka, va, do_a,
+                                                       cu_a, True)
+    n_valid = int(cu_a[-1])
+    lib_out = lib_fn()
+    lib_err = float((lib_out.detach().float() - out[:n_valid].float()).abs()
+                    .max())
+    lib_fwd = median_ms(lib_fn, flush=flush)
+    lib_bwd = median_ms(lambda: lib_bwd_fn(lib_out), flush=flush)
+    del flush
+
+    pairs = varlen_pairs(cu_a, cu_a, True) * h
+    tiles = varlen_tiles(fv, cq, cq, t_a, t_a, True)
+    item = 2
+    t_q = t_a * h * d * item
+    rows = 4 * h * t_a
+    work = {"varlen_fwd": (4 * t_q + rows, 4 * d * pairs),
+            "varlen_bwd_dq": (5 * t_q + 2 * rows, 6 * d * pairs),
+            "varlen_bwd_dkv": (6 * t_q + 2 * rows, 8 * d * pairs)}
+    plain = {"varlen_fwd": plain_fwd, "varlen_bwd_dq": plain_bwd,
+             "varlen_bwd_dkv": plain_bwd}
+    library = {"varlen_fwd": lib_fwd, "varlen_bwd_dq": lib_bwd,
+               "varlen_bwd_dkv": lib_bwd}
+    errs_a = checks["a_packed"]["errs"]
+    err_of = {"varlen_fwd": max(errs_a["out"], errs_a["lse"]),
+              "varlen_bwd_dq": errs_a["dq"],
+              "varlen_bwd_dkv": max(errs_a["dk"], errs_a["dv"])}
+    shape = (f"t {t_a} ({len(lens_a)} segments, one empty, 64-row tail) "
+             f"h{h} d{d} bf16 causal")
+    records = []
+    for name in ("varlen_fwd", "varlen_bwd_dq", "varlen_bwd_dkv"):
+        bytes_, flops = work[name]
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        records.append({
+            "name": name, "route": "cuda", "source": VARLEN_SOURCE,
+            "replaces": VARLEN_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err_of[name], "ms": ms[name],
+            "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library[name], "library": lib_name,
+            "shape": shape, "bytes": bytes_, "flops": flops})
+    emit({"phase": "flash_varlen_kernel", "small_cases": len(small),
+          "small_max_err": {dt: max(max(c[k] for k in ("out", "lse", "dq",
+                                                       "dk", "dv"))
+                                    for c in small if c["dtype"] == dt)
+                            for dt in ("float32", "bfloat16")},
+          "dense_cross_check_max_diff": cross,
+          "segments_a": lens_a, "contexts_b": ctx_b,
+          "seq_lens_c": lens_c.tolist(), "main_path_s": main_s,
+          "launches": launches, "full_width": checks,
+          "full_atol": full_atol, "full_rtol": full_rtol,
+          "visible_pairs_a": pairs, "fwd_tiles_a": tiles,
+          "ms": ms, "plain_ms": plain, "library": lib_name,
+          "library_ms": library, "library_max_diff": lib_err,
           "bound_ms": {r["name"]: r["bound_ms"] for r in records},
           "tflops": {r["name"]: r["flops"] / r["ms"] / 1e9 for r in records},
           "bound_share": {r["name"]: r["bound_ms"] / r["ms"]
@@ -1509,6 +1961,9 @@ def main() -> int:
     record = phase_kernel()
     int8_record = phase_kernel_int8()
     flash_records = phase_flash_kernel()
+    varlen_records = phase_flash_varlen_kernel()
+    gc.collect()                    # free the full-width varlen buffers
+    torch.cuda.empty_cache()
     gg_record = phase_gather_gemm_kernel()
     phase_engine_parity(pt_pkg)
     phase_engine_parity_int8(pt_pkg)
@@ -1526,7 +1981,8 @@ def main() -> int:
     gc.collect()                    # free the Llama training model
     torch.cuda.empty_cache()
     gg_record["launches"] = phase_moe_train(pt_pkg)
-    emit({"kernels": [record, int8_record] + flash_records + [gg_record]})
+    emit({"kernels": [record, int8_record] + flash_records + varlen_records
+          + [gg_record]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Functional subset the Llama serving and training paths need (counterpart
 of ``paddlepaddle_tpu/nn/functional.py``: ``linear`` :183, ``embedding``
 :202, ``swiglu`` :137, ``rms_norm`` :336, ``scaled_dot_product_attention``
-:1193, ``flash_attention`` :1206). Plain tensor functions; weights keep the
-paddle layout ``W: [in, out]``; attention keeps the ``[b, s, h, d]``
-layout."""
+:1193, ``flash_attention`` :1206, ``flash_attn_unpadded`` :1215). Plain
+tensor functions; weights keep the paddle layout ``W: [in, out]``; attention
+keeps the ``[b, s, h, d]`` layout, varlen attention the packed ``[t, h, d]``."""
 
 from __future__ import annotations
 
@@ -62,3 +62,24 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal, training=training)
     return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout: float = 0.0, causal: bool = False,
+                        return_softmax: bool = False, fixed_seed_offset=None,
+                        rng_name: str = "", training: bool = True,
+                        name=None):
+    """Packed varlen attention (reference flash_attention.py:762): the
+    varlen kernels on the card, the plain version on the CPU (see
+    ``ops/kernels/flash_varlen.py``). Returns ``(out, None)``.
+    ``fixed_seed_offset`` reaches the dropout, where the JAX package's
+    functional wrapper (:1215) drops it."""
+    from ..ops.kernels.flash_varlen import flash_attn_unpadded as _impl
+
+    return _impl(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                 max_seqlen_q=max_seqlen_q, max_seqlen_k=max_seqlen_k,
+                 scale=scale, dropout=dropout, causal=causal,
+                 return_softmax=return_softmax,
+                 fixed_seed_offset=fixed_seed_offset, rng_name=rng_name,
+                 training=training)

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...core import random
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)        # the kernels are templated on d = 64 and 128
@@ -307,7 +308,9 @@ def flash_attention_bshd(query, key, value, causal: bool = False,
     """Attention over ``[b, s, h, d]`` with scale ``1/sqrt(d)``. CPU
     tensors take the plain version (autograd differentiates it); CUDA
     tensors run the three kernels through :class:`_FlashCore`. A ``mask``
-    or ``dropout > 0`` computes in plain PyTorch on either device."""
+    or ``dropout > 0`` computes in plain PyTorch on either device; the
+    dropout mask draws from the port's seeded stream for the device
+    (``core.random.torch_generator``)."""
     scale = 1.0 / math.sqrt(query.shape[-1])
     if mask is None and dropout == 0.0:
         if query.device.type == "cpu":
@@ -315,7 +318,8 @@ def flash_attention_bshd(query, key, value, causal: bool = False,
         return _FlashCore.apply(query, key, value, causal, scale)
     out = _attention_plain(query, key, value, causal, mask, scale)[0]
     if dropout > 0.0:
-        keep = torch.rand(out.shape, device=out.device) >= dropout
+        gen = random.torch_generator(out.device)
+        keep = torch.rand(out.shape, device=out.device, generator=gen) >= dropout
         out = torch.where(keep, out / (1.0 - dropout),
                           torch.zeros((), dtype=out.dtype,
                                       device=out.device)).to(out.dtype)

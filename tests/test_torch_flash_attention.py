@@ -196,8 +196,11 @@ def test_functional_routes():
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     sdpa = tF.scaled_dot_product_attention(q, k, v, is_causal=True)
     torch.testing.assert_close(sdpa, ref, atol=0, rtol=0)
-    # dropout: kept entries scaled by 1/(1-p), the rest zero
-    torch.manual_seed(0)
+    # dropout: kept entries scaled by 1/(1-p), the rest zero; the mask draws
+    # from the port's seeded stream
+    from paddlepaddle_tpu_torch.core import random as prandom
+
+    prandom.seed(0)
     dropped = tF.scaled_dot_product_attention(q, k, v, dropout_p=0.5,
                                               is_causal=True)
     kept = dropped != 0

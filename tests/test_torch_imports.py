@@ -19,6 +19,10 @@ import paddlepaddle_tpu_torch.jit.train
 import paddlepaddle_tpu_torch.nn.clip
 import paddlepaddle_tpu_torch.ops.kernels.flash_attention
 import paddlepaddle_tpu_torch.ops.kernels.gather_gemm
+import paddlepaddle_tpu_torch.ops.kernels.flash_varlen
+import paddlepaddle_tpu_torch.core.random
+import paddlepaddle_tpu_torch.nn.long_tail
+import paddlepaddle_tpu_torch.incubate.nn.functional
 import paddlepaddle_tpu_torch.parallel.moe
 import paddlepaddle_tpu_torch.models.moe
 import paddlepaddle_tpu_torch.optimizer.lr
@@ -72,7 +76,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("jit.train", "optimizer.optimizers", "optimizer.lr", "nn.clip",
                 "ops.kernels.flash_attention", "ops.kernels.gather_gemm",
                 "ops.kernels.paged_attention", "inference.kv_pool",
-                "core.flags", "parallel.moe", "models.moe"):
+                "core.flags", "parallel.moe", "models.moe",
+                "ops.kernels.flash_varlen", "core.random", "nn.long_tail",
+                "incubate.nn.functional"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")
