@@ -12,10 +12,13 @@ code is non-zero):
                every f32 comparison below is full f32.
 2. ``build``   builds every kernel in ``ops/kernels/csrc`` (one nvcc per
                source, in parallel) and reports time and ptxas' resource use.
-3. ``kernel``  paged attention against its plain PyTorch version on the card:
-               small shapes (W=1 and W=3, f32 atol 1e-5, bf16 atol 2e-2,
-               ragged lens with 0 and a zeroed table row) and the main-path
-               shape (h=32, kvh=8, hd=128, ps=64, 8 slots, lens 64-2000);
+3. ``kernel``  paged attention (the context-split kernel and its merge)
+               against its plain PyTorch version on the card: small shapes
+               (W=1 and W=3, f32 atol 1e-5, bf16 atol 2e-2, ragged lens with
+               0 and a zeroed table row), split cases (P 32 pages of 16, W 1,
+               2 and 4, lens on and across the split boundaries of the
+               plan, with n_split printed) and the main-path shape (h=32,
+               kvh=8, hd=128, ps=64, 8 slots, lens 64-2000);
                CUDA-event timings (median, L2 flushed between launches) of
                the kernel, the plain version and SDPA on the pre-gathered
                view, beside the memory/compute bound.
@@ -23,17 +26,21 @@ code is non-zero):
                pools, per-page, per-head f32 scales) against its plain
                version: small shapes (W 1 and 3, q f32 atol 1e-5 and bf16
                atol 2e-2, hd 64 and 128, lens with 0, a zeroed table row, a
-               zero-scale page) and, at q f32, against kernel 1 run over the
-               pools dequantized beforehand (expected bit-equal; the max
-               difference is printed); the main-path shape (h 32, kvh 8,
+               zero-scale page; the split cases of phase 3) and, at q f32,
+               against kernel 1 run over the pools dequantized beforehand
+               (expected bit-equal; the max difference is printed); the
+               shared-memory mirror; the main-path shape (h 32, kvh 8,
                hd 128, ps 64, 8 slots, lens 64-2000, bf16 q) timed beside
                kernel 1 at the same lens over bf16 pools, the plain version
                and the dequantize-then-SDPA composition, with the bound.
-4. ``flash_kernel``  the flash-attention forward, dQ and dK/dV kernels
-               against the plain forward and its autograd backward: 24 small
-               cases (d 64/128, f32 atol 1e-5 / bf16 atol 2e-2, causal and
-               full, s_q == s_k, s_q < s_k, ragged s 100) and the train
-               phase's shape (b 4, s 2048, h 32, d 128, bf16, causal);
+4. ``flash_kernel``  the flash-attention forward (bf16: the TMA/wgmma
+               kernel; f32: the FMA kernel), dQ and dK/dV kernels against
+               the plain forward and its autograd backward: 32 small cases
+               (d 64/128, f32 atol 1e-5 / bf16 atol 2e-2, causal and full,
+               s_q == s_k, s_q < s_k, ragged s 100; bf16 also s_q 1 against
+               s_k 2048 and s 130), the plain routes (d 96, causal s_q > s_k:
+               no kernel, within 1e-5 of the CPU) and the train phase's
+               shape (b 4, s 2048, h 32, d 128, bf16, causal);
                timings of each kernel, the plain version and SDPA (forward;
                its backward for the two backward kernels), beside the bound.
 4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV
@@ -132,6 +139,7 @@ before printing any result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -143,6 +151,7 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PAGED_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
 FLASH_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+FLASH_FWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_fwd_sm90.cu"
 GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
 VARLEN_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
@@ -228,6 +237,19 @@ def paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens, dtype, zero_rows=()):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
+def split_lens(pa, S, kvh, ps, P, W):
+    """Slot lengths for the split checks: 0, each side of the first split
+    boundary, the middle one and the last one, and the end of the table,
+    under the plan the kernel takes for (S, kvh, P) on this card."""
+    import torch
+
+    n_split, pps = pa.split_plan(S, kvh, P, pa._sm_count(torch.device("cuda")))
+    bounds = [pps * ps * i for i in range(1, n_split)] or [ps]
+    lens = [0, bounds[0] - 1, bounds[0], bounds[len(bounds) // 2] + 5,
+            bounds[-1] + 1, P * ps - W]
+    return lens[:S], n_split, pps
+
+
 def phase_kernel():
     import numpy as np
     import torch
@@ -254,12 +276,40 @@ def phase_kernel():
                                          f"hd={hd} W={W} {dtype}: err {err} "
                                          f"> {atol}")
 
+    # the context split: P 32 pages of 16 with lens on and across the split
+    # boundaries, W 1, 2 and 4, a zeroed table row, under two plans (6 slots
+    # x 2 KV heads: splits of one page; 8 x 8: the main shape's splits of 4
+    # pages); inputs from their own seed, so the main shape draws the same
+    # lens as before the split
+    split_rng = np.random.default_rng(10)
+    for (S_, h_, kvh_), hd, W in itertools.product(
+            ((6, 8, 2), (8, 32, 8)), (64, 128), (1, 2, 4)):
+        lens_s, n_split_s, pps_s = split_lens(pa, S_, kvh_, 16, 32, W)
+        lens_s = (lens_s * 2)[:S_]
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            args = paged_inputs(split_rng, S_, W, h_, kvh_, hd, 16, 32,
+                                lens_s, dtype, zero_rows=(1,))
+            kw = dict(rep=h_ // kvh_, scale=hd ** -0.5)
+            got = pa.paged_attention(*args, **kw)
+            want = pa.paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            small.append({"S": S_, "kvh": kvh_, "hd": hd, "W": W,
+                          "dtype": str(dtype)[6:], "P": 32, "lens": lens_s,
+                          "n_split": n_split_s, "pages_per_split": pps_s,
+                          "max_abs_err": err, "atol": atol})
+            if not err <= atol:
+                raise AssertionError(f"paged_attention split case S={S_} "
+                                     f"hd={hd} W={W} {dtype}: err {err} > "
+                                     f"{atol}")
+
     # main-path shape: Llama-3-8B decode step, 8 slots, max_len 2048
     S, W, h, kvh, hd, ps, P = 8, 1, 32, 8, 128, 64, 32
     lens = rng.integers(64, 2001, S).tolist()
     args = paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens, torch.bfloat16)
     q, kp, vp, ptab, lens_t = args
     kw = dict(rep=h // kvh, scale=hd ** -0.5)
+    n_split, pps = pa.split_plan(S, kvh, P, pa._sm_count(q.device))
     got = pa.paged_attention(*args, **kw)
     want = pa.paged_attention_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -308,6 +358,7 @@ def phase_kernel():
         "bytes": bytes_, "flops": flops,
     }
     emit({"phase": "kernel", "small": small, "main_shape": record["shape"],
+          "n_split": n_split, "pages_per_split": pps,
           "lens": lens, "max_abs_err": err, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "library_ms": library_ms,
           "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
@@ -397,9 +448,54 @@ def phase_kernel_int8():
                     raise AssertionError(f"paged_attention int8 small shape "
                                          f"hd={hd} W={W} {dtype}: err {err} "
                                          f"> {atol}")
+    # the context split (P 32 pages of 16, lens across split boundaries, W 1,
+    # 2 and 4): against the plain version, and at q f32 against kernel 1
+    # over the dequantized pools, which takes the same splits (own seed, so
+    # the main shape draws the same lens as before the split)
+    split_rng = np.random.default_rng(11)
+    for (S_, h_, kvh_), hd, W in itertools.product(
+            ((6, 8, 2), (8, 32, 8)), (64, 128), (1, 2, 4)):
+        lens_s, n_split_s, pps_s = split_lens(pa, S_, kvh_, 16, 32, W)
+        lens_s = (lens_s * 2)[:S_]
+        q, kp, vp, ptab, lens = paged_inputs(
+            split_rng, S_, W, h_, kvh_, hd, 16, 32, lens_s, torch.float32,
+            zero_rows=(1,))
+        kq, ks, vq, vs = int8_pools(kp, vp)
+        kw = dict(rep=h_ // kvh_, scale=hd ** -0.5)
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            qd = q.to(dtype)
+            got = pa.paged_attention(qd, kq, vq, ptab, lens, k_scale=ks,
+                                     v_scale=vs, **kw)
+            want = pa.paged_attention_plain(qd, kq, vq, ptab, lens,
+                                            k_scale=ks, v_scale=vs, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            case = {"S": S_, "kvh": kvh_, "hd": hd, "W": W,
+                    "dtype": str(dtype)[6:], "P": 32, "lens": lens_s,
+                    "n_split": n_split_s, "pages_per_split": pps_s,
+                    "max_abs_err": err, "atol": atol}
+            if dtype == torch.float32:
+                one = pa.paged_attention(qd, dequantized(kq, ks),
+                                         dequantized(vq, vs), ptab, lens,
+                                         **kw)
+                torch.cuda.synchronize()
+                diff = float((got - one).abs().max())
+                case["vs_kernel1_dequantized"] = diff
+                bit_equal_diff = max(bit_equal_diff, diff)
+                if not diff <= atol:
+                    raise AssertionError(
+                        f"int8 kernel vs kernel 1 over dequantized pools "
+                        f"(split case) S={S_} hd={hd} W={W}: {diff} > "
+                        f"{atol}")
+            small.append(case)
+            if not err <= atol:
+                raise AssertionError(f"paged_attention int8 split case "
+                                     f"S={S_} hd={hd} W={W} {dtype}: err "
+                                     f"{err} > {atol}")
     lib = pa._library()
     for ps_, hd_, rows, item in ((64, 128, 4, 1), (16, 64, 12, 1),
-                                 (64, 128, 4, 2), (16, 64, 12, 4)):
+                                 (64, 128, 4, 2), (16, 64, 12, 4),
+                                 (64, 128, 32, 4), (16, 64, 3, 2)):
         if lib.paged_attention_smem_bytes(item, hd_, ps_, rows) != \
                 pa.smem_bytes(ps_, hd_, rows, item):
             raise AssertionError("paged attention: Python and CUDA disagree "
@@ -414,6 +510,7 @@ def phase_kernel_int8():
     kw = dict(rep=h // kvh, scale=hd ** -0.5)
     qargs = (q, kq, vq, ptab, lens_t)
     qkw = dict(kw, k_scale=ks, v_scale=vs)
+    n_split, pps = pa.split_plan(S, kvh, P, pa._sm_count(q.device))
     got = pa.paged_attention(*qargs, **qkw)
     want = pa.paged_attention_plain(*qargs, **qkw)
     torch.cuda.synchronize()
@@ -467,7 +564,8 @@ def phase_kernel_int8():
     emit({"phase": "kernel_int8", "small": small,
           "max_diff_vs_kernel1_dequantized": bit_equal_diff,
           "bit_equal_vs_kernel1_dequantized": bit_equal_diff == 0.0,
-          "main_shape": record["shape"], "lens": lens, "max_abs_err": err,
+          "main_shape": record["shape"], "n_split": n_split,
+          "pages_per_split": pps, "lens": lens, "max_abs_err": err,
           "kernel_ms": kernel_ms, "kernel1_bf16_pools_ms": kernel1_ms,
           "plain_ms": plain_ms, "composition_ms": composition_ms,
           "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
@@ -541,7 +639,10 @@ def phase_flash_kernel():
     for d in (64, 128):
         for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             for causal in (True, False):
-                for sq, sk in ((128, 128), (64, 192), (100, 100)):
+                shapes = ((128, 128), (64, 192), (100, 100))
+                if dtype == torch.bfloat16:      # the TMA/wgmma forward
+                    shapes += ((1, 2048), (130, 130))
+                for sq, sk in shapes:
                     q, k, v, do = flash_inputs(rng, 2, sq, sk, 3, d, dtype)
                     errs = flash_check(fa, q, k, v, do, causal)
                     small.append({"d": d, "dtype": str(dtype)[6:],
@@ -551,6 +652,28 @@ def phase_flash_kernel():
                         raise AssertionError(
                             f"flash kernels small shape d={d} {dtype} causal="
                             f"{causal} sq={sq} sk={sk}: {errs} > {atol}")
+
+    # what the JAX package computes without a TPU kernel (d outside its gate,
+    # causal s_q > s_k) takes the plain version on the card too: it answers
+    # (it raised before) within 1e-5 of the CPU, and launches no kernel
+    from paddlepaddle_tpu_torch.nn import functional as pF
+
+    routes = []
+    before = fa.flash_fwd.launches
+    for d, causal, sq, sk in ((96, True, 48, 48), (96, False, 40, 72),
+                              (128, True, 64, 32)):
+        q, k, v, _ = flash_inputs(rng, 2, sq, sk, 2, d, torch.float32)
+        got = pF.flash_attention(q, k, v, causal=causal)[0]
+        want = pF.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                  causal=causal)[0]
+        err = float((got.cpu() - want).abs().max())
+        routes.append({"d": d, "causal": causal, "sq": sq, "sk": sk,
+                       "max_abs_err": err})
+        if not err <= 1e-5:
+            raise AssertionError(f"plain route on the card d={d} causal="
+                                 f"{causal} sq={sq} sk={sk}: err {err}")
+    if fa.flash_fwd.launches != before:
+        raise AssertionError("a plain route launched the forward kernel")
 
     # main-path shape: one Llama-3-8B layer of the train phase (b 4, s 2048,
     # 32 heads after the GQA repeat, d 128, bf16, causal)
@@ -603,7 +726,8 @@ def phase_flash_kernel():
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         records.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name, "route": "cuda",
+            "source": FLASH_FWD_SOURCE if name == "flash_fwd" else FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name], "launches": None,
             "max_abs_err": err_of[name], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
@@ -612,6 +736,7 @@ def phase_flash_kernel():
             "shape": f"b{b} s{s} h{h} d{d} bf16 causal",
             "bytes": bytes_, "flops": flops})
     emit({"phase": "flash_kernel", "small_cases": len(small),
+          "plain_routes": routes,
           "small_max_err": {dt: max(max(c[k] for k in ("out", "lse", "dq",
                                                        "dk", "dv"))
                                     for c in small if c["dtype"] == dt)
@@ -1669,7 +1794,7 @@ def decode_breakdown(pt_pkg, eng, prompts):
     finally:
         tde._kv_quant_scatter = scatter
     by_kind = {"paged_attention": 0.0, "paged_attention_int8": 0.0,
-               "matmul": 0.0, "other": 0.0}
+               "paged_merge": 0.0, "matmul": 0.0, "other": 0.0}
     top = {}
     quant_ms = 0.0
     for e in prof.key_averages():
@@ -1687,6 +1812,7 @@ def decode_breakdown(pt_pkg, eng, prompts):
         kind = ("paged_attention_int8" if "paged_attn" in name
                 and ("signed char" in name or "int8" in name) else
                 "paged_attention" if "paged_attn" in name else
+                "paged_merge" if "paged_merge" in name else
                 "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                     "cutlass", "nvjet"))
                 else "other")

@@ -117,6 +117,19 @@ def torch_generator(device: DeviceLike = "cpu",
     return get_generator(name).torch_generator(device)
 
 
+def dropout_generator(device: DeviceLike, fixed_seed_offset=None,
+                      rng_name: str = "") -> torch.Generator:
+    """The stream an attention dropout draws from: a fresh generator seeded
+    with ``fixed_seed_offset`` when one is given, else the named generator
+    ``rng_name`` (the default generator, or the innermost
+    :func:`generator_scope`'s, for ``""``)."""
+    if fixed_seed_offset is not None:
+        gen = torch.Generator(device=_device_key(device))
+        gen.manual_seed(int(fixed_seed_offset))
+        return gen
+    return torch_generator(device, name=rng_name or None)
+
+
 def get_rng_state() -> list:
     return ([_default_generator.get_state()]
             + [g.get_state() for g in _named_generators.values()])

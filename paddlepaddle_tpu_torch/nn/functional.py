@@ -30,23 +30,35 @@ def swiglu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             epsilon: float = 1e-6) -> torch.Tensor:
-    """RMS norm in the reference's exact order: f32 mean of squares ->
-    rsqrt -> cast back to the input dtype -> multiply by the weight."""
+             bias: Optional[torch.Tensor] = None, epsilon: float = 1e-6,
+             begin_norm_axis: int = -1, name=None) -> torch.Tensor:
+    """RMS norm over the last axis in the reference's exact order (:336): f32
+    mean of squares -> rsqrt -> cast back to the input dtype -> multiply by
+    the weight -> add the bias. ``begin_norm_axis`` must name the last axis
+    (-1 or ``x.dim() - 1``); another axis raises ``NotImplementedError``.
+    ``name`` is accepted for API parity."""
+    if begin_norm_axis not in (-1, x.dim() - 1):
+        raise NotImplementedError(
+            f"rms_norm: begin_norm_axis={begin_norm_axis} (only the last "
+            f"axis, -1 or {x.dim() - 1}, is normalised)")
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
+    if bias is not None:
+        out = out + bias
     return out
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True,
+                                 name=None) -> torch.Tensor:
     """Attention over ``[b, s, h, d]``: the flash kernels on the card, the
-    plain version on the CPU (see ``ops/kernels/flash_attention.py``)."""
+    plain version on the CPU (see ``ops/kernels/flash_attention.py``).
+    ``name`` is accepted for API parity."""
     from ..ops.kernels.flash_attention import flash_attention_bshd
 
     return flash_attention_bshd(query, key, value, causal=is_causal,
@@ -56,11 +68,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, return_softmax: bool = False,
-                    training: bool = True):
-    """``(out, None)``: the softmax is never returned, as in the
-    reference."""
-    out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
-                                       is_causal=causal, training=training)
+                    fixed_seed_offset=None, rng_name: str = "",
+                    training: bool = True, name=None):
+    """``(out, None)``: the softmax is never returned, as in the reference
+    (:1206, same argument order). A dropout draws from a generator seeded
+    with ``fixed_seed_offset`` when given, else from the named generator
+    ``rng_name`` of ``core.random`` (the default one for ``""``)."""
+    from ..core import random
+    from ..ops.kernels.flash_attention import flash_attention_bshd
+
+    drop = float(dropout) if training else 0.0
+    gen = (random.dropout_generator(query.device, fixed_seed_offset,
+                                    rng_name) if drop > 0.0 else None)
+    out = flash_attention_bshd(query, key, value, causal=causal,
+                               dropout=drop, generator=gen)
     return out, None
 
 

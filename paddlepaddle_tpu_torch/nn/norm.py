@@ -17,4 +17,4 @@ class RMSNorm(nn.Module):
                                               dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.rms_norm(x, self.weight, self.epsilon)
+        return F.rms_norm(x, self.weight, epsilon=self.epsilon)

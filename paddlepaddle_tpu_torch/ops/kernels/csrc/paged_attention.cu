@@ -1,7 +1,7 @@
 // Paged-attention decode for Hopper (sm_90a), CUDA C++ with a plain C entry.
 //
 // Replaces the TPU kernel `_paged_attn_kernel` / `paged_attention`
-// (paddlepaddle_tpu/ops/kernels/paged_attention.py:104 / :175), both of its
+// (paddlepaddle_tpu/ops/kernels/paged_attention.py:104 / :239), both of its
 // variants: full-precision pools (kernel 1) and int8 pools (kernel 1q,
 // `quantized=True`, :113-131). Same function: queries q [S, W, h, hd] attend
 // each slot's KV through its page table, with pools [pages, ps, kvh, hd],
@@ -10,45 +10,70 @@
 // [pages, kvh] f32 carry one scale per (page, KV head); each element is
 // dequantized as float(code) * scale BEFORE it enters q.k or p.v, as the TPU
 // kernel does, so the kernel reads the same f32 values as the plain version
-// (and as kernel 1 run over pre-dequantized f32 pools). Query w of slot s sees the
-// keys at k_pos <= lens[s] + w (bottom-right causal rule); the softmax is
+// (and as kernel 1 run over pre-dequantized f32 pools). Query w of slot s sees
+// the keys at k_pos <= lens[s] + w (bottom-right causal rule); the softmax is
 // online, with f32 running max, denominator and accumulator; the mask value
 // is -1e30 and the final division uses max(l, 1e-30); the output is written
-// in q's dtype. The step's own K/V are scattered into the pool by the
-// caller before the launch.
+// in q's dtype. The step's own K/V are scattered into the pool by the caller
+// before the launch.
 //
-// Design (simple and correct first; one program for both variants,
-// templated on the pool's element type KV beside q's type T):
-//   * One CTA (8 warps) per (KV head g, slot s). It serves that head's
-//     rep * W query rows, so each K/V page is read from device memory once
-//     per KV head: GQA is contracted against the unrepeated KV heads.
-//   * The CTA walks only the n_vis = min(P, ceil((lens + W) / ps)) logical
-//     pages that hold a visible key, reading page_table[s, j] itself; the
-//     TPU grid instead walked all P pages and redirected the invisible ones
-//     to the null page 0. A retired slot (zeroed row) reads the null page.
-//   * Pages are double-buffered in shared memory with 16-byte cp.async
-//     copies: page j+1 is in flight while page j is computed. An int8 page
-//     is staged as codes (16 a copy), a quarter of the f32 bytes and half
-//     of the bf16 bytes; the CTA reads scale[page_table[s, j], g] once per
-//     visible page (a zeroed row reads the null page's finite scale).
-//   * Per page: one thread per (query row, key) computes the f32 dot
-//     product over hd from the staged K row (rows padded by 16 bytes so the
-//     lanes' 16-byte reads hit distinct banks); one warp per query row
-//     updates the running max and denominator; then each thread owns one
-//     dim of the accumulator for a group of rows and adds p * V from the
-//     staged V page.
+// Design: the context is split (flash-decoding), and every warp works in
+// every phase. One program for both variants, templated on the pool's
+// element type KV beside q's type T and on a bucket RB >= rep * W of query
+// rows.
+//   * Grid (KV head g, slot s, split). The wrapper's host planner
+//     (`split_plan` in paged_attention.py) picks n_split and the pages per
+//     split from (S, kvh, P, SM count) alone, never from lens, so the grid
+//     is the same for every step of an engine (a captured CUDA graph can
+//     replay it). Split i covers logical pages [i*pps, (i+1)*pps); each CTA
+//     clips that range to its slot's visible pages n_vis = min(P,
+//     ceil((lens + W) / ps)) on the device. A CTA with no visible page
+//     writes m = -1e30, l = 0, o = 0.
+//   * One CTA (8 warps) serves the rep * W query rows of one KV head, so each
+//     K/V page is read from device memory once per KV head (GQA contracted
+//     against the unrepeated heads). Its pages stream through two page
+//     buffers in shared memory with 16-byte cp.async copies issued by all
+//     threads, one page ahead (a deeper ring fits fewer CTAs on an SM and
+//     was slower); one __syncthreads a page both publishes the arrived page
+//     and frees the other buffer. The split's first page-table entries are
+//     read beside lens and each later one a page ahead, and under int8 a
+//     page's two scales arrive with it (4-byte cp.async), so no copy waits
+//     on a dependent read. A retired slot (zeroed row) reads the null page.
+//   * Warps own keys: a page's keys go in chunks of 8 to the warps in turn
+//     (chunk c to warp c % 8). A warp keeps its own online-softmax state (m,
+//     l and o for every row) over its chunks, so no other barrier is needed
+//     inside the loop. For q.k, lane (key l/4, part l%4) takes a quarter of
+//     the key's hd as 4-element groups g = 4i + l%4 and sums its products in
+//     ascending element order, then the 4 lanes of a key add theirs (two
+//     shuffles); K rows are padded by 16 elements so the lanes' reads hit
+//     distinct banks. The chunk's max and sum per row take three shuffles;
+//     for p.v each lane owns hd/32 contiguous dims of every row and takes the
+//     8 probabilities by shuffle. Every K and V element a CTA stages is read,
+//     and under int8 converted to float(code) * scale, by exactly one lane
+//     once (not once per query row); the page's scales are read once.
+//   * At the end the 8 warps' states merge into the CTA's partial in a fixed
+//     order (warp 0 to 7) through shared memory, and the CTA writes the
+//     unnormalised f32 partial (o, m, l) of its split to scratch the wrapper
+//     allocated. A second small kernel on the same stream merges the splits
+//     of each (slot, row) in split order: m* = max m_i, l = sum l_i
+//     e^(m_i - m*), out = sum o_i e^(m_i - m*) / max(l, 1e-30), in q's dtype.
+//     Logits run in log2 units (q is pre-scaled by scale * log2(e); exp2f).
+//     Both variants take the same splits, the same order of every sum and the
+//     same merge, so 1q over int8 pools stays bit-equal to kernel 1 over the
+//     same pools dequantized to f32.
 //
 // Bound: the kernel is memory-bound. Its least time is the bytes of the
 // visible K and V rows (codes plus one scale per page and head under int8)
 // plus q and out over the card's 3.35 TB/s (the f32 dot products are ~1
-// operation per byte at W=1, ~4 under int8, far below the ridge).
-// What the design does about it: every visible K/V byte is read once per KV
-// head, copies overlap compute, and nothing else is read or written. Known
-// limit: a CTA walks its slot's pages in sequence, so the longest slot sets
-// the kernel's time, and at 8 slots x 8 KV heads the grid fills 64 of 132
-// SMs. Splitting long contexts across CTAs (flash-decoding) is later work,
-// and so is factoring the int8 scale out of the dot product (faster, but it
-// rounds differently from the plain version).
+// operation per byte at W=1, ~4 under int8, far below the ridge). What the
+// design does about it: every visible K/V byte is read once per KV head, the
+// split puts 4 CTAs' worth of work per SM on the grid (S 8 x kvh 8 x 8 splits
+// of 4 pages at the Llama-3-8B decode shape) so that enough pages are in
+// flight, and three CTAs fit an SM at bf16. What limits it: the
+// partials cost a second launch and 2 x n_split x rows x hd f32 of scratch
+// traffic; a split whose pages lie past a short slot's end launches a CTA that
+// only writes an empty partial; and at W = 1 half the CTAs of a uniform lens
+// draw find no page, so the work per SM follows the lens.
 //
 // Limits checked by the Python wrapper before launch: hd in {64, 128},
 // 1 <= W <= 4, rep * W <= 32, shared memory <= 227 KB.
@@ -64,14 +89,15 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRows = 32;                       // rep * W
+constexpr int kStages = 2;                         // pages in the ring
+constexpr int kChunk = 8;                          // keys a warp takes at once
+constexpr int kKPad = 16;                          // K row padding, elements
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -80,19 +106,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
@@ -104,248 +117,393 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4 bytes through L1 (cp.async takes 4, 8 or 16 bytes with .ca)
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// N consecutive pool elements as f32, in order
+template <int N>
+__device__ __forceinline__ void load_f32(float (&dst)[N], const float* src) {
+  static_assert(N % 2 == 0, "pairs");
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(src + i);
+    dst[i] = v.x; dst[i + 1] = v.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_f32(float (&dst)[N],
+                                         const __nv_bfloat16* src) {
+  static_assert(N % 2 == 0, "pairs");
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src + i));
+    dst[i] = v.x; dst[i + 1] = v.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_f32(float (&dst)[N], const int8_t* src) {
+  static_assert(N % 2 == 0, "pairs");
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const char2 v = *reinterpret_cast<const char2*>(src + i);
+    dst[i] = static_cast<float>(v.x); dst[i + 1] = static_cast<float>(v.y);
+  }
+}
+
+// query rows a CTA serves, rounded up to the template's bucket
+__host__ __device__ constexpr int row_bucket(int rows) {
+  return rows <= 4 ? 4 : rows <= 8 ? 8 : rows <= 16 ? 16 : 32;
 }
 
 // shared memory of one CTA, in bytes, for pool elements of kv_size bytes;
 // the wrapper's smem_bytes() mirrors it
 __host__ __device__ constexpr size_t smem_bytes(int kv_size, int hd, int ps,
                                                 int rows) {
-  return 2 * (size_t)ps * (hd + 16 / kv_size) * kv_size   // K, 2 pages
-         + 2 * (size_t)ps * hd * kv_size                   // V, 2 pages
-         + (size_t)rows * (hd + ps + 3) * sizeof(float);   // q, p, m/l/a
+  return (size_t)kStages * ps * (2 * hd + kKPad) * kv_size  // K and V pages
+         + (size_t)row_bucket(rows) * hd * sizeof(float)     // q, then o
+         + (size_t)(kWarps + 1) * row_bucket(rows) * sizeof(float)   // m, l
+         + (size_t)kStages * 2 * sizeof(float);       // the pages' scales
 }
 
 // KV == T: full-precision pools (kernel 1); KV == int8_t: int8 codes with
 // per-(page, KV head) scales (kernel 1q). k_scale / v_scale are unused
-// (null) in the first case.
-template <typename T, typename KV, int HD, int W>
+// (null) in the first case. Writes split `blockIdx.z`'s partial:
+// o_part [n_split, S, W, h, HD], m_part / l_part [n_split, S, W, h], f32, m in
+// log2 units.
+template <typename T, typename KV, int HD, int RB>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
                   const KV* __restrict__ v_pool,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale,
                   const int32_t* __restrict__ page_table,
-                  const int32_t* __restrict__ lens, T* __restrict__ out,
-                  int h, int kvh, int ps, int P, float scale) {
+                  const int32_t* __restrict__ lens, float* __restrict__ o_part,
+                  float* __restrict__ m_part, float* __restrict__ l_part,
+                  int S, int W, int h, int kvh, int ps, int P, int pps,
+                  float scale) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr int VEC = 16 / sizeof(KV);       // elements per 16-byte copy
   constexpr int VPR = HD / VEC;              // 16-byte vectors per row
-  constexpr int KROW = HD + VEC;             // padded K row in shared memory
-  constexpr int TPD = kThreads / HD;         // row groups in the P.V phase
-  constexpr int RPT = kMaxRows / TPD;        // rows per thread, P.V phase
+  constexpr int KROW = HD + kKPad;           // padded K row in shared memory
+  constexpr int GPL = HD / 16;               // 4-element groups a lane takes
+  constexpr int DPL = HD / 32;               // dims a lane owns in p.v
   const int g = blockIdx.x;
   const int s = blockIdx.y;
+  const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int kk = lane >> 2, part = lane & 3;
   const int rep = h / kvh;
   const int R = W * rep;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  KV* k_s = reinterpret_cast<KV*>(smem);                      // [2][ps][KROW]
-  KV* v_s = k_s + 2 * ps * KROW;                              // [2][ps][HD]
-  float* q_s = reinterpret_cast<float*>(v_s + 2 * ps * HD);   // [R][HD]
-  float* p_s = q_s + R * HD;                                  // [R][ps]
-  float* m_s = p_s + R * ps;                                  // [R]
-  float* l_s = m_s + R;                                       // [R]
-  float* a_s = l_s + R;                                       // [R]
+  KV* k_s = reinterpret_cast<KV*>(smem);                     // [kStages][ps][KROW]
+  KV* v_s = k_s + kStages * ps * KROW;                       // [kStages][ps][HD]
+  float* q_s = reinterpret_cast<float*>(v_s + kStages * ps * HD);  // [RB][HD]
+  float* m_s = q_s + RB * HD;                                // [kWarps][RB]
+  float* l_s = m_s + kWarps * RB;                            // [RB]
+  float* sc_s = l_s + RB;                        // [kStages][2]: k, v scale
 
+  // the split's first page-table entries do not depend on lens: they are
+  // read beside it, so the first copies wait for one memory round trip less
+  const int j0 = split * pps;
+  const int32_t* pt_row = page_table + (size_t)s * P;
+  int pid[kStages];
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) pid[i] = j0 + i < P ? pt_row[j0 + i] : 0;
   const int len = max(lens[s], 0);
   const int n_vis = min(P, (len + W + ps - 1) / ps);
+  const int j1 = min(j0 + pps, n_vis);
+  const int n_pages = max(j1 - j0, 0);
   const size_t pos_stride = (size_t)kvh * HD;  // elements between positions
 
-  auto load_page = [&](int j, int buf) {
-    const size_t base = ((size_t)page_table[(size_t)s * P + j] * ps * kvh + g)
-                        * HD;
+  // page `page` into ring buffer `buf`, with its two scales under int8
+  auto load_page = [&](int page, int buf) {
+    const size_t base = ((size_t)page * ps * kvh + g) * HD;
+    if constexpr (kQuant) {
+      if (tid == 0) {
+        cp_async4(sc_s + 2 * buf, k_scale + (size_t)page * kvh + g);
+        cp_async4(sc_s + 2 * buf + 1, v_scale + (size_t)page * kvh + g);
+      }
+    }
     KV* kd = k_s + buf * ps * KROW;
     KV* vd = v_s + buf * ps * HD;
     for (int i = tid; i < ps * VPR; i += kThreads) {
       const int t = i / VPR, c = i - (i / VPR) * VPR;
-      cp_async16(kd + t * KROW + c * VEC, k_pool + base + t * pos_stride + c * VEC);
-      cp_async16(vd + t * HD + c * VEC, v_pool + base + t * pos_stride + c * VEC);
+      cp_async16(kd + t * KROW + c * VEC,
+                 k_pool + base + t * pos_stride + c * VEC);
+      cp_async16(vd + t * HD + c * VEC,
+                 v_pool + base + t * pos_stride + c * VEC);
     }
-    cp_async_commit();
   };
-  load_page(0, 0);
-
-  // q rows of this head group: row r = w * rep + rr <-> head g * rep + rr
-  for (int i = tid; i < R * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    const int w = r / rep, rr = r % rep;
-    q_s[i] = to_f32(q[((size_t)(s * W + w) * h + g * rep + rr) * HD + d]) *
-             scale;
-  }
-  if (tid < R) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  const int d = tid % HD, rg = tid / HD;
-  float acc[RPT];
+  // the ring runs kStages - 1 pages ahead; a group is committed for every
+  // page slot, loaded or not, so wait_group counts stay uniform
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_pages) load_page(pid[i], i);
+    cp_async_commit();
+  }
+  int next = pid[kStages - 1];               // page of the next copy
 
-  for (int j = 0; j < n_vis; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_vis) {
-      load_page(j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // q rows of this head group, pre-scaled into log2 units: row r = w * rep +
+  // rr <-> head g * rep + rr; rows past R are zero
+  const float ql2 = scale * kLog2e;
+  for (int i = tid; i < RB * HD; i += kThreads) {
+    const int r = i / HD, d = i - (i / HD) * HD;
+    float x = 0.f;
+    if (r < R) {
+      const int w = r / rep, rr = r - (r / rep) * rep;
+      x = to_f32(q[((size_t)(s * W + w) * h + g * rep + rr) * HD + d]) * ql2;
     }
-    __syncthreads();
-    const KV* kb = k_s + buf * ps * KROW;
-    const KV* vb = v_s + buf * ps * HD;
-    // this page's scales for KV head g (one broadcast read each); 1.0 and
+    q_s[i] = x;
+  }
+
+  float m[RB], l[RB], o[RB][DPL];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[r][e] = 0.f;
+  }
+  const int n_chunks = (ps + kChunk - 1) / kChunk;
+
+  for (int jj = 0; jj < n_pages; ++jj) {
+    const int j = j0 + jj;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();     // page jj visible to all; buffer (jj - 1) % kStages free
+    if (jj + kStages - 1 < n_pages)
+      load_page(next, (jj + kStages - 1) % kStages);
+    cp_async_commit();
+    // the entry after it, read now and used at the next page
+    next = j + kStages < P ? pt_row[j + kStages] : 0;
+
+    const KV* kb = k_s + (jj % kStages) * ps * KROW;
+    const KV* vb = v_s + (jj % kStages) * ps * HD;
+    // this page's scales for KV head g, staged with the page; 1.0 and
     // unused in the full-precision variant
     float ksc = 1.f, vsc = 1.f;
     if constexpr (kQuant) {
-      const size_t si = (size_t)page_table[(size_t)s * P + j] * kvh + g;
-      ksc = k_scale[si];
-      vsc = v_scale[si];
+      ksc = sc_s[2 * (jj % kStages)];
+      vsc = sc_s[2 * (jj % kStages) + 1];
     }
-    // an element as the plain version sees it: float(code) * scale under
-    // int8, the value itself otherwise
-    auto kval = [&](KV x) {
-      if constexpr (kQuant) return to_f32(x) * ksc; else return to_f32(x);
-    };
-    auto vval = [&](KV x) {
-      if constexpr (kQuant) return to_f32(x) * vsc; else return to_f32(x);
-    };
 
-    // scores: one thread per (row, key)
-    for (int idx = tid; idx < R * ps; idx += kThreads) {
-      const int r = idx / ps, t = idx - (idx / ps) * ps;
-      const float4* q4 = reinterpret_cast<const float4*>(q_s + r * HD);
-      const uint4* k4 = reinterpret_cast<const uint4*>(kb + t * KROW);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int c = warp; c < n_chunks; c += kWarps) {
+      const int t0 = c * kChunk;
+      const int pos0 = j * ps + t0;
+      if (pos0 > len + W - 1) break;      // no row sees this chunk (warp-uniform)
+      const int t = t0 + kk;
+      const bool key_ok = t < ps;
+      const int pos = pos0 + kk;
+
+      // q.k: this lane's quarter of key t, in ascending element order
+      float sc[RB];
 #pragma unroll
-      for (int c = 0; c < VPR; ++c) {
-        const uint4 raw = k4[c];
-        const KV* kv = reinterpret_cast<const KV*>(&raw);
+      for (int r = 0; r < RB; ++r) sc[r] = 0.f;
+      if (key_ok) {
+        const KV* krow = kb + t * KROW;
 #pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-          const float4 qv = q4[(c * VEC + e) / 4];
-          a0 += qv.x * kval(kv[e]);
-          a1 += qv.y * kval(kv[e + 1]);
-          a2 += qv.z * kval(kv[e + 2]);
-          a3 += qv.w * kval(kv[e + 3]);
+        for (int i = 0; i < GPL; ++i) {
+          const int e0 = (4 * i + part) * 4;
+          float kf[4];
+          load_f32<4>(kf, krow + e0);
+          if constexpr (kQuant) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kf[e] = kf[e] * ksc;
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float4 qv = *reinterpret_cast<const float4*>(
+                q_s + r * HD + e0);
+            sc[r] = fmaf(qv.x, kf[0], sc[r]);
+            sc[r] = fmaf(qv.y, kf[1], sc[r]);
+            sc[r] = fmaf(qv.z, kf[2], sc[r]);
+            sc[r] = fmaf(qv.w, kf[3], sc[r]);
+          }
         }
       }
-      p_s[idx] = (j * ps + t <= len + r / rep) ? (a0 + a1) + (a2 + a3)
-                                                : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row
-    for (int r = warp; r < R; r += kWarps) {
-      float* pr = p_s + r * ps;
-      float mx = kNegInf;
-      for (int t = lane; t < ps; t += 32) mx = fmaxf(mx, pr[t]);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int t = lane; t < ps; t += 32) {
-        const float p = expf(pr[t] - m_new);
-        pr[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P.V: this thread owns dim d of rows rg, rg + TPD, ... The row test is
-    // uniform across a warp, so rows past R cost one branch, not a loop.
+      // the key's four lanes add their parts; then online softmax over the
+      // chunk's 8 keys (lanes 4*kk .. 4*kk + 3 hold key kk)
+      float p[RB];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg + TPD * i;
-      if (r < R) {
-        const float* pr = p_s + r * ps;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        int t = 0;
-        for (; t + 4 <= ps; t += 4) {
-          a0 += pr[t] * vval(vb[t * HD + d]);
-          a1 += pr[t + 1] * vval(vb[(t + 1) * HD + d]);
-          a2 += pr[t + 2] * vval(vb[(t + 2) * HD + d]);
-          a3 += pr[t + 3] * vval(vb[(t + 3) * HD + d]);
+      for (int r = 0; r < RB; ++r) {
+        float x = sc[r];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const bool vis = key_ok && r < R && pos <= len + r / rep;
+        x = vis ? x : kNegInf;
+        float mx = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m[r], mx);
+        const float pr = vis ? exp2f(x - m_new) : 0.f;
+        float sum = pr + __shfl_xor_sync(0xffffffffu, pr, 4);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        const float alpha = exp2f(m[r] - m_new);
+        l[r] = l[r] * alpha + sum;
+        m[r] = m_new;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[r][e] *= alpha;
+        p[r] = pr;
+      }
+      // p.v: this lane's dims of every row, keys in ascending order
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        if (t0 + u < ps) {                  // warp-uniform
+          float vf[DPL];
+          load_f32<DPL>(vf, vb + (t0 + u) * HD + lane * DPL);
+          if constexpr (kQuant) {
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) vf[e] = vf[e] * vsc;
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float pu = __shfl_sync(0xffffffffu, p[r], 4 * u);
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) o[r][e] = fmaf(pu, vf[e], o[r][e]);
+          }
         }
-        for (; t < ps; ++t) a0 += pr[t] * vval(vb[t * HD + d]);
-        acc[i] = acc[i] * a_s[r] + ((a0 + a1) + (a2 + a3));
       }
     }
-    __syncthreads();  // buffer `buf` and p_s are free for the next page
+  }
+  cp_async_wait<0>();
+
+  // merge the warps' states in warp order; q_s is reused for o
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) m_s[warp * RB + r] = m[r];
+  }
+  __syncthreads();                          // m_s written, q_s no longer read
+  float f[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    float ms = m_s[r];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) ms = fmaxf(ms, m_s[w * RB + r]);
+    f[r] = exp2f(m[r] - ms);
+  }
+  float* acc = q_s;                         // [RB][HD]
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const float x = o[r][e] * f[r];
+          float* a = acc + r * HD + lane * DPL + e;
+          *a = w == 0 ? x : *a + x;
+        }
+        if (lane == 0) l_s[r] = w == 0 ? l[r] * f[r] : l_s[r] + l[r] * f[r];
+      }
+    }
+    __syncthreads();
   }
 
+  // the split's partial, rows r < R
+  for (int i = tid; i < R * HD; i += kThreads) {
+    const int r = i / HD, d = i - (i / HD) * HD;
+    const int w = r / rep, rr = r - (r / rep) * rep;
+    const size_t row = ((size_t)(split * S + s) * W + w) * h + g * rep + rr;
+    o_part[row * HD + d] = acc[i];
+    if (d == 0) {
+      float ms = m_s[r];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + TPD * i;
-    if (r < R) {
-      const int w = r / rep, rr = r % rep;
-      out[((size_t)(s * W + w) * h + g * rep + rr) * HD + d] =
-          from_f32<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+      for (int ww = 1; ww < kWarps; ++ww) ms = fmaxf(ms, m_s[ww * RB + r]);
+      m_part[row] = ms;
+      l_part[row] = l_s[r];
     }
   }
 }
 
-template <typename T, typename KV, int HD, int W>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* k_scale, const void* v_scale,
-                   const void* page_table, const void* lens, void* out, int S,
-                   int h, int kvh, int ps, int P, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(sizeof(KV), HD, ps, W * (h / kvh));
-  auto kern = paged_attn_kernel<T, KV, HD, W>;
+// out[row] = sum_i o_i 2^(m_i - m*) / max(sum_i l_i 2^(m_i - m*), 1e-30), the
+// splits taken in order; one CTA of HD threads per (slot, w, head) row
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+paged_merge_kernel(const float* __restrict__ o_part,
+                   const float* __restrict__ m_part,
+                   const float* __restrict__ l_part, T* __restrict__ out,
+                   int rows, int n_split) {
+  const int row = blockIdx.x;
+  const int d = threadIdx.x;
+  float ms = kNegInf;
+  for (int i = 0; i < n_split; ++i)
+    ms = fmaxf(ms, m_part[(size_t)i * rows + row]);
+  float l = 0.f, acc = 0.f;
+  for (int i = 0; i < n_split; ++i) {
+    const size_t r = (size_t)i * rows + row;
+    const float wgt = exp2f(m_part[r] - ms);
+    l += l_part[r] * wgt;
+    acc += o_part[r * HD + d] * wgt;
+  }
+  out[(size_t)row * HD + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+}
+
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *pt, *lens;
+  void *out, *o_part, *m_part, *l_part;
+  int S, W, h, kvh, ps, P, n_split, pps;
+  float scale;
+  cudaStream_t st;
+};
+
+template <typename T, typename KV, int HD, int RB>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes(sizeof(KV), HD, a.ps, a.W * (a.h / a.kvh));
+  auto kern = paged_attn_kernel<T, KV, HD, RB>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(kvh, S);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
-      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale),
-      static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(lens), static_cast<T*>(out), h, kvh, ps, P,
-      scale);
+  // the largest shared-memory carveout, so two bf16 CTAs fit on an SM
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.kvh, a.S, a.n_split);
+  kern<<<grid, kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.pt),
+      static_cast<const int32_t*>(a.lens), static_cast<float*>(a.o_part),
+      static_cast<float*>(a.m_part), static_cast<float*>(a.l_part), a.S, a.W,
+      a.h, a.kvh, a.ps, a.P, a.pps, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int rows = a.S * a.W * a.h;
+  paged_merge_kernel<T, HD><<<rows, HD, 0, a.st>>>(
+      static_cast<const float*>(a.o_part), static_cast<const float*>(a.m_part),
+      static_cast<const float*>(a.l_part), static_cast<T*>(a.out), rows,
+      a.n_split);
   return cudaGetLastError();
 }
 
-struct Args {
-  const void *q, *k, *v, *ks, *vs, *pt, *lens;
-  void* out;
-  int S, h, kvh, ps, P;
-  float scale;
-  cudaStream_t st;
-};
-
 template <typename T, typename KV, int HD>
-cudaError_t dispatch_w(int W, const Args& a) {
-#define PA_LAUNCH(w)                                                         \
-  launch<T, KV, HD, w>(a.q, a.k, a.v, a.ks, a.vs, a.pt, a.lens, a.out, a.S, \
-                       a.h, a.kvh, a.ps, a.P, a.scale, a.st)
-  switch (W) {
-    case 1: return PA_LAUNCH(1);
-    case 2: return PA_LAUNCH(2);
-    case 3: return PA_LAUNCH(3);
-    case 4: return PA_LAUNCH(4);
+cudaError_t dispatch_rows(const Args& a) {
+  switch (row_bucket(a.W * (a.h / a.kvh))) {
+    case 4: return launch<T, KV, HD, 4>(a);
+    case 8: return launch<T, KV, HD, 8>(a);
+    case 16: return launch<T, KV, HD, 16>(a);
+    case 32: return launch<T, KV, HD, 32>(a);
     default: return cudaErrorInvalidValue;
   }
-#undef PA_LAUNCH
 }
 
 template <typename T, typename KV>
-cudaError_t dispatch_hd(int hd, int W, const Args& a) {
+cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
-    case 64: return dispatch_w<T, KV, 64>(W, a);
-    case 128: return dispatch_w<T, KV, 128>(W, a);
+    case 64: return dispatch_rows<T, KV, 64>(a);
+    case 128: return dispatch_rows<T, KV, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -354,29 +512,36 @@ cudaError_t dispatch_hd(int hd, int W, const Args& a) {
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a successful launch. Does not
-// synchronise; a fault during the run shows at the caller's next sync.
-// k_scale == v_scale == NULL: full-precision pools of q's type (kernel 1);
-// both given: int8 pools with [pages, kvh] f32 scales (kernel 1q).
+// Returns a cudaError_t code: 0 when both launches (the split kernel and the
+// merge) were accepted. Does not synchronise; a fault during the run shows at
+// the caller's next sync. k_scale == v_scale == NULL: full-precision pools of
+// q's type (kernel 1); both given: int8 pools with [pages, kvh] f32 scales
+// (kernel 1q). o_part [n_split, S, W, h, hd], m_part / l_part
+// [n_split, S, W, h] are f32 scratch the caller allocates; n_split *
+// pages_per_split must cover P.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* k_scale,
                            const void* v_scale, const void* page_table,
-                           const void* lens, void* out, int S, int W, int h,
-                           int kvh, int hd, int ps, int P, float scale,
-                           int is_bf16, void* stream) {
-  if (S <= 0 || P <= 0 || ps <= 0 || kvh <= 0 || h % kvh != 0 ||
-      W * (h / kvh) > kMaxRows || (k_scale == nullptr) != (v_scale == nullptr))
+                           const void* lens, void* out, void* o_part,
+                           void* m_part, void* l_part, int S, int W, int h,
+                           int kvh, int hd, int ps, int P, int n_split,
+                           int pages_per_split, float scale, int is_bf16,
+                           void* stream) {
+  if (S <= 0 || P <= 0 || ps <= 0 || kvh <= 0 || h % kvh != 0 || W < 1 ||
+      W * (h / kvh) > kMaxRows || n_split < 1 || pages_per_split < 1 ||
+      (long long)n_split * pages_per_split < P ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,   k_pool, v_pool, k_scale, v_scale, page_table, lens, out,
-               S,   h,      kvh,    ps,      P,       scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, page_table, lens, out,
+               o_part, m_part, l_part, S, W, h, kvh, ps, P, n_split,
+               pages_per_split, scale, static_cast<cudaStream_t>(stream)};
   cudaError_t e;
   if (k_scale != nullptr)
-    e = is_bf16 ? dispatch_hd<__nv_bfloat16, int8_t>(hd, W, a)
-                : dispatch_hd<float, int8_t>(hd, W, a);
+    e = is_bf16 ? dispatch_hd<__nv_bfloat16, int8_t>(hd, a)
+                : dispatch_hd<float, int8_t>(hd, a);
   else
-    e = is_bf16 ? dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, W, a)
-                : dispatch_hd<float, float>(hd, W, a);
+    e = is_bf16 ? dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a)
+                : dispatch_hd<float, float>(hd, a);
   return (int)e;
 }
 

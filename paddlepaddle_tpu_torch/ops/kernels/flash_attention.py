@@ -2,10 +2,13 @@
 versions, the autograd Function and the public ``[b, s, h, d]`` entry.
 
 Counterpart of ``paddlepaddle_tpu/ops/kernels/flash_attention.py``. The
-kernels are ``csrc/flash_attention.cu`` (design, bound and known limits in
-its header):
+kernels are ``csrc/flash_fwd_sm90.cu`` (the bf16 forward) and
+``csrc/flash_attention.cu`` (the f32 forward and both backward kernels);
+design, bound and known limits in their headers:
 
-* :func:`flash_fwd`     replaces ``_fwd_kernel`` (:97, launched at :229);
+* :func:`flash_fwd`     replaces ``_fwd_kernel`` (:97, launched at :229):
+  bf16 on the warp-specialised TMA/``wgmma`` kernel, f32 on the full-f32
+  FMA kernel (``wgmma`` would round f32 operands to TF32);
 * :func:`flash_bwd_dq`  replaces ``_dq_kernel``  (:139, launched at :268);
 * :func:`flash_bwd_dkv` replaces ``_dkv_kernel`` (:172, launched at :277).
 
@@ -63,6 +66,25 @@ def flash_attention_supported(head_dim: int, dtype: torch.dtype,
         return False, (f"causal with s_q {s_q} > s_k {s_k}: rows with no "
                        "visible key")
     return True, "ok"
+
+
+def reference_kernel_head_dim(head_dim: int) -> bool:
+    """The head-dim test of the JAX package's ``_use_pallas`` (:40-46): its
+    TPU kernel takes d 64, 128, 256 and any multiple of 128; every other d
+    is computed by ``_xla_attention``."""
+    return head_dim % 128 == 0 or head_dim in (64, 128, 256)
+
+
+def routes_to_plain(head_dim: int, causal: bool, s_q: int, s_k: int) -> bool:
+    """Whether the JAX package computes this configuration without a TPU
+    kernel: a head dim its gate refuses, or causal ``s_q > s_k``, for which
+    ``_pallas_forward`` returns None (:214-215) and ``_flash_fwd_impl``
+    (:312-324) takes ``_xla_attention``. No TPU kernel ever runs these, so
+    the port computes them in the plain version on either device. Decided
+    from the shapes before any launch. d 256, the other multiples of 128
+    above 128 and fp16 are not routed here: a TPU kernel takes them, so on
+    the card they reach :func:`flash_attention_supported` and raise."""
+    return not reference_kernel_head_dim(head_dim) or (causal and s_q > s_k)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +227,19 @@ def _launch(fn_name: str, ptrs, q: torch.Tensor, sk: int, causal: bool,
         raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
 
 
+def _sm90_library() -> ctypes.CDLL:
+    lib = _build.load("flash_fwd_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd_sm90_launch.argtypes = [vp] * 5 + [ci] * 5 + [cf, ci,
+                                                                   vp]
+        lib.flash_fwd_sm90_launch.restype = ci
+        lib.flash_fwd_sm90_error_string.argtypes = [ci]
+        lib.flash_fwd_sm90_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
 def _require_cuda(q: torch.Tensor, name: str) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -213,18 +248,32 @@ def _require_cuda(q: torch.Tensor, name: str) -> None:
 def flash_fwd(q, k, v, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: ``(out [b, s_q, h, d], lse [b*h, s_q] f32)``. CPU tensors
-    take :func:`flash_attention_plain`; CUDA tensors launch the kernel on
-    the current stream (no sync) or raise."""
+    take :func:`flash_attention_plain`; CUDA tensors launch a kernel on the
+    current stream (no sync) or raise. The kernel is fixed by the dtype:
+    bf16 runs ``flash_fwd_sm90_kernel`` (TMA loads, ``wgmma`` products,
+    ``csrc/flash_fwd_sm90.cu``), f32 runs ``flash_fwd_kernel`` (full-f32
+    FMA, ``csrc/flash_attention.cu``). Either launch counts once."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
     _require_cuda(q, "flash_fwd")
     _check_cuda_args(causal, q, k, v)
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_launch", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), lse.data_ptr()),
-            q, k.shape[1], causal, scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    if q.dtype == torch.bfloat16:
+        lib = _sm90_library()
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd_sm90_launch(*ptrs, b, h, sq, k.shape[1], d,
+                                        float(scale), int(bool(causal)),
+                                        stream)
+        if err:
+            msg = lib.flash_fwd_sm90_error_string(err).decode()
+            raise RuntimeError(f"flash_fwd_sm90_launch failed: CUDA error "
+                               f"{err} ({msg})")
+    else:
+        _launch("flash_fwd_launch", ptrs, q, k.shape[1], causal, scale)
     flash_fwd.launches += 1
     return out, lse
 
@@ -304,21 +353,27 @@ class _FlashCore(torch.autograd.Function):
 
 def flash_attention_bshd(query, key, value, causal: bool = False,
                          mask: Optional[torch.Tensor] = None,
-                         dropout: float = 0.0) -> torch.Tensor:
+                         dropout: float = 0.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
     """Attention over ``[b, s, h, d]`` with scale ``1/sqrt(d)``. CPU
     tensors take the plain version (autograd differentiates it); CUDA
-    tensors run the three kernels through :class:`_FlashCore`. A ``mask``
-    or ``dropout > 0`` computes in plain PyTorch on either device; the
-    dropout mask draws from the port's seeded stream for the device
-    (``core.random.torch_generator``)."""
+    tensors run the three kernels through :class:`_FlashCore`, except the
+    configurations :func:`routes_to_plain` names, which the JAX package also
+    computes without its kernel and which take the plain version on the
+    card. A ``mask`` or ``dropout > 0`` computes in plain PyTorch on either
+    device; the dropout mask draws from ``generator``, by default the
+    port's seeded stream for the device (``core.random.torch_generator``)."""
     scale = 1.0 / math.sqrt(query.shape[-1])
     if mask is None and dropout == 0.0:
-        if query.device.type == "cpu":
+        if query.device.type == "cpu" or routes_to_plain(
+                query.shape[-1], causal, query.shape[1], key.shape[1]):
             return flash_attention_plain(query, key, value, causal, scale)[0]
         return _FlashCore.apply(query, key, value, causal, scale)
     out = _attention_plain(query, key, value, causal, mask, scale)[0]
     if dropout > 0.0:
-        gen = random.torch_generator(out.device)
+        gen = generator if generator is not None else random.torch_generator(
+            out.device)
         keep = torch.rand(out.shape, device=out.device, generator=gen) >= dropout
         out = torch.where(keep, out / (1.0 - dropout),
                           torch.zeros((), dtype=out.dtype,

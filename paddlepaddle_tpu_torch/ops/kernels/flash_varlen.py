@@ -35,7 +35,7 @@ import torch
 from . import _build
 from ...core import random
 from .flash_attention import (_KERNEL_DTYPES, HEAD_DIMS, NEG_INF,
-                              _require_cuda)
+                              _require_cuda, reference_kernel_head_dim)
 
 MAX_HEADS = 65535            # heads ride the grid's y dimension
 # the plain versions evaluate at most this many f32 logits at once: heads
@@ -391,14 +391,17 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
             ``training``; a nonzero rate computes the plain version on
             either device, as the JAX package routes it outside Pallas. The
             mask draws from a generator seeded with ``fixed_seed_offset``
-            when given, else from the port's seeded stream
-            (``core.random``).
+            when given, else from the named generator ``rng_name`` of the
+            port's seeded streams (``core.random``; the default one for
+            ``""``).
     Returns:
         ``(out, None)``: the softmax is never materialised
         (``return_softmax=True`` raises).
 
     CPU tensors take the plain version, which autograd differentiates; CUDA
-    tensors run the three kernels through :class:`_VarlenCore`.
+    tensors run the three kernels through :class:`_VarlenCore`, except a
+    head dim the JAX package's kernel gate refuses (not 64, 128, 256 or a
+    multiple of 128), which takes the plain version there as well.
     """
     if return_softmax:
         raise ValueError(
@@ -415,14 +418,15 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     s = float(scale) if scale is not None else 1.0 / math.sqrt(
         query.shape[-1])
     if drop > 0.0:
-        if fixed_seed_offset is not None:
-            gen = torch.Generator(device=query.device)
-            gen.manual_seed(int(fixed_seed_offset))
-        else:
-            gen = random.torch_generator(query.device)
+        gen = random.dropout_generator(query.device, fixed_seed_offset,
+                                       rng_name)
         return varlen_attention_plain(query, key, value, cu_q, cu_k, causal,
                                       s, dropout=drop, generator=gen)[0], None
-    if query.device.type == "cpu":
+    # the JAX package sends a head dim its kernel gate refuses (`_use_pallas`
+    # at :368) to `_varlen_xla`: no TPU kernel runs it, so neither does the
+    # port, on either device
+    if query.device.type == "cpu" or not reference_kernel_head_dim(
+            query.shape[-1]):
         return varlen_attention_plain(query, key, value, cu_q, cu_k, causal,
                                       s)[0], None
     return _VarlenCore.apply(query, key, value, cu_q, cu_k, causal, s), None

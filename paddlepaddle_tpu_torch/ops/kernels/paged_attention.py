@@ -35,23 +35,65 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)        # one warp spans a head row in 32-lane strides
-MAX_W = 4                    # kernel is templated on W = 1..4
+HEAD_DIMS = (64, 128)        # a lane owns hd/32 dims in the p.v phase
+MAX_W = 4                    # W = 1..4, as the TPU kernel's callers use it
 MAX_ROWS = 32                # rep * W query rows per CTA (register budget)
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use
+STAGES = 2                   # pages in a CTA's shared-memory ring
+K_PAD = 16                   # K row padding in shared memory, elements
+WARPS = 8                    # warps of one CTA
+CTAS_PER_SM = 4              # the split planner's target
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_QUANTS = (None, "int8")
+
+
+def row_bucket(rows: int) -> int:
+    """The kernel's template bucket for ``rows = rep * W`` query rows."""
+    return 4 if rows <= 4 else 8 if rows <= 8 else 16 if rows <= 16 else 32
 
 
 def smem_bytes(page_size: int, head_dim: int, rows: int,
                itemsize: int) -> int:
     """Dynamic shared memory of one CTA for pool elements of ``itemsize``
-    bytes (1 for int8 codes; mirrors ``smem_bytes`` in the CUDA source): two
-    staged K pages (rows padded by 16 bytes) and two V pages, plus the f32
-    query rows, score rows and per-row max/sum/rescale."""
-    return (2 * page_size * (head_dim + 16 // itemsize) * itemsize
-            + 2 * page_size * head_dim * itemsize
-            + rows * (head_dim + page_size + 3) * 4)
+    bytes (1 for int8 codes; mirrors ``smem_bytes`` in the CUDA source): a
+    ring of ``STAGES`` staged pages (K rows padded by ``K_PAD`` elements, V
+    rows unpadded), the f32 query rows of the row bucket (reused for the
+    merged accumulator), per-warp row maxima plus the row sums, and each
+    staged page's two int8 scales."""
+    rb = row_bucket(rows)
+    return (STAGES * page_size * (2 * head_dim + K_PAD) * itemsize
+            + rb * head_dim * 4 + (WARPS + 1) * rb * 4 + STAGES * 2 * 4)
+
+
+def split_plan(num_slots: int, num_kv_heads: int, pages_per_slot: int,
+               sm_count: int) -> Tuple[int, int]:
+    """``(n_split, pages_per_split)`` of the context split: a function of
+    the grid's shape and the card alone, never of ``lens``, so the kernel's
+    grid ``(kvh, S, n_split)`` is the same for every step of an engine.
+    It aims at ``CTAS_PER_SM`` CTAs per SM (about half of them find pages
+    under uniformly drawn lens), splits no finer than one page, and then
+    drops splits the rounded-up page count leaves empty. Split ``i`` covers
+    logical pages ``[i * pps, (i + 1) * pps)``; together the splits cover
+    ``0 .. P - 1`` exactly once, in order."""
+    if min(num_slots, num_kv_heads, pages_per_slot, sm_count) < 1:
+        raise ValueError("split_plan: every argument must be >= 1")
+    base = num_slots * num_kv_heads
+    want = max(1, -(-CTAS_PER_SM * sm_count // base))
+    n = min(pages_per_slot, want)
+    pps = -(-pages_per_slot // n)
+    return -(-pages_per_slot // pps), pps
+
+
+_sm_counts = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def paged_attention_supported(*, page_size: int, head_dim: int,
@@ -64,9 +106,9 @@ def paged_attention_supported(*, page_size: int, head_dim: int,
     int8 pools (kernel 1q). Re-derived for the card from
     ``paged_attention_supported``
     (``paddlepaddle_tpu/ops/kernels/paged_attention.py:70``): the TPU's
-    8-row sublane and 128-lane rules become a warp-stride rule on
-    ``head_dim``, a register bound on the query rows a CTA serves, and the
-    227 KB shared-memory bound on the staged page."""
+    8-row sublane and 128-lane rules become a lane rule on ``head_dim``, a
+    register bound on the query rows a CTA serves, and the 227 KB
+    shared-memory bound on the ring of staged pages."""
     if kv_quant not in KV_QUANTS:
         return False, f"kv_quant {kv_quant!r} (kernel takes None, 'int8')"
     if dtype not in _KERNEL_DTYPES:
@@ -91,16 +133,14 @@ def paged_attention_supported(*, page_size: int, head_dim: int,
     return True, "ok"
 
 
-def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
-                          scale: float, k_scale=None,
-                          v_scale=None) -> torch.Tensor:
-    """The plain PyTorch version: gather each slot's logical view through
-    the page table (pages wholly past the visible window redirected to the
-    null page, as the TPU kernel's index map did), mask ``k_pos > lens + w``
-    with -1e30, one f32 softmax — the semantics of ``_ref_gqa_attention``
-    (``paddlepaddle_tpu/inference/decode_engine.py:713``). With scales, each
-    gathered int8 page is dequantized in f32 as ``codes * scale`` (the TPU
-    kernel's :129-131), never rounded to q's dtype."""
+def _plain_logits(q, k_pool, v_pool, page_table, lens, rep, scale, k_scale,
+                  v_scale):
+    """Each slot's logical view gathered through the page table (pages
+    wholly past the visible window redirected to the null page, as the TPU
+    kernel's index map did; int8 pages dequantized in f32 as ``codes *
+    scale``), and the f32 logits of the grouped queries against it with
+    ``k_pos > lens + w`` filled with -1e30. Returns ``(att [S, W, kvh, rep,
+    T], visible keys [S, W, 1, 1, T], vview [S, T, kvh, hd])``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
     S, W, h, hd = q.shape
@@ -121,11 +161,68 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
     att = torch.einsum("swgrd,stgd->swgrt", qg, kview)
     k_pos = torch.arange(P * ps, device=dev)
     q_pos = lens[:, None] + torch.arange(W, device=dev)[None, :]
-    mask = k_pos[None, None, :] <= q_pos[:, :, None]           # [S, W, T]
-    att = att.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
+    return att.masked_fill(~mask, NEG_INF), mask, vview
+
+
+def paged_attention_plain(q, k_pool, v_pool, page_table, lens, *, rep: int,
+                          scale: float, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """The plain PyTorch version: the logits of :func:`_plain_logits`, one
+    f32 softmax, the product with the gathered values — the semantics of
+    ``_ref_gqa_attention`` (``paddlepaddle_tpu/inference/decode_engine.py
+    :713``). With scales, each gathered int8 page is dequantized in f32
+    (the TPU kernel's :129-131), never rounded to q's dtype."""
+    att, _, vview = _plain_logits(q, k_pool, v_pool, page_table, lens, rep,
+                                  scale, k_scale, v_scale)
     p = torch.softmax(att, dim=-1)
     out = torch.einsum("swgrt,stgd->swgrd", p, vview)
-    return out.reshape(S, W, h, hd).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def paged_attention_partials_plain(q, k_pool, v_pool, page_table, lens, *,
+                                   rep: int, scale: float, n_split: int,
+                                   pages_per_split: int, k_scale=None,
+                                   v_scale=None):
+    """The split kernel's arithmetic in plain PyTorch: for each split ``i``
+    of :func:`split_plan`, over the visible keys of logical pages
+    ``[i * pps, (i + 1) * pps)``, the unnormalised partial ``o_i = sum
+    e^(s - m_i) v``, ``m_i = max s`` and ``l_i = sum e^(s - m_i)`` (natural
+    units; the kernel runs in log2 units, which the merge does not see). A
+    split without a visible key gives ``m = -1e30, l = 0, o = 0``. Returns
+    f32 ``(o [n, S, W, h, hd], m [n, S, W, h], l [n, S, W, h])``."""
+    S, W, h, hd = q.shape
+    ps, P = k_pool.shape[1], page_table.shape[1]
+    if n_split * pages_per_split < P:
+        raise ValueError(f"{n_split} splits of {pages_per_split} pages do "
+                         f"not cover {P}")
+    att, mask, vview = _plain_logits(q, k_pool, v_pool, page_table, lens,
+                                     rep, scale, k_scale, v_scale)
+    os_, ms, ls = [], [], []
+    for i in range(n_split):
+        lo = i * pages_per_split * ps
+        hi = min((i + 1) * pages_per_split, P) * ps
+        a = att[..., lo:hi]
+        m = (a.amax(-1) if hi > lo
+             else torch.full(a.shape[:-1], NEG_INF, device=q.device))
+        p = torch.where(mask[..., lo:hi], torch.exp(a - m[..., None]),
+                        torch.zeros((), device=q.device))
+        os_.append(torch.einsum("swgrt,stgd->swgrd", p,
+                                vview[:, lo:hi]).reshape(S, W, h, hd))
+        ms.append(m.reshape(S, W, h))
+        ls.append(p.sum(-1).reshape(S, W, h))
+    return torch.stack(os_), torch.stack(ms), torch.stack(ls)
+
+
+def merge_partials_plain(o, m, l, dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel's arithmetic: ``m* = max_i m_i``, ``l = sum_i l_i
+    e^(m_i - m*)``, ``out = sum_i o_i e^(m_i - m*) / max(l, 1e-30)`` in
+    ``dtype``, over partials stacked on dim 0."""
+    m_star = m.amax(0)
+    w = torch.exp(m - m_star)
+    den = (l * w).sum(0)
+    num = (o * w[..., None]).sum(0)
+    return (num / den.clamp_min(1e-30)[..., None]).to(dtype)
 
 
 def _check_cuda_args(q, k_pool, v_pool, page_table, lens, rep: int,
@@ -184,8 +281,8 @@ def _library() -> ctypes.CDLL:
         # bits by ctypes
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-            ctypes.c_float, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+            ci, ci, ci, ci, ctypes.c_float, ci, vp]
         lib.paged_attention_launch.restype = ci
         lib.paged_attention_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
@@ -206,8 +303,9 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
     """Attend ``q [S, W, h, hd]`` over each slot's paged KV. Returns
     ``out [S, W, h, hd]`` in q's dtype. ``k_scale``/``v_scale`` (both or
     neither) select the int8 variant. CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream (no sync) or
-    raise."""
+    CUDA tensors launch the split kernel and its merge on the current
+    stream (no sync; the split from :func:`split_plan`, the f32 partials in
+    scratch from ``torch.empty``) or raise. One call counts one launch."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
     kw = dict(rep=rep, scale=scale, k_scale=k_scale, v_scale=v_scale)
@@ -219,7 +317,13 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
                      v_scale)
     quant = k_scale is not None
     S, W, h, hd = q.shape
+    kvh, ps, P = k_pool.shape[2], k_pool.shape[1], page_table.shape[1]
+    n_split, pps = split_plan(S, kvh, P, _sm_count(q.device))
     out = torch.empty_like(q)
+    o_part = torch.empty((n_split, S, W, h, hd), dtype=torch.float32,
+                         device=q.device)
+    ml_part = torch.empty((2, n_split, S, W, h), dtype=torch.float32,
+                          device=q.device)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_launch(
@@ -227,8 +331,9 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        S, W, h, k_pool.shape[2], hd, k_pool.shape[1], page_table.shape[1],
-        float(scale), _KERNEL_DTYPES[q.dtype], stream)
+        o_part.data_ptr(), ml_part[0].data_ptr(), ml_part[1].data_ptr(),
+        S, W, h, kvh, hd, ps, P, n_split, pps, float(scale),
+        _KERNEL_DTYPES[q.dtype], stream)
     if err:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

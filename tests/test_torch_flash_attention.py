@@ -272,3 +272,36 @@ def test_wrappers_refuse_other_devices():
         fa.flash_bwd_dq(q, q, q, q, rows, rows, True, 0.125)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_bwd_dkv(q, q, q, q, rows, rows, True, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_forward_sm90_matches_plain_on_card(d, causal):
+    """The bf16 forward (``csrc/flash_fwd_sm90.cu``: TMA, ``wgmma``) against
+    the plain version on the card: out and lse at s_q 1, a ragged tile
+    (100, 130), s_q < s_k and s 2048; and the dQ and dK/dV kernels fed its
+    lse against autograd of the plain forward (2e-2, bf16 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scale = d ** -0.5
+    for sq, sk in ((1, 2048), (64, 192), (100, 100), (130, 130),
+                   (2048, 2048)):
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                       for a in _inputs(sq, sk, seed=sq + d, d=d))
+        before = fa.flash_fwd.launches
+        out, lse = fa.flash_fwd(q, k, v, causal, scale)
+        assert fa.flash_fwd.launches == before + 1
+        delta = fa.flash_delta(out, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        qb, kb, vb = (x.clone().requires_grad_(True) for x in (q, k, v))
+        ref, ref_lse = fa.flash_attention_plain(qb, kb, vb, causal, scale)
+        want = torch.autograd.grad(ref, (qb, kb, vb), do)
+        torch.cuda.synchronize()
+        for name, a, b_ in (("out", out, ref), ("lse", lse, ref_lse),
+                            ("dq", dq, want[0]), ("dk", dk, want[1]),
+                            ("dv", dv, want[2])):
+            err = float((a.float() - b_.float()).abs().max())
+            assert err <= 2e-2, (name, d, causal, sq, sk, err)

@@ -1,0 +1,298 @@
+"""The port's public functional signatures against the JAX package
+(``paddlepaddle_tpu.nn.functional``): ``rms_norm`` with a bias,
+``flash_attention`` with the reference's positional order, ``name=`` on
+``scaled_dot_product_attention``, and the attention configurations the JAX
+package computes without a TPU kernel (d outside its kernel gate, causal
+``s_q > s_k``), which the port computes in its plain version on either
+device.
+
+Inputs come from numpy seeds; dtypes are pinned on both sides (the JAX
+package turns x64 on). Tolerances, each with its reason:
+
+* rms_norm f32 1e-6: the same f32 mean, rsqrt and products in two
+  libraries; bf16 one bf16 ulp of the reference value (both round the
+  normalised row, the weight product and the bias sum to bf16);
+* attention f32 1e-5: one f32 softmax in each library over the same
+  logits, summed in other orders;
+* dropout: the two packages draw from different generators, so the test
+  compares behaviour (a changed output, a share of zeros near the rate),
+  not bits.
+
+JAX is imported inside the comparisons only, so the card case also runs
+where JAX is not installed:
+``python -m pytest tests/test_torch_functional_parity.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddlepaddle_tpu_torch.core import random as prandom
+from paddlepaddle_tpu_torch.nn import functional as tF
+from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
+
+
+def _paddle():
+    import paddlepaddle_tpu as paddle
+
+    return paddle
+
+
+def _attn_inputs(b, sq, sk, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, h, d)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# C1: rms_norm(x, weight, bias, epsilon, begin_norm_axis, name)
+# ---------------------------------------------------------------------------
+
+
+def _rms_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    return (rng.standard_normal(shape).astype(np.float32),
+            (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32),
+            (0.5 + 0.1 * rng.standard_normal(n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("by_keyword", [False, True])
+@pytest.mark.parametrize("shape", [(2, 4), (3, 5, 64)])
+def test_rms_norm_bias_matches_reference_f32(shape, by_keyword):
+    paddle = _paddle()
+    x, w, b = _rms_inputs(shape, seed=len(shape))
+    if by_keyword:
+        want = paddle.nn.functional.rms_norm(
+            paddle.to_tensor(x), weight=paddle.to_tensor(w),
+            bias=paddle.to_tensor(b), epsilon=1e-6, begin_norm_axis=-1)
+        got = tF.rms_norm(torch.from_numpy(x), weight=torch.from_numpy(w),
+                          bias=torch.from_numpy(b), epsilon=1e-6,
+                          begin_norm_axis=-1, name="norm")
+    else:
+        want = paddle.nn.functional.rms_norm(
+            paddle.to_tensor(x), paddle.to_tensor(w), paddle.to_tensor(b))
+        got = tF.rms_norm(torch.from_numpy(x), torch.from_numpy(w),
+                          torch.from_numpy(b))
+    want = np.asarray(want.numpy(), np.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    # the bias is added after the weight, not folded into the epsilon
+    no_bias = tF.rms_norm(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose((got - no_bias).numpy(),
+                               np.broadcast_to(b, shape), atol=1e-6, rtol=0)
+
+
+def test_rms_norm_bias_matches_reference_bf16():
+    import jax.numpy as jnp
+
+    paddle = _paddle()
+    x, w, b = _rms_inputs((3, 5, 64), seed=7)
+    want = paddle.nn.functional.rms_norm(
+        *(paddle.to_tensor(jnp.asarray(a, jnp.bfloat16)) for a in (x, w, b)))
+    want = np.asarray(jnp.asarray(want.numpy(), jnp.float32))
+    got = tF.rms_norm(*(torch.from_numpy(a).to(torch.bfloat16)
+                        for a in (x, w, b)))
+    assert got.dtype == torch.bfloat16
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -100)))
+                  - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+def test_rms_norm_other_axis_raises():
+    x = torch.zeros(2, 3, 4)
+    assert tF.rms_norm(x, begin_norm_axis=2).shape == x.shape
+    with pytest.raises(NotImplementedError, match="begin_norm_axis=1"):
+        tF.rms_norm(x, begin_norm_axis=1)
+
+
+def test_rmsnorm_module_passes_epsilon():
+    from paddlepaddle_tpu_torch.nn.norm import RMSNorm
+
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 16)).astype(np.float32))
+    m = RMSNorm(16, 0.5, device="cpu", dtype=torch.float32)
+    torch.testing.assert_close(m(x), tF.rms_norm(x, m.weight, epsilon=0.5),
+                               atol=0, rtol=0)
+    assert not torch.allclose(m(x), tF.rms_norm(x, m.weight))
+
+
+# ---------------------------------------------------------------------------
+# C2: flash_attention's positional order; name= on SDPA
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_positional_matches_reference(causal):
+    paddle = _paddle()
+    q, k, v = _attn_inputs(2, 16, 16, 2, 64, seed=11)
+    want, none_j = paddle.nn.functional.flash_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), 0.0, causal, False, None,
+        "", True, None)
+    got, none_t = tF.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), 0.0, causal, False, None,
+        "", True, None)
+    assert none_j is None and none_t is None
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want.numpy(), np.float32),
+                               atol=1e-5, rtol=0)
+
+
+def test_flash_attention_seventh_positional_is_fixed_seed_offset():
+    """The reference's seventh positional is ``fixed_seed_offset``: with
+    ``dropout=0.5`` the call applies dropout (it used to land in
+    ``training`` and switch dropout off)."""
+    q, k, v = (torch.from_numpy(a) for a in _attn_inputs(2, 16, 16, 2, 64,
+                                                         seed=12))
+    clean, _ = tF.flash_attention(q, k, v, 0.0, False, False, None)
+    prandom.seed(3)
+    dropped, _ = tF.flash_attention(q, k, v, 0.5, False, False, None)
+    assert dropped.numel() == 4096
+    assert not torch.equal(dropped, clean)
+    zeros = float((dropped == 0).float().mean())
+    assert abs(zeros - 0.5) <= 0.05
+    kept = dropped != 0
+    torch.testing.assert_close(dropped[kept], 2 * clean[kept])
+
+
+def test_flash_attention_dropout_seeding():
+    """``fixed_seed_offset`` seeds the dropout (as ``flash_attn_unpadded``
+    does); without it, ``rng_name`` picks the named generator."""
+    q, k, v = (torch.from_numpy(a) for a in _attn_inputs(1, 8, 8, 2, 64,
+                                                         seed=13))
+    a, _ = tF.flash_attention(q, k, v, 0.5, True, False, 123)
+    b, _ = tF.flash_attention(q, k, v, 0.5, True, False, 123)
+    c, _ = tF.flash_attention(q, k, v, 0.5, True, False, 124)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert not torch.equal(a, c)
+    prandom.seed(5)
+    named = prandom.get_generator("flash_parity_stream")
+    state = named.get_state()
+    d1, _ = tF.flash_attention(q, k, v, 0.5, True, rng_name="flash_parity_stream")
+    named.set_state(state)
+    d2, _ = tF.flash_attention(q, k, v, 0.5, True, rng_name="flash_parity_stream")
+    torch.testing.assert_close(d1, d2, atol=0, rtol=0)
+    # training=False (the eighth positional) turns dropout off
+    off, _ = tF.flash_attention(q, k, v, 0.5, True, False, None, "", False)
+    torch.testing.assert_close(off, tF.flash_attention(q, k, v, 0.0, True)[0],
+                               atol=0, rtol=0)
+
+
+def test_sdpa_accepts_name():
+    paddle = _paddle()
+    q, k, v = _attn_inputs(1, 12, 12, 2, 64, seed=14)
+    want = paddle.nn.functional.scaled_dot_product_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), is_causal=True, name="x")
+    got = tF.scaled_dot_product_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), is_causal=True, name="x")
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want.numpy(), np.float32),
+                               atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# C3: what the reference computes without a TPU kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,causal,sq,sk,plain", [
+    (96, True, 32, 32, True),           # d outside the TPU gate
+    (96, False, 32, 32, True),
+    (32, False, 16, 16, True),
+    (64, True, 64, 32, True),           # causal s_q > s_k
+    (128, True, 64, 32, True),
+    (64, False, 64, 32, False),         # full s_q > s_k: a kernel takes it
+    (64, True, 32, 64, False),
+    (128, True, 2048, 2048, False),
+    (256, True, 64, 64, False),         # TPU gate admits: queue B, raises
+    (384, False, 64, 64, False),
+])
+def test_routing_predicate_mirrors_reference_gate(d, causal, sq, sk, plain):
+    assert fa.routes_to_plain(d, causal, sq, sk) is plain
+    assert fa.reference_kernel_head_dim(d) is (d % 128 == 0
+                                               or d in (64, 128, 256))
+
+
+@pytest.mark.parametrize("d,dtype,match", [
+    (256, torch.bfloat16, "head_dim"),
+    (384, torch.float32, "head_dim"),
+    (64, torch.float16, "dtype"),
+])
+def test_kernel_coverage_a_tpu_kernel_takes_still_raises(d, dtype, match):
+    """d 256 (and larger multiples of 128) and fp16 reach the kernels' check
+    on the card and raise there: the check itself, on host tensors."""
+    q = torch.zeros(1, 16, 2, d, dtype=dtype)
+    assert not fa.routes_to_plain(d, True, 16, 16)
+    with pytest.raises(ValueError, match=match):
+        fa._check_cuda_args(True, q, q, q)
+    assert fv.reference_kernel_head_dim(d)
+    qv = q[0]
+    cu = torch.tensor([0, 16], dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        fv._check_cuda_args(qv, qv, qv, cu, cu)
+
+
+@pytest.mark.parametrize("d,causal,sq,sk", [(96, True, 24, 24),
+                                            (96, False, 20, 36),
+                                            (64, True, 64, 32)])
+def test_plain_routes_match_reference(d, causal, sq, sk):
+    """Where the reference takes ``_xla_attention``, so does the port (here
+    on the CPU): the same answer, rows without a visible key included."""
+    paddle = _paddle()
+    q, k, v = _attn_inputs(2, sq, sk, 2, d, seed=d + sq)
+    want, _ = paddle.nn.functional.flash_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), causal=causal)
+    got, _ = tF.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                causal=causal)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want.numpy(), np.float32),
+                               atol=1e-5, rtol=0)
+
+
+def test_varlen_head_dim_route_matches_reference():
+    paddle = _paddle()
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.standard_normal((30, 2, 96)).astype(np.float32)
+               for _ in range(3))
+    cu = np.asarray([0, 7, 19, 30], np.int32)
+    want, _ = paddle.nn.functional.flash_attn_unpadded(
+        *(paddle.to_tensor(a) for a in (q, k, v)), paddle.to_tensor(cu),
+        paddle.to_tensor(cu), causal=True)
+    got, _ = tF.flash_attn_unpadded(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    torch.from_numpy(cu),
+                                    torch.from_numpy(cu), causal=True)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want.numpy(), np.float32),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_plain_routes_on_card_match_cpu():
+    """On the card the routed configurations answer (they raised before)
+    and agree with the CPU plain version; no kernel is launched for them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU to run the port on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (fa.flash_fwd.launches, fv.varlen_fwd.launches)
+    for d, causal, sq, sk in ((96, True, 48, 48), (96, False, 40, 72),
+                              (64, True, 64, 32), (128, True, 64, 32)):
+        q, k, v = (torch.from_numpy(a)
+                   for a in _attn_inputs(2, sq, sk, 2, d, seed=31))
+        want, _ = tF.flash_attention(q, k, v, causal=causal)
+        got, _ = tF.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                    causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5, (d, causal, sq, sk, err)
+    rng = np.random.default_rng(32)
+    qv, kv, vv = (torch.from_numpy(rng.standard_normal((30, 2, 96)).astype(
+        np.float32)) for _ in range(3))
+    cu = torch.tensor([0, 7, 19, 30], dtype=torch.int32)
+    want, _ = tF.flash_attn_unpadded(qv, kv, vv, cu, cu, causal=True)
+    got, _ = tF.flash_attn_unpadded(qv.cuda(), kv.cuda(), vv.cuda(), cu, cu,
+                                    causal=True)
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert (fa.flash_fwd.launches, fv.varlen_fwd.launches) == counts

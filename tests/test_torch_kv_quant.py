@@ -235,9 +235,12 @@ def test_int8_support_check_table(kwargs, ok, why):
 
 
 def test_int8_smem_bytes_formula():
-    # two K pages padded by 16 bytes, two V pages, and the f32 q/p/m/l/a rows
-    assert pa.smem_bytes(64, 128, 4, 1) == (2 * 64 * 144 + 2 * 64 * 128
-                                            + 4 * (128 + 64 + 3) * 4)
+    # two staged pages (K rows padded by 16 elements, V rows unpadded), the
+    # f32 q rows of the row bucket (4), eight warps' row maxima and the row
+    # sums, and the staged pages' two scales
+    assert pa.smem_bytes(64, 128, 4, 1) == (2 * 64 * (144 + 128)
+                                            + 4 * 128 * 4 + 9 * 4 * 4
+                                            + 2 * 2 * 4)
     assert pa.smem_bytes(64, 128, 4, 1) < pa.smem_bytes(64, 128, 4, 2)
 
 

@@ -78,7 +78,8 @@ def test_rms_norm_matches_jax():
     w = rng.standard_normal(64).astype(np.float32)
     want = jF.rms_norm(paddle.to_tensor(x), paddle.to_tensor(w),
                        epsilon=1e-6).numpy()
-    got = tF.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6).numpy()
+    got = tF.rms_norm(torch.from_numpy(x), torch.from_numpy(w),
+                      epsilon=1e-6).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 

@@ -160,3 +160,166 @@ def test_build_library_name_tracks_source_and_flags(tmp_path, monkeypatch):
     (tmp_path / "paged_attention.cu").write_text("// edited\n")
     assert _build.library_path("paged_attention").name != first.name
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# -- the context split: host planner and merge arithmetic (CPU) --------------
+
+@pytest.mark.parametrize("S,kvh,P,sm", [(8, 8, 32, 132), (1, 1, 1, 132),
+                                        (3, 2, 3, 132), (64, 8, 32, 132),
+                                        (8, 8, 33, 132), (2, 4, 100, 16),
+                                        (4, 2, 7, 1)])
+def test_split_plan_covers_pages_once_in_order(S, kvh, P, sm):
+    n, pps = pa.split_plan(S, kvh, P, sm)
+    assert n >= 1 and pps >= 1
+    pages = [j for i in range(n) for j in range(i * pps, min((i + 1) * pps, P))]
+    assert pages == list(range(P))                  # once each, in order
+    assert (n - 1) * pps < P                        # no split wholly empty
+    assert pa.split_plan(S, kvh, P, sm) == (n, pps)  # stable across calls
+
+
+def test_split_plan_main_shape_and_independent_of_lens():
+    """At the Llama-3-8B decode shape (8 slots, 8 KV heads, 32 pages, 132
+    SMs) the plan is 8 splits of 4 pages, 512 CTAs. It reads no lens: the
+    wrapper computes it from shapes only, so two steps with different lens
+    give the same plan and the same scratch shapes."""
+    assert pa.split_plan(8, 8, 32, 132) == (8, 4)
+    import inspect
+
+    assert "lens" not in inspect.signature(pa.split_plan).parameters
+    seen = []
+    real = pa.split_plan
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    q, kp, vp, pt, _ = _inputs(1)
+    for lens in ([5, 13, 0, 20], [23, 0, 9, 1]):
+        plan = spy(q.shape[0], kp.shape[2], pt.shape[1], 132)
+        parts = pa.paged_attention_partials_plain(
+            torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(pt), torch.tensor(lens, dtype=torch.int32),
+            rep=REP, scale=0.25, n_split=plan[0], pages_per_split=plan[1])
+        seen.append(tuple(t.shape for t in parts))
+    assert seen[0] == seen[2] and seen[1] == seen[3]
+
+
+def _merge_case(W, hd, lens, n_split, pps, quant, zero_row=None, ps=PS,
+                P=P, seed=3):
+    rng = np.random.default_rng(seed)
+    pages = 1 + S * P
+    kp = rng.standard_normal((pages, ps, KVH, hd)).astype(np.float32)
+    vp = rng.standard_normal((pages, ps, KVH, hd)).astype(np.float32)
+    pt = rng.permutation(np.arange(1, pages))[: S * P].reshape(S, P)
+    pt = pt.astype(np.int32)
+    if zero_row is not None:
+        pt[zero_row] = 0
+    q = torch.from_numpy(rng.standard_normal((S, W, H, hd)).astype(np.float32))
+    kw = dict(rep=REP, scale=hd ** -0.5)
+    kt, vt = torch.from_numpy(kp), torch.from_numpy(vp)
+    if quant:
+        from paddlepaddle_tpu_torch.inference.decode_engine import \
+            _kv_quant_pages
+
+        kt, ks = _kv_quant_pages(kt)
+        vt, vs = _kv_quant_pages(vt)
+        kw.update(k_scale=ks, v_scale=vs)
+    args = (q, kt, vt, torch.from_numpy(pt),
+            torch.tensor(lens, dtype=torch.int32))
+    o, m, l = pa.paged_attention_partials_plain(
+        *args, n_split=n_split, pages_per_split=pps, **kw)
+    return args, kw, o, m, l
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("quant", [False, True])
+def test_merged_partials_equal_plain(W, quant):
+    """Partials over page ranges, merged, equal the one-pass plain version:
+    lens 0, lens on a page boundary (16 = 2 pages of 8), a mid-page tail,
+    a zeroed table row, and splits past each slot's end (3 splits of 1
+    page over lens that see 1-3 pages)."""
+    lens = [0, 2 * PS, 5, 3 * PS - W]
+    args, kw, o, m, l = _merge_case(W, 32, lens, 3, 1, quant, zero_row=3)
+    got = pa.merge_partials_plain(o, m, l, torch.float32)
+    want = pa.paged_attention_plain(*args, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n_split,pps", [(1, 8), (2, 4), (4, 2), (8, 1),
+                                         (3, 3)])
+def test_merge_across_split_boundaries(n_split, pps):
+    """P 8 pages of 8: lens straddling each split boundary, W 2."""
+    lens = [7, 8 * 2 - 2, 8 * 4 + 3, 62]
+    args, kw, o, m, l = _merge_case(2, 64, lens, n_split, pps, False, P=8,
+                                    seed=5)
+    got = pa.merge_partials_plain(o, m, l, torch.float32)
+    want = pa.paged_attention_plain(*args, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_empty_split_partial_is_neutral():
+    """A split with no visible page writes m = -1e30, l = 0, o = 0, and
+    leaves the merge unchanged."""
+    args, kw, o, m, l = _merge_case(1, 32, [3, 0, 5, 1], 3, 1, False)
+    assert (m[1:] == pa.NEG_INF).all() and (l[1:] == 0).all()
+    assert (o[1:] == 0).all()
+    one = pa.merge_partials_plain(o[:1], m[:1], l[:1], torch.float32)
+    torch.testing.assert_close(pa.merge_partials_plain(o, m, l,
+                                                       torch.float32),
+                               one, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sc,h,kvh", [(6, 8, 2), (8, 32, 8)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_split_kernel_matches_plain_on_card(W, hd, Sc, h, kvh):
+    """The split kernel at P 32 (ps 16), with lens across split boundaries,
+    0, a page boundary and a zeroed row, against the plain version: f32
+    and bf16 pools, and int8 pools (f32 and bf16 q), at 1e-5 / 2e-2; int8
+    at f32 bit-equal to kernel 1 over the dequantized pools. 6 slots x 2 KV
+    heads plan splits of one page, 8 x 8 the decode shape's splits of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (Hopper) and nvcc")
+    from paddlepaddle_tpu_torch.inference.decode_engine import \
+        _kv_quant_pages
+
+    Pc, psc = 32, 16
+    n, pps = pa.split_plan(Sc, kvh, Pc, pa._sm_count(torch.device("cuda")))
+    rng = np.random.default_rng(W * hd + Sc)
+    bounds = [pps * psc * i for i in range(1, n)] or [psc]
+    lens = ([0, bounds[0] - W, bounds[0], bounds[-1] + 1, 2 * psc,
+             Pc * psc - W] * 2)[:Sc]
+    pages = 1 + Sc * Pc
+    kp = torch.from_numpy(rng.standard_normal((pages, psc, kvh, hd),
+                                              dtype=np.float32)).cuda()
+    vp = torch.from_numpy(rng.standard_normal((pages, psc, kvh, hd),
+                                              dtype=np.float32)).cuda()
+    pt = rng.permutation(np.arange(1, pages))[: Sc * Pc].reshape(Sc, Pc)
+    pt = pt.astype(np.int32)
+    pt[4] = 0
+    ptc = torch.from_numpy(pt).cuda()
+    lc = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.from_numpy(rng.standard_normal((Sc, W, h, hd),
+                                             dtype=np.float32)).cuda()
+    kw = dict(rep=h // kvh, scale=hd ** -0.5)
+    kq, ks = _kv_quant_pages(kp)
+    vq, vs = _kv_quant_pages(vp)
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        qd, kd, vd = q.to(dtype), kp.to(dtype), vp.to(dtype)
+        got = pa.paged_attention(qd, kd, vd, ptc, lc, **kw)
+        want = pa.paged_attention_plain(qd, kd, vd, ptc, lc, **kw)
+        got8 = pa.paged_attention(qd, kq, vq, ptc, lc, k_scale=ks,
+                                  v_scale=vs, **kw)
+        want8 = pa.paged_attention_plain(qd, kq, vq, ptc, lc, k_scale=ks,
+                                         v_scale=vs, **kw)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= atol
+        assert float((got8.float() - want8.float()).abs().max()) <= atol
+        if dtype == torch.float32:
+            one = pa.paged_attention(
+                qd, (kq.float() * ks[:, None, :, None]).contiguous(),
+                (vq.float() * vs[:, None, :, None]).contiguous(), ptc, lc,
+                **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got8, one)
