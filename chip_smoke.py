@@ -33,16 +33,18 @@ code is non-zero):
                hd 128, ps 64, 8 slots, lens 64-2000, bf16 q) timed beside
                kernel 1 at the same lens over bf16 pools, the plain version
                and the dequantize-then-SDPA composition, with the bound.
-4. ``flash_kernel``  the flash-attention forward (bf16: the TMA/wgmma
-               kernel; f32: the FMA kernel), dQ and dK/dV kernels against
-               the plain forward and its autograd backward: 32 small cases
+4. ``flash_kernel``  the flash-attention forward, dQ and dK/dV kernels
+               (bf16: the TMA/wgmma kernels; f32: the FMA kernels) against
+               the plain forward and its autograd backward: 40 small cases
                (d 64/128, f32 atol 1e-5 / bf16 atol 2e-2, causal and full,
                s_q == s_k, s_q < s_k, ragged s 100; bf16 also s_q 1 against
-               s_k 2048 and s 130), the plain routes (d 96, causal s_q > s_k:
-               no kernel, within 1e-5 of the CPU) and the train phase's
-               shape (b 4, s 2048, h 32, d 128, bf16, causal);
-               timings of each kernel, the plain version and SDPA (forward;
-               its backward for the two backward kernels), beside the bound.
+               s_k 2048, s 130, (200, 333) and s 257), the plain routes
+               (d 96, causal s_q > s_k: no kernel, within 1e-5 of the CPU)
+               and the train phase's shape (b 4, s 2048, h 32, d 128, bf16,
+               causal), where two launches of the backward pair must give
+               the same bits; timings of each kernel, the plain version and
+               SDPA (forward; its backward for the two backward kernels),
+               beside the bound.
 4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV
                kernels (5-7) against their plain versions on the same
                inputs: 48 small cases (6 layouts: a padding tail with empty
@@ -150,8 +152,8 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 PAGED_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
-FLASH_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
 FLASH_FWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_fwd_sm90.cu"
+FLASH_BWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_bwd_sm90.cu"
 GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
 VARLEN_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
@@ -640,8 +642,8 @@ def phase_flash_kernel():
         for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             for causal in (True, False):
                 shapes = ((128, 128), (64, 192), (100, 100))
-                if dtype == torch.bfloat16:      # the TMA/wgmma forward
-                    shapes += ((1, 2048), (130, 130))
+                if dtype == torch.bfloat16:      # the TMA/wgmma kernels
+                    shapes += ((1, 2048), (130, 130), (200, 333), (257, 257))
                 for sq, sk in shapes:
                     q, k, v, do = flash_inputs(rng, 2, sq, sk, 3, d, dtype)
                     errs = flash_check(fa, q, k, v, do, causal)
@@ -686,6 +688,16 @@ def phase_flash_kernel():
     scale = d ** -0.5
     out, lse = fa.flash_fwd(q, k, v, True, scale)
     delta = fa.flash_delta(out, do)
+    # one writer per output row, no atomics: two launches of the backward
+    # pair give the same bits
+    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
+    repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    if not repeat_equal:
+        raise AssertionError("flash backward pair: two launches differ")
+    del first, again
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ms = {
         "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, True, scale),
@@ -727,7 +739,8 @@ def phase_flash_kernel():
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         records.append({
             "name": name, "route": "cuda",
-            "source": FLASH_FWD_SOURCE if name == "flash_fwd" else FLASH_SOURCE,
+            "source": FLASH_FWD_SOURCE if name == "flash_fwd"
+            else FLASH_BWD_SOURCE,
             "replaces": FLASH_REPLACES[name], "launches": None,
             "max_abs_err": err_of[name], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
@@ -742,7 +755,7 @@ def phase_flash_kernel():
                                     for c in small if c["dtype"] == dt)
                             for dt in ("float32", "bfloat16")},
           "main_shape": records[0]["shape"], "main_errs": errs,
-          "main_atol": main_atol,
+          "main_atol": main_atol, "bwd_repeat_bit_identical": repeat_equal,
           "ms": ms, "plain_ms": plain, "library_ms": library,
           "bound_ms": {r["name"]: r["bound_ms"] for r in records},
           "tflops": {r["name"]: r["flops"] / r["ms"] / 1e9 for r in records},

@@ -1,7 +1,11 @@
-// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels,
-// CUDA C++ with a plain C entry per kernel.
+// Flash attention for Hopper (sm_90a) in f32: the forward, dQ and dK/dV
+// kernels, CUDA C++ with a plain C entry per kernel. bf16 runs elsewhere:
+// the forward in flash_fwd_sm90.cu, dQ and dK/dV in flash_bwd_sm90.cu (TMA
+// and wgmma, which would round f32 operands to TF32); the entries here
+// refuse bf16 with cudaErrorInvalidValue.
 //
-// Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_attention.py:
+// Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_attention.py
+// for f32:
 //   flash_fwd_kernel     <- _fwd_kernel :97  (pallas_call in _pallas_forward :229)
 //   flash_bwd_dq_kernel  <- _dq_kernel  :139 (pallas_call in _pallas_backward :268)
 //   flash_bwd_dkv_kernel <- _dkv_kernel :172 (pallas_call in _pallas_backward :277)
@@ -31,32 +35,24 @@
 //     cp.async copies (rows past the end are zero-filled): tile j+1 is in
 //     flight while tile j is computed. Rows are padded by 16 bytes so the
 //     fragment loads below hit distinct banks.
-//   * Products run on the tensor cores for bf16: mma.sync m16n8k16 with f32
-//     accumulation, fragments loaded from shared memory with ldmatrix
-//     (.trans for an operand read untransposed). Probabilities and ds
-//     leave the accumulator layout through a per-warp staging tile in shared
-//     memory, rounded to the input type (bf16: as FlashAttention-2 does). The
-//     f32 path keeps the same fragment layout and computes it with FMA in
-//     full f32 (the tensor cores would round to TF32), so both types share
-//     every line of masking and softmax code.
+//   * Products keep the m16n8k16 fragment layout of flash_tiles.cuh (shared
+//     with flash_varlen.cu) and compute it with FMA in full f32.
+//     Probabilities and ds leave the accumulator layout through a per-warp
+//     staging tile in shared memory.
 //   * The softmax runs in log2 units (exp2f, with scale * log2(e) in one
 //     multiply; lse crosses the interface in natural log), and only the tiles
 //     at the causal diagonal or the ragged end evaluate the mask.
 //   * Causal tiles: the forward and dQ grids launch the last (heaviest) query
 //     tiles first, the dK/dV grid the first (heaviest) key tiles first.
 //
-// Bound: at the training shape (b 4, s 2048, h 32, d 128, bf16, causal) the
-// products are ~1000 operations per byte moved, far above the card's ridge
-// (~295 for bf16), so every kernel is bound by operations: 2, 3 and 4 causal
-// products for forward, dQ and dK/dV, against 989 TFLOP/s. What the design
-// does about it: every product is on the tensor cores with f32 accumulation,
-// causal tiles past the diagonal are skipped, and device memory is read once
-// per tile pair. Known limits, for later work: mma.sync rather than wgmma, no
-// TMA or warp specialisation, and the staging of p and ds through shared
-// memory.
+// Bound: f32 runs outside the tensor cores, so at any shape a training step
+// would use, every kernel is bound by operations: 2, 3 and 4 causal products
+// (U = 2 b h d x visible pairs) for forward, dQ and dK/dV, against the card's
+// 67 TFLOP/s of f32 FMA. What the design does about it: causal tiles past the
+// diagonal are skipped and device memory is read once per tile pair.
 //
-// Limits checked by the Python wrapper before launch: d in {64, 128}, f32 or
-// bf16, causal only with s_q <= s_k, b*h <= 65535, 16-byte aligned contiguous
+// Limits checked by the Python wrapper before launch: d in {64, 128}, f32,
+// causal only with s_q <= s_k, b*h <= 65535, 16-byte aligned contiguous
 // tensors.
 
 #include "flash_tiles.cuh"
@@ -463,7 +459,7 @@ bool bad_shape(int B, int H, int Sq, int Sk, int causal) {
 
 // Each entry returns a cudaError_t code: 0 on a successful launch. None
 // synchronises; a fault during the run shows at the caller's next sync.
-// Tensors are contiguous [b, s, h, d] (q, out, dout, dq: s = Sq; k, v, dk,
+// Tensors are contiguous f32 [b, s, h, d] (q, out, dout, dq: s = Sq; k, v, dk,
 // dv: s = Sk); lse and delta are f32 [b*h, Sq].
 extern "C" {
 
@@ -472,13 +468,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      float scale, int causal, int is_bf16, void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)fwd<__nv_bfloat16, 64>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)fwd<__nv_bfloat16, 128>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)fwd<float, 64>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)fwd<float, 128>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-  }
+  if (is_bf16) return (int)cudaErrorInvalidValue;   // bf16: *_sm90.cu
+  if (D == 64) return (int)fwd<float, 64>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128) return (int)fwd<float, 128>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -488,13 +480,9 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         float scale, int causal, int is_bf16, void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)bwd_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)bwd_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-  }
+  if (is_bf16) return (int)cudaErrorInvalidValue;   // bf16: *_sm90.cu
+  if (D == 64) return (int)bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128) return (int)bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -505,13 +493,9 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          void* stream) {
   if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)bwd_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)bwd_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-    if (D == 128) return (int)bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-  }
+  if (is_bf16) return (int)cudaErrorInvalidValue;   // bf16: *_sm90.cu
+  if (D == 64) return (int)bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128) return (int)bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

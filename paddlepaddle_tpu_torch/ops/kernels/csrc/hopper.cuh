@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
-// warpgroup kernels (flash_fwd_sm90.cu): mbarriers, TMA tile loads through a
-// tensor map, the shared-memory matrix descriptor of a 128-byte-swizzled
-// tile, the wgmma products the flash forward issues (bf16 in, f32
-// accumulators), register reallocation between warpgroups, and the host-side
-// encoding of a tiled tensor map through the driver entry point (no -lcuda).
+// warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA
+// tile loads through a tensor map, the shared-memory matrix descriptor of a
+// 128-byte-swizzled tile, the wgmma products the flash kernels issue (bf16
+// in, f32 accumulators), A fragments read from a swizzled tile by ldmatrix, register reallocation between warpgroups, and the
+// host-side encoding of a tiled tensor map through the driver entry point
+// (no -lcuda).
 
 #pragma once
 
@@ -147,6 +148,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both
+// K-major (B stored as [64][16..]: rows are B's columns)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B from shared memory stored N-major
 // ([16 k rows][64 n], rows of 128 bytes), hence trans-b = 1
@@ -167,6 +189,47 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A from registers, B from shared
+// memory K-major (stored as [64][16..]: rows are B's columns)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The m16n8k16 A fragments of 16 rows (from row0) of a tile stored as
+// [rows][64] bf16 with the 128-byte swizzle, for the four k16 steps of its
+// 64 columns: one ldmatrix.x4 a step (lane l addresses row l % 8 + 8 (l / 8
+// % 2) and 16-byte chunk 2 kk + l / 16, which the swizzle moves to chunk
+// c ^ (row % 8)). `block` is 1024-byte aligned.
+__device__ __forceinline__ void a_frags_sw128(uint32_t (&a)[4][4],
+                                              const void* block, int row0,
+                                              int lane) {
+  const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t row = smem_addr(block) + r * 128;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 2 + (lane >> 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(row + ((c ^ (r & 7)) << 4))
+        : "memory");
+  }
 }
 
 // -------------------------------------------------------------------------

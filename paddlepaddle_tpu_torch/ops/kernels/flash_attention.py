@@ -2,13 +2,14 @@
 versions, the autograd Function and the public ``[b, s, h, d]`` entry.
 
 Counterpart of ``paddlepaddle_tpu/ops/kernels/flash_attention.py``. The
-kernels are ``csrc/flash_fwd_sm90.cu`` (the bf16 forward) and
-``csrc/flash_attention.cu`` (the f32 forward and both backward kernels);
-design, bound and known limits in their headers:
+kernels are ``csrc/flash_fwd_sm90.cu`` (the bf16 forward),
+``csrc/flash_bwd_sm90.cu`` (the bf16 dQ and dK/dV kernels) and
+``csrc/flash_attention.cu`` (the f32 forward, dQ and dK/dV kernels); design,
+bound and known limits in their headers. Each wrapper picks its kernel by
+dtype: bf16 runs a warp-specialised TMA/``wgmma`` kernel, f32 a full-f32 FMA
+kernel (``wgmma`` would round f32 operands to TF32).
 
-* :func:`flash_fwd`     replaces ``_fwd_kernel`` (:97, launched at :229):
-  bf16 on the warp-specialised TMA/``wgmma`` kernel, f32 on the full-f32
-  FMA kernel (``wgmma`` would round f32 operands to TF32);
+* :func:`flash_fwd`     replaces ``_fwd_kernel`` (:97, launched at :229);
 * :func:`flash_bwd_dq`  replaces ``_dq_kernel``  (:139, launched at :268);
 * :func:`flash_bwd_dkv` replaces ``_dkv_kernel`` (:172, launched at :277).
 
@@ -195,49 +196,56 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"[{b * h}, {sq}] on {q.device}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+# the C entry of each kernel, by dtype: (library, entry, pointer count). bf16
+# runs the TMA/wgmma kernels, f32 the full-f32 FMA kernels of
+# flash_attention.cu, whose entries take one more int (is_bf16, always 0)
+_ENTRIES = {
+    ("fwd", torch.bfloat16): ("flash_fwd_sm90", "flash_fwd_sm90_launch", 5),
+    ("dq", torch.bfloat16): ("flash_bwd_sm90", "flash_bwd_dq_sm90_launch", 7),
+    ("dkv", torch.bfloat16): ("flash_bwd_sm90", "flash_bwd_dkv_sm90_launch",
+                              8),
+    ("fwd", torch.float32): ("flash_attention", "flash_fwd_launch", 5),
+    ("dq", torch.float32): ("flash_attention", "flash_bwd_dq_launch", 7),
+    ("dkv", torch.float32): ("flash_attention", "flash_bwd_dkv_launch", 8),
+}
+_ERROR_STRING = {"flash_fwd_sm90": "flash_fwd_sm90_error_string",
+                 "flash_bwd_sm90": "flash_bwd_sm90_error_string",
+                 "flash_attention": "flash_error_string"}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         # pointers and the stream as c_void_p: a bare int would be cut to 32
         # bits by ctypes
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        shape = [ci, ci, ci, ci, ci, cf, ci, ci, vp]
-        lib.flash_fwd_launch.argtypes = [vp] * 5 + shape
-        lib.flash_bwd_dq_launch.argtypes = [vp] * 7 + shape
-        lib.flash_bwd_dkv_launch.argtypes = [vp] * 8 + shape
-        for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch,
-                   lib.flash_bwd_dkv_launch):
-            fn.restype = ci
-        lib.flash_error_string.argtypes = [ci]
-        lib.flash_error_string.restype = ctypes.c_char_p
+        # (b, h, s_q, s_k, d, scale, causal[, is_bf16], stream)
+        shape = [ci] * 5 + [cf, ci] + [ci] * (name == "flash_attention") + [vp]
+        for lib_name, entry, n_ptrs in _ENTRIES.values():
+            if lib_name == name:
+                getattr(lib, entry).argtypes = [vp] * n_ptrs + shape
+                getattr(lib, entry).restype = ci
+        err = getattr(lib, _ERROR_STRING[name])
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def _launch(fn_name: str, ptrs, q: torch.Tensor, sk: int, causal: bool,
+def _launch(kind: str, ptrs, q: torch.Tensor, sk: int, causal: bool,
             scale: float) -> None:
+    """Launch the ``kind`` kernel ("fwd", "dq", "dkv") for q's dtype on the
+    current stream; raise on a refused launch."""
+    name, entry, _ = _ENTRIES[(kind, q.dtype)]
     b, sq, h, d = q.shape
-    lib = _library()
+    lib = _library(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, fn_name)(*ptrs, b, h, sq, sk, d, float(scale),
-                                int(bool(causal)), _KERNEL_DTYPES[q.dtype],
-                                stream)
+    flags = (int(bool(causal)),) + (0,) * (name == "flash_attention")
+    err = getattr(lib, entry)(*ptrs, b, h, sq, sk, d, float(scale), *flags,
+                              stream)
     if err:
-        msg = lib.flash_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
-
-
-def _sm90_library() -> ctypes.CDLL:
-    lib = _build.load("flash_fwd_sm90")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_sm90_launch.argtypes = [vp] * 5 + [ci] * 5 + [cf, ci,
-                                                                   vp]
-        lib.flash_fwd_sm90_launch.restype = ci
-        lib.flash_fwd_sm90_error_string.argtypes = [ci]
-        lib.flash_fwd_sm90_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
+        msg = getattr(lib, _ERROR_STRING[name])(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
 def _require_cuda(q: torch.Tensor, name: str) -> None:
@@ -257,23 +265,12 @@ def flash_fwd(q, k, v, causal: bool,
         return flash_attention_plain(q, k, v, causal, scale)
     _require_cuda(q, "flash_fwd")
     _check_cuda_args(causal, q, k, v)
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
-    if q.dtype == torch.bfloat16:
-        lib = _sm90_library()
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd_sm90_launch(*ptrs, b, h, sq, k.shape[1], d,
-                                        float(scale), int(bool(causal)),
-                                        stream)
-        if err:
-            msg = lib.flash_fwd_sm90_error_string(err).decode()
-            raise RuntimeError(f"flash_fwd_sm90_launch failed: CUDA error "
-                               f"{err} ({msg})")
-    else:
-        _launch("flash_fwd_launch", ptrs, q, k.shape[1], causal, scale)
+    _launch("fwd", ptrs, q, k.shape[1], causal, scale)
     flash_fwd.launches += 1
     return out, lse
 
@@ -281,7 +278,9 @@ def flash_fwd(q, k, v, causal: bool,
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
                  scale: float) -> torch.Tensor:
     """dQ ``[b, s_q, h, d]`` by recompute. CPU tensors take
-    :func:`flash_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    :func:`flash_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
+    runs ``flash_bwd_dq_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
+    ``flash_bwd_dq_kernel`` (``csrc/flash_attention.cu``)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[0]
     _require_cuda(q, "flash_bwd_dq")
@@ -289,10 +288,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq_launch",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            q, k.shape[1], causal, scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    _launch("dq", ptrs, q, k.shape[1], causal, scale)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -300,7 +298,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` ``[b, s_k, h, d]`` by recompute. CPU tensors take
-    :func:`flash_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    :func:`flash_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
+    runs ``flash_bwd_dkv_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
+    ``flash_bwd_dkv_kernel`` (``csrc/flash_attention.cu``)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[1:]
     _require_cuda(q, "flash_bwd_dkv")
@@ -309,10 +309,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
     _check_rows("delta", delta, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv_launch",
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, k.shape[1], causal, scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    _launch("dkv", ptrs, q, k.shape[1], causal, scale)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
