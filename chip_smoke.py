@@ -69,16 +69,23 @@ code is non-zero):
                PyTorch call (SDPA over nested jagged tensors if this torch
                takes them causal, else with the block-diagonal mask),
                beside the bound over the visible pairs.
-5. ``gather_gemm_kernel``  the gather-GEMM expert-FFN kernel against its
-               plain version: 6 small cases (f32 atol 1e-5; bf16 within the
-               bound its bf16 rounding of the hidden activation implies;
-               planted drops, an empty expert, all-sentinel row blocks, C not
-               a multiple of the row block, T 1, the smallest (d, h) the
-               support check admits) and the moe_train shape (E 64, C 320,
-               d 2048, h 1408, bf16, slots from a routing of random x);
-               timings of the kernel, the plain version and the sorted
+5. ``gather_gemm_kernel``  the gather-GEMM expert FFN's two kernels
+               (bf16: gather_gateup_sm90 and expert_down_sm90, TMA +
+               wgmma; f32: the FMA pair) each against its plain half, and
+               the call against its plain version: 6 small cases (f32 atol
+               1e-5; bf16 one bf16 step a phase plus the slack of f32
+               summation orders, sqrt(K) 2^-24 (|a| @ |b|), and, for the
+               call, the bound its bf16 rounding of hmid implies;
+               planted drops, an empty expert, all-sentinel 64-slot halves,
+               C not a multiple of the row tile, T 1, the smallest (d, h)
+               the support check admits); the shared-memory plan, Python
+               against CUDA; then two full-width bf16 cases, slots from a
+               routing of random x: the moe_train shape (E 64, C 320,
+               T 8192, d 2048, h 1408) and Mixtral-8x7B's expert widths
+               (E 8, C 640, T 2048, d 4096, h 14336); for each, timings of
+               each phase, the call, the plain version and the sorted
                mode's composition (gather, two bmm, silu*mul, bmm), beside
-               the bound.
+               the bounds of each phase and of the call.
 6. ``engine_parity``  a tiny fp32 Llama served greedily by the port engine
                on the card (kernel) and on the CPU (plain version): equal
                tokens.
@@ -127,8 +134,9 @@ code is non-zero):
                capacity factor 1.25, fused mode) cut to 4 of 28 layers
                (memory), bf16 with f32 AdamW masters and a global-norm clip,
                batch 4 x 2048 fed 7 times (1 warm-up, 5 timed, 1 profiled);
-               losses finite and falling, the gather-GEMM and flash counters
-               exactly layers x steps, no non-finite parameter; step time,
+               losses finite and falling, the gather-GEMM counters (calls
+               and each of its two kernels) and flash counters exactly
+               layers x steps, no non-finite parameter; step time,
                tokens/s, MFU on the active parameters, peak memory, device
                time by kind and the share of routed entries each layer's
                capacity dropped.
@@ -154,7 +162,7 @@ PAGED_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
 PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
 FLASH_FWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_fwd_sm90.cu"
 FLASH_BWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_bwd_sm90.cu"
-GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm.cu"
+GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm_sm90.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
 VARLEN_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
 VARLEN_REPLACES = {
@@ -1219,26 +1227,128 @@ def planted_slots(rng, T, E, C, empty=None):
 
 
 def gather_gemm_check(gg, x, slot, wg, wu, wd, C):
-    """Kernel against plain: (max abs error, max error / allowed), allowed
-    1e-5 in f32 and the kernel's derived bound in bf16."""
+    """Each phase against its plain half on the same inputs and the call
+    against gather_gemm_ffn_plain: {name: (max abs error, max error /
+    allowed)}, allowed 1e-5 in f32; in bf16 each phase's bound (one bf16
+    step and its f32 summation-order slack) and the call's derived bound. Every sentinel slot's rows must be zero."""
     import torch
 
+    T = x.shape[0]
+    E, _, h = wg.shape
+    hmid = gg.gather_gateup(x, slot, wg, wu, capacity=C)
+    hmid_want = gg.gather_gateup_plain(x, slot, wg, wu, capacity=C)
+    down = gg.expert_down(hmid_want, slot, wd, n_tokens=T)
+    down_want = gg.expert_down_plain(hmid_want, slot, wd, n_tokens=T)
     got = gg.gather_gemm_ffn(x, slot, wg, wu, wd, capacity=C)
     want = gg.gather_gemm_ffn_plain(x, slot, wg, wu, wd, capacity=C)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    if x.dtype == torch.float32:
-        allowed = torch.full_like(err, 1e-5)
-    else:
-        allowed = gg.bf16_error_bound(x, slot, wg, wu, wd, capacity=C,
-                                      plain=want)
-    dead = slot >= x.shape[0]
-    if bool(got[dead].any()):
+    out = {}
+    for name, a, b in (("gather_gateup", hmid, hmid_want),
+                       ("expert_down", down, down_want),
+                       ("call", got, want)):
+        err = (a.float() - b.float()).abs()
+        if x.dtype == torch.float32:
+            allowed = torch.full_like(err, 1e-5)
+        elif name == "call":
+            allowed = gg.bf16_error_bound(x, slot, wg, wu, wd, capacity=C,
+                                          plain=b)
+        elif name == "gather_gateup":
+            allowed = gg.gather_gateup_bf16_bound(x, slot, wg, wu,
+                                                  capacity=C, plain=b)
+        else:
+            allowed = gg.expert_down_bf16_bound(hmid_want, wd, plain=b)
+        out[name] = (float(err.max()), float((err / allowed).max()))
+        del err, allowed
+    dead = (slot < 0) | (slot >= T)
+    if bool(hmid.reshape(E * C, h)[dead].any()) or bool(down[dead].any()) \
+            or bool(got[dead].any()):
         raise AssertionError("gather-GEMM: a sentinel slot's row is not zero")
-    return float(err.max()), float((err / allowed).max())
+    return out
 
 
 MOE_E, MOE_C, MOE_T, MOE_D, MOE_H = 64, 320, 8192, 2048, 1408
+# Mixtral-8x7B's expert widths (public config of mistralai/Mixtral-8x7B-v0.1:
+# hidden 4096, intermediate 14336, 8 experts, top-2) at T 2048 and capacity
+# factor 1.25: C = 2048 * 2 / 8 * 1.25 = 640
+MIXTRAL_E, MIXTRAL_C, MIXTRAL_T, MIXTRAL_D, MIXTRAL_H = 8, 640, 2048, 4096, \
+    14336
+
+
+def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10):
+    """One bf16 case at full width: slots from a routing of random x through
+    a random gate (N(0, 0.02), as the model's init), both phases and the
+    call checked, then CUDA-event medians (L2 flushed) of each phase, the
+    call, the plain version and the sorted mode's composition, beside the
+    bounds of this run's work."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, d, device="cuda", generator=gen).to(torch.bfloat16)
+    wg, wu = (torch.randn(E, d, h, device="cuda", generator=gen).mul_(0.02)
+              .to(torch.bfloat16) for _ in range(2))
+    wd = torch.randn(E, h, d, device="cuda", generator=gen).mul_(0.02) \
+        .to(torch.bfloat16)
+    gate_w = torch.randn(d, E, device="cuda", generator=gen).mul_(0.02)
+    _, _, _, valid, entry = tmoe._capacity_slot_maps(x.float() @ gate_w, 2,
+                                                     E, C, T)
+    slot = torch.where(valid, entry % T, T).to(torch.int32)
+    checks = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
+    bad = {k: v for k, v in checks.items() if not v[1] <= 1.0}
+    if bad:
+        raise AssertionError(f"gather-GEMM T{T} E{E} C{C} d{d} h{h}: {bad}")
+    hmid = gg.gather_gateup(x, slot, wg, wu, capacity=C)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = {
+        "gather_gateup": median_ms(lambda: gg.gather_gateup(
+            x, slot, wg, wu, capacity=C), flush=flush),
+        "expert_down": median_ms(lambda: gg.expert_down(
+            hmid, slot, wd, n_tokens=T), flush=flush),
+        "call": median_ms(lambda: gg.gather_gemm_ffn(
+            x, slot, wg, wu, wd, capacity=C), flush=flush),
+        "plain": median_ms(lambda: gg.gather_gemm_ffn_plain(
+            x, slot, wg, wu, wd, capacity=C), reps=plain_reps,
+            warmup=1, flush=flush),
+        # the sorted mode's composition (index gather, two bmm, silu*mul,
+        # bmm): a yardstick, not one library call
+        "composition": median_ms(lambda: tmoe._reference_expert_ffn(
+            x, entry, valid, wg, wu, wd), flush=flush)}
+    wrapper_us = host_us(lambda: gg.gather_gemm_ffn(
+        x, slot, wg, wu, wd, capacity=C), reps=50)
+    del flush
+    # least time for this run's work: every weight read once, each token
+    # row that a filled slot reads read once, the slot indices read once,
+    # each output written once; the products of the filled slots only. Per
+    # phase, hmid is written by the first and read by the second.
+    n_valid = int(valid.sum())
+    n_rows = int(torch.unique(slot[valid]).numel())
+    item = x.element_size()
+    w_bytes = E * d * h * item
+    hmid_bytes = E * C * h * item
+    work = {
+        "gather_gateup": (2 * w_bytes + n_rows * d * item + 4 * E * C
+                          + hmid_bytes, 2 * n_valid * 2 * d * h),
+        "expert_down": (w_bytes + hmid_bytes + 4 * E * C + E * C * d * item,
+                        2 * n_valid * d * h),
+        "call": (3 * w_bytes + n_rows * d * item + 4 * E * C
+                 + E * C * d * item, 2 * n_valid * 3 * d * h)}
+    bounds = {}
+    for name, (bytes_, flops) in work.items():
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        bounds[name] = {"bytes": bytes_, "flops": flops,
+                        "bound_ms_bytes": t_bytes,
+                        "bound_ms_operations": t_ops,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations",
+                        "bound_share": max(t_bytes, t_ops) / ms[name],
+                        "tflops": flops / ms[name] / 1e9}
+    return {"shape": f"T{T} E{E} C{C} d{d} h{h} bf16",
+            "filled_slots": n_valid, "rows_read": n_rows,
+            "checks": {k: {"max_abs_err": v[0], "err_over_allowed": v[1]}
+                       for k, v in checks.items()},
+            "ms": ms, "bounds": bounds, "wrapper_host_us": wrapper_us,
+            "call_over_composition": ms["call"] / ms["composition"]}
 
 
 def phase_gather_gemm_kernel():
@@ -1250,87 +1360,62 @@ def phase_gather_gemm_kernel():
 
     rng = np.random.default_rng(0)
     small = []
-    # (T, E, C, d, h, empty): C 40 is not a multiple of the row block (32
-    # bf16, 16 f32), expert 3 is empty (all its blocks sentinels) and
-    # expert 0 overflows; (128, 128) is the smallest (d, h) admitted
+    # (T, E, C, d, h, empty): C 40 and 37 are not multiples of the row
+    # tile (128 slots bf16, 32 f32) and leave a 64-slot half of sentinels,
+    # expert 3 is empty (all its tiles sentinels) and expert 0 overflows;
+    # (128, 128) is the smallest (d, h) admitted
     for T, E, C, d, h, empty in ((48, 4, 40, 128, 128, 3),
                                  (300, 6, 37, 256, 384, None),
                                  (1, 2, 4, 128, 256, None)):
         for dtype in (torch.float32, torch.bfloat16):
             x, wg, wu, wd = gather_gemm_inputs(rng, T, E, d, h, dtype)
             slot = planted_slots(rng, T, E, C, empty).cuda()
-            err, ratio = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
+            checks = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
             small.append({"T": T, "E": E, "C": C, "d": d, "h": h,
-                          "dtype": str(dtype)[6:], "max_abs_err": err,
-                          "err_over_allowed": ratio})
-            if not ratio <= 1.0:
-                raise AssertionError(f"gather-GEMM small case {small[-1]}")
-    lib = gg._library()
-    for h, bf in ((128, 1), (1408, 1), (1408, 0)):
-        want = gg.smem_bytes(h, torch.bfloat16 if bf else torch.float32)
-        if lib.gather_gemm_smem_bytes(h, bf) != want:
-            raise AssertionError("gather-GEMM: Python and CUDA disagree on "
-                                 "shared memory")
+                          "dtype": str(dtype)[6:],
+                          "max_abs_err": max(v[0] for v in checks.values()),
+                          "err_over_allowed": max(v[1]
+                                                  for v in checks.values())})
+            if not small[-1]["err_over_allowed"] <= 1.0:
+                raise AssertionError(f"gather-GEMM small case {small[-1]}: "
+                                     f"{checks}")
+    plan = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for phase in gg.PHASES:
+            want = gg.smem_bytes(phase, dtype)
+            got = gg.kernel_smem_bytes(phase, dtype)
+            plan[f"{phase} {str(dtype)[6:]}"] = got
+            if got != want:
+                raise AssertionError(f"gather-GEMM: Python ({want}) and CUDA "
+                                     f"({got}) disagree on the shared memory "
+                                     f"of {phase} in {dtype}")
 
-    # main-path shape: one moe_train layer, slots from a routing of random
-    # x through a random gate (N(0, 0.02), as the model's init)
-    T, E, C, d, h = MOE_T, MOE_E, MOE_C, MOE_D, MOE_H
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(T, d, device="cuda", generator=gen).to(torch.bfloat16)
-    wg, wu = (torch.randn(E, d, h, device="cuda", generator=gen).mul_(0.02)
-              .to(torch.bfloat16) for _ in range(2))
-    wd = torch.randn(E, h, d, device="cuda", generator=gen).mul_(0.02) \
-        .to(torch.bfloat16)
-    gate_w = torch.randn(d, E, device="cuda", generator=gen).mul_(0.02)
-    _, _, _, valid, entry = tmoe._capacity_slot_maps(x.float() @ gate_w, 2,
-                                                     E, C, T)
-    slot = torch.where(valid, entry % T, T).to(torch.int32)
-    err, ratio = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
-    if not ratio <= 1.0:
-        raise AssertionError(f"gather-GEMM main shape: err {err}, "
-                             f"{ratio} of the bound")
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    kernel_ms = median_ms(lambda: gg.gather_gemm_ffn(
-        x, slot, wg, wu, wd, capacity=C), flush=flush)
-    plain_ms = median_ms(lambda: gg.gather_gemm_ffn_plain(
-        x, slot, wg, wu, wd, capacity=C), reps=10, flush=flush)
-    # the sorted mode's composition (index gather, two bmm, silu*mul, bmm):
-    # a yardstick, not one library call
-    composition_ms = median_ms(lambda: tmoe._reference_expert_ffn(
-        x, entry, valid, wg, wu, wd), flush=flush)
-    wrapper_us = host_us(lambda: gg.gather_gemm_ffn(
-        x, slot, wg, wu, wd, capacity=C), reps=50)
-    del flush
-    # least time for this run's work: every weight read once, each token
-    # row that a filled slot reads read once, the slot indices read once,
-    # out written once; the products of the filled slots only
-    n_valid = int(valid.sum())
-    n_rows = int(torch.unique(slot[valid]).numel())
-    item = x.element_size()
-    bytes_ = 3 * E * d * h * item + n_rows * d * item + 4 * E * C \
-        + E * C * d * item
-    flops = 2 * n_valid * 3 * d * h
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    main = gather_gemm_full_case(gg, tmoe, MOE_T, MOE_E, MOE_C, MOE_D, MOE_H,
+                                 seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = gather_gemm_full_case(gg, tmoe, MIXTRAL_T, MIXTRAL_E,
+                                    MIXTRAL_C, MIXTRAL_D, MIXTRAL_H, seed=1,
+                                    plain_reps=3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    call = main["bounds"]["call"]
     record = {
         "name": "gather_gemm_ffn", "route": "cuda",
         "source": GATHER_GEMM_SOURCE, "replaces": GATHER_GEMM_REPLACES,
-        "launches": None, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "shape": f"T{T} E{E} C{C} d{d} h{h} bf16",
-        "bytes": bytes_, "flops": flops}
-    emit({"phase": "gather_gemm_kernel", "small": small,
-          "main_shape": record["shape"], "filled_slots": n_valid,
-          "rows_read": n_rows, "max_abs_err": err,
-          "err_over_allowed": ratio, "kernel_ms": kernel_ms,
-          "plain_ms": plain_ms, "composition_ms": composition_ms,
-          "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
-          "bound_by": record["bound_by"],
-          "bound_ms_bytes": t_bytes, "bound_ms_operations": t_ops,
-          "bound_share": record["bound_ms"] / kernel_ms,
-          "tflops": flops / kernel_ms / 1e9})
+        "launches": None,
+        "max_abs_err": main["checks"]["call"]["max_abs_err"],
+        "ms": main["ms"]["call"], "plain_ms": main["ms"]["plain"],
+        "bound_ms": call["bound_ms"], "bound_by": call["bound_by"],
+        "library_ms": None, "shape": main["shape"],
+        "bytes": call["bytes"], "flops": call["flops"],
+        "note": "launches counts calls; each call is two launches "
+                "(gather_gateup_sm90, expert_down_sm90)",
+        "phase_ms": {k: main["ms"][k]
+                     for k in ("gather_gateup", "expert_down")},
+        "composition_ms": main["ms"]["composition"]}
+    emit({"phase": "gather_gemm_kernel", "small": small, "smem_plan": plan,
+          "main": main, "mixtral": mixtral})
     return record
 
 
@@ -1582,7 +1667,8 @@ def train_breakdown(step, ids, step_ms):
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         kind = ("flash" if "flash_" in name and "kernel" in name else
-                "gather_gemm" if "gather_ffn_kernel" in name else
+                "gather_gemm" if ("gather_gateup" in name
+                                  or "expert_down" in name) else
                 "matmul" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                     "cutlass", "nvjet"))
                 else "other")
@@ -1723,6 +1809,7 @@ def phase_moe_train(pt_pkg):
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
     reset_flash_launches()
     gg.gather_gemm_ffn.launches = 0
+    gg.gather_gateup.launches = gg.expert_down.launches = 0
     losses, wall_ms = [], []
     for _ in range(6):                       # 1 warm-up + 5 timed
         torch.cuda.synchronize()
@@ -1735,7 +1822,8 @@ def phase_moe_train(pt_pkg):
     breakdown = train_breakdown(step, ids, step_ms)
     n_steps = len(wall_ms) + 1               # the profiled step included
     launches = {"gather_gemm_ffn": gg.gather_gemm_ffn.launches,
-                **flash_launches()}
+                "gather_gateup": gg.gather_gateup.launches,
+                "expert_down": gg.expert_down.launches, **flash_launches()}
     peak = torch.cuda.max_memory_allocated()
     drops = moe_drop_shares(model, ids)
     bad = [n for n, p in model.named_parameters()

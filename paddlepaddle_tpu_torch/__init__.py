@@ -23,8 +23,9 @@ MoE decoder:
   (``ops/kernels/csrc/flash_attention.cu``);
 * the MoE decoder: ``MoEForCausalLM`` over ``MoELayer`` (dispatch modes
   sorted, fused, dropless, einsum) trained by the same ``TrainStep``; in
-  the fused mode every expert FFN forward goes through a hand-written CUDA
-  gather-GEMM kernel (``ops/kernels/csrc/gather_gemm.cu``).
+  the fused mode every expert FFN forward goes through the hand-written CUDA
+  gather-GEMM kernels (``ops/kernels/csrc/gather_gemm_sm90.cu`` in bf16,
+  ``gather_gemm.cu`` in f32).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no device given they raise (:mod:`.device`).

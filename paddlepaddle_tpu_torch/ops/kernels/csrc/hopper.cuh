@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
-// warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA
-// tile loads through a tensor map, the shared-memory matrix descriptor of a
-// 128-byte-swizzled tile, the wgmma products the flash kernels issue (bf16
-// in, f32 accumulators), A fragments read from a swizzled tile by ldmatrix, register reallocation between warpgroups, and the
-// host-side encoding of a tiled tensor map through the driver entry point
-// (no -lcuda).
+// warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu,
+// gather_gemm_sm90.cu): mbarriers, the proxy fence, TMA tile loads through a
+// tensor map, the shared-memory matrix descriptor of a 128-byte-swizzled
+// tile, the wgmma products those kernels issue (bf16 in, f32 accumulators),
+// A fragments read from a swizzled tile by ldmatrix, register reallocation
+// between warpgroups, and the host-side encoding of a tiled tensor map
+// through the driver entry point (no -lcuda).
 
 #pragma once
 
@@ -72,8 +73,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// orders this thread's generic-proxy shared-memory writes (plain stores,
+// completed cp.async copies) before later async-proxy reads (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -------------------------------------------------------------------------
 // TMA
+
+// a 3-D box of `map` at coordinates (c0 innermost .. c2) into shared memory;
+// completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
 
 // a 4-D box of `map` at coordinates (c0 innermost .. c3) into shared memory;
 // completion is counted on `bar` in bytes
@@ -132,6 +152,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
       "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128]: A from shared memory K-major, B
+// from shared memory N-major (trans-b): [16 k rows][128 n] stored as two
+// 64-column blocks of rows of 128 bytes, `lbo` bytes apart (the descriptor's
+// leading byte offset), each 8-row group 1024 bytes after the last
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -279,6 +331,27 @@ inline cudaError_t bshd_map(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous [n2, n1, n0] bf16 tensor as a 3-D map (n0 innermost) whose
+// box is 64 elements of n0 by `rows` of n1 in one n2: one
+// 128-byte-swizzled [rows][64] tile per load. Rows past n1 read as zero.
+inline cudaError_t bf16_map_3d(CUtensorMap* map, const void* base,
+                               uint64_t n0, uint64_t n1, uint64_t n2,
+                               int rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -1,5 +1,6 @@
 // Warp-level building blocks shared by the port's Hopper kernels
-// (flash_attention.cu, gather_gemm.cu): 16-byte cp.async copies, ldmatrix
+// (flash_attention.cu, gather_gemm.cu; gather_gemm_sm90.cu takes the
+// cp.async copy): 16-byte cp.async copies, ldmatrix
 // fragment loads, the bf16 mma.sync m16n8k16 product with f32 accumulation,
 // and warp_mma, one warp's 16-row product in the m16n8 accumulator layout
 // (FMA in full f32 for float operands, the tensor cores for bf16).
