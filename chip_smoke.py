@@ -46,15 +46,20 @@ code is non-zero):
                SDPA (forward; its backward for the two backward kernels),
                beside the bound.
 4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV
-               kernels (5-7) against their plain versions on the same
-               inputs: 48 small cases (6 layouts: a padding tail with empty
-               segments first, in the middle and last; cu_q != cu_k; causal
-               rows with no key and a segment with no keys; 64 one-token
-               segments; a tile over five segments; t not a multiple of 8;
+               kernels (5-7; bf16: the TMA/wgmma forward and dK/dV and the
+               mma.sync dQ; f32: the FMA kernels) against their plain
+               versions on the same inputs: 64 small cases (8 layouts: a
+               padding tail with empty segments first, in the middle and
+               last; cu_q != cu_k; causal rows with no key and a segment
+               with no keys; 64 one-token segments; a tile over five
+               segments; t not a multiple of 8; a 128-row tile over three
+               segments and a segment longer than 3 stages of 128 keys;
+               len_k > len_q over several key tiles with t_q % 4 != 0;
                d 64/128, f32 atol 1e-5 / bf16 atol 2e-2 + rtol 1e-2,
                causal and full) with rows without a key and keys without a
                row exactly 0; one segment over the buffer against the dense
-               kernels (max difference printed); then the main path at
+               kernels (max difference printed; bf16 within 2e-2); each
+               kernel's ptxas registers and spills; then the main path at
                Llama-3-8B attention width (h 32, d 128, bf16) through the
                public entries, counters from 0: (a) ``flash_attn_unpadded``
                forward and backward on a packed batch (8192 tokens in
@@ -64,8 +69,9 @@ code is non-zero):
                ``variable_length_memory_efficient_attention`` at
                [8, 32, 2048, 128] with lengths 64-2048 (full); (a) and (b)
                against the plain versions in head chunks (atol 2e-2 + rtol
-               1e-2), (a) again in f32 (atol 1e-5), (c) per sequence;
-               timings at (a) of each kernel, the plain versions and one
+               1e-2), (a) again in f32 (atol 1e-5), (c) per sequence; two
+               launches of dK/dV at (a) give the same bits; timings at (a)
+               of each kernel, the plain versions and one
                PyTorch call (SDPA over nested jagged tensors if this torch
                takes them causal, else with the block-diagonal mask),
                beside the bound over the visible pairs.
@@ -164,7 +170,11 @@ FLASH_FWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_fwd_sm90.cu"
 FLASH_BWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_bwd_sm90.cu"
 GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm_sm90.cu"
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
-VARLEN_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu"
+VARLEN_SOURCES = {
+    "varlen_fwd": "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu",
+    "varlen_bwd_dq": "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu",
+    "varlen_bwd_dkv":
+        "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu"}
 VARLEN_REPLACES = {
     "varlen_fwd": "paddlepaddle_tpu/ops/kernels/flash_varlen.py:123",
     "varlen_bwd_dq": "paddlepaddle_tpu/ops/kernels/flash_varlen.py:156",
@@ -184,6 +194,49 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A mangled kernel name as its last name component, head dim and
+    element type, as ``varlen_bwd_dq_kernel_d64_bf16``."""
+    import re
+
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name, i = mangled, 0
+    while i < len(s) and s[i].isdigit():     # <length><identifier> ...
+        j = i
+        while s[j].isdigit():
+            j += 1
+        name, i = s[j:j + int(s[i:j])], j + int(s[i:j])
+    args = s[i:] if s[i:i + 1] == "I" else ""
+    dim = re.search(r"Li(\d+)E", args)
+    kind = ("bf16" if args.startswith("I13__nv_bfloat16")
+            else "f32" if args.startswith("If") else "")
+    return "_".join(x for x in (name, f"d{dim.group(1)}" if dim else "",
+                                kind) if x)
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, keyed by :func:`kernel_name`."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 3, flush=None) -> float:
@@ -781,6 +834,11 @@ VARLEN_SMALL = {
     "ones": ([1] * 64, None, 67, 67),
     "mixed": ([3, 40, 7, 0, 5, 9, 100], [3, 40, 7, 2, 5, 9, 100], 171, 173),
     "multi": ([700, 0, 129], [900, 64, 129], 837, 1101),
+    # only 128-row tiles reach these: a tile over three segments and a
+    # segment longer than 3 stages of 128 keys; len_k > len_q over several
+    # key tiles with t_q % 4 != 0
+    "tile128": ([100, 156, 1, 300, 0, 211], None, 800, 800),
+    "prefill128": ([130, 7, 260], [900, 7, 700], 397, 1607),
 }
 
 
@@ -805,7 +863,7 @@ def varlen_pairs(cu_q, cu_k, causal: bool) -> int:
     return total
 
 
-def varlen_tiles(fv, cq, ck, tq, tk, causal, bm=64, bn=64):
+def varlen_tiles(fv, cq, ck, tq, tk, causal, bm=128, bn=128):
     """Key tiles of ``bn`` a CTA of ``bm`` query rows must stream to cover
     its rows' visible keys (from its first visible key to its last), summed
     over the CTAs, beside the tiles a loop over all of t_k takes."""
@@ -951,6 +1009,7 @@ def phase_flash_varlen_kernel():
 
     from paddlepaddle_tpu_torch.incubate.nn import functional as incF
     from paddlepaddle_tpu_torch.nn import functional as F
+    from paddlepaddle_tpu_torch.ops.kernels import _build
     from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
 
@@ -1118,6 +1177,16 @@ def phase_flash_varlen_kernel():
     scale = d ** -0.5
     out, lse = fv.varlen_fwd(qa, ka, va, cq, cq, True, scale)
     delta = fv.varlen_delta(out, do_a)
+    # one writer per output row, no atomics: two launches of dK/dV give the
+    # same bits
+    first = fv.varlen_bwd_dkv(qa, ka, va, do_a, lse, delta, cq, cq, True,
+                              scale)
+    again = fv.varlen_bwd_dkv(qa, ka, va, do_a, lse, delta, cq, cq, True,
+                              scale)
+    dkv_repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    del first, again
+    if not dkv_repeat_equal:
+        raise AssertionError("varlen dK/dV: two launches differ")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ms = {
         "varlen_fwd": median_ms(lambda: fv.varlen_fwd(
@@ -1168,7 +1237,7 @@ def phase_flash_varlen_kernel():
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         records.append({
-            "name": name, "route": "cuda", "source": VARLEN_SOURCE,
+            "name": name, "route": "cuda", "source": VARLEN_SOURCES[name],
             "replaces": VARLEN_REPLACES[name], "launches": launches[name],
             "max_abs_err": err_of[name], "ms": ms[name],
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
@@ -1186,6 +1255,10 @@ def phase_flash_varlen_kernel():
           "launches": launches, "full_width": checks,
           "full_atol": full_atol, "full_rtol": full_rtol,
           "visible_pairs_a": pairs, "fwd_tiles_a": tiles,
+          "dkv_repeat_bit_identical": dkv_repeat_equal,
+          "ptxas": {k: v for src in ("flash_varlen_sm90", "flash_varlen")
+                    for k, v in ptxas_kernels(str(_build.build_log.get(
+                        src, {}).get("ptxas", ""))).items()},
           "ms": ms, "plain_ms": plain, "library": lib_name,
           "library_ms": library, "library_max_diff": lib_err,
           "bound_ms": {r["name"]: r["bound_ms"] for r in records},

@@ -97,74 +97,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kRowBytes = 64 * 2;  // one swizzled row: 64 bf16
 
-// 2^x on the multi-function unit, results below 2^-126 flushed to 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the accumulator of a 64 x N product to bf16 A fragments: k step kk takes
-// 8-column blocks 2kk and 2kk + 1
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&x)[N / 2],
-                                           uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int jb = 0; jb < N / 8; ++jb) {
-    a[jb / 2][(jb & 1) * 2 + 0] = pack_bf16(x[4 * jb + 0], x[4 * jb + 1]);
-    a[jb / 2][(jb & 1) * 2 + 1] = pack_bf16(x[4 * jb + 2], x[4 * jb + 3]);
-  }
-}
-
-// acc[blk] += A B over STEPS k16 steps: A from registers, B the N-major
-// [STEPS * 16][64] swizzled blocks of a tile, one per 64-wide d block,
-// `block_bytes` apart
-template <int NB, int STEPS>
-__device__ __forceinline__ void wgmma_rs_acc(float (&acc)[NB][32],
-                                             const uint32_t (&a)[STEPS][4],
-                                             const unsigned char* tile,
-                                             uint32_t block_bytes) {
-#pragma unroll
-  for (int kk = 0; kk < STEPS; ++kk)
-#pragma unroll
-    for (int blk = 0; blk < NB; ++blk)
-      hopper::wgmma_m64n64k16_rs(
-          acc[blk], a[kk],
-          hopper::desc_sw128(tile + blk * block_bytes + kk * 16 * kRowBytes,
-                             1024));
-}
-
-template <int NB>
-__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
-#pragma unroll
-  for (int blk = 0; blk < NB; ++blk) hopper::fence_regs(acc[blk]);
-}
-
-// rows row0 and row0 + 8 of a 64 x D accumulator to bf16 [b, s, h, d] rows
-template <int NB>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, size_t rs,
-                                           int row0, int S, int t,
-                                           const float (&acc)[NB][32]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row < S) {
-      __nv_bfloat16* dst = base + (size_t)row * rs + 2 * t;
-#pragma unroll
-      for (int blk = 0; blk < NB; ++blk)
-#pragma unroll
-        for (int jb = 0; jb < 8; ++jb)
-          *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) = pack_bf16(
-              acc[blk][4 * jb + 2 * r], acc[blk][4 * jb + 2 * r + 1]);
-    }
-  }
-}
-
 // -------------------------------------------------------------------------
 // dQ: one (b*h, 128-query tile), looping over key tiles
 
@@ -299,8 +231,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
     // dQ += dS K of key tile j (one commit group)
     auto issue_dq = [&](int j) {
-      wgmma_rs_acc<NB, BN / 16>(acc, da, k_s + (j % ST) * NB * kTileBlock,
-                                kTileBlock);
+      hopper::wgmma_rs_acc<NB, BN / 16>(
+          acc, da, k_s + (j % ST) * NB * kTileBlock, kTileBlock);
       hopper::wgmma_commit();
     };
     // s -> P, masked where the tile needs it (uniform across the warpgroup)
@@ -311,7 +243,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int jb = 0; jb < BN / 8; ++jb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = fast_exp2(fmaf(s[4 * jb + e], sl2, nl[e >> 1]));
+          float p =
+              hopper::fast_exp2(fmaf(s[4 * jb + e], sl2, nl[e >> 1]));
           if (!whole) {
             const int col = j * BN + jb * 8 + 2 * t + (e & 1);
             const int row = row0 + (e >> 1) * 8;
@@ -347,14 +280,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
       grads();
-      to_a_frags<BN>(dp, da);
+      hopper::to_a_frags<BN>(dp, da);
       // every step but the last commits S, dP of tile j + 1 and dQ of tile
       // j, so the wait counts below are static
       for (int j = 0; j + 1 < n_c; ++j) {
         hopper::mbar_wait(&full_bar[(j + 1) % ST], ((j + 1) / ST) & 1);
         hopper::fence_regs(s);
         hopper::fence_regs(dp);
-        fence_acc(acc);
+        hopper::fence_acc(acc);
         hopper::wgmma_fence();
         issue_s_dp(j + 1);
         issue_dq(j);
@@ -365,16 +298,16 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::fence_regs(dp);
         grads();
         hopper::wgmma_wait<0>();               // dQ of tile j is in
-        fence_acc(acc);
+        hopper::fence_acc(acc);
         if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
-        to_a_frags<BN>(dp, da);
+        hopper::to_a_frags<BN>(dp, da);
       }
       const int j = n_c - 1;                   // the last tile's dQ
-      fence_acc(acc);
+      hopper::fence_acc(acc);
       hopper::wgmma_fence();
       issue_dq(j);
       hopper::wgmma_wait<0>();
-      fence_acc(acc);
+      hopper::fence_acc(acc);
       if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
     }
     // tiles the CTA loads for the other warpgroup's rows only
@@ -383,8 +316,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
     }
 
-    store_rows<NB>(dq + ((size_t)b * Sq * H + h) * D, (size_t)H * D, row0,
-                   Sq, t, acc);
+    hopper::store_rows<NB>(dq + ((size_t)b * Sq * H + h) * D, (size_t)H * D,
+                           row0, Sq, t, acc);
   }
 }
 
@@ -554,7 +487,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               *reinterpret_cast<const float2*>(ls + jb * 8 + 2 * t);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float p = fast_exp2(
+            float p = hopper::fast_exp2(
                 fmaf(s[4 * jb + e], sl2, -((e & 1) ? l2.y : l2.x)));
             if (diag) {
               const int col = i * BQ + jb * 8 + 2 * t + (e & 1);
@@ -563,11 +496,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             s[4 * jb + e] = p;
           }
         }
-        to_a_frags<BQ>(s, pa);
+        hopper::to_a_frags<BQ>(s, pa);
         // dV += P^T dO, in flight while dS^T is formed
-        fence_acc(dv_acc);
+        hopper::fence_acc(dv_acc);
         hopper::wgmma_fence();
-        wgmma_rs_acc<NB, BQ / 16>(dv_acc, pa, dot, kTileBlock);
+        hopper::wgmma_rs_acc<NB, BQ / 16>(dv_acc, pa, dot, kTileBlock);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();               // dP^T is in
         hopper::fence_regs(dp);
@@ -581,22 +514,22 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              (dp[4 * jb + e] - ((e & 1) ? d2.y : d2.x)) *
                              scale;
         }
-        to_a_frags<BQ>(dp, da);
+        hopper::to_a_frags<BQ>(dp, da);
         // dK += dS^T Q
-        fence_acc(dk_acc);
+        hopper::fence_acc(dk_acc);
         hopper::wgmma_fence();
-        wgmma_rs_acc<NB, BQ / 16>(dk_acc, da, qt, kTileBlock);
+        hopper::wgmma_rs_acc<NB, BQ / 16>(dk_acc, da, qt, kTileBlock);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
-        fence_acc(dk_acc);
-        fence_acc(dv_acc);
+        hopper::fence_acc(dk_acc);
+        hopper::fence_acc(dv_acc);
       }
       if (lane == 0) hopper::mbar_arrive(&empty_bar[st]);
     }
 
     const size_t base = ((size_t)b * Sk * H + h) * D;
-    store_rows<NB>(dk + base, (size_t)H * D, key_r, Sk, t, dk_acc);
-    store_rows<NB>(dv + base, (size_t)H * D, key_r, Sk, t, dv_acc);
+    hopper::store_rows<NB>(dk + base, (size_t)H * D, key_r, Sk, t, dk_acc);
+    hopper::store_rows<NB>(dv + base, (size_t)H * D, key_r, Sk, t, dv_acc);
   }
 }
 

@@ -87,19 +87,6 @@ template <int D> struct Cfg {
       (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// 2^x on the multi-function unit, results below 2^-126 flushed to 0 (a
-// probability that small is nothing beside the row's largest, which is 1)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -238,7 +225,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
         const float m_new = fmaxf(m[r], v * sl2);
-        alpha[r] = fast_exp2(m[r] - m_new);
+        alpha[r] = hopper::fast_exp2(m[r] - m_new);
         m[r] = m_new;
         l[r] *= alpha[r];
         nm[r] = -m_new;
@@ -247,21 +234,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int jb = 0; jb < 16; ++jb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = fast_exp2(fmaf(s[4 * jb + e], sl2, nm[e >> 1]));
+          const float p =
+              hopper::fast_exp2(fmaf(s[4 * jb + e], sl2, nm[e >> 1]));
           s[4 * jb + e] = p;
           l[e >> 1] += p;
         }
     };
-    // P to bf16 A fragments: step kk takes 8-column blocks 2kk and 2kk + 1
-    auto convert = [&]() {
-#pragma unroll
-      for (int jb = 0; jb < 16; ++jb) {
-        pa[jb / 2][(jb & 1) * 2 + 0] =
-            pack_bf16(s[4 * jb + 0], s[4 * jb + 1]);          // row g
-        pa[jb / 2][(jb & 1) * 2 + 1] =
-            pack_bf16(s[4 * jb + 2], s[4 * jb + 3]);          // row g + 8
-      }
-    };
+    // P to bf16 A fragments
+    auto convert = [&]() { hopper::to_a_frags<kBN>(s, pa); };
 
     // Tile 0's S and softmax; then each step issues S of tile j + 1 and
     // O += P V of tile j together, runs tile j + 1's softmax while P V is in
@@ -341,8 +321,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int jb = 0; jb < 8; ++jb)
             *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) =
-                pack_bf16(o[blk][4 * jb + 2 * r] * inv,
-                          o[blk][4 * jb + 2 * r + 1] * inv);
+                hopper::pack_bf16(o[blk][4 * jb + 2 * r] * inv,
+                                  o[blk][4 * jb + 2 * r + 1] * inv);
         if (t == 0) lse[(size_t)bh * Sq + row] = m[r] * kLn2 + logf(lt[r]);
       }
     }

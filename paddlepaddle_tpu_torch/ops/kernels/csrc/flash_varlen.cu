@@ -1,10 +1,13 @@
-// Packed varlen flash attention for Hopper (sm_90a): the forward, dQ and
-// dK/dV kernels, CUDA C++ with a plain C entry per kernel.
+// Packed varlen flash attention for Hopper (sm_90a): the f32 forward, dQ
+// and dK/dV kernels and the bf16 dQ kernel, CUDA C++ with a plain C entry
+// per kernel. The bf16 forward and dK/dV are varlen_fwd_sm90_kernel and
+// varlen_bwd_dkv_sm90_kernel in flash_varlen_sm90.cu (TMA + wgmma); the
+// forward and dK/dV entries here refuse bf16.
 //
 // Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_varlen.py:
-//   varlen_fwd_kernel     <- _vfwd_kernel :123 (pallas_call in _varlen_pallas_fwd :233)
-//   varlen_bwd_dq_kernel  <- _vdq_kernel  :156 (pallas_call in _varlen_pallas_bwd :273)
-//   varlen_bwd_dkv_kernel <- _vdkv_kernel :184 (pallas_call in _varlen_pallas_bwd :284)
+//   varlen_fwd_kernel     f32       <- _vfwd_kernel :123 (pallas_call in _varlen_pallas_fwd :233)
+//   varlen_bwd_dq_kernel  f32, bf16 <- _vdq_kernel  :156 (pallas_call in _varlen_pallas_bwd :273)
+//   varlen_bwd_dkv_kernel f32       <- _vdkv_kernel :184 (pallas_call in _varlen_pallas_bwd :284)
 // Same function: q [tq, h, d] and k/v [tk, h, d] hold packed sequences whose
 // bounds are the int32 prefix sums cu_q, cu_k [B + 1] (on the device). Query
 // row i of segment s (cu_q[s] <= i < cu_q[s+1]) sees key j when
@@ -28,7 +31,8 @@
 //   * A CTA (4 warps, 64 rows: query rows in the forward and dQ kernels, key
 //     rows in dK/dV) first gives each of its rows the range [lo, hi) of the
 //     other side that the row sees, from a binary search for the row's
-//     segment in cu_q (cu_k): log2(B) loads a row, any B, nothing unrolled.
+//     segment in cu_q (cu_k; varlen_ranges.cuh): log2(B) loads a row, any
+//     B, nothing unrolled.
 //     Padding rows and rows that see nothing get an empty range.
 //   * The CTA streams only the tiles of the union of its rows' ranges: the
 //     keys of the segments its rows span, cut under causal masking at its
@@ -40,10 +44,11 @@
 //     with an empty range or the end of the union tests its elements, with
 //     two integer compares against the row's [lo, hi).
 //   * Tiles, products and staging are flash_attention.cu's (flash_tiles.cuh):
-//     mma.sync m16n8k16 on bf16 with f32 accumulation, ldmatrix fragments,
+//     FMA in full f32 for f32 (wgmma would round f32 to TF32), mma.sync
+//     m16n8k16 with f32 accumulation and ldmatrix fragments for the bf16 dQ,
 //     16-byte cp.async double buffering (64 keys a tile in the forward and
-//     dQ kernels, 32 queries in dK/dV), FMA in full f32 for f32. Every output
-//     row has one writer, so no atomics are needed.
+//     dQ kernels, 32 queries in dK/dV). Every output row has one writer, so
+//     no atomics are needed.
 //
 // Bound: at a packed training batch of Llama-3-8B attention (t 8256, h 32,
 // d 128, bf16, causal segments of 64-2048 tokens) the visible pairs take 4d
@@ -51,75 +56,23 @@
 // about even with the bytes of q, k, v and o once over 3.35 TB/s in the
 // forward. Skipping the tiles outside a CTA's segments is what keeps the
 // work to the visible pairs: ~14x fewer tiles than a loop over all of t at
-// that shape. Known limits, for later work: mma.sync rather than wgmma, no
-// TMA or warp specialisation, and no balancing of work across CTAs (a CTA's
-// work follows its segments' lengths).
+// that shape. Known limits of the bf16 dQ, for later work: mma.sync rather
+// than wgmma, no TMA or warp specialisation, dS staged through shared
+// memory, and no balancing of work across CTAs (a CTA's work follows its
+// segments' lengths).
 //
-// Limits checked by the Python wrapper before launch: d in {64, 128}, f32 or
-// bf16, q, k and v with equal heads, h <= 65535, len(cu_q) == len(cu_k),
-// tq, tk >= 1, 16-byte aligned contiguous tensors; any tq and tk (ragged
+// Limits checked by the Python wrapper before launch: d in {64, 128}, f32
+// or bf16 (the wrapper sends the bf16 forward and dK/dV to
+// flash_varlen_sm90.cu), q, k and v with equal heads, h <= 65535,
+// len(cu_q) == len(cu_k), tq, tk >= 1, 16-byte aligned contiguous tensors; any tq and tk (ragged
 // last tiles are zero-filled and masked). Every range is clamped to
 // [0, tq) x [0, tk), so malformed prefix sums cannot make a kernel read or
 // write out of bounds.
 
-#include <climits>
-
 #include "flash_tiles.cuh"
+#include "varlen_ranges.cuh"
 
 namespace {
-
-constexpr int kEmptyLo = INT_MAX, kEmptyHi = INT_MIN;   // an empty range
-
-// -------------------------------------------------------------------------
-// segment bookkeeping
-
-// the s in [0, nseg) with cu[s] <= i < cu[s+1], for cu[0] <= i < cu[nseg]:
-// the first segment whose end passes i (empty segments are passed over)
-__device__ __forceinline__ int find_segment(const int* __restrict__ cu,
-                                            int nseg, int i) {
-  int lo = 0, hi = nseg - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(cu + mid + 1) > i) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
-}
-
-// the keys query row i sees, [x, y), or an empty range
-__device__ __forceinline__ int2 keys_of_query(const int* __restrict__ cu_q,
-                                              const int* __restrict__ cu_k,
-                                              int nseg, int Tq, int Tk,
-                                              int causal, int i) {
-  int2 r = make_int2(kEmptyLo, kEmptyHi);
-  if (i < __ldg(cu_q) || i >= min(__ldg(cu_q + nseg), Tq)) return r;
-  const int s = find_segment(cu_q, nseg, i);
-  const int end_k = __ldg(cu_k + s + 1);
-  const int lo = max(__ldg(cu_k + s), 0);
-  int hi = min(end_k, Tk);
-  if (causal) hi = min(hi, i + (end_k - __ldg(cu_q + s + 1)) + 1);
-  if (lo < hi) r = make_int2(lo, hi);
-  return r;
-}
-
-// the queries that see key j, [x, y), or an empty range
-__device__ __forceinline__ int2 queries_of_key(const int* __restrict__ cu_q,
-                                               const int* __restrict__ cu_k,
-                                               int nseg, int Tq, int Tk,
-                                               int causal, int j) {
-  int2 r = make_int2(kEmptyLo, kEmptyHi);
-  if (j < __ldg(cu_k) || j >= min(__ldg(cu_k + nseg), Tk)) return r;
-  const int s = find_segment(cu_k, nseg, j);
-  const int end_q = __ldg(cu_q + s + 1);
-  int lo = max(__ldg(cu_q + s), 0);
-  const int hi = min(end_q, Tq);
-  if (causal) lo = max(lo, j - (__ldg(cu_k + s + 1) - end_q));
-  if (lo < hi) r = make_int2(lo, hi);
-  return r;
-}
 
 // Each of the CTA's BM rows r0 + r gets its range into r_lo[r], r_hi[r];
 // returns the union [x, y) and the intersection [z, w) of the ranges (an
@@ -130,27 +83,9 @@ __device__ __forceinline__ int4 row_ranges(int* r_lo, int* r_hi, int4* span,
                                            const int* __restrict__ cu_k,
                                            int nseg, int Tq, int Tk,
                                            int causal, int r0) {
-  static_assert(BM == 64, "one warp covers the CTA's rows in two halves");
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int2 a, b;
-    if (QUERY_ROWS) {
-      a = keys_of_query(cu_q, cu_k, nseg, Tq, Tk, causal, r0 + lane);
-      b = keys_of_query(cu_q, cu_k, nseg, Tq, Tk, causal, r0 + lane + 32);
-    } else {
-      a = queries_of_key(cu_q, cu_k, nseg, Tq, Tk, causal, r0 + lane);
-      b = queries_of_key(cu_q, cu_k, nseg, Tq, Tk, causal, r0 + lane + 32);
-    }
-    r_lo[lane] = a.x;
-    r_hi[lane] = a.y;
-    r_lo[lane + 32] = b.x;
-    r_hi[lane + 32] = b.y;
-    const int u_lo = __reduce_min_sync(0xffffffffu, min(a.x, b.x));
-    const int u_hi = __reduce_max_sync(0xffffffffu, max(a.y, b.y));
-    const int i_lo = __reduce_max_sync(0xffffffffu, max(a.x, b.x));
-    const int i_hi = __reduce_min_sync(0xffffffffu, min(a.y, b.y));
-    if (lane == 0) *span = make_int4(u_lo, u_hi, i_lo, i_hi);
-  }
+  if (threadIdx.x < 32)
+    varlen::row_spans<BM, QUERY_ROWS>(r_lo, r_hi, span, cu_q, cu_k, nseg, Tq,
+                                      Tk, causal, r0);
   __syncthreads();
   return *span;
 }
@@ -590,15 +525,11 @@ int varlen_fwd_launch(const void* q, const void* k, const void* v, void* out,
                       void* lse, const void* cu_q, const void* cu_k, int nseg,
                       int H, int Tq, int Tk, int D, float scale, int causal,
                       int is_bf16, void* stream) {
-  if (bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  // bf16 runs varlen_fwd_sm90_kernel (flash_varlen_sm90.cu)
+  if (is_bf16 || bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)fwd<__nv_bfloat16, 64>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)fwd<__nv_bfloat16, 128>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)fwd<float, 64>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)fwd<float, 128>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  }
+  if (D == 64) return (int)fwd<float, 64>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
+  if (D == 128) return (int)fwd<float, 128>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -625,15 +556,11 @@ int varlen_bwd_dkv_launch(const void* q, const void* k, const void* v,
                           const void* cu_q, const void* cu_k, int nseg, int H,
                           int Tq, int Tk, int D, float scale, int causal,
                           int is_bf16, void* stream) {
-  if (bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  // bf16 runs varlen_bwd_dkv_sm90_kernel (flash_varlen_sm90.cu)
+  if (is_bf16 || bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)bwd_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)bwd_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  }
+  if (D == 64) return (int)bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
+  if (D == 128) return (int)bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

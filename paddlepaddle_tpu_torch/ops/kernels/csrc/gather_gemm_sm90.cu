@@ -167,11 +167,6 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // the block's (row tile, column tile, expert), row tiles fastest
 __device__ __forceinline__ void tile_of(int C, int n_cols, int& c0, int& n0,
                                         int& e, int bn) {
@@ -307,7 +302,8 @@ gather_gateup_sm90(const __grid_constant__ CUtensorMap tm_g,
         for (int j = 0; j < BN / 8; ++j) {
           const int i = 4 * j + 2 * half;
           *reinterpret_cast<uint32_t*>(dst + j * 8) =
-              pack_bf16(silu(ag[i]) * au[i], silu(ag[i + 1]) * au[i + 1]);
+              hopper::pack_bf16(silu(ag[i]) * au[i],
+                                silu(ag[i + 1]) * au[i + 1]);
         }
       }
     }
@@ -422,7 +418,7 @@ expert_down_sm90(const __grid_constant__ CUtensorMap tm_h,
           for (int j = 0; j < 16; ++j) {
             const int i = 4 * j + 2 * half;
             *reinterpret_cast<uint32_t*>(dst + a * 128 + j * 8) =
-                keep ? pack_bf16(acc[a][i], acc[a][i + 1]) : 0u;
+                keep ? hopper::pack_bf16(acc[a][i], acc[a][i + 1]) : 0u;
           }
       }
     }

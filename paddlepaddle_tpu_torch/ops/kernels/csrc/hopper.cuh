@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
 // warpgroup kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu,
-// gather_gemm_sm90.cu): mbarriers, the proxy fence, TMA tile loads through a
-// tensor map, the shared-memory matrix descriptor of a 128-byte-swizzled
-// tile, the wgmma products those kernels issue (bf16 in, f32 accumulators),
-// A fragments read from a swizzled tile by ldmatrix, register reallocation
-// between warpgroups, and the host-side encoding of a tiled tensor map
-// through the driver entry point (no -lcuda).
+// flash_varlen_sm90.cu, gather_gemm_sm90.cu): mbarriers, the proxy fence,
+// TMA tile loads through a tensor map, the shared-memory matrix descriptor
+// of a 128-byte-swizzled tile, the wgmma products those kernels issue (bf16
+// in, f32 accumulators), A fragments read from a swizzled tile by ldmatrix,
+// the attention kernels' work on accumulator registers (exp2, bf16 packing,
+// accumulators as A fragments, RS products over a tile, row stores),
+// register reallocation between warpgroups, and the host-side encoding of a
+// tiled tensor map through the driver entry point (no -lcuda).
 
 #pragma once
 
@@ -281,6 +283,78 @@ __device__ __forceinline__ void a_frags_sw128(uint32_t (&a)[4][4],
         : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
         : "r"(row + ((c ^ (r & 7)) << 4))
         : "memory");
+  }
+}
+
+// -------------------------------------------------------------------------
+// accumulator registers of the attention kernels
+
+// 2^x on the multi-function unit, results below 2^-126 flushed to 0 (a
+// probability that small is nothing beside its row's largest, which is 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the accumulator of a 64 x N product to bf16 A fragments: k step kk takes
+// 8-column blocks 2kk and 2kk + 1
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&x)[N / 2],
+                                           uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int jb = 0; jb < N / 8; ++jb) {
+    a[jb / 2][(jb & 1) * 2 + 0] = pack_bf16(x[4 * jb + 0], x[4 * jb + 1]);
+    a[jb / 2][(jb & 1) * 2 + 1] = pack_bf16(x[4 * jb + 2], x[4 * jb + 3]);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int blk = 0; blk < NB; ++blk) fence_regs(acc[blk]);
+}
+
+// acc[blk] += A B over STEPS k16 steps: A from registers, B the N-major
+// [STEPS * 16][64] swizzled blocks of a tile, one per 64-wide d block,
+// `block_bytes` apart
+template <int NB, int STEPS>
+__device__ __forceinline__ void wgmma_rs_acc(float (&acc)[NB][32],
+                                             const uint32_t (&a)[STEPS][4],
+                                             const unsigned char* tile,
+                                             uint32_t block_bytes) {
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk)
+#pragma unroll
+    for (int blk = 0; blk < NB; ++blk)
+      wgmma_m64n64k16_rs(acc[blk], a[kk],
+                         desc_sw128(tile + blk * block_bytes + kk * 16 * 128,
+                                    1024));
+}
+
+// rows row0 and row0 + 8 of a 64 x D accumulator to bf16 [b, s, h, d] rows
+// (row stride rs), skipping rows at or past S
+template <int NB>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, size_t rs,
+                                           int row0, int S, int t,
+                                           const float (&acc)[NB][32]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row < S) {
+      __nv_bfloat16* dst = base + (size_t)row * rs + 2 * t;
+#pragma unroll
+      for (int blk = 0; blk < NB; ++blk)
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+          *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) = pack_bf16(
+              acc[blk][4 * jb + 2 * r], acc[blk][4 * jb + 2 * r + 1]);
+    }
   }
 }
 

@@ -2,12 +2,22 @@
 PyTorch versions, the autograd Function and the public entry
 ``flash_attn_unpadded``.
 
-Counterpart of ``paddlepaddle_tpu/ops/kernels/flash_varlen.py``. The kernels
-are ``csrc/flash_varlen.cu`` (design, bound and limits in its header):
+Counterpart of ``paddlepaddle_tpu/ops/kernels/flash_varlen.py``. Each
+wrapper picks its kernel by dtype (``_ENTRIES``; design, bound and limits
+in the sources' headers):
 
-* :func:`varlen_fwd`     replaces ``_vfwd_kernel`` (:123, launched at :233);
-* :func:`varlen_bwd_dq`  replaces ``_vdq_kernel``  (:156, launched at :273);
-* :func:`varlen_bwd_dkv` replaces ``_vdkv_kernel`` (:184, launched at :284).
+* :func:`varlen_fwd` replaces ``_vfwd_kernel`` (:123, launched at :233):
+  bf16 runs ``varlen_fwd_sm90_kernel`` (``csrc/flash_varlen_sm90.cu``, TMA
+  + ``wgmma``, warp-specialised), f32 ``varlen_fwd_kernel``
+  (``csrc/flash_varlen.cu``, full-f32 FMA: ``wgmma`` would round f32 to
+  TF32);
+* :func:`varlen_bwd_dq` replaces ``_vdq_kernel`` (:156, launched at :273):
+  ``varlen_bwd_dq_kernel`` (``csrc/flash_varlen.cu``) for both dtypes,
+  ``mma.sync`` tiles for bf16;
+* :func:`varlen_bwd_dkv` replaces ``_vdkv_kernel`` (:184, launched at
+  :284): bf16 runs ``varlen_bwd_dkv_sm90_kernel``
+  (``csrc/flash_varlen_sm90.cu``), f32 ``varlen_bwd_dkv_kernel``
+  (``csrc/flash_varlen.cu``).
 
 q, k and v are packed ``[t, h, d]``; ``cu_q`` / ``cu_k`` are int32 prefix
 sums ``[B + 1]`` delimiting the B sequences. Query row i of segment s sees
@@ -37,7 +47,7 @@ from ...core import random
 from .flash_attention import (_KERNEL_DTYPES, HEAD_DIMS, NEG_INF,
                               _require_cuda, reference_kernel_head_dim)
 
-MAX_HEADS = 65535            # heads ride the grid's y dimension
+MAX_HEADS = 65535            # flash_varlen.cu's grids put heads on y
 # the plain versions evaluate at most this many f32 logits at once: heads
 # are independent, so they go in chunks (a full-width [h, t, t] would not
 # fit: 8.7 GB at t 8256, h 32)
@@ -45,10 +55,12 @@ PLAIN_CHUNK_ELEMS = 1 << 28
 
 
 def varlen_supported(head_dim: int, dtype: torch.dtype) -> Tuple[bool, str]:
-    """(ok, reason): whether the Hopper kernels take this configuration.
-    Any ``t_q``, ``t_k`` >= 1 and any segment layout is taken, including
-    causal rows that see no key (the TPU kernels needed multiples of 8,
-    ``_blocks``); d 256, which the TPU gate admits, is not built yet."""
+    """(ok, reason): whether the Hopper kernels take this configuration:
+    bf16 (the TMA/``wgmma`` forward and dK/dV, the ``mma.sync`` dQ) or f32
+    (the FMA kernels), d 64 or 128. Any ``t_q``, ``t_k`` >= 1 and any
+    segment layout is taken, including causal rows that see no key (the TPU
+    kernels needed multiples of 8, ``_blocks``); d 256, which the TPU gate
+    admits, is not built yet."""
     if dtype not in _KERNEL_DTYPES:
         return False, f"dtype {dtype} (kernels take float32, bfloat16)"
     if head_dim not in HEAD_DIMS:
@@ -214,44 +226,69 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"[{h}, {tq}] on {q.device}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_varlen")
+# the C entry of each kernel, by dtype: (library, entry, pointer count).
+# bf16 forward and dK/dV run the TMA/wgmma kernels of flash_varlen_sm90.cu;
+# the bf16 dQ and every f32 kernel run flash_varlen.cu, whose entries take
+# one more int (is_bf16)
+_ENTRIES = {
+    ("fwd", torch.bfloat16): ("flash_varlen_sm90", "varlen_fwd_sm90_launch",
+                              5),
+    ("dkv", torch.bfloat16): ("flash_varlen_sm90",
+                              "varlen_bwd_dkv_sm90_launch", 8),
+    ("dq", torch.bfloat16): ("flash_varlen", "varlen_bwd_dq_launch", 7),
+    ("fwd", torch.float32): ("flash_varlen", "varlen_fwd_launch", 5),
+    ("dq", torch.float32): ("flash_varlen", "varlen_bwd_dq_launch", 7),
+    ("dkv", torch.float32): ("flash_varlen", "varlen_bwd_dkv_launch", 8),
+}
+_ERROR_STRING = {"flash_varlen_sm90": "varlen_sm90_error_string",
+                 "flash_varlen": "varlen_error_string"}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         # pointers and the stream as c_void_p: a bare int would be cut to 32
         # bits by ctypes
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        shape = [ci, ci, ci, ci, ci, cf, ci, ci, vp]
-        lib.varlen_fwd_launch.argtypes = [vp] * 7 + shape
-        lib.varlen_bwd_dq_launch.argtypes = [vp] * 9 + shape
-        lib.varlen_bwd_dkv_launch.argtypes = [vp] * 10 + shape
-        for fn in (lib.varlen_fwd_launch, lib.varlen_bwd_dq_launch,
-                   lib.varlen_bwd_dkv_launch):
-            fn.restype = ci
-        lib.varlen_error_string.argtypes = [ci]
-        lib.varlen_error_string.restype = ctypes.c_char_p
+        # (cu_q, cu_k, nseg, h, t_q, t_k, d, scale, causal[, is_bf16], stream)
+        shape = ([vp, vp] + [ci] * 5 + [cf, ci]
+                 + [ci] * (name == "flash_varlen") + [vp])
+        for lib_name, entry, n_ptrs in _ENTRIES.values():
+            if lib_name == name:
+                getattr(lib, entry).argtypes = [vp] * n_ptrs + shape
+                getattr(lib, entry).restype = ci
+        err = getattr(lib, _ERROR_STRING[name])
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def _launch(fn_name: str, ptrs, q: torch.Tensor, tk: int, cu_q, cu_k,
+def _launch(kind: str, ptrs, q: torch.Tensor, tk: int, cu_q, cu_k,
             causal: bool, scale: float) -> None:
+    """Launch the ``kind`` kernel ("fwd", "dq", "dkv") for q's dtype on the
+    current stream; raise on a refused launch."""
+    name, entry, _ = _ENTRIES[(kind, q.dtype)]
     tq, h, d = q.shape
-    lib = _library()
+    lib = _library(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, fn_name)(*ptrs, cu_q.data_ptr(), cu_k.data_ptr(),
-                                cu_q.shape[0] - 1, h, tq, tk, d, float(scale),
-                                int(bool(causal)), _KERNEL_DTYPES[q.dtype],
-                                stream)
+    flags = (int(bool(causal)),) + (
+        (_KERNEL_DTYPES[q.dtype],) if name == "flash_varlen" else ())
+    err = getattr(lib, entry)(*ptrs, cu_q.data_ptr(), cu_k.data_ptr(),
+                              cu_q.shape[0] - 1, h, tq, tk, d, float(scale),
+                              *flags, stream)
     if err:
-        msg = lib.varlen_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
+        msg = getattr(lib, _ERROR_STRING[name])(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
 def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
                scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: ``(out [t_q, h, d], lse [h, t_q] f32)``. CPU tensors take
-    :func:`varlen_attention_plain`; CUDA tensors launch the kernel on the
-    current stream (no sync) or raise."""
+    :func:`varlen_attention_plain`; CUDA tensors launch a kernel on the
+    current stream (no sync) or raise: bf16 runs ``varlen_fwd_sm90_kernel``
+    (``csrc/flash_varlen_sm90.cu``), f32 ``varlen_fwd_kernel``
+    (``csrc/flash_varlen.cu``). Either launch counts once."""
     if q.device.type == "cpu":
         return varlen_attention_plain(q, k, v, cu_q, cu_k, causal, scale)
     _require_cuda(q, "varlen_fwd")
@@ -259,8 +296,8 @@ def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
     tq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(h, tq, dtype=torch.float32, device=q.device)
-    _launch("varlen_fwd_launch", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), lse.data_ptr()),
+    _launch("fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)
     varlen_fwd.launches += 1
     return out, lse
@@ -269,7 +306,8 @@ def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
 def varlen_bwd_dq(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
                   scale: float) -> torch.Tensor:
     """dQ ``[t_q, h, d]`` by recompute. CPU tensors take
-    :func:`varlen_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    :func:`varlen_bwd_plain`; CUDA tensors launch ``varlen_bwd_dq_kernel``
+    (``csrc/flash_varlen.cu``, either dtype) or raise."""
     if q.device.type == "cpu":
         return varlen_bwd_plain(q, k, v, dout, lse, delta, cu_q, cu_k,
                                 causal, scale)[0]
@@ -278,7 +316,7 @@ def varlen_bwd_dq(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     dq = torch.empty_like(q)
-    _launch("varlen_bwd_dq_launch",
+    _launch("dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)
@@ -289,7 +327,9 @@ def varlen_bwd_dq(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
 def varlen_bwd_dkv(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` ``[t_k, h, d]`` by recompute. CPU tensors take
-    :func:`varlen_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    :func:`varlen_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
+    runs ``varlen_bwd_dkv_sm90_kernel`` (``csrc/flash_varlen_sm90.cu``),
+    f32 ``varlen_bwd_dkv_kernel`` (``csrc/flash_varlen.cu``)."""
     if q.device.type == "cpu":
         return varlen_bwd_plain(q, k, v, dout, lse, delta, cu_q, cu_k,
                                 causal, scale)[1:]
@@ -299,7 +339,7 @@ def varlen_bwd_dkv(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
     _check_rows("delta", delta, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("varlen_bwd_dkv_launch",
+    _launch("dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)

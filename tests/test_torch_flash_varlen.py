@@ -39,6 +39,8 @@ import torch
 from paddlepaddle_tpu_torch.incubate.nn import functional as incF
 from paddlepaddle_tpu_torch.nn import functional as tF
 from paddlepaddle_tpu_torch.nn import long_tail as tLT
+from paddlepaddle_tpu_torch.ops.kernels import _build
+from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddlepaddle_tpu_torch.ops.kernels import flash_varlen as fv
 
 H, D = 2, 64
@@ -407,6 +409,25 @@ def test_support_check(args, ok, why):
     assert got is ok and why in reason
 
 
+@pytest.mark.parametrize("kind,dtype,library", [
+    ("fwd", torch.bfloat16, "flash_varlen_sm90"),
+    ("dkv", torch.bfloat16, "flash_varlen_sm90"),
+    ("dq", torch.bfloat16, "flash_varlen"),
+    ("fwd", torch.float32, "flash_varlen"),
+    ("dq", torch.float32, "flash_varlen"),
+    ("dkv", torch.float32, "flash_varlen"),
+])
+def test_kernel_dispatch_by_dtype(kind, dtype, library):
+    """bf16 forward and dK/dV go to the TMA/``wgmma`` kernels of
+    ``csrc/flash_varlen_sm90.cu``; the bf16 dQ and every f32 kernel stay on
+    ``csrc/flash_varlen.cu``; both sources are built from the checkout."""
+    name, entry, _ = fv._ENTRIES[(kind, dtype)]
+    assert name == library
+    assert entry.endswith("_sm90_launch") == (library == "flash_varlen_sm90")
+    assert name in _build.sources()
+    assert name in fv._ERROR_STRING
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel or raises, never falls back."""
@@ -431,6 +452,11 @@ CARD_LAYOUTS = dict(LAYOUTS, **{
     # a tile spanning five segments, one shorter than a tile, t not a
     # multiple of 8
     "mixed": ([3, 40, 7, 0, 5, 9, 100], [3, 40, 7, 2, 5, 9, 100], 171, 173),
+    # only the sm90 kernels' 128-row tiles reach these: a tile over three
+    # segments and a segment longer than 3 stages of 128 keys; len_k > len_q
+    # over several key tiles with t_q % 4 != 0
+    "tile128": ([100, 156, 1, 300, 0, 211], None, 800, 800),
+    "prefill128": ([130, 7, 260], [900, 7, 700], 397, 1607),
 })
 
 
@@ -478,3 +504,55 @@ def test_kernels_match_plain_on_card(dtype, atol):
                 ok = torch.from_numpy(_row_ok(cu_q, cu_k, tq, tk,
                                               causal)).cuda()
                 assert (out[~ok] == 0).all() and (got[0][~ok] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_sm90_matches_dense_on_card(d, causal):
+    """One segment over the whole buffer is dense attention at [1, s, h, d]:
+    the bf16 varlen forward and dK/dV (``csrc/flash_varlen_sm90.cu``)
+    against the dense sm90 kernels at s 1000 (not a multiple of the 128-row
+    tile), within 2e-2 (both round p to bf16 in other tile orders). Each
+    wrapper launches once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    s, h, scale = 1000, 4, d ** -0.5
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   for a in _inputs(s, s, seed=d + causal, d=d, h=h))
+    cu = torch.tensor([0, s], dtype=torch.int32, device="cuda")
+    counts = (fv.varlen_fwd.launches, fv.varlen_bwd_dkv.launches)
+    out, lse = fv.varlen_fwd(q, k, v, cu, cu, causal, scale)
+    delta = fv.varlen_delta(out, do)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, cu, cu, causal, scale)
+    assert (fv.varlen_fwd.launches,
+            fv.varlen_bwd_dkv.launches) == (counts[0] + 1, counts[1] + 1)
+    b4 = [x.unsqueeze(0) for x in (q, k, v, do)]
+    out_d, lse_d = fa.flash_fwd(*b4[:3], causal, scale)
+    delta_d = fa.flash_delta(out_d, b4[3])
+    dk_d, dv_d = fa.flash_bwd_dkv(*b4, lse_d, delta_d, causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b_ in (("out", out, out_d[0]), ("lse", lse, lse_d),
+                        ("dk", dk, dk_d[0]), ("dv", dv, dv_d[0])):
+        err = float((a.float() - b_.float()).abs().max())
+        assert err <= 2e-2, (name, d, causal, err)
+
+
+@pytest.mark.cuda
+def test_bf16_dkv_sm90_deterministic_on_card():
+    """One writer per key row and no atomics: two launches of the bf16
+    varlen dK/dV give the same bits (causal, segments over tile ends)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    lens_q, lens_k, tq, tk = CARD_LAYOUTS["tile128"]
+    cu = torch.from_numpy(_cu(lens_q)).cuda()
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   for a in _inputs(tq, tk, seed=5, d=128, h=4))
+    scale = 128 ** -0.5
+    out, lse = fv.varlen_fwd(q, k, v, cu, cu, True, scale)
+    delta = fv.varlen_delta(out, do)
+    first = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, cu, cu, True, scale)
+    again = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, cu, cu, True, scale)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dk", "dv"), first, again):
+        assert torch.equal(a, b_), name
