@@ -45,36 +45,35 @@ code is non-zero):
                the same bits; timings of each kernel, the plain version and
                SDPA (forward; its backward for the two backward kernels),
                beside the bound.
-4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV
-               kernels (5-7; bf16: the TMA/wgmma forward and dK/dV and the
-               mma.sync dQ; f32: the FMA kernels) against their plain
-               versions on the same inputs: 64 small cases (8 layouts: a
-               padding tail with empty segments first, in the middle and
-               last; cu_q != cu_k; causal rows with no key and a segment
-               with no keys; 64 one-token segments; a tile over five
-               segments; t not a multiple of 8; a 128-row tile over three
-               segments and a segment longer than 3 stages of 128 keys;
-               len_k > len_q over several key tiles with t_q % 4 != 0;
-               d 64/128, f32 atol 1e-5 / bf16 atol 2e-2 + rtol 1e-2,
-               causal and full) with rows without a key and keys without a
-               row exactly 0; one segment over the buffer against the dense
-               kernels (max difference printed; bf16 within 2e-2); each
-               kernel's ptxas registers and spills; then the main path at
-               Llama-3-8B attention width (h 32, d 128, bf16) through the
-               public entries, counters from 0: (a) ``flash_attn_unpadded``
-               forward and backward on a packed batch (8192 tokens in
-               segments of 64-2048, one empty, a 64-row tail, causal; each
-               counter exactly 1), (b) chunked prefill (8 chunks of 256
-               against contexts of 512-4096, causal), (c)
-               ``variable_length_memory_efficient_attention`` at
+4v. ``flash_varlen_kernel``  the packed varlen forward, dQ and dK/dV kernels
+               (5-7; bf16: the TMA/wgmma kernels; f32: the FMA kernels) against
+               their plain versions on the same inputs: 72 small cases (9
+               layouts: a padding tail with empty segments first, in the middle
+               and last; cu_q != cu_k; causal rows with no key and a segment
+               with no keys; 64 one-token segments; a tile over five segments;
+               t not a multiple of 8; a 128-row tile over three segments and a
+               segment longer than 3 stages of 128 keys; len_k > len_q over
+               several key tiles with t_q % 4 != 0; a 64-row consumer over
+               three segments whose keys start inside a 64-key tile; d 64/128,
+               f32 atol 1e-5 / bf16 atol 2e-2 + rtol 1e-2, causal and full)
+               with rows without a key and keys without a row exactly 0; one
+               segment over the buffer against the dense kernels (max
+               difference printed, dQ's apart; bf16 within 2e-2); each kernel's
+               ptxas registers and spills; then the main path at Llama-3-8B
+               attention width (h 32, d 128, bf16) through the public entries,
+               counters from 0: (a) ``flash_attn_unpadded`` forward and
+               backward on a packed batch (8192 tokens in segments of 64-2048,
+               one empty, a 64-row tail, causal; each counter exactly 1), (b)
+               chunked prefill (8 chunks of 256 against contexts of 512-4096,
+               causal), (c) ``variable_length_memory_efficient_attention`` at
                [8, 32, 2048, 128] with lengths 64-2048 (full); (a) and (b)
                against the plain versions in head chunks (atol 2e-2 + rtol
                1e-2), (a) again in f32 (atol 1e-5), (c) per sequence; two
-               launches of dK/dV at (a) give the same bits; timings at (a)
-               of each kernel, the plain versions and one
+               launches of dQ and two of dK/dV at (a) give the same bits;
+               timings at (a) of each kernel, the plain versions and one
                PyTorch call (SDPA over nested jagged tensors if this torch
-               takes them causal, else with the block-diagonal mask),
-               beside the bound over the visible pairs.
+               takes them causal, else with the block-diagonal mask), beside
+               the bound over the visible pairs.
 5. ``gather_gemm_kernel``  the gather-GEMM expert FFN's two kernels
                (bf16: gather_gateup_sm90 and expert_down_sm90, TMA +
                wgmma; f32: the FMA pair) each against its plain half, and
@@ -172,7 +171,8 @@ GATHER_GEMM_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/gather_gemm_sm90.c
 GATHER_GEMM_REPLACES = "paddlepaddle_tpu/ops/kernels/gather_gemm.py:80"
 VARLEN_SOURCES = {
     "varlen_fwd": "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu",
-    "varlen_bwd_dq": "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu",
+    "varlen_bwd_dq":
+        "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu",
     "varlen_bwd_dkv":
         "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu"}
 VARLEN_REPLACES = {
@@ -198,7 +198,7 @@ def nvidia_smi_line() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A mangled kernel name as its last name component, head dim and
-    element type, as ``varlen_bwd_dq_kernel_d64_bf16``."""
+    element type, as ``varlen_bwd_dq_kernel_d64_f32``."""
     import re
 
     s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
@@ -839,6 +839,9 @@ VARLEN_SMALL = {
     # key tiles with t_q % 4 != 0
     "tile128": ([100, 156, 1, 300, 0, 211], None, 800, 800),
     "prefill128": ([130, 7, 260], [900, 7, 700], 397, 1607),
+    # the bf16 dQ's first 64-row consumer over three segments, whose keys
+    # start inside a 64-key tile
+    "consumer3": ([10, 20, 40, 90], [37, 20, 70, 90], 170, 230),
 }
 
 
@@ -1053,7 +1056,7 @@ def phase_flash_varlen_kernel():
                             f"rtol {rtol}")
 
     # one segment over the whole buffer is dense attention at [1, s, h, d]
-    cross = {}
+    cross, cross_dq = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
             s, h, d = 1000, 4, 128
@@ -1069,8 +1072,9 @@ def phase_flash_varlen_kernel():
                      "dv": dv[0]}
             torch.cuda.synchronize()
             key = f"{str(dtype)[6:]}_{'causal' if causal else 'full'}"
-            cross[key] = max(float((got[n].float() - dense[n].float()).abs()
-                                   .max()) for n in dense)
+            diffs = {n: float((got[n].float() - dense[n].float()).abs()
+                              .max()) for n in dense}
+            cross[key], cross_dq[key] = max(diffs.values()), diffs["dq"]
             tol = 1e-5 if dtype == torch.float32 else 2e-2
             if not cross[key] <= tol:
                 raise AssertionError(f"varlen vs dense kernels {key}: "
@@ -1177,14 +1181,21 @@ def phase_flash_varlen_kernel():
     scale = d ** -0.5
     out, lse = fv.varlen_fwd(qa, ka, va, cq, cq, True, scale)
     delta = fv.varlen_delta(out, do_a)
-    # one writer per output row, no atomics: two launches of dK/dV give the
-    # same bits
+    # one writer per output row, no atomics: two launches of dQ, and two of
+    # dK/dV, give the same bits
+    first = fv.varlen_bwd_dq(qa, ka, va, do_a, lse, delta, cq, cq, True,
+                             scale)
+    again = fv.varlen_bwd_dq(qa, ka, va, do_a, lse, delta, cq, cq, True,
+                             scale)
+    dq_repeat_equal = torch.equal(first, again)
     first = fv.varlen_bwd_dkv(qa, ka, va, do_a, lse, delta, cq, cq, True,
                               scale)
     again = fv.varlen_bwd_dkv(qa, ka, va, do_a, lse, delta, cq, cq, True,
                               scale)
     dkv_repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(first, again))
     del first, again
+    if not dq_repeat_equal:
+        raise AssertionError("varlen dQ: two launches differ")
     if not dkv_repeat_equal:
         raise AssertionError("varlen dK/dV: two launches differ")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1250,11 +1261,13 @@ def phase_flash_varlen_kernel():
                                     for c in small if c["dtype"] == dt)
                             for dt in ("float32", "bfloat16")},
           "dense_cross_check_max_diff": cross,
+          "dense_cross_check_dq": cross_dq,
           "segments_a": lens_a, "contexts_b": ctx_b,
           "seq_lens_c": lens_c.tolist(), "main_path_s": main_s,
           "launches": launches, "full_width": checks,
           "full_atol": full_atol, "full_rtol": full_rtol,
           "visible_pairs_a": pairs, "fwd_tiles_a": tiles,
+          "dq_repeat_bit_identical": dq_repeat_equal,
           "dkv_repeat_bit_identical": dkv_repeat_equal,
           "ptxas": {k: v for src in ("flash_varlen_sm90", "flash_varlen")
                     for k, v in ptxas_kernels(str(_build.build_log.get(

@@ -1,4 +1,4 @@
-// Tile machinery shared by the port's flash-attention kernels
+// Tile machinery shared by the port's f32 flash-attention kernels
 // (flash_attention.cu, dense; flash_varlen.cu, packed varlen): the CTA shape
 // (4 warps, 16 rows each), the streamed tile widths, the softmax constants,
 // the quad reductions of the m16n8 accumulator layout, the staging of an

@@ -1,13 +1,14 @@
-// Packed varlen flash attention for Hopper (sm_90a): the f32 forward, dQ
-// and dK/dV kernels and the bf16 dQ kernel, CUDA C++ with a plain C entry
-// per kernel. The bf16 forward and dK/dV are varlen_fwd_sm90_kernel and
-// varlen_bwd_dkv_sm90_kernel in flash_varlen_sm90.cu (TMA + wgmma); the
-// forward and dK/dV entries here refuse bf16.
+// Packed varlen flash attention for Hopper (sm_90a) in f32: the forward, dQ
+// and dK/dV kernels, CUDA C++ with a plain C entry per kernel. bf16 runs
+// varlen_fwd_sm90_kernel, varlen_bwd_dq_sm90_kernel and
+// varlen_bwd_dkv_sm90_kernel in flash_varlen_sm90.cu (TMA + wgmma, which
+// would round f32 operands to TF32); the entries here refuse bf16.
 //
-// Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_varlen.py:
-//   varlen_fwd_kernel     f32       <- _vfwd_kernel :123 (pallas_call in _varlen_pallas_fwd :233)
-//   varlen_bwd_dq_kernel  f32, bf16 <- _vdq_kernel  :156 (pallas_call in _varlen_pallas_bwd :273)
-//   varlen_bwd_dkv_kernel f32       <- _vdkv_kernel :184 (pallas_call in _varlen_pallas_bwd :284)
+// Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_varlen.py
+// for f32:
+//   varlen_fwd_kernel     <- _vfwd_kernel :123 (pallas_call in _varlen_pallas_fwd :233)
+//   varlen_bwd_dq_kernel  <- _vdq_kernel  :156 (pallas_call in _varlen_pallas_bwd :273)
+//   varlen_bwd_dkv_kernel <- _vdkv_kernel :184 (pallas_call in _varlen_pallas_bwd :284)
 // Same function: q [tq, h, d] and k/v [tk, h, d] hold packed sequences whose
 // bounds are the int32 prefix sums cu_q, cu_k [B + 1] (on the device). Query
 // row i of segment s (cu_q[s] <= i < cu_q[s+1]) sees key j when
@@ -44,28 +45,24 @@
 //     with an empty range or the end of the union tests its elements, with
 //     two integer compares against the row's [lo, hi).
 //   * Tiles, products and staging are flash_attention.cu's (flash_tiles.cuh):
-//     FMA in full f32 for f32 (wgmma would round f32 to TF32), mma.sync
-//     m16n8k16 with f32 accumulation and ldmatrix fragments for the bf16 dQ,
-//     16-byte cp.async double buffering (64 keys a tile in the forward and
-//     dQ kernels, 32 queries in dK/dV). Every output row has one writer, so
-//     no atomics are needed.
+//     FMA in full f32 (wgmma would round f32 to TF32), 16-byte cp.async
+//     double buffering (64 keys a tile in the forward and dQ kernels, 32
+//     queries in dK/dV). Every output row has one writer, so no atomics are
+//     needed.
 //
-// Bound: at a packed training batch of Llama-3-8B attention (t 8256, h 32,
-// d 128, bf16, causal segments of 64-2048 tokens) the visible pairs take 4d
-// (forward), 6d (dQ) and 8d (dK/dV) operations a pair against 989 TFLOP/s,
-// about even with the bytes of q, k, v and o once over 3.35 TB/s in the
-// forward. Skipping the tiles outside a CTA's segments is what keeps the
-// work to the visible pairs: ~14x fewer tiles than a loop over all of t at
-// that shape. Known limits of the bf16 dQ, for later work: mma.sync rather
-// than wgmma, no TMA or warp specialisation, dS staged through shared
-// memory, and no balancing of work across CTAs (a CTA's work follows its
-// segments' lengths).
+// Bound: f32 runs outside the tensor cores, so the visible pairs' 4d
+// (forward), 6d (dQ) and 8d (dK/dV) operations a pair are bound by the
+// card's 67 TFLOP/s of f32 FMA. Skipping the tiles outside a CTA's segments
+// is what keeps the work to the visible pairs: ~14x fewer tiles than a loop
+// over all of t at a packed training batch (t 8256, segments of 64-2048).
+// No balancing of work across CTAs: a CTA's work follows its segments'
+// lengths.
 //
 // Limits checked by the Python wrapper before launch: d in {64, 128}, f32
-// or bf16 (the wrapper sends the bf16 forward and dK/dV to
-// flash_varlen_sm90.cu), q, k and v with equal heads, h <= 65535,
-// len(cu_q) == len(cu_k), tq, tk >= 1, 16-byte aligned contiguous tensors; any tq and tk (ragged
-// last tiles are zero-filled and masked). Every range is clamped to
+// (the wrapper sends bf16 to flash_varlen_sm90.cu), q, k and v with equal
+// heads, h <= 65535, len(cu_q) == len(cu_k), tq, tk >= 1, 16-byte aligned
+// contiguous tensors; any tq and tk (ragged last tiles are zero-filled and
+// masked). Every range is clamped to
 // [0, tq) x [0, tk), so malformed prefix sums cannot make a kernel read or
 // write out of bounds.
 
@@ -516,8 +513,8 @@ bool bad_shape(int nseg, int H, int Tq, int Tk) {
 
 // Each entry returns a cudaError_t code: 0 on a successful launch. None
 // synchronises; a fault during the run shows at the caller's next sync.
-// Tensors are contiguous packed [t, H, D] (q, out, dout, dq: t = Tq; k, v,
-// dk, dv: t = Tk); lse and delta are f32 [H, Tq]; cu_q and cu_k are int32
+// Tensors are contiguous f32 packed [t, H, D] (q, out, dout, dq: t = Tq;
+// k, v, dk, dv: t = Tk); lse and delta are f32 [H, Tq]; cu_q and cu_k are int32
 // [nseg + 1] on the device.
 extern "C" {
 
@@ -538,15 +535,11 @@ int varlen_bwd_dq_launch(const void* q, const void* k, const void* v,
                          void* dq, const void* cu_q, const void* cu_k,
                          int nseg, int H, int Tq, int Tk, int D, float scale,
                          int causal, int is_bf16, void* stream) {
-  if (bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  // bf16 runs varlen_bwd_dq_sm90_kernel (flash_varlen_sm90.cu)
+  if (is_bf16 || bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return (int)bwd_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)bwd_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  } else {
-    if (D == 64) return (int)bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-    if (D == 128) return (int)bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
-  }
+  if (D == 64) return (int)bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
+  if (D == 128) return (int)bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

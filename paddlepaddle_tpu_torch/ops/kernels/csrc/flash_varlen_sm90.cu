@@ -1,27 +1,30 @@
-// Packed varlen flash attention for Hopper (sm_90a) in bf16: the forward and
-// the dK/dV kernel, warp-specialised, TMA-fed, wgmma-computed. CUDA C++ with
-// a plain C entry per kernel.
+// Packed varlen flash attention for Hopper (sm_90a) in bf16: the forward,
+// the dQ and the dK/dV kernel, warp-specialised, TMA-fed, wgmma-computed.
+// CUDA C++ with a plain C entry per kernel.
 //
 // Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_varlen.py
 // for bf16 at head dims 64 and 128:
 //   varlen_fwd_sm90_kernel     <- _vfwd_kernel :123 (pallas_call in
 //                                 _varlen_pallas_fwd :233)
+//   varlen_bwd_dq_sm90_kernel  <- _vdq_kernel  :156 (pallas_call in
+//                                 _varlen_pallas_bwd :273)
 //   varlen_bwd_dkv_sm90_kernel <- _vdkv_kernel :184 (pallas_call in
 //                                 _varlen_pallas_bwd :284)
-// The bf16 dQ and every f32 kernel stay in flash_varlen.cu. Same function
-// and contract as those kernels: q [tq, h, d] and k/v [tk, h, d] hold packed
-// sequences bounded by the int32 prefix sums cu_q, cu_k [B + 1] on the
-// device (never read back); query row i of segment s sees key j when j lies
-// in segment s of k and, causal, j <= i + (cu_k[s+1] - cu_q[s+1]) (the
-// per-segment bottom-right rule). Rows at or past cu_q[B] and rows that see
-// no key get out exactly 0 and lse exactly -1e30; keys that no row sees get
-// dK and dV exactly 0. lse and delta are f32 [h, tq], lse in natural log;
-// the backward recomputes p = exp(s * scale - lse) on visible pairs and
-// forms ds = p (dp - delta) scale. Every output row has one writer: no
-// atomics, the same bits from launch to launch.
+// Every f32 kernel stays in flash_varlen.cu (full-f32 FMA: wgmma would round
+// f32 to TF32). Same function and contract as those kernels: q [tq, h, d]
+// and k/v [tk, h, d] hold packed sequences bounded by the int32 prefix sums
+// cu_q, cu_k [B + 1] on the device (never read back); query row i of
+// segment s sees key j when j lies in segment s of k and, causal,
+// j <= i + (cu_k[s+1] - cu_q[s+1]) (the per-segment bottom-right rule). Rows at or past cu_q[B] and rows that see
+// no key get out and dQ exactly 0 and lse exactly -1e30; keys that no row
+// sees get dK and dV exactly 0. lse and delta are f32 [h, tq], lse in
+// natural log; the backward recomputes p = exp(s * scale - lse) on visible
+// pairs and forms ds = p (dp - delta) scale, P and dS rounded to bf16
+// before they feed a product, f32 accumulation. Every output row has one
+// writer: no atomics, the same bits from launch to launch.
 //
-// Design: the dense pair's (flash_fwd_sm90.cu, flash_bwd_sm90.cu
-// flash_bwd_dkv_sm90_kernel) over the packed layout read as [1, t, h, d]:
+// Design: the dense kernels' (flash_fwd_sm90.cu, flash_bwd_sm90.cu) over the
+// packed layout read as [1, t, h, d]:
 //   * CTA = 3 warpgroups over 128 rows of one head: warpgroup 0 the TMA
 //     producer (setmaxnreg down), warpgroups 1 and 2 consumers of 64 rows
 //     each (setmaxnreg up). Tiled 4-D maps (hopper::bshd_map, b = 1), boxes
@@ -29,10 +32,10 @@
 //     t; a box may start at any row.
 //   * Before the role split the producer warpgroup binary-searches the
 //     prefix sums for the ranges of the CTA's 128 rows, one row a thread
-//     (varlen_ranges.cuh), while the TMA load of the CTA's own rows (Q, or
-//     K and V) is already in flight, and leaves, for each consumer's 64
-//     rows, the union [x, y) and the intersection [z, w) of their ranges in
-//     shared memory. The CTA streams the tiles of the
+//     (varlen_ranges.cuh), while the TMA load of the CTA's own rows (Q, Q
+//     and dO, or K and V) is already in flight, and leaves, for each
+//     consumer's 64 rows, the union [x, y) and the intersection [z, w) of
+//     their ranges in shared memory. The CTA streams the tiles of the
 //     union of both, starting at its first visible column, not at a
 //     multiple of the tile; a consumer computes the tiles that meet its own
 //     union and passes the others on. Each consumer thread keeps its two
@@ -54,6 +57,16 @@
 //     registers for O += P V (m64n64k16 RS, V read N-major); S of tile j + 1
 //     is issued with P V of tile j. Rows with an empty range write 0 and an
 //     lse of -1e30.
+//   * dQ: the CTA owns 128 queries, Q and dO resident, and each consumer
+//     warp also holds its 16 rows of both as wgmma A fragments (ldmatrix
+//     from the swizzled tiles, once); K and V stream in 64-key tiles
+//     through 3 stages. Per tile: S = Q K^T and dP = dO V^T (m64n64k16 RS,
+//     K and V K-major), P = 2^(S c - lse2) and dS = P (dP - delta) scale in
+//     registers, dQ += dS K (RS, K read N-major). dQ of tile j is issued
+//     together with S and dP of tile j + 1, and the last tile is peeled off
+//     the loop so that every wait_group count is static. Each thread's two
+//     rows' lse and delta are 4-byte loads into registers, issued with the
+//     range search while the first S and dP are in flight.
 //   * dK/dV: the CTA owns 128 keys, K and V resident; Q and dO stream in
 //     64-query tiles through 2 stages; S^T = K Q^T and dP^T = V dO^T by
 //     m64n64k16 SS, dV += P^T dO and dK += dS^T Q by RS with P^T and dS^T in
@@ -63,15 +76,15 @@
 //
 // Bound: at a packed training batch of Llama-3-8B attention (t 8256, h 32,
 // d 128, causal segments of 64-2048 tokens) the visible pairs take 4d
-// (forward) and 8d (dK/dV) operations a pair, ~1000 operations a byte
-// moved: both kernels are bound by operations against 989 TFLOP/s. What
-// limits them beyond the dense kernels' limits: tiles at segment ends and
-// diagonals are computed whole and masked (the mask's compares cost ~8% of
-// each kernel at that batch), a CTA's work follows its segments' lengths
-// (2080 CTAs of 1 to 16 tiles in a ragged last wave; running the longest
-// first, from a plan over the prefix sums, was slower, as the CTAs in
-// flight then read the keys of different segments), and a CTA whose rows
-// span two segments streams the keys of both.
+// (forward), 6d (dQ) and 8d (dK/dV) operations a pair, ~1000 operations a
+// byte moved: every kernel is bound by operations against 989 TFLOP/s.
+// What limits them beyond the dense kernels' limits: tiles at segment ends
+// and diagonals are computed whole and masked (the mask's compares cost ~8%
+// of the forward and dK/dV at that batch), a CTA's work follows its
+// segments' lengths (2080 CTAs of 1 to 16 tiles in a ragged last wave;
+// running the longest first, from a plan over the prefix sums, was slower,
+// as the CTAs in flight then read the keys of different segments), and a
+// CTA whose rows span two segments streams the keys of both.
 //
 // Limits checked by the Python wrapper before launch: bf16, d in {64, 128},
 // h <= 65535, len(cu_q) == len(cu_k), tq, tk >= 1, 16-byte aligned
@@ -88,6 +101,8 @@ constexpr int kConsumers = 2;          // consumer warpgroups, 64 rows each
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kFwdBN = 128;            // keys a forward tile
 constexpr int kFwdStages = 3;
+constexpr int kDqBN = 64;              // keys a dQ tile (m64n64 RS for S)
+constexpr int kDqStages = 3;
 constexpr int kDkvBQ = 64;             // queries a dK/dV tile
 constexpr int kDkvStages = 2;
 constexpr float kNegInf = -1e30f;
@@ -416,6 +431,252 @@ varlen_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // -------------------------------------------------------------------------
+// dQ: one (head, 128-row packed query tile), over the key tiles its rows see
+
+template <int D> struct DqCfg {
+  static constexpr int kBlocks = D / 64;
+  static constexpr uint32_t kResBytes = kBlocks * kBM * kRowBytes;     // Q, dO
+  static constexpr uint32_t kTileBytes = kBlocks * kDqBN * kRowBytes;  // K, V
+  static constexpr size_t kSmem = 2 * (size_t)kResBytes +
+                                  2 * (size_t)kDqStages * kTileBytes +
+                                  sizeof(int4) * 4 +
+                                  8 * (1 + 2 * kDqStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+varlen_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq,
+                          const int* __restrict__ cu_q,
+                          const int* __restrict__ cu_k, int nseg, int H,
+                          int Tq, int Tk, float scale, int causal) {
+  using C = DqCfg<D>;
+  constexpr int NB = C::kBlocks, BN = kDqBN, ST = kDqStages;
+  constexpr uint32_t kResBlock = kBM * kRowBytes, kTileBlock = BN * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;                        // [NB][128][64]
+  unsigned char* do_s = q_s + C::kResBytes;         // [NB][128][64]
+  unsigned char* k_s = do_s + C::kResBytes;         // [ST][NB][BN][64]
+  unsigned char* v_s = k_s + ST * C::kTileBytes;    // [ST][NB][BN][64]
+  int4* parts = reinterpret_cast<int4*>(v_s + ST * C::kTileBytes);  // [4]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(parts + 4);
+  uint64_t* res_full = bars;
+  uint64_t* full_bar = bars + 1;
+  uint64_t* empty_bar = full_bar + ST;
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * kBM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(res_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      hopper::mbar_init(&full_bar[i], 1);
+      hopper::mbar_init(&empty_bar[i], kConsumers * 4);
+    }
+    hopper::mbar_fence_init();
+    // Q and dO do not depend on the ranges: their load overlaps the search
+    hopper::mbar_arrive_expect_tx(res_full, 2 * C::kResBytes);
+    for (int blk = 0; blk < NB; ++blk) {
+      hopper::tma_load_4d(q_s + blk * kResBlock, &tm_q, res_full, blk * 64,
+                          h, q0, 0);
+      hopper::tma_load_4d(do_s + blk * kResBlock, &tm_do, res_full,
+                          blk * 64, h, q0, 0);
+    }
+  }
+  int4 sp[kConsumers];
+  cta_spans<true>(parts, sp, cu_q, cu_k, nseg, Tq, Tk, causal, q0);
+  // the CTA streams the keys of the union of both consumers' rows
+  const int x = min(sp[0].x, sp[1].x), y = max(sp[0].y, sp[1].y);
+  const int n_visit = x < y ? (y - x + BN - 1) / BN : 0;
+
+  if (wg == 0) {
+    // ---------------- producer: one thread issues every TMA load
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      // with no key to visit no consumer waits for Q and dO: they must land
+      // before the CTA exits
+      if (n_visit == 0) hopper::mbar_wait(res_full, 0);
+      for (int j = 0; j < n_visit; ++j) {
+        const int st = j % ST;
+        hopper::mbar_wait(&empty_bar[st], ((j / ST) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full_bar[st], 2 * C::kTileBytes);
+        for (int blk = 0; blk < NB; ++blk) {
+          hopper::tma_load_4d(k_s + (st * NB + blk) * kTileBlock, &tm_k,
+                              &full_bar[st], blk * 64, h, x + j * BN, 0);
+          hopper::tma_load_4d(v_s + (st * NB + blk) * kTileBlock, &tm_v,
+                              &full_bar[st], blk * 64, h, x + j * BN, 0);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: 64 query rows each
+    hopper::regs_alloc<240>();
+    const int cw = wg - 1;
+    const int wi = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + cw * 64 + wi * 16 + g;   // this thread's rows: +0, +8
+    const float sl2 = scale * kLog2e;
+    // this warpgroup's tiles [j0, j1) and the intersection [z, w) of its
+    // rows' ranges, where no element needs the mask
+    const int4 span = cw == 0 ? sp[0] : sp[1];
+    const int2 own = tiles_meeting(x, BN, span.x, span.y);
+    const int j0 = own.x, j1 = own.y;
+    int lo[2], hi[2];            // the keys each row sees ([0, 0) for none)
+    float nl[2], dl[2];          // -lse (log2 units), delta
+
+    float acc[NB][32];
+#pragma unroll
+    for (int blk = 0; blk < NB; ++blk)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[blk][i] = 0.f;
+    float s[BN / 2], dp[BN / 2];       // S and dP of the tile in flight
+    uint32_t da[BN / 16][4];           // dS in bf16: A fragments
+    uint32_t qa[NB][4][4], doa[NB][4][4];   // this warp's Q and dO rows
+
+    // S = Q K^T and dP = dO V^T of key tile j (two commit groups), Q and dO
+    // from registers
+    auto issue_s_dp = [&](int j) {
+      const unsigned char* kt = k_s + (j % ST) * NB * kTileBlock;
+      const unsigned char* vt = v_s + (j % ST) * NB * kTileBlock;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs_kmajor(
+            s, qa[kk / 4][kk % 4],
+            hopper::desc_sw128(kt + (kk / 4) * kTileBlock + (kk % 4) * 32, 16),
+            kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs_kmajor(
+            dp, doa[kk / 4][kk % 4],
+            hopper::desc_sw128(vt + (kk / 4) * kTileBlock + (kk % 4) * 32, 16),
+            kk > 0);
+      hopper::wgmma_commit();
+    };
+    // dQ += dS K of key tile j (one commit group)
+    auto issue_dq = [&](int j) {
+      hopper::wgmma_rs_acc<NB, BN / 16>(
+          acc, da, k_s + (j % ST) * NB * kTileBlock, kTileBlock);
+      hopper::wgmma_commit();
+    };
+    // s -> P = 2^(S c - lse2). Only a tile outside the intersection
+    // (uniform across the warpgroup) tests its elements, once each, and
+    // selects a masked probability to 0 (a row without a key has lse
+    // -1e30, whose 2^(S c + 1.44e30) is inf)
+    auto probs = [&](int j) {
+      const int c0 = x + j * BN;
+      if (c0 >= span.z && c0 + BN <= span.w) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = hopper::fast_exp2(fmaf(s[i], sl2, nl[(i >> 1) & 1]));
+      } else {
+        // column c0 + 8 jb + 2t + (e & 1) is visible to row r when
+        // 8 jb + (e & 1) lies in [lo[r] - c0 - 2t, hi[r] - c0 - 2t)
+        const int b_lo[2] = {lo[0] - c0 - 2 * t, lo[1] - c0 - 2 * t};
+        const int b_hi[2] = {hi[0] - c0 - 2 * t, hi[1] - c0 - 2 * t};
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = jb * 8 + (e & 1), r = e >> 1;
+            const float p =
+                hopper::fast_exp2(fmaf(s[4 * jb + e], sl2, nl[r]));
+            s[4 * jb + e] = k >= b_lo[r] && k < b_hi[r] ? p : 0.f;
+          }
+      }
+    };
+    // dS = P (dP - delta) scale, in dp
+    auto grads = [&]() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
+    };
+    // a tile this warpgroup's rows do not see: wait for it, pass it on
+    auto pass = [&](int j) {
+      hopper::mbar_wait(&full_bar[j % ST], (j / ST) & 1);
+      if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
+    };
+
+    for (int j = 0; j < j0; ++j) pass(j);
+    if (j0 < j1) {
+      hopper::mbar_wait(res_full, 0);
+#pragma unroll
+      for (int blk = 0; blk < NB; ++blk) {
+        hopper::a_frags_sw128(qa[blk], q_s + blk * kResBlock,
+                              cw * 64 + wi * 16, lane);
+        hopper::a_frags_sw128(doa[blk], do_s + blk * kResBlock,
+                              cw * 64 + wi * 16, lane);
+      }
+      hopper::mbar_wait(&full_bar[j0 % ST], (j0 / ST) & 1);
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      issue_s_dp(j0);
+      // the rows' ranges, lse and delta, fetched while S and dP are in
+      // flight
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + r * 8;
+        const int2 a = varlen::keys_of_query(cu_q, cu_k, nseg, Tq, Tk,
+                                             causal, row);
+        lo[r] = a.x < a.y ? a.x : 0;
+        hi[r] = a.x < a.y ? a.y : 0;
+        nl[r] = row < Tq ? -lse[(size_t)h * Tq + row] * kLog2e : 0.f;
+        dl[r] = row < Tq ? delta[(size_t)h * Tq + row] : 0.f;
+      }
+      hopper::wgmma_wait<1>();                 // S of tile j0 is in
+      hopper::fence_regs(s);
+      probs(j0);
+      hopper::wgmma_wait<0>();                 // dP of tile j0 is in
+      hopper::fence_regs(dp);
+      grads();
+      hopper::to_a_frags<BN>(dp, da);
+      // every step but the last commits S, dP of tile j + 1 and dQ of tile
+      // j, so the wait counts below are static
+      for (int j = j0; j + 1 < j1; ++j) {
+        hopper::mbar_wait(&full_bar[(j + 1) % ST], ((j + 1) / ST) & 1);
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::fence_acc(acc);
+        hopper::wgmma_fence();
+        issue_s_dp(j + 1);
+        issue_dq(j);
+        hopper::wgmma_wait<2>();               // S of tile j + 1 is in
+        hopper::fence_regs(s);
+        probs(j + 1);
+        hopper::wgmma_wait<1>();               // dP of tile j + 1 is in
+        hopper::fence_regs(dp);
+        grads();
+        hopper::wgmma_wait<0>();               // dQ of tile j is in
+        hopper::fence_acc(acc);
+        if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
+        hopper::to_a_frags<BN>(dp, da);
+      }
+      const int j = j1 - 1;                    // the last tile's dQ
+      hopper::fence_acc(acc);
+      hopper::wgmma_fence();
+      issue_dq(j);
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
+    }
+    for (int j = j1; j < n_visit; ++j) pass(j);
+
+    // rows that see no key kept acc == 0: dQ exactly 0
+    hopper::store_rows<NB>(dq + (size_t)h * D, (size_t)H * D, row0, Tq, t,
+                           acc);
+  }
+}
+
+// -------------------------------------------------------------------------
 // dK/dV: one (head, 128-key packed tile), over the query tiles that see it
 
 template <int D> struct DkvCfg {
@@ -678,6 +939,31 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, const void* cu_q, const void* cu_k, int nseg,
+                   int H, int Tq, int Tk, float scale, int causal,
+                   cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e = hopper::bshd_map(&mq, q, 1, Tq, H, D, kBM);
+  if (e == cudaSuccess) e = hopper::bshd_map(&mdo, dout, 1, Tq, H, D, kBM);
+  if (e == cudaSuccess) e = hopper::bshd_map(&mk, k, 1, Tk, H, D, kDqBN);
+  if (e == cudaSuccess) e = hopper::bshd_map(&mv, v, 1, Tk, H, D, kDqBN);
+  if (e != cudaSuccess) return e;
+  auto kern = varlen_bwd_dq_sm90_kernel<D>;
+  constexpr size_t smem = DqCfg<D>::kSmem;
+  e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, (Tq + kBM - 1) / kBM);           // heads fastest, as above
+  kern<<<grid, kThreads, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      static_cast<const int*>(cu_q), static_cast<const int*>(cu_k), nseg, H,
+      Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, const void* cu_q, const void* cu_k,
@@ -712,9 +998,9 @@ bool bad_shape(int nseg, int H, int Tq, int Tk) {
 
 // Each entry returns a cudaError_t code: 0 on a successful launch. None
 // synchronises; a fault during the run shows at the caller's next sync.
-// Tensors are contiguous bf16 packed [t, H, D] (q, out, dout: t = Tq; k, v,
-// dk, dv: t = Tk); lse and delta are f32 [H, Tq]; cu_q and cu_k are int32
-// [nseg + 1] on the device.
+// Tensors are contiguous bf16 packed [t, H, D] (q, out, dout, dq: t = Tq;
+// k, v, dk, dv: t = Tk); lse and delta are f32 [H, Tq]; cu_q and cu_k are
+// int32 [nseg + 1] on the device.
 extern "C" {
 
 int varlen_fwd_sm90_launch(const void* q, const void* k, const void* v,
@@ -725,6 +1011,19 @@ int varlen_fwd_sm90_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return (int)fwd<64>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
   if (D == 128) return (int)fwd<128>(q, k, v, out, lse, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int varlen_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dq, const void* cu_q,
+                              const void* cu_k, int nseg, int H, int Tq,
+                              int Tk, int D, float scale, int causal,
+                              void* stream) {
+  if (bad_shape(nseg, H, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return (int)bwd_dq<64>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
+  if (D == 128) return (int)bwd_dq<128>(q, k, v, dout, lse, delta, dq, cu_q, cu_k, nseg, H, Tq, Tk, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

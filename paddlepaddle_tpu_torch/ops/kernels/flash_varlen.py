@@ -12,8 +12,8 @@ in the sources' headers):
   (``csrc/flash_varlen.cu``, full-f32 FMA: ``wgmma`` would round f32 to
   TF32);
 * :func:`varlen_bwd_dq` replaces ``_vdq_kernel`` (:156, launched at :273):
-  ``varlen_bwd_dq_kernel`` (``csrc/flash_varlen.cu``) for both dtypes,
-  ``mma.sync`` tiles for bf16;
+  bf16 runs ``varlen_bwd_dq_sm90_kernel`` (``csrc/flash_varlen_sm90.cu``),
+  f32 ``varlen_bwd_dq_kernel`` (``csrc/flash_varlen.cu``);
 * :func:`varlen_bwd_dkv` replaces ``_vdkv_kernel`` (:184, launched at
   :284): bf16 runs ``varlen_bwd_dkv_sm90_kernel``
   (``csrc/flash_varlen_sm90.cu``), f32 ``varlen_bwd_dkv_kernel``
@@ -56,11 +56,11 @@ PLAIN_CHUNK_ELEMS = 1 << 28
 
 def varlen_supported(head_dim: int, dtype: torch.dtype) -> Tuple[bool, str]:
     """(ok, reason): whether the Hopper kernels take this configuration:
-    bf16 (the TMA/``wgmma`` forward and dK/dV, the ``mma.sync`` dQ) or f32
-    (the FMA kernels), d 64 or 128. Any ``t_q``, ``t_k`` >= 1 and any
-    segment layout is taken, including causal rows that see no key (the TPU
-    kernels needed multiples of 8, ``_blocks``); d 256, which the TPU gate
-    admits, is not built yet."""
+    bf16 (the TMA/``wgmma`` kernels) or f32 (the FMA kernels), d 64 or
+    128. Any ``t_q``, ``t_k`` >= 1 and any segment layout is taken,
+    including causal rows that see no key (the TPU kernels needed multiples
+    of 8, ``_blocks``); d 256, which the TPU gate admits, is not built
+    yet."""
     if dtype not in _KERNEL_DTYPES:
         return False, f"dtype {dtype} (kernels take float32, bfloat16)"
     if head_dim not in HEAD_DIMS:
@@ -227,15 +227,15 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
 
 
 # the C entry of each kernel, by dtype: (library, entry, pointer count).
-# bf16 forward and dK/dV run the TMA/wgmma kernels of flash_varlen_sm90.cu;
-# the bf16 dQ and every f32 kernel run flash_varlen.cu, whose entries take
-# one more int (is_bf16)
+# bf16 runs the TMA/wgmma kernels of flash_varlen_sm90.cu; f32 runs the FMA
+# kernels of flash_varlen.cu, whose entries take one more int (is_bf16)
 _ENTRIES = {
     ("fwd", torch.bfloat16): ("flash_varlen_sm90", "varlen_fwd_sm90_launch",
                               5),
     ("dkv", torch.bfloat16): ("flash_varlen_sm90",
                               "varlen_bwd_dkv_sm90_launch", 8),
-    ("dq", torch.bfloat16): ("flash_varlen", "varlen_bwd_dq_launch", 7),
+    ("dq", torch.bfloat16): ("flash_varlen_sm90",
+                             "varlen_bwd_dq_sm90_launch", 7),
     ("fwd", torch.float32): ("flash_varlen", "varlen_fwd_launch", 5),
     ("dq", torch.float32): ("flash_varlen", "varlen_bwd_dq_launch", 7),
     ("dkv", torch.float32): ("flash_varlen", "varlen_bwd_dkv_launch", 8),
@@ -306,8 +306,9 @@ def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
 def varlen_bwd_dq(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
                   scale: float) -> torch.Tensor:
     """dQ ``[t_q, h, d]`` by recompute. CPU tensors take
-    :func:`varlen_bwd_plain`; CUDA tensors launch ``varlen_bwd_dq_kernel``
-    (``csrc/flash_varlen.cu``, either dtype) or raise."""
+    :func:`varlen_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
+    runs ``varlen_bwd_dq_sm90_kernel`` (``csrc/flash_varlen_sm90.cu``), f32
+    ``varlen_bwd_dq_kernel`` (``csrc/flash_varlen.cu``)."""
     if q.device.type == "cpu":
         return varlen_bwd_plain(q, k, v, dout, lse, delta, cu_q, cu_k,
                                 causal, scale)[0]

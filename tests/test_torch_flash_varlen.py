@@ -412,20 +412,58 @@ def test_support_check(args, ok, why):
 @pytest.mark.parametrize("kind,dtype,library", [
     ("fwd", torch.bfloat16, "flash_varlen_sm90"),
     ("dkv", torch.bfloat16, "flash_varlen_sm90"),
-    ("dq", torch.bfloat16, "flash_varlen"),
+    ("dq", torch.bfloat16, "flash_varlen_sm90"),
     ("fwd", torch.float32, "flash_varlen"),
     ("dq", torch.float32, "flash_varlen"),
     ("dkv", torch.float32, "flash_varlen"),
 ])
 def test_kernel_dispatch_by_dtype(kind, dtype, library):
-    """bf16 forward and dK/dV go to the TMA/``wgmma`` kernels of
-    ``csrc/flash_varlen_sm90.cu``; the bf16 dQ and every f32 kernel stay on
+    """Every bf16 kernel goes to the TMA/``wgmma`` kernels of
+    ``csrc/flash_varlen_sm90.cu``; every f32 kernel stays on
     ``csrc/flash_varlen.cu``; both sources are built from the checkout."""
     name, entry, _ = fv._ENTRIES[(kind, dtype)]
     assert name == library
     assert entry.endswith("_sm90_launch") == (library == "flash_varlen_sm90")
     assert name in _build.sources()
     assert name in fv._ERROR_STRING
+
+
+def _c_params(source: str, fn: str):
+    """The parameter kinds ("ptr", "int", "float") of the ``extern "C"``
+    function ``fn`` in a CUDA source read as text, or None if the source's
+    ``extern "C"`` block does not define it."""
+    import re
+
+    block = source[source.index('extern "C" {'):]
+    m = re.search(r"\b(?:int|const char\*) " + re.escape(fn)
+                  + r"\(([^)]*)\)\s*\{", block)
+    if m is None:
+        return None
+    kinds = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        kinds.append("ptr" if "*" in param else
+                     "float" if param.startswith("float ") else
+                     "int" if param.startswith("int ") else param)
+    return kinds
+
+
+@pytest.mark.parametrize("key", sorted(fv._ENTRIES, key=str),
+                         ids=lambda k: f"{k[0]}-{str(k[1])[6:]}")
+def test_entries_defined_in_their_sources(key):
+    """Each ``_ENTRIES`` entry is an ``extern "C"`` function of the source
+    it names, whose parameters are the ones ``_library`` gives ctypes: the
+    tensors' pointers, cu_q and cu_k, five ints (nseg, h, t_q, t_k, d), the
+    scale, causal, is_bf16 for ``flash_varlen.cu`` only, and the stream.
+    A bf16 entry of ``flash_varlen.cu`` would be refused there (its
+    entries return an error for bf16), so none is listed."""
+    name, entry, n_ptrs = fv._ENTRIES[key]
+    source = (_build.CSRC / f"{name}.cu").read_text()
+    want = (["ptr"] * (n_ptrs + 2) + ["int"] * 5 + ["float", "int"]
+            + ["int"] * (name == "flash_varlen") + ["ptr"])
+    assert _c_params(source, entry) == want, (name, entry)
+    assert _c_params(source, fv._ERROR_STRING[name]) == ["int"]
+    assert (key[1] == torch.bfloat16) == (name == "flash_varlen_sm90")
 
 
 def test_wrappers_refuse_other_devices():
@@ -457,6 +495,9 @@ CARD_LAYOUTS = dict(LAYOUTS, **{
     # over several key tiles with t_q % 4 != 0
     "tile128": ([100, 156, 1, 300, 0, 211], None, 800, 800),
     "prefill128": ([130, 7, 260], [900, 7, 700], 397, 1607),
+    # the first 64-row consumer of the bf16 dQ spans three segments, and the
+    # keys of the second and third start inside a 64-key tile (37, 57)
+    "consumer3": ([10, 20, 40, 90], [37, 20, 70, 90], 170, 230),
 })
 
 
@@ -511,29 +552,33 @@ def test_kernels_match_plain_on_card(dtype, atol):
 @pytest.mark.parametrize("d", [64, 128])
 def test_bf16_sm90_matches_dense_on_card(d, causal):
     """One segment over the whole buffer is dense attention at [1, s, h, d]:
-    the bf16 varlen forward and dK/dV (``csrc/flash_varlen_sm90.cu``)
+    the bf16 varlen forward, dQ and dK/dV (``csrc/flash_varlen_sm90.cu``)
     against the dense sm90 kernels at s 1000 (not a multiple of the 128-row
-    tile), within 2e-2 (both round p to bf16 in other tile orders). Each
-    wrapper launches once a call."""
+    tile), within 2e-2 (both round p and ds to bf16 in other tile orders).
+    Each wrapper launches once a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
     s, h, scale = 1000, 4, d ** -0.5
     q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
                    for a in _inputs(s, s, seed=d + causal, d=d, h=h))
     cu = torch.tensor([0, s], dtype=torch.int32, device="cuda")
-    counts = (fv.varlen_fwd.launches, fv.varlen_bwd_dkv.launches)
+    counts = (fv.varlen_fwd.launches, fv.varlen_bwd_dq.launches,
+              fv.varlen_bwd_dkv.launches)
     out, lse = fv.varlen_fwd(q, k, v, cu, cu, causal, scale)
     delta = fv.varlen_delta(out, do)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, cu, cu, causal, scale)
     dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, cu, cu, causal, scale)
-    assert (fv.varlen_fwd.launches,
-            fv.varlen_bwd_dkv.launches) == (counts[0] + 1, counts[1] + 1)
+    assert (fv.varlen_fwd.launches, fv.varlen_bwd_dq.launches,
+            fv.varlen_bwd_dkv.launches) == tuple(c + 1 for c in counts)
     b4 = [x.unsqueeze(0) for x in (q, k, v, do)]
     out_d, lse_d = fa.flash_fwd(*b4[:3], causal, scale)
     delta_d = fa.flash_delta(out_d, b4[3])
+    dq_d = fa.flash_bwd_dq(*b4, lse_d, delta_d, causal, scale)
     dk_d, dv_d = fa.flash_bwd_dkv(*b4, lse_d, delta_d, causal, scale)
     torch.cuda.synchronize()
     for name, a, b_ in (("out", out, out_d[0]), ("lse", lse, lse_d),
-                        ("dk", dk, dk_d[0]), ("dv", dv, dv_d[0])):
+                        ("dq", dq, dq_d[0]), ("dk", dk, dk_d[0]),
+                        ("dv", dv, dv_d[0])):
         err = float((a.float() - b_.float()).abs().max())
         assert err <= 2e-2, (name, d, causal, err)
 
@@ -556,3 +601,27 @@ def test_bf16_dkv_sm90_deterministic_on_card():
     torch.cuda.synchronize()
     for name, a, b_ in zip(("dk", "dv"), first, again):
         assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+def test_bf16_dq_sm90_deterministic_on_card():
+    """One writer per query row and no atomics: two launches of the bf16
+    varlen dQ give the same bits (causal, segments over tile ends, a
+    consumer over three segments)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    for layout in ("tile128", "consumer3"):
+        lens_q, lens_k, tq, tk = CARD_LAYOUTS[layout]
+        cu_q = torch.from_numpy(_cu(lens_q)).cuda()
+        cu_k = torch.from_numpy(_cu(lens_k or lens_q)).cuda()
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                       for a in _inputs(tq, tk, seed=5, d=128, h=4))
+        scale = 128 ** -0.5
+        out, lse = fv.varlen_fwd(q, k, v, cu_q, cu_k, True, scale)
+        delta = fv.varlen_delta(out, do)
+        first = fv.varlen_bwd_dq(q, k, v, do, lse, delta, cu_q, cu_k, True,
+                                 scale)
+        again = fv.varlen_bwd_dq(q, k, v, do, lse, delta, cu_q, cu_k, True,
+                                 scale)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), layout

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 packed varlen forward and dK/dV kernels side by
-side on one card.
+"""Time variants of the bf16 packed varlen forward, dQ and dK/dV kernels side
+by side on one card.
 
 Each variant is ``paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen_sm90.cu``
 with some of its text replaced (a stage count, an order of the tiles), built
 by its own ``nvcc`` into the git-ignored kernel build directory, checked at
 the packed batch of ``chip_smoke.py``'s ``flash_varlen_kernel`` phase (t 8256:
 8192 tokens in causal segments of 64-2048, one empty, a 64-row tail; h 32,
-d 128, bf16) against the plain versions (2e-2 + 1e-2 |x|), and timed
+d 128, bf16) against the plain versions (2e-2 + 1e-2 |x|; rows that see no
+key have out and dQ exactly 0), and timed
 (CUDA-event medians, L2 flushed, as ``chip_smoke.median_ms``) in two rounds,
 the second in reverse order. Run from the repository root on a machine with
 an H100:
@@ -20,10 +21,18 @@ A variant given as a string instead of a mapping is the path of a whole
 source with the same C entries (another design of the same kernels).
 ``--time-only`` skips the check of the named variants: for variants that
 drop work on purpose, to find what limits a kernel. ``--old`` adds an older
-``flash_varlen.cu`` whose forward and dK/dV entries still take bf16
-(``git show <commit>:paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu``
-of a tree before those kernels moved to ``flash_varlen_sm90.cu``), timed in
-the same rounds.
+``flash_varlen.cu`` whose entries took bf16 before the kernels moved to
+``flash_varlen_sm90.cu`` (the dQ up to the tree that added
+``varlen_bwd_dq_sm90_kernel``, the forward and dK/dV before that). Give it
+inside that tree's own ``csrc`` directory, so that its includes find that
+tree's headers first:
+
+    git archive <commit> paddlepaddle_tpu_torch/ops/kernels/csrc \\
+        | tar -x -C _archive/old
+    ... --old _archive/old/paddlepaddle_tpu_torch/ops/kernels/csrc/flash_varlen.cu
+
+Its kernels that still take bf16 are checked and timed in the same rounds;
+a kernel whose entry refuses bf16 is left out.
 """
 
 import argparse
@@ -112,12 +121,18 @@ def main() -> int:
     scale = d ** -0.5
     out_p, lse_p = fv.varlen_attention_plain(q, k, v, cu, cu, True, scale)
     delta = fv.varlen_delta(out_p, do)
-    _, dk_p, dv_p = fv.varlen_bwd_plain(q, k, v, do, lse_p, delta, cu, cu,
-                                        True, scale)
-    want = {"out": out_p, "lse": lse_p, "dk": dk_p, "dv": dv_p}
+    dq_p, dk_p, dv_p = fv.varlen_bwd_plain(q, k, v, do, lse_p, delta, cu, cu,
+                                           True, scale)
+    want = {"fwd": {"out": out_p, "lse": lse_p}, "dq": {"dq": dq_p},
+            "dkv": {"dk": dk_p, "dv": dv_p}}
     row_ok = fv.varlen_mask(cu, cu, t, t, True).any(1)
-    out, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    out, dq, dk, dv = (torch.empty_like(x) for x in (q, q, k, v))
     lse = torch.empty_like(lse_p)
+    got = {"fwd": {"out": out, "lse": lse}, "dq": {"dq": dq},
+           "dkv": {"dk": dk, "dv": dv}}
+    ptrs = {"fwd": (q, k, v, out, lse),
+            "dq": (q, k, v, do, lse_p, delta, dq),
+            "dkv": (q, k, v, do, lse_p, delta, dk, dv)}
     stream = torch.cuda.current_stream().cuda_stream
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = (cu.data_ptr(), cu.data_ptr(), len(lens), h, t, t, d, scale, 1)
@@ -125,51 +140,54 @@ def main() -> int:
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         old = name == "old"
-        f_fwd = lib.varlen_fwd_launch if old else lib.varlen_fwd_sm90_launch
-        f_dkv = (lib.varlen_bwd_dkv_launch if old
-                 else lib.varlen_bwd_dkv_sm90_launch)
         shape = [vp, vp] + [ci] * 5 + [cf, ci] + [ci] * old + [vp]
-        f_fwd.argtypes = [vp] * 5 + shape
-        f_dkv.argtypes = [vp] * 8 + shape
         flags = (1,) if old else ()          # is_bf16
+        calls[name] = {}
+        for kind, tensors in ptrs.items():
+            entry = {"fwd": "varlen_fwd", "dq": "varlen_bwd_dq",
+                     "dkv": "varlen_bwd_dkv"}[kind]
+            f = getattr(lib, f"{entry}_launch" if old
+                        else f"{entry}_sm90_launch")
+            f.argtypes = [vp] * len(tensors) + shape
 
-        def c_fwd(f=f_fwd, flags=flags):
-            return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     lse.data_ptr(), *tail, *flags, stream)
+            def call(f=f, tensors=tensors, flags=flags):
+                return f(*(x.data_ptr() for x in tensors), *tail, *flags,
+                         stream)
 
-        def c_dkv(f=f_dkv, flags=flags):
-            return f(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse_p.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), *tail, *flags, stream)
-
-        if c_fwd() or c_dkv():
-            raise SystemExit(f"{name}: launch failed")
-        torch.cuda.synchronize()
-        got = {"out": out, "lse": lse, "dk": dk, "dv": dv}
-        errs, excess = {}, {}
-        for key, w in want.items():
-            a, b = got[key].float(), w.float()
-            if key == "lse":
-                a, b = a[:, row_ok], b[:, row_ok]
-            diff = (a - b).abs()
-            errs[key] = float(diff.max())
-            excess[key] = float((diff - 2e-2 - 1e-2 * b.abs()).max())
-        print(json.dumps({"variant": name, "max_abs_err": errs,
-                          "max_excess": excess,
-                          "checked": name not in time_only}), flush=True)
-        if name not in time_only and max(excess.values()) > 0:
-            raise SystemExit(f"{name}: error {errs} beyond 2e-2 + 1e-2 |x|")
-        calls[name] = (c_fwd, c_dkv)
+            for x in got[kind].values():
+                x.fill_(float("nan"))
+            if call():
+                if old:                      # this entry refuses bf16
+                    continue
+                raise SystemExit(f"{name} {kind}: launch failed")
+            torch.cuda.synchronize()
+            errs, excess = {}, {}
+            for key, w in want[kind].items():
+                a, b = got[kind][key].float(), w.float()
+                if key == "lse":
+                    a, b = a[:, row_ok], b[:, row_ok]
+                diff = (a - b).abs()
+                errs[key] = float(diff.max())
+                excess[key] = float((diff - 2e-2 - 1e-2 * b.abs()).max())
+            zero = all(bool((got[kind][key][~row_ok] == 0).all())
+                       for key in ("out", "dq") if key in got[kind])
+            print(json.dumps({"variant": name, "kernel": kind,
+                              "max_abs_err": errs, "max_excess": excess,
+                              "keyless_rows_zero": zero,
+                              "checked": name not in time_only}), flush=True)
+            if name not in time_only and (max(excess.values()) > 0
+                                          or not zero):
+                raise SystemExit(f"{name} {kind}: error {errs} beyond 2e-2 "
+                                 f"+ 1e-2 |x|, or keyless rows not 0")
+            calls[name][kind] = call
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     names = list(calls)
     for rnd in range(2):
         for name in names if rnd == 0 else names[::-1]:
-            c_fwd, c_dkv = calls[name]
-            print(json.dumps({"round": rnd, "variant": name,
-                              "fwd_ms": cs.median_ms(c_fwd, flush=flush),
-                              "dkv_ms": cs.median_ms(c_dkv, flush=flush)}),
-                  flush=True)
+            print(json.dumps({"round": rnd, "variant": name, **{
+                f"{kind}_ms": cs.median_ms(call, flush=flush)
+                for kind, call in calls[name].items()}}), flush=True)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 
