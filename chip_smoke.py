@@ -21,7 +21,9 @@ code is non-zero):
                kvh=8, hd=128, ps=64, 8 slots, lens 64-2000);
                CUDA-event timings (median, L2 flushed between launches) of
                the kernel, the plain version and SDPA on the pre-gathered
-               view, beside the memory/compute bound.
+               view, beside the memory/compute bound; then the
+               speculative verify's shape (W 4, otherwise the main shape,
+               lens from their own seed), checked and timed the same way.
 3q. ``kernel_int8``  the int8 variant of paged attention (kernel 1q: int8
                pools, per-page, per-head f32 scales) against its plain
                version: small shapes (W 1 and 3, q f32 atol 1e-5 and bf16
@@ -32,7 +34,8 @@ code is non-zero):
                shared-memory mirror; the main-path shape (h 32, kvh 8,
                hd 128, ps 64, 8 slots, lens 64-2000, bf16 q) timed beside
                kernel 1 at the same lens over bf16 pools, the plain version
-               and the dequantize-then-SDPA composition, with the bound.
+               and the dequantize-then-SDPA composition, with the bound;
+               then the same at the speculative verify's W 4.
 4. ``flash_kernel``  the flash-attention forward, dQ and dK/dV kernels
                (bf16: the TMA/wgmma kernels; f32: the FMA kernels) against
                the plain forward and its autograd backward: 40 small cases
@@ -107,13 +110,38 @@ code is non-zero):
                experts) trained 3 TrainStep steps on the card and on the CPU
                from one state: losses within 1e-4, parameters within 5e-4,
                the gather-GEMM counter moved by layers x steps.
+8c. ``capture_parity``  Llama-3-8B widths cut to 2 of 32 layers (bf16),
+               8 slots, page 64, chunk 16, bf16 and int8 KV: one engine's
+               captured decode chunks (CUDA graph replays) against a second
+               engine's chunk body called eagerly over the same admissions:
+               tokens, lens, active flags, budgets, the packed payload and
+               every KV pool equal to the bit after each of 4 chunks, the
+               paged counter moved chunk x layers per replay; then two
+               sampled slots: replay-to-replay variation and equal draws
+               from equal seeds.
 9. ``serve``   the serving path at full width: Llama-3-8B (bf16, seeded
                random weights) behind ``ServingEngine(max_batch_size=8,
                kv_page_size=64, max_len=2048, decode_chunk=16)`` answering
                24 requests (prompts 64-1536, budgets 32-128, two sampled);
-               every future must complete with its full length and in-vocab
-               tokens, and the paged-attention launch count must equal
-               32 layers x decode steps.
+               every decode chunk is a replay of the captured graph. Every
+               future must complete with its full length and in-vocab
+               tokens, and the paged-attention launch count (counted per
+               replay) must equal 32 layers x decode steps; the captured
+               chunk's wall, device time and idle share, and the capture's
+               seconds and graph-pool bytes.
+9s. ``serve_spec``  the serve phase's model behind the same engine with
+               ``spec_k=3`` (the verify attends W = 4 rows a slot through
+               kernel 1), greedy, 8 of the serve phase's prompts with
+               budgets capped at 64, three runs: the target itself as the
+               draft, the "quarter" draft config (hidden 1024, 8 layers),
+               and the quarter draft over int8 KV (kernel 1q at W = 4).
+               Each: full-length outputs, W = 4 launches equal to layers x
+               target steps, no leaked page; tokens per target step,
+               acceptance, the run-length histogram, the share of tokens
+               equal to the serve phase's (reported, not gated), the spec
+               chunk's wall, device time and idle share, and a captured
+               verify's layer-0 attention against the plain version (atol
+               2e-2).
 9q. ``serve_int8``  Llama-3-8B (bf16, seeded weights) behind
                ``ServingEngine(max_batch_size=8, kv_page_size=64,
                max_len=2048, decode_chunk=16, kv_quant="int8",
@@ -125,8 +153,8 @@ code is non-zero):
                with in-vocab tokens, prefixes spill and restore, and the
                int8 kernel ran 32 layers x decode steps times; tok/s, TTFT,
                TPOT, prefix and host counters, restore ms, KV bytes against
-               a bf16 pool of the same page count, and the decode device
-               time by kind with the idle share.
+               a bf16 pool of the same page count, and the captured decode
+               chunk's device time by kind with the idle share.
 10. ``train`` the training path at full width: Llama-3-8B widths cut to 8
                of 32 layers (memory), bf16 with f32 AdamW masters and a
                global-norm clip, batch 4 x 2048 fed 7 times (1 warm-up, 5
@@ -316,7 +344,6 @@ def split_lens(pa, S, kvh, ps, P, W):
 def phase_kernel():
     import numpy as np
     import torch
-    import torch.nn.functional as tF
 
     from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -385,57 +412,133 @@ def phase_kernel():
     plain_ms = median_ms(lambda: pa.paged_attention_plain(*args, **kw),
                          flush=flush)
     wrapper_us = host_us(lambda: pa.paged_attention(*args, **kw))
-    # yardstick only: SDPA on the pre-gathered view (gather not timed)
-    T = P * ps
-    kview = kp[ptab.long()].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
-    vview = vp[ptab.long()].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
-    qs = q.transpose(1, 2).contiguous()                       # [S, h, W, hd]
-    k_pos = torch.arange(T, device="cuda")
-    q_pos = lens_t.long()[:, None] + torch.arange(W, device="cuda")[None, :]
-    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # [S,1,W,T]
-    try:
-        library_ms = median_ms(lambda: tF.scaled_dot_product_attention(
-            qs, kview, vview, attn_mask=mask, scale=kw["scale"],
-            enable_gqa=True), flush=flush)
-    except (TypeError, RuntimeError):
-        kr = kview.repeat_interleave(h // kvh, dim=1)
-        vr = vview.repeat_interleave(h // kvh, dim=1)
-        library_ms = median_ms(lambda: tF.scaled_dot_product_attention(
-            qs, kr, vr, attn_mask=mask, scale=kw["scale"]), flush=flush)
+    library_ms = gathered_sdpa_ms(q, kp, vp, ptab, lens_t, kw["scale"], flush)
+    w4 = paged_w4_case(pa, quant=False, flush=flush)
     del flush
 
     # least time for the same work, from this run's lens (paged_work)
     item = q.element_size()
-    bytes_, flops = paged_work(lens, W, h, kvh, hd, ps, P, item, item)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    bytes_, flops, _ = paged_work(lens, W, h, kvh, hd, ps, P, item, item)
+    bound_ms, bound_by = paged_bound(bytes_, flops, 0)
     record = {
         "name": "paged_attention", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
         "launches": None, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shape": f"S{S} W{W} h{h} kvh{kvh} hd{hd} ps{ps} bf16 "
                  f"lens {min(lens)}-{max(lens)}",
-        "bytes": bytes_, "flops": flops,
+        "bytes": bytes_, "flops": flops, "w4": w4,
     }
     emit({"phase": "kernel", "small": small, "main_shape": record["shape"],
           "n_split": n_split, "pages_per_split": pps,
           "lens": lens, "max_abs_err": err, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "library_ms": library_ms,
           "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
-          "bound_share": record["bound_ms"] / kernel_ms})
+          "bound_share": record["bound_ms"] / kernel_ms, "w4": w4})
     return record
 
 
+def gathered_sdpa_ms(q, kp, vp, ptab, lens_t, scale, flush, scales=None):
+    """Yardstick only, not a port path: SDPA over each slot's view gathered
+    through the page table beforehand (the gather is not timed); with
+    ``scales`` (int8 pools) the timed call is the composition that
+    dequantizes the gathered pages to q's dtype, then SDPA."""
+    import torch
+    import torch.nn.functional as tF
+
+    S, W, h, hd = q.shape
+    ps, kvh, P = kp.shape[1], kp.shape[2], ptab.shape[1]
+    T = P * ps
+    idx = ptab.long()
+    k_pos = torch.arange(T, device="cuda")
+    q_pos = lens_t.long()[:, None] + torch.arange(W, device="cuda")[None, :]
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # [S,1,W,T]
+    qs = q.transpose(1, 2).contiguous()                       # [S, h, W, hd]
+    if scales is not None:
+        ks, vs = scales
+
+        def composition():
+            views = []
+            for c, sc in ((kp, ks), (vp, vs)):
+                d = (c[idx].float() * sc[idx][:, :, None, :, None]).to(q.dtype)
+                views.append(d.reshape(S, T, kvh, hd).transpose(1, 2))
+            return tF.scaled_dot_product_attention(
+                qs, views[0], views[1], attn_mask=mask, scale=scale,
+                enable_gqa=True)
+
+        return median_ms(composition, flush=flush)
+    kview = kp[idx].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
+    vview = vp[idx].reshape(S, T, kvh, hd).transpose(1, 2).contiguous()
+    try:
+        return median_ms(lambda: tF.scaled_dot_product_attention(
+            qs, kview, vview, attn_mask=mask, scale=scale,
+            enable_gqa=True), flush=flush)
+    except (TypeError, RuntimeError):
+        kr = kview.repeat_interleave(h // kvh, dim=1)
+        vr = vview.repeat_interleave(h // kvh, dim=1)
+        return median_ms(lambda: tF.scaled_dot_product_attention(
+            qs, kr, vr, attn_mask=mask, scale=scale), flush=flush)
+
+
+SPEC_K = 3                     # serve_spec's proposals per target step
+
+
+def paged_w4_case(pa, quant: bool, flush) -> dict:
+    """The speculative verify's attention: W = SPEC_K + 1 = 4 query rows a
+    slot at the Llama-3-8B serving shape (S 8, h 32, kvh 8, hd 128, ps 64,
+    bf16 q; int8 pools with ``quant``), lens 64-1996 from their own seed:
+    the kernel against its plain version (atol 2e-2, as the W=1 main
+    shape), timed beside the plain version, the gathered-view SDPA (the
+    dequantize-then-SDPA composition under int8) and the bound."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13 if quant else 12)
+    S, W, h, kvh, hd, ps, P = 8, SPEC_K + 1, 32, 8, 128, 64, 32
+    lens = rng.integers(64, 2001 - W, S).tolist()
+    q, kp, vp, ptab, lens_t = paged_inputs(rng, S, W, h, kvh, hd, ps, P, lens,
+                                           torch.bfloat16)
+    kw = dict(rep=h // kvh, scale=hd ** -0.5)
+    scales = None
+    if quant:
+        kp, ks, vp, vs = int8_pools(kp, vp)
+        scales = (ks, vs)
+        kw.update(k_scale=ks, v_scale=vs)
+    args = (q, kp, vp, ptab, lens_t)
+    got = pa.paged_attention(*args, **kw)
+    want = pa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"paged_attention W={W} (int8 {quant}): err "
+                             f"{err} > 2e-2")
+    kernel_ms = median_ms(lambda: pa.paged_attention(*args, **kw), flush=flush)
+    plain_ms = median_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                         flush=flush)
+    yard_ms = gathered_sdpa_ms(q, kp, vp, ptab, lens_t, kw["scale"], flush,
+                               scales=scales)
+    bound_ms, bound_by = paged_bound(*paged_work(
+        lens, W, h, kvh, hd, ps, P, q.element_size(),
+        1 if quant else q.element_size(), scales=quant))
+    return {"W": W, "shape": f"S{S} W{W} h{h} kvh{kvh} hd{hd} ps{ps} bf16 q"
+            + (", int8 pools" if quant else "")
+            + f", lens {min(lens)}-{max(lens)}",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if quant else yard_ms,
+            "composition_ms": yard_ms if quant else None,
+            "launches": None}
+
+
 def paged_work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales=False):
-    """Bytes and f32 operations the paged attention must move and do for
-    this run's lens: each visible key's K and V row read once (as codes
-    plus one f32 scale per visible page and KV head under int8), q read and
-    out written once, the page-table entries and lens read once; the
-    products of q.k and p.v over every visible key of every query row, and
-    under int8 one dequantizing product per visible K/V element."""
+    """Bytes and operations the paged attention must move and do for this
+    run's lens: each visible key's K and V row read once (as codes plus one
+    f32 scale per visible page and KV head under int8), q read and out
+    written once, the page-table entries and lens read once; ``flops``, the
+    bf16 products of q.k and p.v over every visible key of every query row
+    (tensor-core work), and ``deq_flops``, under int8 one dequantizing
+    product per visible K/V element (f32 work outside the tensor cores)."""
     S = len(lens)
     keys = [n + W for n in lens]
     n_vis = [min(P, -(-k // ps)) for k in keys]
@@ -443,10 +546,23 @@ def paged_work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales=False):
               + 4 * sum(n_vis) + 4 * S)
     rows_keys = sum(n + w + 1 for n in lens for w in range(W))
     flops = 2 * 2 * hd * h * rows_keys
+    deq_flops = 0
     if scales:
         bytes_ += 2 * 4 * kvh * sum(n_vis)
-        flops += 2 * kvh * hd * sum(keys)
-    return bytes_, flops
+        deq_flops = 2 * kvh * hd * sum(keys)
+    return bytes_, flops, deq_flops
+
+
+def paged_bound(bytes_, flops, deq_flops):
+    """``(bound_ms, bound_by)`` of :func:`paged_work`'s counts: the larger
+    of the bytes over the memory rate and the operations over the card's
+    peak for their type (the products at the bf16 tensor-core rate, the
+    dequantization at the f32 rate; the two units run side by side, so the
+    slower of them sets the operations' time)."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / BF16_FLOP_PER_S, deq_flops / F32_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def int8_pools(kp, vp):
@@ -466,7 +582,6 @@ def dequantized(codes, scale):
 def phase_kernel_int8():
     import numpy as np
     import torch
-    import torch.nn.functional as tF
 
     from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -591,39 +706,23 @@ def phase_kernel_int8():
     wrapper_us = host_us(lambda: pa.paged_attention(*qargs, **qkw))
     # yardstick only, not one library call: dequantize the gathered pages to
     # bf16, then SDPA over the view
-    T = P * ps
-    idx = ptab.long()
-    k_pos = torch.arange(T, device="cuda")
-    q_pos = lens_t.long()[:, None] + torch.arange(W, device="cuda")[None, :]
-    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # [S,1,W,T]
-    qs = q.transpose(1, 2).contiguous()                       # [S, h, W, hd]
-
-    def composition():
-        views = []
-        for c, sc in ((kq, ks), (vq, vs)):
-            d = (c[idx].float() * sc[idx][:, :, None, :, None]).to(q.dtype)
-            views.append(d.reshape(S, T, kvh, hd).transpose(1, 2))
-        return tF.scaled_dot_product_attention(
-            qs, views[0], views[1], attn_mask=mask, scale=kw["scale"],
-            enable_gqa=True)
-
-    composition_ms = median_ms(composition, flush=flush)
+    composition_ms = gathered_sdpa_ms(q, kq, vq, ptab, lens_t, kw["scale"],
+                                      flush, scales=(ks, vs))
+    w4 = paged_w4_case(pa, quant=True, flush=flush)
     del flush
-    bytes_, flops = paged_work(lens, W, h, kvh, hd, ps, P, q.element_size(),
-                               1, scales=True)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    bytes_, flops, deq_flops = paged_work(lens, W, h, kvh, hd, ps, P,
+                                          q.element_size(), 1, scales=True)
+    bound_ms, bound_by = paged_bound(bytes_, flops, deq_flops)
     record = {
         "name": "paged_attention_int8", "route": "cuda",
         "source": PAGED_SOURCE,
         "replaces": PAGED_REPLACES + " (quantized)",
         "launches": None, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "shape": f"S{S} W{W} h{h} kvh{kvh} hd{hd} ps{ps} bf16 q, int8 pools, "
                  f"lens {min(lens)}-{max(lens)}",
-        "bytes": bytes_, "flops": flops}
+        "bytes": bytes_, "flops": flops, "deq_flops": deq_flops, "w4": w4}
     emit({"phase": "kernel_int8", "small": small,
           "max_diff_vs_kernel1_dequantized": bit_equal_diff,
           "bit_equal_vs_kernel1_dequantized": bit_equal_diff == 0.0,
@@ -632,7 +731,7 @@ def phase_kernel_int8():
           "kernel_ms": kernel_ms, "kernel1_bf16_pools_ms": kernel1_ms,
           "plain_ms": plain_ms, "composition_ms": composition_ms,
           "wrapper_host_us": wrapper_us, "bound_ms": record["bound_ms"],
-          "bound_share": record["bound_ms"] / kernel_ms})
+          "bound_share": record["bound_ms"] / kernel_ms, "w4": w4})
     return record
 
 
@@ -1945,55 +2044,87 @@ def phase_moe_train(pt_pkg):
     return launches["gather_gemm_ffn"]
 
 
-def decode_breakdown(pt_pkg, eng, prompts):
-    """Where one decode chunk's time goes, all slots busy: the host wall of
-    an unprofiled chunk, then the device time by kernel from a
-    torch.profiler window over the next chunk. Under int8 KV the
-    quantize-scatter calls run inside a ``kv_quant_scatter`` range for that
-    window, so their kernels' device time (elementwise kernels, counted in
-    "other" as well) is read off the range."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+def leaked_pages(eng) -> int:
+    """Pages in use beyond the refcount-0 cached prefixes, with no request
+    in a slot: 0 unless a reservation leaked."""
+    return eng.pool.used - eng.prefix.cached_pages
 
-    from paddlepaddle_tpu_torch.inference import decode_engine as tde
+
+PROFILED_WINDOWS = 3            # decode_breakdown's profiled chunks, at most
+
+
+def decode_breakdown(pt_pkg, eng, prompts, check=None):
+    """Where one decode chunk's time goes, all slots busy: the host wall of
+    an unprofiled chunk (replays of the captured programs and the chunk's
+    one readback), then the device time by kernel from a torch.profiler
+    window over the next chunk, the device's idle share of the wall, and
+    each captured program's capture seconds, graph-pool bytes and replays.
+    Works for the speculative chunk too. ``check(eng)`` runs after the
+    first chunk, while every slot is live. The profiled chunk's paged
+    kernel and merge launches are counted from the profiler's device
+    events and must equal target steps x layers, as must the Python
+    counters' move over that chunk (which the engine adds per replay).
+    The profiler can lose a block of device records (seen on the H100 in
+    1 of 8 speculative chunks: ~1,200 records, 26 paged kernels of one
+    graph replay); it never adds any. So up to ``PROFILED_WINDOWS`` chunks
+    are profiled, every window is reported, the device times are read from
+    the first window that shows every expected launch, and the phase fails
+    if none does. The counters must move by the expected count in every
+    window.
+    The quantize-scatter of int8 KV runs inside the graph, where a range
+    cannot mark it: its device time is measured apart by
+    :func:`kv_scatter_device_ms` and scaled to the chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
 
     reqs = [pt_pkg.GenerationRequest(p[:128], 64) for p in prompts[:eng.S]]
     for r in reqs:
         if not eng._admit(r):
             raise AssertionError("breakdown: admission failed")
     eng._decode_chunk()                       # first tokens + a warm chunk
+    checked = check(eng) if check is not None else None
+    scatter = kv_scatter_device_ms(eng) if eng.kv_quant else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng._decode_chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    scatter = tde._kv_quant_scatter
-
-    def ranged(*args):
-        with record_function("kv_quant_scatter"):
-            return scatter(*args)
-
-    tde._kv_quant_scatter = ranged
-    try:
+    counter = ("int8_launches" if eng.kv_quant else "launches")
+    steps = eng._spec_steps_per_chunk if eng.spec is not None else eng.chunk
+    expected = steps * eng.cfg.num_hidden_layers
+    windows = []
+    for _ in range(PROFILED_WINDOWS):
+        before = getattr(pa.paged_attention, counter)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             eng._decode_chunk()
             torch.cuda.synchronize()
-    finally:
-        tde._kv_quant_scatter = scatter
+            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = getattr(pa.paged_attention, counter) - before
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = {k: sum(e.count for e in kernels if k in e.key.lower())
+                  for k in ("paged_attn_kernel", "paged_merge_kernel")}
+        windows.append({"paged_device_events": events,
+                        "device_events": sum(e.count for e in kernels),
+                        "counter_moved": counted})
+        if counted != expected:
+            raise AssertionError(f"breakdown: the counter moved {counted} "
+                                 f"over a chunk, expected {steps} steps x "
+                                 f"{eng.cfg.num_hidden_layers} layers")
+        if all(n == expected for n in events.values()):
+            break
+    else:
+        raise AssertionError(
+            f"breakdown: no profiled chunk showed {expected} paged kernel "
+            f"and merge launches on the device ({steps} steps x "
+            f"{eng.cfg.num_hidden_layers} layers): {windows}")
     by_kind = {"paged_attention": 0.0, "paged_attention_int8": 0.0,
                "paged_merge": 0.0, "matmul": 0.0, "other": 0.0}
     top = {}
-    quant_ms = 0.0
-    for e in prof.key_averages():
-        if e.key == "kv_quant_scatter":
-            # the CPU range's device time is its kernels'; the range's own
-            # span on the device timeline (idle gaps included) is not a
-            # kernel and is left out of every sum
-            if e.device_type == torch.autograd.DeviceType.CPU:
-                quant_ms += e.device_time_total / 1e3
-            continue
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in kernels:
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         kind = ("paged_attention_int8" if "paged_attn" in name
@@ -2007,18 +2138,72 @@ def decode_breakdown(pt_pkg, eng, prompts):
         top[e.key[:80]] = top.get(e.key[:80], 0.0) + ms
     while eng.busy_slots():
         eng._decode_chunk()
+    leaked = leaked_pages(eng)
+    if leaked:
+        raise AssertionError(f"breakdown leaked {leaked} pages")
     busy = sum(by_kind.values())
-    out = {"chunk_wall_ms": wall_ms, "steps": eng.chunk,
+    out = {"chunk_wall_ms": wall_ms,
+           "profiled_chunk_wall_ms": profiled_wall_ms, "steps": steps,
+           "paged_launches_counted": counted,
+           "paged_device_events": events, "expected_launches": expected,
+           "profiled_windows": windows,
            "device_busy_ms": busy if busy > 0 else "not measured",
            "device_idle_share": 1 - busy / wall_ms if busy > 0
            else "not measured",
+           "device_idle_share_of_profiled_chunk": 1 - busy / profiled_wall_ms
+           if busy > 0 else "not measured",
            "device_ms_by_kind": by_kind,
            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
-                                  [:8])}
-    if eng.kv_quant == "int8":
-        out["kv_quant_scatter_device_ms"] = (quant_ms if quant_ms > 0
-                                             else "not measured")
+                                  [:8]),
+           "capture": eng.capture_info()}
+    if checked is not None:
+        out["check"] = checked
+    if scatter is not None:
+        out["kv_quant_scatter"] = {
+            **scatter, "chunk_device_ms":
+            scatter["device_ms_per_call"] * 2 * expected}
     return out
+
+
+def kv_scatter_device_ms(eng, reps: int = 20) -> dict:
+    """Device time of one ``_kv_quant_scatter`` call as the int8 engine
+    makes it in a target step (one pool, one layer, every slot, W 1, or
+    W = k+1 under spec), measured apart from the graph: the call runs
+    ``reps`` times eagerly on copies of layer 0's codes and scales at the
+    slots' current pages and offsets, under torch.profiler, and the device
+    time of the window's kernels (launch gaps excluded) is divided by
+    ``reps``. A chunk makes 2 x layers x steps such calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlepaddle_tpu_torch.inference import decode_engine as de
+
+    cfg = eng.cfg
+    (codes, scales), _ = eng.caches[0]
+    codes, scales = codes.clone(), scales.clone()
+    S, ps = eng.S, eng.page_size
+    W = 1 if eng.spec is None else eng.spec.k + 1
+    pos = eng.lens.long()[:, None] + torch.arange(W, device=codes.device)
+    col = (pos // ps).clamp(max=eng.P - 1)
+    phys = torch.gather(eng.page_table.long(), 1, col)
+    off = pos % ps
+    gen = torch.Generator(device=codes.device).manual_seed(0)
+    rows = torch.randn((S, W, cfg.num_key_value_heads, cfg.head_dim),
+                       generator=gen, device=codes.device).to(eng._kv_dtype)
+    for _ in range(3):
+        de._kv_quant_scatter(codes, scales, rows, phys, off)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            de._kv_quant_scatter(codes, scales, rows, phys, off)
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"device_ms_per_call": device_us / 1e3 / reps, "W": W,
+            "reps": reps,
+            "kernels_per_call": sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / reps}
 
 
 def phase_serve(pt_pkg):
@@ -2128,7 +2313,9 @@ def phase_serve(pt_pkg):
         raise AssertionError(f"decode path disagrees with the plain forward: "
                              f"an emitted token's logit is {gap} below the "
                              "argmax")
-    return launches
+    greedy_outs = {i: outs[i] for i in range(n_req) if i not in sampled}
+    return launches, dict(model=model, prompts=prompts, budgets=budgets,
+                          greedy_outs=greedy_outs)
 
 
 SERVE_INT8 = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
@@ -2243,6 +2430,297 @@ def phase_serve_int8(pt_pkg):
     return launches
 
 
+CAPTURE_PARITY_LAYERS = 2     # Llama-3-8B widths at 2 of 32 layers
+
+
+def phase_capture_parity(pt_pkg):
+    """The captured decode chunk against the same body called eagerly, at
+    Llama-3-8B widths cut to 2 of 32 layers (bf16 weights), 8 slots, page
+    64, max_len 2048, chunk 16. For bf16 and int8 KV: engine A runs its
+    ``"decode"`` program (eager warm-up and capture on the first call, then
+    replays), engine B calls ``_decode_body()`` directly; both admit the
+    same 8 greedy requests (prompts 64-512, budget 56, so every slot ends
+    inside the fourth chunk). After each of 4 chunks the tokens, lens,
+    active flags, budgets, packed payload and every KV pool (codes and
+    scales under int8) must be equal to the bit, and the paged counter
+    must move by chunk x layers. Then three engines with one seed each
+    decode two sampled slots (temperature 1.0) for 3 chunks, two through
+    the captured program and one through the eager body: the replays'
+    tokens must change from chunk to chunk, the two captured engines must
+    agree, and the captured chunks' payload, tokens and lens must equal
+    the eager body's to the bit (a replay draws what the body draws)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=CAPTURE_PARITY_LAYERS)
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),))
+               for n in rng.integers(64, 513, 8)]
+    kw = dict(max_slots=8, chunk=16, page_size=64, max_len=2048,
+              device="cuda")
+
+    def pools(eng):
+        out = []
+        for kc, vc in eng.caches:
+            for c in (kc, vc):
+                out.extend(c if isinstance(c, tuple) else (c,))
+        return out
+
+    result, mismatches = {}, []
+    for kv_quant in (None, "int8"):
+        a = pt_pkg.BatchDecodeEngine(model, kv_quant=kv_quant, **kw)
+        b = pt_pkg.BatchDecodeEngine(model, kv_quant=kv_quant, **kw)
+        for eng in (a, b):
+            for p in prompts:
+                if not eng._admit(pt_pkg.GenerationRequest(p, 56)):
+                    raise AssertionError("capture_parity: admission failed")
+        counter = "int8_launches" if kv_quant else "launches"
+        moved = []
+        for n in range(4):
+            before = getattr(pa.paged_attention, counter)
+            a._program("decode")()
+            moved.append(getattr(pa.paged_attention, counter) - before)
+            b._decode_body()
+            torch.cuda.synchronize()
+            for name in ("tokens", "lens", "active", "budgets", "packed"):
+                if not torch.equal(getattr(a, name), getattr(b, name)):
+                    mismatches.append(f"{kv_quant} chunk {n}: {name}")
+            for i, (x, y) in enumerate(zip(pools(a), pools(b))):
+                if not torch.equal(x, y):
+                    mismatches.append(f"{kv_quant} chunk {n}: pool {i}")
+        still_active = int(a.active.sum())
+        result[kv_quant or "bf16"] = {
+            "launches_per_chunk": moved,
+            "expected_per_chunk": a.chunk * cfg.num_hidden_layers,
+            "active_after_4_chunks": still_active,
+            "capture": a.capture_info()["decode"]}
+        if any(m != a.chunk * cfg.num_hidden_layers for m in moved):
+            mismatches.append(f"{kv_quant}: launches per chunk {moved}")
+        if still_active:
+            mismatches.append(f"{kv_quant}: {still_active} slots still "
+                              "active after their budgets")
+        del a, b
+    # sampled: two captured engines and one eager body, one seed each
+    sampled, eager_differs = [], []
+    for run in ("captured", "captured", "eager"):
+        eng = pt_pkg.BatchDecodeEngine(model, seed=5,
+                                       **dict(kw, max_slots=2))
+        for p in prompts[:2]:
+            eng._admit(pt_pkg.GenerationRequest(p, 60, temperature=1.0))
+        chunks = []
+        for _ in range(3):
+            if run == "captured":
+                eng._program("decode")()
+            else:
+                eng._decode_body()
+            chunks.append(torch.cat([eng.packed, eng.tokens[:, None],
+                                     eng.lens[:, None]], 1).clone())
+        sampled.append(torch.stack(chunks).cpu())
+        del eng
+    varies = not torch.equal(sampled[0][1, :, :-3], sampled[0][2, :, :-3])
+    reproducible = torch.equal(sampled[0], sampled[1])
+    for n in range(3):
+        if not torch.equal(sampled[0][n], sampled[2][n]):
+            eager_differs.append(n)
+    emit({"phase": "capture_parity", "model": "llama3_8b widths",
+          "layers": cfg.num_hidden_layers, "slots": 8, "chunk": 16,
+          "bit_equal": not mismatches, "mismatches": mismatches[:12],
+          "by_kv": result, "sampled_replays_vary": varies,
+          "sampled_seed_reproducible": reproducible,
+          "sampled_captured_equals_eager": not eager_differs})
+    if mismatches:
+        raise AssertionError(f"captured and eager chunks differ: "
+                             f"{mismatches[:12]}")
+    if not (varies and reproducible):
+        raise AssertionError(f"sampled replays: vary {varies}, "
+                             f"reproducible {reproducible}")
+    if eager_differs:
+        raise AssertionError(f"sampled chunks {eager_differs}: captured "
+                             "replays and the eager body drew differently")
+
+
+SPEC_SLOTS, SPEC_BUDGET_CAP = 8, 64
+
+
+def quarter_draft_config(pt_pkg, cfg):
+    """The repo's "quarter" draft preset (``build_draft`` in
+    tools/serving_bench.py): a quarter of the target's width and depth,
+    MLP 4x hidden, head dim 64, the target's vocabulary and dtype. At
+    Llama-3-8B: hidden 1024, MLP 4096, 8 layers, 16 heads, 8 KV heads."""
+    hidden = max(cfg.hidden_size // 4, 64)
+    return pt_pkg.LlamaConfig(
+        vocab_size=cfg.vocab_size, hidden_size=hidden,
+        intermediate_size=hidden * 4,
+        num_hidden_layers=max(cfg.num_hidden_layers // 4, 2),
+        num_attention_heads=max(hidden // 64, 4),
+        num_key_value_heads=max(hidden // 128, 2),
+        max_position_embeddings=cfg.max_position_embeddings, dtype=cfg.dtype)
+
+
+def verify_tap(eng):
+    """Wrap the engine's paged attention so that every W = k+1 call on
+    layer 0 (eager, captured and replayed alike) copies its query rows,
+    lens, page table and output into static buffers; returns a check that
+    holds the last verify's output against ``paged_attention_plain`` over
+    layer 0's pools, with the main shape's tolerance (2e-2)."""
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg, k = eng.cfg, eng.spec.k
+    S, W = eng.S, k + 1
+    h, hd = cfg.num_attention_heads, cfg.head_dim
+    layer0 = eng.caches[0]
+    k0 = layer0[0][0] if isinstance(layer0[0], tuple) else layer0[0]
+    buf = {"q": torch.zeros((S, W, h, hd), dtype=eng._kv_dtype,
+                            device="cuda"),
+           "out": torch.zeros((S, W, h, hd), dtype=eng._kv_dtype,
+                              device="cuda"),
+           "lens": torch.zeros_like(eng.lens),
+           "table": torch.zeros_like(eng.page_table)}
+    attend = eng._attend
+
+    def tapped(q, kp, vp, table, lens, **kw):
+        out = attend(q, kp, vp, table, lens, **kw)
+        if q.shape[1] == W and kp.data_ptr() == k0.data_ptr():
+            for name, t in (("q", q), ("out", out), ("lens", lens),
+                            ("table", table)):
+                buf[name].copy_(t)
+        return out
+
+    eng._attend = tapped
+
+    def check(eng):
+        kc, vc = eng.caches[0]
+        kw = dict(rep=h // cfg.num_key_value_heads, scale=hd ** -0.5)
+        if isinstance(kc, tuple):
+            (kc, ks), (vc, vs) = kc, vc
+            kw.update(k_scale=ks, v_scale=vs)
+        want = pa.paged_attention_plain(buf["q"], kc, vc, buf["table"],
+                                        buf["lens"], **kw)
+        torch.cuda.synchronize()
+        err = float((buf["out"].float() - want.float()).abs().max())
+        if not err <= 2e-2:
+            raise AssertionError(f"captured verify attention (W={W}) vs "
+                                 f"plain: err {err} > 2e-2")
+        return {"W": W, "max_abs_err": err, "atol": 2e-2,
+                "lens": buf["lens"].tolist()}
+
+    return check
+
+
+def phase_serve_spec(pt_pkg, ctx):
+    """Speculative serving at full width: the serve phase's Llama-3-8B
+    (bf16, seeded) behind ``ServingEngine(max_batch_size=8,
+    kv_page_size=64, max_len=2048, decode_chunk=16, spec_k=3)`` (W = 4),
+    greedy, over 8 of the serve phase's greedy prompts with budgets capped
+    at 64, in three runs: the target itself as draft (every proposal
+    should be accepted), the "quarter" draft config (seeded, near-zero
+    acceptance: a rollback on nearly every step), and the quarter draft
+    over int8 KV (kernel 1q at W = 4). Each run: every future completes at
+    full length, the W = 4 launches equal layers x target steps, no page
+    leaks; tokens per target step, acceptance, the run-length histogram,
+    the share of tokens equal to the serve phase's for the same prompts
+    (reported, not gated: W = 4 and W = 1 round differently in bf16), the
+    chunk's wall, device time and idle share, and a captured verify's
+    layer-0 attention held against the plain version."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model = ctx["model"]
+    cfg = model.config
+    chosen = sorted(ctx["greedy_outs"])[:SPEC_SLOTS]
+    prompts = [ctx["prompts"][i] for i in chosen]
+    budgets = [min(int(ctx["budgets"][i]), SPEC_BUDGET_CAP) for i in chosen]
+    quarter = quarter_draft_config(pt_pkg, cfg)
+    launches = {"launches": 0, "int8_launches": 0}
+    runs = []
+    for name, draft, kv_quant in (("self", model, None),
+                                  ("quarter", quarter, None),
+                                  ("quarter_int8", quarter, "int8")):
+        counter = "int8_launches" if kv_quant else "launches"
+        with pt_pkg.ServingEngine(model, max_batch_size=SPEC_SLOTS,
+                                  kv_page_size=64, max_len=2048,
+                                  decode_chunk=16, draft=draft,
+                                  spec_k=SPEC_K, kv_quant=kv_quant,
+                                  device="cuda") as se:
+            eng = se.engine
+            check = verify_tap(eng)
+            se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+            st0, run0 = dict(eng.spec.stats), list(eng.spec.runlen)
+            setattr(pa.paged_attention, counter, 0)
+            steps0, chunks0 = eng.stats["decode_steps"], len(eng.chunk_ms)
+            t0 = time.perf_counter()
+            futs = [se.submit(p, max_new_tokens=b)
+                    for p, b in zip(prompts, budgets)]
+            outs = [f.result(900) for f in futs]
+            wall = time.perf_counter() - t0
+            n_launch = getattr(pa.paged_attention, counter)
+            steps = eng.stats["decode_steps"] - steps0
+            while eng.busy_slots():
+                time.sleep(0.01)
+            leaked = leaked_pages(eng)
+            st = {key: eng.spec.stats[key] - st0[key] for key in st0}
+            runlen = [x - y for x, y in zip(eng.spec.runlen, run0)]
+            chunk_ms = sorted(eng.chunk_ms[chunks0:])
+            slo = pt_pkg.slo_summary(futs)
+        # after stop(): the engine thread no longer decodes
+        breakdown = decode_breakdown(pt_pkg, eng, prompts, check=check)
+        launches[counter] += n_launch
+        bad = [i for i, (o, p, b) in enumerate(zip(outs, prompts, budgets))
+               if len(o) != len(p) + b
+               or not ((o >= 0) & (o < cfg.vocab_size)).all()]
+        same = total = full = 0
+        for i, o, p, b in zip(chosen, outs, prompts, budgets):
+            ref = ctx["greedy_outs"][i][len(p):len(p) + b]
+            got = o[len(p):]
+            same += int((ref == got).sum())
+            total += b
+            full += int(np.array_equal(ref, got))
+        new_tokens = int(sum(budgets))
+        run = {"draft": name, "kv_quant": kv_quant or "off",
+               "draft_model": eng.spec.describe_draft(),
+               "wall_s": wall, "new_tokens": new_tokens,
+               "tok_s": new_tokens / wall, "tpot_ms": slo["tpot_ms"],
+               "target_steps": st["target_steps"],
+               "tokens_per_target_step": (st["emitted"] / st["target_steps"]
+                                          if st["target_steps"] else None),
+               "acceptance": (st["accepted"] / st["proposed"]
+                              if st["proposed"] else None),
+               "rollbacks": st["rollbacks"], "runlen_histogram": runlen,
+               "decode_steps": steps, "w4_launches": n_launch,
+               "expected_w4_launches": cfg.num_hidden_layers * steps,
+               "spec_chunk_ms_p50": chunk_ms[len(chunk_ms) // 2]
+               if chunk_ms else None,
+               "agree_share_vs_serve": same / total,
+               "requests_equal_to_serve": full, "pages_leaked": leaked,
+               "breakdown": breakdown}
+        runs.append(run)
+        emit({"phase": "serve_spec", **run})
+        if bad:
+            raise AssertionError(f"serve_spec {name}: wrong length or "
+                                 f"out-of-vocab output in requests {bad}")
+        if steps == 0 or n_launch != cfg.num_hidden_layers * steps:
+            raise AssertionError(f"serve_spec {name}: W=4 kernel launched "
+                                 f"{n_launch} times, expected "
+                                 f"{cfg.num_hidden_layers} x {steps}")
+        if leaked:
+            raise AssertionError(f"serve_spec {name}: {leaked} pages leaked")
+        del eng, se
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2282,7 +2760,14 @@ def main() -> int:
     phase_engine_parity_int8(pt_pkg)
     phase_train_parity(pt_pkg)
     phase_moe_parity(pt_pkg)
-    record["launches"] = phase_serve(pt_pkg)
+    phase_capture_parity(pt_pkg)
+    gc.collect()                    # free the 2-layer model
+    torch.cuda.empty_cache()
+    record["launches"], serve_ctx = phase_serve(pt_pkg)
+    spec_launches = phase_serve_spec(pt_pkg, serve_ctx)
+    record["w4"]["launches"] = spec_launches["launches"]
+    int8_record["w4"]["launches"] = spec_launches["int8_launches"]
+    del serve_ctx
     gc.collect()                    # free the serving model
     torch.cuda.empty_cache()
     int8_record["launches"] = phase_serve_int8(pt_pkg)

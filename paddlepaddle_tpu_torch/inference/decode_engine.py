@@ -2,8 +2,8 @@
 
 Port of ``paddlepaddle_tpu/inference/decode_engine.py`` for the paged
 layout: ``BatchDecodeEngine(kv_layout="paged")`` with full-precision or int8
-KV pages, shared-prefix hits and the host-RAM prefix tier; no draft model,
-no mesh, no bundle.
+KV pages, shared-prefix hits, the host-RAM prefix tier and speculative
+decoding; no mesh, no bundle.
 
 * PAGED KV POOL: one ``[num_pages, page_size, kvh, hd]`` K and V buffer per
   layer plus a device page table ``[slots, max_len/page_size]`` int32.
@@ -28,11 +28,26 @@ no mesh, no bundle.
 * DECODE: each step scatters its new K/V into their physical pages first,
   then attends through :func:`~..ops.kernels.paged_attention.paged_attention`,
   which walks the page table itself (the CUDA kernel on the card, the plain
-  version on the CPU). A chunk of ``chunk`` steps runs as a Python loop with
-  every per-slot state tensor on the device and ONE host readback at its
-  end, like the packed payload of the reference's scanned program.
+  version on the CPU). A chunk of ``chunk`` steps is one device-only
+  program, :meth:`BatchDecodeEngine._decode_body`: it reads the static
+  per-slot buffers and writes its results into them and into a static
+  ``packed [slots, chunk+1]`` payload, and it never reads a value back.
+* PROGRAMS (:meth:`BatchDecodeEngine._program`, the counterpart of the
+  reference's registry :1066-1106): ``"decode"`` and, with speculative
+  decoding, ``"draft_k<k>"`` and ``"verify_k<k>"``. On the CPU a program is
+  its body, called directly. On CUDA its first call runs the body eagerly
+  on a side stream and then captures it as a ``torch.cuda.CUDAGraph``
+  (:class:`_CapturedProgram`); every later call replays the graph. The
+  whole decode chunk is one graph, the reference's one program per chunk,
+  followed by the chunk's ONE host readback. There is no switch and no
+  return to the eager loop: a capture that fails raises.
+* SPECULATIVE DECODING (``draft=``, ``spec_k=``; :mod:`.speculative`): a
+  draft proposes ``k`` greedy tokens per slot and the engine's own paged
+  forward verifies them at W = k+1 (the kernel with ``k+1`` query rows per
+  slot); greedy requests only.
 * The pools, the page table and the slot state are updated IN PLACE
-  (``index_put_``) where the reference donated its buffers to XLA.
+  (``index_put_`` / ``copy_``) where the reference donated its buffers to
+  XLA; that is also what lets a captured graph replay over them.
 
 One deliberate difference: under int8 every page of a new reservation
 starts at scale 0 (the prompt's rows padded with zeros over all of the
@@ -40,6 +55,10 @@ slot's private pages). The reference zeroes the pages its prefill bucket
 covers and leaves a stale scale on reserved pages past it, which only
 coarsens their quantization; the two agree whenever the bucket covers the
 reservation.
+
+Head dims that the reference's kernel gate refuses (neither a multiple of
+128 nor 8/16/32/64) never reach a TPU kernel there; here they decode through
+the plain paged attention on either device (the kernel counters stay 0).
 
 Options the port does not serve yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them; none is silently ignored.
@@ -164,18 +183,109 @@ def _stamp(req, attr: str, value=None) -> None:
 
 
 class _Slot:
-    __slots__ = ("req", "emitted", "budget")
+    __slots__ = ("req", "emitted", "budget", "spec_steps", "spec_accepted")
 
     def __init__(self, req=None, budget=0):
         self.req = req
         self.emitted: List[int] = []
         self.budget = budget
+        self.spec_steps = 0       # speculative verify steps this request saw
+        self.spec_accepted = 0    # draft tokens the verifier accepted for it
+
+
+class _CapturedProgram:
+    """A device-only program body run as a CUDA graph, on PyTorch's capture
+    recipe. The first call runs the body eagerly on a side stream (the
+    warm-up: cuBLAS handles, allocator; its result is this call's result)
+    and then captures the body into a ``torch.cuda.CUDAGraph``; every later
+    call is one ``replay()`` on the current stream. Whatever the body reads
+    or writes lives in buffers the engine updates in place between calls.
+    The body's temporaries come from ``pool``, a private memory pool the
+    engine's graphs share (they replay one after another on one stream).
+
+    ``generators`` are registered with the graph, so each replay draws new
+    numbers from them (the engine's sampling generator). The kernels'
+    Python launch counters move while the body is captured, not when the
+    graph runs: the capture's moves are taken back, kept as the graph's
+    launches, and added on every replay. A capture that fails raises; there
+    is no return to the eager body."""
+
+    _COUNTERS = ("launches", "int8_launches")
+
+    def __init__(self, key: str, body, device: torch.device, pool,
+                 generators=()):
+        self.key = key
+        self.body = body
+        self.device = device
+        self.pool = pool
+        self.generators = tuple(generators)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.per_replay: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_s: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self._warm_up_and_capture()
+            return
+        self.graph.replay()
+        counter = _pa.paged_attention
+        for name, n in self.per_replay.items():
+            setattr(counter, name, getattr(counter, name) + n)
+        self.replays += 1
+
+    def _warm_up_and_capture(self) -> None:
+        counter = _pa.paged_attention
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.body()
+        cur.wait_stream(side)
+        before = {n: getattr(counter, n) for n in self._COUNTERS}
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    self.body()
+                finally:
+                    graph.capture_end()
+        except BaseException as e:
+            raise RuntimeError(f"CUDA graph capture of the {self.key!r} "
+                               f"program failed: {type(e).__name__}: "
+                               f"{e}") from e
+        finally:
+            moved = {n: getattr(counter, n) - before[n]
+                     for n in self._COUNTERS}
+            for n in self._COUNTERS:
+                setattr(counter, n, before[n])
+        cur.wait_stream(side)
+        self.per_replay = {n: m for n, m in moved.items() if m}
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+
+    def info(self) -> Dict[str, object]:
+        return {"captured": self.graph is not None,
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
+                "replays": self.replays,
+                "launches_per_replay": dict(self.per_replay)}
 
 
 class BatchDecodeEngine:
     """Slot-based continuous-batching decoder for a port
     ``LlamaForCausalLM``. ``device=None`` means the card (raises without
-    CUDA); the model must already live on that device."""
+    CUDA); the model must already live on that device. ``draft=`` (a port
+    ``LlamaForCausalLM``, the target itself included, or a ``LlamaConfig``
+    built on the engine's device from ``seed``) with ``spec_k=`` arms
+    speculative decoding."""
 
     TOP_K_CAP = 128  # bound for the per-slot top-k filter
 
@@ -184,18 +294,30 @@ class BatchDecodeEngine:
                  kv_layout: str = "paged", page_size: int = 64,
                  num_pages: Optional[int] = None, prefix_cache: bool = True,
                  mesh=None, plan=None, bundle: Optional[str] = None,
-                 draft=None, spec_k: int = 0, kv_quant: Optional[str] = None,
+                 draft=None, spec_k: int = 0,
+                 draft_quant: Optional[str] = None,
+                 kv_quant: Optional[str] = None,
                  kv_host_bytes: Optional[int] = None,
                  device: DeviceLike = None, seed: int = 0):
-        if kv_layout == "contiguous":
-            raise not_ported("kv_layout='contiguous'", "A4.2")
-        if kv_layout != "paged":
+        if kv_layout not in ("paged", "contiguous"):
             raise ValueError(
                 f"kv_layout must be 'paged' or 'contiguous', got {kv_layout!r}")
+        spec = draft is not None or bool(spec_k)
+        if spec:
+            if draft is None or not spec_k:
+                raise ValueError(
+                    "speculative decoding needs BOTH draft= (a small model "
+                    "or its config) and spec_k= (proposals per target step)")
+            if kv_layout != "paged":
+                raise ValueError(
+                    "speculative decoding requires kv_layout='paged' — the "
+                    "page-table indirection IS the KV rollback mechanism")
+            if draft_quant is not None:
+                raise not_ported(f"draft_quant={draft_quant!r}", "A4.3")
+        if kv_layout == "contiguous":
+            raise not_ported("kv_layout='contiguous'", "A4.2")
         if quant is not None:
             raise not_ported(f"quant={quant!r}", "A4.3")
-        if draft is not None or spec_k:
-            raise not_ported("speculative decoding (draft=/spec_k=)", "A4.5")
         if bundle is not None:
             raise not_ported("bundle=", "A6")
         if mesh is not None or plan is not None:
@@ -223,20 +345,29 @@ class BatchDecodeEngine:
         dtype = model.dtype
         self._kv_dtype = dtype     # scratch / dequant dtype, also under int8
         self.kernel = "plain"
+        self._attend = _pa.paged_attention
         if self.device.type == "cuda":
-            # resolved once here, for the variant this engine launches: an
-            # unsupported config raises now, never a quiet downgrade to the
-            # plain version later
-            ok, reason = _pa.paged_attention_supported(
-                page_size=self.page_size, head_dim=hd, num_heads=nh,
-                num_kv_heads=kvh, dtype=dtype, w=1, kv_quant=self.kv_quant)
-            if not ok:
-                raise ValueError(
-                    f"paged-attention kernel does not take this engine "
-                    f"configuration: {reason}")
-            _build.check_device(self.device)
-            _pa.build()
-            self.kernel = "cuda"
+            if _pa.reference_kernel_head_dim(hd):
+                # resolved once here, for every W this engine launches (1,
+                # and k+1 under speculation): an unsupported config raises
+                # now, never a quiet downgrade to the plain version later
+                for w in (1, int(spec_k) + 1) if spec else (1,):
+                    ok, reason = _pa.paged_attention_supported(
+                        page_size=self.page_size, head_dim=hd, num_heads=nh,
+                        num_kv_heads=kvh, dtype=dtype, w=w,
+                        kv_quant=self.kv_quant)
+                    if not ok:
+                        raise ValueError(
+                            f"paged-attention kernel does not take this "
+                            f"engine configuration at W={w}: {reason}" +
+                            (" (the TPU kernel takes it: open coverage of "
+                             "ROADMAP queue B row 1)" if w > 1 else ""))
+                _build.check_device(self.device)
+                _pa.build()
+                self.kernel = "cuda"
+            else:
+                # a head dim the reference's gate never sends to a kernel
+                self._attend = _pa.paged_attention_plain
         self.P = pages_needed(self.L, self.page_size)        # pages per slot
         n_pages = self.S * self.P + 1 if num_pages is None else int(num_pages)
         self.pool = PagePool(n_pages, self.page_size)
@@ -275,6 +406,9 @@ class BatchDecodeEngine:
         self.top_ks = torch.zeros(self.S, **i32)       # 0 = off
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(seed))
+        # the decode chunk's payload: tokens (-1 where idle), last column =
+        # active at the chunk's end
+        self.packed = torch.zeros((self.S, self.chunk + 1), **i32)
         self._host_slots = [_Slot() for _ in range(self.S)]
         self._first_pending: Dict[int, torch.Tensor] = {}  # slot -> 0-d
         self.stats = {"tokens_out": 0, "requests": 0, "decode_calls": 0,
@@ -282,6 +416,19 @@ class BatchDecodeEngine:
                       "restore_failures": 0}
         # host wall of the most recent decode chunks, queue to readback (ms)
         self.chunk_ms: List[float] = []
+        self._programs: Dict[str, object] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        self.spec = None
+        if spec:
+            from .speculative import SpeculativeDecoder
+
+            self.spec = SpeculativeDecoder(self, draft, spec_k, seed=seed)
+            self._spec_steps_per_chunk = max(
+                1, self.chunk // (self.spec.k + 1))
+            # one verify payload per outer step, read back once a chunk
+            self._spec_packed = torch.zeros(
+                (self.S, self._spec_steps_per_chunk, self.spec.k + 3), **i32)
 
     # -- KV observability ----------------------------------------------------
     def _restore_percentile(self, q: float) -> Optional[float]:
@@ -339,7 +486,9 @@ class BatchDecodeEngine:
         ``max_len`` are redirected to the null page, and the page index is
         clamped to the table, as in the reference (decode_engine.py:671-680).
         Under int8 the rows are quantized into their pages first and the
-        kernel's int8 variant attends (reference :780-803). Returns logits
+        kernel's int8 variant attends (reference :780-803). W is 1 for a
+        decode step and k+1 for a speculative verify. Device-only: nothing
+        is read back, so the forward can be captured. Returns logits
         ``[S, W, V]``."""
         S, ps, P, L = self.S, self.page_size, self.P, self.L
         W = toks.shape[1]
@@ -369,14 +518,13 @@ class BatchDecodeEngine:
                 (kq, ksc), (vq, vsc) = kc, vc
                 _kv_quant_scatter(kq, ksc, k.to(self._kv_dtype), phys, off)
                 _kv_quant_scatter(vq, vsc, v.to(self._kv_dtype), phys, off)
-                out = _pa.paged_attention(q, kq, vq, self.page_table, lens,
-                                          rep=rep, scale=scale,
-                                          k_scale=ksc, v_scale=vsc)
+                out = self._attend(q, kq, vq, self.page_table, lens, rep=rep,
+                                   scale=scale, k_scale=ksc, v_scale=vsc)
             else:
                 kc.index_put_((phys, off), k.to(kc.dtype))
                 vc.index_put_((phys, off), v.to(vc.dtype))
-                out = _pa.paged_attention(q, kc, vc, self.page_table, lens,
-                                          rep=rep, scale=scale)
+                out = self._attend(q, kc, vc, self.page_table, lens, rep=rep,
+                                   scale=scale)
             x = x + attn.o_proj(out.reshape(S, W, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.model.logits(mdl.norm(x))
@@ -614,6 +762,12 @@ class BatchDecodeEngine:
             raise ValueError(
                 f"top_k {top_k} exceeds the continuous engine's filter cap "
                 f"{self.TOP_K_CAP}")
+        if self.spec is not None and temp > 0.0:
+            raise ValueError(
+                f"temperature {temp:g} with speculative decoding armed: "
+                "greedy acceptance is token-exact for temperature 0 only "
+                "(sampling-correct rejection resampling is a planned seam) "
+                "— send temperature=0 or serve without spec_k")
         aligned, n_pfx, h, entry = self._prefix_plan(req, ids, plen)
         hit = entry is not None
         slab = None
@@ -672,6 +826,16 @@ class BatchDecodeEngine:
             self.prefix.misses += 1
             self._slot_pages[slot] = private[n_pfx:]
             self._slot_prefix[slot] = h
+        if self.spec is not None:
+            # the draft keeps no prefix cache: it prefills the FULL prompt
+            # on every admission, hit or miss (reference :1641-1660)
+            try:
+                self.spec.draft_admit(ids, slot)
+            except BaseException:
+                # the target's admission already committed: deactivate the
+                # lane and return the pages, or the reservation leaks
+                self.reset_slots([slot])
+                raise
         self._host_slots[slot] = _Slot(req, budget=int(req.max_new_tokens))
         self.stats["peak_busy"] = max(self.stats["peak_busy"],
                                       self.busy_slots())
@@ -704,19 +868,26 @@ class BatchDecodeEngine:
             if eos is not None and eos in gen:
                 gen = gen[: gen.index(eos) + 1]   # trim past eos, keep it
             _stamp(s.req, "_n_new", len(gen))
+            if self.spec is not None:
+                # per-request tokens per target step for slo() consumers
+                _stamp(s.req, "_spec_steps", s.spec_steps)
+                _stamp(s.req, "_spec_accepted", s.spec_accepted)
             s.req.result._set(output=np.concatenate(
                 [prompt, np.asarray(gen, np.int32)]))
         self._release_kv(slot)
         self._host_slots[slot] = _Slot()
 
-    def _collect_firsts(self) -> None:
+    def _collect_firsts(self) -> List[int]:
         """ONE host sync for every first token admitted since the last
-        collect; stamps each request's first-token time."""
+        collect; stamps each request's first-token time. Returns the slots
+        stamped by THIS collect (the spec chunk counts the tokens that
+        landed at the same sync)."""
         if not self._first_pending:
-            return
+            return []
         slots = sorted(self._first_pending)
         vals = torch.stack([self._first_pending[i] for i in slots]).cpu()
         now = time.perf_counter()
+        stamped = []
         for i, slot in enumerate(slots):
             s = self._host_slots[slot]
             if s.req is not None:
@@ -724,12 +895,18 @@ class BatchDecodeEngine:
                 self.stats["tokens_out"] += 1
                 if getattr(s.req.result, "_t_first", 1) is None:
                     _stamp(s.req, "_t_first", now)
+                    stamped.append(slot)
         self._first_pending.clear()
+        return stamped
 
     def reset_slots(self, slots=None) -> None:
         """Deactivate device-side slot state (all slots, or the given list)
         and return their pages — required after a failed decode or a stop,
-        or retired rows keep computing as phantom active lanes."""
+        or retired rows keep computing as phantom active lanes. Everything
+        is written in place, so a captured program replays over it. A
+        reset slot's draft rows and ``prev`` are left as they are: its
+        proposals are masked while it is inactive, and the next admission
+        prefills them again."""
         if slots is None:
             self.active.zero_()
             self._first_pending.clear()
@@ -751,36 +928,79 @@ class BatchDecodeEngine:
     def busy_slots(self) -> int:
         return sum(1 for s in self._host_slots if s.req is not None)
 
-    @torch.no_grad()
-    def _decode_chunk(self) -> None:
+    # -- device programs and their registry (reference :1066-1106) ----------
+    def _decode_body(self) -> None:
         """``chunk`` decode steps over all slots with per-slot eos and
-        budget countdown on the device, then one readback of the packed
-        ``[slots, chunk+1]`` payload (tokens, -1 where idle, last column =
-        active)."""
-        # first tokens of this cycle's admissions reach the host before the
-        # chunk is queued, so time-to-first-token excludes the chunk
-        self._collect_firsts()
-        t0 = time.perf_counter()
+        budget countdown, device-only: reads the static slot buffers,
+        updates ``tokens``, ``lens``, ``active`` and ``budgets`` in place
+        and writes ``packed [slots, chunk+1]`` (tokens, -1 where idle; last
+        column = active). Nothing is read back to the host, so the body can
+        be captured; the CPU runs it directly."""
         tokens, lens, active, budgets = (self.tokens, self.lens, self.active,
                                          self.budgets)
         temps, top_ks, eos_ids = self.temps, self.top_ks, self.eos_ids
-        steps = []
-        for _ in range(self.chunk):
+        for t in range(self.chunk):
             rows = self._forward_paged(tokens[:, None], lens)[:, 0].float()
             nxt = self._sample(rows, temps, top_ks)
             nxt = torch.where(active, nxt, tokens)     # frozen when inactive
             step = active.to(torch.int32)
-            lens = lens + step
-            steps.append(torch.where(active, nxt, -1))
-            budgets = budgets - step
-            active = active & ~((eos_ids >= 0) & (nxt == eos_ids)) \
-                & (budgets > 0)
-            tokens = nxt
-        self.tokens, self.lens, self.active, self.budgets = (
-            tokens, lens, active, budgets)
-        packed = torch.cat([torch.stack(steps, dim=1),
-                            active[:, None].to(torch.int32)], dim=1)
-        pk = packed.cpu().numpy()                      # the ONE sync per chunk
+            self.packed[:, t].copy_(torch.where(active, nxt, -1))
+            lens.add_(step)
+            budgets.sub_(step)
+            active.logical_and_(~((eos_ids >= 0) & (nxt == eos_ids))
+                                & (budgets > 0))
+            tokens.copy_(nxt)
+        self.packed[:, self.chunk].copy_(active)
+
+    def _build_program(self, key: str):
+        """The program for one registry key: its device-only body on the
+        CPU, the body captured as a CUDA graph on the card."""
+        k = self.spec.k if self.spec is not None else None
+        gens = ()
+        if key == "decode":
+            body, gens = self._decode_body, (self.gen,)
+        elif k is not None and key == f"draft_k{k}":
+            body = self.spec.draft_body
+        elif k is not None and key == f"verify_k{k}":
+            body = self.spec.verify_body
+        else:
+            raise ValueError(f"unrecognized program key {key!r} (decode, or "
+                             "draft_k<k> / verify_k<k> with spec_k=k armed)")
+        if self.device.type != "cuda":
+            return body
+        return _CapturedProgram(key, body, self.device, self._graph_pool,
+                                generators=gens)
+
+    def _program(self, key: str):
+        """Registry lookup with a lazy build, shared by the decode and the
+        speculative chunks."""
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = self._build_program(key)
+            self._programs[key] = fn
+        return fn
+
+    def capture_info(self) -> Dict[str, object]:
+        """Per captured program: capture seconds, graph-pool bytes, replays
+        and the kernel launches one replay makes (empty on the CPU)."""
+        return {key: fn.info() for key, fn in self._programs.items()
+                if isinstance(fn, _CapturedProgram)}
+
+    # -- host loop -----------------------------------------------------------
+    @torch.no_grad()
+    def _decode_chunk(self) -> None:
+        """One decode chunk: the ``"decode"`` program (a graph replay on the
+        card), then ONE readback of the packed ``[slots, chunk+1]``
+        payload, then the host's emit / retire bookkeeping. With
+        speculative decoding armed, the spec chunk instead."""
+        if self.spec is not None:
+            return self._spec_chunk()
+        # first tokens of this cycle's admissions reach the host before the
+        # chunk is queued, so time-to-first-token excludes the chunk
+        self._collect_firsts()
+        t0 = time.perf_counter()
+        self._program("decode")()
+        pk = self.packed.cpu().numpy()                 # the ONE sync per chunk
         self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
         del self.chunk_ms[:-512]
         self.stats["decode_calls"] += 1
@@ -794,6 +1014,51 @@ class BatchDecodeEngine:
             self.stats["tokens_out"] += len(toks)
             if not act[slot] or len(s.emitted) >= s.budget:
                 self._retire(slot)
+
+    def _spec_chunk(self) -> None:
+        """The speculative chunk (reference :1808-1872): per outer step ONE
+        draft program (k greedy proposals) and ONE verify program (the W =
+        k+1 target forward and the masked accept/reject), each a graph
+        replay on the card; the steps' payloads sync to the host as a
+        single transfer. As in the reference, the admissions' first tokens
+        are collected after the chunk is queued, at the same sync as its
+        tokens, and ``_n_at_first`` records how many arrived together, so
+        TPOT divides by the tokens that arrived after the first."""
+        spec = self.spec
+        k = spec.k
+        steps = self._spec_steps_per_chunk
+        t0 = time.perf_counter()
+        draft = self._program(f"draft_k{k}")
+        verify = self._program(f"verify_k{k}")
+        for t in range(steps):
+            draft()
+            verify()
+            self._spec_packed[:, t].copy_(spec.payload)
+        stamped = self._collect_firsts()
+        pk = self._spec_packed.cpu().numpy()           # the ONE chunk sync
+        self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        del self.chunk_ms[:-512]
+        self.stats["decode_calls"] += 1
+        self.stats["decode_steps"] += steps
+        em = pk[:, :, : k + 1]               # emitted tokens, -1 padded
+        acc = pk[:, :, k + 1]                # raw accepted-run lengths
+        act = pk[:, -1, k + 2].astype(bool)
+        chunk_emitted = 0
+        for slot, s in enumerate(self._host_slots):
+            if s.req is None:
+                continue
+            toks = [int(t) for t in em[slot].ravel() if t >= 0]
+            s.emitted.extend(toks)
+            chunk_emitted += len(toks)
+            self.stats["tokens_out"] += len(toks)
+            summary = spec.round_summary(acc[slot])
+            s.spec_steps += summary["steps"]
+            s.spec_accepted += summary["accepted"]
+            if slot in stamped and toks:
+                _stamp(s.req, "_n_at_first", 1 + len(toks))
+            if not act[slot] or len(s.emitted) >= s.budget:
+                self._retire(slot)
+        spec.record_chunk(acc, chunk_emitted)
 
     def flush(self) -> None:
         """Deliver results for slots that finished at admission (first

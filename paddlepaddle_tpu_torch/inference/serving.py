@@ -10,14 +10,16 @@ slot retires.
 
 Ported: ``submit`` (with ``prefix_len`` for shared-prefix hits) /
 ``generate`` / ``start`` / ``stop`` / context manager, the engine's
-``prefix_cache`` / ``kv_quant`` / ``kv_host_bytes`` options, the
+``prefix_cache`` / ``kv_quant`` / ``kv_host_bytes`` options, speculative
+decoding (``draft=`` / ``spec_k=``, greedy requests only), the
 ``_check_admission`` validation with typed ``RequestValidationError`` /
 ``KVCapacityError`` / ``ServerOverloadedError`` / ``CircuitOpenError``,
 ``max_queue`` / ``max_queue_wait_s`` shedding, and the breaker's success and
 failure bookkeeping around each decode chunk (a failed chunk fails its
 requests' futures). Deadlines, cancellation, drain/SIGTERM, the hang
 watchdog, observability hooks and static mode raise ``NotImplementedError``
-(ROADMAP A4.6) when asked for.
+(ROADMAP A4.6) when asked for; so does a quantized draft (``draft_quant``,
+A4.3).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ class GenerationResult:
         self._t_first: Optional[float] = None
         self._t_done: Optional[float] = None
         self._n_new = 0
+        # tokens already on the host at _t_first: 1, or more when a
+        # speculative chunk's tokens landed with the first one
+        self._n_at_first = 1
         self._req_id: Optional[int] = None
 
     def done(self) -> bool:
@@ -76,7 +81,8 @@ class GenerationResult:
 
     def slo(self) -> Dict[str, object]:
         """Per-request SLO numbers (None where the lifecycle point was never
-        reached). TPOT is the per-token average after the first token."""
+        reached). TPOT is the per-token average over the tokens that
+        arrived after the first one (reference :227-252)."""
         end, t_first = self._t_done, self._t_first
         return {
             "req_id": self._req_id,
@@ -85,8 +91,9 @@ class GenerationResult:
                              else self._t_admit - self._t_submit),
             "ttft_s": None if t_first is None else t_first - self._t_submit,
             "tpot_s": (None if (t_first is None or end is None
-                                or self._n_new <= 1)
-                       else (end - t_first) / (self._n_new - 1)),
+                                or self._n_new <= self._n_at_first)
+                       else (end - t_first)
+                       / (self._n_new - self._n_at_first)),
             "latency_s": None if end is None else end - self._t_submit,
         }
 
@@ -128,8 +135,14 @@ def slo_summary(results) -> Dict[str, Optional[float]]:
 
 
 class GenerationRequest:
+    """One request, in the reference's parameter order (:346). A
+    ``deadline`` that is not None raises until deadlines are ported."""
+
     def __init__(self, prompt_ids, max_new_tokens, temperature=0.0, top_k=0,
-                 eos_token_id=None, prefix_len: Optional[int] = None):
+                 eos_token_id=None, deadline: Optional[float] = None,
+                 prefix_len: Optional[int] = None):
+        if deadline is not None:
+            raise not_ported("deadline", "A4.6")
         arr = np.asarray(prompt_ids, np.int32)
         if arr.ndim == 2 and arr.shape[0] == 1:
             arr = arr[0]
@@ -178,14 +191,20 @@ class ServingEngine:
                  prefix_cache: bool = True,
                  mesh=None, plan=None, bundle: Optional[str] = None,
                  draft=None, spec_k: int = 0,
+                 draft_quant: Optional[str] = None,
                  kv_quant: Optional[str] = None,
                  kv_host_bytes: Optional[int] = None,
                  device: DeviceLike = None, seed: int = 0):
-        if mode == "static":
-            raise not_ported("mode='static'", "A4.6")
-        if mode != "continuous":
+        if mode not in ("continuous", "static"):
             raise ValueError(
                 f"mode must be 'continuous' or 'static', got {mode!r}")
+        if (draft is not None or spec_k) and mode != "continuous":
+            raise ValueError(
+                "speculative decoding (draft=/spec_k=) requires the "
+                "continuous engine — static mode decodes through the "
+                "model's own generate_cached")
+        if mode == "static":
+            raise not_ported("mode='static'", "A4.6")
         for name, value in (("default_deadline_s", default_deadline_s),
                             ("decode_timeout_s", decode_timeout_s),
                             ("drain_timeout_s", drain_timeout_s)):
@@ -221,7 +240,8 @@ class ServingEngine:
             chunk=decode_chunk, quant=quant, kv_layout=kv_layout,
             page_size=kv_page_size, num_pages=kv_num_pages,
             prefix_cache=prefix_cache, mesh=mesh, plan=plan, bundle=bundle,
-            draft=draft, spec_k=spec_k, kv_quant=kv_quant,
+            draft=draft, spec_k=spec_k, draft_quant=draft_quant,
+            kv_quant=kv_quant,
             kv_host_bytes=kv_host_bytes, device=device, seed=seed)
         self._max_len = self._engine.L
         self._top_k_cap = self._engine.TOP_K_CAP

@@ -30,7 +30,8 @@ from ..nn import functional as F
 from ..nn.common import Embedding, Linear
 from ..nn.norm import RMSNorm
 from ..ops.kernels._build import check_device
-from ..ops.kernels.flash_attention import flash_attention_supported
+from ..ops.kernels.flash_attention import (flash_attention_supported,
+                                           routes_to_plain)
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -134,6 +135,9 @@ def _cached_attention(q, k_new, v_new, k_cache, v_cache, pos, n_rep: int,
     ``q/k_new/v_new``: ``[b, s, heads, d]``; caches ``[b, L, kvh, d]``;
     ``pos`` a scalar or a per-row ``[b]`` vector. The caches are updated IN
     PLACE (where the reference returned new arrays) and returned as well.
+    A per-row write past the cache is dropped, as the reference's scatter
+    drops it (the speculative draft proposes past ``max_len``); the writes
+    go one column at a time, so no two land on one row and position.
     GQA contracts the regrouped ``q [b, s, kvh, rep, d]`` against the
     unrepeated cache; logits and softmax are f32, as in the reference.
     Returns ``(out [b, s, h, d], k_cache, v_cache)``."""
@@ -142,10 +146,15 @@ def _cached_attention(q, k_new, v_new, k_cache, v_cache, pos, n_rep: int,
     dev = q.device
     ar_s = torch.arange(s, device=dev)
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        rows = torch.arange(b, device=dev)[:, None]
+        rows = torch.arange(b, device=dev)
         cols = pos.long()[:, None] + ar_s[None, :]                # [b, s]
-        k_cache[rows, cols] = k_new.to(k_cache.dtype)
-        v_cache[rows, cols] = v_new.to(v_cache.dtype)
+        inside = (cols < L)[:, :, None, None]
+        write = cols.clamp(max=L - 1)
+        for j in range(s):
+            for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+                old = cache[rows, write[:, j]]
+                cache[rows, write[:, j]] = torch.where(
+                    inside[:, j], new[:, j].to(cache.dtype), old)
         q_pos = cols[:, :, None]                                  # [b, s, 1]
     else:
         p0 = int(pos)
@@ -221,6 +230,13 @@ def loss_from_logits(logits: torch.Tensor,
     pos = torch.arange(seq, device=logits.device)[None, :]
     valid = ((lb_next >= 0) & (pos < seq - 1)).float()
     return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def _refuse_mask(owner: str, attn_mask) -> None:
+    if attn_mask is not None:
+        raise NotImplementedError(
+            f"{owner}(attn_mask=...): the masked attention path is not "
+            "ported (ROADMAP A3)")
 
 
 @torch.no_grad()
@@ -328,11 +344,15 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, input_ids: torch.Tensor,
-                caches: Optional[List[Cache]] = None, pos=0):
+                attn_mask: Optional[torch.Tensor] = None,
+                caches: Optional[List[Cache]] = None, pos=None):
         """``caches=None``: causal attention over ``input_ids`` alone
         (flash attention), returns the final hidden states. With caches:
-        write-through at ``pos`` (scalar or per-row), returns
-        ``(hidden, caches)``."""
+        write-through at ``pos`` (scalar or per-row; None means 0), returns
+        ``(hidden, caches)``. The reference's parameter order (:318); an
+        ``attn_mask`` raises until the masked path is ported."""
+        _refuse_mask("LlamaModel", attn_mask)
+        pos = 0 if pos is None else pos
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos, self.rope_sin
         if caches is None:
@@ -354,7 +374,8 @@ class LlamaForCausalLM(nn.Module):
     every matrix, ones for the norms. Parity tests overwrite them with the
     JAX model's weights through :mod:`..convert`. On the card the flash
     kernels' support check runs here and raises on a configuration they do
-    not take."""
+    not take, unless the JAX package never sends it to a kernel either
+    (a head dim its gate refuses, such as 96)."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  seed: int = 0, init_std: float = 0.02):
@@ -367,7 +388,10 @@ class LlamaForCausalLM(nn.Module):
             n = config.max_position_embeddings
             ok, why = flash_attention_supported(config.head_dim, dtype, True,
                                                 n, n)
-            if not ok:
+            # a head dim the JAX package's kernel gate refuses computes in
+            # the plain version on the card too (F.flash_attention routes
+            # it there), as the reference computes it with XLA
+            if not ok and not routes_to_plain(config.head_dim, True, n, n):
                 raise ValueError(f"flash attention kernels do not take this "
                                  f"model: {why}")
         self.model = LlamaModel(config, device=dev, dtype=dtype)
@@ -393,9 +417,12 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids: torch.Tensor,
-                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                labels: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits ``[b, s, vocab]``, or with ``labels`` the next-token loss
-        (reference :361-369)."""
+        (reference :361-369, same parameter order; an ``attn_mask`` raises
+        until the masked path is ported)."""
+        _refuse_mask("LlamaForCausalLM", attn_mask)
         logits = self.logits(self.model(input_ids))
         if labels is None:
             return logits

@@ -460,16 +460,27 @@ template <typename T, typename KV, int HD, int RB>
 cudaError_t launch(const Args& a) {
   const size_t smem = smem_bytes(sizeof(KV), HD, a.ps, a.W * (a.h / a.kvh));
   auto kern = paged_attn_kernel<T, KV, HD, RB>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // Function attributes are set once per instantiation (and again only for
+  // a larger shared-memory size), not on every launch: the serving engine
+  // captures its decode chunk as a CUDA graph, and its first launch of
+  // every instantiation is eager, ahead of the capture.
+  static size_t smem_set = 48 * 1024;
+  static bool carveout_set = false;
+  cudaError_t e;
+  if (smem > smem_set) {
+    e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+    smem_set = smem;
   }
-  // the largest shared-memory carveout, so two bf16 CTAs fit on an SM
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
+  if (!carveout_set) {
+    // the largest shared-memory carveout, so two bf16 CTAs fit on an SM
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    carveout_set = true;
+  }
   dim3 grid(a.kvh, a.S, a.n_split);
   kern<<<grid, kThreads, smem, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),

@@ -96,6 +96,18 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
+def reference_kernel_head_dim(head_dim: int) -> bool:
+    """The head-dim test of the JAX package's gate
+    (``paddlepaddle_tpu/ops/kernels/paged_attention.py:99``): its TPU kernel
+    takes a multiple of 128 or 8, 16, 32, 64; every other head dim is served
+    by the reference's gather formulation and never reaches a TPU kernel.
+    The serving engine decodes those through :func:`paged_attention_plain`
+    on either device. Head dims the TPU kernel takes and this kernel does
+    not (8, 16, 32, 256, ...) are not routed there: on the card they reach
+    :func:`paged_attention_supported` and raise."""
+    return head_dim % 128 == 0 or head_dim in (8, 16, 32, 64)
+
+
 def paged_attention_supported(*, page_size: int, head_dim: int,
                               num_heads: int, num_kv_heads: int,
                               dtype: torch.dtype, w: int = 1,

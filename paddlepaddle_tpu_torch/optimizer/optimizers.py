@@ -16,11 +16,14 @@ class Adam(Optimizer):
     """Bias-corrected moments in f32 through per-parameter ``beta1_pow`` /
     ``beta2_pow``; ``amsgrad`` keeps the running maximum of the second
     moment in ``moment2_max``. ``weight_decay`` is a coupled L2
-    coefficient folded into the gradient."""
+    coefficient folded into the gradient. The parameters keep the
+    reference's positional order; ``lazy_mode``, ``use_multi_tensor`` and
+    ``name`` are accepted and, as in the reference, never read."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, amsgrad=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, amsgrad=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
@@ -54,14 +57,19 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Adam with decoupled weight decay: ``p *= 1 - lr * weight_decay``
     before the Adam rule, skipped for every parameter whose name
-    ``apply_decay_param_fun`` rejects."""
+    ``apply_decay_param_fun`` rejects. The parameters keep the reference's
+    positional order; ``lr_ratio``, ``lazy_mode`` and ``name`` are accepted
+    and, as in the reference, never read."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None,
                  apply_decay_param_fun: Optional[Callable[[str], bool]] = None,
-                 grad_clip=None, multi_precision=False, amsgrad=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 amsgrad=False, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision, amsgrad)
+                         None, grad_clip, lazy_mode, multi_precision,
+                         amsgrad=amsgrad)
         self._wd = weight_decay
         self._apply_decay_param_fun = apply_decay_param_fun
 

@@ -296,3 +296,187 @@ def test_plain_routes_on_card_match_cpu():
     torch.cuda.synchronize()
     assert float((got.cpu() - want).abs().max()) <= 1e-5
     assert (fa.flash_fwd.launches, fv.varlen_fwd.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# C4: Adam / AdamW in the reference's positional order
+# ---------------------------------------------------------------------------
+
+_OPT_ATTRS = ("_lr", "_beta1", "_beta2", "_eps", "_weight_decay",
+              "_grad_clip", "_multi_precision", "_amsgrad")
+
+
+def test_adam_adamw_take_reference_positional_order():
+    """Both optimizers built with the reference's positional order on both
+    sides bind every parameter alike; one AdamW update of a gradient of 100
+    through a global-norm clip equals the JAX eager step."""
+    import jax.numpy as jnp
+    from paddlepaddle_tpu.core.tensor import Parameter as JParameter
+    from paddlepaddle_tpu.nn.clip import ClipGradByGlobalNorm as JClip
+    from paddlepaddle_tpu.optimizer.optimizers import Adam as JAdam
+    from paddlepaddle_tpu.optimizer.optimizers import AdamW as JAdamW
+
+    from paddlepaddle_tpu_torch import ClipGradByGlobalNorm
+    from paddlepaddle_tpu_torch.optimizer import Adam, AdamW
+
+    rng = np.random.default_rng(40)
+    init = rng.standard_normal((4, 3)).astype(np.float32)
+    grad = np.full((4, 3), 100.0, np.float32)
+    jp = [JParameter(init.copy(), name="w")]
+    tp = {"w": torch.nn.Parameter(torch.from_numpy(init.copy()))}
+    # (lr, beta1, beta2, epsilon, parameters, weight_decay, grad_clip,
+    #  lazy_mode, multi_precision, use_multi_tensor, amsgrad, name)
+    ja = JAdam(0.1, 0.9, 0.999, 1e-8, jp, None, None, False, True, False,
+               True, "adam")
+    ta = Adam(0.1, 0.9, 0.999, 1e-8, tp, None, None, False, True, False,
+              True, "adam")
+    for a in _OPT_ATTRS:
+        assert getattr(ta, a) == getattr(ja, a), a
+    assert ta._multi_precision is True and ta._amsgrad is True
+    # (lr, beta1, beta2, epsilon, parameters, weight_decay, lr_ratio,
+    #  apply_decay_param_fun, grad_clip, lazy_mode, multi_precision,
+    #  amsgrad, name)
+    fun = (lambda n: True)
+    jclip, tclip = JClip(1.0), ClipGradByGlobalNorm(1.0)
+    jw = JAdamW(0.1, 0.9, 0.999, 1e-8, jp, 0.01, None, fun, jclip, False,
+                False, False, "adamw")
+    tw = AdamW(0.1, 0.9, 0.999, 1e-8, tp, 0.01, None, fun, tclip, False,
+               False, False, "adamw")
+    for a in _OPT_ATTRS:
+        if a != "_grad_clip":
+            assert getattr(tw, a) == getattr(jw, a), a
+    assert tw._grad_clip is tclip and jw._grad_clip is jclip
+    assert tw._wd == jw._wd == 0.01
+    assert tw._apply_decay_param_fun is fun
+    jp[0].grad = jnp.asarray(grad, jnp.float32)
+    jw.step()
+    tw.apply([torch.from_numpy(grad.copy())])
+    got = tp["w"].detach().numpy()
+    np.testing.assert_allclose(got, jp[0].numpy(), atol=1e-6, rtol=0)
+    # the clip bound the step: Adam's first step moves each entry by ~lr
+    assert np.abs(got - init).max() < 0.11
+
+
+# ---------------------------------------------------------------------------
+# C5: GenerationRequest and the Llama forwards in the reference's order
+# ---------------------------------------------------------------------------
+
+
+def _tiny_llama(**over):
+    from paddlepaddle_tpu_torch.models.llama import (LlamaConfig,
+                                                     LlamaForCausalLM)
+
+    cfg = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, max_position_embeddings=64,
+               dtype="float32")
+    return LlamaForCausalLM(LlamaConfig(**dict(cfg, **over)), device="cpu",
+                            seed=2, init_std=0.1)
+
+
+def test_generation_request_takes_reference_order():
+    import time
+
+    from paddlepaddle_tpu.inference.serving import \
+        GenerationRequest as JRequest
+
+    from paddlepaddle_tpu_torch.inference.decode_engine import \
+        BatchDecodeEngine
+    from paddlepaddle_tpu_torch.inference.serving import GenerationRequest
+
+    args = (np.arange(1, 9), 4, 0.0, 0, None)
+    with pytest.raises(NotImplementedError, match="A4.6"):
+        GenerationRequest(*args, time.monotonic() + 30)
+    j = JRequest(*args, None, 5)
+    t = GenerationRequest(*args, None, 5)
+    for name in ("max_new_tokens", "temperature", "top_k", "eos_token_id",
+                 "prefix_len"):
+        assert getattr(t, name) == getattr(j, name), name
+    np.testing.assert_array_equal(t.prompt_ids, j.prompt_ids)
+    eng = BatchDecodeEngine(_tiny_llama(), max_slots=1, page_size=4,
+                            device="cpu")
+    eng.serve([t], timeout=60)
+    assert len(t.result.result(5)) == 12
+
+
+def test_llama_forward_takes_reference_order():
+    model = _tiny_llama()
+    ids = torch.from_numpy(np.random.default_rng(41).integers(
+        0, 64, (2, 10)))
+    mask = torch.ones(2, 10)
+    with pytest.raises(NotImplementedError, match="A3"):
+        model.model(ids, mask)
+    with pytest.raises(NotImplementedError, match="A3"):
+        model(ids, None, mask)
+    with torch.no_grad():
+        full = model(ids)
+        hidden = model.model(ids, None)
+        cfg = model.config
+        shape = (2, 10, cfg.num_key_value_heads, cfg.head_dim)
+        caches = [(torch.zeros(shape), torch.zeros(shape))
+                  for _ in range(cfg.num_hidden_layers)]
+        cached, _ = model.model(ids, None, caches)        # pos None means 0
+    torch.testing.assert_close(model.logits(hidden), full)
+    torch.testing.assert_close(model.logits(cached), full, atol=1e-5,
+                               rtol=1e-5)
+    loss = model(ids, ids)
+    assert loss.dim() == 0 and torch.isfinite(loss)
+
+
+# ---------------------------------------------------------------------------
+# C6: head dims the reference never sends to its paged kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 48, 64, 80, 96, 128, 160, 192,
+                                256, 384])
+def test_paged_routing_predicate_mirrors_reference_gate(hd, monkeypatch):
+    from paddlepaddle_tpu.core import flags as jflags
+    from paddlepaddle_tpu.ops.kernels import paged_attention as jpa
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as tpa
+
+    monkeypatch.setattr(jpa, "_HAS_PALLAS", True)
+    monkeypatch.setattr(jpa, "flag_value",
+                        lambda name: True if name == "fused_paged_attention"
+                        else jflags.flag_value(name))
+    ok, _ = jpa.paged_attention_supported(
+        page_size=16, head_dim=hd, num_heads=4, num_kv_heads=2)
+    assert tpa.reference_kernel_head_dim(hd) is ok
+
+
+@pytest.mark.cuda
+def test_engine_serves_head_dim_96_on_card_like_cpu():
+    """hd 96: the reference's gate refuses it, so the card engine decodes
+    through the plain paged attention (no kernel launch) and gives the CPU
+    engine's greedy tokens; the captured chunk carries that path too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU to run the port on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from paddlepaddle_tpu_torch.inference.decode_engine import \
+        BatchDecodeEngine
+    from paddlepaddle_tpu_torch.inference.serving import GenerationRequest
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as tpa
+
+    cpu = _tiny_llama(hidden_size=192, num_attention_heads=2,
+                      num_key_value_heads=1, vocab_size=128)
+    from paddlepaddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    gpu = LlamaForCausalLM(cpu.config, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, 128, (n,)) for n in (5, 17, 30)]
+    outs, counts = {}, (tpa.paged_attention.launches,
+                        tpa.paged_attention.int8_launches)
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        eng = BatchDecodeEngine(model, max_slots=2, chunk=4, page_size=16,
+                                device=dev)
+        assert eng.kernel == "plain"
+        reqs = [GenerationRequest(p, 10) for p in prompts]
+        eng.serve(reqs, timeout=300)
+        outs[dev] = [r.result.result(5).tolist() for r in reqs]
+        if dev == "cuda":
+            assert eng.capture_info()["decode"]["replays"] > 0
+    assert outs["cuda"] == outs["cpu"]
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention.int8_launches) == counts

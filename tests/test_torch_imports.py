@@ -27,6 +27,7 @@ import paddlepaddle_tpu_torch.parallel.moe
 import paddlepaddle_tpu_torch.models.moe
 import paddlepaddle_tpu_torch.optimizer.lr
 import paddlepaddle_tpu_torch.inference.kv_pool
+import paddlepaddle_tpu_torch.inference.speculative
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -76,6 +77,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("jit.train", "optimizer.optimizers", "optimizer.lr", "nn.clip",
                 "ops.kernels.flash_attention", "ops.kernels.gather_gemm",
                 "ops.kernels.paged_attention", "inference.kv_pool",
+                "inference.speculative",
                 "core.flags", "parallel.moe", "models.moe",
                 "ops.kernels.flash_varlen", "core.random", "nn.long_tail",
                 "incubate.nn.functional"):

@@ -132,7 +132,8 @@ def test_kv_capacity_error_at_submit(models):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(kv_layout="contiguous"), "A4.2"),
     (dict(quant="weight_only_int8"), "A4.3"),
-    (dict(spec_k=2, draft=object()), "A4.5"),
+    (dict(spec_k=2, draft="target", draft_quant="weight_only_int8"),
+     "A4.3"),
     (dict(mode="static"), "A4.6"),
     (dict(default_deadline_s=1.0), "A4.6"),
     (dict(decode_timeout_s=1.0), "A4.6"),
@@ -142,6 +143,8 @@ def test_kv_capacity_error_at_submit(models):
 ])
 def test_unported_options_raise(models, kwargs, item):
     _, tm = models
+    if kwargs.get("draft") == "target":
+        kwargs = dict(kwargs, draft=tm)
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(tm, device="cpu", **kwargs)
 
@@ -191,3 +194,57 @@ def test_release_slot_mid_flight_returns_pages(models):
     assert len(reqs[1].result.result(5)) == len(reqs[1].prompt_ids[0]) + 20
     assert not reqs[0].result.done()            # the caller owns its future
     assert eng.pool.free_count == eng.pool.usable
+
+
+def _admit_pair(jm, tm, prompts, budgets, **kw):
+    jeng = JaxEngine(jm, fused_kernels=False, **dict(ENGINE, **kw))
+    eng = BatchDecodeEngine(tm, device="cpu", **dict(ENGINE, **kw))
+    for p, b in zip(prompts, budgets):
+        assert jeng._admit(JaxRequest(p, b, 0.0, 0, None))
+        assert eng._admit(GenerationRequest(p, b, 0.0, 0, None))
+    return jeng, eng
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_decode_body_twice_equals_two_jax_chunks(models, kv_quant):
+    """The factored chunk body (what the card captures), called directly
+    twice, against two calls of the JAX engine's decode program over the
+    same admissions: equal payloads and slot state after each chunk (one
+    slot's budget runs out inside the second chunk)."""
+    jm, tm = models
+    prompts = _prompts(5)[:3]
+    jeng, eng = _admit_pair(jm, tm, prompts, (12, 6, 20), kv_quant=kv_quant)
+    fn = jeng._program("decode")
+    for _ in range(2):
+        (jeng.caches, jeng.tokens, jeng.lens, jeng.active, jeng.budgets,
+         jeng.key, packed) = fn(*jeng._decode_args())
+        eng._decode_body()
+        np.testing.assert_array_equal(eng.packed.numpy(), np.asarray(packed))
+        for name in ("tokens", "lens", "active", "budgets"):
+            np.testing.assert_array_equal(
+                getattr(eng, name).numpy(), np.asarray(getattr(jeng, name)),
+                err_msg=name)
+    assert not bool(eng.active[1]) and bool(eng.active[0])
+
+
+def test_state_buffers_keep_their_storage(models):
+    """A captured graph replays over fixed addresses: no slot buffer, page
+    table, pool or payload is rebound by a chunk, an admission or a
+    retirement."""
+    _, tm = models
+    eng = BatchDecodeEngine(tm, device="cpu", **ENGINE)
+
+    def ptrs():
+        names = ("tokens", "lens", "active", "budgets", "temps", "top_ks",
+                 "eos_ids", "page_table", "packed")
+        out = {n: getattr(eng, n).data_ptr() for n in names}
+        out.update({f"pool{i}": c.data_ptr()
+                    for i, c in enumerate(t for kv in eng.caches for t in kv)})
+        return out
+
+    before = ptrs()
+    reqs = [GenerationRequest(p, mx, 0.0, 0, e)
+            for p, (_, mx, e) in zip(_prompts(6), SPECS)]
+    eng.serve(reqs, timeout=120)
+    assert eng.stats["decode_calls"] >= 3
+    assert ptrs() == before
