@@ -111,7 +111,8 @@ code is non-zero):
                from one state: losses within 1e-4, parameters within 5e-4,
                the gather-GEMM counter moved by layers x steps.
 8c. ``capture_parity``  Llama-3-8B widths cut to 2 of 32 layers (bf16),
-               8 slots, page 64, chunk 16, bf16 and int8 KV: one engine's
+               8 slots, page 64, chunk 16, bf16 and int8 KV, int8 weights
+               over both, and the contiguous layout: one engine's
                captured decode chunks (CUDA graph replays) against a second
                engine's chunk body called eagerly over the same admissions:
                tokens, lens, active flags, budgets, the packed payload and
@@ -132,9 +133,11 @@ code is non-zero):
 9s. ``serve_spec``  the serve phase's model behind the same engine with
                ``spec_k=3`` (the verify attends W = 4 rows a slot through
                kernel 1), greedy, 8 of the serve phase's prompts with
-               budgets capped at 64, three runs: the target itself as the
+               budgets capped at 64, four runs: the target itself as the
                draft, the "quarter" draft config (hidden 1024, 8 layers),
-               and the quarter draft over int8 KV (kernel 1q at W = 4).
+               the quarter draft over int8 KV (kernel 1q at W = 4), and the
+               target as its own draft with ``draft_quant`` (int8 draft
+               weights, bf16 verify).
                Each: full-length outputs, W = 4 launches equal to layers x
                target steps, no leaked page; tokens per target step,
                acceptance, the run-length histogram, the share of tokens
@@ -155,6 +158,33 @@ code is non-zero):
                TPOT, prefix and host counters, restore ms, KV bytes against
                a bf16 pool of the same page count, and the captured decode
                chunk's device time by kind with the idle share.
+8q. ``quant_parity``  weight-only int8 at Llama-3-8B widths, 2 of 32
+               layers: ``quantize_param_tree``'s codes and scales on the
+               card bit-equal to the CPU's plain path (per channel and group
+               128), a quantized engine's prefill and first-step logits
+               against an f32 model over the dequantized weights (atol
+               0.25), and the caller's model unchanged.
+9w. ``serve_wo_int8``  the serve phase's configuration and requests with
+               ``quant="weight_only_int8"`` over the same model: outputs,
+               kernel 1 launches = layers x steps, tok/s, the chunk's
+               device time by kind and idle share, ``quant_meta``'s bytes,
+               peak memory, beside serve's numbers from this run; and the
+               weight-only product at [8, 4096] x [4096, 14336] against its
+               f32 reference, timed beside the bf16 matmul, with its bound.
+9t. ``serve_static``  ``ServingEngine(mode="static")`` over the serve
+               model: 8 prompts of 512 tokens, 64 new, one
+               ``generate_cached`` batch; tok/s, TTFT, the eager loop's
+               device idle share; ``generate`` at full width (kernel 2 at
+               every step); on a 2-layer f32 copy of the widths, static ==
+               continuous and ``generate`` == ``generate_cached`` tokens.
+9c. ``serve_contiguous``  ``kv_layout="contiguous"`` over the serve model
+               on 8 of its requests: outputs, no paged launch, tok/s, pool
+               bytes; on the 2-layer f32 model the contiguous and
+               ``fused_kernels=False`` engines' tokens equal the paged
+               kernel engine's.
+9r. ``serve_robust``  deadline, cancel and drain on a 2-layer engine with
+               captured chunks: typed errors, pages returned, the other
+               requests' tokens unchanged; ``health()`` printed.
 10. ``train`` the training path at full width: Llama-3-8B widths cut to 8
                of 32 layers (memory), bf16 with f32 AdamW masters and a
                global-norm clip, batch 4 x 2048 fed 7 times (1 warm-up, 5
@@ -2314,8 +2344,16 @@ def phase_serve(pt_pkg):
                              f"an emitted token's logit is {gap} below the "
                              "argmax")
     greedy_outs = {i: outs[i] for i in range(n_req) if i not in sampled}
+    summary = {"tok_s": new_tokens / wall, "wall_s": wall,
+               "ttft_p50_ms": slo["ttft_p50_ms"], "tpot_ms": slo["tpot_ms"],
+               "peak_mem_gb": peak / 1e9,
+               "chunk_wall_ms": breakdown["chunk_wall_ms"],
+               "device_busy_ms": breakdown["device_busy_ms"],
+               "device_idle_share": breakdown["device_idle_share"],
+               "device_ms_by_kind": breakdown["device_ms_by_kind"]}
     return launches, dict(model=model, prompts=prompts, budgets=budgets,
-                          greedy_outs=greedy_outs)
+                          sampled=sampled, greedy_outs=greedy_outs,
+                          summary=summary)
 
 
 SERVE_INT8 = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
@@ -2436,14 +2474,16 @@ CAPTURE_PARITY_LAYERS = 2     # Llama-3-8B widths at 2 of 32 layers
 def phase_capture_parity(pt_pkg):
     """The captured decode chunk against the same body called eagerly, at
     Llama-3-8B widths cut to 2 of 32 layers (bf16 weights), 8 slots, page
-    64, max_len 2048, chunk 16. For bf16 and int8 KV: engine A runs its
-    ``"decode"`` program (eager warm-up and capture on the first call, then
+    64, max_len 2048, chunk 16. Five arms: bf16 KV, int8 KV, weight-only
+    int8 weights (``quant``), ``quant`` with int8 KV, and the contiguous
+    layout. In each, engine A runs its decode program (``"decode"``, or
+    ``"decode_contig"``; eager warm-up and capture on the first call, then
     replays), engine B calls ``_decode_body()`` directly; both admit the
     same 8 greedy requests (prompts 64-512, budget 56, so every slot ends
     inside the fourth chunk). After each of 4 chunks the tokens, lens,
     active flags, budgets, packed payload and every KV pool (codes and
     scales under int8) must be equal to the bit, and the paged counter
-    must move by chunk x layers. Then three engines with one seed each
+    must move by chunk x layers (by 0 under the contiguous layout). Then three engines with one seed each
     decode two sampled slots (temperature 1.0) for 3 chunks, two through
     the captured program and one through the eager body: the replays'
     tokens must change from chunk to chunk, the two captured engines must
@@ -2474,39 +2514,49 @@ def phase_capture_parity(pt_pkg):
         return out
 
     result, mismatches = {}, []
-    for kv_quant in (None, "int8"):
-        a = pt_pkg.BatchDecodeEngine(model, kv_quant=kv_quant, **kw)
-        b = pt_pkg.BatchDecodeEngine(model, kv_quant=kv_quant, **kw)
+    wo = "weight_only_int8"
+    for arm, extra in (("bf16", {}), ("int8", dict(kv_quant="int8")),
+                       ("wo_int8", dict(quant=wo)),
+                       ("wo_int8+kv_int8", dict(quant=wo, kv_quant="int8")),
+                       ("contiguous", dict(kv_layout="contiguous"))):
+        a = pt_pkg.BatchDecodeEngine(model, **kw, **extra)
+        b = pt_pkg.BatchDecodeEngine(model, **kw, **extra)
         for eng in (a, b):
             for p in prompts:
                 if not eng._admit(pt_pkg.GenerationRequest(p, 56)):
                     raise AssertionError("capture_parity: admission failed")
-        counter = "int8_launches" if kv_quant else "launches"
+        counter = "int8_launches" if a.kv_quant else "launches"
+        # the contiguous layout has no page table: no paged launch at all
+        expected = (0 if a.kv_layout == "contiguous"
+                    else a.chunk * cfg.num_hidden_layers)
         moved = []
         for n in range(4):
             before = getattr(pa.paged_attention, counter)
-            a._program("decode")()
+            a._program(a._decode_key)()
             moved.append(getattr(pa.paged_attention, counter) - before)
             b._decode_body()
             torch.cuda.synchronize()
             for name in ("tokens", "lens", "active", "budgets", "packed"):
                 if not torch.equal(getattr(a, name), getattr(b, name)):
-                    mismatches.append(f"{kv_quant} chunk {n}: {name}")
+                    mismatches.append(f"{arm} chunk {n}: {name}")
             for i, (x, y) in enumerate(zip(pools(a), pools(b))):
                 if not torch.equal(x, y):
-                    mismatches.append(f"{kv_quant} chunk {n}: pool {i}")
+                    mismatches.append(f"{arm} chunk {n}: pool {i}")
         still_active = int(a.active.sum())
-        result[kv_quant or "bf16"] = {
-            "launches_per_chunk": moved,
-            "expected_per_chunk": a.chunk * cfg.num_hidden_layers,
+        result[arm] = {
+            "launches_per_chunk": moved, "expected_per_chunk": expected,
             "active_after_4_chunks": still_active,
-            "capture": a.capture_info()["decode"]}
-        if any(m != a.chunk * cfg.num_hidden_layers for m in moved):
-            mismatches.append(f"{kv_quant}: launches per chunk {moved}")
+            "capture": a.capture_info()[a._decode_key]}
+        if a.quant:
+            result[arm]["quantized_weights"] = len(a.quant_meta["quantized"])
+        if any(m != expected for m in moved):
+            mismatches.append(f"{arm}: launches per chunk {moved}")
         if still_active:
-            mismatches.append(f"{kv_quant}: {still_active} slots still "
+            mismatches.append(f"{arm}: {still_active} slots still "
                               "active after their budgets")
         del a, b
+        gc.collect()
+        torch.cuda.empty_cache()
     # sampled: two captured engines and one eager body, one seed each
     sampled, eager_differs = [], []
     for run in ("captured", "captured", "eager"):
@@ -2621,12 +2671,14 @@ def phase_serve_spec(pt_pkg, ctx):
     (bf16, seeded) behind ``ServingEngine(max_batch_size=8,
     kv_page_size=64, max_len=2048, decode_chunk=16, spec_k=3)`` (W = 4),
     greedy, over 8 of the serve phase's greedy prompts with budgets capped
-    at 64, in three runs: the target itself as draft (every proposal
+    at 64, in four runs: the target itself as draft (every proposal
     should be accepted), the "quarter" draft config (seeded, near-zero
-    acceptance: a rollback on nearly every step), and the quarter draft
-    over int8 KV (kernel 1q at W = 4). Each run: every future completes at
-    full length, the W = 4 launches equal layers x target steps, no page
-    leaks; tokens per target step, acceptance, the run-length histogram,
+    acceptance: a rollback on nearly every step), the quarter draft over
+    int8 KV (kernel 1q at W = 4), and the target as draft with the draft's
+    weights quantized (``draft_quant="weight_only_int8"``: an int8 view of
+    the same model proposes, the bf16 target verifies). Each run: every
+    future completes at full length, the W = 4 launches equal layers x
+    target steps, no page leaks; tokens per target step, acceptance, the run-length histogram,
     the share of tokens equal to the serve phase's for the same prompts
     (reported, not gated: W = 4 and W = 1 round differently in bf16), the
     chunk's wall, device time and idle share, and a captured verify's
@@ -2644,15 +2696,18 @@ def phase_serve_spec(pt_pkg, ctx):
     quarter = quarter_draft_config(pt_pkg, cfg)
     launches = {"launches": 0, "int8_launches": 0}
     runs = []
-    for name, draft, kv_quant in (("self", model, None),
-                                  ("quarter", quarter, None),
-                                  ("quarter_int8", quarter, "int8")):
+    launches_by_run = {}
+    for name, draft, kv_quant, draft_quant in (
+            ("self", model, None, None),
+            ("quarter", quarter, None, None),
+            ("quarter_int8", quarter, "int8", None),
+            ("self_wo_int8", model, None, "weight_only_int8")):
         counter = "int8_launches" if kv_quant else "launches"
         with pt_pkg.ServingEngine(model, max_batch_size=SPEC_SLOTS,
                                   kv_page_size=64, max_len=2048,
                                   decode_chunk=16, draft=draft,
-                                  spec_k=SPEC_K, kv_quant=kv_quant,
-                                  device="cuda") as se:
+                                  spec_k=SPEC_K, draft_quant=draft_quant,
+                                  kv_quant=kv_quant, device="cuda") as se:
             eng = se.engine
             check = verify_tap(eng)
             se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
@@ -2676,6 +2731,7 @@ def phase_serve_spec(pt_pkg, ctx):
         # after stop(): the engine thread no longer decodes
         breakdown = decode_breakdown(pt_pkg, eng, prompts, check=check)
         launches[counter] += n_launch
+        launches_by_run[name] = n_launch
         bad = [i for i, (o, p, b) in enumerate(zip(outs, prompts, budgets))
                if len(o) != len(p) + b
                or not ((o >= 0) & (o < cfg.vocab_size)).all()]
@@ -2688,6 +2744,7 @@ def phase_serve_spec(pt_pkg, ctx):
             full += int(np.array_equal(ref, got))
         new_tokens = int(sum(budgets))
         run = {"draft": name, "kv_quant": kv_quant or "off",
+               "draft_quant": draft_quant or "off",
                "draft_model": eng.spec.describe_draft(),
                "wall_s": wall, "new_tokens": new_tokens,
                "tok_s": new_tokens / wall, "tpot_ms": slo["tpot_ms"],
@@ -2718,7 +2775,684 @@ def phase_serve_spec(pt_pkg, ctx):
         del eng, se
         gc.collect()
         torch.cuda.empty_cache()
+    launches["by_run"] = launches_by_run
     return launches
+
+
+QUANT_LAYERS = 2      # Llama-3-8B widths at 2 of 32 layers
+QUANT_LOGIT_ATOL = 0.25   # bf16 end to end against f32 (the serve gap's)
+WO = "weight_only_int8"
+
+
+def phase_quant_parity(pt_pkg):
+    """Weight-only int8 at Llama-3-8B widths cut to 2 of 32 layers (bf16,
+    seeded), per channel and ``quant_group_size=128``: the codes and scales
+    ``quantize_param_tree`` makes on the card equal, bit for bit, those the
+    port's plain path makes from the same weights on the CPU; then a
+    quantized engine's first-step logits (the admission's prefill row and
+    the first decode step, through the engine's int8 view) against an f32
+    copy of the model whose projections hold the dequantized weights
+    (``weight_dequantize``), within ``QUANT_LOGIT_ATOL``; the argmax agreement
+    is reported. The caller's model must still give its full-precision
+    logits after the engines were built on it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.nn import quant as nq
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=QUANT_LAYERS)
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    state = dict(model.named_parameters())
+    state.update(dict(model.named_buffers()))
+    rng = np.random.default_rng(17)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 300)),
+                          device="cuda")
+    with torch.no_grad():
+        before = model.logits(model.model(ids)[:, -1])
+    out, problems = {}, []
+    for group in (-1, 128):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qstate, meta = nq.quantize_param_tree(state, group_size=group)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unequal = []
+        for name in meta["quantized"]:
+            q_cpu, s_cpu = nq.weight_quantize(state[name].detach().cpu(),
+                                              group_size=group)
+            qw = qstate[name]
+            if not (torch.equal(qw.q.cpu(), q_cpu)
+                    and torch.equal(qw.scale.cpu(), s_cpu)):
+                unequal.append(name)
+        cpu_s = time.perf_counter() - t0
+        reciprocal = None     # what a Python-scalar divisor would round
+        if group == -1:       # differently, on the first weight
+            first = meta["quantized"][0]
+            amax = state[first].detach().float().abs().amax(dim=0)
+            reciprocal = int((qstate[first].scale != amax / 127.0).sum())
+        # the f32 reference: dequantized projections, the rest cast to f32
+        ref = pt_pkg.LlamaForCausalLM(dataclasses.replace(cfg,
+                                                          dtype="float32"),
+                                      device="cuda")
+        with torch.no_grad():
+            for name, p in ref.named_parameters():
+                src = qstate[name]
+                p.copy_(nq.weight_dequantize(src.q, src.scale,
+                                             group_size=group)
+                        if isinstance(src, nq.QuantizedWeight)
+                        else src.float())
+        del qstate
+        eng = pt_pkg.BatchDecodeEngine(model, max_slots=1, max_len=2048,
+                                       page_size=64, quant=WO,
+                                       quant_group_size=group, device="cuda")
+        if eng.quant_meta != meta:
+            problems.append(f"group {group}: engine meta != tree meta")
+        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        with torch.no_grad():
+            scratch = [(torch.zeros((1, ids.shape[1], kvh, hd),
+                                    dtype=model.dtype, device="cuda"),
+                        torch.zeros((1, ids.shape[1], kvh, hd),
+                                    dtype=model.dtype, device="cuda"))
+                       for _ in range(cfg.num_hidden_layers)]
+            hidden, _ = eng.net.model(ids, caches=scratch, pos=0)
+            prefill = eng.net.logits(hidden[:, -1]).float()
+            eng._admit(pt_pkg.GenerationRequest(ids[0].cpu().numpy(), 4))
+            first = int(eng._first_pending[0])
+            step = eng._forward_paged(eng.tokens[:, None],
+                                      eng.lens)[0, 0].float()
+            ext = torch.cat([ids, torch.tensor([[first]], device="cuda")], 1)
+            want = ref.logits(ref.model(ext))[0]
+        errs = {"prefill": float((prefill[0] - want[-2]).abs().max()),
+                "first_step": float((step - want[-1]).abs().max())}
+        agree = {"prefill": int(prefill[0].argmax()) == int(want[-2].argmax()),
+                 "first_step": int(step.argmax()) == int(want[-1].argmax())}
+        out[str(group)] = {
+            "quantized": len(meta["quantized"]),
+            "bytes_fp": meta["bytes_fp"], "bytes_q": meta["bytes_q"],
+            "bytes_saved": meta["bytes_saved"],
+            "quantize_card_s": card_s, "check_on_cpu_s": cpu_s,
+            "codes_scales_bit_equal": not unequal,
+            "first_weight_scales_a_scalar_divisor_rounds_differently":
+            reciprocal,
+            "logit_max_abs_err": errs, "atol": QUANT_LOGIT_ATOL,
+            "argmax_agrees": agree}
+        if unequal:
+            problems.append(f"group {group}: card codes/scales differ from "
+                            f"the CPU's in {unequal[:4]}")
+        for k, e in errs.items():
+            if not e <= QUANT_LOGIT_ATOL:
+                problems.append(f"group {group}: {k} logits err {e} > "
+                                f"{QUANT_LOGIT_ATOL}")
+        del ref, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        after = model.logits(model.model(ids)[:, -1])
+    unchanged = torch.equal(before, after)
+    kv = kv_quant_card_vs_cpu()
+    emit({"phase": "quant_parity", "model": "llama3_8b widths",
+          "layers": QUANT_LAYERS, "by_group_size": out,
+          "model_unchanged": unchanged, "kv_int8": kv})
+    if not (kv["pages_bit_equal"] and kv["scatter_bit_equal"]):
+        problems.append(f"int8 KV quantization card vs CPU: {kv}")
+    if not unchanged:
+        problems.append("the caller's model changed under the engines")
+    if problems:
+        raise AssertionError("quant_parity: " + "; ".join(problems))
+
+
+def kv_quant_card_vs_cpu() -> dict:
+    """The int8 KV page quantization on the card against the CPU, bit for
+    bit: ``_kv_quant_pages`` over 64 pages of [64, 8, 128] (f32, seeded),
+    then ``_kv_quant_scatter`` of one row a slot for 8 slots, with rows
+    large enough to grow the scales. Also counts the page scales that
+    ``amax / 127.0`` (a Python-scalar divisor: the card multiplies by its
+    reciprocal) would round differently from the division."""
+    import torch
+
+    from paddlepaddle_tpu_torch.inference import decode_engine as de
+
+    g = torch.Generator().manual_seed(3)
+    pages = torch.randn((64, 64, 8, 128), generator=g)
+    rows = torch.randn((8, 1, 8, 128), generator=g) * 3.0
+    phys = torch.arange(1, 9)[:, None]
+    off = torch.full((8, 1), 5)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        codes, scale = de._kv_quant_pages(pages.to(dev))
+        pc, ps = codes.clone(), scale.clone()
+        de._kv_quant_scatter(codes, scale, rows.to(dev), phys.to(dev),
+                             off.to(dev))
+        out[dev] = [t.cpu() for t in (pc, ps, codes, scale)]
+    amax = pages.cuda().abs().amax(dim=(1, 3))
+    reciprocal = int((amax / 127.0 != out["cuda"][1].cuda()).sum())
+    return {"pages_bit_equal": all(torch.equal(a, b) for a, b in
+                                   zip(out["cpu"][:2], out["cuda"][:2])),
+            "scatter_bit_equal": all(torch.equal(a, b) for a, b in
+                                     zip(out["cpu"][2:], out["cuda"][2:])),
+            "scales": int(amax.numel()),
+            "scales_a_scalar_divisor_rounds_differently": reciprocal}
+
+
+def wo_matmul_case() -> dict:
+    """The weight-only product at the serve decode's widest shape, ``[8,
+    4096] x [4096, 14336]`` (gate/up), bf16 activations over int8 codes
+    with per-channel scales: ``QuantizedWeight.wo_matmul`` (int8 -> bf16
+    copy, bf16 matmul, scale on the product) against the f32 product over
+    the dequantized weight (max error relative to the largest output,
+    within 2e-2), timed beside the bf16 matmul ``serve`` runs on the same
+    widths. Bound: the int8 codes, scales, x and out once at 3.35 TB/s, or
+    the product at the bf16 rate, the larger."""
+    import torch
+
+    from paddlepaddle_tpu_torch.nn import quant as nq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m, k, n = 8, 4096, 14336
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    q, sc = nq.weight_quantize(w)
+    qw = nq.QuantizedWeight(q, sc, out_dtype=torch.bfloat16)
+    got = qw.wo_matmul(x).float()
+    want = x.float() @ nq.weight_dequantize(q, sc)
+    rel = float((got - want).abs().max() / want.abs().max())
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = median_ms(lambda: qw.wo_matmul(x), flush=flush)
+    bf16_ms = median_ms(lambda: torch.matmul(x, w), flush=flush)
+    bytes_ = q.numel() + sc.numel() * 4 + (m * k + m * n) * 2
+    flops = 2 * m * k * n
+    bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
+    del flush
+    out = {"shape": [m, k, n], "ms": ms, "bf16_matmul_ms": bf16_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S
+           >= flops / BF16_FLOP_PER_S else "operations",
+           "bytes": bytes_, "bytes_moved_by_composition":
+           q.numel() * (1 + 2 + 2) + sc.numel() * 4 + (m * k + m * n) * 2,
+           "max_rel_err": rel, "rtol_of_max": 2e-2}
+    if not rel <= 2e-2:
+        raise AssertionError(f"wo_matmul vs f32 over the dequantized "
+                             f"weight: {rel} > 2e-2 of the largest output")
+    return out
+
+
+def phase_serve_wo_int8(pt_pkg, ctx):
+    """The serve phase's configuration and its 24 requests, unchanged, with
+    ``quant="weight_only_int8"`` (per channel): Llama-3-8B, 32 layers, bf16
+    KV, 8 slots, page 64, chunk 16, over the serve phase's model (the engine
+    quantizes into its own view; the model is shared). Every future
+    completes at full length with in-vocab tokens, and kernel 1 ran 32
+    layers x decode steps times. Printed beside the serve phase's numbers
+    from this same run: tok/s, TTFT, the chunk's wall, device time by kind
+    and idle share, ``quant_meta``'s byte counts and the weight bound of a
+    step, peak memory, the greedy tokens' agreement with serve's (reported,
+    not gated), and :func:`wo_matmul_case`."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model, prompts, budgets = ctx["model"], ctx["prompts"], ctx["budgets"]
+    sampled = ctx["sampled"]
+    cfg = model.config
+    n_req = len(prompts)
+    plens = [len(p) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    t0 = time.perf_counter()
+    with pt_pkg.ServingEngine(model, max_batch_size=8, kv_page_size=64,
+                              max_len=2048, decode_chunk=16, quant=WO,
+                              device="cuda") as se:
+        eng = se.engine
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        pa.paged_attention.launches = 0
+        steps0, chunks0 = eng.stats["decode_steps"], len(eng.chunk_ms)
+        t0 = time.perf_counter()
+        futs = [se.submit(p, max_new_tokens=int(b),
+                          temperature=0.8 if i in sampled else 0.0,
+                          top_k=50 if i in sampled else 0)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        outs = []
+        for i, f in enumerate(futs):
+            try:
+                outs.append(f.result(900))
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                failures.append(f"request {i}: {type(e).__name__}: {e}")
+                outs.append(None)
+        wall = time.perf_counter() - t0
+        launches = pa.paged_attention.launches
+        steps = eng.stats["decode_steps"] - steps0
+        chunk_ms = sorted(eng.chunk_ms[chunks0:])
+        peak = torch.cuda.max_memory_allocated()
+        meta = eng.quant_meta
+    breakdown = decode_breakdown(pt_pkg, eng, prompts)
+    del eng, se
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = total = 0
+    for i, ref in ctx["greedy_outs"].items():
+        if outs[i] is not None:
+            same += int((outs[i][plens[i]:] == ref[plens[i]:]).sum())
+            total += int(budgets[i])
+    new_tokens = int(sum(len(o) - plens[i] for i, o in enumerate(outs)
+                         if o is not None))
+    slo = pt_pkg.slo_summary([f for f, o in zip(futs, outs) if o is not None])
+    wo = wo_matmul_case()
+    summary = {"tok_s": new_tokens / wall, "wall_s": wall,
+               "ttft_p50_ms": slo["ttft_p50_ms"], "tpot_ms": slo["tpot_ms"],
+               "peak_mem_gb": peak / 1e9,
+               "chunk_wall_ms": breakdown["chunk_wall_ms"],
+               "device_busy_ms": breakdown["device_busy_ms"],
+               "device_idle_share": breakdown["device_idle_share"],
+               "device_ms_by_kind": breakdown["device_ms_by_kind"]}
+    bad_len = [i for i, o in enumerate(outs) if o is not None
+               and len(o) != plens[i] + budgets[i]]
+    bad_tok = [i for i, o in enumerate(outs) if o is not None
+               and not ((o >= 0) & (o < cfg.vocab_size)).all()]
+    emit({"phase": "serve_wo_int8", "model": "llama3_8b",
+          "quant": WO, "quantize_s": quant_s, "requests": n_req,
+          "completed": sum(o is not None for o in outs),
+          "failed": len(failures), "new_tokens": new_tokens,
+          "decode_steps": steps, "paged_attention_launches": launches,
+          "expected_launches": cfg.num_hidden_layers * steps,
+          "decode_chunk_ms_p50": chunk_ms[len(chunk_ms) // 2] if chunk_ms
+          else None,
+          "quant_meta": {k: meta[k] for k in ("bytes_fp", "bytes_q",
+                                              "bytes_saved", "group_size")},
+          "quantized_weights": len(meta["quantized"]),
+          "step_weight_bound_ms": meta["bytes_q"] / HBM_BYTES_PER_S * 1e3,
+          "bf16_step_weight_bound_ms":
+          meta["bytes_fp"] / HBM_BYTES_PER_S * 1e3,
+          "greedy_agree_share_vs_serve": same / total if total else None,
+          "wo_matmul": wo, "wo_int8": summary, "serve": ctx["summary"],
+          "tok_s_ratio_vs_serve": summary["tok_s"]
+          / ctx["summary"]["tok_s"], "decode_breakdown": breakdown})
+    if failures:
+        raise AssertionError("serve_wo_int8 requests failed: "
+                             + "; ".join(failures))
+    if bad_len or bad_tok:
+        raise AssertionError(f"serve_wo_int8: wrong output length {bad_len} "
+                             f"/ out-of-vocab tokens {bad_tok}")
+    if steps == 0 or launches != cfg.num_hidden_layers * steps:
+        raise AssertionError(f"serve_wo_int8: paged_attention launched "
+                             f"{launches} times, expected "
+                             f"{cfg.num_hidden_layers} x {steps}")
+    return launches, wo
+
+
+SMALL_LAYERS = 2          # the f32 token-equality checks: 2 of 32 layers
+
+
+def small_f32_model(pt_pkg):
+    """Llama-3-8B widths at 2 of 32 layers in f32 (seeded): the model the
+    static, generate and layout checks compare greedy tokens on. Two
+    decoders are two rounding orders; in bf16 a near-tie on random weights
+    flips an argmax and the rest of a stream follows, in f32 they agree."""
+    import dataclasses
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=SMALL_LAYERS,
+                              dtype="float32")
+    return pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=1, init_std=0.02)
+
+
+STATIC_PROMPT, STATIC_NEW, STATIC_BATCH = 512, 64, 8
+STATIC_LOOP_STEPS = 16     # single-position steps the idle share is read on
+
+
+def phase_serve_static(pt_pkg, ctx, small):
+    """``ServingEngine(mode="static")`` over the serve phase's Llama-3-8B
+    (32 layers, bf16): 8 same-length prompts of 512 tokens, 64 new tokens
+    each, greedy, one ``generate_cached`` batch (its eager per-token loop:
+    a prefill, then one single-position step a token over contiguous
+    caches). Every row at full length with in-vocab tokens; tok/s, TTFT
+    (the batch's latency; TPOT is None without streaming), and the per-token
+    loop's device idle share: 16 steps' device time (torch.profiler) over
+    their unprofiled wall, each the difference of a 17-token and a 1-token
+    call on the same batch. ``generate`` (kernel 2 at
+    every step) on one prompt for 4 tokens at full width: the flash forward
+    counter moves by 32 x 4. Then on the 2-layer f32 model: the static
+    engine's greedy tokens equal the continuous engine's (paged kernel) on
+    the same prompts, and ``generate``'s (counter > 0) equal
+    ``generate_cached``'s."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model = ctx["model"]
+    cfg = model.config
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, (STATIC_PROMPT,))
+               for _ in range(STATIC_BATCH)]
+    with pt_pkg.ServingEngine(model, mode="static",
+                              max_batch_size=STATIC_BATCH,
+                              max_wait_ms=500) as se:
+        se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)  # warm
+        t0 = time.perf_counter()
+        futs = [se.submit(p, max_new_tokens=STATIC_NEW) for p in prompts]
+        outs = [f.result(900) for f in futs]
+        wall = time.perf_counter() - t0
+        batches = se.stats["batches"]
+        slo = pt_pkg.slo_summary(futs)
+        tpots = [f.slo()["tpot_s"] for f in futs]
+    # the per-token loop alone: a prefill-only call (1 new token) and a
+    # 17-token one, unprofiled walls and profiled device time; their
+    # difference is 16 single-position steps
+    ids = np.stack(prompts)
+    walls, busy = {}, {}
+    for n in (1, STATIC_LOOP_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_cached(ids, max_new_tokens=n, temperature=0.0)
+        torch.cuda.synchronize()
+        walls[n] = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.generate_cached(ids, max_new_tokens=n, temperature=0.0)
+            torch.cuda.synchronize()
+        busy[n] = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      ) / 1e3
+    n = STATIC_LOOP_STEPS + 1
+    step_wall = (walls[n] - walls[1]) / STATIC_LOOP_STEPS
+    step_busy = (busy[n] - busy[1]) / STATIC_LOOP_STEPS
+    # kernel 2 at full width: generate's full forward a token
+    fa.flash_fwd.launches = 0
+    g = model.generate(prompts[0][None, :512], max_new_tokens=4,
+                       temperature=0.0)
+    full_launches = fa.flash_fwd.launches
+    # the 2-layer f32 checks
+    scfg = small.config
+    sp = [rng.integers(0, scfg.vocab_size, (STATIC_PROMPT,))
+          for _ in range(STATIC_BATCH)]
+    with pt_pkg.ServingEngine(small, mode="static",
+                              max_batch_size=STATIC_BATCH,
+                              max_wait_ms=500) as se:
+        static = [np.asarray(f.result(900)) for f in
+                  [se.submit(p, max_new_tokens=STATIC_NEW) for p in sp]]
+        small_batches = se.stats["batches"]
+    eng = pt_pkg.BatchDecodeEngine(small, max_slots=STATIC_BATCH, chunk=16,
+                                   page_size=64, max_len=2048, device="cuda")
+    paged0 = pa.paged_attention.launches
+    reqs = [pt_pkg.GenerationRequest(p, STATIC_NEW) for p in sp]
+    eng.serve(reqs, timeout=900)
+    cont = [r.result.result(5) for r in reqs]
+    paged_launches = pa.paged_attention.launches - paged0
+    del eng
+    fa.flash_fwd.launches = 0
+    gen = small.generate(np.stack(sp), max_new_tokens=STATIC_NEW,
+                         temperature=0.0).numpy()
+    small_launches = fa.flash_fwd.launches
+    static_eq_cont = all(np.array_equal(a, b) for a, b in zip(static, cont))
+    gen_eq_cached = all(np.array_equal(a, b) for a, b in zip(gen, static))
+    new_tokens = STATIC_BATCH * STATIC_NEW
+    bad = [i for i, o in enumerate(outs)
+           if len(o) != STATIC_PROMPT + STATIC_NEW
+           or not ((o >= 0) & (o < cfg.vocab_size)).all()]
+    emit({"phase": "serve_static", "model": "llama3_8b", "batch":
+          STATIC_BATCH, "prompt": STATIC_PROMPT, "new": STATIC_NEW,
+          "wall_s": wall, "tok_s": new_tokens / wall,
+          "ttft_p50_ms": slo["ttft_p50_ms"], "ttft_p99_ms": slo["ttft_p99_ms"],
+          "tpot": tpots[0], "batches_incl_warmup": batches,
+          "prefill_call_wall_ms": walls[1],
+          "prefill_call_device_ms": busy[1],
+          "loop_step_wall_ms": step_wall, "loop_step_device_ms": step_busy,
+          "loop_device_idle_share": 1 - step_busy / step_wall,
+          "generate_full_width": {"tokens": g.numpy()[0, 512:].tolist(),
+                                  "flash_fwd_launches": full_launches,
+                                  "expected": cfg.num_hidden_layers * 4},
+          "f32_2_layers": {"static_equals_continuous": static_eq_cont,
+                           "generate_equals_generate_cached": gen_eq_cached,
+                           "static_batches": small_batches,
+                           "continuous_paged_launches": paged_launches,
+                           "generate_flash_fwd_launches": small_launches}})
+    problems = []
+    if bad:
+        problems.append(f"wrong length or out-of-vocab rows {bad}")
+    if batches != 2 or any(t is not None for t in tpots):
+        problems.append(f"batches {batches} (warm-up + 1 expected), tpot "
+                        f"{tpots[:2]}")
+    if full_launches != cfg.num_hidden_layers * 4:
+        problems.append(f"generate launched kernel 2 {full_launches} times, "
+                        f"expected {cfg.num_hidden_layers} x 4")
+    if not (static_eq_cont and gen_eq_cached):
+        problems.append(f"f32 tokens: static == continuous {static_eq_cont}"
+                        f", generate == generate_cached {gen_eq_cached}")
+    if small_launches == 0 or paged_launches == 0:
+        problems.append("the 2-layer checks launched no kernel")
+    if problems:
+        raise AssertionError("serve_static: " + "; ".join(problems))
+    return full_launches + small_launches
+
+
+CONTIG_REQUESTS = 8
+
+
+def phase_serve_contiguous(pt_pkg, ctx, small):
+    """``kv_layout="contiguous"`` over the serve phase's Llama-3-8B (32
+    layers, bf16, 8 slots, max_len 2048, chunk 16) on the first 8 of its
+    requests (same sampling): every future at full length with in-vocab
+    tokens, the paged kernel's counters unmoved (the layout has no page
+    table; decode runs the model's cached attention); tok/s, the chunk's
+    wall and the pool's bytes against a paged pool of the same capacity.
+    Then on the 2-layer f32 model, 8 greedy requests: the contiguous
+    engine's tokens and the ``fused_kernels=False`` engine's (plain paged
+    attention) equal the paged kernel engine's, and only the latter moved
+    the paged counter."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model = ctx["model"]
+    cfg = model.config
+    prompts = ctx["prompts"][:CONTIG_REQUESTS]
+    budgets = ctx["budgets"][:CONTIG_REQUESTS]
+    sampled = ctx["sampled"]
+    plens = [len(p) for p in prompts]
+    pa.paged_attention.launches = pa.paged_attention.int8_launches = 0
+    with pt_pkg.ServingEngine(model, max_batch_size=8, max_len=2048,
+                              decode_chunk=16, kv_layout="contiguous",
+                              device="cuda") as se:
+        eng = se.engine
+        se.generate(prompts[0][:16], max_new_tokens=2, timeout=600)  # warm
+        chunks0 = len(eng.chunk_ms)
+        t0 = time.perf_counter()
+        futs = [se.submit(p, max_new_tokens=int(b),
+                          temperature=0.8 if i in sampled else 0.0,
+                          top_k=50 if i in sampled else 0)
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        outs = [f.result(900) for f in futs]
+        wall = time.perf_counter() - t0
+        chunk_ms = sorted(eng.chunk_ms[chunks0:])
+        kv = eng.kv_stats()
+        capture = eng.capture_info()
+        slo = pt_pkg.slo_summary(futs)
+    del eng, se
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_launches = (pa.paged_attention.launches,
+                     pa.paged_attention.int8_launches)
+    per_tok = 2 * cfg.num_key_value_heads * cfg.head_dim * 2 \
+        * cfg.num_hidden_layers
+    paged_pool_bytes = (8 * -(-2048 // 64) + 1) * 64 * per_tok
+    # 2-layer f32: three attention routes, one stream of tokens
+    rng = np.random.default_rng(12)
+    sp = [rng.integers(0, small.config.vocab_size, (int(n),))
+          for n in rng.integers(64, 513, 8)]
+    tokens, moved = {}, {}
+    for name, kw in (("paged_kernel", {}),
+                     ("contiguous", dict(kv_layout="contiguous")),
+                     ("fused_kernels_false", dict(fused_kernels=False))):
+        n0 = pa.paged_attention.launches
+        e = pt_pkg.BatchDecodeEngine(small, max_slots=8, chunk=16,
+                                     page_size=64, max_len=2048,
+                                     device="cuda", **kw)
+        reqs = [pt_pkg.GenerationRequest(p, 48) for p in sp]
+        e.serve(reqs, timeout=900)
+        tokens[name] = [r.result.result(5) for r in reqs]
+        moved[name] = pa.paged_attention.launches - n0
+        del e
+    equal = {n: all(np.array_equal(a, b) for a, b in
+                    zip(tokens[n], tokens["paged_kernel"]))
+             for n in ("contiguous", "fused_kernels_false")}
+    new_tokens = int(sum(budgets))
+    bad = [i for i, o in enumerate(outs) if len(o) != plens[i] + budgets[i]
+           or not ((o >= 0) & (o < cfg.vocab_size)).all()]
+    emit({"phase": "serve_contiguous", "model": "llama3_8b",
+          "requests": CONTIG_REQUESTS, "new_tokens": new_tokens,
+          "wall_s": wall, "tok_s": new_tokens / wall,
+          "ttft_p50_ms": slo["ttft_p50_ms"], "tpot_ms": slo["tpot_ms"],
+          "decode_chunk_ms_p50": chunk_ms[len(chunk_ms) // 2] if chunk_ms
+          else None, "kv": kv, "paged_pool_bytes_same_capacity":
+          paged_pool_bytes, "capture": capture,
+          "paged_launches": full_launches,
+          "f32_2_layers": {"equal_to_paged_kernel": equal,
+                           "paged_launches": moved}})
+    problems = []
+    if bad:
+        problems.append(f"wrong length or out-of-vocab rows {bad}")
+    if any(full_launches):
+        problems.append(f"paged counters moved {full_launches}")
+    if not all(equal.values()):
+        problems.append(f"f32 tokens differ from the paged kernel's: {equal}")
+    if moved["paged_kernel"] == 0 or moved["contiguous"] \
+            or moved["fused_kernels_false"]:
+        problems.append(f"paged launches by route {moved}")
+    if problems:
+        raise AssertionError("serve_contiguous: " + "; ".join(problems))
+
+
+ROBUST_LAYERS = 2
+
+
+def phase_serve_robust(pt_pkg):
+    """The protection layer on the card: Llama-3-8B widths at 2 of 32
+    layers (bf16, seeded), ``ServingEngine(max_batch_size=8,
+    kv_page_size=64, max_len=2048, decode_chunk=16)``, captured chunks.
+    Three greedy requests (prompts 200-400, 96 new) run undisturbed first;
+    then, each in a fresh engine whose chunks are held 20 ms on the host
+    (so each event lands mid-decode), beside the same three: a fourth
+    request with a 1 s deadline and 1200 new tokens (DeadlineExceededError
+    after admission); a fourth request cancelled once decoding
+    (RequestCancelledError); and ``drain()`` with the three in flight (they
+    finish; a submit after it raises EngineDrainingError). After each, the
+    pool's free count is back at ``usable`` and the three requests' tokens
+    equal the undisturbed run's. The checks are structural: no timing
+    threshold decides them. ``health()`` is printed while serving and
+    after the drain."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.inference import robustness as rob
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=ROBUST_LAYERS)
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    rng = np.random.default_rng(13)
+    three = [rng.integers(0, cfg.vocab_size, (n,)) for n in (200, 300, 400)]
+    doomed_prompt = rng.integers(0, cfg.vocab_size, (300,))
+    kw = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
+              decode_chunk=16, device="cuda")
+
+    def slowed(se, hold_s):
+        chunk = se.engine._decode_chunk
+
+        def held():
+            time.sleep(hold_s)
+            chunk()
+
+        se.engine._decode_chunk = held
+
+    def wait(pred, timeout=120.0):
+        end = time.time() + timeout
+        while time.time() < end and not pred():
+            time.sleep(0.005)
+        return pred()
+
+    with pt_pkg.ServingEngine(model, **kw) as se:
+        want = [f.result(900) for f in
+                [se.submit(p, max_new_tokens=96) for p in three]]
+    events, problems = {}, []
+    for event in ("deadline", "cancel", "drain"):
+        se = pt_pkg.ServingEngine(model, **kw)
+        eng = se.engine
+        try:
+            slowed(se, 0.02)
+            futs = [se.submit(p, max_new_tokens=96) for p in three]
+            info = {}
+            if event == "deadline":
+                doomed = se.submit(doomed_prompt, max_new_tokens=1200,
+                                   deadline_s=1.0)
+            elif event == "cancel":
+                doomed = se.submit(doomed_prompt, max_new_tokens=1200)
+                wait(lambda: eng.busy_slots() == 4
+                     and eng.stats["decode_calls"] > 1)
+                info["cancel_returned"] = doomed.cancel()
+            if event == "drain":
+                wait(lambda: eng.busy_slots() == 3)
+                info["health_serving"] = se.health()
+                info["drain"] = se.drain(timeout=300)
+                try:
+                    se.submit(three[0], max_new_tokens=4)
+                    info["submit_after_drain"] = "accepted"
+                except rob.EngineDrainingError:
+                    info["submit_after_drain"] = "EngineDrainingError"
+                info["health_after"] = se.health()
+            else:
+                try:
+                    doomed.result(120)
+                    info["doomed"] = "completed"
+                except rob.ServingError as e:
+                    info["doomed"] = type(e).__name__
+                    info["message"] = str(e)
+                info["doomed_admitted"] = doomed.slo()["ttft_s"] is not None
+            outs = [f.result(900) for f in futs]
+            wait(lambda: eng.busy_slots() == 0)
+            info["others_equal_undisturbed"] = all(
+                np.array_equal(a, b) for a, b in zip(outs, want))
+            info["pages_free"] = eng.pool.free_count
+            info["pages_usable"] = eng.pool.usable
+            info["stats"] = dict(se.stats)
+        finally:
+            se.stop()
+        events[event] = info
+        if not info["others_equal_undisturbed"]:
+            problems.append(f"{event}: the other requests' tokens changed")
+        held = info["pages_usable"] - info["pages_free"]
+        if held:
+            problems.append(f"{event}: {held} pages not returned")
+    expect = {"deadline": "DeadlineExceededError",
+              "cancel": "RequestCancelledError"}
+    for event, err in expect.items():
+        if events[event].get("doomed") != err \
+                or not events[event]["doomed_admitted"]:
+            problems.append(f"{event}: {events[event].get('doomed')}, "
+                            f"admitted {events[event]['doomed_admitted']}")
+    d = events["drain"]
+    if not d["drain"]["clean"] \
+            or d["submit_after_drain"] != "EngineDrainingError":
+        problems.append(f"drain: {d['drain']}, {d['submit_after_drain']}")
+    emit({"phase": "serve_robust", "model": "llama3_8b widths",
+          "layers": ROBUST_LAYERS, "events": events})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("serve_robust: " + "; ".join(problems))
 
 
 def main() -> int:
@@ -2763,19 +3497,32 @@ def main() -> int:
     phase_capture_parity(pt_pkg)
     gc.collect()                    # free the 2-layer model
     torch.cuda.empty_cache()
+    phase_quant_parity(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
     record["launches"], serve_ctx = phase_serve(pt_pkg)
+    wo_launches, wo_case = phase_serve_wo_int8(pt_pkg, serve_ctx)
+    record["launches_by_phase"] = {"serve": record["launches"],
+                                   "serve_wo_int8": wo_launches}
     spec_launches = phase_serve_spec(pt_pkg, serve_ctx)
     record["w4"]["launches"] = spec_launches["launches"]
+    record["w4"]["launches_by_run"] = spec_launches["by_run"]
     int8_record["w4"]["launches"] = spec_launches["int8_launches"]
-    del serve_ctx
-    gc.collect()                    # free the serving model
+    small = small_f32_model(pt_pkg)
+    generate_launches = phase_serve_static(pt_pkg, serve_ctx, small)
+    phase_serve_contiguous(pt_pkg, serve_ctx, small)
+    del serve_ctx, small
+    gc.collect()                    # free the serving models
     torch.cuda.empty_cache()
+    phase_serve_robust(pt_pkg)
     int8_record["launches"] = phase_serve_int8(pt_pkg)
     gc.collect()                    # free the int8 serving model
     torch.cuda.empty_cache()
     launches = phase_train(pt_pkg)
     for r in flash_records:
         r["launches"] = launches[r["name"]]
+    flash_records[0]["launches_by_phase"] = {
+        "train": launches["flash_fwd"], "generate": generate_launches}
     gc.collect()                    # free the Llama training model
     torch.cuda.empty_cache()
     gg_record["launches"] = phase_moe_train(pt_pkg)

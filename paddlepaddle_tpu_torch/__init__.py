@@ -12,7 +12,11 @@ MoE decoder:
 * serving: ``LlamaForCausalLM`` behind ``ServingEngine`` ->
   ``BatchDecodeEngine`` with a paged KV pool, every decode-step attention
   going through a hand-written CUDA kernel
-  (``ops/kernels/csrc/paged_attention.cu``);
+  (``ops/kernels/csrc/paged_attention.cu``); the engine also takes
+  weight-only int8 weights (``quant=``, ``nn.quant``), the contiguous KV
+  layout, speculative decoding, and the static scheduler over the model's
+  ``generate_cached``, behind deadlines, cancellation, drain and a hang
+  watchdog;
 * serving's KV memory: shared-prefix hits (``submit(prefix_len=)``), int8
   KV pages (``kv_quant="int8"``, attended by the same kernel's int8
   variant) and a bounded host-RAM tier that spills and restores evicted

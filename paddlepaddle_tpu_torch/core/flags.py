@@ -2,10 +2,10 @@
 
 Counterpart of ``paddlepaddle_tpu/core/flags.py`` (same semantics: typed
 flags, ``FLAGS_xxx`` env override at definition, settable at runtime). Only
-the ``serving_*`` flags the serving path reads are defined here: the limits
-``ServingEngine`` resolves through ``_flag_or`` and the KV-memory pair
-``BatchDecodeEngine`` resolves itself; the rest arrive with the modules that
-read them.
+the ``serving_*`` flags the serving path reads are defined here: the limits,
+the deadline, watchdog and drain defaults ``ServingEngine`` resolves, and
+the KV-memory pair ``BatchDecodeEngine`` resolves itself; the rest arrive
+with the modules that read them.
 """
 
 from __future__ import annotations
@@ -70,6 +70,9 @@ define_flag("serving_max_queue_wait_s", 0.0,
             "shed submits whose estimated queue wait (EWMA of decode-attempt "
             "time x depth) exceeds this many seconds (0 = off)",
             env="PADDLE_SERVING_MAX_QUEUE_WAIT_S")
+define_flag("serving_default_deadline_s", 0.0,
+            "default per-request deadline applied when submit() passes none "
+            "(0 = no deadline)", env="PADDLE_SERVING_DEADLINE_S")
 define_flag("serving_breaker_threshold", 5,
             "consecutive decode failures that open the serving circuit "
             "breaker (submits then fail fast with CircuitOpenError)",
@@ -78,6 +81,15 @@ define_flag("serving_breaker_reset_s", 30.0,
             "seconds an open serving breaker waits before letting one "
             "half-open probe request through",
             env="PADDLE_SERVING_BREAKER_RESET_S")
+
+define_flag("serving_decode_timeout_s", 0.0,
+            "engine-thread watchdog: a decode attempt in flight longer than "
+            "this trips the breaker open (0 = watchdog off)",
+            env="PADDLE_SERVING_DECODE_TIMEOUT_S")
+define_flag("serving_drain_timeout_s", 30.0,
+            "default drain(timeout): how long a draining engine lets "
+            "in-flight slots finish before shedding the remainder",
+            env="PADDLE_SERVING_DRAIN_TIMEOUT_S")
 
 # KV-memory family (reference core/flags.py:321-333): int8 KV pages and the
 # host-RAM prefix tier. Constructor arguments win; "" / "off" and 0 are off.

@@ -1,16 +1,25 @@
 """Continuous-batching decode engine — paged KV pool, ragged lengths.
 
-Port of ``paddlepaddle_tpu/inference/decode_engine.py`` for the paged
-layout: ``BatchDecodeEngine(kv_layout="paged")`` with full-precision or int8
-KV pages, shared-prefix hits, the host-RAM prefix tier and speculative
-decoding; no mesh, no bundle.
+Port of ``paddlepaddle_tpu/inference/decode_engine.py``: ``BatchDecodeEngine``
+with the paged layout (full-precision or int8 KV pages, shared-prefix hits,
+the host-RAM prefix tier, speculative decoding) and the slot-contiguous
+layout, over full-precision or weight-only int8 weights; no mesh, no bundle.
 
-* PAGED KV POOL: one ``[num_pages, page_size, kvh, hd]`` K and V buffer per
-  layer plus a device page table ``[slots, max_len/page_size]`` int32.
-  Admission reserves pages for the request's full prompt + budget from the
-  host free list (:mod:`.kv_pool`), prefills the prompt, and writes the K/V
-  page by page; retirement returns the pages and zeroes the slot's table row
-  so stray writes land in the null page 0.
+* PAGED KV POOL (``kv_layout="paged"``, the default): one ``[num_pages,
+  page_size, kvh, hd]`` K and V buffer per layer plus a device page table
+  ``[slots, max_len/page_size]`` int32. Admission reserves pages for the
+  request's full prompt + budget from the host free list (:mod:`.kv_pool`),
+  prefills the prompt, and writes the K/V page by page; retirement returns
+  the pages and zeroes the slot's table row so stray writes land in the
+  null page 0.
+* CONTIGUOUS KV (``kv_layout="contiguous"``, reference :1-45, :853): one
+  ``[slots, max_len, kvh, hd]`` K and V buffer per layer, every slot
+  holding ``max_len`` whatever its request needs. Admission prefills the
+  prompt padded to a 128 bucket and writes the bucket's rows into the
+  slot; decode runs the model's own cached attention (``_cached_attention``,
+  plain PyTorch) at per-slot positions. There is no page table, so the
+  paged kernel never runs here (the reference's fused gate refuses the
+  layout the same way), and int8 KV and speculative decoding need paged.
 * INT8 KV (``kv_quant="int8"``): each pool entry is ``(codes int8
   [pages, ps, kvh, hd], scale f32 [pages, kvh])``. Admission quantizes whole
   pages (:func:`_kv_quant_pages`); decode quantizes this step's rows into
@@ -18,6 +27,13 @@ decoding; no mesh, no bundle.
   attends through the int8 variant of the kernel, which dequantizes each
   element as ``codes * scale`` in f32. About 2x the pages of a bf16 pool at
   a fixed byte budget.
+* WEIGHT-ONLY INT8 (``quant="weight_only_int8"``, ``quant_group_size``;
+  reference :250-266): the weights are quantized once, at construction,
+  into a module view of the model (:func:`~..nn.quant.quantized_view`)
+  whose projections and LM head are ``WeightOnlyLinear`` over int8 codes;
+  the embedding, the norms and the rope tables are shared. Prefill, decode
+  and the captured chunk all run through the view (``self.net``); the
+  caller's model is left as it was and keeps computing in full precision.
 * SHARED PREFIXES (``prefix_cache=True``, requests with ``prefix_len``):
   page-aligned prompt prefixes are content-hashed. A miss prefills in full
   and pins the prefix pages read-only (ref-counted); a hit prefills ONLY the
@@ -25,26 +41,30 @@ decoding; no mesh, no bundle.
   LRU-evicted when the free list runs dry; with ``kv_host_bytes`` they spill
   to a bounded host-RAM tier as ``KVS1`` slabs and are restored into fresh
   pages on the next hit (a slab that does not match is a logged miss).
-* DECODE: each step scatters its new K/V into their physical pages first,
-  then attends through :func:`~..ops.kernels.paged_attention.paged_attention`,
-  which walks the page table itself (the CUDA kernel on the card, the plain
-  version on the CPU). A chunk of ``chunk`` steps is one device-only
+* DECODE: each paged step scatters its new K/V into their physical pages
+  first, then attends through
+  :func:`~..ops.kernels.paged_attention.paged_attention`, which walks the
+  page table itself (the CUDA kernel on the card, the plain version on the
+  CPU); ``fused_kernels=False`` attends through ``paged_attention_plain``
+  instead, on either device, as the reference's kernel-off engine attends
+  through its gathered view. A chunk of ``chunk`` steps is one device-only
   program, :meth:`BatchDecodeEngine._decode_body`: it reads the static
   per-slot buffers and writes its results into them and into a static
   ``packed [slots, chunk+1]`` payload, and it never reads a value back.
 * PROGRAMS (:meth:`BatchDecodeEngine._program`, the counterpart of the
-  reference's registry :1066-1106): ``"decode"`` and, with speculative
-  decoding, ``"draft_k<k>"`` and ``"verify_k<k>"``. On the CPU a program is
-  its body, called directly. On CUDA its first call runs the body eagerly
-  on a side stream and then captures it as a ``torch.cuda.CUDAGraph``
+  reference's registry :1066-1106): ``"decode"`` (paged) or
+  ``"decode_contig"`` (contiguous) and, with speculative decoding,
+  ``"draft_k<k>"`` and ``"verify_k<k>"``. On the CPU a program is its body,
+  called directly. On CUDA its first call runs the body eagerly on a side
+  stream and then captures it as a ``torch.cuda.CUDAGraph``
   (:class:`_CapturedProgram`); every later call replays the graph. The
   whole decode chunk is one graph, the reference's one program per chunk,
   followed by the chunk's ONE host readback. There is no switch and no
   return to the eager loop: a capture that fails raises.
-* SPECULATIVE DECODING (``draft=``, ``spec_k=``; :mod:`.speculative`): a
-  draft proposes ``k`` greedy tokens per slot and the engine's own paged
-  forward verifies them at W = k+1 (the kernel with ``k+1`` query rows per
-  slot); greedy requests only.
+* SPECULATIVE DECODING (``draft=``, ``spec_k=``, ``draft_quant=``;
+  :mod:`.speculative`): a draft proposes ``k`` greedy tokens per slot and
+  the engine's own paged forward verifies them at W = k+1 (the kernel with
+  ``k+1`` query rows per slot); greedy requests only.
 * The pools, the page table and the slot state are updated IN PLACE
   (``index_put_`` / ``copy_``) where the reference donated its buffers to
   XLA; that is also what lets a captured graph replay over them.
@@ -60,14 +80,16 @@ Head dims that the reference's kernel gate refuses (neither a multiple of
 128 nor 8/16/32/64) never reach a TPU kernel there; here they decode through
 the plain paged attention on either device (the kernel counters stay 0).
 
-Options the port does not serve yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them; none is silently ignored.
+Options the port does not serve yet (``bundle=``, ``mesh=`` / ``plan=``)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them;
+none is silently ignored.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -77,6 +99,8 @@ import torch
 from ..core.flags import flag_value
 from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
+from ..nn.quant import quantized_view
+from ..nn.quant.quantized_linear import _q127
 from ..ops.kernels import _build
 from ..ops.kernels import paged_attention as _pa
 from .kv_pool import (
@@ -94,6 +118,10 @@ from .robustness import KVCapacityError
 _log = logging.getLogger(__name__)
 
 
+def _bucket(n: int, q: int = 128) -> int:
+    return -(-n // q) * q
+
+
 def not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported to paddlepaddle_tpu_torch yet "
@@ -105,13 +133,16 @@ def not_ported(option: str, item: str) -> NotImplementedError:
 # ([num_pages, kvh] beside the pool), codes are int8 in [-127, 127], and a
 # value reads back as ``codes * scale`` in f32. torch.round and jnp.round
 # both round half to even, so codes and scales are bit-equal to the
-# reference's.
+# reference's. The divisions by 127 divide by a device tensor: PyTorch's
+# CUDA division by a Python scalar multiplies by its reciprocal, which
+# rounds differently.
 
 def _kv_quant_pages(x: torch.Tensor):
     """Quantize whole pages ``x [npg, ps, kvh, hd]`` (f32): per-(page, head)
     absmax scale. Rows past the prompt must already be zero so that padding
     never inflates a scale. Returns ``(codes int8, scale f32 [npg, kvh])``."""
-    scale = x.abs().amax(dim=(1, 3)) / 127.0
+    amax = x.abs().amax(dim=(1, 3))
+    scale = amax / _q127(amax)
     codes = torch.round(x / scale.clamp_min(1e-20)[:, None, :, None])
     return codes.clamp_(-127, 127).to(torch.int8), scale
 
@@ -144,7 +175,8 @@ def _kv_quant_scatter(codes: torch.Tensor, scales: torch.Tensor,
         pw, ow = phys[:, w], off[:, w]
         new = new_rows[:, w]                                 # [S, kvh, hd]
         old_scale = scales[pw]                               # [S, kvh]
-        new_scale = torch.maximum(old_scale, new.abs().amax(dim=-1) / 127.0)
+        amax = new.abs().amax(dim=-1)
+        new_scale = torch.maximum(old_scale, amax / _q127(amax))
         safe = new_scale.clamp_min(1e-20)
         q_new = torch.round(new / safe[..., None]).clamp_(-127, 127)
         page = codes[pw].float()                             # [S, ps, kvh, hd]
@@ -281,48 +313,58 @@ class _CapturedProgram:
 
 class BatchDecodeEngine:
     """Slot-based continuous-batching decoder for a port
-    ``LlamaForCausalLM``. ``device=None`` means the card (raises without
-    CUDA); the model must already live on that device. ``draft=`` (a port
-    ``LlamaForCausalLM``, the target itself included, or a ``LlamaConfig``
-    built on the engine's device from ``seed``) with ``spec_k=`` arms
-    speculative decoding."""
+    ``LlamaForCausalLM``, in the reference's parameter order (:226-235);
+    ``device`` and ``seed`` are keyword-only. ``device=None`` means the
+    card (raises without CUDA); the model must already live on that
+    device. ``draft=`` (a port ``LlamaForCausalLM``, the target itself
+    included, or a ``LlamaConfig`` built on the engine's device from
+    ``seed``) with ``spec_k=`` arms speculative decoding.
+    ``fused_kernels``: ``None`` or ``True`` attend through the paged kernel
+    (on the card), ``False`` through its plain version."""
 
     TOP_K_CAP = 128  # bound for the per-slot top-k filter
 
     def __init__(self, model, max_slots: int = 16, max_len: Optional[int] = None,
                  chunk: int = 16, quant: Optional[str] = None,
-                 kv_layout: str = "paged", page_size: int = 64,
-                 num_pages: Optional[int] = None, prefix_cache: bool = True,
-                 mesh=None, plan=None, bundle: Optional[str] = None,
-                 draft=None, spec_k: int = 0,
+                 quant_group_size: int = -1, kv_layout: str = "paged",
+                 page_size: int = 64, num_pages: Optional[int] = None,
+                 prefix_cache: bool = True, mesh=None, plan=None,
+                 bundle: Optional[str] = None, draft=None, spec_k: int = 0,
                  draft_quant: Optional[str] = None,
+                 fused_kernels: Optional[bool] = None,
                  kv_quant: Optional[str] = None,
-                 kv_host_bytes: Optional[int] = None,
+                 kv_host_bytes: Optional[int] = None, *,
                  device: DeviceLike = None, seed: int = 0):
         if kv_layout not in ("paged", "contiguous"):
             raise ValueError(
                 f"kv_layout must be 'paged' or 'contiguous', got {kv_layout!r}")
+        paged = kv_layout == "paged"
+        self.kv_layout = kv_layout
         spec = draft is not None or bool(spec_k)
         if spec:
             if draft is None or not spec_k:
                 raise ValueError(
                     "speculative decoding needs BOTH draft= (a small model "
                     "or its config) and spec_k= (proposals per target step)")
-            if kv_layout != "paged":
+            if not paged:
                 raise ValueError(
                     "speculative decoding requires kv_layout='paged' — the "
                     "page-table indirection IS the KV rollback mechanism")
-            if draft_quant is not None:
-                raise not_ported(f"draft_quant={draft_quant!r}", "A4.3")
-        if kv_layout == "contiguous":
-            raise not_ported("kv_layout='contiguous'", "A4.2")
-        if quant is not None:
-            raise not_ported(f"quant={quant!r}", "A4.3")
+        if quant is not None and quant != "weight_only_int8":
+            raise ValueError(
+                f"quant={quant!r}: 'weight_only_int8' is the supported "
+                "decode-engine scheme (int4/PTQ honestly absent — "
+                "PARITY.md)")
         if bundle is not None:
             raise not_ported("bundle=", "A6")
         if mesh is not None or plan is not None:
             raise not_ported("tensor-parallel serving (mesh=/plan=)", "A10")
         self.kv_quant = _resolve_kv_quant(kv_quant)
+        if self.kv_quant is not None and not paged:
+            raise ValueError(
+                "kv_quant='int8' needs kv_layout='paged' — scales ride the "
+                "page pool; the contiguous layout is the full-precision "
+                "parity baseline")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -330,6 +372,14 @@ class BatchDecodeEngine:
         cfg = model.config
         self.model = model
         self.cfg = cfg
+        # weight-only int8: quantized ONCE here, into a view of the model
+        # that every program below runs; the model itself is not changed
+        self.quant = quant
+        self.quant_meta: Dict[str, object] = {}
+        self.net = model
+        if quant is not None:
+            self.net, self.quant_meta = quantized_view(
+                model, algo=quant, group_size=quant_group_size)
         self.S = int(max_slots)
         self.L = int(max_len or cfg.max_position_embeddings)
         if self.L > cfg.max_position_embeddings:
@@ -337,63 +387,55 @@ class BatchDecodeEngine:
                              f"max_position_embeddings "
                              f"{cfg.max_position_embeddings}")
         self.chunk = int(chunk)
-        self.page_size = int(page_size)
-        if self.page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
-        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       cfg.head_dim)
+        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
         dtype = model.dtype
         self._kv_dtype = dtype     # scratch / dequant dtype, also under int8
-        self.kernel = "plain"
-        self._attend = _pa.paged_attention
-        if self.device.type == "cuda":
-            if _pa.reference_kernel_head_dim(hd):
-                # resolved once here, for every W this engine launches (1,
-                # and k+1 under speculation): an unsupported config raises
-                # now, never a quiet downgrade to the plain version later
-                for w in (1, int(spec_k) + 1) if spec else (1,):
-                    ok, reason = _pa.paged_attention_supported(
-                        page_size=self.page_size, head_dim=hd, num_heads=nh,
-                        num_kv_heads=kvh, dtype=dtype, w=w,
-                        kv_quant=self.kv_quant)
-                    if not ok:
-                        raise ValueError(
-                            f"paged-attention kernel does not take this "
-                            f"engine configuration at W={w}: {reason}" +
-                            (" (the TPU kernel takes it: open coverage of "
-                             "ROADMAP queue B row 1)" if w > 1 else ""))
-                _build.check_device(self.device)
-                _pa.build()
-                self.kernel = "cuda"
-            else:
-                # a head dim the reference's gate never sends to a kernel
-                self._attend = _pa.paged_attention_plain
-        self.P = pages_needed(self.L, self.page_size)        # pages per slot
-        n_pages = self.S * self.P + 1 if num_pages is None else int(num_pages)
-        self.pool = PagePool(n_pages, self.page_size)
-        self.prefix = PrefixCache()
-        self.prefix_enabled = bool(prefix_cache)
         dev = self.device
-        shape = (n_pages, self.page_size, kvh, hd)
-
-        def pool():
-            if self.kv_quant == "int8":
-                return (torch.zeros(shape, dtype=torch.int8, device=dev),
-                        torch.zeros((n_pages, kvh), dtype=torch.float32,
-                                    device=dev))
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        # per layer (K, V); under int8 each is (codes, scale)
-        self.caches = [(pool(), pool()) for _ in range(cfg.num_hidden_layers)]
-        self.page_table = torch.zeros((self.S, self.P), dtype=torch.int32,
-                                      device=dev)
+        self.kv_host = None
         self._slot_pages: List[List[int]] = [[] for _ in range(self.S)]
         self._slot_prefix: List[Optional[str]] = [None] * self.S
-        # host-RAM prefix spill tier: only where there are prefixes to spill
-        if kv_host_bytes is None:
-            kv_host_bytes = int(flag_value("serving_kv_host_bytes") or 0)
-        self.kv_host = (HostPrefixTier(int(kv_host_bytes))
-                        if kv_host_bytes and prefix_cache else None)
+        if paged:
+            self.page_size = int(page_size)
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self.P = pages_needed(self.L, self.page_size)    # pages per slot
+            n_pages = (self.S * self.P + 1 if num_pages is None
+                       else int(num_pages))
+            self.pool = PagePool(n_pages, self.page_size)
+            self.prefix = PrefixCache()
+            self.prefix_enabled = bool(prefix_cache)
+            shape = (n_pages, self.page_size, kvh, hd)
+
+            def pool():
+                if self.kv_quant == "int8":
+                    return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                            torch.zeros((n_pages, kvh), dtype=torch.float32,
+                                        device=dev))
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            # per layer (K, V); under int8 each is (codes, scale)
+            self.caches = [(pool(), pool())
+                           for _ in range(cfg.num_hidden_layers)]
+            self.page_table = torch.zeros((self.S, self.P),
+                                          dtype=torch.int32, device=dev)
+            # host-RAM prefix spill tier: only where there are prefixes
+            if kv_host_bytes is None:
+                kv_host_bytes = int(flag_value("serving_kv_host_bytes") or 0)
+            if kv_host_bytes and prefix_cache:
+                self.kv_host = HostPrefixTier(int(kv_host_bytes))
+        else:
+            self.page_size = 0
+            self.P = 0
+            self.pool = None
+            self.prefix = None
+            self.prefix_enabled = False
+            self.page_table = None
+            shape = (self.S, self.L, kvh, hd)
+            self.caches = [(torch.zeros(shape, dtype=dtype, device=dev),
+                            torch.zeros(shape, dtype=dtype, device=dev))
+                           for _ in range(cfg.num_hidden_layers)]
+        self._resolve_attention(fused_kernels, paged, spec, spec_k)
+        self._decode_key = "decode" if paged else "decode_contig"
         self._restore_ms: List[float] = []
         # device-resident per-slot state
         i32 = dict(dtype=torch.int32, device=dev)
@@ -423,12 +465,89 @@ class BatchDecodeEngine:
         if spec:
             from .speculative import SpeculativeDecoder
 
-            self.spec = SpeculativeDecoder(self, draft, spec_k, seed=seed)
+            self.spec = SpeculativeDecoder(self, draft, spec_k, draft_quant,
+                                           seed=seed)
             self._spec_steps_per_chunk = max(
                 1, self.chunk // (self.spec.k + 1))
             # one verify payload per outer step, read back once a chunk
             self._spec_packed = torch.zeros(
                 (self.S, self._spec_steps_per_chunk, self.spec.k + 3), **i32)
+
+    def _resolve_attention(self, fused_kernels: Optional[bool], paged: bool,
+                           spec: bool, spec_k: int) -> None:
+        """How decode attends, resolved once (reference ``_resolve_fused``
+        :598-639): the paged kernel, its plain version, or (contiguous) the
+        model's own cached attention. ``self.fused`` is the reference's
+        ``health()["fused"]`` block. On the card the kernel's support check
+        runs here for every W this engine launches (1, and k+1 under
+        speculation): a configuration the kernel does not take raises now,
+        never a quiet downgrade later."""
+        cfg = self.cfg
+        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        want = fused_kernels is None or bool(fused_kernels)
+        self.kernel = "plain"
+        self._attend = _pa.paged_attention
+        self.fused = {"enabled": False, "paged_attention": "off"}
+        if not paged:
+            self._attend = None
+            if want:
+                reason = "kv_layout contiguous (no page table)"
+                self.fused["paged_attention"] = f"fallback: {reason}"
+                if fused_kernels:
+                    sys.stderr.write(
+                        f"[serving] fused paged-attention kernel "
+                        f"unavailable ({reason}); serving the model's "
+                        "cached attention\n")
+            return
+        if not want:
+            self._attend = _pa.paged_attention_plain
+            return
+        if self.device.type != "cuda":
+            # the wrapper's plain version serves CPU tensors
+            self.fused = {"enabled": True, "paged_attention": "plain (cpu)"}
+            return
+        if not _pa.reference_kernel_head_dim(hd):
+            # a head dim the reference's gate never sends to a kernel
+            self._attend = _pa.paged_attention_plain
+            self.fused["paged_attention"] = (
+                f"fallback: head_dim {hd} (the reference's gate refuses it)")
+            return
+        for w in (1, int(spec_k) + 1) if spec else (1,):
+            ok, reason = _pa.paged_attention_supported(
+                page_size=self.page_size, head_dim=hd, num_heads=nh,
+                num_kv_heads=kvh, dtype=self._kv_dtype, w=w,
+                kv_quant=self.kv_quant)
+            if not ok:
+                raise ValueError(
+                    f"paged-attention kernel does not take this engine "
+                    f"configuration at W={w}: {reason}" +
+                    (" (the TPU kernel takes it: open coverage of ROADMAP "
+                     "queue B row 1)" if w > 1 else ""))
+        _build.check_device(self.device)
+        _pa.build()
+        self.kernel = "cuda"
+        self.fused = {"enabled": True, "paged_attention": "cuda"}
+
+    def fused_info(self) -> Dict[str, object]:
+        """``health()["fused"]``: which kernel this engine decodes through,
+        and why not when it does not."""
+        return dict(self.fused)
+
+    def spec_info(self) -> Dict[str, object]:
+        """``health()["spec"]``: ``{"enabled": False}`` without a draft."""
+        return {"enabled": False} if self.spec is None else self.spec.info()
+
+    def mesh_info(self) -> Dict[str, object]:
+        """``health()["mesh"]``: single card (mesh serving is A10)."""
+        return {"enabled": False}
+
+    def compile_info(self) -> Dict[str, object]:
+        """``health()["compile"]``: the programs built so far and their
+        captures (the compile plan, warmup and bundles are A6)."""
+        return {"programs_built": len(self._programs),
+                "captured": self.capture_info(),
+                "bundle": {"loaded": False}}
 
     # -- KV observability ----------------------------------------------------
     def _restore_percentile(self, q: float) -> Optional[float]:
@@ -448,6 +567,9 @@ class BatchDecodeEngine:
         quant = self.kv_quant == "int8"
         itemsize = 1 if quant else self._kv_dtype.itemsize
         per_tok = 2 * kvh * hd * itemsize * nl
+        if self.kv_layout != "paged":
+            return {"layout": "contiguous",
+                    "kv_bytes": int(self.S * self.L * per_tok)}
         scale_bytes = 2 * kvh * 4 * nl if quant else 0
         page_bytes = int(self.page_size * per_tok + scale_bytes)
         pool, pfx = self.pool, self.prefix
@@ -501,7 +623,7 @@ class BatchDecodeEngine:
         phys = torch.where(pos < L, self.page_table.gather(1, page_idx).long(),
                            0)
         off = pos % ps
-        mdl = self.model.model
+        mdl = self.net.model
         x = mdl.embed_tokens(toks.long())
         # rope rows for this step's positions, shared by every layer
         c, s = rope_at(mdl.rope_cos, mdl.rope_sin, lens, W, x.dtype)
@@ -527,7 +649,16 @@ class BatchDecodeEngine:
                                    scale=scale)
             x = x + attn.o_proj(out.reshape(S, W, nh * hd))
             x = x + layer.mlp(layer.post_attention_layernorm(x))
-        return self.model.logits(mdl.norm(x))
+        return self.net.logits(mdl.norm(x))
+
+    def _forward_contiguous(self, toks: torch.Tensor,
+                            lens: torch.Tensor) -> torch.Tensor:
+        """The contiguous layout's step (reference ``_forward`` :648 at a
+        per-slot ``pos``): the model's own cached attention writes each
+        slot's new K/V at ``lens`` in place and attends over that slot's
+        valid prefix. Device-only. Returns logits ``[S, W, V]``."""
+        hidden, _ = self.net.model(toks.long(), caches=self.caches, pos=lens)
+        return self.net.logits(hidden)
 
     def _sample(self, rows: torch.Tensor, temps: torch.Tensor,
                 top_ks: torch.Tensor) -> torch.Tensor:
@@ -600,8 +731,8 @@ class BatchDecodeEngine:
                         else c[pfx]).reshape(aligned, kvh, hd)
                 pair.append(buf)
             scratch.append(tuple(pair))
-        hidden, scratch = self.model.model(ids_t, caches=scratch, pos=aligned)
-        row = self.model.logits(hidden[:, tail - 1]).float()   # [1, V]
+        hidden, scratch = self.net.model(ids_t, caches=scratch, pos=aligned)
+        row = self.net.logits(hidden[:, tail - 1]).float()     # [1, V]
         first = self._sample(
             row, torch.full((1,), temp, dtype=torch.float32, device=dev),
             torch.full((1,), top_k, dtype=torch.int32, device=dev))[0]
@@ -619,6 +750,39 @@ class BatchDecodeEngine:
                     c[1][dest] = scale
                 else:
                     c[dest] = pages
+        self._set_slot_state(slot, plen, temp, eos, budget, top_k, first)
+        return first
+
+    def _admit_contiguous_impl(self, ids: np.ndarray, slot: int, temp: float,
+                               eos: int, budget: int,
+                               top_k: int) -> torch.Tensor:
+        """Contiguous admission (reference ``_admit_impl`` :853-878): the
+        prompt padded to its 128 bucket (capped at ``max_len``) prefilled
+        through a scratch cache, the first token sampled from row
+        ``plen - 1``, and the bucket's K/V rows written into the slot. Rows
+        past the prompt hold the padding's K/V; no query reads them before
+        decode has written its own there."""
+        dev = self.device
+        plen = ids.shape[1]
+        bucket = min(_bucket(plen), self.L)
+        cfg = self.cfg
+        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :plen] = ids[0]
+        ids_t = torch.from_numpy(padded).to(dev)
+        scratch = [(torch.zeros((1, bucket, kvh, hd), dtype=self._kv_dtype,
+                                device=dev),
+                    torch.zeros((1, bucket, kvh, hd), dtype=self._kv_dtype,
+                                device=dev))
+                   for _ in range(cfg.num_hidden_layers)]
+        hidden, scratch = self.net.model(ids_t, caches=scratch, pos=0)
+        row = self.net.logits(hidden[:, plen - 1]).float()     # [1, V]
+        first = self._sample(
+            row, torch.full((1,), temp, dtype=torch.float32, device=dev),
+            torch.full((1,), top_k, dtype=torch.int32, device=dev))[0]
+        for (kc, vc), (ks, vs) in zip(self.caches, scratch):
+            kc[slot, :bucket] = ks[0]
+            vc[slot, :bucket] = vs[0]
         self._set_slot_state(slot, plen, temp, eos, budget, top_k, first)
         return first
 
@@ -768,6 +932,11 @@ class BatchDecodeEngine:
                 "greedy acceptance is token-exact for temperature 0 only "
                 "(sampling-correct rejection resampling is a planned seam) "
                 "— send temperature=0 or serve without spec_k")
+        eos_i = -1 if eos is None else int(eos)
+        if self.kv_layout != "paged":
+            first = self._admit_contiguous_impl(
+                ids, slot, temp, eos_i, int(req.max_new_tokens), top_k)
+            return self._admitted(req, slot, first)
         aligned, n_pfx, h, entry = self._prefix_plan(req, ids, plen)
         hit = entry is not None
         slab = None
@@ -812,8 +981,8 @@ class BatchDecodeEngine:
         self.page_table[slot] = torch.from_numpy(row).to(self.device)
         try:
             first = self._admit_paged_impl(
-                ids, slot, temp, -1 if eos is None else int(eos),
-                int(req.max_new_tokens), top_k, n_pfx if hit else 0)
+                ids, slot, temp, eos_i, int(req.max_new_tokens), top_k,
+                n_pfx if hit else 0)
         except BaseException:
             # the reservation must not outlive a failed admission
             self._release_kv(slot)
@@ -836,6 +1005,10 @@ class BatchDecodeEngine:
                 # lane and return the pages, or the reservation leaks
                 self.reset_slots([slot])
                 raise
+        return self._admitted(req, slot, first)
+
+    def _admitted(self, req, slot: int, first: torch.Tensor) -> bool:
+        """Host bookkeeping of an admission that succeeded."""
         self._host_slots[slot] = _Slot(req, budget=int(req.max_new_tokens))
         self.stats["peak_busy"] = max(self.stats["peak_busy"],
                                       self.busy_slots())
@@ -847,7 +1020,10 @@ class BatchDecodeEngine:
     def _release_kv(self, slot: int, zero_row: bool = True) -> None:
         """Return a slot's private pages to the free list, drop its prefix
         ref, and (by default) zero its page-table row so later decode
-        writes land in the null page. Idempotent."""
+        writes land in the null page. Idempotent; nothing to return under
+        the contiguous layout."""
+        if self.kv_layout != "paged":
+            return
         pages = self._slot_pages[slot]
         if pages:
             self.pool.free(pages)
@@ -912,16 +1088,21 @@ class BatchDecodeEngine:
             self._first_pending.clear()
             for i in range(self.S):
                 self._release_kv(i, zero_row=False)
-            self.page_table.zero_()
+            if self.page_table is not None:
+                self.page_table.zero_()
         else:
             for i in slots:
                 self.active[int(i)] = False
                 self._first_pending.pop(int(i), None)
                 self._release_kv(int(i))
 
-    def release_slot(self, slot: int) -> None:
-        """Free one slot without delivering a result (the caller owns the
-        request's future)."""
+    def release_slot(self, slot: int, reason: str = "cancel") -> None:
+        """Free one slot without delivering a result: the cancellation and
+        deadline path (reference :1792). The device lane goes inactive, in
+        place, so a captured chunk replays over the same storage; the
+        pages return; the caller owns failing the request's future.
+        ``reason`` names the goodput kind the slot's decoded tokens are
+        wasted as, recorded once the goodput ledger is ported (A8)."""
         self.reset_slots([slot])
         self._host_slots[int(slot)] = _Slot()
 
@@ -939,14 +1120,16 @@ class BatchDecodeEngine:
         tokens, lens, active, budgets = (self.tokens, self.lens, self.active,
                                          self.budgets)
         temps, top_ks, eos_ids = self.temps, self.top_ks, self.eos_ids
+        step = (self._forward_paged if self.kv_layout == "paged"
+                else self._forward_contiguous)
         for t in range(self.chunk):
-            rows = self._forward_paged(tokens[:, None], lens)[:, 0].float()
+            rows = step(tokens[:, None], lens)[:, 0].float()
             nxt = self._sample(rows, temps, top_ks)
             nxt = torch.where(active, nxt, tokens)     # frozen when inactive
-            step = active.to(torch.int32)
+            live = active.to(torch.int32)
             self.packed[:, t].copy_(torch.where(active, nxt, -1))
-            lens.add_(step)
-            budgets.sub_(step)
+            lens.add_(live)
+            budgets.sub_(live)
             active.logical_and_(~((eos_ids >= 0) & (nxt == eos_ids))
                                 & (budgets > 0))
             tokens.copy_(nxt)
@@ -957,14 +1140,15 @@ class BatchDecodeEngine:
         CPU, the body captured as a CUDA graph on the card."""
         k = self.spec.k if self.spec is not None else None
         gens = ()
-        if key == "decode":
+        if key == self._decode_key:
             body, gens = self._decode_body, (self.gen,)
         elif k is not None and key == f"draft_k{k}":
             body = self.spec.draft_body
         elif k is not None and key == f"verify_k{k}":
             body = self.spec.verify_body
         else:
-            raise ValueError(f"unrecognized program key {key!r} (decode, or "
+            raise ValueError(f"unrecognized program key {key!r} (decode, "
+                             "decode_contig under kv_layout='contiguous', or "
                              "draft_k<k> / verify_k<k> with spec_k=k armed)")
         if self.device.type != "cuda":
             return body
@@ -989,17 +1173,18 @@ class BatchDecodeEngine:
     # -- host loop -----------------------------------------------------------
     @torch.no_grad()
     def _decode_chunk(self) -> None:
-        """One decode chunk: the ``"decode"`` program (a graph replay on the
-        card), then ONE readback of the packed ``[slots, chunk+1]``
-        payload, then the host's emit / retire bookkeeping. With
-        speculative decoding armed, the spec chunk instead."""
+        """One decode chunk: the ``"decode"`` (``"decode_contig"``)
+        program (a graph replay on the card), then ONE readback of the
+        packed ``[slots, chunk+1]`` payload, then the host's emit / retire
+        bookkeeping. With speculative decoding armed, the spec chunk
+        instead."""
         if self.spec is not None:
             return self._spec_chunk()
         # first tokens of this cycle's admissions reach the host before the
         # chunk is queued, so time-to-first-token excludes the chunk
         self._collect_firsts()
         t0 = time.perf_counter()
-        self._program("decode")()
+        self._program(self._decode_key)()
         pk = self.packed.cpu().numpy()                 # the ONE sync per chunk
         self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
         del self.chunk_ms[:-512]

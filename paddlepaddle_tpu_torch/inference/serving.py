@@ -1,31 +1,48 @@
-"""Serving engine — request queue + continuous-batching decode, with the
-admission checks and circuit breaker of the reference.
+"""Serving engine — request queue + batched decode, wrapped in the
+reference's overload-and-failure protection layer.
 
-Port of ``paddlepaddle_tpu/inference/serving.py`` in ``mode="continuous"``:
-one engine thread owns the device; callers ``submit()`` requests into a
-queue and get :class:`GenerationResult` futures. The thread admits queued
-requests into free decode slots of :class:`~.decode_engine.BatchDecodeEngine`
-mid-flight, runs decode chunks, and the engine delivers each future when its
-slot retires.
+Port of ``paddlepaddle_tpu/inference/serving.py``. One engine thread owns
+the device; callers ``submit()`` requests into a queue and get
+:class:`GenerationResult` futures. Two schedulers:
 
-Ported: ``submit`` (with ``prefix_len`` for shared-prefix hits) /
-``generate`` / ``start`` / ``stop`` / context manager, the engine's
-``prefix_cache`` / ``kv_quant`` / ``kv_host_bytes`` options, speculative
-decoding (``draft=`` / ``spec_k=``, greedy requests only), the
-``_check_admission`` validation with typed ``RequestValidationError`` /
-``KVCapacityError`` / ``ServerOverloadedError`` / ``CircuitOpenError``,
-``max_queue`` / ``max_queue_wait_s`` shedding, and the breaker's success and
-failure bookkeeping around each decode chunk (a failed chunk fails its
-requests' futures). Deadlines, cancellation, drain/SIGTERM, the hang
-watchdog, observability hooks and static mode raise ``NotImplementedError``
-(ROADMAP A4.6) when asked for; so does a quantized draft (``draft_quant``,
-A4.3).
+* ``mode="continuous"`` (default): slot-based continuous batching over
+  :class:`~.decode_engine.BatchDecodeEngine`. The thread admits queued
+  requests into free decode slots mid-flight, runs decode chunks, and the
+  engine delivers each future when its slot retires. Every engine option
+  passes through (``quant`` / ``quant_group_size``, ``kv_layout``, the
+  paged pool, prefix hits, int8 KV, the host tier, speculative decoding
+  with ``draft_quant``, ``fused_kernels``).
+* ``mode="static"``: groups compatible requests (same prompt length and
+  sampling parameters, :meth:`GenerationRequest.batch_key`) into one
+  ``model.generate_cached`` call. No streaming: TTFT is the whole batch's
+  latency and TPOT is None.
+
+The protection layer (robustness.py), all opt-in except the breaker:
+admission checks with typed errors; ``max_queue`` / ``max_queue_wait_s``
+shedding; per-request deadlines (``submit(deadline_s=)``,
+``default_deadline_s``), shed while queued and released mid-decode;
+``GenerationResult.cancel()``; the circuit breaker around each decode
+attempt, with the hang watchdog (``decode_timeout_s``) that trips it;
+``drain(timeout)`` and ``install_preemption_hook()`` (SIGTERM drains
+before exit 143); and ``health()``, the readiness snapshot.
+
+A decode chunk on the card is a CUDA-graph replay that returns at once;
+the chunk ends at its one readback. The watchdog times each attempt from
+before the replay to after that readback, so a hung chunk shows as an
+attempt in flight.
+
+Not ported: ``bundle=`` (ROADMAP A6), ``mesh=`` / ``plan=`` (A10), and the
+observability hooks (A8): ``submit(trace=)`` raises, the metric writes go
+to the no-op ``safe_inc`` / ``safe_set``, and ``health()`` reads the
+blocks those planes fill as the reference reads them with observability
+off.
 """
 
 from __future__ import annotations
 
 import itertools
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -40,11 +57,18 @@ from .kv_pool import pages_needed
 from .robustness import (
     CircuitBreaker,
     CircuitOpenError,
+    DeadlineExceededError,
+    EngineDrainingError,
     KVCapacityError,
     QueueWaitEstimator,
+    RequestCancelledError,
     RequestValidationError,
     ServerOverloadedError,
+    safe_inc,
+    safe_set,
 )
+
+_BREAKER_STATE_NUM = {"closed": 0, "half_open": 1, "open": 2}
 
 _REQ_IDS = itertools.count(1)
 
@@ -56,9 +80,12 @@ class GenerationResult:
 
     def __init__(self):
         self._event = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()   # one writer wins: a delivery racing
+        #   a client cancel() must not tear the outcome
         self._output = None
         self._error: Optional[BaseException] = None
+        self._cancelled = False
+        self._cancel_kind = "cancel"   # goodput kind a cancel wastes as
         self._t_submit = time.perf_counter()
         self._t_admit: Optional[float] = None
         self._t_first: Optional[float] = None
@@ -68,9 +95,28 @@ class GenerationResult:
         # speculative chunk's tokens landed with the first one
         self._n_at_first = 1
         self._req_id: Optional[int] = None
+        self._deadline: Optional[float] = None   # absolute monotonic
+        self._streaming = True    # False: tokens arrive as one batch
+        #                           (static mode), so TPOT is undefined
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+    def cancel(self, reason: str = "cancel") -> bool:
+        """Cancel the request (reference :180-195): the future fails with
+        :class:`RequestCancelledError` now, a queued request is dropped when
+        popped, and an in-flight decode slot is released on the next
+        scheduler cycle. True if the request had not finished. ``reason``
+        names the goodput kind the abandoned tokens count as."""
+        self._cancelled = True
+        self._cancel_kind = reason
+        if self._event.is_set():
+            return False
+        self._set(error=RequestCancelledError("request cancelled by client"))
+        return True
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self._event.wait(timeout):
@@ -82,7 +128,8 @@ class GenerationResult:
     def slo(self) -> Dict[str, object]:
         """Per-request SLO numbers (None where the lifecycle point was never
         reached). TPOT is the per-token average over the tokens that
-        arrived after the first one (reference :227-252)."""
+        arrived after the first one, and None in static mode, where there
+        is no streaming (reference :227-252)."""
         end, t_first = self._t_done, self._t_first
         return {
             "req_id": self._req_id,
@@ -91,7 +138,8 @@ class GenerationResult:
                              else self._t_admit - self._t_submit),
             "ttft_s": None if t_first is None else t_first - self._t_submit,
             "tpot_s": (None if (t_first is None or end is None
-                                or self._n_new <= self._n_at_first)
+                                or self._n_new <= self._n_at_first
+                                or not self._streaming)
                        else (end - t_first)
                        / (self._n_new - self._n_at_first)),
             "latency_s": None if end is None else end - self._t_submit,
@@ -135,14 +183,12 @@ def slo_summary(results) -> Dict[str, Optional[float]]:
 
 
 class GenerationRequest:
-    """One request, in the reference's parameter order (:346). A
-    ``deadline`` that is not None raises until deadlines are ported."""
+    """One request, in the reference's parameter order (:346). ``deadline``
+    is an absolute ``time.monotonic()`` time, or None."""
 
     def __init__(self, prompt_ids, max_new_tokens, temperature=0.0, top_k=0,
                  eos_token_id=None, deadline: Optional[float] = None,
                  prefix_len: Optional[int] = None):
-        if deadline is not None:
-            raise not_ported("deadline", "A4.6")
         arr = np.asarray(prompt_ids, np.int32)
         if arr.ndim == 2 and arr.shape[0] == 1:
             arr = arr[0]
@@ -155,10 +201,18 @@ class GenerationRequest:
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.eos_token_id = eos_token_id
+        self.deadline = deadline
         self.prefix_len = None if prefix_len is None else int(prefix_len)
         self.id = next(_REQ_IDS)
         self.result = GenerationResult()
         self.result._req_id = self.id
+        self.result._deadline = deadline
+
+    def batch_key(self):
+        """Static-mode batching: one prompt length and one sampling
+        configuration share a ``generate_cached`` call."""
+        return (self.prompt_ids.shape[1], self.temperature, self.top_k,
+                self.eos_token_id)
 
 
 def _flag_or(value, flag_name, off_value=0):
@@ -170,8 +224,10 @@ def _flag_or(value, flag_name, off_value=0):
 
 
 class ServingEngine:
-    """Continuous-batching generation server over a port
-    ``LlamaForCausalLM``. ``device=None`` means the card."""
+    """Batched generation server over a port ``LlamaForCausalLM``, in the
+    reference's parameter order (:392-417); ``device`` and ``seed`` are
+    keyword-only and reach the continuous engine (``device=None`` means the
+    card). Static mode decodes on the device the model lives on."""
 
     def __init__(self, model, max_batch_size: int = 8,
                  max_wait_ms: float = 5.0, mode: str = "continuous",
@@ -185,6 +241,7 @@ class ServingEngine:
                  drain_timeout_s: Optional[float] = None,
                  drain_on_sigterm: bool = False,
                  quant: Optional[str] = None,
+                 quant_group_size: int = -1,
                  kv_layout: str = "paged",
                  kv_page_size: int = 64,
                  kv_num_pages: Optional[int] = None,
@@ -192,26 +249,40 @@ class ServingEngine:
                  mesh=None, plan=None, bundle: Optional[str] = None,
                  draft=None, spec_k: int = 0,
                  draft_quant: Optional[str] = None,
+                 fused_kernels: Optional[bool] = None,
                  kv_quant: Optional[str] = None,
-                 kv_host_bytes: Optional[int] = None,
+                 kv_host_bytes: Optional[int] = None, *,
                  device: DeviceLike = None, seed: int = 0):
         if mode not in ("continuous", "static"):
             raise ValueError(
                 f"mode must be 'continuous' or 'static', got {mode!r}")
+        if (kv_quant not in (None, "", "off")
+                or kv_host_bytes) and mode != "continuous":
+            raise ValueError(
+                "kv_quant/kv_host_bytes require the continuous engine — "
+                "the paged KV pool (int8 pages, host spill tier) lives "
+                "there; static mode decodes through generate_cached")
         if (draft is not None or spec_k) and mode != "continuous":
             raise ValueError(
                 "speculative decoding (draft=/spec_k=) requires the "
                 "continuous engine — static mode decodes through the "
                 "model's own generate_cached")
-        if mode == "static":
-            raise not_ported("mode='static'", "A4.6")
-        for name, value in (("default_deadline_s", default_deadline_s),
-                            ("decode_timeout_s", decode_timeout_s),
-                            ("drain_timeout_s", drain_timeout_s)):
-            if value:
-                raise not_ported(name, "A4.6")
-        if drain_on_sigterm:
-            raise not_ported("drain_on_sigterm", "A4.6")
+        if bundle is not None and mode != "continuous":
+            raise ValueError(
+                "bundle= requires the continuous engine (static mode "
+                "decodes through the model's own generate_cached; AOT "
+                "bundles serialize the decode engine's compiled programs)")
+        if quant is not None and mode != "continuous":
+            raise ValueError(
+                "quant mode requires the continuous engine (static mode "
+                "decodes through the model's own generate_cached, whose "
+                "bound params are full precision)")
+        if (mesh is not None or plan is not None) and mode != "continuous":
+            raise ValueError(
+                "tensor-parallel serving (mesh=/plan=) requires the "
+                "continuous engine — static mode decodes through the "
+                "model's own generate_cached, whose bound params are "
+                "single-chip")
         self.model = model
         self.mode = mode
         self.max_batch_size = max_batch_size
@@ -219,99 +290,183 @@ class ServingEngine:
         self._queue: "queue.Queue[GenerationRequest]" = queue.Queue()
         self._deferred: "deque[GenerationRequest]" = deque()  # FIFO head
         self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._drained = threading.Event()
+        self._drain_reason = "drain"
         self._thread: Optional[threading.Thread] = None
+        self._watchdog_thread: Optional[threading.Thread] = None
         self._stats_lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "batched_requests": 0,
                       "decode_tokens": 0, "batches_failed": 0, "shed": 0,
+                      "cancelled": 0, "deadline_expired": 0,
                       "decode_failures": 0}
         self.max_queue = _flag_or(max_queue, "serving_max_queue")
         self.max_queue_wait_s = _flag_or(max_queue_wait_s,
                                          "serving_max_queue_wait_s", 0.0)
+        self.default_deadline_s = _flag_or(default_deadline_s,
+                                           "serving_default_deadline_s", 0.0)
+        self.decode_timeout_s = _flag_or(decode_timeout_s,
+                                         "serving_decode_timeout_s", 0.0)
+        self.drain_timeout_s = (drain_timeout_s if drain_timeout_s is not None
+                                else _flags.flag_value(
+                                    "serving_drain_timeout_s"))
         self._breaker = CircuitBreaker(
             threshold=(breaker_threshold if breaker_threshold is not None
                        else _flags.flag_value("serving_breaker_threshold")),
             reset_s=(breaker_reset_s if breaker_reset_s is not None
-                     else _flags.flag_value("serving_breaker_reset_s")))
+                     else _flags.flag_value("serving_breaker_reset_s")),
+            on_transition=self._on_breaker_transition)
         self._estimator = QueueWaitEstimator()
+        self._static_inflight = 0     # the static scheduler's batch size
+        self._decode_started_at: Optional[float] = None
+        self._hang_tripped = False
+        self._last_decode_ok: Optional[float] = None
+        self._drain_on_sigterm = bool(drain_on_sigterm)
         self._limits_armed = (self.max_queue is not None
                               or self.max_queue_wait_s is not None)
-        self._engine = BatchDecodeEngine(
-            model, max_slots=max_batch_size, max_len=max_len,
-            chunk=decode_chunk, quant=quant, kv_layout=kv_layout,
-            page_size=kv_page_size, num_pages=kv_num_pages,
-            prefix_cache=prefix_cache, mesh=mesh, plan=plan, bundle=bundle,
-            draft=draft, spec_k=spec_k, draft_quant=draft_quant,
-            kv_quant=kv_quant,
-            kv_host_bytes=kv_host_bytes, device=device, seed=seed)
-        self._max_len = self._engine.L
-        self._top_k_cap = self._engine.TOP_K_CAP
-        self._kv_page_size = self._engine.page_size
-        self._kv_capacity = self._engine.pool.usable
+        self._engine: Optional[BatchDecodeEngine] = None
+        self.quant = quant
+        if mode == "continuous":
+            self._engine = BatchDecodeEngine(
+                model, max_slots=max_batch_size, max_len=max_len,
+                chunk=decode_chunk, quant=quant,
+                quant_group_size=quant_group_size, kv_layout=kv_layout,
+                page_size=kv_page_size, num_pages=kv_num_pages,
+                prefix_cache=prefix_cache, mesh=mesh, plan=plan,
+                bundle=bundle, draft=draft, spec_k=spec_k,
+                draft_quant=draft_quant, fused_kernels=fused_kernels,
+                kv_quant=kv_quant, kv_host_bytes=kv_host_bytes,
+                device=device, seed=seed)
+            self._spec_enabled = self._engine.spec is not None
+            self._max_len = self._engine.L
+            self._top_k_cap = self._engine.TOP_K_CAP
+            # page-pool capacity admission facts (None = contiguous)
+            paged = kv_layout == "paged"
+            self._kv_page_size = self._engine.page_size if paged else None
+            self._kv_capacity = self._engine.pool.usable if paged else None
+            if quant is not None:
+                self._announce_quant(self._engine.quant_meta)
+        else:
+            self._max_len = max_len or getattr(
+                getattr(model, "config", None), "max_position_embeddings",
+                None)
+            self._top_k_cap = None
+            self._kv_page_size = None
+            self._kv_capacity = None
+            self._spec_enabled = False
 
     @property
-    def engine(self) -> BatchDecodeEngine:
+    def engine(self) -> Optional[BatchDecodeEngine]:
         return self._engine
 
     def _bump(self, key, n=1):
         with self._stats_lock:
             self.stats[key] += n
 
-    def _shed(self, exc: BaseException) -> None:
+    def _announce_quant(self, meta: Dict[str, object]) -> None:
+        """One-time observability for quant mode (reference :556): the
+        ``paddle_serving_quant_*`` gauges (no-ops until A8) and a stderr
+        line."""
+        safe_set("paddle_serving_quant_enabled",
+                 "serving weight-only quantization armed (1 = on)", 1,
+                 mode=self.quant)
+        safe_set("paddle_serving_quant_weights",
+                 "matmul weights quantized by the serving engine",
+                 len(meta.get("quantized", ())))
+        safe_set("paddle_serving_quant_bytes_saved",
+                 "HBM weight bytes a decode step no longer reads",
+                 meta.get("bytes_saved", 0))
+        sys.stderr.write(
+            f"[serving] weight-only quant armed: {self.quant}, "
+            f"{len(meta.get('quantized', ()))} weights, "
+            f"{meta.get('bytes_saved', 0) / 1e6:.1f} MB HBM reads saved "
+            "per full weight pass\n")
+
+    # -- admission control ---------------------------------------------------
+    def _on_breaker_transition(self, old: str, new: str) -> None:
+        sys.stderr.write(f"[serving] circuit breaker {old} -> {new}\n")
+        safe_inc("paddle_serving_breaker_transitions_total",
+                 "serving circuit-breaker state transitions", to=new)
+        safe_set("paddle_serving_breaker_state",
+                 "serving breaker state (0 closed, 1 half-open, 2 open)",
+                 _BREAKER_STATE_NUM[new])
+
+    def _shed(self, reason: str, exc: BaseException) -> None:
         self._bump("shed")
+        safe_inc("paddle_serving_shed_total",
+                 "requests shed by serving admission control, by reason",
+                 reason=reason)
         raise exc
 
     def _queue_depth(self) -> int:
         return self._queue.qsize() + len(self._deferred)
 
     def _check_admission(self, req: GenerationRequest) -> None:
-        """Every reason a request may not enter the queue, cheapest first."""
+        """Every reason a request may not enter the queue, cheapest first
+        (reference :666-746)."""
         plen = req.prompt_ids.shape[1]
         if req.max_new_tokens < 1:
             raise RequestValidationError(
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
-        if plen + req.max_new_tokens > self._max_len:
+        ml = self._max_len
+        if ml is not None and plen + req.max_new_tokens > ml:
             raise RequestValidationError(
                 f"prompt {plen} + {req.max_new_tokens} new tokens exceeds "
-                f"engine max_len {self._max_len} — shorten the prompt or "
-                "lower max_new_tokens")
-        if req.top_k > self._top_k_cap:
+                f"engine max_len {ml} — shorten the prompt or lower "
+                "max_new_tokens")
+        if self._top_k_cap is not None and req.top_k > self._top_k_cap:
             raise RequestValidationError(
                 f"top_k {req.top_k} exceeds the continuous engine's filter "
-                f"cap {self._top_k_cap}")
+                f"cap {self._top_k_cap} (use the static serving mode or "
+                "lower top_k)")
+        if self._spec_enabled and req.temperature > 0.0:
+            raise RequestValidationError(
+                f"temperature {req.temperature:g} with speculative "
+                "decoding armed: greedy acceptance is token-exact for "
+                "temperature 0 only — send temperature=0 or serve this "
+                "engine without spec_k")
         if req.prefix_len is not None and not 0 <= req.prefix_len <= plen:
             raise RequestValidationError(
                 f"prefix_len {req.prefix_len} must be within the prompt "
                 f"(length {plen})")
-        # page-pool capacity, not just max_len: a request needing more pages
-        # than the pool HOLDS is shed here instead of waiting forever. Total
-        # need governs even on a prefix hit (the pinned prefix pages occupy
-        # capacity too), so this check is exact
-        need = pages_needed(plen + req.max_new_tokens, self._kv_page_size)
-        if need > self._kv_capacity:
-            self._shed(KVCapacityError(
-                f"prompt {plen} + {req.max_new_tokens} new tokens needs "
-                f"{need} KV pages (page_size {self._kv_page_size}) but the "
-                f"pool holds only {self._kv_capacity} even when empty — "
-                "raise kv_num_pages or shorten the request",
-                pages_needed=need, pages_capacity=self._kv_capacity))
+        if self._kv_capacity is not None:
+            # page-pool capacity, not just max_len: a request needing more
+            # pages than the pool HOLDS is shed here instead of waiting
+            # forever (total need governs even on a prefix hit)
+            need = pages_needed(plen + req.max_new_tokens,
+                                self._kv_page_size)
+            if need > self._kv_capacity:
+                self._shed("kv_capacity", KVCapacityError(
+                    f"prompt {plen} + {req.max_new_tokens} new tokens needs "
+                    f"{need} KV pages (page_size {self._kv_page_size}) but "
+                    f"the pool holds only {self._kv_capacity} even when "
+                    "empty — raise kv_num_pages or shorten the request",
+                    pages_needed=need, pages_capacity=self._kv_capacity))
+        if self._draining.is_set():
+            self._shed("draining", EngineDrainingError(
+                "serving engine is draining; no new requests admitted"))
         breaker = self._breaker
         if breaker._state != "closed" and not breaker.allow():
-            self._shed(CircuitOpenError(
+            self._shed("breaker_open", CircuitOpenError(
                 f"decode circuit breaker is open after "
                 f"{breaker.consecutive_failures} consecutive failures; "
                 "submits fail fast until a half-open probe succeeds",
                 retry_after_s=breaker.retry_after_s()))
+        if req.deadline is not None and time.monotonic() >= req.deadline:
+            self._bump("deadline_expired")
+            self._shed("deadline", DeadlineExceededError(
+                "request deadline expired before admission"))
         if self._limits_armed:
             depth = self._queue_depth()
             est = self._estimator.estimate_wait_s(depth, self.max_batch_size)
             if self.max_queue is not None and depth >= self.max_queue:
-                self._shed(ServerOverloadedError(
+                self._shed("queue_full", ServerOverloadedError(
                     f"serving queue full ({depth} >= max_queue "
                     f"{self.max_queue})", queue_depth=depth,
                     retry_after_s=max(est, self.max_wait)))
             if (self.max_queue_wait_s is not None
                     and est > self.max_queue_wait_s):
-                self._shed(ServerOverloadedError(
+                self._shed("queue_wait", ServerOverloadedError(
                     f"estimated queue wait {est:.2f}s exceeds "
                     f"max_queue_wait_s {self.max_queue_wait_s:g}",
                     queue_depth=depth, retry_after_s=est))
@@ -320,119 +475,487 @@ class ServingEngine:
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
                top_k=0, eos_token_id=None,
                deadline_s: Optional[float] = None,
-               prefix_len: Optional[int] = None) -> GenerationResult:
+               prefix_len: Optional[int] = None,
+               trace=None) -> GenerationResult:
         """Queue one generation request; raises a typed error instead of
         queueing when the request cannot (validation) or should not
-        (overload, open breaker) be served. ``prefix_len`` declares the
-        prompt's first tokens a shared prefix (a system prompt): its full
-        pages are cached and later requests with the same prefix prefill
-        only their tail."""
-        if deadline_s is not None:
-            raise not_ported("deadline_s", "A4.6")
-        req = GenerationRequest(prompt_ids, max_new_tokens, temperature,
-                                top_k, eos_token_id, prefix_len=prefix_len)
+        (overload, open breaker, draining, expired deadline) be served.
+        ``deadline_s`` (else ``default_deadline_s``) is relative to now.
+        ``prefix_len`` declares the prompt's first tokens a shared prefix
+        (a system prompt) for the paged engine's prompt cache; the static
+        scheduler and the contiguous layout ignore it. ``trace`` (a request
+        journey) raises until observability is ported (A8)."""
+        if trace is not None:
+            raise not_ported("trace", "A8")
+        dl = deadline_s if deadline_s is not None else self.default_deadline_s
+        req = GenerationRequest(
+            prompt_ids, max_new_tokens, temperature, top_k, eos_token_id,
+            deadline=None if dl is None else time.monotonic() + dl,
+            prefix_len=prefix_len)
         self._check_admission(req)
         if self._thread is None:
             self.start()  # lazy start: a future must always have a server
         self._bump("requests")
         self._queue.put(req)
+        if self._draining.is_set():
+            # lost the race with a concurrent drain(): fail the future here
+            # so no caller blocks on a request no server owns
+            t = self._thread
+            if (t is None or not t.is_alive() or self._drained.is_set()) \
+                    and not req.result.done():
+                self._bump("shed")
+                req.result._set(error=EngineDrainingError(
+                    "serving engine drained while the request was being "
+                    "submitted"))
         return req.result
 
     def generate(self, prompt_ids, timeout: float = 300.0, **kw) -> np.ndarray:
         return self.submit(prompt_ids, **kw).result(timeout)
 
+    def health(self) -> Dict[str, object]:
+        """Readiness and liveness snapshot with the reference's keys
+        (:835-928). ``goodput``, ``slo_burn`` and the metric side of
+        ``compile`` belong to the observability planes (A8) and read as the
+        reference reads them with those planes off."""
+        now = time.monotonic()
+        alive = self._thread is not None and self._thread.is_alive()
+        state = ("draining" if self._draining.is_set() and alive
+                 else "serving" if alive else "stopped")
+        eng = self._engine
+        busy = eng.busy_slots() if eng is not None else 0
+        started = self._decode_started_at
+        breaker = self._breaker.state
+        with self._stats_lock:
+            stats = dict(self.stats)
+        kv = eng.kv_stats() if eng is not None else {"layout": "none"}
+        est = self._estimator.estimate_wait_s(self._queue_depth(),
+                                              self.max_batch_size)
+        return {
+            "state": state,
+            "goodput": {"kinds": {}},
+            "mode": self.mode,
+            "slo_burn": {"enabled": False},
+            "quant": self.quant or "off",
+            "kv": kv,
+            "spec": (eng.spec_info() if eng is not None
+                     else {"enabled": False}),
+            "fused": (eng.fused_info() if eng is not None
+                      else {"enabled": False}),
+            "mesh": (eng.mesh_info() if eng is not None
+                     else {"enabled": False}),
+            "compile": (eng.compile_info() if eng is not None
+                        else {"programs_built": 0}),
+            "ok": alive and not self._draining.is_set()
+                  and breaker != "open",
+            "queue_depth": self._queue_depth(),
+            "busy_slots": busy,
+            "est_wait_s": est,
+            "inflight": busy if self.mode == "continuous"
+                        else self._static_inflight,
+            "pages_free": kv.get("pages_free"),
+            "max_slots": self.max_batch_size,
+            "max_queue": self.max_queue,
+            "breaker": breaker,
+            "breaker_consecutive_failures":
+                self._breaker.consecutive_failures,
+            "decode_inflight_s": 0.0 if started is None else now - started,
+            "last_decode_ok_age_s":
+                None if self._last_decode_ok is None
+                else now - self._last_decode_ok,
+            "estimated_queue_wait_s": est,
+            "stats": stats,
+        }
+
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "ServingEngine":
         if self._thread is None:
+            if self._draining.is_set():
+                # restart after a COMPLETED drain: re-open admission and
+                # re-arm the failure machinery for the new serving epoch
+                self._draining.clear()
+                self._breaker.reset()
+                self._hang_tripped = False
+                self._decode_started_at = None
             self._stop.clear()
-            self._thread = threading.Thread(target=self._loop_continuous,
-                                            daemon=True)
+            self._drained.clear()
+            self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+            if self.decode_timeout_s is not None \
+                    and (self._watchdog_thread is None
+                         or not self._watchdog_thread.is_alive()):
+                self._watchdog_thread = threading.Thread(
+                    target=self._watchdog_loop, daemon=True)
+                self._watchdog_thread.start()
+            if self._drain_on_sigterm:
+                self.install_preemption_hook()
         return self
 
-    def stop(self) -> None:
-        """Stop the engine thread; fail whatever is still queued or in a
-        decode slot, so no caller blocks on a future nobody serves."""
-        self._stop.set()
+    def install_preemption_hook(self, timeout: Optional[float] = None):
+        """Register ``drain(timeout)`` as a preemption callback: a SIGTERM'd
+        server finishes in-flight requests (bounded by the drain timeout),
+        sheds the rest with a typed error, then exits 143."""
+        from ..resilience.preemption import install_preemption_handler
+
+        return install_preemption_handler(
+            lambda: self.drain(timeout, reason="sigterm"))
+
+    def drain(self, timeout: Optional[float] = None,
+              reason: str = "drain") -> Dict[str, object]:
+        """Graceful shutdown (reference :980): stop admission (submits raise
+        :class:`EngineDrainingError`), let in-flight requests finish up to
+        ``timeout`` seconds (else ``drain_timeout_s``), shed everything
+        still waiting with a typed error, then stop the engine thread.
+        Idempotent. Returns ``{"clean", "shed", "wall_s"}``."""
+        timeout = self.drain_timeout_s if timeout is None else timeout
+        t0 = time.monotonic()
+        self._drain_reason = str(reason)
+        self._draining.set()
+        finished = True
         if self._thread is not None:
-            self._thread.join(timeout=60)
-            if self._thread.is_alive():
-                raise RuntimeError("serving engine thread did not stop "
-                                   "within 60 s")
-            self._thread = None
-        err = RuntimeError("serving engine stopped")
+            finished = self._drained.wait(timeout)
+        with self._stats_lock:
+            shed_before = self.stats["shed"]
+        try:
+            self._shutdown(EngineDrainingError(
+                "request shed: serving engine drained before it was served"))
+        except RuntimeError:
+            finished = False       # the engine thread overran the stop join
+        with self._stats_lock:
+            shed = self.stats["shed"] - shed_before
+        safe_inc("paddle_serving_drains_total", "graceful drains completed",
+                 outcome="clean" if finished else "timeout",
+                 reason=self._drain_reason)
+        return {"clean": finished, "shed": shed,
+                "wall_s": round(time.monotonic() - t0, 3)}
+
+    def _shed_waiting(self, error: BaseException) -> int:
+        """Fail everything queued or deferred (reference :1015); the engine
+        thread must be down or draining-idle."""
+        n = 0
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            req.result._set(error=err)
+            if not req.result.done():
+                req.result._set(error=error)
+                n += 1
         while self._deferred:
-            self._deferred.popleft().result._set(error=err)
+            req = self._deferred.popleft()
+            if not req.result.done():
+                req.result._set(error=error)
+                n += 1
+        if n:
+            self._bump("shed", n)
+            safe_inc("paddle_serving_shed_total",
+                     "requests shed by serving admission control, by reason",
+                     n, reason=self._drain_reason if isinstance(
+                         error, EngineDrainingError) else "stop")
+        return n
+
+    def stop(self) -> None:
+        """Stop the engine thread; fail whatever is still queued or in a
+        decode slot, so no caller blocks on a future nobody serves."""
+        self._shutdown(RuntimeError("serving engine stopped"))
+
+    def _shutdown(self, shed_error: BaseException) -> None:
+        self._stop.set()
+        overran = False
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                # keep the handle, so a later submit() cannot start a
+                # SECOND loop over the same slot state
+                overran = True
+            else:
+                self._thread = None
+        if self._watchdog_thread is not None \
+                and not self._watchdog_thread.is_alive():
+            self._watchdog_thread = None
+        self._shed_waiting(shed_error)
         eng = self._engine
-        for i, s in enumerate(eng._host_slots):
-            if s.req is not None:
-                s.req.result._set(error=err)
-                eng._host_slots[i] = type(s)()
-        eng.reset_slots()  # no phantom active device lanes
+        if eng is not None:
+            for i, s in enumerate(eng._host_slots):
+                if s.req is not None and not s.req.result.done():
+                    s.req.result._set(error=shed_error)
+                    eng._host_slots[i] = type(s)()
+            eng.reset_slots()  # no phantom active device lanes
+        if overran:
+            raise RuntimeError(
+                "serving engine thread did not stop within 30 s; "
+                "outstanding futures were failed; call stop() again to "
+                "re-wait")
 
     def __enter__(self):
         return self.start()
 
     def __exit__(self, exc_type, exc, tb):
-        self.stop()
+        try:
+            self.stop()
+        except RuntimeError:
+            if exc_type is None:
+                raise  # don't mask the with-body's original exception
         return False
 
     # -- scheduler -----------------------------------------------------------
+    def _precheck(self, req: GenerationRequest) -> bool:
+        """True when a popped request should be served; cancelled and
+        expired ones are failed (shed) here, before they cost any decode."""
+        if req.result._event.is_set():  # cancel() already failed the future
+            self._bump("cancelled")
+            safe_inc("paddle_serving_cancelled_total",
+                     "requests cancelled by clients")
+            return False
+        if req.deadline is not None and time.monotonic() >= req.deadline:
+            self._bump("deadline_expired")
+            safe_inc("paddle_serving_shed_total",
+                     "requests shed by serving admission control, by reason",
+                     reason="deadline")
+            req.result._set(error=DeadlineExceededError(
+                "request deadline expired while queued"))
+            return False
+        return True
+
     def _next_request(self, block: bool,
                       timeout: float = 0.05) -> Optional[GenerationRequest]:
-        """Pop the next request: the deferred FIFO drains ahead of the
-        queue (no reordering behind newer arrivals)."""
-        if self._deferred:
-            return self._deferred.popleft()
+        """Pop the next serveable request: the deferred FIFO drains ahead
+        of the queue (no reordering behind newer arrivals)."""
+        while self._deferred:
+            req = self._deferred.popleft()
+            if self._precheck(req):
+                return req
+        while True:
+            try:
+                req = (self._queue.get(timeout=timeout) if block
+                       else self._queue.get_nowait())
+            except queue.Empty:
+                return None
+            if self._precheck(req):
+                return req
+
+    def _requeue_expired_sweep(self) -> None:
+        """While the breaker is open nothing is popped for decode: sweep the
+        waiting set so expired and cancelled requests still shed promptly.
+        Queue entries move to the deferred FIFO (which drains first), so
+        arrival order is kept (reference :1138)."""
+        while True:
+            try:
+                self._deferred.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        self._deferred = deque(r for r in self._deferred
+                               if self._precheck(r))
+
+    def _collect_batch(self) -> List[GenerationRequest]:
+        """One leader request + everything compatible, up to
+        ``max_batch_size`` (reference :1151): first from the deferred FIFO,
+        then whatever arrives within the batching window. Incompatible
+        arrivals park in the deferred FIFO, so a mismatched request leads
+        the next batch instead of starving behind compatible ones."""
+        leader = self._next_request(block=True, timeout=0.1)
+        if leader is None:
+            return []
+        if self._breaker.state == "half_open":
+            return [leader]     # one-request probe decides the breaker
+        batch = [leader]
+        keep: "deque[GenerationRequest]" = deque()
+        while self._deferred and len(batch) < self.max_batch_size:
+            req = self._deferred.popleft()
+            if not self._precheck(req):
+                continue
+            if req.batch_key() == leader.batch_key():
+                batch.append(req)
+            else:
+                keep.append(req)
+        self._deferred.extendleft(reversed(keep))  # keep FIFO order
+        deadline = time.monotonic() + self.max_wait
+        while len(batch) < self.max_batch_size:
+            rest = deadline - time.monotonic()
+            if rest <= 0:
+                break
+            try:
+                req = self._queue.get(timeout=rest)
+            except queue.Empty:
+                break
+            if not self._precheck(req):
+                continue
+            if req.batch_key() == leader.batch_key():
+                batch.append(req)
+            else:
+                self._deferred.append(req)  # next cycle's leader
+        return batch
+
+    def _watchdog_loop(self) -> None:
+        """A decode attempt in flight longer than ``decode_timeout_s`` trips
+        the breaker (reference :1191): the hung thread cannot be
+        interrupted, but new submits fail fast and ``health()`` goes
+        not-ok instead of the queue growing silently."""
+        interval = max(0.005, min(1.0, self.decode_timeout_s / 4))
+        while not self._stop.wait(interval):
+            started = self._decode_started_at
+            if (started is not None and not self._hang_tripped
+                    and time.monotonic() - started > self.decode_timeout_s):
+                self._hang_tripped = True
+                sys.stderr.write(
+                    f"[serving] decode in flight for more than "
+                    f"{self.decode_timeout_s:g}s — tripping breaker\n")
+                safe_inc("paddle_serving_decode_hangs_total",
+                         "decode attempts the watchdog declared hung")
+                self._breaker.trip()
+
+    def _decode_attempt(self, fn) -> bool:
+        """Run one decode attempt (a static batch or a continuous chunk)
+        under the hang watchdog (reference :1209). The attempt's clock runs
+        until ``fn`` returns, which for a continuous chunk is after its one
+        readback: a captured chunk's replay returns at once, and a hung one
+        shows only there."""
+        self._hang_tripped = False
+        self._decode_started_at = time.monotonic()
         try:
-            return (self._queue.get(timeout=timeout) if block
-                    else self._queue.get_nowait())
-        except queue.Empty:
-            return None
+            fn()
+        finally:
+            dt = time.monotonic() - self._decode_started_at
+            self._decode_started_at = None
+        self._estimator.observe(dt)
+        return True
+
+    def _loop(self) -> None:
+        try:
+            if self.mode == "continuous":
+                self._loop_continuous()
+            else:
+                self._loop_static()
+        finally:
+            self._drained.set()
+
+    def _loop_static(self) -> None:
+        """Collect a compatible batch, decode it in one ``generate_cached``
+        call under the breaker (reference :1244)."""
+        while not self._stop.is_set():
+            if self._draining.is_set():
+                return   # current batch finished; drain() sheds the rest
+            if not self._breaker.allow():
+                self._requeue_expired_sweep()
+                time.sleep(0.02)
+                continue
+            batch = self._collect_batch()
+            if not batch:
+                continue
+            self._static_inflight = len(batch)
+            try:
+                self._decode_attempt(lambda: self._run_static_batch(batch))
+            except Exception as e:  # noqa: BLE001 — to the callers
+                for req in batch:
+                    req.result._set(error=e)
+                self._bump("batches_failed")
+                self._bump("decode_failures")
+                self._breaker.record_failure()
+                continue
+            finally:
+                self._static_inflight = 0
+            self._breaker.record_success()
+            self._last_decode_ok = time.monotonic()
+            self._bump("batches")
+            self._bump("batched_requests", len(batch))
+
+    def _run_static_batch(self, batch: List[GenerationRequest]) -> None:
+        """One ``generate_cached`` call over the batch's prompts (one
+        length), at the largest budget; each row is trimmed to its own
+        budget and eos (reference :1283). Every request's first token
+        reaches the host with the whole batch: TTFT is the batch's
+        latency, TPOT is None."""
+        ids = np.concatenate([r.prompt_ids for r in batch], axis=0)
+        leader = batch[0]
+        t_admit = time.perf_counter()
+        for req in batch:
+            req.result._t_admit = t_admit
+        out = self.model.generate_cached(
+            ids, max_new_tokens=max(r.max_new_tokens for r in batch),
+            temperature=leader.temperature, top_k=leader.top_k,
+            eos_token_id=leader.eos_token_id)
+        out = np.asarray(out.numpy())
+        t_first = time.perf_counter()
+        plen = leader.prompt_ids.shape[1]
+        for i, req in enumerate(batch):
+            row = out[i, : plen + req.max_new_tokens]
+            req.result._t_first = t_first
+            req.result._streaming = False
+            gen = row[plen:]
+            eos = req.eos_token_id
+            if eos is not None and eos in gen:  # don't count post-eos pad
+                gen = gen[: int(np.argmax(gen == eos)) + 1]
+            req.result._n_new = len(gen)
+            req.result._set(output=row)
+
+    def _sweep_slots(self) -> None:
+        """Release in-flight slots whose client cancelled or whose deadline
+        passed (reference :1328): the device stops spending on them
+        mid-decode, and their pages return."""
+        eng = self._engine
+        now = time.monotonic()
+        for i, s in enumerate(eng._host_slots):
+            req = s.req
+            if req is None:
+                continue
+            if req.result.done():       # cancelled (first outcome won)
+                eng.release_slot(i, reason=getattr(
+                    req.result, "_cancel_kind", "cancel"))
+                self._bump("cancelled")
+                safe_inc("paddle_serving_cancelled_total",
+                         "requests cancelled by clients")
+            elif req.deadline is not None and now >= req.deadline:
+                req.result._set(error=DeadlineExceededError(
+                    "request deadline expired mid-decode"))
+                eng.release_slot(i, reason="deadline")
+                self._bump("deadline_expired")
+                safe_inc("paddle_serving_shed_total",
+                         "requests shed by serving admission control, "
+                         "by reason", reason="deadline")
 
     def _loop_continuous(self) -> None:
         """Admit queued requests into free decode slots, run decode chunks,
         retire finished slots mid-flight (the engine delivers each future
-        on retirement)."""
+        on retirement); sweep cancelled and expired slots every cycle, and
+        while draining admit nothing and return once the slots are empty
+        (reference :1352)."""
         eng = self._engine
         while not self._stop.is_set():
+            self._sweep_slots()
             busy = eng.busy_slots() > 0
+            draining = self._draining.is_set()
+            if draining and not busy:
+                return               # in-flight finished; drain() sheds rest
             admitted = False
-            if self._breaker.allow():
-                probe = self._breaker.state == "half_open"
-                while True:
-                    req = self._next_request(block=not busy)
-                    if req is None:
-                        break
-                    try:
-                        if eng._admit(req):
-                            admitted = busy = True
-                            self._bump("batched_requests")
-                            if probe:
-                                break   # one-request half-open probe
-                        else:
-                            # no free slot: hold at the FIFO head, decode to
-                            # free one — never rotated behind arrivals
-                            self._deferred.appendleft(req)
+            if not draining:
+                if self._breaker.allow():
+                    probe = self._breaker.state == "half_open"
+                    while True:
+                        req = self._next_request(block=not busy)
+                        if req is None:
                             break
-                    except Exception as e:  # noqa: BLE001 — to the caller
-                        req.result._set(error=e)
-            elif not busy:
-                time.sleep(0.02)
-                continue
+                        try:
+                            if eng._admit(req):
+                                admitted = busy = True
+                                self._bump("batched_requests")
+                                if probe:
+                                    break   # one-request half-open probe
+                            else:
+                                # no free slot: hold at the FIFO head,
+                                # decode to free one
+                                self._deferred.appendleft(req)
+                                break
+                        except Exception as e:  # noqa: BLE001 — to the caller
+                            req.result._set(error=e)
+                elif not busy:
+                    self._requeue_expired_sweep()
+                    time.sleep(0.02)
+                    continue
             if not busy:
                 continue
             before = eng.stats["tokens_out"]
-            t0 = time.monotonic()
             try:
-                eng._decode_chunk()
-            except Exception as e:  # noqa: BLE001 — fail the slots' futures
+                self._decode_attempt(eng._decode_chunk)
+            except Exception as e:  # noqa: BLE001 — fail the slots
                 for i, s in enumerate(eng._host_slots):
                     if s.req is not None:
                         s.req.result._set(error=e)
@@ -442,8 +965,8 @@ class ServingEngine:
                 self._bump("decode_failures")
                 self._breaker.record_failure()
                 continue
-            self._estimator.observe(time.monotonic() - t0)
             self._breaker.record_success()
+            self._last_decode_ok = time.monotonic()
             self._bump("decode_tokens", eng.stats["tokens_out"] - before)
             if admitted:
                 self._bump("batches")

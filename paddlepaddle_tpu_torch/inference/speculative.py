@@ -30,9 +30,13 @@ graphs on the card, called directly on the CPU):
   (-1 padded), the accepted-run length (-1 when inactive), the end-of-step
   active flag.
 
+``draft_quant="weight_only_int8"`` quantizes the draft's weights once, at
+construction, into a module view of the draft (reference :148-155,
+``quantize_param_tree`` over the draft's parameters); the draft model itself
+is left unchanged, which matters when the target is its own draft.
+
 Requests with temperature > 0 are refused at admission (sampling-correct
-rejection resampling is a seam of the reference too). A quantized draft
-(``draft_quant``) is not ported (ROADMAP A4.3).
+rejection resampling is a seam of the reference too).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..nn.quant import quantized_view
 from .robustness import safe_inc
 
 __all__ = ["SpeculativeDecoder", "resolve_draft"]
@@ -103,16 +108,27 @@ class SpeculativeDecoder:
     spec chunk; :meth:`info` is the reference's ``health()["spec"]``
     block."""
 
-    def __init__(self, engine, draft, spec_k: int, seed: int = 0):
+    def __init__(self, engine, draft, spec_k: int,
+                 draft_quant: Optional[str] = None, *, seed: int = 0):
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if engine.kv_layout != "paged":
+            raise ValueError(
+                "speculative decoding requires kv_layout='paged' — the "
+                "page-table indirection IS the KV rollback mechanism")
         self.engine_ref = weakref.ref(engine)
         self.k = int(spec_k)
         self.draft_model = resolve_draft(draft, engine.cfg, engine.L,
                                          self.k, engine.device, seed)
         dcfg = self.draft_model.config
         self.draft_cfg = dcfg
-        self.draft_quant = None
+        self.draft_quant = draft_quant
+        self.draft_quant_meta: Dict[str, object] = {}
+        # the module the draft programs run: the draft, or its int8 view
+        self.draft_net = self.draft_model
+        if draft_quant is not None:
+            self.draft_net, self.draft_quant_meta = quantized_view(
+                self.draft_model, algo=draft_quant)
         S, L, dev = engine.S, engine.L, engine.device
         kvh, hd = dcfg.num_key_value_heads, dcfg.head_dim
         dtype = self.draft_model.dtype
@@ -189,7 +205,7 @@ class SpeculativeDecoder:
     def _forward(self, toks: torch.Tensor, pos) -> torch.Tensor:
         """Draft logits ``[S, s, V]`` for ``toks [S, s]`` at per-row ``pos``,
         writing the draft caches in place."""
-        dm = self.draft_model
+        dm = self.draft_net
         hidden, _ = dm.model(toks.long(), caches=self.draft_caches, pos=pos)
         return dm.logits(hidden)
 
@@ -207,7 +223,7 @@ class SpeculativeDecoder:
                     torch.zeros((1, plen, kvh, hd), dtype=dtype, device=dev))
                    for _ in range(dcfg.num_hidden_layers)]
         ids_t = torch.as_tensor(ids, dtype=torch.long).to(dev)
-        _, scratch = self.draft_model.model(ids_t, caches=scratch, pos=0)
+        _, scratch = self.draft_net.model(ids_t, caches=scratch, pos=0)
         for (kc, vc), (ks, vs) in zip(self.draft_caches, scratch):
             kc[slot, :plen] = ks[0]
             vc[slot, :plen] = vs[0]

@@ -4,9 +4,11 @@
 What is here: ``LlamaConfig`` with its presets, the fp32 rope tables and the
 NeoX rotate-half rope (scalar or per-row offsets), ``_cached_attention`` (the
 plain-PyTorch prefill attention the decode engine uses), the cross-entropy
-rows ``_CERows`` and ``loss_from_logits``, and the attention / MLP / decoder
-layer / model / causal-LM modules. ``generate`` and ``generate_cached`` are
-not ported (ROADMAP A3).
+rows ``_CERows`` and ``loss_from_logits``, the attention / MLP / decoder
+layer / model / causal-LM modules, and the causal LM's two decoding loops:
+``generate_cached`` (prefill once, then single-position steps over
+contiguous caches, the static serving mode's path) and ``generate`` (the
+O(L^2) loop over a static token buffer, one full forward a token).
 
 Attention without a cache (``LlamaForCausalLM.forward(ids[, labels])``, the
 training path) repeats the K/V heads and runs ``F.flash_attention(...,
@@ -21,6 +23,7 @@ import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -429,3 +432,129 @@ class LlamaForCausalLM(nn.Module):
         return self.loss_from_logits(logits, labels)
 
     loss_from_logits = staticmethod(loss_from_logits)
+
+    def _prompt(self, input_ids) -> np.ndarray:
+        ids = (input_ids.detach().cpu().numpy()
+               if isinstance(input_ids, torch.Tensor) else
+               np.asarray(input_ids)).astype(np.int32)
+        if ids.shape[1] >= self.config.max_position_embeddings:
+            raise ValueError(
+                f"prompt length {ids.shape[1]} exceeds "
+                f"max_position_embeddings "
+                f"{self.config.max_position_embeddings}; truncate the prompt")
+        return ids
+
+    @torch.no_grad()
+    def generate_cached(self, input_ids, max_new_tokens=32, temperature=1.0,
+                        top_k=0, eos_token_id=None, seed=0) -> torch.Tensor:
+        """KV-cache decoding (reference :371-477): ONE prefill over the
+        prompt, then single-position steps through ``_cached_attention``
+        over contiguous caches ``[b, cache_len, kvh, hd]``, ``cache_len``
+        the prompt + budget bucketed to 128 as in the reference. Sampling:
+        greedy at ``temperature == 0``, else Gumbel-max over a generator on
+        the model's device seeded with ``seed``, after the ``top_k`` filter.
+        The loop stops when every row has emitted ``eos_token_id``; past a
+        row's first eos its tokens read eos. Returns ``[b, prompt +
+        new]`` int32 ids on the host.
+
+        The reference runs its loop to a length bucketed to 64 and trims
+        the result; this loop runs the tokens it returns, which are the
+        same."""
+        cfg = self.config
+        ids = self._prompt(input_ids)
+        b, prompt_len = ids.shape
+        total = min(prompt_len + max_new_tokens,
+                    cfg.max_position_embeddings)
+        cache_len = min(-(-total // 128) * 128, cfg.max_position_embeddings)
+        dev = self.device
+        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        caches = [(torch.zeros((b, cache_len, kvh, hd), dtype=self.dtype,
+                               device=dev),
+                   torch.zeros((b, cache_len, kvh, hd), dtype=self.dtype,
+                               device=dev))
+                  for _ in range(cfg.num_hidden_layers)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        n_new = total - prompt_len
+        out = torch.zeros((b, n_new), dtype=torch.int32, device=dev)
+        toks = torch.as_tensor(ids, dtype=torch.long, device=dev)
+        pos = 0
+        finished = np.zeros((b,), bool)
+        for i in range(n_new):
+            hidden, caches = self.model(toks, caches=caches, pos=pos)
+            nxt = _sample_next(self.logits(hidden[:, -1]).float(),
+                               temperature, top_k, gen)
+            out[:, i] = nxt
+            pos += toks.shape[1]
+            toks = nxt[:, None].long()
+            if eos_token_id is not None:
+                finished |= (nxt == eos_token_id).cpu().numpy()
+                if finished.all():
+                    break
+        gen_ids = out.cpu().numpy()
+        if eos_token_id is not None:
+            hit = gen_ids == eos_token_id
+            first = np.where(hit.any(1), hit.argmax(1), gen_ids.shape[1] - 1)
+            posn = np.arange(gen_ids.shape[1])[None, :]
+            gen_ids = np.where(posn > first[:, None], eos_token_id, gen_ids)
+            gen_ids = gen_ids[:, : int(first.max()) + 1]
+        return torch.from_numpy(
+            np.concatenate([ids, gen_ids.astype(np.int32)], axis=1))
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0, top_k=0,
+                 eos_token_id=None, seed=0) -> torch.Tensor:
+        """Autoregressive decoding over a static buffer (reference
+        :478-548): each token is one full causal forward over the
+        ``[b, prompt + budget]`` buffer (``F.flash_attention``: the flash
+        kernels on the card), reading the logits of the last filled
+        position; the padded tail is inert under the causal mask. O(L^2)
+        per sequence. Sampling as in :meth:`generate_cached`; after a row's
+        first eos its tokens read eos. Returns int32 ids on the host."""
+        ids = self._prompt(input_ids)
+        b, prompt_len = ids.shape
+        total = min(prompt_len + max_new_tokens,
+                    self.config.max_position_embeddings)
+        dev = self.device
+        buf = torch.zeros((b, total), dtype=torch.long, device=dev)
+        buf[:, :prompt_len] = torch.as_tensor(ids, dtype=torch.long,
+                                              device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        finished = np.zeros((b,), bool)
+        cur = prompt_len
+        while cur < total:
+            hidden = self.model(buf)
+            nxt = _sample_next(self.logits(hidden[:, cur - 1]).float(),
+                               temperature, top_k, gen)
+            buf[:, cur] = nxt
+            cur += 1
+            if eos_token_id is not None:
+                finished |= (nxt == eos_token_id).cpu().numpy()
+                if finished.all():
+                    break
+        out = buf[:, :cur].cpu().numpy().astype(np.int32)
+        if eos_token_id is not None:
+            gen_ids = out[:, prompt_len:]
+            hit = gen_ids == eos_token_id
+            first = np.where(hit.any(1), hit.argmax(1), gen_ids.shape[1])
+            posn = np.arange(gen_ids.shape[1])[None, :]
+            gen_ids = np.where(posn > first[:, None], eos_token_id, gen_ids)
+            out = np.concatenate([out[:, :prompt_len], gen_ids], axis=1)
+        return torch.from_numpy(out)
+
+
+def _sample_next(row: torch.Tensor, temperature: float, top_k: int,
+                 gen: torch.Generator) -> torch.Tensor:
+    """One token per row of f32 logits ``row [b, V]``: the ``top_k`` filter
+    (logits below the k-th largest set to -inf), then the first argmax at
+    ``temperature == 0`` or a Gumbel-max draw at ``temperature`` from
+    ``gen``. int32 ``[b]``."""
+    if top_k and top_k > 0:
+        kth = torch.topk(row, int(top_k), dim=-1).values[:, -1:]
+        row = row.masked_fill(row < kth, float("-inf"))
+    if temperature == 0.0:
+        return row.argmax(dim=-1).to(torch.int32)
+    u = torch.rand(row.shape, generator=gen, device=row.device)
+    scaled = row / max(float(temperature), 1e-6)
+    return (scaled - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)

@@ -13,10 +13,18 @@ import torch
 import torch.nn.functional as _tF
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``y = x @ W`` with ``W: [in, out]`` (the Llama projections carry no
-    bias)."""
-    return torch.matmul(x, weight)
+def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor] = None,
+           name=None) -> torch.Tensor:
+    """``y = x @ W (+ b)`` with ``W: [in, out]`` (reference :183). A weight
+    that carries ``wo_matmul`` (an ``nn.quant.QuantizedWeight``) lowers
+    through it, int8 codes with the scale applied after the product, and
+    the result is cast back to ``x.dtype``. ``name`` is accepted for API
+    parity."""
+    wo = getattr(weight, "wo_matmul", None)
+    out = torch.matmul(x, weight) if wo is None else wo(x).to(x.dtype)
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -385,14 +385,17 @@ def test_generation_request_takes_reference_order():
     from paddlepaddle_tpu_torch.inference.serving import GenerationRequest
 
     args = (np.arange(1, 9), 4, 0.0, 0, None)
-    with pytest.raises(NotImplementedError, match="A4.6"):
-        GenerationRequest(*args, time.monotonic() + 30)
-    j = JRequest(*args, None, 5)
-    t = GenerationRequest(*args, None, 5)
-    for name in ("max_new_tokens", "temperature", "top_k", "eos_token_id",
-                 "prefix_len"):
-        assert getattr(t, name) == getattr(j, name), name
-    np.testing.assert_array_equal(t.prompt_ids, j.prompt_ids)
+    deadline = time.monotonic() + 30
+    for extra in ((deadline,), (None, 5), (deadline, 5)):
+        j = JRequest(*args, *extra)
+        t = GenerationRequest(*args, *extra)
+        for name in ("max_new_tokens", "temperature", "top_k",
+                     "eos_token_id", "deadline", "prefix_len"):
+            assert getattr(t, name) == getattr(j, name), name
+        assert t.result._deadline == j.result._deadline
+        assert t.batch_key() == j.batch_key()
+        np.testing.assert_array_equal(t.prompt_ids, j.prompt_ids)
+    t = GenerationRequest(*args, deadline, None)
     eng = BatchDecodeEngine(_tiny_llama(), max_slots=1, page_size=4,
                             device="cpu")
     eng.serve([t], timeout=60)

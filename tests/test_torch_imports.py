@@ -28,6 +28,8 @@ import paddlepaddle_tpu_torch.models.moe
 import paddlepaddle_tpu_torch.optimizer.lr
 import paddlepaddle_tpu_torch.inference.kv_pool
 import paddlepaddle_tpu_torch.inference.speculative
+import paddlepaddle_tpu_torch.nn.quant
+import paddlepaddle_tpu_torch.resilience.preemption
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

@@ -296,7 +296,9 @@ def test_kv_quant_validation_flags_and_page_bytes(models):
         BatchDecodeEngine(tm, device="cpu", max_slots=2, kv_quant="int4")
     with pytest.raises(ValueError, match="'int8' is the supported"):
         BatchDecodeEngine(tm, device="cpu", max_slots=2, kv_quant="int3")
-    with pytest.raises(NotImplementedError, match="A4.2"):
+    with pytest.raises(ValueError, match="needs kv_layout='paged'"):
+        JaxEngine(jm, max_slots=2, kv_layout="contiguous", kv_quant="int8")
+    with pytest.raises(ValueError, match="needs kv_layout='paged'"):
         BatchDecodeEngine(tm, device="cpu", max_slots=2,
                           kv_layout="contiguous", kv_quant="int8")
     with pytest.raises(NotImplementedError, match="A10"):

@@ -130,32 +130,13 @@ def test_kv_capacity_error_at_submit(models):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kv_layout="contiguous"), "A4.2"),
-    (dict(quant="weight_only_int8"), "A4.3"),
-    (dict(spec_k=2, draft="target", draft_quant="weight_only_int8"),
-     "A4.3"),
-    (dict(mode="static"), "A4.6"),
-    (dict(default_deadline_s=1.0), "A4.6"),
-    (dict(decode_timeout_s=1.0), "A4.6"),
-    (dict(drain_on_sigterm=True), "A4.6"),
     (dict(bundle="x.bundle"), "A6"),
     (dict(mesh=object()), "A10"),
 ])
 def test_unported_options_raise(models, kwargs, item):
     _, tm = models
-    if kwargs.get("draft") == "target":
-        kwargs = dict(kwargs, draft=tm)
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(tm, device="cpu", **kwargs)
-
-
-def test_unported_submit_options_raise(models):
-    _, tm = models
-    se = ServingEngine(tm, max_batch_size=2, kv_page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4.6"):
-        se.submit(np.arange(4), max_new_tokens=4, deadline_s=1.0)
-    assert se.engine.pool.free_count == se.engine.pool.usable
-    se.stop()
 
 
 def test_sampled_tokens_inside_top_k(models):

@@ -261,13 +261,23 @@ def test_spec_construction_errors(models):
     with pytest.raises(ValueError, match="draft must be"):
         BatchDecodeEngine(tm, device="cpu", draft=object(), spec_k=2,
                           **ENGINE)
-    for make in (lambda: BatchDecodeEngine(
-            tm, device="cpu", draft=tm, spec_k=2,
-            draft_quant="weight_only_int8", **ENGINE),
-            lambda: ServingEngine(tm, device="cpu", draft=tm, spec_k=2,
-                                  draft_quant="weight_only_int8")):
-        with pytest.raises(NotImplementedError, match="A4.3"):
-            make()
+    # draft_quant: the draft's weights quantized into a view of the draft,
+    # through both engines; its meta equals the reference's over the same
+    # weights, and the target (here its own draft) is left full precision
+    from paddlepaddle_tpu.inference.decode_engine import \
+        BatchDecodeEngine as JaxEngine
+
+    jm = models[0]
+    jeng = JaxEngine(jm, fused_kernels=False, draft=jm, spec_k=2,
+                     draft_quant="weight_only_int8", **ENGINE)
+    for eng in (BatchDecodeEngine(tm, device="cpu", draft=tm, spec_k=2,
+                                  draft_quant="weight_only_int8", **ENGINE),
+                ServingEngine(tm, device="cpu", draft=tm, spec_k=2,
+                              draft_quant="weight_only_int8").engine):
+        assert eng.spec.draft_quant_meta == jeng.spec.draft_quant_meta
+        assert eng.spec.describe_draft()["quant"] == "weight_only_int8"
+        assert eng.spec.draft_model is tm and eng.net is tm
+        assert eng.spec.draft_net is not tm
     with pytest.raises(ValueError, match="continuous"):
         ServingEngine(tm, device="cpu", mode="static", draft=tm, spec_k=2)
     # a config draft is built on the engine's device from the seed, with
