@@ -268,8 +268,10 @@ def kernel_name(mangled: str) -> str:
         name, i = s[j:j + int(s[i:j])], j + int(s[i:j])
     args = s[i:] if s[i:i + 1] == "I" else ""
     dim = re.search(r"Li(\d+)E", args)
-    kind = ("bf16" if args.startswith("I13__nv_bfloat16")
-            else "f32" if args.startswith("If") else "")
+    kind = ("bf16" if "13__nv_bfloat16" in args
+            else "fp16" if "6__half" in args
+            else "f32" if args.startswith("If")
+            else "")
     return "_".join(x for x in (name, f"d{dim.group(1)}" if dim else "",
                                 kind) if x)
 
@@ -819,10 +821,106 @@ def flash_work(q, k, causal):
             "flash_bwd_dkv": (2 * t_q + 2 * t_k + 2 * rows + 2 * t_k, 4 * U)}
 
 
+def flash_main_shape(fa, rng, dtype, atol, suffix=""):
+    """Kernels 2-4 at the train phase's shape (one Llama-3-8B layer: b 4,
+    s 2048, 32 heads after the GQA repeat, d 128, causal) in ``dtype``:
+    each against the plain version (``atol``), two launches of the
+    backward pair to the same bits (one writer per output row, no atomics),
+    then CUDA-event times of each kernel, the plain versions and SDPA (its
+    backward for the pair; a yardstick the port never calls) beside the
+    bound. Returns the kernels-line records (names + ``suffix``) and the
+    errors."""
+    import torch
+    import torch.nn.functional as tF
+
+    b, s, h, d = 4, 2048, 32, 128
+    q, k, v, do = flash_inputs(rng, b, s, s, h, d, dtype)
+    errs = flash_check(fa, q, k, v, do, True)
+    if not max(errs.values()) <= atol:
+        raise AssertionError(f"flash kernels main shape {dtype}: {errs} > "
+                             f"{atol}")
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(out, do)
+    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
+    if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
+        raise AssertionError(f"flash backward pair {dtype}: two launches "
+                             "differ")
+    del first, again
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = {
+        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, True, scale),
+                               flush=flush),
+        "flash_bwd_dq": median_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, scale), flush=flush),
+        "flash_bwd_dkv": median_ms(lambda: fa.flash_bwd_dkv(
+            q, k, v, do, lse, delta, True, scale), flush=flush),
+    }
+    plain_fwd = median_ms(lambda: fa.flash_attention_plain(q, k, v, True,
+                                                           scale),
+                          reps=10, flush=flush)
+    # one plain pass computes dq, dk and dv together: it is the plain
+    # version of both backward kernels
+    plain_bwd = median_ms(lambda: fa.flash_bwd_plain(
+        q, k, v, do, lse, delta, True, scale), reps=10, flush=flush)
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = median_ms(lambda: tF.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), flush=flush)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                  for x in (qh, kh, vh))
+    og = tF.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), doh, retain_graph=True), flush=flush)
+    del flush
+    work = flash_work(q, k, True)
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
+             "flash_bwd_dkv": plain_bwd}
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    err_of = {"flash_fwd": max(errs["out"], errs["lse"]),
+              "flash_bwd_dq": errs["dq"],
+              "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+    tag = {torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+    records = []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        bytes_, flops = work[name]
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3      # fp16: the same peak
+        records.append({
+            "name": name + suffix, "route": "cuda",
+            "source": FLASH_FWD_SOURCE if name == "flash_fwd"
+            else FLASH_BWD_SOURCE,
+            "replaces": FLASH_REPLACES[name], "launches": None,
+            "max_abs_err": err_of[name], "ms": ms[name],
+            "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library[name],
+            "shape": f"b{b} s{s} h{h} d{d} {tag} causal",
+            "bytes": bytes_, "flops": flops})
+    return records, errs
+
+
+def flash_main_summary(records) -> dict:
+    """The timing keys of a flash phase's line, from its records."""
+    def by(key):
+        return {r["name"]: r[key] for r in records}
+
+    return {"main_shape": records[0]["shape"],
+            "bwd_repeat_bit_identical": True, "ms": by("ms"),
+            "plain_ms": by("plain_ms"), "library_ms": by("library_ms"),
+            "bound_ms": by("bound_ms"),
+            "tflops": {r["name"]: r["flops"] / r["ms"] / 1e9
+                       for r in records},
+            "bound_share": {r["name"]: r["bound_ms"] / r["ms"]
+                            for r in records}}
+
+
 def phase_flash_kernel():
     import numpy as np
     import torch
-    import torch.nn.functional as tF
 
     from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -867,90 +965,82 @@ def phase_flash_kernel():
     if fa.flash_fwd.launches != before:
         raise AssertionError("a plain route launched the forward kernel")
 
-    # main-path shape: one Llama-3-8B layer of the train phase (b 4, s 2048,
-    # 32 heads after the GQA repeat, d 128, bf16, causal)
-    b, s, h, d = 4, 2048, 32, 128
-    q, k, v, do = flash_inputs(rng, b, s, s, h, d, torch.bfloat16)
-    errs = flash_check(fa, q, k, v, do, True)
-    main_atol = 2e-2
-    if not max(errs.values()) <= main_atol:
-        raise AssertionError(f"flash kernels main shape: {errs} > {main_atol}")
-    scale = d ** -0.5
-    out, lse = fa.flash_fwd(q, k, v, True, scale)
-    delta = fa.flash_delta(out, do)
-    # one writer per output row, no atomics: two launches of the backward
-    # pair give the same bits
-    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
-    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
-    repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(first, again))
-    if not repeat_equal:
-        raise AssertionError("flash backward pair: two launches differ")
-    del first, again
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    ms = {
-        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, True, scale),
-                               flush=flush),
-        "flash_bwd_dq": median_ms(lambda: fa.flash_bwd_dq(
-            q, k, v, do, lse, delta, True, scale), flush=flush),
-        "flash_bwd_dkv": median_ms(lambda: fa.flash_bwd_dkv(
-            q, k, v, do, lse, delta, True, scale), flush=flush),
-    }
-    plain_fwd = median_ms(lambda: fa.flash_attention_plain(q, k, v, True,
-                                                           scale),
-                          reps=10, flush=flush)
-    # one plain pass computes dq, dk and dv together: it is the plain
-    # version of both backward kernels
-    plain_bwd = median_ms(lambda: fa.flash_bwd_plain(
-        q, k, v, do, lse, delta, True, scale), reps=10, flush=flush)
-    # yardstick only: SDPA on [b, h, s, d]; its backward computes the pair
-    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lib_fwd = median_ms(lambda: tF.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), flush=flush)
-    qg, kg, vg = (x.detach().clone().requires_grad_(True)
-                  for x in (qh, kh, vh))
-    og = tF.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    lib_bwd = median_ms(lambda: torch.autograd.grad(
-        og, (qg, kg, vg), doh, retain_graph=True), flush=flush)
-    del flush
-    work = flash_work(q, k, True)
-    plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
-             "flash_bwd_dkv": plain_bwd}
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
-    err_of = {"flash_fwd": max(errs["out"], errs["lse"]),
-              "flash_bwd_dq": errs["dq"],
-              "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
-    records = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        bytes_, flops = work[name]
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        records.append({
-            "name": name, "route": "cuda",
-            "source": FLASH_FWD_SOURCE if name == "flash_fwd"
-            else FLASH_BWD_SOURCE,
-            "replaces": FLASH_REPLACES[name], "launches": None,
-            "max_abs_err": err_of[name], "ms": ms[name],
-            "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library[name],
-            "shape": f"b{b} s{s} h{h} d{d} bf16 causal",
-            "bytes": bytes_, "flops": flops})
+    records, errs = flash_main_shape(fa, rng, torch.bfloat16, 2e-2)
     emit({"phase": "flash_kernel", "small_cases": len(small),
           "plain_routes": routes,
           "small_max_err": {dt: max(max(c[k] for k in ("out", "lse", "dq",
                                                        "dk", "dv"))
                                     for c in small if c["dtype"] == dt)
                             for dt in ("float32", "bfloat16")},
-          "main_shape": records[0]["shape"], "main_errs": errs,
-          "main_atol": main_atol, "bwd_repeat_bit_identical": repeat_equal,
-          "ms": ms, "plain_ms": plain, "library_ms": library,
-          "bound_ms": {r["name"]: r["bound_ms"] for r in records},
-          "tflops": {r["name"]: r["flops"] / r["ms"] / 1e9 for r in records},
-          "bound_share": {r["name"]: r["bound_ms"] / r["ms"]
-                          for r in records}})
+          "main_errs": errs, "main_atol": 2e-2,
+          **flash_main_summary(records)})
+    return records
+
+
+FP16_ATOL = 1e-2    # P and dS rounded to fp16 before their products and the
+#                     outputs stored in fp16: 3 mantissa bits finer than
+#                     bf16's 2e-2, with the same f32 accumulation
+
+
+def phase_flash_fp16():
+    """Kernels 2-4 in fp16 (the fp16 instantiations of the sm90 forward
+    and backward) against the plain forward and its autograd backward on
+    the same fp16 inputs: small cases and the train phase's shape, atol
+    ``FP16_ATOL``; a loss-scaled dO past fp16's range gives inf in the
+    kernels' dV where the plain f32 dV passes 65504 (no clamp: it is what
+    GradScaler reads); two launches of the backward pair give the same
+    bits; timings of each kernel, the plain versions and SDPA in fp16 (its
+    backward for the pair), beside the bound (the same operations as bf16
+    at 989 TFLOP/s)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    small = []
+    for d in (64, 128):
+        for causal in (True, False):
+            for sq, sk in ((128, 128), (64, 192), (100, 100), (1, 2048),
+                           (130, 130), (200, 333), (257, 257)):
+                q, k, v, do = flash_inputs(rng, 2, sq, sk, 3, d,
+                                           torch.float16)
+                errs = flash_check(fa, q, k, v, do, causal)
+                small.append({"d": d, "causal": causal, "sq": sq, "sk": sk,
+                              **errs})
+                if not max(errs.values()) <= FP16_ATOL:
+                    raise AssertionError(
+                        f"fp16 flash kernels small shape d={d} causal="
+                        f"{causal} sq={sq} sk={sk}: {errs} > {FP16_ATOL}")
+    # loss-scaled dO: the kernel keeps fp16's inf where the value passes
+    # its range, and stays finite where it does not
+    q, k, v, do = flash_inputs(rng, 1, 256, 256, 2, 128, torch.float16)
+    do = (do.float() * 3e4).half()
+    scale = 128 ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(out, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    p_out, p_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            True, scale)
+    want_dv = fa.flash_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                 p_lse, fa.flash_delta(p_out, do.float()),
+                                 True, scale)[2]
+    torch.cuda.synchronize()
+    big, tame = want_dv.abs() > 7.0e4, want_dv.abs() < 6.0e4
+    overflow = {"inf_where_past_range": bool(torch.isinf(dv[big]).all()),
+                "finite_elsewhere": bool(torch.isfinite(dv[tame]).all()),
+                "past_range": int(big.sum())}
+    if not (overflow["past_range"] > 0 and overflow["inf_where_past_range"]
+            and overflow["finite_elsewhere"]):
+        raise AssertionError(f"fp16 overflow not kept as inf: {overflow}")
+
+    records, errs = flash_main_shape(fa, rng, torch.float16, FP16_ATOL,
+                                     suffix="_fp16")
+    emit({"phase": "flash_fp16", "small_cases": len(small),
+          "small_max_err": max(max(c[k] for k in ("out", "lse", "dq", "dk",
+                                                  "dv")) for c in small),
+          "atol": FP16_ATOL, "overflow": overflow, "main_errs": errs,
+          **flash_main_summary(records)})
     return records
 
 
@@ -1858,9 +1948,203 @@ def phase_moe_parity(pt_pkg):
                              f"{cfg.num_hidden_layers} x 3")
 
 
+PARITY_MORE_LAYERS = 2    # Llama-3-8B widths at 2 of 32 layers, f32
+PARITY_MORE_OPTIMIZERS = {
+    "SGD": dict(learning_rate=1e-3),
+    "Momentum": dict(learning_rate=1e-3, momentum=0.9, use_nesterov=True,
+                     weight_decay=("L2Decay", 1e-4)),
+    "Adagrad": dict(learning_rate=1e-3, weight_decay=("L1Decay", 1e-4)),
+    "RMSProp": dict(learning_rate=1e-3, momentum=0.5, centered=True),
+    "Adadelta": dict(learning_rate=1.0),
+    "Adamax": dict(learning_rate=1e-3),
+    "Lamb": dict(learning_rate=1e-3),
+    "Lars": dict(learning_rate=1e-3, exclude_from_weight_decay=["norm"]),
+    "NAdam": dict(learning_rate=1e-3),
+    "RAdam": dict(learning_rate=1e-3),
+}
+
+
+def phase_train_parity_more(pt_pkg):
+    """The card against the CPU on a 2-layer f32 copy of the Llama-3-8B
+    widths (hidden 4096, MLP 14336, 32 q / 8 KV heads, vocab 128256), batch
+    2 x 64, within train_parity's bounds and these:
+
+    * recompute (full and ``"dots"``) on the card against no recompute on
+      the CPU: loss 1e-4; every gradient within 1e-4 of its parameter's
+      largest gradient (f32 sums in other orders, flash kernels against the
+      plain version), kernel 2 launched twice a layer;
+    * the masked forward and loss (a bool key-padding mask and an additive
+      float mask): logits 1e-4, loss 1e-4, zero flash launches;
+    * ``F.cross_entropy`` over the shifted labels against the model's
+      ``loss_from_logits`` on the card's logits: 1e-5;
+    * two steps of each new optimizer (``PARITY_MORE_OPTIMIZERS``) on the
+      first decoder layer's parameters (218 M) from the CPU's gradients,
+      the same on both devices: parameters within 1e-5 (elementwise f32
+      rules; the norms of Lamb and Lars sum in other orders)."""
+    import numpy as np
+    import torch
+
+    F = pt_pkg.nn.functional
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PARITY_MORE_LAYERS
+    cfg.dtype = "float32"
+    cpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cpu", seed=4)
+    gpu_model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=5)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(6)
+    ids_np = rng.integers(0, cfg.vocab_size, (2, 64))
+    labels_np = ids_np.copy()
+    labels_np[1, 10:20] = -100
+    ids_c, labels_c = torch.from_numpy(ids_np), torch.from_numpy(labels_np)
+    ids_g, labels_g = ids_c.cuda(), labels_c.cuda()
+    out = {"phase": "train_parity_more", "layers": cfg.num_hidden_layers,
+           "dtype": "float32"}
+
+    # (1) recompute on the card against no recompute on the CPU
+    t0 = time.perf_counter()
+    loss_c = cpu_model(ids_c, labels_c)
+    loss_c.backward()
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    out["cpu_step_s"] = time.perf_counter() - t0
+    L = cfg.num_hidden_layers
+    for policy in (None, "dots"):
+        gpu_model.zero_grad()
+        gpu_model.config.recompute = True
+        gpu_model.config.remat_policy = policy
+        reset_flash_launches()
+        loss_g = gpu_model(ids_g, labels_g)
+        loss_g.backward()
+        torch.cuda.synchronize()
+        launches = flash_launches()
+        gpu_model.config.recompute = False
+        rel = max(float((p.grad.cpu() - cpu_grads[n]).abs().max())
+                  / max(float(cpu_grads[n].abs().max()), 1e-30)
+                  for n, p in gpu_model.named_parameters())
+        err = abs(float(loss_g.detach()) - float(loss_c.detach()))
+        out[f"recompute_{policy}"] = {"loss_err": err, "grad_rel_err": rel,
+                                      "flash_launches": launches}
+        if not (err <= 1e-4 and rel <= 1e-4):
+            raise AssertionError(f"recompute {policy} on the card vs the CPU "
+                                 f"differs: loss {err}, grads {rel}")
+        if launches != {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}:
+            raise AssertionError(f"recompute {policy}: flash launches "
+                                 f"{launches}, expected {2 * L}/{L}/{L}")
+    gpu_model.zero_grad()
+
+    # (2) the masked forward and loss: the plain route, no flash launch
+    keep = np.ones((2, 64), bool)
+    keep[0, 50:] = False
+    masks = {"bool_padding": torch.from_numpy(keep[:, None, None, :]),
+             "float": torch.from_numpy(np.where(
+                 rng.random((2, 1, 64, 64)) > 0.2, 0.0, -3.0).astype(
+                     np.float32))}
+    out["masked"] = {}
+    reset_flash_launches()
+    with torch.no_grad():
+        for name, m in masks.items():
+            lg_c = cpu_model(ids_c, attn_mask=m)
+            lg_g = gpu_model(ids_g, attn_mask=m.cuda())
+            ls_c = pt_pkg.LlamaForCausalLM.loss_from_logits(lg_c, labels_c)
+            ls_g = gpu_model(ids_g, labels_g, m.cuda())
+            rec = {"logits_err": float((lg_g.cpu() - lg_c).abs().max()),
+                   "loss_err": abs(float(ls_g) - float(ls_c))}
+            out["masked"][name] = rec
+            if not (rec["logits_err"] <= 1e-4 and rec["loss_err"] <= 1e-4):
+                raise AssertionError(f"masked forward {name}: {rec}")
+        masked_launches = flash_launches()
+    out["masked_flash_launches"] = masked_launches
+    if any(masked_launches.values()):
+        raise AssertionError(f"the masked path launched flash kernels: "
+                             f"{masked_launches}")
+
+    # (3) F.cross_entropy against the model's loss on the card's logits
+    with torch.no_grad():
+        logits = gpu_model(ids_g)
+        want = pt_pkg.LlamaForCausalLM.loss_from_logits(logits, labels_g)
+        got = F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                              labels_g[:, 1:].reshape(-1))
+    out["cross_entropy_err"] = abs(float(got) - float(want))
+    if not out["cross_entropy_err"] <= 1e-5:
+        raise AssertionError(f"F.cross_entropy vs loss_from_logits: "
+                             f"{out['cross_entropy_err']}")
+    del logits
+
+    # (4) two steps of each optimizer, the same gradients on both devices
+    prefix = "model.layers.0."
+    names = [n for n, _ in cpu_model.named_parameters()
+             if n.startswith(prefix)]
+    cpu_params = dict(cpu_model.named_parameters())
+    grads = {n: cpu_grads[n].clone() for n in names}
+    del cpu_grads
+    cpu_model.zero_grad()
+    gpu_grads = {n: g.cuda() for n, g in grads.items()}
+    out["optimizers"] = {}
+    for name, kw in PARITY_MORE_OPTIMIZERS.items():
+        errs = []
+        per_dev = {}
+        for dev, gs in (("cpu", grads), ("cuda", gpu_grads)):
+            params = {n: torch.nn.Parameter(cpu_params[n].detach().to(dev,
+                                                                      copy=True))
+                      for n in names}
+            k = dict(kw)
+            if "weight_decay" in k:
+                k["weight_decay"] = getattr(pt_pkg.regularizer,
+                                            k["weight_decay"][0])(
+                    k["weight_decay"][1])
+            opt = getattr(pt_pkg, name)(parameters=params, **k)
+            for _ in range(2):
+                opt.apply([gs[n] for n in names])
+            per_dev[dev] = params
+            del opt
+        for n in names:
+            errs.append(float((per_dev["cuda"][n].detach().cpu()
+                               - per_dev["cpu"][n].detach()).abs().max()))
+        moved = max(float((per_dev["cpu"][n].detach()
+                           - cpu_params[n].detach()).abs().max())
+                    for n in names)
+        out["optimizers"][name] = {"param_err": max(errs), "moved": moved}
+        del per_dev
+        if not (max(errs) <= 1e-5 and moved > 0):
+            raise AssertionError(f"{name}: card vs CPU params differ by "
+                                 f"{max(errs)} (moved {moved})")
+    emit(out)
+
+
 TRAIN_LAYERS = 8      # Llama-3-8B widths at 8 of 32 layers: AdamW with f32
 #                       masters costs 16 bytes a parameter (45 GB here)
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+
+
+def timed_steps(step, ids, n_timed, warmup=1):
+    """``warmup + n_timed`` calls of ``step(ids, ids)``: the losses, each
+    call's host wall in ms (ending in a sync), the median timed one."""
+    import torch
+
+    losses, wall_ms = [], []
+    for _ in range(warmup + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, ids)
+        losses.append(float(loss))           # syncs
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    timed = sorted(wall_ms[warmup:])
+    return losses, wall_ms, timed[len(timed) // 2]
+
+
+def train_rates(cfg, step_ms, remat_extra: bool):
+    """tokens/s, MFU by the repo's convention ((6N + 12 L h s) over 989
+    TFLOP/s, bench.py:189) and, under full recompute, hw_util counting its
+    extra forward (2N a token, bench.py:210-215)."""
+    n = cfg.num_params()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    model_flops = 6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size \
+        * TRAIN_SEQ
+    out = {"params": n, "tokens_per_s": tok_s,
+           "mfu": tok_s * model_flops / BF16_FLOP_PER_S}
+    if remat_extra:
+        out["hw_util"] = tok_s * (model_flops + 2 * n) / BF16_FLOP_PER_S
+    return out
 
 
 def train_breakdown(step, ids, step_ms):
@@ -1920,30 +2204,18 @@ def phase_train(pt_pkg):
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
     reset_flash_launches()
-    losses, wall_ms = [], []
-    for _ in range(6):                       # 1 warm-up + 5 timed
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(ids, ids)
-        losses.append(float(loss))           # syncs
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-    timed = sorted(wall_ms[1:])
-    step_ms = timed[len(timed) // 2]
+    losses, wall_ms, step_ms = timed_steps(step, ids, 5)
     breakdown = train_breakdown(step, ids, step_ms)
     n_steps = len(wall_ms) + 1               # the profiled step included
     launches = flash_launches()
     peak = torch.cuda.max_memory_allocated()
     bad = [n for n, p in model.named_parameters()
            if not bool(torch.isfinite(p).all())]
-    n = cfg.num_params()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    tok_s = tokens / (step_ms / 1e3)
-    flops_per_token = 6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size         * TRAIN_SEQ
     emit({"phase": "train", "model": "llama3_8b widths", "layers":
-          cfg.num_hidden_layers, "params": n, "batch": TRAIN_BATCH,
+          cfg.num_hidden_layers, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "init_s": init_s, "steps": n_steps,
-          "step_ms": step_ms, "step_ms_all": wall_ms, "tokens_per_s": tok_s,
-          "mfu": tok_s * flops_per_token / BF16_FLOP_PER_S,
+          "step_ms": step_ms, "step_ms_all": wall_ms,
+          **train_rates(cfg, step_ms, False),
           "peak_mem_gb": peak / 1e9, "losses": losses,
           "flash_launches": launches,
           "expected_launches": cfg.num_hidden_layers * n_steps,
@@ -1956,6 +2228,222 @@ def phase_train(pt_pkg):
     if bad:
         raise AssertionError(f"non-finite parameters after training: {bad}")
     return launches
+
+
+RECOMPUTE_LAYERS = 12   # Llama-3-8B widths at 12 of 32 layers under full
+#                         recompute: 3.67 B parameters x 16 bytes (bf16
+#                         weight and gradient, f32 master, two f32 moments)
+#                         = 58.7 GB, plus 12 saved layer inputs, one layer's
+#                         live activations and the logits; without recompute
+#                         the same 12 layers need ~19 GB of activations more
+REMAT_ARMS = (("no_recompute", False, None), ("full", True, None),
+              ("dots", True, "dots"), ("dots_no_batch", True,
+                                       "dots_no_batch"))
+
+
+def phase_train_recompute(pt_pkg):
+    """Deeper training through activation recompute, at full width.
+
+    (a) Llama-3-8B widths cut to ``RECOMPUTE_LAYERS`` of 32, bf16,
+        ``recompute=True`` (full remat), batch 4 x 2048, AdamW with f32
+        masters + global-norm clip: 1 warm-up and 5 timed steps; step ms,
+        tokens/s, MFU, hw_util, peak memory (must stay under the card's
+        80 GB) and the flash launches a step (2 L forward, L dQ, L dK/dV).
+    (b) at the train phase's 8 layers, one model and optimizer, four arms
+        side by side: no recompute, full, ``"dots"``, ``"dots_no_batch"``:
+        1 warm-up and 3 timed steps each, step ms and peak memory, and the
+        flash launches of each arm's steps."""
+    import numpy as np
+    import torch
+
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128256, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+
+    def build(layers, recompute):
+        cfg = pt_pkg.LlamaConfig.llama3_8b()
+        cfg.num_hidden_layers = layers
+        cfg.recompute = recompute
+        model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                        init_std=0.02)
+        opt = pt_pkg.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                           multi_precision=True,
+                           parameters=model.named_parameters(),
+                           grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+        return cfg, model, pt_pkg.TrainStep(model, opt, llm_loss)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, step = build(RECOMPUTE_LAYERS, True)
+    reset_flash_launches()
+    losses, wall_ms, step_ms = timed_steps(step, ids, 5)
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    L, n_steps = cfg.num_hidden_layers, len(wall_ms)
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p).all())]
+    deep = {"layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "step_ms": step_ms, "step_ms_all": wall_ms,
+            **train_rates(cfg, step_ms, True), "peak_mem_gb": peak / 1e9,
+            "losses": losses, "flash_launches": launches,
+            "flash_launches_per_step": {k: v / n_steps
+                                        for k, v in launches.items()}}
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_recompute losses not finite and "
+                             f"falling: {losses}")
+    if launches != {"flash_fwd": 2 * L * n_steps,
+                    "flash_bwd_dq": L * n_steps,
+                    "flash_bwd_dkv": L * n_steps}:
+        raise AssertionError(f"train_recompute flash launches {launches}, "
+                             f"expected {2 * L}/{L}/{L} x {n_steps}")
+    if bad or peak >= 80e9:
+        raise AssertionError(f"train_recompute: non-finite {bad}, peak "
+                             f"{peak / 1e9} GB")
+
+    cfg, model, step = build(TRAIN_LAYERS, False)
+    arms = {}
+    for name, on, policy in REMAT_ARMS:
+        model.config.recompute, model.config.remat_policy = on, policy
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_launches()
+        arm_losses, arm_wall, arm_ms = timed_steps(step, ids, 3)
+        arms[name] = {"step_ms": arm_ms, "step_ms_all": arm_wall,
+                      **train_rates(cfg, arm_ms, on and policy is None),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "losses": arm_losses,
+                      "flash_launches": flash_launches()}
+        if not all(np.isfinite(arm_losses)):
+            raise AssertionError(f"remat arm {name}: losses {arm_losses}")
+    model.config.recompute = False
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_recompute", "model": "llama3_8b widths",
+          "deep": deep, "arms_at_8_layers": arms})
+    return launches, deep
+
+
+AMP_LAYERS = 8          # the train phase's depth, f32 weights for O1
+AMP_FP16_LAYERS = 2     # the eager GradScaler check
+
+
+def phase_train_amp(pt_pkg):
+    """AMP at Llama-3-8B widths, all in one run.
+
+    (a) an f32 model at ``AMP_LAYERS`` layers with ``recompute=True`` under
+        ``auto_cast(level="O1", dtype="bfloat16")``, AdamW without masters
+        (the weights are f32): 1 warm-up and 3 timed steps, step ms and
+        peak memory;
+    (b) ``decorate(level="O2")`` of the same model (bf16 in place) with a
+        fresh AdamW that keeps f32 masters, under ``auto_cast(level="O2")``;
+    (c) fp16 O1 at ``AMP_FP16_LAYERS`` layers on the eager path
+        (``scaler.scale(loss).backward(); scaler.step(opt);
+        scaler.update()``, ``incr_every_n_steps=2``): one injected inf
+        gradient halves the scale and leaves every parameter bit-unchanged,
+        two good steps grow it back, and the flash kernels ran in fp16
+        (their counters move; q, k, v reach them as fp16)."""
+    import numpy as np
+    import torch
+
+    amp = pt_pkg.amp
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 128256, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    out = {"phase": "train_amp", "model": "llama3_8b widths"}
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = AMP_LAYERS
+    cfg.dtype = "float32"
+    cfg.recompute = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    for level, dtype in (("O1", "bfloat16"), ("O2", "bfloat16")):
+        if level == "O2":
+            amp.decorate(model, level="O2", dtype=dtype)
+        opt = pt_pkg.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                           multi_precision=level == "O2",
+                           parameters=model.named_parameters(),
+                           grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+        train_step = pt_pkg.TrainStep(model, opt, llm_loss)
+
+        def step(a, b, _s=train_step, _l=level, _d=dtype):
+            with amp.auto_cast(level=_l, dtype=_d):
+                return _s(a, b)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_launches()
+        losses, wall_ms, step_ms = timed_steps(step, ids, 3)
+        out[f"{level}_{dtype}"] = {
+            "layers": AMP_LAYERS, "step_ms": step_ms, "step_ms_all": wall_ms,
+            **train_rates(cfg, step_ms, True),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "param_dtype": str(next(model.parameters()).dtype),
+            "losses": losses, "flash_launches": flash_launches()}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train_amp {level}: losses {losses}")
+        del opt, train_step, step
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) fp16 O1 on the eager path with the loss scaler
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = AMP_FP16_LAYERS
+    cfg.dtype = "float32"
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=1,
+                                    init_std=0.02)
+    opt = pt_pkg.AdamW(learning_rate=1e-4,
+                       parameters=model.named_parameters())
+    scaler = amp.GradScaler(incr_every_n_steps=2)
+    reset_flash_launches()
+    seq, unchanged = [], None
+    for i, inject in enumerate((False, True, False, False)):
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        if inject:
+            w = model.model.layers[0].mlp.up_proj.weight
+            w.grad[0, 0] = float("inf")
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+        scaler.step(opt)
+        scaler.update()
+        if inject:
+            unchanged = all(torch.equal(p, before[n])
+                            for n, p in model.named_parameters())
+            del before
+        opt.clear_grad()
+        seq.append({"loss": float(loss), "found_inf": scaler._found_inf,
+                    "scale": scaler._scale})
+    fp16_launches = flash_launches()
+    out["fp16_eager"] = {"layers": AMP_FP16_LAYERS, "steps": seq,
+                         "skipped_step_params_unchanged": unchanged,
+                         "flash_launches": fp16_launches}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    scales = [s["scale"] for s in seq]
+    init = 2.0 ** 16
+    if scales != [init, init / 2, init / 2, init] or not unchanged:
+        raise AssertionError(f"GradScaler sequence {scales} (expected "
+                             f"{[init, init / 2, init / 2, init]}), "
+                             f"skipped step unchanged: {unchanged}")
+    if [s["found_inf"] for s in seq] != [False, True, False, False]:
+        raise AssertionError(f"found_inf sequence: {seq}")
+    L = AMP_FP16_LAYERS
+    if fp16_launches != {"flash_fwd": 4 * L, "flash_bwd_dq": 4 * L,
+                         "flash_bwd_dkv": 4 * L}:
+        raise AssertionError(f"fp16 flash launches {fp16_launches}, "
+                             f"expected {4 * L} each")
+    return fp16_launches
 
 
 MOE_TRAIN_LAYERS = 4     # DeepSeekMoE-16B widths at 4 of 28 layers: 2.77 B
@@ -3486,6 +3974,7 @@ def main() -> int:
     record = phase_kernel()
     int8_record = phase_kernel_int8()
     flash_records = phase_flash_kernel()
+    fp16_records = phase_flash_fp16()
     varlen_records = phase_flash_varlen_kernel()
     gc.collect()                    # free the full-width varlen buffers
     torch.cuda.empty_cache()
@@ -3494,6 +3983,9 @@ def main() -> int:
     phase_engine_parity_int8(pt_pkg)
     phase_train_parity(pt_pkg)
     phase_moe_parity(pt_pkg)
+    phase_train_parity_more(pt_pkg)
+    gc.collect()                    # free the 2-layer f32 models
+    torch.cuda.empty_cache()
     phase_capture_parity(pt_pkg)
     gc.collect()                    # free the 2-layer model
     torch.cuda.empty_cache()
@@ -3519,15 +4011,22 @@ def main() -> int:
     gc.collect()                    # free the int8 serving model
     torch.cuda.empty_cache()
     launches = phase_train(pt_pkg)
-    for r in flash_records:
-        r["launches"] = launches[r["name"]]
-    flash_records[0]["launches_by_phase"] = {
-        "train": launches["flash_fwd"], "generate": generate_launches}
     gc.collect()                    # free the Llama training model
     torch.cuda.empty_cache()
+    remat_launches, _ = phase_train_recompute(pt_pkg)
+    fp16_launches = phase_train_amp(pt_pkg)
+    for r in flash_records:
+        r["launches"] = launches[r["name"]]
+        r["launches_by_phase"] = {"train": launches[r["name"]],
+                                  "train_recompute":
+                                      remat_launches[r["name"]]}
+    flash_records[0]["launches_by_phase"]["generate"] = generate_launches
+    for r in fp16_records:
+        r["launches"] = fp16_launches[r["name"][:-len("_fp16")]]
+        r["launches_by_phase"] = {"train_amp fp16": r["launches"]}
     gg_record["launches"] = phase_moe_train(pt_pkg)
-    emit({"kernels": [record, int8_record] + flash_records + varlen_records
-          + [gg_record]})
+    emit({"kernels": [record, int8_record] + flash_records + fp16_records
+          + varlen_records + [gg_record]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,16 @@ MoE decoder:
   KV pages (``kv_quant="int8"``, attended by the same kernel's int8
   variant) and a bounded host-RAM tier that spills and restores evicted
   prefixes (``kv_host_bytes``);
-* training: ``TrainStep`` (forward, next-token loss, backward,
-  ``ClipGradByGlobalNorm`` and an ``AdamW`` update with f32 masters), the
-  attention forward and backward going through hand-written CUDA kernels
-  (``ops/kernels/csrc/flash_attention.cu``);
+* training: ``TrainStep`` (forward, next-token loss, backward, a clip and
+  an optimizer update with f32 masters), the attention forward and
+  backward going through hand-written CUDA kernels
+  (``ops/kernels/csrc/flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` in bf16
+  and fp16, ``flash_attention.cu`` in f32); activation recompute
+  (``LlamaConfig.recompute`` / ``remat_policy``,
+  ``distributed.fleet.recompute``), AMP O1 / O2 (``amp.auto_cast``,
+  ``amp.decorate``, ``amp.GradScaler``), the masked attention path
+  (``attn_mask=``), ``F.cross_entropy`` and the loss layers, the
+  reference's optimizers, LR schedulers, clips and regularizers;
 * the MoE decoder: ``MoEForCausalLM`` over ``MoELayer`` (dispatch modes
   sorted, fused, dropless, einsum) trained by the same ``TrainStep``; in
   the fused mode every expert FFN forward goes through the hand-written CUDA
@@ -50,6 +56,10 @@ from .inference.serving import (  # noqa: F401
 from .jit.train import TrainStep  # noqa: F401
 from .models.llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
 from .models.moe import MoEConfig, MoEForCausalLM  # noqa: F401
-from .nn.clip import ClipGradByGlobalNorm  # noqa: F401
-from .optimizer import Adam, AdamW, lr  # noqa: F401
+from . import amp, distributed, regularizer  # noqa: F401
+from .nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                      ClipGradByValue)
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401
+                        AdamW, Lamb, Lars, Momentum, NAdam, RAdam, RMSProp,
+                        lr)
 from .parallel.moe import MoELayer  # noqa: F401

@@ -2,8 +2,9 @@
 
 Counterpart of ``paddlepaddle_tpu/core/random.py`` (:21-125): ``paddle.seed``,
 a default generator, named generators (the tensor-parallel RNG tracker's
-streams), ``get_rng_state`` / ``set_rng_state`` and a ``generator_scope``
-that routes draws to another generator.
+streams), ``get_rng_state`` / ``set_rng_state``, a ``generator_scope``
+that routes draws to another generator, and ``capture`` / ``replay``, which
+activation recompute uses to draw a recomputed dropout's mask again.
 
 PyTorch idiom, not a copy of the JAX key splitting: a :class:`Generator`
 holds one ``torch.Generator`` per device, each seeded with the generator's
@@ -139,3 +140,39 @@ def set_rng_state(states: list) -> None:
     gens = [_default_generator] + list(_named_generators.values())
     for g, s in zip(gens, states):
         g.set_state(s)
+
+
+def capture() -> tuple:
+    """A snapshot of every port stream: the default and named generators'
+    states and the :func:`generator_scope` stack with its generators'
+    states. :func:`replay` re-enters it (activation recompute: a recomputed
+    dropout must draw the mask its forward drew)."""
+    scopes = list(_scope_stack)
+    return (get_rng_state(), list(_named_generators), scopes,
+            [g.get_state() for g in scopes])
+
+
+@contextmanager
+def replay(snapshot: tuple):
+    """Run the block with the streams as :func:`capture` saw them (a named
+    generator created since then starts from its seed again), then put
+    every stream and the scope stack back as they were before the block."""
+    states, names, scopes, scope_states = snapshot
+    before = capture()
+    scopes_before = [g.get_state() for g in scopes]
+    created = [n for n in _named_generators if n not in names]
+    try:
+        set_rng_state(states)
+        for n in created:
+            _named_generators[n].set_state(
+                {"seed": _named_generators[n].initial_seed()})
+        for g, st in zip(scopes, scope_states):
+            g.set_state(st)
+        _scope_stack[:] = scopes
+        yield
+    finally:
+        b_states, _, b_scopes, b_scope_states = before
+        set_rng_state(b_states)
+        for g, st in zip(scopes + b_scopes, scopes_before + b_scope_states):
+            g.set_state(st)
+        _scope_stack[:] = b_scopes

@@ -29,16 +29,21 @@ class TrainStep:
     ``optimizer.get_lr()``. A parameter the loss does not reach gets a zero
     gradient, as the reference's whole-tree ``jax.grad`` gives it.
 
-    ``device=None`` means the card (:func:`..device.resolve_device`); the
-    model must already be on the step's device. Batch elements may be
-    tensors or numpy arrays; they are moved to that device.
+    The parameters keep the reference's positional order (:34-35).
+    ``donate`` is accepted and recorded as ``self.donate``: an eager step has
+    no jitted buffers to donate, as ``lazy_mode`` is accepted unread by the
+    optimizers. ``device`` is keyword-only; ``None`` means the card
+    (:func:`..device.resolve_device`); the model must already be on the
+    step's device. Batch elements may be tensors or numpy arrays; they are
+    moved to that device.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Callable, grad_accum_steps: int = 1,
-                 device: DeviceLike = None):
+                 donate: bool = True, *, device: DeviceLike = None):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps {grad_accum_steps} < 1")
+        self.donate = bool(donate)
         self.device = resolve_device(device)
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())

@@ -13,8 +13,20 @@ O(L^2) loop over a static token buffer, one full forward a token).
 Attention without a cache (``LlamaForCausalLM.forward(ids[, labels])``, the
 training path) repeats the K/V heads and runs ``F.flash_attention(...,
 causal=True)``, as the reference does (:246-266): the flash kernels on the
-card, the plain version on the CPU. With a cache it runs
-``_cached_attention``, the path of the JAX engine's prefill.
+card, the plain version on the CPU. With an ``attn_mask`` it runs
+``F.scaled_dot_product_attention(..., attn_mask=mask, is_causal=True)``,
+which the reference computes with XLA (a bool mask selects, a float mask
+adds): plain PyTorch on either device, no flash launch, since no TPU kernel
+takes a mask. With a cache it runs ``_cached_attention``, the path of the
+JAX engine's prefill; a mask with caches raises, as in the reference.
+
+``LlamaConfig.recompute`` runs each decoder layer under activation
+recompute (:mod:`..distributed.fleet.recompute`) with ``remat_policy``
+None (full), ``"dots"`` or ``"dots_no_batch"`` (reference :84-92, :327-345).
+Every function the reference runs as a named op passes its inputs through
+the AMP cast hook under that name (``fused_rope`` here; ``linear``,
+``rms_norm``, ``embedding``, ``flash_attention`` and ``cross_entropy`` in
+their modules).
 """
 
 from __future__ import annotations
@@ -27,10 +39,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
 from ..device import DeviceLike, resolve_device
 from ..nn import functional as F
 from ..nn.common import Embedding, Linear
+from ..distributed.fleet.recompute import recompute, remat_policy
 from ..nn.norm import RMSNorm
 from ..ops.kernels._build import check_device
 from ..ops.kernels.flash_attention import (flash_attention_supported,
@@ -52,6 +66,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # activation recompute per decoder layer (reference :84-92); the
+    # reference's context_parallel_axis / data_parallel_axis are A10's
+    recompute: bool = False
+    # None = full remat; "dots" saves the matrix products' outputs,
+    # "dots_no_batch" those without a batch dim
+    remat_policy: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -125,7 +145,9 @@ def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def _apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, offset: Union[int, torch.Tensor] = 0):
     """NeoX rotate-half rope on ``[b, s, heads, d]`` q and k at positions
-    ``offset .. offset+s-1`` (see :func:`rope_at`)."""
+    ``offset .. offset+s-1`` (see :func:`rope_at`); the reference's
+    ``fused_rope`` op."""
+    q, k, cos, sin = amp_cast("fused_rope", q, k, cos, sin)
     c, s = rope_at(cos, sin, offset, q.shape[1], q.dtype)
     return rotate(q, c, s), rotate(k, c, s)
 
@@ -224,22 +246,16 @@ class _CERows(torch.autograd.Function):
 def loss_from_logits(logits: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy in f32 (reference ``loss_from_logits``
-    :549): the label of position t is token t+1 (labels rolled by -1),
-    labels < 0 are ignored, the last position has no target, and the mean
-    is over the valid positions."""
+    :549, the ``cross_entropy`` op): the label of position t is token t+1
+    (labels rolled by -1), labels < 0 are ignored, the last position has no
+    target, and the mean is over the valid positions."""
+    logits, labels = amp_cast("cross_entropy", logits, labels)
     seq = logits.shape[1]
     lb_next = torch.roll(labels, -1, dims=1)
     nll = _CERows.apply(logits, lb_next.clamp_min(0).long())
     pos = torch.arange(seq, device=logits.device)[None, :]
     valid = ((lb_next >= 0) & (pos < seq - 1)).float()
     return (nll * valid).sum() / valid.sum().clamp_min(1.0)
-
-
-def _refuse_mask(owner: str, attn_mask) -> None:
-    if attn_mask is not None:
-        raise NotImplementedError(
-            f"{owner}(attn_mask=...): the masked attention path is not "
-            "ported (ROADMAP A3)")
 
 
 @torch.no_grad()
@@ -265,27 +281,39 @@ class LlamaAttention(nn.Module):
         self.head_dim = config.head_dim
         kv = self.num_kv_heads * self.head_dim
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(h, h, **kw)
-        self.k_proj = Linear(h, kv, **kw)
-        self.v_proj = Linear(h, kv, **kw)
-        self.o_proj = Linear(h, h, **kw)
+        self.q_proj = Linear(h, h, bias_attr=False, **kw)
+        self.k_proj = Linear(h, kv, bias_attr=False, **kw)
+        self.v_proj = Linear(h, kv, bias_attr=False, **kw)
+        self.o_proj = Linear(h, h, bias_attr=False, **kw)
 
-    def forward(self, x, cos, sin, cache: Optional[Cache] = None, pos=0):
-        """``cache=None``: causal self-attention over ``x`` alone through
-        ``F.flash_attention`` (K/V heads repeated first, so autograd sums
-        the repeated heads' gradients), returns the output. With a cache:
-        write-through at ``pos``, returns ``(output, new cache)``."""
+    def forward(self, x, cos, sin, attn_mask=None,
+                cache: Optional[Cache] = None, pos=0):
+        """``cache=None``: causal self-attention over ``x`` alone (K/V heads
+        repeated first, so autograd sums the repeated heads' gradients)
+        through ``F.flash_attention``, or with ``attn_mask`` through
+        ``F.scaled_dot_product_attention``; returns the output. With a
+        cache: write-through at ``pos``, returns ``(output, new cache)``;
+        a mask with a cache raises (reference :232-235)."""
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        if cache is not None and attn_mask is not None:
+            raise NotImplementedError(
+                "KV-cache decoding supports causal masking only; strip "
+                "padding (or use dense attention) when passing caches")
         q, k = _apply_rope(q, k, cos, sin, offset=pos)
         if cache is None:
             rep = self.num_heads // self.num_kv_heads
             if rep > 1:
+                k, v = amp_cast(None, k, v)
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
-            out, _ = F.flash_attention(q, k, v, causal=True)
+            if attn_mask is not None:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attn_mask, is_causal=True)
+            else:
+                out, _ = F.flash_attention(q, k, v, causal=True)
             return self.o_proj(out.reshape(b, s, -1))
         out, kc, vc = _cached_attention(
             q, k, v, cache[0], cache[1], pos,
@@ -298,9 +326,9 @@ class LlamaMLP(nn.Module):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
         kw = dict(device=device, dtype=dtype)
-        self.gate_proj = Linear(h, i, **kw)
-        self.up_proj = Linear(h, i, **kw)
-        self.down_proj = Linear(i, h, **kw)
+        self.gate_proj = Linear(h, i, bias_attr=False, **kw)
+        self.up_proj = Linear(h, i, bias_attr=False, **kw)
+        self.down_proj = Linear(i, h, bias_attr=False, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -316,13 +344,15 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cos, sin, cache: Optional[Cache] = None, pos=0):
+    def forward(self, x, cos, sin, attn_mask=None,
+                cache: Optional[Cache] = None, pos=0):
         """Returns ``x`` without a cache, ``(x, new cache)`` with one."""
         if cache is None:
-            x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+            x = x + self.self_attn(self.input_layernorm(x), cos, sin,
+                                   attn_mask)
             return x + self.mlp(self.post_attention_layernorm(x))
         attn_out, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
-                                             cache, pos)
+                                             attn_mask, cache, pos)
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, new_cache
@@ -350,21 +380,28 @@ class LlamaModel(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None,
                 caches: Optional[List[Cache]] = None, pos=None):
         """``caches=None``: causal attention over ``input_ids`` alone
-        (flash attention), returns the final hidden states. With caches:
-        write-through at ``pos`` (scalar or per-row; None means 0), returns
-        ``(hidden, caches)``. The reference's parameter order (:318); an
-        ``attn_mask`` raises until the masked path is ported."""
-        _refuse_mask("LlamaModel", attn_mask)
+        (flash attention; with ``attn_mask``, the masked plain route),
+        returns the final hidden states; with ``config.recompute`` each
+        layer runs under activation recompute. With caches: write-through
+        at ``pos`` (scalar or per-row; None means 0), returns ``(hidden,
+        caches)``. The reference's parameter order (:318)."""
         pos = 0 if pos is None else pos
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos, self.rope_sin
         if caches is None:
-            for layer in self.layers:
-                x = layer(x, cos, sin)
+            if self.config.recompute:
+                policy = self.config.remat_policy
+                remat_policy(policy)            # a bad name raises here
+                for layer in self.layers:
+                    x = recompute(layer, x, cos, sin, attn_mask,
+                                  policy=policy)
+            else:
+                for layer in self.layers:
+                    x = layer(x, cos, sin, attn_mask)
             return self.norm(x)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
-            x, nc = layer(x, cos, sin, cache, pos)
+            x, nc = layer(x, cos, sin, attn_mask, cache, pos)
             new_caches.append(nc)
         return self.norm(x), new_caches
 
@@ -400,7 +437,8 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(config, device=dev, dtype=dtype)
         self.lm_head = (None if config.tie_word_embeddings
                         else Linear(config.hidden_size, config.vocab_size,
-                                    device=dev, dtype=dtype))
+                                    bias_attr=False, device=dev,
+                                    dtype=dtype))
         self.reset_parameters(seed, init_std)
 
     @property
@@ -416,17 +454,19 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
-            return torch.matmul(hidden, self.model.embed_tokens.weight.T)
+            # the reference's tied head is an unnamed op
+            hidden, w = amp_cast(None, hidden, self.model.embed_tokens.weight)
+            return torch.matmul(hidden, w.T)
         return self.lm_head(hidden)
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits ``[b, s, vocab]``, or with ``labels`` the next-token loss
-        (reference :361-369, same parameter order; an ``attn_mask`` raises
-        until the masked path is ported)."""
-        _refuse_mask("LlamaForCausalLM", attn_mask)
-        logits = self.logits(self.model(input_ids))
+        (reference :361-369, same parameter order). ``attn_mask`` (bool:
+        True attends; float: added to the logits), broadcast to ``[b, h,
+        s, s]``, applies on top of the causal mask."""
+        logits = self.logits(self.model(input_ids, attn_mask))
         if labels is None:
             return logits
         return self.loss_from_logits(logits, labels)

@@ -92,8 +92,8 @@ class MoEDecoderLayer(nn.Module):
                 lcfg, intermediate_size=config.intermediate_size
                 * config.num_shared_experts), **kw)
 
-    def forward(self, x, cos, sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+    def forward(self, x, cos, sin, attn_mask=None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_mask)
         h = self.post_attention_layernorm(x)
         y = self.mlp(h)
         if self.shared_mlp is not None:
@@ -133,7 +133,8 @@ class MoEForCausalLM(nn.Module):
         self.layers = nn.ModuleList([MoEDecoderLayer(config, **kw)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size, **kw)
+        self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                              bias_attr=False, **kw)
         cos, sin = rope_tables(head_dim, config.max_position_embeddings,
                                config.rope_theta, device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -149,14 +150,11 @@ class MoEForCausalLM(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits ``[b, s, vocab]``, or with ``labels`` the next-token loss
         plus ``aux_loss_weight`` times each layer's load-balance loss
-        (reference :117-129)."""
-        if attn_mask is not None:
-            raise NotImplementedError(
-                "MoEForCausalLM(attn_mask=...): the masked attention path is "
-                "not ported (ROADMAP A9)")
+        (reference :117-129). ``attn_mask`` takes the masked attention
+        route of the Llama layers (plain PyTorch, no flash launch)."""
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin)
+            x = layer(x, self.rope_cos, self.rope_sin, attn_mask)
         logits = self.lm_head(self.norm(x))
         if labels is None:
             return logits

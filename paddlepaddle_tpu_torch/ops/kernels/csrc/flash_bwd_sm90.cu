@@ -1,9 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a) in bf16: the dQ kernel and the
-// dK/dV kernel, warp-specialised, TMA-fed, wgmma-computed. CUDA C++ with a
-// plain C entry per kernel.
+// Flash-attention backward for Hopper (sm_90a) in bf16 and fp16: the dQ
+// kernel and the dK/dV kernel, warp-specialised, TMA-fed, wgmma-computed.
+// CUDA C++ with a plain C entry per kernel and element type.
 //
 // Replaces the TPU kernels of paddlepaddle_tpu/ops/kernels/flash_attention.py
-// for bf16 at head dims 64 and 128:
+// for bf16 or fp16 at head dims 64 and 128 (each kernel is templated on the
+// element type T: the wgmma operand type, the tensor maps, the rounding of
+// P and dS and the stores of dQ, dK and dV follow it):
 //   flash_bwd_dq_sm90_kernel  <- _dq_kernel  :139 (pallas_call in
 //                                _pallas_backward :268)
 //   flash_bwd_dkv_sm90_kernel <- _dkv_kernel :172 (pallas_call :277)
@@ -14,10 +16,12 @@
 // [b*h, s_q] (lse in natural log, delta formed by the caller); query i sees
 // key j when j <= i + (s_k - s_q) (bottom-right causal rule) or always;
 // p = exp(s * scale - lse) in f32, ds = p (dp - delta) scale, dq = ds K,
-// dk = ds^T q, dv = p^T dO with f32 accumulation, p and ds rounded to bf16
-// before they feed a product; outputs bf16; any length, the ragged last
+// dk = ds^T q, dv = p^T dO with f32 accumulation, p and ds rounded to T
+// before they feed a product; outputs in T; any length, the ragged last
 // tiles masked. Every output row has one writer: no atomics, and the results
-// are the same bits from launch to launch.
+// are the same bits from launch to launch. In fp16 a value past 65504 (a
+// loss-scaled dO can take dS, dQ, dK or dV there) becomes inf and is kept:
+// that is what a dynamic loss scaler reads to skip the step.
 //
 // Design (both kernels):
 //   * CTA = 3 warpgroups over 128 rows of one (b, h): warpgroup 0 is the
@@ -32,7 +36,7 @@
 //     [rows][64] with the 128-byte swizzle; positions past s_q or s_k are
 //     zero-filled.
 //   * P and dS are formed on the accumulator registers of the first two
-//     products, rounded to bf16 and fed straight to the next wgmma as its
+//     products, rounded to T and fed straight to the next wgmma as its
 //     register A operand (the m64nNk16 accumulator is the m16n8k16 A
 //     fragment); that product's B operand is read N-major (trans-b) from
 //     the swizzled tile. Nothing is staged through shared memory.
@@ -78,7 +82,8 @@
 // products; recomputing S and dP in both kernels costs 2U more than a kernel
 // with an atomic dQ would.
 //
-// Limits checked by the Python wrapper before launch: bf16, d in {64, 128},
+// Limits checked by the Python wrapper before launch: bf16 or fp16, d in
+// {64, 128},
 // causal only with s_q <= s_k, b*h <= 65535, 16-byte aligned contiguous
 // tensors.
 
@@ -95,7 +100,7 @@ constexpr int kDkvBQ = 64;             // queries a dK/dV tile
 constexpr int kDkvStages = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr uint32_t kRowBytes = 64 * 2;  // one swizzled row: 64 bf16
+constexpr uint32_t kRowBytes = 64 * 2;  // one swizzled row: 64 2-byte values
 
 // -------------------------------------------------------------------------
 // dQ: one (b*h, 128-query tile), looping over key tiles
@@ -109,7 +114,7 @@ template <int D> struct DqCfg {
                                   8 * (1 + 2 * kDqStages) + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -117,7 +122,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                         T* __restrict__ dq, int H, int Sq,
                          int Sk, float scale, int causal) {
   using C = DqCfg<D>;
   constexpr int NB = C::kBlocks, BN = kDqBN, ST = kDqStages;
@@ -205,7 +210,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[blk][i] = 0.f;
     float s[BN / 2], dp[BN / 2];       // S and dP of the tile in flight
-    uint32_t da[BN / 16][4];           // dS in bf16: A fragments
+    uint32_t da[BN / 16][4];           // dS in T: A fragments
 
     uint32_t qa[NB][4][4], doa[NB][4][4];   // this warp's Q and dO rows
 
@@ -216,14 +221,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const unsigned char* vt = v_s + (j % ST) * NB * kTileBlock;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs_kmajor(
+        hopper::wgmma_m64n64k16_rs_kmajor<T>(
             s, qa[kk / 4][kk % 4],
             hopper::desc_sw128(kt + (kk / 4) * kTileBlock + (kk % 4) * 32, 16),
             kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs_kmajor(
+        hopper::wgmma_m64n64k16_rs_kmajor<T>(
             dp, doa[kk / 4][kk % 4],
             hopper::desc_sw128(vt + (kk / 4) * kTileBlock + (kk % 4) * 32, 16),
             kk > 0);
@@ -231,7 +236,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
     // dQ += dS K of key tile j (one commit group)
     auto issue_dq = [&](int j) {
-      hopper::wgmma_rs_acc<NB, BN / 16>(
+      hopper::wgmma_rs_acc<NB, BN / 16, T>(
           acc, da, k_s + (j % ST) * NB * kTileBlock, kTileBlock);
       hopper::wgmma_commit();
     };
@@ -280,7 +285,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
       grads();
-      hopper::to_a_frags<BN>(dp, da);
+      hopper::to_a_frags<BN, T>(dp, da);
       // every step but the last commits S, dP of tile j + 1 and dQ of tile
       // j, so the wait counts below are static
       for (int j = 0; j + 1 < n_c; ++j) {
@@ -300,7 +305,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::wgmma_wait<0>();               // dQ of tile j is in
         hopper::fence_acc(acc);
         if (lane == 0) hopper::mbar_arrive(&empty_bar[j % ST]);
-        hopper::to_a_frags<BN>(dp, da);
+        hopper::to_a_frags<BN, T>(dp, da);
       }
       const int j = n_c - 1;                   // the last tile's dQ
       hopper::fence_acc(acc);
@@ -335,7 +340,7 @@ template <int D> struct DkvCfg {
                                   8 * (1 + 2 * kDkvStages) + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -343,8 +348,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                          T* __restrict__ dk, T* __restrict__ dv, int H,
+                          int Sq,
                           int Sk, float scale, int causal) {
   using C = DkvCfg<D>;
   constexpr int NB = C::kBlocks, BQ = kDkvBQ, ST = kDkvStages;
@@ -440,7 +445,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk_acc[blk][i] = dv_acc[blk][i] = 0.f;
     float s[BQ / 2], dp[BQ / 2];       // S^T and dP^T of the tile
-    uint32_t pa[BQ / 16][4], da[BQ / 16][4];   // P^T, dS^T in bf16
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];   // P^T, dS^T in T
 
     hopper::mbar_wait(res_full, 0);
     for (int i = start; i < n_qt; ++i) {
@@ -456,7 +461,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int blk = kk / 4, kin = (kk % 4) * 32;
-          hopper::wgmma_m64n64k16_ss(
+          hopper::wgmma_m64n64k16_ss<T>(
               s,
               hopper::desc_sw128(k_s + blk * kResBlock +
                                      cw * 64 * kRowBytes + kin, 16),
@@ -466,7 +471,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int blk = kk / 4, kin = (kk % 4) * 32;
-          hopper::wgmma_m64n64k16_ss(
+          hopper::wgmma_m64n64k16_ss<T>(
               dp,
               hopper::desc_sw128(v_s + blk * kResBlock +
                                      cw * 64 * kRowBytes + kin, 16),
@@ -496,11 +501,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             s[4 * jb + e] = p;
           }
         }
-        hopper::to_a_frags<BQ>(s, pa);
+        hopper::to_a_frags<BQ, T>(s, pa);
         // dV += P^T dO, in flight while dS^T is formed
         hopper::fence_acc(dv_acc);
         hopper::wgmma_fence();
-        hopper::wgmma_rs_acc<NB, BQ / 16>(dv_acc, pa, dot, kTileBlock);
+        hopper::wgmma_rs_acc<NB, BQ / 16, T>(dv_acc, pa, dot, kTileBlock);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();               // dP^T is in
         hopper::fence_regs(dp);
@@ -514,11 +519,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              (dp[4 * jb + e] - ((e & 1) ? d2.y : d2.x)) *
                              scale;
         }
-        hopper::to_a_frags<BQ>(dp, da);
+        hopper::to_a_frags<BQ, T>(dp, da);
         // dK += dS^T Q
         hopper::fence_acc(dk_acc);
         hopper::wgmma_fence();
-        hopper::wgmma_rs_acc<NB, BQ / 16>(dk_acc, da, qt, kTileBlock);
+        hopper::wgmma_rs_acc<NB, BQ / 16, T>(dk_acc, da, qt, kTileBlock);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_acc(dk_acc);
@@ -536,28 +541,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // -------------------------------------------------------------------------
 // launches
 
-template <int D>
+template <int D, typename T>
 cudaError_t maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
                  CUtensorMap* mdo, const void* q, const void* k,
                  const void* v, const void* dout, int B, int H, int Sq,
                  int Sk, int q_rows, int k_rows) {
-  cudaError_t e = hopper::bshd_map(mq, q, B, Sq, H, D, q_rows);
-  if (e == cudaSuccess) e = hopper::bshd_map(mdo, dout, B, Sq, H, D, q_rows);
-  if (e == cudaSuccess) e = hopper::bshd_map(mk, k, B, Sk, H, D, k_rows);
-  if (e == cudaSuccess) e = hopper::bshd_map(mv, v, B, Sk, H, D, k_rows);
+  constexpr CUtensorMapDataType ty = hopper::tma_type<T>();
+  cudaError_t e = hopper::bshd_map(mq, q, B, Sq, H, D, q_rows, ty);
+  if (e == cudaSuccess)
+    e = hopper::bshd_map(mdo, dout, B, Sq, H, D, q_rows, ty);
+  if (e == cudaSuccess) e = hopper::bshd_map(mk, k, B, Sk, H, D, k_rows, ty);
+  if (e == cudaSuccess) e = hopper::bshd_map(mv, v, B, Sk, H, D, k_rows, ty);
   return e;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int H, int Sq, int Sk, float scale,
                    int causal, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e =
-      maps<D>(&mq, &mk, &mv, &mdo, q, k, v, dout, B, H, Sq, Sk, kBM, kDqBN);
+      maps<D, T>(&mq, &mk, &mv, &mdo, q, k, v, dout, B, H, Sq, Sk, kBM, kDqBN);
   if (e != cudaSuccess) return e;
-  auto kern = flash_bwd_dq_sm90_kernel<D>;
+  auto kern = flash_bwd_dq_sm90_kernel<D, T>;
   constexpr size_t smem = DqCfg<D>::kSmem;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -565,21 +572,22 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   dim3 grid((Sq + kBM - 1) / kBM, B * H);
   kern<<<grid, kThreads, smem, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
-      Sq, Sk, scale, causal);
+      static_cast<const float*>(delta), static_cast<T*>(dq), H, Sq, Sk, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int Sq, int Sk,
                     float scale, int causal, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e =
-      maps<D>(&mq, &mk, &mv, &mdo, q, k, v, dout, B, H, Sq, Sk, kDkvBQ, kBM);
+      maps<D, T>(&mq, &mk, &mv, &mdo, q, k, v, dout, B, H, Sq, Sk, kDkvBQ,
+                 kBM);
   if (e != cudaSuccess) return e;
-  auto kern = flash_bwd_dkv_sm90_kernel<D>;
+  auto kern = flash_bwd_dkv_sm90_kernel<D, T>;
   constexpr size_t smem = DkvCfg<D>::kSmem;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -587,8 +595,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   dim3 grid((Sk + kBM - 1) / kBM, B * H);
   kern<<<grid, kThreads, smem, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Sq, Sk, scale, causal);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -597,11 +605,35 @@ bool bad_shape(int B, int H, int Sq, int Sk, int causal) {
          (causal && Sq > Sk);
 }
 
+template <typename T>
+int dq_launch(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int H,
+              int Sq, int Sk, int D, float scale, int causal, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return (int)bwd_dq<64, T>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128) return (int)bwd_dq<128, T>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int B,
+               int H, int Sq, int Sk, int D, float scale, int causal,
+               void* stream) {
+  if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return (int)bwd_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128) return (int)bwd_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Each entry returns a cudaError_t code: 0 on a successful launch. None
-// synchronises. Tensors are contiguous bf16 [b, s, h, d] (q, dout, dq:
-// s = Sq; k, v, dk, dv: s = Sk); lse and delta are f32 [b*h, Sq].
+// synchronises. Tensors are contiguous [b, s, h, d] of the entry's type,
+// bf16 or fp16 (q, dout, dq: s = Sq; k, v, dk, dv: s = Sk); lse and delta
+// are f32 [b*h, Sq].
 extern "C" {
 
 int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
@@ -609,11 +641,18 @@ int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
                              const void* delta, void* dq, int B, int H,
                              int Sq, int Sk, int D, float scale, int causal,
                              void* stream) {
-  if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)bwd_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-  if (D == 128) return (int)bwd_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dq_launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
+                                  D, scale, causal, stream);
+}
+
+int flash_bwd_dq_sm90_fp16_launch(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq, int B, int H, int Sq, int Sk,
+                                  int D, float scale, int causal,
+                                  void* stream) {
+  return dq_launch<__half>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D,
+                           scale, causal, stream);
 }
 
 int flash_bwd_dkv_sm90_launch(const void* q, const void* k, const void* v,
@@ -621,11 +660,18 @@ int flash_bwd_dkv_sm90_launch(const void* q, const void* k, const void* v,
                               const void* delta, void* dk, void* dv, int B,
                               int H, int Sq, int Sk, int D, float scale,
                               int causal, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-  if (D == 128) return (int)bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dkv_launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   Sq, Sk, D, scale, causal, stream);
+}
+
+int flash_bwd_dkv_sm90_fp16_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int H, int Sq,
+                                   int Sk, int D, float scale, int causal,
+                                   void* stream) {
+  return dkv_launch<__half>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                            D, scale, causal, stream);
 }
 
 const char* flash_bwd_sm90_error_string(int code) {

@@ -1,16 +1,22 @@
-// Flash-attention forward for Hopper (sm_90a) in bf16: warp-specialised,
-// TMA-fed, wgmma-computed. CUDA C++ with a plain C entry.
+// Flash-attention forward for Hopper (sm_90a) in bf16 and fp16:
+// warp-specialised, TMA-fed, wgmma-computed. CUDA C++ with a plain C entry
+// per element type.
 //
 // Replaces the TPU kernel `_fwd_kernel` (paddlepaddle_tpu/ops/kernels/
-// flash_attention.py:97, pallas_call in `_pallas_forward` :229) for bf16 q,
-// k, v at head dims 64 and 128; the f32 path stays on `flash_fwd_kernel` in
+// flash_attention.py:97, pallas_call in `_pallas_forward` :229) for bf16 or
+// fp16 q, k, v at head dims 64 and 128 (the TPU kernel takes either type:
+// its gate tests only the head dim, and AMP sends fp16 to it); the two
+// instantiations differ only in the wgmma operand type, the tensor maps'
+// element type, the rounding of P and the store of O, all in T. The f32
+// path stays on `flash_fwd_kernel` in
 // flash_attention.cu (full-f32 FMA: wgmma would round f32 to TF32). Same
 // function and contract as that kernel: q [b, s_q, h, d], k/v [b, s_k, h, d]
 // read in place; query i sees key j when j <= i + (s_k - s_q) (bottom-right
 // causal rule) or always (full); f32 logits masked with -1e30, online softmax
 // with f32 running max, sum and accumulator, division by max(l, 1e-30); out
-// in bf16 and lse [b*h, s_q] f32 in natural log; any length, the ragged last
-// tile masked. The unchanged dQ and dK/dV kernels take this lse.
+// in q's type and lse [b*h, s_q] f32 in natural log; any length, the ragged
+// last tile masked. The dQ and dK/dV kernels take this lse. In fp16 an O
+// past 65504 becomes inf and is stored as such.
 //
 // Design:
 //   * CTA = 3 warpgroups over 128 query rows of one (b, h): warpgroup 0 is the
@@ -36,7 +42,7 @@
 //     shape. Only the tiles at the causal diagonal or the ragged end evaluate
 //     the mask; the row sum is kept per thread and reduced across the row's
 //     4 lanes once, at the end.
-//   * O += P V: P is rounded to bf16 in registers and fed to wgmma m64n64k16
+//   * O += P V: P is rounded to T in registers and fed to wgmma m64n64k16
 //     as its register A operand (the accumulator layout of S is the m16n8k16
 //     A fragment, two 8-column blocks a 16-key step); V comes from shared
 //     memory N-major (trans-b). Nothing is staged through shared memory and
@@ -61,7 +67,8 @@
 // scheduled against each other (no ping-pong), and the output is stored from
 // registers without TMA.
 //
-// Limits checked by the Python wrapper before launch: bf16, d in {64, 128},
+// Limits checked by the Python wrapper before launch: bf16 or fp16, d in
+// {64, 128},
 // causal only with s_q <= s_k, b*h <= 65535, 16-byte aligned contiguous
 // tensors.
 
@@ -76,7 +83,7 @@ constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr uint32_t kBlockBytes = 128 * 64 * 2;   // one [128][64] bf16 box
+constexpr uint32_t kBlockBytes = 128 * 64 * 2;   // one [128][64] 2-byte box
 
 template <int D> struct Cfg {
   static constexpr int kBlocks = D / 64;            // 64-wide d blocks
@@ -87,12 +94,12 @@ template <int D> struct Cfg {
       (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ out,
+                      T* __restrict__ out,
                       float* __restrict__ lse, int H, int Sq, int Sk,
                       float scale, int causal) {
   using C = Cfg<D>;
@@ -169,7 +176,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // l: this thread's part
 
     float s[64];          // S of the tile in flight, then its probabilities
-    uint32_t pa[8][4];    // P in bf16: A fragments of the 8 16-key steps
+    uint32_t pa[8][4];    // P in T: A fragments of the 8 16-key steps
 
     // S = Q K^T of key tile j over d in 16-wide steps (one commit group)
     auto issue_qk = [&](int j) {
@@ -181,7 +188,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             q_s + blk * kBlockBytes + cw * 64 * 128 + kin, 16);
         const uint64_t db = hopper::desc_sw128(
             k_s + (st * NB + blk) * kBlockBytes + kin, 16);
-        hopper::wgmma_m64n128k16_ss(s, da, db, kk > 0);
+        hopper::wgmma_m64n128k16_ss<T>(s, da, db, kk > 0);
       }
       hopper::wgmma_commit();
     };
@@ -194,7 +201,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int blk = 0; blk < NB; ++blk) {
           const uint64_t db = hopper::desc_sw128(
               v_s + (st * NB + blk) * kBlockBytes + kk * 16 * 128, 1024);
-          hopper::wgmma_m64n64k16_rs(o[blk], pa[kk], db);
+          hopper::wgmma_m64n64k16_rs<T>(o[blk], pa[kk], db);
         }
       hopper::wgmma_commit();
     };
@@ -240,8 +247,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           l[e >> 1] += p;
         }
     };
-    // P to bf16 A fragments
-    auto convert = [&]() { hopper::to_a_frags<kBN>(s, pa); };
+    // P to A fragments of T
+    auto convert = [&]() { hopper::to_a_frags<kBN, T>(s, pa); };
 
     // Tile 0's S and softmax; then each step issues S of tile j + 1 and
     // O += P V of tile j together, runs tile j + 1's softmax while P V is in
@@ -315,13 +322,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + r * 8;
       if (row < Sq) {
         const float inv = 1.f / lt[r];
-        __nv_bfloat16* dst = out + base + (size_t)row * rs + 2 * t;
+        T* dst = out + base + (size_t)row * rs + 2 * t;
 #pragma unroll
         for (int blk = 0; blk < NB; ++blk)
 #pragma unroll
           for (int jb = 0; jb < 8; ++jb)
             *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) =
-                hopper::pack_bf16(o[blk][4 * jb + 2 * r] * inv,
+                hopper::pack2<T>(o[blk][4 * jb + 2 * r] * inv,
                                   o[blk][4 * jb + 2 * r + 1] * inv);
         if (t == 0) lse[(size_t)bh * Sq + row] = m[r] * kLn2 + logf(lt[r]);
       }
@@ -329,26 +336,42 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, int B, int H, int Sq, int Sk, float scale,
                 int causal, cudaStream_t st) {
+  constexpr CUtensorMapDataType ty = hopper::tma_type<T>();
   CUtensorMap mq, mk, mv;
-  cudaError_t e = hopper::bshd_map(&mq, q, B, Sq, H, D, kBM);
-  if (e == cudaSuccess) e = hopper::bshd_map(&mk, k, B, Sk, H, D, kBN);
-  if (e == cudaSuccess) e = hopper::bshd_map(&mv, v, B, Sk, H, D, kBN);
+  cudaError_t e = hopper::bshd_map(&mq, q, B, Sq, H, D, kBM, ty);
+  if (e == cudaSuccess) e = hopper::bshd_map(&mk, k, B, Sk, H, D, kBN, ty);
+  if (e == cudaSuccess) e = hopper::bshd_map(&mv, v, B, Sk, H, D, kBN, ty);
   if (e != cudaSuccess) return e;
-  auto kern = flash_fwd_sm90_kernel<D>;
+  auto kern = flash_fwd_sm90_kernel<D, T>;
   constexpr size_t smem = Cfg<D>::kSmem;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kBM - 1) / kBM, B * H);
-  kern<<<grid, kThreads, smem, st>>>(mq, mk, mv,
-                                     static_cast<__nv_bfloat16*>(out),
+  kern<<<grid, kThreads, smem, st>>>(mq, mk, mv, static_cast<T*>(out),
                                      static_cast<float*>(lse), H, Sq, Sk,
                                      scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int H, int Sq, int Sk, int D, float scale, int causal,
+           void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 ||
+      (causal && Sq > Sk))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return (int)fwd<64, T>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
+  if (D == 128)
+    return (int)fwd<128, T>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal,
+                            st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -356,18 +379,21 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // Returns a cudaError_t code: 0 on a successful launch. Does not
-// synchronise. q, out: contiguous bf16 [b, s_q, h, d]; k, v: [b, s_k, h, d];
-// lse: f32 [b*h, s_q].
+// synchronise. q, out: contiguous [b, s_q, h, d] of the entry's type (bf16
+// or fp16); k, v: [b, s_k, h, d]; lse: f32 [b*h, s_q].
 int flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
                           void* out, void* lse, int B, int H, int Sq, int Sk,
                           int D, float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || B * H > 65535 ||
-      (causal && Sq > Sk))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)fwd<64>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-  if (D == 128) return (int)fwd<128>(q, k, v, out, lse, B, H, Sq, Sk, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, Sq, Sk, D, scale,
+                               causal, stream);
+}
+
+int flash_fwd_sm90_fp16_launch(const void* q, const void* k, const void* v,
+                               void* out, void* lse, int B, int H, int Sq,
+                               int Sk, int D, float scale, int causal,
+                               void* stream) {
+  return launch<__half>(q, k, v, out, lse, B, H, Sq, Sk, D, scale, causal,
+                        stream);
 }
 
 const char* flash_fwd_sm90_error_string(int code) {

@@ -3,9 +3,10 @@
 // flash_varlen_sm90.cu, gather_gemm_sm90.cu): mbarriers, the proxy fence,
 // TMA tile loads through a tensor map, the shared-memory matrix descriptor
 // of a 128-byte-swizzled tile, the wgmma products those kernels issue (bf16
-// in, f32 accumulators), A fragments read from a swizzled tile by ldmatrix,
-// the attention kernels' work on accumulator registers (exp2, bf16 packing,
-// accumulators as A fragments, RS products over a tile, row stores),
+// in, f32 accumulators; the dense flash kernels' products also in fp16),
+// A fragments read from a swizzled tile by ldmatrix, the attention kernels'
+// work on accumulator registers (exp2, bf16 / fp16 packing, accumulators as
+// A fragments, RS products over a tile, row stores),
 // register reallocation between warpgroups, and the host-side encoding of a
 // tiled tensor map through the driver entry point (no -lcuda).
 
@@ -13,8 +14,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -141,33 +145,87 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The wgmma operand type of an element type: "bf16" for __nv_bfloat16,
+// "f16" for __half. Every product below takes T (bf16 by default); the
+// instruction, its register layout and its rate are the same for both.
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+#define HOPPER_ACC64                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),               \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),               \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),          \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),          \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),          \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),          \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),          \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_ACC32                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),               \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),               \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),          \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),          \
+  "+f"(d[30]), "+f"(d[31])
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory; TB is
+// the trans-b immediate
+#define HOPPER_WGMMA_M64N128K16_SS(TY, TB)                                  \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "        \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "        \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "        \
+      "%62, %63"                                                            \
+      "}, %64, %65, p, 1, 1, 0, " TB ";\n}\n"                              \
+      : HOPPER_ACC64                                                      \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, K-major
+#define HOPPER_WGMMA_M64N64K16_SS(TY)                                       \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "        \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+      "%26, %27, %28, %29, %30, %31"                                        \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                   \
+      : HOPPER_ACC32                                                      \
+      : "l"(da), "l"(db), "r"(accumulate))
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers; TB is the
+// trans-b immediate
+#define HOPPER_WGMMA_M64N64K16_RS(TY, TB, ACCUMULATE)                       \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "        \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+      "%26, %27, %28, %29, %30, %31"                                        \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, " TB ";\n}\n"                \
+      : HOPPER_ACC32                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+        "r"(ACCUMULATE))
+
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B from shared memory, both
 // K-major (B stored as [128][16..]: rows are B's columns)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
                                                     uint64_t da, uint64_t db,
                                                     int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N128K16_SS("f16", "0");
+  else
+    HOPPER_WGMMA_M64N128K16_SS("bf16", "0");
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128]: A from shared memory K-major, B
@@ -204,65 +262,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both
 // K-major (B stored as [64][16..]: rows are B's columns)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                    uint64_t da, uint64_t db,
                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N64K16_SS("f16");
+  else
+    HOPPER_WGMMA_M64N64K16_SS("bf16");
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the m16n8k16 A
 // fragment of each warp's 16 rows), B from shared memory stored N-major
 // ([16 k rows][64 n], rows of 128 bytes), hence trans-b = 1
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N64K16_RS("f16", "1", 1);
+  else
+    HOPPER_WGMMA_M64N64K16_RS("bf16", "1", 1);
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A from registers, B from shared
 // memory K-major (stored as [64][16..]: rows are B's columns)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs_kmajor(
     float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N64K16_RS("f16", "0", accumulate);
+  else
+    HOPPER_WGMMA_M64N64K16_RS("bf16", "0", accumulate);
 }
 
 // The m16n8k16 A fragments of 16 rows (from row0) of a tile stored as
@@ -302,15 +333,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the accumulator of a 64 x N product to bf16 A fragments: k step kk takes
+// two floats rounded to fp16 (to nearest; past 65504 they become inf, which
+// is left as it is: a loss scaler reads it)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
+// the accumulator of a 64 x N product to A fragments of T: k step kk takes
 // 8-column blocks 2kk and 2kk + 1
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void to_a_frags(const float (&x)[N / 2],
                                            uint32_t (&a)[N / 16][4]) {
 #pragma unroll
   for (int jb = 0; jb < N / 8; ++jb) {
-    a[jb / 2][(jb & 1) * 2 + 0] = pack_bf16(x[4 * jb + 0], x[4 * jb + 1]);
-    a[jb / 2][(jb & 1) * 2 + 1] = pack_bf16(x[4 * jb + 2], x[4 * jb + 3]);
+    a[jb / 2][(jb & 1) * 2 + 0] = pack2<T>(x[4 * jb + 0], x[4 * jb + 1]);
+    a[jb / 2][(jb & 1) * 2 + 1] = pack2<T>(x[4 * jb + 2], x[4 * jb + 3]);
   }
 }
 
@@ -323,7 +369,7 @@ __device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
 // acc[blk] += A B over STEPS k16 steps: A from registers, B the N-major
 // [STEPS * 16][64] swizzled blocks of a tile, one per 64-wide d block,
 // `block_bytes` apart
-template <int NB, int STEPS>
+template <int NB, int STEPS, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_acc(float (&acc)[NB][32],
                                              const uint32_t (&a)[STEPS][4],
                                              const unsigned char* tile,
@@ -332,27 +378,27 @@ __device__ __forceinline__ void wgmma_rs_acc(float (&acc)[NB][32],
   for (int kk = 0; kk < STEPS; ++kk)
 #pragma unroll
     for (int blk = 0; blk < NB; ++blk)
-      wgmma_m64n64k16_rs(acc[blk], a[kk],
+      wgmma_m64n64k16_rs<T>(acc[blk], a[kk],
                          desc_sw128(tile + blk * block_bytes + kk * 16 * 128,
                                     1024));
 }
 
-// rows row0 and row0 + 8 of a 64 x D accumulator to bf16 [b, s, h, d] rows
+// rows row0 and row0 + 8 of a 64 x D accumulator to T [b, s, h, d] rows
 // (row stride rs), skipping rows at or past S
-template <int NB>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, size_t rs,
-                                           int row0, int S, int t,
+template <int NB, typename T>
+__device__ __forceinline__ void store_rows(T* base, size_t rs, int row0,
+                                           int S, int t,
                                            const float (&acc)[NB][32]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
     if (row < S) {
-      __nv_bfloat16* dst = base + (size_t)row * rs + 2 * t;
+      T* dst = base + (size_t)row * rs + 2 * t;
 #pragma unroll
       for (int blk = 0; blk < NB; ++blk)
 #pragma unroll
         for (int jb = 0; jb < 8; ++jb)
-          *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) = pack_bf16(
+          *reinterpret_cast<uint32_t*>(dst + blk * 64 + jb * 8) = pack2<T>(
               acc[blk][4 * jb + 2 * r], acc[blk][4 * jb + 2 * r + 1]);
     }
   }
@@ -391,11 +437,13 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A [b, s, h, d] bf16 tensor (d contiguous) as a 4-D map (d, h, s, b) whose
-// box is 64 elements of d by `rows` positions of one (b, h): one
+// A [b, s, h, d] tensor of 2-byte elements (d contiguous; bf16 by default,
+// `dtype` CU_TENSOR_MAP_DATA_TYPE_FLOAT16 for fp16) as a 4-D map (d, h, s, b)
+// whose box is 64 elements of d by `rows` positions of one (b, h): one
 // 128-byte-swizzled [rows][64] tile per load. Positions past s read as zero.
-inline cudaError_t bshd_map(CUtensorMap* map, const void* base, int B, int S,
-                            int H, int D, int rows) {
+inline cudaError_t bshd_map(
+    CUtensorMap* map, const void* base, int B, int S, int H, int D, int rows,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
@@ -404,13 +452,20 @@ inline cudaError_t bshd_map(CUtensorMap* map, const void* base, int B, int S,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, dtype, 4,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor-map type of an element type
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // A contiguous [n2, n1, n0] bf16 tensor as a 3-D map (n0 innermost) whose

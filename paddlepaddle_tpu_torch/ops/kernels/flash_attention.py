@@ -6,8 +6,10 @@ kernels are ``csrc/flash_fwd_sm90.cu`` (the bf16 forward),
 ``csrc/flash_bwd_sm90.cu`` (the bf16 dQ and dK/dV kernels) and
 ``csrc/flash_attention.cu`` (the f32 forward, dQ and dK/dV kernels); design,
 bound and known limits in their headers. Each wrapper picks its kernel by
-dtype: bf16 runs a warp-specialised TMA/``wgmma`` kernel, f32 a full-f32 FMA
-kernel (``wgmma`` would round f32 operands to TF32).
+dtype: bf16 and fp16 run a warp-specialised TMA/``wgmma`` kernel (one
+template, two instantiations; fp16 is what AMP sends, since the TPU kernel's
+gate tests only the head dim), f32 a full-f32 FMA kernel (``wgmma`` would
+round f32 operands to TF32).
 
 * :func:`flash_fwd`     replaces ``_fwd_kernel`` (:97, launched at :229);
 * :func:`flash_bwd_dq`  replaces ``_dq_kernel``  (:139, launched at :268);
@@ -39,12 +41,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...amp import amp_cast
 from ...core import random
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)        # the kernels are templated on d = 64 and 128
 MAX_BH = 65535               # b*h rides the grid's y dimension
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def flash_attention_supported(head_dim: int, dtype: torch.dtype,
@@ -58,7 +61,8 @@ def flash_attention_supported(head_dim: int, dtype: torch.dtype,
     with no visible key and is declined, as the TPU kernel declines it
     (:214)."""
     if dtype not in _KERNEL_DTYPES:
-        return False, f"dtype {dtype} (kernels take float32, bfloat16)"
+        return False, (f"dtype {dtype} (kernels take float32, bfloat16, "
+                       "float16)")
     if head_dim not in HEAD_DIMS:
         return False, f"head_dim {head_dim} not in {HEAD_DIMS}"
     if s_q < 1 or s_k < 1:
@@ -82,9 +86,9 @@ def routes_to_plain(head_dim: int, causal: bool, s_q: int, s_k: int) -> bool:
     ``_pallas_forward`` returns None (:214-215) and ``_flash_fwd_impl``
     (:312-324) takes ``_xla_attention``. No TPU kernel ever runs these, so
     the port computes them in the plain version on either device. Decided
-    from the shapes before any launch. d 256, the other multiples of 128
-    above 128 and fp16 are not routed here: a TPU kernel takes them, so on
-    the card they reach :func:`flash_attention_supported` and raise."""
+    from the shapes before any launch. d 256 and the other multiples of 128
+    above 128 are not routed here: a TPU kernel takes them, so on the card
+    they reach :func:`flash_attention_supported` and raise."""
     return not reference_kernel_head_dim(head_dim) or (causal and s_q > s_k)
 
 
@@ -197,13 +201,20 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
 
 
 # the C entry of each kernel, by dtype: (library, entry, pointer count). bf16
-# runs the TMA/wgmma kernels, f32 the full-f32 FMA kernels of
-# flash_attention.cu, whose entries take one more int (is_bf16, always 0)
+# and fp16 run the TMA/wgmma kernels (one instantiation each), f32 the
+# full-f32 FMA kernels of flash_attention.cu, whose entries take one more int
+# (is_bf16, always 0)
 _ENTRIES = {
     ("fwd", torch.bfloat16): ("flash_fwd_sm90", "flash_fwd_sm90_launch", 5),
     ("dq", torch.bfloat16): ("flash_bwd_sm90", "flash_bwd_dq_sm90_launch", 7),
     ("dkv", torch.bfloat16): ("flash_bwd_sm90", "flash_bwd_dkv_sm90_launch",
                               8),
+    ("fwd", torch.float16): ("flash_fwd_sm90", "flash_fwd_sm90_fp16_launch",
+                             5),
+    ("dq", torch.float16): ("flash_bwd_sm90", "flash_bwd_dq_sm90_fp16_launch",
+                            7),
+    ("dkv", torch.float16): ("flash_bwd_sm90",
+                             "flash_bwd_dkv_sm90_fp16_launch", 8),
     ("fwd", torch.float32): ("flash_attention", "flash_fwd_launch", 5),
     ("dq", torch.float32): ("flash_attention", "flash_bwd_dq_launch", 7),
     ("dkv", torch.float32): ("flash_attention", "flash_bwd_dkv_launch", 8),
@@ -258,7 +269,7 @@ def flash_fwd(q, k, v, causal: bool,
     """Forward: ``(out [b, s_q, h, d], lse [b*h, s_q] f32)``. CPU tensors
     take :func:`flash_attention_plain`; CUDA tensors launch a kernel on the
     current stream (no sync) or raise. The kernel is fixed by the dtype:
-    bf16 runs ``flash_fwd_sm90_kernel`` (TMA loads, ``wgmma`` products,
+    bf16 and fp16 run ``flash_fwd_sm90_kernel`` (TMA loads, ``wgmma`` products,
     ``csrc/flash_fwd_sm90.cu``), f32 runs ``flash_fwd_kernel`` (full-f32
     FMA, ``csrc/flash_attention.cu``). Either launch counts once."""
     if q.device.type == "cpu":
@@ -279,7 +290,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
                  scale: float) -> torch.Tensor:
     """dQ ``[b, s_q, h, d]`` by recompute. CPU tensors take
     :func:`flash_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
-    runs ``flash_bwd_dq_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
+    and fp16 run ``flash_bwd_dq_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
     ``flash_bwd_dq_kernel`` (``csrc/flash_attention.cu``)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[0]
@@ -299,7 +310,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` ``[b, s_k, h, d]`` by recompute. CPU tensors take
     :func:`flash_bwd_plain`; CUDA tensors launch a kernel or raise: bf16
-    runs ``flash_bwd_dkv_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
+    and fp16 run ``flash_bwd_dkv_sm90_kernel`` (``csrc/flash_bwd_sm90.cu``), f32
     ``flash_bwd_dkv_kernel`` (``csrc/flash_attention.cu``)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[1:]
@@ -362,7 +373,12 @@ def flash_attention_bshd(query, key, value, causal: bool = False,
     computes without its kernel and which take the plain version on the
     card. A ``mask`` or ``dropout > 0`` computes in plain PyTorch on either
     device; the dropout mask draws from ``generator``, by default the
-    port's seeded stream for the device (``core.random.torch_generator``)."""
+    port's seeded stream for the device (``core.random.torch_generator``).
+    Under AMP the inputs pass the cast hook as the reference's
+    ``flash_attention`` op (white list: q, k, v and a float mask to the low
+    dtype, so an fp16 AMP step sends fp16 to the kernels)."""
+    query, key, value, mask = amp_cast("flash_attention", query, key, value,
+                                       mask)
     scale = 1.0 / math.sqrt(query.shape[-1])
     if mask is None and dropout == 0.0:
         if query.device.type == "cpu" or routes_to_plain(

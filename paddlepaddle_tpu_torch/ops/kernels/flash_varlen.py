@@ -44,8 +44,11 @@ import torch
 
 from . import _build
 from ...core import random
-from .flash_attention import (_KERNEL_DTYPES, HEAD_DIMS, NEG_INF,
+from .flash_attention import (HEAD_DIMS, NEG_INF,
                               _require_cuda, reference_kernel_head_dim)
+
+# the varlen kernels take f32 and bf16 (fp16: ROADMAP queue B, rows 5-7)
+_VARLEN_DTYPES = (torch.float32, torch.bfloat16)
 
 MAX_HEADS = 65535            # flash_varlen.cu's grids put heads on y
 # the plain versions evaluate at most this many f32 logits at once: heads
@@ -61,7 +64,7 @@ def varlen_supported(head_dim: int, dtype: torch.dtype) -> Tuple[bool, str]:
     including causal rows that see no key (the TPU kernels needed multiples
     of 8, ``_blocks``); d 256, which the TPU gate admits, is not built
     yet."""
-    if dtype not in _KERNEL_DTYPES:
+    if dtype not in _VARLEN_DTYPES:
         return False, f"dtype {dtype} (kernels take float32, bfloat16)"
     if head_dim not in HEAD_DIMS:
         return False, f"head_dim {head_dim} not in {HEAD_DIMS}"
@@ -273,7 +276,7 @@ def _launch(kind: str, ptrs, q: torch.Tensor, tk: int, cu_q, cu_k,
     lib = _library(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flags = (int(bool(causal)),) + (
-        (_KERNEL_DTYPES[q.dtype],) if name == "flash_varlen" else ())
+        (int(q.dtype == torch.bfloat16),) if name == "flash_varlen" else ())
     err = getattr(lib, entry)(*ptrs, cu_q.data_ptr(), cu_k.data_ptr(),
                               cu_q.shape[0] - 1, h, tq, tk, d, float(scale),
                               *flags, stream)

@@ -26,6 +26,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..regularizer import L1Decay
 from .lr import LRScheduler
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -83,6 +84,15 @@ class Optimizer:
     def _decoupled_weight_decay(self) -> bool:
         return False
 
+    def _decay_term(self, pf: torch.Tensor) -> torch.Tensor:
+        """The coupled decay folded into the f32 gradient (reference
+        :66-75): ``coeff * sign(w)`` for ``L1Decay``, ``coeff * w`` for
+        ``L2Decay`` or a plain float."""
+        coeff = float(self._weight_decay)
+        if isinstance(self._weight_decay, L1Decay):
+            return torch.sign(pf).mul_(coeff)
+        return pf * coeff
+
     def _wd_scale_for(self, name: str) -> float:
         """Per-parameter weight-decay scale (1.0 = full decay)."""
         return 1.0
@@ -135,7 +145,7 @@ class Optimizer:
             pf = master if master is not None else p.detach().float()
             gf = g.float()
             if self._weight_decay and not self._decoupled_weight_decay():
-                gf = gf + float(self._weight_decay) * pf
+                gf = gf + self._decay_term(pf)
             self._rule(pf, gf, self._slots[name], lr, self._wd_scale_for(name))
             if p.dtype != torch.float32:
                 p.copy_(pf)

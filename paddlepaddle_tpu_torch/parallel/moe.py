@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as _tF
 from torch import nn
 
+from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
 from ..device import DeviceLike, resolve_device
 from ..ops.kernels._build import check_device
@@ -322,9 +323,10 @@ class MoELayer(nn.Module):
     banks ``w_gate_proj``/``w_up_proj`` ``[E, d, h]`` and ``w_down_proj``
     ``[E, h, d]`` and a gate made here are drawn N(0, ``init_std``) from a
     generator seeded with ``seed``; a gate passed in is left as it is. The
-    experts are SwiGLU (the reference's unused ``activation`` argument is
-    not ported). ``ep_axis`` is recorded for expert-parallel placement
-    (ROADMAP A10) and otherwise unused.
+    experts are SwiGLU: ``activation`` is accepted and, as in the reference
+    (:593), never read. ``ep_axis`` is recorded for expert-parallel
+    placement (ROADMAP A10) and otherwise unused. Under AMP the fast modes'
+    inputs pass the cast hook as the reference's ``moe_ffn_<mode>`` op.
 
     With ``dispatch_mode="fused"`` on the card the gather-GEMM kernel's
     support check runs once, here, and an unsupported configuration raises.
@@ -333,7 +335,7 @@ class MoELayer(nn.Module):
     def __init__(self, d_model: int, d_hidden: int, num_experts: int,
                  gate: Optional[NaiveGate] = None,
                  capacity_factor: float = 1.25, ep_axis: str = "ep",
-                 dispatch_mode: str = "sorted", *,
+                 activation=None, dispatch_mode: str = "sorted", *,
                  device: DeviceLike = None, dtype="float32", seed: int = 0,
                  init_std: float = 0.02):
         super().__init__()
@@ -384,7 +386,10 @@ class MoELayer(nn.Module):
         stock_gate = type(self.gate).routing is NaiveGate.routing
         if stock_gate and self.dispatch_mode != "einsum":
             topk = max(self.gate.topk, 1)
-            logits = x_flat.float() @ self.gate.weight.float()
+            x_flat, gate_w, wg, wu, wd = amp_cast(
+                "moe_ffn_" + self.dispatch_mode, x_flat, self.gate.weight,
+                wg, wu, wd)
+            logits = x_flat.float() @ gate_w.float()
             if self.dispatch_mode == "dropless":
                 y, aux = _dropless_moe_ffn(x_flat, logits, wg, wu, wd, topk)
             elif self.dispatch_mode == "fused":

@@ -225,7 +225,8 @@ def test_functional_routes():
     ((64, torch.float32, True, 37, 100), True, "ok"),
     ((256, torch.bfloat16, True, 64, 64), False, "head_dim"),
     ((96, torch.bfloat16, True, 64, 64), False, "head_dim"),
-    ((128, torch.float16, True, 64, 64), False, "dtype"),
+    ((128, torch.float16, True, 64, 64), True, "ok"),
+    ((128, torch.float64, True, 64, 64), False, "dtype"),
     ((128, torch.bfloat16, True, 100, 37), False, "no visible key"),
     ((128, torch.bfloat16, False, 0, 37), False, "empty"),
 ])
@@ -382,3 +383,81 @@ def test_bf16_backward_sm90_deterministic_on_card():
     torch.cuda.synchronize()
     for name, a, b_ in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp16_kernels_match_plain_on_card(d, causal):
+    """The fp16 instantiations of the sm90 forward, dQ and dK/dV kernels
+    against the plain forward and its autograd backward on the same fp16
+    inputs, at the backward kernels' shapes: 1e-2 (P and dS rounded to fp16,
+    3 mantissa bits finer than bf16's 2e-2). Each wrapper launches once a
+    call and returns fp16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scale = d ** -0.5
+    for sq, sk in BWD_SM90_SHAPES:
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.float16)
+                       for a in _inputs(sq, sk, seed=sq + 2 * sk + d, d=d))
+        counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd_dkv.launches)
+        out, lse = fa.flash_fwd(q, k, v, causal, scale)
+        delta = fa.flash_delta(out, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+                fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+        qb, kb, vb = (x.clone().requires_grad_(True) for x in (q, k, v))
+        ref, ref_lse = fa.flash_attention_plain(qb, kb, vb, causal, scale)
+        want = torch.autograd.grad(ref, (qb, kb, vb), do)
+        torch.cuda.synchronize()
+        for name, a, b_ in (("out", out, ref), ("lse", lse, ref_lse),
+                            ("dq", dq, want[0]), ("dk", dk, want[1]),
+                            ("dv", dv, want[2])):
+            if name != "lse":
+                assert a.dtype == torch.float16, name
+            err = float((a.float() - b_.float()).abs().max())
+            assert err <= 1e-2, (name, d, causal, sq, sk, err)
+
+
+@pytest.mark.cuda
+def test_fp16_flash_attention_takes_the_kernels_and_keeps_inf_on_card():
+    """``F.flash_attention`` on fp16 CUDA tensors launches the three
+    kernels (the counters move; no plain fallback); a loss-scaled dO past
+    fp16's range leaves inf in dV where the plain f32 dV passes 65504 and
+    nowhere else (no clamp), and two launches of dK/dV give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) to run the CUDA kernels")
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.float16)
+                   for a in _inputs(200, 200, seed=9, d=128))
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    qa, ka, va = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out, _ = tF.flash_attention(qa, ka, va, causal=True)
+    out.backward(do)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    assert out.dtype == qa.grad.dtype == torch.float16
+    scale = 128 ** -0.5
+    big_do = (do.float() * 3e4).half()
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(out, big_do)
+    first = fa.flash_bwd_dkv(q, k, v, big_do, lse, delta, True, scale)
+    again = fa.flash_bwd_dkv(q, k, v, big_do, lse, delta, True, scale)
+    # bitwise (an inf in dO can leave nan beside the inf, and nan != nan)
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(first, again))
+    p_out, p_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            True, scale)
+    want_dv = fa.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                 big_do.float(), p_lse,
+                                 fa.flash_delta(p_out, big_do.float()), True,
+                                 scale)[2]
+    torch.cuda.synchronize()
+    dv = first[1]
+    big, tame = want_dv.abs() > 7.0e4, want_dv.abs() < 6.0e4
+    assert int(big.sum()) > 0
+    assert bool(torch.isinf(dv[big]).all())
+    assert bool(torch.isfinite(dv[tame]).all())

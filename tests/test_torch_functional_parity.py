@@ -215,18 +215,24 @@ def test_routing_predicate_mirrors_reference_gate(d, causal, sq, sk, plain):
                                                or d in (64, 128, 256))
 
 
-@pytest.mark.parametrize("d,dtype,match", [
-    (256, torch.bfloat16, "head_dim"),
-    (384, torch.float32, "head_dim"),
-    (64, torch.float16, "dtype"),
+@pytest.mark.parametrize("d,dtype,match,dense_takes", [
+    (256, torch.bfloat16, "head_dim", False),
+    (384, torch.float32, "head_dim", False),
+    (64, torch.float16, "dtype", True),
 ])
-def test_kernel_coverage_a_tpu_kernel_takes_still_raises(d, dtype, match):
-    """d 256 (and larger multiples of 128) and fp16 reach the kernels' check
-    on the card and raise there: the check itself, on host tensors."""
+def test_kernel_coverage_a_tpu_kernel_takes_still_raises(d, dtype, match,
+                                                         dense_takes):
+    """d 256 (and larger multiples of 128) reach the kernels' check on the
+    card and raise there: the check itself, on host tensors. fp16 passes
+    the dense kernels' check (their fp16 instantiation) and still raises at
+    the varlen kernels' (queue B coverage)."""
     q = torch.zeros(1, 16, 2, d, dtype=dtype)
     assert not fa.routes_to_plain(d, True, 16, 16)
-    with pytest.raises(ValueError, match=match):
+    if dense_takes:
         fa._check_cuda_args(True, q, q, q)
+    else:
+        with pytest.raises(ValueError, match=match):
+            fa._check_cuda_args(True, q, q, q)
     assert fv.reference_kernel_head_dim(d)
     qv = q[0]
     cu = torch.tensor([0, 16], dtype=torch.int32)
@@ -406,13 +412,20 @@ def test_llama_forward_takes_reference_order():
     model = _tiny_llama()
     ids = torch.from_numpy(np.random.default_rng(41).integers(
         0, 64, (2, 10)))
-    mask = torch.ones(2, 10)
-    with pytest.raises(NotImplementedError, match="A3"):
-        model.model(ids, mask)
-    with pytest.raises(NotImplementedError, match="A3"):
-        model(ids, None, mask)
+    mask = torch.ones(2, 1, 10, 10)     # a float mask: added to the logits
     with torch.no_grad():
         full = model(ids)
+        # the second positional parameter is the mask, the third of the
+        # causal LM too; adding 1 to every logit leaves the softmax alone
+        torch.testing.assert_close(model.model(ids, mask),
+                                   model.model(ids, attn_mask=mask))
+        torch.testing.assert_close(model(ids, None, mask), full, atol=1e-5,
+                                   rtol=1e-5)
+    shape0 = (2, 10, model.config.num_key_value_heads, model.config.head_dim)
+    with pytest.raises(NotImplementedError, match="causal masking only"):
+        model.model(ids, mask, [(torch.zeros(shape0), torch.zeros(shape0))
+                                for _ in range(model.config.num_hidden_layers)])
+    with torch.no_grad():
         hidden = model.model(ids, None)
         cfg = model.config
         shape = (2, 10, cfg.num_key_value_heads, cfg.head_dim)
@@ -483,3 +496,235 @@ def test_engine_serves_head_dim_96_on_card_like_cpu():
     assert outs["cuda"] == outs["cpu"]
     assert (tpa.paged_attention.launches,
             tpa.paged_attention.int8_launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# C10: TrainStep in the reference's positional order; the keyword surface
+# the Llama subset dropped; the masked attention path
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_takes_reference_positional_order():
+    """``TrainStep(m, opt, fn, 1, False)``: the fifth positional parameter
+    is ``donate`` (recorded, unread, as the eager step has nothing to
+    donate), ``device`` is keyword-only; the step trains as one built by
+    keyword."""
+    import inspect
+
+    from paddlepaddle_tpu.jit.train import TrainStep as JTrainStep
+
+    from paddlepaddle_tpu_torch import AdamW, TrainStep
+
+    def fn(m, ids, labels):
+        return m(ids, labels=labels)
+
+    ids = np.random.default_rng(50).integers(0, 64, (2, 10))
+    losses = []
+    for args, kw in (((1, False), {}), ((1, True), {}), ((), {})):
+        model = _tiny_llama()
+        opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters())
+        step = TrainStep(model, opt, fn, *args, device="cpu", **kw)
+        assert step.donate is (args[1] if args else True)
+        assert step.grad_accum == 1
+        losses.append([float(step(ids, ids)) for _ in range(2)])
+    assert losses[0] == losses[1] == losses[2]
+    with pytest.raises(TypeError):
+        TrainStep(_tiny_llama(), AdamW(), fn, 1, True, "cpu")
+    tsig = inspect.signature(TrainStep.__init__).parameters
+    jsig = inspect.signature(JTrainStep.__init__).parameters
+    positional = [(n, p.default) for n, p in tsig.items()
+                  if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert positional == [(n, p.default) for n, p in jsig.items()]
+    assert tsig["device"].kind == inspect.Parameter.KEYWORD_ONLY
+
+
+def _positional_sig(obj):
+    import inspect
+
+    fn = obj.__init__ if inspect.isclass(obj) else obj
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters
+            .values() if p.kind == p.POSITIONAL_OR_KEYWORD]
+
+
+@pytest.mark.parametrize("name", ["F.embedding", "F.swiglu", "F.linear",
+                                  "Linear", "Embedding", "RMSNorm",
+                                  "MoELayer", "ClipGradByGlobalNorm"])
+def test_dropped_keyword_surface_matches_reference(name):
+    """Each reference parameter, in the reference's order and with its
+    default (the port's ``device`` / ``dtype`` / ``seed`` are keyword-only
+    extras)."""
+    paddle = _paddle()
+    from paddlepaddle_tpu.parallel import moe as jmoe
+
+    import paddlepaddle_tpu_torch as pt
+
+    pairs = {
+        "F.embedding": (tF.embedding, paddle.nn.functional.embedding),
+        "F.swiglu": (tF.swiglu, paddle.nn.functional.swiglu),
+        "F.linear": (tF.linear, paddle.nn.functional.linear),
+        "Linear": (pt.nn.Linear, paddle.nn.Linear),
+        "Embedding": (pt.nn.Embedding, paddle.nn.Embedding),
+        "RMSNorm": (pt.nn.RMSNorm, paddle.nn.RMSNorm),
+        "MoELayer": (pt.MoELayer, jmoe.MoELayer),
+        "ClipGradByGlobalNorm": (pt.ClipGradByGlobalNorm,
+                                 paddle.nn.ClipGradByGlobalNorm),
+    }
+    tobj, jobj = pairs[name]
+    assert _positional_sig(tobj) == _positional_sig(jobj)
+
+
+def test_embedding_padding_idx_and_swiglu_split_match_reference():
+    """``padding_idx`` (also negative) reads zeros and sends its row no
+    gradient; the one-argument ``swiglu`` splits the last axis; both
+    against the JAX package, values and gradients (1e-6)."""
+    import jax
+
+    paddle = _paddle()
+    from paddlepaddle_tpu.core import autograd as jag
+    from paddlepaddle_tpu.core.dispatch import unwrap
+
+    rng = np.random.default_rng(51)
+    w = rng.standard_normal((7, 4)).astype(np.float32)
+    ids = np.array([[0, 3, 6, 3], [2, 6, 1, 0]], np.int64)
+    for pad in (3, -1):
+        def jf(wa):
+            with jag.no_grad():
+                out = paddle.nn.functional.embedding(
+                    paddle.to_tensor(ids), paddle.to_tensor(wa),
+                    padding_idx=pad)
+                return (unwrap(out) * np.arange(4)).sum()
+
+        jv, jg = jax.value_and_grad(jf)(w)
+        tw = torch.from_numpy(w.copy()).requires_grad_(True)
+        out = tF.embedding(torch.from_numpy(ids), tw, padding_idx=pad,
+                           sparse=True, name="e")
+        tv = (out * torch.arange(4)).sum()
+        tv.backward()
+        np.testing.assert_allclose(float(tv), float(jv), atol=1e-6)
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jg),
+                                   atol=1e-6)
+        assert float(tw.grad[pad].abs().sum()) == 0.0
+    x = rng.standard_normal((3, 10)).astype(np.float32)
+    want = paddle.nn.functional.swiglu(paddle.to_tensor(x)).numpy()
+    got = tF.swiglu(torch.from_numpy(x), None, "s")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    from paddlepaddle_tpu_torch.nn import Embedding
+
+    e = Embedding(7, 4, 3, False, None, "e", device="cpu")
+    assert float(e(torch.tensor([3])).abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("layer,kw", [
+    ("Linear", dict(weight_attr=object())),
+    ("Linear", dict(bias_attr=object())),
+    ("Embedding", dict(weight_attr=object())),
+    ("RMSNorm", dict(weight_attr=object())),
+])
+def test_param_attrs_the_port_cannot_honour_raise(layer, kw):
+    import paddlepaddle_tpu_torch as pt
+
+    args = (4,) if layer == "RMSNorm" else (4, 3)
+    with pytest.raises(NotImplementedError, match="A11"):
+        getattr(pt.nn, layer)(*args, device="cpu", **kw)
+
+
+def test_layers_build_like_the_reference():
+    """``Linear`` has a zero bias unless ``bias_attr=False``; ``RMSNorm``
+    takes a shape and a bias only for ``bias_attr=True``; the shapes and
+    the bias values equal the reference's."""
+    paddle = _paddle()
+    import paddlepaddle_tpu_torch as pt
+
+    for kw in ({}, {"bias_attr": False}):
+        j = paddle.nn.Linear(5, 3, **kw)
+        t = pt.nn.Linear(5, 3, device="cpu", **kw)
+        assert (t.bias is None) == (j.bias is None)
+        if t.bias is not None:
+            np.testing.assert_array_equal(t.bias.detach().numpy(),
+                                          np.asarray(j.bias.numpy()))
+        assert tuple(t.weight.shape) == tuple(j.weight.shape)
+    for kw in ({}, {"bias_attr": True}):
+        j = paddle.nn.RMSNorm([6], **kw)
+        t = pt.nn.RMSNorm([6], device="cpu", **kw)
+        assert (t.bias is None) == (j.bias is None)
+        np.testing.assert_array_equal(t.weight.detach().numpy(),
+                                      np.asarray(j.weight.numpy()))
+    m = pt.MoELayer(8, 16, 2, None, 1.25, "ep", "gelu", "sorted",
+                    device="cpu")
+    assert m.dispatch_mode == "sorted"
+
+
+def _masks(b, s, kind, seed=52):
+    rng = np.random.default_rng(seed)
+    if kind == "bool_padding":          # [b, 1, 1, s] key padding
+        keep = np.ones((b, s), bool)
+        keep[0, -3:] = False
+        return keep[:, None, None, :]
+    if kind == "bool_full":             # [b, 1, s, s], the diagonal kept
+        m = rng.random((b, 1, s, s)) > 0.3
+        return m | np.eye(s, dtype=bool)
+    return np.where(rng.random((b, 1, s, s)) > 0.3, 0.0,          # additive
+                    -2.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["bool_padding", "bool_full", "float"])
+@pytest.mark.parametrize("family", ["llama", "moe"])
+def test_masked_forward_and_loss_match_jax(family, kind):
+    """``model(ids, labels, attn_mask)`` against the JAX model on the same
+    weights: logits 1e-5, the loss and its gradients 1e-5 (f32; other
+    summation orders)."""
+    import jax
+
+    paddle = _paddle()
+    from paddlepaddle_tpu.core import autograd as jag
+    from paddlepaddle_tpu.core.dispatch import unwrap
+
+    from paddlepaddle_tpu_torch import convert
+
+    if family == "llama":
+        from paddlepaddle_tpu.models import llama as jmod
+
+        from paddlepaddle_tpu_torch.models import llama as tmod
+        cfg = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=64)
+        paddle.seed(3)
+        jm = jmod.LlamaForCausalLM(jmod.LlamaConfig(**cfg))
+        tm = tmod.LlamaForCausalLM(tmod.LlamaConfig(**cfg), device="cpu")
+    else:
+        from paddlepaddle_tpu.models import moe as jmod
+
+        from paddlepaddle_tpu_torch.models import moe as tmod
+        paddle.seed(3)
+        jcfg, tcfg = jmod.MoEConfig.tiny(), tmod.MoEConfig.tiny()
+        jm = jmod.MoEForCausalLM(jcfg)
+        tm = tmod.MoEForCausalLM(tcfg, device="cpu")
+    state = {k: np.asarray(v) for k, v in jm.functional_state().items()}
+    convert.load_jax_state(tm, state)
+    b, s = 2, 12
+    rng = np.random.default_rng(53)
+    ids = rng.integers(0, 64, (b, s)).astype(np.int64)
+    mask = _masks(b, s, kind)
+    jlogits = jm(paddle.to_tensor(ids), attn_mask=paddle.to_tensor(mask))
+    tlogits = tm(torch.from_numpy(ids), attn_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(tlogits.detach().numpy(),
+                               np.asarray(jlogits.numpy()), atol=1e-5,
+                               rtol=0)
+    params = jm.functional_state(trainable_only=True)
+    buffers = {k: v for k, v in jm.functional_state().items()
+               if k not in params}
+
+    def loss_of(p):
+        with jag.no_grad(), jm.bind_state({**p, **buffers}):
+            return unwrap(jm(paddle.to_tensor(ids),
+                             labels=paddle.to_tensor(ids),
+                             attn_mask=paddle.to_tensor(mask)))
+
+    jloss, jgrads = jax.value_and_grad(loss_of)(params)
+    loss = tm(torch.from_numpy(ids), torch.from_numpy(ids),
+              torch.from_numpy(mask))
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5, rtol=0)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[name]),
+                                   atol=1e-5, rtol=0, err_msg=name)

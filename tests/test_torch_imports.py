@@ -30,6 +30,16 @@ import paddlepaddle_tpu_torch.inference.kv_pool
 import paddlepaddle_tpu_torch.inference.speculative
 import paddlepaddle_tpu_torch.nn.quant
 import paddlepaddle_tpu_torch.resilience.preemption
+import paddlepaddle_tpu_torch.amp
+import paddlepaddle_tpu_torch.amp.amp_lists
+import paddlepaddle_tpu_torch.amp.grad_scaler
+import paddlepaddle_tpu_torch.regularizer
+import paddlepaddle_tpu_torch.nn.loss
+import paddlepaddle_tpu_torch.nn.common
+import paddlepaddle_tpu_torch.nn.norm
+import paddlepaddle_tpu_torch.optimizer.optimizers
+import paddlepaddle_tpu_torch.distributed
+import paddlepaddle_tpu_torch.distributed.fleet.recompute
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -43,6 +53,9 @@ if not torch.cuda.is_available():
             ("model", lambda: pt.LlamaForCausalLM(cfg)),
             ("moe_model", lambda: pt.MoEForCausalLM(pt.MoEConfig.tiny())),
             ("moe_layer", lambda: pt.MoELayer(8, 16, 2)),
+            ("linear", lambda: pt.nn.Linear(4, 3)),
+            ("embedding", lambda: pt.nn.Embedding(4, 3)),
+            ("rms_norm", lambda: pt.nn.RMSNorm(4)),
             ("engine", lambda: pt.BatchDecodeEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
             ("engine_int8", lambda: pt.BatchDecodeEngine(
@@ -82,7 +95,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "inference.speculative",
                 "core.flags", "parallel.moe", "models.moe",
                 "ops.kernels.flash_varlen", "core.random", "nn.long_tail",
-                "incubate.nn.functional"):
+                "incubate.nn.functional", "amp", "amp.amp_lists",
+                "amp.grad_scaler", "regularizer", "nn.loss", "nn.common",
+                "nn.norm", "distributed", "distributed.fleet.recompute"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

@@ -393,7 +393,10 @@ def test_moe_model_device_rules():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MoEForCausalLM(cfg)
     tm = MoEForCausalLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm(torch.zeros(1, 4, dtype=torch.long),
-           attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    # the masked route: an all-True bool mask attends as the causal mask does
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            tm(ids, attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool)),
+            tm(ids), atol=1e-5, rtol=1e-5)
     assert tm(torch.zeros(2, 4, dtype=torch.long)).shape == (2, 4, 128)

@@ -123,7 +123,7 @@ def test_weight_only_linear_layer_matches_reference():
     x = np.random.default_rng(6).standard_normal((3, 64)).astype(np.float32)
     want = np.asarray(jq.WeightOnlyLinear.from_linear(jlin)(
         paddle.to_tensor(x)).numpy())
-    lin = Linear(64, 16, device="cpu", dtype=torch.float32)
+    lin = Linear(64, 16, bias_attr=False, device="cpu", dtype=torch.float32)
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(w))
     qlin = tq.WeightOnlyLinear.from_linear(lin)
