@@ -204,9 +204,40 @@ code is non-zero):
                time by kind and the share of routed entries each layer's
                capacity dropped.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
-before printing any result.
+4d. ``flash_d64``  kernels 2-4 in bf16 at head dim 64 (BERT-base and
+               GPT-2 small: 768 / 12): the three at GPT-2 small's training
+               shape (b 12, s 1024, h 12, causal) and the forward at
+               BERT-base's eval shape (b 32, s 128, h 12, full), each
+               against the plain version (atol 2e-2), timed beside the plain
+               versions, SDPA and the bound (rows 2b-4b).
+8z. ``zoo_parity``  small f32 copies, the card against the CPU path from
+               one state: ResNet(BottleneckBlock, 50, width 16, 10 classes)
+               at 4 x 3 x 64 x 64 (train-mode logits, one Momentum step,
+               the running statistics, eval logits); 2 layers of BERT-base's
+               widths at b 2, s 128 (eval logits without a mask: kernel 2
+               once a layer; with a padding mask: no launch; one AdamW
+               step: kernels 2-4 once a layer); 2 layers of GPT-2 small's
+               widths (loss, one AdamW step, 16 greedy tokens equal to the
+               CPU's). Tolerances in each helper's docstring.
+12. ``resnet50_train``  BASELINE config 2 as bench.py:312-358 runs it:
+               ResNet-50 (1000 classes) in bf16, Momentum(0.1, 0.9), batch
+               128 x 3 x 224 x 224, NCHW; 2 warm-up and 5 timed steps, one
+               profiled: step ms, images/s, mfu_approx, peak memory, the
+               device time split into convolutions, layout transforms,
+               batch norm, the optimizer and the rest; batch norm's forward
+               + backward against cuDNN's at 128 x 256 x 56 x 56.
+13. ``bert_base``  BASELINE config 1 at the BERT paper's GLUE settings: b
+               32, s 128 with padding masks, dropout 0.1, AdamW 2e-5, bf16,
+               2 labels; 5 timed steps; eval launches of kernel 2: 12
+               without a mask, 0 with one.
+14. ``gpt2_small``  GPT-2 124M at nanoGPT's settings (12 x 1024, bf16,
+               AdamW 6e-4, dropout 0): 5 timed steps, tokens/s, MFU, kernels
+               2 / 3 / 4 at 12 launches a step each; ``generate`` of 32
+               greedy tokens from 8 prompts of 128.
+
+Then the run's total seconds, the ``{"kernels": [...]}`` line, the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Without CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -821,61 +852,62 @@ def flash_work(q, k, causal):
             "flash_bwd_dkv": (2 * t_q + 2 * t_k + 2 * rows + 2 * t_k, 4 * U)}
 
 
-def flash_main_shape(fa, rng, dtype, atol, suffix=""):
-    """Kernels 2-4 at the train phase's shape (one Llama-3-8B layer: b 4,
-    s 2048, 32 heads after the GQA repeat, d 128, causal) in ``dtype``:
-    each against the plain version (``atol``), two launches of the
-    backward pair to the same bits (one writer per output row, no atomics),
-    then CUDA-event times of each kernel, the plain versions and SDPA (its
-    backward for the pair; a yardstick the port never calls) beside the
-    bound. Returns the kernels-line records (names + ``suffix``) and the
-    errors."""
+def flash_main_shape(fa, rng, dtype, atol, suffix="",
+                     shape=(4, 2048, 32, 128), causal=True):
+    """Kernels 2-4 at ``shape`` (by default the train phase's: one
+    Llama-3-8B layer, b 4, s 2048, 32 heads after the GQA repeat, d 128,
+    causal) in ``dtype``: each against the plain version (``atol``), two
+    launches of the backward pair to the same bits (one writer per output
+    row, no atomics), then CUDA-event times of each kernel, the plain
+    versions and SDPA (its backward for the pair; a yardstick the port
+    never calls) beside the bound. Returns the kernels-line records (names
+    + ``suffix``) and the errors."""
     import torch
     import torch.nn.functional as tF
 
-    b, s, h, d = 4, 2048, 32, 128
+    b, s, h, d = shape
     q, k, v, do = flash_inputs(rng, b, s, s, h, d, dtype)
-    errs = flash_check(fa, q, k, v, do, True)
+    errs = flash_check(fa, q, k, v, do, causal)
     if not max(errs.values()) <= atol:
         raise AssertionError(f"flash kernels main shape {dtype}: {errs} > "
                              f"{atol}")
     scale = d ** -0.5
-    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
     delta = fa.flash_delta(out, do)
-    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
-    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale))
+    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
     if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
         raise AssertionError(f"flash backward pair {dtype}: two launches "
                              "differ")
     del first, again
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     ms = {
-        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, True, scale),
+        "flash_fwd": median_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
                                flush=flush),
         "flash_bwd_dq": median_ms(lambda: fa.flash_bwd_dq(
-            q, k, v, do, lse, delta, True, scale), flush=flush),
+            q, k, v, do, lse, delta, causal, scale), flush=flush),
         "flash_bwd_dkv": median_ms(lambda: fa.flash_bwd_dkv(
-            q, k, v, do, lse, delta, True, scale), flush=flush),
+            q, k, v, do, lse, delta, causal, scale), flush=flush),
     }
-    plain_fwd = median_ms(lambda: fa.flash_attention_plain(q, k, v, True,
+    plain_fwd = median_ms(lambda: fa.flash_attention_plain(q, k, v, causal,
                                                            scale),
                           reps=10, flush=flush)
     # one plain pass computes dq, dk and dv together: it is the plain
     # version of both backward kernels
     plain_bwd = median_ms(lambda: fa.flash_bwd_plain(
-        q, k, v, do, lse, delta, True, scale), reps=10, flush=flush)
+        q, k, v, do, lse, delta, causal, scale), reps=10, flush=flush)
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = median_ms(lambda: tF.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), flush=flush)
+        qh, kh, vh, is_causal=causal), flush=flush)
     qg, kg, vg = (x.detach().clone().requires_grad_(True)
                   for x in (qh, kh, vh))
-    og = tF.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    og = tF.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     lib_bwd = median_ms(lambda: torch.autograd.grad(
         og, (qg, kg, vg), doh, retain_graph=True), flush=flush)
     del flush
-    work = flash_work(q, k, True)
+    work = flash_work(q, k, causal)
     plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
              "flash_bwd_dkv": plain_bwd}
     library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
@@ -898,7 +930,8 @@ def flash_main_shape(fa, rng, dtype, atol, suffix=""):
             "plain_ms": plain[name], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library[name],
-            "shape": f"b{b} s{s} h{h} d{d} {tag} causal",
+            "shape": f"b{b} s{s} h{h} d{d} {tag} "
+                     f"{'causal' if causal else 'full'}",
             "bytes": bytes_, "flops": flops})
     return records, errs
 
@@ -3943,6 +3976,600 @@ def phase_serve_robust(pt_pkg):
         raise AssertionError("serve_robust: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# the rest of the model zoo: ResNet-50, BERT-base, GPT-2 small
+# ---------------------------------------------------------------------------
+
+GPT2_SHAPE = (12, 1024, 12, 64)     # nanoGPT's micro-batch x block, 12 heads
+BERT_SHAPE = (32, 128, 12, 64)      # the GLUE fine-tuning batch, 12 heads
+
+
+def phase_flash_d64():
+    """Kernels 2-4 at head dim 64, the width of BERT-base and GPT-2 small
+    (768 / 12), in bf16: the three kernels at GPT-2 small's training shape
+    (b 12, s 1024, h 12, causal) and the forward at BERT-base's eval shape
+    (b 32, s 128, h 12, full), each against the plain version (atol 2e-2),
+    timed beside the plain versions, SDPA and the bound (rows 2b-4b)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(2)
+    gpt, gerrs = flash_main_shape(fa, rng, torch.bfloat16, 2e-2,
+                                  suffix="_d64", shape=GPT2_SHAPE)
+    bert, berrs = flash_main_shape(fa, rng, torch.bfloat16, 2e-2,
+                                   suffix="_d64_bert", shape=BERT_SHAPE,
+                                   causal=False)
+    records = gpt + bert[:1]
+    emit({"phase": "flash_d64", "errs": {"gpt2": gerrs, "bert": berrs},
+          "atol": 2e-2, "gpt2": flash_main_summary(gpt),
+          "bert_fwd": flash_main_summary(bert[:1])})
+    return records
+
+
+def _rel(card, cpu) -> float:
+    return float((card.detach().cpu().float() - cpu.detach().float())
+                 .abs().max() / cpu.detach().float().abs().max())
+
+
+def zoo_resnet_parity(pt_pkg):
+    """ResNet(BottleneckBlock, 50, width 16, 10 classes), f32, 4 x 3 x 64 x
+    64, the card against the CPU from one state: train-mode logits, one
+    Momentum ``TrainStep`` (lr 0.01), the running statistics it updates,
+    eval logits over the stepped state. Tolerances as in
+    tests/test_torch_zoo.py, where the JAX package's own f32 gradients on
+    this model sit 4-5% (of the largest gradient) from an f64 evaluation:
+    train-mode logits 1e-3 and the loss 5e-4 of their size, each update
+    within 15% of its norm, running statistics 5e-4 of each buffer's
+    largest; eval logits 1e-4 (cuDNN may pick Winograd or FFT convolutions,
+    which round otherwise than the CPU's direct ones)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import resnet as tr
+    from paddlepaddle_tpu_torch.nn import functional as pF
+
+    prandom.seed(0)
+    cpu = tr.ResNet(tr.BottleneckBlock, 50, width=16, num_classes=10,
+                    device="cpu")
+    card = tr.ResNet(tr.BottleneckBlock, 50, width=16, num_classes=10,
+                     device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 3, 64, 64),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (4,)))
+    with torch.no_grad():
+        logit_err = _rel(card(x.cuda()), cpu(x))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+
+    def loss_fn(m, a, b):
+        return pF.cross_entropy(m(a), b).mean()
+
+    losses, steps = {}, {}
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        steps[dev] = pt_pkg.TrainStep(
+            m, pt_pkg.Momentum(learning_rate=0.01, momentum=0.9,
+                               parameters=m.named_parameters()), loss_fn,
+            device=dev)
+        losses[dev] = float(steps[dev](x, y))
+    csd, psd = card.state_dict(), cpu.state_dict()
+    params = dict(cpu.named_parameters())
+    update = max(float((csd[n].cpu() - psd[n]).norm()
+                       / (psd[n] - start[n]).norm()) for n in params)
+    stats = max(_rel(csd[k], psd[k]) for k in psd
+                if k.endswith(("._mean", "._variance")))
+    cpu.load_state_dict({k: v.cpu() for k, v in csd.items()})
+    card.eval()
+    cpu.eval()
+    with torch.no_grad():
+        eval_err = _rel(card(x.cuda()), cpu(x))
+    out = {"train_logits_rel": logit_err, "losses": losses,
+           "loss_rel": abs(losses["cuda"] - losses["cpu"]) / abs(
+               losses["cpu"]),
+           "update_rel_max": update, "stats_rel": stats,
+           "eval_logits_rel": eval_err}
+    if not (logit_err <= 1e-3 and out["loss_rel"] <= 5e-4 and update <= 0.15
+            and stats <= 5e-4 and eval_err <= 1e-4):
+        raise AssertionError(f"ResNet card vs CPU: {out}")
+    return out
+
+
+def _adam_step_close(card, cpu, lr, kbias):
+    """One AdamW step of ``card`` against ``cpu`` from one state. Adam's
+    first update is ``lr g / (|g| + eps)``, so an element whose gradient is
+    near zero moves by up to ``lr`` either way on a rounding difference:
+    the gradients (``TrainStep`` leaves them on the parameters) are held
+    within 1e-4 of each tensor's largest, the parameters within 2 lr, and
+    the share of parameters within 1e-6 is reported. ``kbias(name)`` names
+    the slice of a tensor that is a key bias: its gradient is zero up to
+    rounding, so it is held against 1% of the largest gradient."""
+    import torch
+
+    cpu_p = dict(cpu.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in cpu_p.values())
+    grad_err, param_err, near, total = 0.0, 0.0, 0, 0
+    for n, p in card.named_parameters():
+        want = cpu_p[n]
+        g = (p.grad.detach().cpu().float() - want.grad.float()).abs()
+        scale = float(want.grad.abs().max())
+        ks = kbias(n)
+        if ks is not None:
+            grad_err = max(grad_err, float(g[ks].max()) / (1e-2 * top))
+            g[ks] = 0
+        grad_err = max(grad_err, float(g.max()) / max(scale, 1e-30))
+        d = (p.detach().cpu().float() - want.detach().float()).abs()
+        param_err = max(param_err, float(d.max()))
+        near += int((d <= 1e-6).sum())
+        total += d.numel()
+    return {"grad_rel": grad_err, "param_err": param_err,
+            "params_within_1e-6": near / total,
+            "ok": grad_err <= 1e-4 and param_err <= 2 * lr}
+
+
+def zoo_bert_parity(pt_pkg):
+    """Two layers of BERT-base's widths (hidden 768, 12 heads, d 64,
+    intermediate 3072, vocab 30522), f32, dropout 0, b 2, s 128: the
+    card's eval logits without a mask (kernel 2, one launch a layer) and
+    with a padding mask (plain, no launch) against the CPU's within 1e-4 of
+    the largest logit; then one AdamW step (lr 1e-3), loss within 1e-5 of
+    its value, gradients and parameters as ``_adam_step_close``; the step
+    launches kernels 2-4 once a layer each."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import bert as tb
+
+    cfg = tb.BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    prandom.seed(1)
+    cpu = tb.BertForSequenceClassification(cfg, device="cpu")
+    card = tb.BertForSequenceClassification(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    mask = torch.ones(2, 128, dtype=torch.long)
+    mask[1, 90:] = 0
+    labels = torch.tensor([0, 1])
+    out = {}
+    for tag, m_ in (("eval", None), ("eval_masked", mask)):
+        card.eval()
+        cpu.eval()
+        reset_flash_launches()
+        with torch.no_grad():
+            got = card(ids.cuda(), None, None if m_ is None else m_.cuda())
+            torch.cuda.synchronize()
+            launches = flash_launches()
+            out[tag] = {"logits_rel": _rel(got, cpu(ids, None, m_)),
+                        "launches": launches}
+    card.train()
+    cpu.train()
+    lr = 1e-3
+    losses = {}
+    reset_flash_launches()
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        step = pt_pkg.TrainStep(m, pt_pkg.AdamW(
+            learning_rate=lr, weight_decay=0.01,
+            parameters=m.named_parameters()),
+            lambda mm, a, b: mm(a, labels=b), device=dev)
+        losses[dev] = float(step(ids, labels))
+        if dev == "cuda":
+            out["step_launches"] = flash_launches()
+    close = _adam_step_close(
+        card, cpu, lr,
+        lambda n: slice(None) if n.endswith("k_proj.bias") else None)
+    out.update({"losses": losses, "step": close})
+    L = cfg.num_hidden_layers
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if not (close["ok"] and loss_rel <= 1e-5
+            and out["eval"]["logits_rel"] <= 1e-4
+            and out["eval_masked"]["logits_rel"] <= 1e-4):
+        raise AssertionError(f"BERT card vs CPU: {out}")
+    if (out["eval"]["launches"]["flash_fwd"] != L
+            or any(out["eval_masked"]["launches"].values())
+            or any(v != L for v in out["step_launches"].values())):
+        raise AssertionError(f"BERT kernel launches: {out}")
+    return out
+
+
+def zoo_gpt_parity(pt_pkg):
+    """Two layers of GPT-2 small's widths (hidden 768, 12 heads, d 64,
+    vocab 50304, 1024 positions), f32, dropout 0, b 2, s 128: the loss on
+    the card (kernels 2-4) against the CPU's within 1e-5 of its value (the
+    seeded N(0, 1) tied embedding makes it ~490), one AdamW step
+    (lr 1e-3) as ``_adam_step_close``, then 16 greedy tokens from 2
+    prompts of 32 equal to the CPU's (kernel 2 once a layer a token)."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import gpt as tg
+
+    cfg = tg.GPTConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    prandom.seed(2)
+    cpu = tg.GPTForCausalLM(cfg, device="cpu")
+    card = tg.GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 128)))
+    lr = 1e-3
+    losses = {}
+    reset_flash_launches()
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        step = pt_pkg.TrainStep(m, pt_pkg.AdamW(
+            learning_rate=lr, weight_decay=0.01,
+            parameters=m.named_parameters()), llm_loss, device=dev)
+        losses[dev] = float(step(ids, ids))
+        if dev == "cuda":
+            step_launches = flash_launches()
+    h = cfg.hidden_size
+    close = _adam_step_close(
+        card, cpu, lr,
+        lambda n: slice(h, 2 * h) if n.endswith("qkv_proj.bias") else None)
+    prompts = ids[:, :32].numpy()
+    reset_flash_launches()
+    got = card.generate(prompts, max_new_tokens=16, temperature=0.0)
+    gen_launches = flash_launches()
+    want = cpu.generate(prompts, max_new_tokens=16, temperature=0.0)
+    out = {"losses": losses, "step": close,
+           "step_launches": step_launches, "tokens_equal":
+               bool(torch.equal(got, want)),
+           "generate_launches": gen_launches}
+    L = cfg.num_hidden_layers
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if not (close["ok"] and loss_rel <= 1e-5
+            and out["tokens_equal"]):
+        raise AssertionError(f"GPT card vs CPU: {out}")
+    if (any(v != L for v in step_launches.values())
+            or gen_launches != {"flash_fwd": 16 * L, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}):
+        raise AssertionError(f"GPT kernel launches: {out}")
+    return out
+
+
+def phase_zoo_parity(pt_pkg):
+    """Small f32 copies of the three zoo models, the card against the CPU
+    path (see each helper for what is held and the tolerances)."""
+    emit({"phase": "zoo_parity", "resnet": zoo_resnet_parity(pt_pkg),
+          "bert": zoo_bert_parity(pt_pkg), "gpt": zoo_gpt_parity(pt_pkg)})
+
+
+def device_ms_of(prof, labels) -> dict:
+    """Device time (ms) under each ``record_function`` label of a profile:
+    the kernels launched inside the range, as the profiler attributes
+    them."""
+    import torch
+
+    out = {}
+    for e in prof.key_averages():
+        if e.key in labels and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.key] = out.get(e.key, 0.0) + e.device_time_total / 1e3
+    return {k: out.get(k, 0.0) for k in labels}
+
+
+def resnet_breakdown(step, x, y, step_ms):
+    """One profiled ResNet step's device time split into convolutions (the
+    kernels under ``aten::cudnn_convolution`` and
+    ``aten::convolution_backward``, cuDNN's NCHW <-> NHWC layout transforms
+    among them, counted apart too), batch norm (the ``_BatchNormTrain``
+    forward and backward, under ``record_function`` labels put around them
+    for this step), the optimizer (``Optimizer.apply``, labelled the same
+    way) and the rest of the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddlepaddle_tpu_torch.nn import functional as pF
+
+    fn = pF._BatchNormTrain
+    fwd, bwd, apply = fn.forward, fn.backward, step.optimizer.apply
+
+    def labelled(label, f):
+        def g(*a, **k):
+            with record_function(label):
+                return f(*a, **k)
+        return g
+
+    labels = ("bn_forward", "bn_backward", "optimizer")
+    fn.forward = staticmethod(labelled("bn_forward", fwd))
+    fn.backward = staticmethod(labelled("bn_backward", bwd))
+    step.optimizer.apply = labelled("optimizer", apply)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(x, y)
+            torch.cuda.synchronize()
+    finally:
+        fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+        del step.optimizer.apply
+    layout = busy = 0.0
+    top = {}
+    for e in prof.key_averages():
+        # the labels also appear as device-side annotation spans: not kernels
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key in labels):
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        if "nchwtonhwc" in e.key.lower() or "nhwctonchw" in e.key.lower():
+            layout += ms
+        top[e.key[:80]] = top.get(e.key[:80], 0.0) + ms
+    ranges = device_ms_of(prof, labels + ("aten::cudnn_convolution",
+                                          "aten::convolution_backward"))
+    conv = (ranges["aten::cudnn_convolution"]
+            + ranges["aten::convolution_backward"])
+    bn = ranges["bn_forward"] + ranges["bn_backward"]
+    if busy <= 0 or bn <= 0 or conv <= 0:
+        return {"device_ms_by_kind": "not measured"}
+    return {"device_busy_ms": busy, "device_idle_share": 1 - busy / step_ms,
+            "device_ms_by_kind": {
+                "conv": conv, "batch_norm": bn,
+                "optimizer": ranges["optimizer"],
+                "other": busy - conv - bn - ranges["optimizer"]},
+            "conv_layout_transforms_ms": layout,
+            "bn_forward_ms": ranges["bn_forward"],
+            "bn_backward_ms": ranges["bn_backward"],
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                   [:10])}
+
+
+def bn_vs_cudnn():
+    """Batch norm's forward + backward in training at ResNet-50's largest
+    BN shape (128 x 256 x 56 x 56, bf16, f32 weight and statistics): the
+    port's ``_BatchNormTrain`` (the reference's one-pass formula and its
+    fused backward, in PyTorch ops) against
+    ``torch.nn.functional.batch_norm`` (cuDNN), a library figure the port
+    never calls; CUDA-event medians, L2 flushed, beside the byte bound of
+    the pair (x read twice and dy once, y and dx written: 5 passes of
+    bf16)."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddlepaddle_tpu_torch.nn import functional as pF
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(128, 256, 56, 56, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.ones(256, device="cuda", requires_grad=True)
+    b = torch.zeros(256, device="cuda", requires_grad=True)
+    rm, rv = torch.zeros(256, device="cuda"), torch.ones(256, device="cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def port():
+        y, _, _ = pF._BatchNormTrain.apply(x, w, b, 1e-5, 1)
+        torch.autograd.grad(y, (x, w, b), dy)
+
+    def library():
+        y = tF.batch_norm(x, rm, rv, w, b, training=True, eps=1e-5)
+        torch.autograd.grad(y, (x, w, b), dy)
+
+    y_p, _, _ = pF._BatchNormTrain.apply(x, w, b, 1e-5, 1)
+    y_l = tF.batch_norm(x, rm, rv, w, b, training=True, eps=1e-5)
+    err = float((y_p.detach().float() - y_l.detach().float()).abs().max())
+    out = {"shape": "128x256x56x56 bf16", "max_abs_err_vs_cudnn": err,
+           "ms": median_ms(port, reps=10, flush=flush),
+           "library_ms": median_ms(library, reps=10, flush=flush),
+           "bound_ms": 5 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3}
+    if not err <= 0.0625:            # two bf16 ulps at |y| in [4, 8)
+        raise AssertionError(f"batch norm vs cuDNN: {out}")
+    return out
+
+
+RESNET_BATCH = 128
+
+
+def phase_resnet50_train(pt_pkg):
+    """BASELINE config 2 as ``bench.py:312-358`` runs it: ``resnet50(
+    num_classes=1000)`` cast to bf16 (its running statistics too),
+    ``Momentum(0.1, 0.9)``, ``cross_entropy(...).mean()``, a batch of 128 x
+    3 x 224 x 224 from ``np.random.default_rng(0)``, NCHW; 2 warm-up and 5
+    timed ``TrainStep`` calls, then one profiled. Losses finite, no
+    non-finite parameter, the first batch norm's running statistics moved;
+    step ms, images/s, ``mfu_approx`` by bench.py:351's formula (images/s
+    x 3 x 4.1e9 over 989 TFLOP/s), peak memory, the profiled step's device
+    time by kind, and batch norm against cuDNN at its largest shape. No
+    port kernel is on this path: the convolutions are cuDNN's, as the
+    reference's are XLA's."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import resnet as tr
+    from paddlepaddle_tpu_torch.nn import functional as pF
+
+    torch.cuda.reset_peak_memory_stats()
+    prandom.seed(0)
+    model = tr.resnet50(num_classes=1000, device="cuda").to(torch.bfloat16)
+    if model.bn1._mean.dtype != torch.bfloat16:
+        raise AssertionError("Module.to(bfloat16) left the BN buffers f32")
+    opt = pt_pkg.Momentum(learning_rate=0.1, momentum=0.9,
+                          parameters=model.named_parameters())
+    step = pt_pkg.TrainStep(
+        model, opt, lambda m, a, b: pF.cross_entropy(m(a), b).mean())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224), dtype=np.float32)).to("cuda",
+                                                           torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, (RESNET_BATCH,))).cuda()
+    reset_flash_launches()
+    losses, wall = [], []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    timed = sorted(wall[2:])
+    step_ms = timed[len(timed) // 2]
+    breakdown = resnet_breakdown(step, x, y, step_ms)
+    peak = torch.cuda.max_memory_allocated()
+    imgs = RESNET_BATCH / (step_ms / 1e3)
+    bad = [n for n, p in model.named_parameters()
+           if not bool(torch.isfinite(p).all())]
+    moved = float(model.bn1._mean.float().abs().max())
+    del model, opt, step, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    bn = bn_vs_cudnn()
+    emit({"phase": "resnet50_train", "batch": RESNET_BATCH,
+          "dtype": "bfloat16", "layout": "NCHW", "step_ms": step_ms,
+          "step_ms_all": wall, "images_per_s": imgs,
+          "mfu_approx": imgs * 3 * 4.1e9 / BF16_FLOP_PER_S,
+          "peak_mem_gb": peak / 1e9, "losses": losses,
+          "final_loss": losses[-1], "bn1_running_mean_max": moved,
+          "flash_launches": flash_launches(), "nonfinite_params": bad,
+          "breakdown": breakdown, "bn_vs_cudnn": bn})
+    if not all(np.isfinite(losses)) or bad or moved == 0:
+        raise AssertionError(f"resnet50 training: losses {losses}, "
+                             f"non-finite {bad}, bn1 mean {moved}")
+
+
+BERT_BATCH, BERT_SEQ = 32, 128
+
+
+def phase_bert_base(pt_pkg):
+    """BASELINE config 1 at the BERT paper's GLUE fine-tuning settings
+    (Devlin et al. 2019, sec. 4.1 and A.3; ``run_classifier.py``'s
+    max_seq_length 128): ``BertConfig.base()`` (dropout 0.1), bf16 weights
+    (``model.to(bfloat16)``), 2 labels, batch 32 x 128 with padding masks
+    (lengths 64-128), AdamW lr 2e-5 with f32 masters; 1 warm-up and 5 timed
+    steps (the training attention is plain: a mask and the dropout route
+    there, as in the reference). Then eval forwards: without a mask kernel
+    2 launches once a layer (12), with the padding mask never."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import bert as tb
+
+    cfg = tb.BertConfig.base()
+    torch.cuda.reset_peak_memory_stats()
+    prandom.seed(0)
+    model = tb.BertForSequenceClassification(cfg, device="cuda").to(
+        torch.bfloat16)
+    opt = pt_pkg.AdamW(learning_rate=2e-5, weight_decay=0.01,
+                       multi_precision=True,
+                       parameters=model.named_parameters())
+    step = pt_pkg.TrainStep(model, opt,
+                            lambda m, a, t, k, b: m(a, t, k, b))
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (BERT_BATCH, BERT_SEQ))).cuda()
+    types = torch.zeros_like(ids)
+    lens = rng.integers(BERT_SEQ // 2, BERT_SEQ + 1, BERT_BATCH)
+    mask = torch.from_numpy((np.arange(BERT_SEQ)[None, :]
+                             < lens[:, None]).astype(np.int64)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 2, BERT_BATCH)).cuda()
+    reset_flash_launches()
+    losses, wall = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, types, mask, labels)))
+        wall.append((time.perf_counter() - t0) * 1e3)
+    train_launches = flash_launches()
+    timed = sorted(wall[1:])
+    step_ms = timed[len(timed) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    evals = {}
+    for tag, m_ in (("no_mask", None), ("padding_mask", mask)):
+        reset_flash_launches()
+        with torch.no_grad():
+            logits = model(ids, types, m_)
+            torch.cuda.synchronize()
+        evals[tag] = {"launches": flash_launches(),
+                      "finite": bool(torch.isfinite(logits).all()),
+                      "shape": list(logits.shape)}
+    emit({"phase": "bert_base", "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "dtype": "bfloat16", "step_ms": step_ms, "step_ms_all": wall,
+          "sequences_per_s": BERT_BATCH / (step_ms / 1e3),
+          "peak_mem_gb": peak / 1e9, "losses": losses,
+          "train_launches": train_launches, "eval": evals})
+    L = cfg.num_hidden_layers
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert losses {losses}")
+    if (evals["no_mask"]["launches"]["flash_fwd"] != L
+            or any(evals["padding_mask"]["launches"].values())
+            or not all(e["finite"] for e in evals.values())
+            or any(train_launches.values())):
+        raise AssertionError(f"bert eval routes: {evals}, train "
+                             f"{train_launches}")
+    return evals["no_mask"]["launches"]["flash_fwd"]
+
+
+GPT2_BATCH, GPT2_SEQ = 12, 1024
+
+
+def phase_gpt2_small(pt_pkg):
+    """GPT-2 124M at nanoGPT's pretraining settings (``config/
+    train_gpt2.py``: 12 layers, 12 heads, 768 wide, block 1024, vocab 50304
+    as ``GPTConfig`` has it, dropout 0.0; AdamW lr 6e-4, weight decay 0.1,
+    clip 1.0), micro-batch 12 x 1024, bf16 weights with f32 masters; 1
+    warm-up and 5 timed steps: step ms, tokens/s, MFU by bench.py:189's
+    (6N + 12 L h s) rule over 989 TFLOP/s, peak memory; kernels 2, 3 and 4
+    launch once a layer a step each (12 / 12 / 12). Then ``generate`` of 32
+    greedy tokens from 8 prompts of 128: kernel 2 once a layer a token."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.core import random as prandom
+    from paddlepaddle_tpu_torch.models import gpt as tg
+
+    cfg = tg.GPTConfig(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    prandom.seed(0)
+    model = tg.GPTForCausalLM(cfg, device="cuda").to(torch.bfloat16)
+    opt = pt_pkg.AdamW(learning_rate=6e-4, beta2=0.95, weight_decay=0.1,
+                       multi_precision=True,
+                       parameters=model.named_parameters(),
+                       grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+    step = pt_pkg.TrainStep(model, opt, llm_loss)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ))).cuda()
+    reset_flash_launches()
+    losses, wall, step_ms = timed_steps(step, ids, 5)
+    launches = flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in model.parameters())
+    tok_s = GPT2_BATCH * GPT2_SEQ / (step_ms / 1e3)
+    flops = 6 * n + 12 * cfg.num_hidden_layers * cfg.hidden_size * GPT2_SEQ
+    n_steps = len(wall)
+    prompts = ids[:8, :128].cpu().numpy()
+    reset_flash_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=32, temperature=0.0)
+    gen_s = time.perf_counter() - t0
+    gen_launches = flash_launches()
+    emit({"phase": "gpt2_small", "batch": GPT2_BATCH, "seq": GPT2_SEQ,
+          "dtype": "bfloat16", "params": n, "step_ms": step_ms,
+          "step_ms_all": wall, "tokens_per_s": tok_s,
+          "mfu": tok_s * flops / BF16_FLOP_PER_S, "peak_mem_gb": peak / 1e9,
+          "losses": losses, "flash_launches": launches,
+          "expected_launches": cfg.num_hidden_layers * n_steps,
+          "generate": {"prompts": 8, "prompt_len": 128, "new": 32,
+                       "seconds": gen_s, "shape": list(out.shape),
+                       "launches": gen_launches}})
+    L = cfg.num_hidden_layers
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt2 losses not finite and falling: {losses}")
+    if any(v != L * n_steps for v in launches.values()):
+        raise AssertionError(f"gpt2 launches {launches}, expected {L} x "
+                             f"{n_steps}")
+    if (tuple(out.shape) != (8, 160)
+            or gen_launches != {"flash_fwd": 32 * L, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}):
+        raise AssertionError(f"gpt2 generate: {list(out.shape)}, "
+                             f"{gen_launches}")
+    return launches, gen_launches
+
+
 def main() -> int:
     import torch
 
@@ -3950,6 +4577,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script checks the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import paddlepaddle_tpu_torch as pt_pkg
     from paddlepaddle_tpu_torch.ops.kernels import _build
 
@@ -3975,6 +4603,7 @@ def main() -> int:
     int8_record = phase_kernel_int8()
     flash_records = phase_flash_kernel()
     fp16_records = phase_flash_fp16()
+    d64_records = phase_flash_d64()
     varlen_records = phase_flash_varlen_kernel()
     gc.collect()                    # free the full-width varlen buffers
     torch.cuda.empty_cache()
@@ -3984,6 +4613,7 @@ def main() -> int:
     phase_train_parity(pt_pkg)
     phase_moe_parity(pt_pkg)
     phase_train_parity_more(pt_pkg)
+    phase_zoo_parity(pt_pkg)
     gc.collect()                    # free the 2-layer f32 models
     torch.cuda.empty_cache()
     phase_capture_parity(pt_pkg)
@@ -4025,8 +4655,29 @@ def main() -> int:
         r["launches"] = fp16_launches[r["name"][:-len("_fp16")]]
         r["launches_by_phase"] = {"train_amp fp16": r["launches"]}
     gg_record["launches"] = phase_moe_train(pt_pkg)
+    gc.collect()                    # free the MoE training model
+    torch.cuda.empty_cache()
+    phase_resnet50_train(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_launches = phase_bert_base(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_launches, gpt_gen_launches = phase_gpt2_small(pt_pkg)
+    for r in d64_records:
+        base = r["name"].split("_d64")[0]
+        if r["name"].endswith("_bert"):
+            r["launches"] = bert_launches
+            r["launches_by_phase"] = {"bert_base eval": bert_launches}
+        else:
+            r["launches"] = gpt_launches[base]
+            r["launches_by_phase"] = {"gpt2_small train":
+                                      gpt_launches[base],
+                                      "gpt2_small generate":
+                                      gpt_gen_launches[base]}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records
-          + varlen_records + [gg_record]})
+          + d64_records + varlen_records + [gg_record]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

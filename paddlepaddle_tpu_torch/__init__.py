@@ -6,8 +6,8 @@ an obvious counterpart, and it is held against that package by parity tests
 on the CPU (``tests/test_torch_*.py``). The JAX package stays the reference;
 this package imports neither ``jax`` nor anything of ``paddlepaddle_tpu``.
 
-Four slices are ported, three of the flagship Llama decoder and one of the
-MoE decoder:
+These slices are ported: three of the flagship Llama decoder, one of the
+MoE decoder and one of the rest of the model zoo:
 
 * serving: ``LlamaForCausalLM`` behind ``ServingEngine`` ->
   ``BatchDecodeEngine`` with a paged KV pool, every decode-step attention
@@ -37,6 +37,12 @@ MoE decoder:
   gather-GEMM kernels (``ops/kernels/csrc/gather_gemm_sm90.cu`` in bf16,
   ``gather_gemm.cu`` in f32).
 
+* the rest of the model zoo: ``ResNet`` (``models.resnet50`` & co., with
+  ``Conv2D``, the pools and ``BatchNorm2D``, whose training backward is the
+  reference's hand-written formula), ``BertForSequenceClassification``
+  over ``nn.TransformerEncoder`` and ``GPTForCausalLM``, the last two on the
+  flash kernels at head dim 64, all trained by the same ``TrainStep``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no device given they raise (:mod:`.device`).
 """
@@ -56,6 +62,11 @@ from .inference.serving import (  # noqa: F401
 from .jit.train import TrainStep  # noqa: F401
 from .models.llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
 from .models.moe import MoEConfig, MoEForCausalLM  # noqa: F401
+from .models.bert import (BertConfig,  # noqa: F401
+                          BertForSequenceClassification)
+from .models.gpt import GPTConfig, GPTForCausalLM  # noqa: F401
+from .models.resnet import ResNet, resnet50  # noqa: F401
+from . import models, nn  # noqa: F401
 from . import amp, distributed, regularizer  # noqa: F401
 from .nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                       ClipGradByValue)

@@ -3,9 +3,14 @@
 The JAX model's ``functional_state()`` (``paddlepaddle_tpu/nn/layer.py:328``),
 handed over as ``{name: np.ndarray}``, maps onto the port's ``state_dict``
 name for name: both packages use the same module tree
-(``model.layers.<i>.self_attn.q_proj.weight`` ...), and the port's ``Linear``
-keeps the paddle layout ``W: [in, out]``, so matrices copy across without a
-transpose. This function is the one place that owns that layout decision.
+(``model.layers.<i>.self_attn.q_proj.weight`` ...; ``Sequential`` and
+``LayerList`` children ``"0"``, ``"1"``, ...), the port's ``Linear`` keeps the
+paddle layout ``W: [in, out]`` and its convolutions the OIHW layout, so
+matrices and filters copy across without a transpose. This function is the
+one place that owns that layout decision. It serves every model of the
+zoo: ``LlamaForCausalLM``, ``MoEForCausalLM``, ``ResNet`` (with its batch
+norms' ``_mean`` / ``_variance`` running statistics, which are state in
+both packages), ``BertForSequenceClassification`` and ``GPTForCausalLM``.
 
 The rope tables are SKIPPED: ``model.rope_cos`` / ``model.rope_sin`` of a
 Llama, and ``rope_cos`` / ``rope_sin`` at the root of an ``MoEForCausalLM``
@@ -40,9 +45,9 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def convert_state(jax_state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``functional_state()`` of a JAX ``LlamaForCausalLM`` or
-    ``MoEForCausalLM`` (as numpy) ->
-    the port model's ``state_dict`` (CPU tensors, dtypes kept)."""
+    """``functional_state()`` of a JAX model of the zoo (as numpy,
+    parameters and buffers) -> the port model's ``state_dict`` (CPU
+    tensors, dtypes kept), without the recomputed rope tables."""
     return {name: _to_tensor(arr) for name, arr in jax_state.items()
             if name not in SKIPPED}
 

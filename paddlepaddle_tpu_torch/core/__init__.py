@@ -1,1 +1,2 @@
-"""Core subset of the port: flags and the dtype map."""
+"""Core subset of the port: flags, the dtype map, the seeded random
+streams and the not-ported error."""

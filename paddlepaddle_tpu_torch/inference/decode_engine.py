@@ -96,6 +96,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.errors import not_ported
 from ..core.flags import flag_value
 from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
@@ -120,12 +121,6 @@ _log = logging.getLogger(__name__)
 
 def _bucket(n: int, q: int = 128) -> int:
     return -(-n // q) * q
-
-
-def not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to paddlepaddle_tpu_torch yet "
-        f"(ROADMAP {item})")
 
 
 # -- int8 KV pages (kv_quant="int8"), reference decode_engine.py:70-132 ------

@@ -51,8 +51,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..core import flags as _flags
+from ..core.errors import not_ported
 from ..device import DeviceLike
-from .decode_engine import BatchDecodeEngine, not_ported
+from .decode_engine import BatchDecodeEngine
 from .kv_pool import pages_needed
 from .robustness import (
     CircuitBreaker,

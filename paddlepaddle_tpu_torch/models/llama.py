@@ -41,6 +41,7 @@ from torch import nn
 
 from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
+from ..core.errors import not_ported
 from ..device import DeviceLike, resolve_device
 from ..nn import functional as F
 from ..nn.common import Embedding, Linear
@@ -66,12 +67,21 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
-    # activation recompute per decoder layer (reference :84-92); the
-    # reference's context_parallel_axis / data_parallel_axis are A10's
+    # ring attention over a context-parallel axis (reference :82-83, :251)
+    # is A10's: a value other than None raises at construction. The
+    # data-parallel axis is read only by that path, in the reference too
+    context_parallel_axis: Optional[str] = None
+    data_parallel_axis: str = "dp"
+    # activation recompute per decoder layer (reference :84-92)
     recompute: bool = False
     # None = full remat; "dots" saves the matrix products' outputs,
     # "dots_no_batch" those without a batch dim
     remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        if self.context_parallel_axis is not None:
+            raise not_ported(f"LlamaConfig(context_parallel_axis="
+                             f"{self.context_parallel_axis!r})", "A10")
 
     @property
     def head_dim(self) -> int:
@@ -452,6 +462,10 @@ class LlamaForCausalLM(nn.Module):
     def reset_parameters(self, seed: int = 0, init_std: float = 0.02) -> None:
         init_weights(self, seed, init_std)
 
+    def _hidden(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Final hidden states of a causal forward over ``input_ids``."""
+        return self.model(input_ids)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
             # the reference's tied head is an unnamed op
@@ -550,7 +564,9 @@ class LlamaForCausalLM(nn.Module):
         kernels on the card), reading the logits of the last filled
         position; the padded tail is inert under the causal mask. O(L^2)
         per sequence. Sampling as in :meth:`generate_cached`; after a row's
-        first eos its tokens read eos. Returns int32 ids on the host."""
+        first eos its tokens read eos. Returns int32 ids on the host. The
+        GPT model runs this same loop over its own ``_hidden`` and
+        :meth:`logits`, as the reference shares it."""
         ids = self._prompt(input_ids)
         b, prompt_len = ids.shape
         total = min(prompt_len + max_new_tokens,
@@ -564,7 +580,7 @@ class LlamaForCausalLM(nn.Module):
         finished = np.zeros((b,), bool)
         cur = prompt_len
         while cur < total:
-            hidden = self.model(buf)
+            hidden = self._hidden(buf)
             nxt = _sample_next(self.logits(hidden[:, cur - 1]).float(),
                                temperature, top_k, gen)
             buf[:, cur] = nxt

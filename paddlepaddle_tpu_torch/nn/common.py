@@ -1,5 +1,5 @@
-"""``Linear`` and ``Embedding`` (counterparts of
-``paddlepaddle_tpu/nn/common.py`` :10, :36).
+"""``Linear``, ``Embedding`` and ``Dropout`` (counterparts of
+``paddlepaddle_tpu/nn/common.py`` :10, :36, :59).
 
 Both keep the reference's positional parameters; ``device`` and ``dtype``
 are keyword-only (``device=None`` is the card, as for every entry point;
@@ -89,3 +89,22 @@ class Embedding(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class Dropout(nn.Module):
+    """:func:`..functional.dropout` with ``p``, ``axis`` and ``mode``, in
+    training only while the module is in training mode."""
+
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

@@ -1,23 +1,33 @@
-"""Functional subset the Llama and MoE serving and training paths need
-(counterpart of ``paddlepaddle_tpu/nn/functional.py``: ``swiglu`` :137,
-``softmax`` / ``log_softmax`` :144-159, ``linear`` :183, ``embedding`` :202,
-``rms_norm`` :336, the losses :920-1083 (``cross_entropy``,
-``softmax_with_cross_entropy``, ``mse_loss``, ``l1_loss``,
-``smooth_l1_loss``, ``nll_loss``, ``binary_cross_entropy``,
-``binary_cross_entropy_with_logits``, ``kl_div``, ``cosine_similarity``,
-``cosine_embedding_loss``, ``margin_ranking_loss``,
-``hinge_embedding_loss``, ``triplet_margin_loss``),
-``scaled_dot_product_attention`` :1193, ``flash_attention`` :1206,
-``flash_attn_unpadded`` :1215). Plain tensor functions; weights keep the
-paddle layout ``W: [in, out]``; attention keeps the ``[b, s, h, d]``
-layout, varlen attention the packed ``[t, h, d]``.
+"""Functional subset the Llama, MoE, ResNet, BERT and GPT paths need
+(counterpart of ``paddlepaddle_tpu/nn/functional.py``: the activations
+:23-135, ``swiglu`` :137, ``softmax`` / ``log_softmax`` :144-159, ``linear``
+:183, ``embedding`` :202, ``dropout`` :233, ``layer_norm`` :316,
+``rms_norm`` :336, ``batch_norm`` :411 with its hand-written backward
+``_bn_train_core`` :351-408, ``conv1d`` / ``conv2d`` :599-632,
+``max_pool2d`` :689, ``avg_pool2d`` :711, ``adaptive_avg_pool2d`` :803, the
+losses :920-1083 (``cross_entropy``, ``softmax_with_cross_entropy``,
+``mse_loss``, ``l1_loss``, ``smooth_l1_loss``, ``nll_loss``,
+``binary_cross_entropy``, ``binary_cross_entropy_with_logits``,
+``kl_div``, ``cosine_similarity``, ``cosine_embedding_loss``,
+``margin_ranking_loss``, ``hinge_embedding_loss``,
+``triplet_margin_loss``), ``scaled_dot_product_attention`` :1193,
+``flash_attention`` :1206, ``flash_attn_unpadded`` :1215). Plain tensor
+functions; weights keep the paddle layout ``W: [in, out]`` and the
+convolutions' OIHW; attention keeps the ``[b, s, h, d]`` layout, varlen
+attention the packed ``[t, h, d]``.
 
 Each function whose reference op carries a name passes its tensor inputs
 through :func:`..amp.amp_cast` under that name (``linear``, ``embedding``,
-``rms_norm``, ``softmax``, ``log_softmax``, ``cross_entropy``); the losses
+``rms_norm``, ``layer_norm``, ``batch_norm``, ``conv2d``, the named
+activations, ``softmax``, ``log_softmax``, ``cross_entropy`` ...); the losses
 the reference computes in an unnamed op pass ``None``, as the reference's
 hook sees them (so its black-list entries ``mse_loss``, ``nll_loss`` & co.
-never match there, nor here)."""
+never match there, nor here).
+
+Random draws (``dropout``, ``rrelu`` in training) come from the port's
+seeded streams (:mod:`..core.random`), never torch's global generator;
+they cannot equal the JAX package's PRNG draws, only be reproducible from
+one seed."""
 
 from __future__ import annotations
 
@@ -27,7 +37,149 @@ import torch
 import torch.nn.functional as _tF
 
 from ..amp import amp_cast
+from ..core import random as _random
 from ..core.dtype import to_torch_dtype
+from ..core.errors import not_ported
+
+
+# ---------------------------------------------------------------------------
+# activations (reference :23-135)
+# ---------------------------------------------------------------------------
+
+
+def _act(fn, op_name: str):
+    """An activation that passes the AMP hook as the reference's named op
+    ``op_name`` (:26-30)."""
+    def op(x, name=None):
+        (x,) = amp_cast(op_name, x)
+        return fn(x)
+
+    op.__name__ = op_name
+    return op
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+relu = _act(torch.relu, "relu")
+relu6 = _act(lambda a: torch.clamp(a, 0.0, 6.0), "relu6")
+sigmoid = _act(torch.sigmoid, "sigmoid")
+tanh = _act(torch.tanh, "tanh")
+silu = _act(_tF.silu, "silu")
+swish = silu
+mish = _act(lambda a: a * torch.tanh(_softplus(a)), "mish")
+softsign = _act(lambda a: a / (1 + torch.abs(a)), "softsign")
+tanhshrink = _act(lambda a: a - torch.tanh(a), "tanhshrink")
+log_sigmoid = _act(lambda a: -_softplus(-a), "log_sigmoid")
+
+
+def gelu(x, approximate: bool = False, name=None):
+    """``x Phi(x)``: exact (erf) by default, the tanh approximation with
+    ``approximate=True`` (reference :46, ``jax.nn.gelu``)."""
+    (x,) = amp_cast("gelu", x)
+    return _tF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def elu(x, alpha=1.0, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    (x,) = amp_cast(None, x)
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def hardtanh(x, min=-1.0, max=1.0, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.clamp(x, min, max)
+
+
+def hardsigmoid(x, slope=1 / 6, offset=0.5, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x, name=None):
+    (x,) = amp_cast(None, x)
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hardshrink(x, threshold=0.5, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5, name=None):
+    (x,) = amp_cast(None, x)
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    """``x`` where ``beta x > threshold``, else ``softplus(beta x) / beta``
+    (reference :86)."""
+    (x,) = amp_cast(None, x)
+    return torch.where(beta * x > threshold, x, _softplus(beta * x) / beta)
+
+
+def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
+    (x,) = amp_cast(None, x)
+    return torch.where(x > threshold, x, torch.full_like(x, value))
+
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    """``where(x > 0, x, w x)``: one weight for every channel, or one a
+    channel on axis 1 (``NC...``) or the last axis."""
+    x, weight = amp_cast(None, x, weight)
+    if weight.numel() == 1:
+        w = weight.reshape(())
+    else:
+        sh = [1] * x.dim()
+        sh[1 if data_format[1] == "C" else x.dim() - 1] = weight.numel()
+        w = weight.reshape(sh)
+    return torch.where(x > 0, x, w * x)
+
+
+def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=False, name=None):
+    """Leaky ReLU whose slope is drawn uniform in ``[lower, upper)`` per
+    element in training (from the port's stream for ``x``'s device), the
+    midpoint otherwise."""
+    if training:
+        slope = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        slope.uniform_(lower, upper,
+                       generator=_random.torch_generator(x.device))
+        (x,) = amp_cast(None, x)
+        return torch.where(x >= 0, x, slope.to(x.dtype) * x)
+    return leaky_relu(x, (lower + upper) / 2.0)
+
+
+def maxout(x, groups, axis=1, name=None):
+    (x,) = amp_cast(None, x)
+    ax = axis % x.dim()
+    c = x.shape[ax]
+    shape = x.shape[:ax] + (groups, c // groups) + x.shape[ax + 1:]
+    return x.reshape(shape).amax(dim=ax)
+
+
+def glu(x, axis=-1, name=None):
+    (x,) = amp_cast(None, x)
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
 
 
 def linear(x: torch.Tensor, weight, bias: Optional[torch.Tensor] = None,
@@ -111,6 +263,321 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if bias is not None:
         out = out + bias
     return out
+
+
+# ---------------------------------------------------------------------------
+# dropout (reference :233)
+# ---------------------------------------------------------------------------
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None) -> torch.Tensor:
+    """Zero each element with probability ``p`` (one draw per position of
+    the axes in ``axis``, broadcast over the others). ``"upscale_in_train"``
+    divides the kept values by ``1 - p`` in training and is the identity
+    in eval; ``"downscale_in_infer"`` keeps them as they are in training
+    and multiplies by ``1 - p`` in eval. The mask draws from the port's
+    stream for ``x``'s device (:func:`..core.random.torch_generator`)."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            (x,) = amp_cast(None, x)
+            return x * (1.0 - p)
+        return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [a % x.dim() for a in (axis if isinstance(axis, (list, tuple))
+                                      else [axis])]
+        shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    (x,) = amp_cast("dropout", x)
+    keep = torch.rand(shape, device=x.device,
+                      generator=_random.torch_generator(x.device)) < 1.0 - p
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
+    return torch.where(keep, x, zero)
+
+
+# ---------------------------------------------------------------------------
+# normalization (reference :316-507)
+# ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5, name=None) -> torch.Tensor:
+    """Normalise over the trailing ``normalized_shape`` axes in the
+    reference's order (:316): f32 mean and (biased) variance, the
+    normalised value cast to the input dtype, then the weight and the bias
+    in that dtype. (``torch.nn.functional.layer_norm`` applies the affine in
+    f32 and rounds once, which differs in bf16.)"""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _channel_view(x: torch.Tensor, ch_axis: int):
+    """The reduction axes (all but ``ch_axis``) and the shape a
+    per-channel vector broadcasts with."""
+    axes = [i for i in range(x.dim()) if i != ch_axis]
+    sh = [1] * x.dim()
+    sh[ch_axis] = x.shape[ch_axis]
+    return axes, sh
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode batch norm with the reference's hand-written forward
+    and backward (``_bn_train_core``, :351-408).
+
+    Forward, in f32: ``mean = E[x]`` and ``var = max(E[x^2] - mean^2, 0)``
+    in one data pass, then one multiply-add, ``y = x scale + shift`` with
+    ``scale = w rsqrt(var + eps)`` and ``shift = b - mean scale``, cast to
+    ``x``'s dtype. Returns ``(y, mean, var)``; the stats feed only the
+    running-average update, so they are marked non-differentiable.
+
+    Backward: the fused formula (:390-406), not autograd of the forward:
+    ``dw = sum(dy xhat)``, ``db = sum(dy)``, ``dx = w rsqrt(var + eps)
+    (dy - mean(dy) - xhat mean(dy xhat))`` with ``xhat`` rebuilt from the
+    saved input and stats. ``weight`` and ``bias`` arrive in f32 and their
+    gradients leave in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, epsilon: float, ch_axis: int):
+        axes, sh = _channel_view(x, ch_axis)
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        sq = (xf * xf).mean(dim=axes)
+        var = torch.clamp(sq - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + epsilon) * weight
+        shift = bias - mean * scale
+        y = torch.addcmul(shift.reshape(sh), xf, scale.reshape(sh))
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.epsilon, ctx.ch_axis = epsilon, ch_axis
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, var = ctx.saved_tensors
+        axes, sh = _channel_view(x, ctx.ch_axis)
+        n = float(x.numel() // x.shape[ctx.ch_axis])
+        ct = dy.float()
+        r = torch.rsqrt(var + ctx.epsilon)
+        xhat = (x.float() - mean.reshape(sh)) * r.reshape(sh)
+        ct_sum = ct.sum(dim=axes)
+        ctxhat_sum = (ct * xhat).sum(dim=axes)
+        dx = (weight * r).reshape(sh) * (ct - (ct_sum / n).reshape(sh)
+                                          - xhat * (ctxhat_sum / n).reshape(sh))
+        return dx.to(x.dtype), ctxhat_sum, ct_sum, None, None
+
+
+def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
+               running_var: torch.Tensor, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, data_format: str = "NCHW",
+               use_global_stats=None, name=None) -> torch.Tensor:
+    """Batch norm over every axis but the channel's (axis 1 for ``"NC..."``
+    formats, the last otherwise), reference :411-507.
+
+    With batch statistics (``training`` and not ``use_global_stats``):
+    :class:`_BatchNormTrain`, then the running statistics are updated IN
+    PLACE with Paddle's convention, ``r = momentum r + (1 - momentum)
+    stat``, the variance unbiased by ``n / (n - 1)``, each cast to its
+    buffer's dtype (the reference's eager semantics; note that its jitted
+    ``TrainStep`` binds the buffers as constants and never updates them).
+    Otherwise the running statistics fold into one f32 scale and shift."""
+    ch_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+    xc, w, b, rm, rv = amp_cast("batch_norm", x, weight, bias, running_mean,
+                                running_var)
+    axes, sh = _channel_view(xc, ch_axis)
+    if training and not use_global_stats:
+        c = xc.shape[ch_axis]
+        wf = (torch.ones(c, dtype=torch.float32, device=xc.device)
+              if w is None else w.float())
+        bf = (torch.zeros(c, dtype=torch.float32, device=xc.device)
+              if b is None else b.float())
+        y, mean, var = _BatchNormTrain.apply(xc, wf, bf, epsilon, ch_axis)
+        n = xc.numel() // c
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var
+                              + (1 - momentum) * (var * (n / max(n - 1, 1))))
+        return y
+    scale = torch.rsqrt(rv.float() + epsilon)
+    if w is not None:
+        scale = scale * w.float()
+    shift = -rm.float() * scale
+    if b is not None:
+        shift = shift + b.float()
+    return (xc.float() * scale.reshape(sh) + shift.reshape(sh)).to(xc.dtype)
+
+
+# ---------------------------------------------------------------------------
+# convolution and pooling (reference :592-832)
+# ---------------------------------------------------------------------------
+
+
+def _tup(v, n: int) -> tuple:
+    if isinstance(v, (list, tuple)):
+        return tuple(int(i) for i in v)
+    return (int(v),) * n
+
+
+def _pad_pairs(padding, nd: int, spatial, kernel, stride, dilation):
+    """The reference's padding forms (:599-611) as ``(before, after)`` per
+    spatial dimension: an int, one int a dimension, ``2 nd`` ints
+    ``(before, after)`` in dimension order, ``"VALID"``, or ``"SAME"`` with
+    XLA's split (the larger half after), which for a stride > 1 can be
+    asymmetric."""
+    if isinstance(padding, str):
+        pad = padding.upper()
+        if pad == "VALID":
+            return [(0, 0)] * nd
+        if pad != "SAME":
+            raise ValueError(f"padding {padding!r}: SAME, VALID, an int or "
+                             "a list of ints")
+        pairs = []
+        for size, k, s, d in zip(spatial, kernel, stride, dilation):
+            out = -(-size // s)
+            total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+            pairs.append((total // 2, total - total // 2))
+        return pairs
+    p = _tup(padding, nd)
+    if len(p) == nd:
+        return [(pi, pi) for pi in p]
+    return [(p[2 * i], p[2 * i + 1]) for i in range(nd)]
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
+             data_format, op_name):
+    """``lax.conv_general_dilated`` as the reference calls it (:599-632):
+    weights ``[out, in / groups, *kernel]`` (OI + spatial, whatever the
+    data format), a channels-last input moved to channels-first and back,
+    an asymmetric padding applied explicitly, the bias added after the
+    product in the output's dtype."""
+    x, weight, bias = amp_cast(op_name, x, weight, bias)
+    chan_last = not data_format.startswith("NC")
+    if chan_last:
+        x = x.movedim(-1, 1)
+    stride, dilation = _tup(stride, nd), _tup(dilation, nd)
+    pairs = _pad_pairs(padding, nd, x.shape[2:], weight.shape[2:], stride,
+                       dilation)
+    if all(a == b for a, b in pairs):
+        pad = [a for a, _ in pairs]
+    else:
+        x = _tF.pad(x, [v for pr in reversed(pairs) for v in pr])
+        pad = [0] * nd
+    conv = _tF.conv1d if nd == 1 else _tF.conv2d
+    out = conv(x, weight, None, stride, pad, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape([1, -1] + [1] * nd)
+    return out.movedim(1, -1) if chan_last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    data_format, "conv1d")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format, "conv2d")
+
+
+def _pool_args(kernel_size, stride, padding):
+    ks = _tup(kernel_size, 2)
+    return ks, _tup(stride if stride is not None else kernel_size, 2), \
+        _tup(padding, 2)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """Window maxima over a ``-inf`` (integers: the type's least value)
+    padding of ``padding`` a side (reference :689). As in the reference,
+    the output size always floors: ``ceil_mode`` is not read (the JAX
+    package reads it only to refuse it with ``return_mask``).
+    ``return_mask`` is not ported yet."""
+    if return_mask:
+        raise not_ported("max_pool2d(return_mask=True)", "A12, queue A item 5")
+    ks, st, p = _pool_args(kernel_size, stride, padding)
+    (x,) = amp_cast("max_pool2d", x)
+    if data_format != "NCHW":
+        x = x.movedim(-1, 1)
+    if p[0] or p[1]:
+        fill = (float("-inf") if x.is_floating_point()
+                else torch.iinfo(x.dtype).min)
+        x = _tF.pad(x, [p[1], p[1], p[0], p[0]], value=fill)
+    out = _tF.max_pool2d(x, ks, st)
+    return out if data_format == "NCHW" else out.movedim(1, -1)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """Window sums in f32 over a zero padding, divided by
+    ``divisor_override`` when it is set, else by the in-bounds cells of
+    each window when ``exclusive`` and there is padding, else by the window
+    size; cast back to the input dtype (reference :711). ``ceil_mode`` is
+    not read: the output size floors, as in the reference."""
+    ks, st, p = _pool_args(kernel_size, stride, padding)
+    (x,) = amp_cast("avg_pool2d", x)
+    a = x if data_format == "NCHW" else x.movedim(-1, 1)
+    pad = [p[1], p[1], p[0], p[0]]
+
+    def window_sums(t):
+        return _tF.avg_pool2d(_tF.pad(t, pad), ks, st, divisor_override=1)
+
+    summed = window_sums(a.float())
+    if divisor_override:
+        out = summed / divisor_override
+    elif exclusive and (p[0] or p[1]):
+        out = summed / window_sums(torch.ones_like(a, dtype=torch.float32))
+    else:
+        out = summed / (ks[0] * ks[1])
+    out = out.to(x.dtype)
+    return out if data_format == "NCHW" else out.movedim(1, -1)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Means over an ``output_size`` grid of windows (reference :803): a
+    reshape when the size divides the input, else windows from
+    ``floor(i h / oh)`` to ``ceil((i + 1) h / oh)``. Mirrored as the
+    reference has it: that second branch stacks its means channels-first
+    whatever ``data_format`` says."""
+    os_ = _tup(output_size, 2)
+    (x,) = amp_cast(None, x)
+    nchw = data_format == "NCHW"
+    h, w = (x.shape[2], x.shape[3]) if nchw else (x.shape[1], x.shape[2])
+    if h % os_[0] == 0 and w % os_[1] == 0:
+        kh, kw = h // os_[0], w // os_[1]
+        if nchw:
+            return x.reshape(x.shape[0], x.shape[1], os_[0], kh, os_[1],
+                             kw).mean(dim=(3, 5))
+        return x.reshape(x.shape[0], os_[0], kh, os_[1], kw,
+                         x.shape[-1]).mean(dim=(2, 4))
+    rows = []
+    for i in range(os_[0]):
+        hs, he = (i * h) // os_[0], -(-((i + 1) * h) // os_[0])
+        cols = []
+        for j in range(os_[1]):
+            ws, we = (j * w) // os_[1], -(-((j + 1) * w) // os_[1])
+            if nchw:
+                cols.append(x[:, :, hs:he, ws:we].mean(dim=(2, 3)))
+            else:
+                cols.append(x[:, hs:he, ws:we, :].mean(dim=(1, 2)))
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

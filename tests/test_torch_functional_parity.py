@@ -728,3 +728,41 @@ def test_masked_forward_and_loss_match_jax(family, kind):
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[name]),
                                    atol=1e-5, rtol=0, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# C11: LlamaConfig in the reference's positional order
+# ---------------------------------------------------------------------------
+
+
+def test_llama_config_takes_reference_positional_order():
+    """``LlamaConfig``'s fields are the reference's, in its order and with
+    its defaults (``context_parallel_axis`` and ``data_parallel_axis``
+    before ``recompute``), so a reference-order call binds alike: the 14th
+    positional argument is ``recompute``. A context-parallel axis (ring
+    attention, ROADMAP A10) raises at construction; ``MoEConfig`` keeps the
+    reference's order too."""
+    import inspect
+
+    from paddlepaddle_tpu.models.llama import LlamaConfig as JConfig
+    from paddlepaddle_tpu.models.moe import MoEConfig as JMoEConfig
+
+    from paddlepaddle_tpu_torch import LlamaConfig, MoEConfig
+
+    for port, ref in ((LlamaConfig, JConfig), (MoEConfig, JMoEConfig)):
+        psig = inspect.signature(port).parameters
+        rsig = inspect.signature(ref).parameters
+        assert [(n, p.default) for n, p in psig.items()] == [
+            (n, p.default) for n, p in rsig.items()]
+    args = (256, 64, 192, 2, 4, 2, 128, 1e-6, 10000.0, False, "float32",
+            None, None, True)
+    port, ref = LlamaConfig(*args), JConfig(*args)
+    assert port.recompute is True and ref.recompute is True
+    assert port.remat_policy is None and ref.remat_policy is None
+    assert LlamaConfig(*args[:13]).recompute is False
+    assert LlamaConfig(*args, "dots").remat_policy == "dots"
+    assert LlamaConfig().data_parallel_axis == JConfig().data_parallel_axis
+    with pytest.raises(NotImplementedError, match="A10"):
+        LlamaConfig(*args[:11], "sp")
+    with pytest.raises(NotImplementedError, match="context_parallel_axis"):
+        LlamaConfig(context_parallel_axis="sp")
