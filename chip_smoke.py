@@ -234,6 +234,30 @@ code is non-zero):
                AdamW 6e-4, dropout 0): 5 timed steps, tokens/s, MFU, kernels
                2 / 3 / 4 at 12 launches a step each; ``generate`` of 32
                greedy tokens from 8 prompts of 128.
+9w. ``coldstart``  cold start over the serve model (each arm its own
+               engine, serve's settings): a fresh engine without warmup,
+               then one after ``warmup()``; each serves the serve phase's
+               first 6 requests, the first alone: its TTFT and latency, the
+               warmup's seconds split into build, capture and admission,
+               and the CUDA-graph captures and kernel builds the watchdog
+               counts in each serve window (0 after warmup).
+9b. ``bundle_restart``  at 2 of 32 Llama-3-8B layers: ``save_serving_bundle``,
+               then a subprocess with ``PADDLE_TORCH_KERNEL_BUILD_DIR``
+               pointed at an empty directory builds the same engine with
+               ``bundle=``: its nvcc runs (0), its seconds from the script's
+               start to a served first token, its tokens (equal to this
+               process's engine's); then a bundle of another configuration
+               (chunk 8) is refused with the differing fact and the engine
+               serves through the kernel all the same.
+9o. ``serve_observed``  the serve workload on one engine, observability off
+               and on in turns (off, on, on, off): metrics, traces, request
+               journeys, the perf plane, the memory ledger and the flight
+               recorder; tok/s of each run; ``/metrics`` scraped from the
+               exporter over localhost and parsed; the goodput ledger
+               reconciled with the delivered and decoded tokens; no leaked
+               page; the decode program's counted cost and MFU; a 2-layer
+               TrainStep's counted FLOPs and its step-timeline MFU against
+               ``perf/device.py``'s peak.
 
 Then the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -595,25 +619,13 @@ def paged_w4_case(pa, quant: bool, flush) -> dict:
 
 
 def paged_work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales=False):
-    """Bytes and operations the paged attention must move and do for this
-    run's lens: each visible key's K and V row read once (as codes plus one
-    f32 scale per visible page and KV head under int8), q read and out
-    written once, the page-table entries and lens read once; ``flops``, the
-    bf16 products of q.k and p.v over every visible key of every query row
-    (tensor-core work), and ``deq_flops``, under int8 one dequantizing
-    product per visible K/V element (f32 work outside the tensor cores)."""
-    S = len(lens)
-    keys = [n + W for n in lens]
-    n_vis = [min(P, -(-k // ps)) for k in keys]
-    bytes_ = (sum(keys) * kvh * hd * 2 * kv_item + 2 * S * W * h * hd * q_item
-              + 4 * sum(n_vis) + 4 * S)
-    rows_keys = sum(n + w + 1 for n in lens for w in range(W))
-    flops = 2 * 2 * hd * h * rows_keys
-    deq_flops = 0
-    if scales:
-        bytes_ += 2 * 4 * kvh * sum(n_vis)
-        deq_flops = 2 * kvh * hd * sum(keys)
-    return bytes_, flops, deq_flops
+    """The paged kernel's bytes and operations for these lens (the formula
+    lives beside the kernel's wrapper, which reports it to the perf
+    plane)."""
+    from paddlepaddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_work as work
+
+    return work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales)
 
 
 def paged_bound(bytes_, flops, deq_flops):
@@ -834,22 +846,12 @@ def flash_check(fa, q, k, v, do, causal):
 
 
 def flash_work(q, k, causal):
-    """Bytes each kernel must move and the products it must do at these
-    shapes: every input read once, every output written once; U = 2 b h d
-    times the visible (query, key) pairs, and the forward does 2U, dQ 3U,
-    dK/dV 4U."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    off = sk - sq
-    pairs = (sum(min(i + off + 1, sk) for i in range(sq)) if causal
-             else sq * sk)
-    U = 2 * b * h * d * pairs
-    item = q.element_size()
-    t_q, t_k = q.numel() * item, k.numel() * item
-    rows = 4 * b * h * sq                         # one f32 lse / delta row set
-    return {"flash_fwd": (t_q + 2 * t_k + t_q + rows, 2 * U),
-            "flash_bwd_dq": (2 * t_q + 2 * t_k + 2 * rows + t_q, 3 * U),
-            "flash_bwd_dkv": (2 * t_q + 2 * t_k + 2 * rows + 2 * t_k, 4 * U)}
+    """Bytes and operations of kernels 2-4 at these shapes (the formula
+    lives beside the kernels' wrappers)."""
+    from paddlepaddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_work as work
+
+    return work(q, k, causal)
 
 
 def flash_main_shape(fa, rng, dtype, atol, suffix="",
@@ -1104,18 +1106,12 @@ def varlen_cu(lens):
 
 
 def varlen_pairs(cu_q, cu_k, causal: bool) -> int:
-    """Visible (query, key) pairs of one head: per segment, every pair, or
-    under causal masking min(len_k, i + len_k - len_q + 1) keys for row i."""
-    import numpy as np
+    """Visible (query, key) pairs of one head (the formula lives beside the
+    varlen kernels' wrappers)."""
+    from paddlepaddle_tpu_torch.ops.kernels.flash_varlen import \
+        varlen_pairs as pairs
 
-    total = 0
-    for lq, lk in zip(np.diff(cu_q).tolist(), np.diff(cu_k).tolist()):
-        if causal:
-            i = np.arange(lq)
-            total += int(np.clip(i + lk - lq + 1, 0, lk).sum())
-        else:
-            total += lq * lk
-    return total
+    return pairs(cu_q, cu_k, causal)
 
 
 def varlen_tiles(fv, cq, ck, tq, tk, causal, bm=128, bn=128):
@@ -1653,22 +1649,11 @@ def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10):
     wrapper_us = host_us(lambda: gg.gather_gemm_ffn(
         x, slot, wg, wu, wd, capacity=C), reps=50)
     del flush
-    # least time for this run's work: every weight read once, each token
-    # row that a filled slot reads read once, the slot indices read once,
-    # each output written once; the products of the filled slots only. Per
-    # phase, hmid is written by the first and read by the second.
-    n_valid = int(valid.sum())
-    n_rows = int(torch.unique(slot[valid]).numel())
-    item = x.element_size()
-    w_bytes = E * d * h * item
-    hmid_bytes = E * C * h * item
-    work = {
-        "gather_gateup": (2 * w_bytes + n_rows * d * item + 4 * E * C
-                          + hmid_bytes, 2 * n_valid * 2 * d * h),
-        "expert_down": (w_bytes + hmid_bytes + 4 * E * C + E * C * d * item,
-                        2 * n_valid * d * h),
-        "call": (3 * w_bytes + n_rows * d * item + 4 * E * C
-                 + E * C * d * item, 2 * n_valid * 3 * d * h)}
+    # least time for this run's work (gg.gather_gemm_work): every weight
+    # read once, each token row a filled slot reads read once, the slot
+    # indices read once, each output written once; the products of the
+    # filled slots only
+    work = gg.gather_gemm_work(slot, T, E, C, d, h, x.element_size())
     bounds = {}
     for name, (bytes_, flops) in work.items():
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -1682,7 +1667,8 @@ def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10):
                         "bound_share": max(t_bytes, t_ops) / ms[name],
                         "tflops": flops / ms[name] / 1e9}
     return {"shape": f"T{T} E{E} C{C} d{d} h{h} bf16",
-            "filled_slots": n_valid, "rows_read": n_rows,
+            "filled_slots": int(valid.sum()),
+            "rows_read": int(torch.unique(slot[valid]).numel()),
             "checks": {k: {"max_abs_err": v[0], "err_over_allowed": v[1]}
                        for k, v in checks.items()},
             "ms": ms, "bounds": bounds, "wrapper_host_us": wrapper_us,
@@ -4570,6 +4556,339 @@ def phase_gpt2_small(pt_pkg):
     return launches, gen_launches
 
 
+# -- cold start, bundles and observability ------------------------------------
+
+SERVE_ENGINE = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
+                    decode_chunk=16, device="cuda")
+COLDSTART_REQUESTS = 6
+
+
+def phase_coldstart(pt_pkg, ctx):
+    """Cold against warm start over the serve model (see the phase list)."""
+    import torch
+
+    from paddlepaddle_tpu_torch import observability as obs
+    from paddlepaddle_tpu_torch.observability import watchdog
+    from paddlepaddle_tpu_torch.ops.kernels import _build
+
+    model, prompts, budgets = ctx["model"], ctx["prompts"], ctx["budgets"]
+    obs.reset()
+    obs.enable(trace=False, metrics=False, watchdog_=True)
+    arms = {}
+    try:
+        for arm in ("cold", "warm"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            se = pt_pkg.ServingEngine(model, **SERVE_ENGINE)
+            build_s = time.perf_counter() - t0
+            eng = se.engine
+            warm = se.warmup() if arm == "warm" else None
+            programs0, nvcc0 = len(eng._programs), _build.nvcc_runs
+            log0 = len(watchdog.compile_log())
+            try:
+                t0 = time.perf_counter()
+                first = se.submit(prompts[0], max_new_tokens=int(budgets[0]))
+                first.result(900)
+                first_s = time.perf_counter() - t0
+                rest = [se.submit(p, max_new_tokens=int(b)) for p, b in
+                        zip(prompts[1:COLDSTART_REQUESTS],
+                            budgets[1:COLDSTART_REQUESTS])]
+                for f in rest:
+                    f.result(900)
+                window = watchdog.compile_log()[log0:]
+                arms[arm] = {
+                    "engine_s": build_s, "warmup": warm,
+                    "first_ttft_ms": first.slo()["ttft_s"] * 1e3,
+                    "first_latency_ms": first_s * 1e3,
+                    "first_tpot_ms": (first.slo()["tpot_s"] or 0) * 1e3,
+                    "captures_in_window": sum(e["site"].startswith(
+                        "capture:") for e in window),
+                    "builds_in_window": sum(e["site"].startswith("build:")
+                                            for e in window),
+                    "nvcc_in_window": _build.nvcc_runs - nvcc0,
+                    "programs_built_in_window":
+                        len(eng._programs) - programs0,
+                    "capture_s": {k: v["capture_s"] for k, v in
+                                  eng.capture_info().items()}}
+            finally:
+                se.stop()
+            del se, eng
+    finally:
+        obs.disable()
+    emit({"phase": "coldstart", "requests": COLDSTART_REQUESTS,
+          "nvidia_smi": nvidia_smi_line(), **arms})
+    warm = arms["warm"]
+    if warm["captures_in_window"] or warm["builds_in_window"] \
+            or warm["nvcc_in_window"] or warm["programs_built_in_window"]:
+        raise AssertionError(f"the serve window after warmup built or "
+                             f"captured: {warm}")
+    if arms["cold"]["captures_in_window"] != 1:
+        raise AssertionError("a cold engine's serve window should capture "
+                             f"its decode program once: {arms['cold']}")
+
+
+_RESTART_SCRIPT = r"""
+import dataclasses, json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+import paddlepaddle_tpu_torch as pt
+from paddlepaddle_tpu_torch.ops.kernels import _build
+from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+t_import = time.perf_counter()
+cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(), num_hidden_layers=2)
+model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0, init_std=0.02)
+torch.cuda.synchronize()
+t_model = time.perf_counter()
+eng = pt.BatchDecodeEngine(model, max_slots=8, chunk=16, page_size=64,
+                           max_len=2048, device="cuda", bundle=sys.argv[1])
+t_engine = time.perf_counter()
+warm = eng.warmup()
+req = pt.GenerationRequest(np.asarray(json.loads(sys.argv[2])), 16)
+t_serve = time.perf_counter()
+eng.serve([req], timeout=300)
+out = req.result.result(5)
+print(json.dumps({
+    "nvcc_runs": _build.nvcc_runs, "bundle": eng.compile_info()["bundle"],
+    "build_dir": sorted(os.listdir(_build.build_dir())),
+    "import_s": t_import - t0, "model_s": t_model - t_import,
+    "engine_s": t_engine - t_model, "warmup": warm,
+    "first_token_s": req.result._t_first - t0,
+    "first_token_after_serve_s": req.result._t_first - t_serve,
+    "launches": pa.paged_attention.launches, "tokens": out.tolist()}))
+"""
+
+
+def phase_bundle_restart(pt_pkg, build_s: float):
+    """A bundle restart at 2 layers (see the phase list). ``build_s`` is the
+    build phase's seconds for ``paged_attention.cu``, the nvcc time the
+    bundle saves a fresh host."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=CAPTURE_PARITY_LAYERS)
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    kw = dict(max_slots=8, chunk=16, page_size=64, max_len=2048,
+              device="cuda")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 300)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle, empty = os.path.join(tmp, "bundle"), os.path.join(tmp, "b")
+        os.makedirs(empty)
+        eng = pt_pkg.BatchDecodeEngine(model, **kw)
+        manifest = eng.save_serving_bundle(bundle)
+        req = pt_pkg.GenerationRequest(prompt, 16)
+        eng.serve([req], timeout=300)
+        want = req.result.result(5).tolist()
+        del eng
+        env = dict(os.environ, PADDLE_TORCH_KERNEL_BUILD_DIR=empty)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", _RESTART_SCRIPT, bundle,
+             json.dumps(prompt.tolist())],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"bundle restart failed:\n{run.stderr}")
+        child = json.loads(run.stdout.strip().splitlines()[-1])
+        # a bundle of another configuration: refused with the differing
+        # fact; the engine builds (here: loads) its library and serves
+        launches0 = pa.paged_attention.launches
+        other = pt_pkg.BatchDecodeEngine(model, **dict(kw, chunk=8),
+                                         bundle=bundle)
+        req = pt_pkg.GenerationRequest(prompt, 16)
+        other.serve([req], timeout=300)
+        refused = other.compile_info()["bundle"]
+        other_launches = pa.paged_attention.launches - launches0
+        other_tokens = req.result.result(5).tolist()
+    emit({"phase": "bundle_restart", "layers": cfg.num_hidden_layers,
+          "nvidia_smi": nvidia_smi_line(),
+          "bundle_files": [x["file"] for x in manifest["libraries"]],
+          "bundle_bytes": sum(x["bytes"] for x in manifest["libraries"]),
+          "save_s": manifest["save_wall_s"], "subprocess_wall_s": wall,
+          "child": {k: v for k, v in child.items() if k != "tokens"},
+          "nvcc_s_saved": build_s, "tokens_equal": child["tokens"] == want,
+          "mismatch": refused, "mismatch_launches": other_launches,
+          "mismatch_tokens_equal": other_tokens == want})
+    if child["nvcc_runs"] != 0 or not child["bundle"]["loaded"]:
+        raise AssertionError(f"the bundle did not replace the build: {child}")
+    if child["tokens"] != want or other_tokens != want:
+        raise AssertionError("a bundle-loaded engine served other tokens")
+    if refused["loaded"] or "chunk" not in refused.get("error", ""):
+        raise AssertionError(f"a foreign bundle was not refused: {refused}")
+    if not other_launches or not child["launches"]:
+        raise AssertionError("the paged kernel did not run")
+
+
+def _scrape(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def phase_serve_observed(pt_pkg, ctx):
+    """The serve workload with observability off and on (see the phase
+    list)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch import observability as obs
+    from paddlepaddle_tpu_torch.observability import (flight, goodput,
+                                                      memledger, metrics,
+                                                      perf, reqtrace)
+
+    model, prompts, budgets = ctx["model"], ctx["prompts"], ctx["budgets"]
+    sampled = ctx["sampled"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs.reset()
+    flight_dir = tempfile.mkdtemp(prefix="paddle_flight_")   # in TMPDIR
+    se = pt_pkg.ServingEngine(model, **SERVE_ENGINE)
+    eng = se.engine
+    perf.enable()          # warmup counts the decode program and admissions
+    warm = se.warmup()
+    perf.disable()
+
+    def set_planes(on: bool) -> None:
+        if on:
+            obs.enable(trace=True, metrics=True, watchdog_=True)
+            reqtrace.enable()
+            perf.enable()
+            flight.enable(directory=flight_dir, install_hooks=False)
+            memledger.enable(interval_s=1.0)
+        else:
+            obs.disable()
+            reqtrace.disable()
+            perf.disable()
+            flight.disable()
+            memledger.disable()
+
+    runs = []
+    exporter = None
+    try:
+        for on in (False, True, True, False):
+            set_planes(on)
+            g0, tok0 = goodput.snapshot()["kinds"], eng.stats["tokens_out"]
+            t0 = time.perf_counter()
+            futs = [se.submit(p, max_new_tokens=int(b),
+                              temperature=0.8 if i in sampled else 0.0,
+                              top_k=50 if i in sampled else 0)
+                    for i, (p, b) in enumerate(zip(prompts, budgets))]
+            outs = [f.result(900) for f in futs]
+            wall = time.perf_counter() - t0
+            delivered = int(sum(len(o) - len(p)
+                                for o, p in zip(outs, prompts)))
+            g1 = goodput.snapshot()["kinds"]
+            kinds = {k: g1[k] - g0[k] for k in g1}
+            decoded = sum(kinds[k] for k in goodput.DECODED_KINDS)
+            run = {"observability": on, "tok_s": delivered / wall,
+                   "wall_s": wall, "new_tokens": delivered,
+                   "goodput": kinds,
+                   "tokens_out": eng.stats["tokens_out"] - tok0}
+            if kinds["useful"] != delivered or decoded != run["tokens_out"]:
+                raise AssertionError(f"goodput does not reconcile: {run}")
+            if on and exporter is None:
+                exporter = obs.start_exporter(port=0)
+                fams = metrics.parse_prometheus_text(
+                    _scrape(exporter.url("/metrics")))
+                health = json.loads(_scrape(exporter.url("/healthz")))
+                reqs = {tuple(sorted(lb.items())): v for _, lb, v in
+                        fams["paddle_serving_requests_total"]["samples"]}
+                run["scrape"] = {
+                    "families": len(fams),
+                    "requests_ok": reqs.get((("outcome", "ok"),)),
+                    "ttft_count": [v for n, lb, v in
+                                   fams["paddle_serving_ttft_seconds"][
+                                       "samples"]
+                                   if n.endswith("_count")][0],
+                    "healthz_ok": health["ok"],
+                    "journeys": len(reqtrace.journeys())}
+                if run["scrape"]["requests_ok"] != len(prompts):
+                    raise AssertionError(f"/metrics: {run['scrape']}")
+                mem = memledger.sample_now()
+                run["memledger"] = {k: mem[k] for k in (
+                    "buckets", "leaked_pages", "device_bytes_in_use",
+                    "device_bytes_limit", "headroom_ratio")}
+                with open(flight.dump("serve_observed")) as f:
+                    run["flight_dump_lines"] = sum(1 for _ in f)
+            runs.append(run)
+        leak = memledger.leak_check(eng)
+        programs = perf.registry().table()
+    finally:
+        set_planes(False)
+        obs.stop_exporter()
+        se.stop()
+    del se, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 2-layer TrainStep at Llama-3-8B widths: counted FLOPs and the
+    # step-timeline MFU against perf/device.py's peak for this card
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=CAPTURE_PARITY_LAYERS)
+    tmodel = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                     init_std=0.02)
+    opt = pt_pkg.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                       multi_precision=True,
+                       parameters=tmodel.named_parameters(),
+                       grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+    step = pt_pkg.TrainStep(tmodel, opt, llm_loss)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    perf.reset()
+    perf.enable()
+    try:
+        step(ids, ids)                          # counted, and the warm-up
+        tl_ = perf.timeline()
+        for _ in range(4):
+            with tl_.step("train"):
+                loss = step(ids, ids)
+            perf.observe("train.step", tl_.steps[-1].wall_s,
+                         bucket="accum1")
+        row = {r["program"]: r for r in perf.registry().table()}["train.step"]
+        specs = perf.device.specs()
+    finally:
+        perf.disable()
+    walls = sorted(s.wall_s for s in tl_.steps)
+    off = [r["tok_s"] for r in runs if not r["observability"]]
+    on = [r["tok_s"] for r in runs if r["observability"]]
+    decode_rows = [r for r in programs if r["program"] == "serving.decode"]
+    emit({"phase": "serve_observed", "nvidia_smi": nvidia_smi_line(),
+          "warmup": warm, "runs": runs, "tok_s_off": off, "tok_s_on": on,
+          "on_over_off": sum(on) / sum(off), "leak_check": leak,
+          "decode_program": decode_rows,
+          "train_step": {"layers": cfg.num_hidden_layers,
+                         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                         "counted_flops": row["flops"],
+                         "counted_bytes": row["hbm_bytes"],
+                         "wall_ms_min": walls[0] * 1e3,
+                         "wall_ms_median": walls[len(walls) // 2] * 1e3,
+                         "mfu": row.get("mfu"), "bound": row.get("bound"),
+                         "device": specs,
+                         "repo_convention": train_rates(cfg, walls[len(
+                             walls) // 2] * 1e3, False),
+                         "loss": float(loss)}})
+    if leak["leaked_pages"]:
+        raise AssertionError(f"pages leaked: {leak}")
+    if not decode_rows or decode_rows[0].get("mfu") is None:
+        raise AssertionError(f"no counted decode program: {programs}")
+    if row.get("mfu") is None or specs["peak_flops"] != BF16_FLOP_PER_S:
+        raise AssertionError(f"no train-step MFU from the H100 peaks: "
+                             f"{row} {specs}")
+
+
 def main() -> int:
     import torch
 
@@ -4633,10 +4952,15 @@ def main() -> int:
     small = small_f32_model(pt_pkg)
     generate_launches = phase_serve_static(pt_pkg, serve_ctx, small)
     phase_serve_contiguous(pt_pkg, serve_ctx, small)
+    phase_coldstart(pt_pkg, serve_ctx)
+    phase_serve_observed(pt_pkg, serve_ctx)
     del serve_ctx, small
     gc.collect()                    # free the serving models
     torch.cuda.empty_cache()
     phase_serve_robust(pt_pkg)
+    phase_bundle_restart(pt_pkg, built["paged_attention"]["seconds"])
+    gc.collect()
+    torch.cuda.empty_cache()
     int8_record["launches"] = phase_serve_int8(pt_pkg)
     gc.collect()                    # free the int8 serving model
     torch.cuda.empty_cache()

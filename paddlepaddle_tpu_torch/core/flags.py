@@ -2,10 +2,11 @@
 
 Counterpart of ``paddlepaddle_tpu/core/flags.py`` (same semantics: typed
 flags, ``FLAGS_xxx`` env override at definition, settable at runtime). Only
-the ``serving_*`` flags the serving path reads are defined here: the limits,
-the deadline, watchdog and drain defaults ``ServingEngine`` resolves, and
-the KV-memory pair ``BatchDecodeEngine`` resolves itself; the rest arrive
-with the modules that read them.
+the flags the port's modules read are defined here: the ``serving_*``
+limits, the deadline, watchdog and drain defaults ``ServingEngine``
+resolves, the KV-memory pair ``BatchDecodeEngine`` resolves itself, and the
+``obs_*`` / ``slo_*`` families of the observability planes; the rest
+arrive with the modules that read them.
 """
 
 from __future__ import annotations
@@ -59,6 +60,19 @@ def flag_value(name: str):
     return _registry[_key(name)].value
 
 
+def set_flags(flags: Dict[str, Any]) -> None:
+    """Set flags at runtime (an unknown name is defined on the spot); a
+    string value is parsed to the flag's type."""
+    for k, v in flags.items():
+        k = _key(k)
+        if k not in _registry:
+            define_flag(k, v)
+            continue
+        f = _registry[k]
+        f.value = (_parse(v, f.type) if isinstance(v, str) and f.type is not str
+                   else f.type(v))
+
+
 # Serving robustness family (inference/serving.py): fleet-wide defaults for
 # the ServingEngine's overload/failure protection. 0 means "off" for the
 # bound-style flags; constructor arguments win.
@@ -104,3 +118,86 @@ define_flag("serving_kv_host_bytes", 0,
             "serialized to host RAM and restored into fresh device pages "
             "on the next hit (0 = tier off, eviction discards)",
             env="PADDLE_SERVING_KV_HOST_BYTES")
+
+# Observability family (reference core/flags.py:128-241; observability/):
+# each flag also reads its PADDLE_OBS_* spelling; all default off so the
+# hot paths carry no instrumentation. The planes that run a thread or a
+# socket (profiler, memory ledger, exporter) are started by their
+# enable() / start_exporter() calls, never at import, so they have no
+# arming flag here.
+define_flag("obs_trace", False,
+            "record host spans into the observability ring buffer for "
+            "chrome-trace export", env="PADDLE_OBS_TRACE")
+define_flag("obs_metrics", False,
+            "aggregate counters, gauges and latency histograms in the "
+            "observability metrics registry", env="PADDLE_OBS_METRICS")
+define_flag("obs_recompile_watch", False,
+            "watch CUDA-graph captures and kernel builds and warn on a "
+            "storm (one program captured or built repeatedly)",
+            env="PADDLE_OBS_RECOMPILE_WATCH")
+define_flag("obs_buffer_size", 100000,
+            "observability ring buffer capacity (events)",
+            env="PADDLE_OBS_BUFFER_SIZE")
+define_flag("obs_recompile_threshold", 3,
+            "unplanned captures or builds of one program before the "
+            "watchdog flags a storm", env="PADDLE_OBS_RECOMPILE_THRESHOLD")
+define_flag("obs_port", 9470,
+            "base port for the telemetry exporter; a worker listens on "
+            "obs_port + rank (falls back to an ephemeral port if taken)",
+            env="PADDLE_OBS_PORT")
+define_flag("obs_export_host", "127.0.0.1",
+            "bind address for the telemetry exporter",
+            env="PADDLE_OBS_EXPORT_HOST")
+define_flag("obs_blackbox", False,
+            "arm the crash flight recorder: a bounded ring of structured "
+            "runtime events dumped as JSONL + all-thread stacks on an "
+            "unhandled exception, preemption or breaker open",
+            env="PADDLE_OBS_BLACKBOX")
+define_flag("obs_blackbox_dir", "",
+            "directory for black-box dumps (empty = <tmpdir>/paddle_blackbox)",
+            env="PADDLE_OBS_BLACKBOX_DIR")
+define_flag("obs_blackbox_events", 2048,
+            "flight recorder ring capacity (structured events)",
+            env="PADDLE_OBS_BLACKBOX_EVENTS")
+define_flag("obs_reqtrace", False,
+            "arm request-journey tracing (observability/reqtrace.py): one "
+            "stitched trace per serving request, served at /requests",
+            env="PADDLE_OBS_REQTRACE")
+define_flag("obs_reqtrace_ring", 256,
+            "completed request journeys kept in the bounded reqtrace ring",
+            env="PADDLE_OBS_REQTRACE_RING")
+define_flag("obs_reqtrace_spans", 256,
+            "span cap per request journey (overflow counts dropped_spans "
+            "instead of growing)", env="PADDLE_OBS_REQTRACE_SPANS")
+define_flag("obs_perf", False,
+            "arm the performance-attribution plane (observability/perf/): "
+            "count the FLOPs and bytes of each program once (train step, "
+            "decode engine programs) and serve measured MFU and roofline "
+            "as paddle_program_* gauges and /programs",
+            env="PADDLE_OBS_PERF")
+define_flag("obs_prof_hz", 50.0,
+            "sampling-profiler rate in samples per second",
+            env="PADDLE_OBS_PROF_HZ")
+define_flag("obs_prof_window_s", 120.0,
+            "seconds of per-second folded-stack aggregation the profiler "
+            "keeps", env="PADDLE_OBS_PROF_WINDOW_S")
+define_flag("obs_memledger_interval_s", 5.0,
+            "seconds between memory-ledger samples",
+            env="PADDLE_OBS_MEMLEDGER_INTERVAL_S")
+
+# SLO targets (observability/reqtrace.py burn tracker, reference
+# core/flags.py:259-277); 0 = target off.
+define_flag("slo_ttft_ms", 0.0,
+            "TTFT SLO target in milliseconds; nonzero arms the sliding-"
+            "window burn-rate gauge paddle_slo_burn_ttft",
+            env="PADDLE_SLO_TTFT_MS")
+define_flag("slo_tpot_ms", 0.0,
+            "TPOT SLO target in milliseconds; nonzero arms the sliding-"
+            "window burn-rate gauge paddle_slo_burn_tpot",
+            env="PADDLE_SLO_TPOT_MS")
+define_flag("slo_burn_window_s", 60.0,
+            "sliding window (seconds) the SLO burn rate is computed over",
+            env="PADDLE_SLO_BURN_WINDOW_S")
+define_flag("slo_error_budget", 0.01,
+            "allowed SLO violation fraction; burn = violation_rate / budget",
+            env="PADDLE_SLO_ERROR_BUDGET")

@@ -3,7 +3,9 @@
 Port of ``paddlepaddle_tpu/inference/decode_engine.py``: ``BatchDecodeEngine``
 with the paged layout (full-precision or int8 KV pages, shared-prefix hits,
 the host-RAM prefix tier, speculative decoding) and the slot-contiguous
-layout, over full-precision or weight-only int8 weights; no mesh, no bundle.
+layout, over full-precision or weight-only int8 weights, with the
+reference's compile plan, warmup and bundles and its observability seams;
+no mesh.
 
 * PAGED KV POOL (``kv_layout="paged"``, the default): one ``[num_pages,
   page_size, kvh, hd]`` K and V buffer per layer plus a device page table
@@ -65,6 +67,24 @@ layout, over full-precision or weight-only int8 weights; no mesh, no bundle.
   :mod:`.speculative`): a draft proposes ``k`` greedy tokens per slot and
   the engine's own paged forward verifies them at W = k+1 (the kernel with
   ``k+1`` query rows per slot); greedy requests only.
+* COLD START (reference :1066-1350, :mod:`.compile_plan`):
+  ``compile_plan`` enumerates the reference's program keys for this
+  configuration; :meth:`BatchDecodeEngine.warmup` builds the kernel
+  libraries the plan launches, captures every captured program (``decode``
+  / ``decode_contig``, or ``draft_k<k>`` and ``verify_k<k>``) without
+  serving a chunk, and runs one throwaway admission per prompt bucket into
+  a free slot (its pages returned, its sampling draws undone), so cuBLAS
+  and the caching allocator are warm. The serve window after it captures
+  and builds nothing. ``bundle=`` loads a bundle written by
+  :meth:`BatchDecodeEngine.save_serving_bundle` (the manifest and the
+  kernel libraries), so a fresh host loads the libraries instead of
+  building them; a stale or corrupt bundle is a logged fallback.
+* OBSERVABILITY (:mod:`..observability`): the reference's ``paddle_*``
+  KV, prefix, warmup and bundle metrics; request journeys (queue wait,
+  admit, first token, each decode chunk, speculative rounds); the goodput
+  ledger at retirement and release; the program costs of the decode chunk
+  and the admissions (perf plane); flight-recorder events; the watchdog
+  counts every capture; the memory ledger tracks the engine weakly.
 * The pools, the page table and the slot state are updated IN PLACE
   (``index_put_`` / ``copy_``) where the reference donated its buffers to
   XLA; that is also what lets a captured graph replay over them.
@@ -80,13 +100,14 @@ Head dims that the reference's kernel gate refuses (neither a multiple of
 128 nor 8/16/32/64) never reach a TPU kernel there; here they decode through
 the plain paged attention on either device (the kernel counters stay 0).
 
-Options the port does not serve yet (``bundle=``, ``mesh=`` / ``plan=``)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them;
-none is silently ignored.
+``mesh=`` / ``plan=`` raise ``NotImplementedError`` naming ROADMAP A10;
+no option is silently ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
 import math
 import sys
@@ -102,8 +123,14 @@ from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
 from ..nn.quant import quantized_view
 from ..nn.quant.quantized_linear import _q127
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
+from ..observability import memledger as _memledger
+from ..observability import perf as _perf
+from ..observability import watchdog as _watchdog
 from ..ops.kernels import _build
 from ..ops.kernels import paged_attention as _pa
+from . import compile_plan as _cp
 from .kv_pool import (
     HostPrefixTier,
     HostSlab,
@@ -114,7 +141,7 @@ from .kv_pool import (
     prefix_hash,
     serialize_page_slab,
 )
-from .robustness import KVCapacityError
+from .robustness import KVCapacityError, safe_inc, safe_set
 
 _log = logging.getLogger(__name__)
 
@@ -209,6 +236,11 @@ def _stamp(req, attr: str, value=None) -> None:
         setattr(res, attr, time.perf_counter() if value is None else value)
 
 
+def _trace_of(req):
+    """The request's journey (observability.reqtrace), or None."""
+    return getattr(getattr(req, "result", None), "_trace", None)
+
+
 class _Slot:
     __slots__ = ("req", "emitted", "budget", "spec_steps", "spec_accepted")
 
@@ -235,7 +267,14 @@ class _CapturedProgram:
     Python launch counters move while the body is captured, not when the
     graph runs: the capture's moves are taken back, kept as the graph's
     launches, and added on every replay. A capture that fails raises; there
-    is no return to the eager body."""
+    is no return to the eager body.
+
+    :meth:`capture` is warmup's form: the eager run is thrown away (the
+    generators' states and the launch counters are restored after it, so
+    a warmed engine samples and counts as a cold one would) and nothing
+    is replayed. Every capture is reported to the capture/build watchdog.
+    ``count_ctx``, when set before the first call, is a context factory the
+    eager run executes inside (the perf plane's cost count)."""
 
     _COUNTERS = ("launches", "int8_launches")
 
@@ -251,6 +290,7 @@ class _CapturedProgram:
         self.replays = 0
         self.capture_s: Optional[float] = None
         self.pool_bytes: Optional[int] = None
+        self.count_ctx = None
 
     def __call__(self) -> None:
         if self.graph is None:
@@ -262,14 +302,29 @@ class _CapturedProgram:
             setattr(counter, name, getattr(counter, name) + n)
         self.replays += 1
 
-    def _warm_up_and_capture(self) -> None:
+    def capture(self) -> None:
+        """Capture now, without serving a chunk (warmup)."""
+        if self.graph is None:
+            self._warm_up_and_capture(throwaway=True)
+
+    def _warm_up_and_capture(self, throwaway: bool = False) -> None:
         counter = _pa.paged_attention
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(cur)
+        if throwaway:
+            counts0 = {n: getattr(counter, n) for n in self._COUNTERS}
+            states = [g.get_state() for g in self.generators]
         with torch.cuda.stream(side):
-            self.body()
+            with (self.count_ctx() if self.count_ctx is not None
+                  else contextlib.nullcontext()):
+                self.body()
         cur.wait_stream(side)
+        if throwaway:
+            for n, v in counts0.items():
+                setattr(counter, n, v)
+            for g, st in zip(self.generators, states):
+                g.set_state(st)
         before = {n: getattr(counter, n) for n in self._COUNTERS}
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
@@ -277,6 +332,13 @@ class _CapturedProgram:
         for gen in self.generators:
             graph.register_generator_state(gen)
         side.wait_stream(cur)
+        # A graph destroyed while this one captures (a dead engine's,
+        # freed by Python's cyclic GC on any thread) invalidates the
+        # capture: collect the garbage now, as torch.cuda.graph does, and
+        # keep the automatic collector off until the capture ends
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=self.pool)
@@ -289,6 +351,8 @@ class _CapturedProgram:
                                f"program failed: {type(e).__name__}: "
                                f"{e}") from e
         finally:
+            if gc_was_on:
+                gc.enable()
             moved = {n: getattr(counter, n) - before[n]
                      for n in self._COUNTERS}
             for n in self._COUNTERS:
@@ -298,6 +362,7 @@ class _CapturedProgram:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph = graph
+        _watchdog.record_compile("capture", self.key, self.capture_s)
 
     def info(self) -> Dict[str, object]:
         return {"captured": self.graph is not None,
@@ -315,7 +380,10 @@ class BatchDecodeEngine:
     included, or a ``LlamaConfig`` built on the engine's device from
     ``seed``) with ``spec_k=`` arms speculative decoding.
     ``fused_kernels``: ``None`` or ``True`` attend through the paged kernel
-    (on the card), ``False`` through its plain version."""
+    (on the card), ``False`` through its plain version. ``bundle=`` names a
+    bundle directory (:meth:`save_serving_bundle`); one that does not match
+    this engine is reported in ``compile_info()["bundle"]`` and the engine
+    builds as usual."""
 
     TOP_K_CAP = 128  # bound for the per-slot top-k filter
 
@@ -350,8 +418,6 @@ class BatchDecodeEngine:
                 f"quant={quant!r}: 'weight_only_int8' is the supported "
                 "decode-engine scheme (int4/PTQ honestly absent — "
                 "PARITY.md)")
-        if bundle is not None:
-            raise not_ported("bundle=", "A6")
         if mesh is not None or plan is not None:
             raise not_ported("tensor-parallel serving (mesh=/plan=)", "A10")
         self.kv_quant = _resolve_kv_quant(kv_quant)
@@ -418,6 +484,11 @@ class BatchDecodeEngine:
                 kv_host_bytes = int(flag_value("serving_kv_host_bytes") or 0)
             if kv_host_bytes and prefix_cache:
                 self.kv_host = HostPrefixTier(int(kv_host_bytes))
+            self._kv_gauges(total=True)
+            if self.kv_quant is not None:
+                safe_set("paddle_serving_kv_quant_enabled",
+                         "KV-cache quantization live on this engine "
+                         "(1 = yes)", 1, mode=self.kv_quant)
         else:
             self.page_size = 0
             self.P = 0
@@ -453,7 +524,13 @@ class BatchDecodeEngine:
                       "restore_failures": 0}
         # host wall of the most recent decode chunks, queue to readback (ms)
         self.chunk_ms: List[float] = []
+        # program registry (captured programs) and the plan keys whose first
+        # build or run has happened (captures, and admissions per bucket)
         self._programs: Dict[str, object] = {}
+        self._warmed: set = set()
+        self._warm_info: Optional[Dict[str, object]] = None
+        self._bundle_info: Optional[Dict[str, object]] = None
+        self._costed: set = set()        # perf plane: programs counted
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
         self.spec = None
@@ -467,6 +544,17 @@ class BatchDecodeEngine:
             # one verify payload per outer step, read back once a chunk
             self._spec_packed = torch.zeros(
                 (self.S, self._spec_steps_per_chunk, self.spec.k + 3), **i32)
+        self.compile_plan = _cp.CompilePlan.for_engine(self)
+        # weak: the memory ledger must never extend the engine's lifetime
+        _memledger.register_engine(self)
+        if bundle is not None:
+            # never fatal: a stale or foreign bundle logs and the engine
+            # builds its kernel libraries as usual
+            self.load_serving_bundle(bundle)
+        if self.kernel == "cuda":
+            # build (or load) the kernel library now, so that a build error
+            # surfaces at construction rather than mid-decode
+            _pa.build()
 
     def _resolve_attention(self, fused_kernels: Optional[bool], paged: bool,
                            spec: bool, spec_k: int) -> None:
@@ -494,6 +582,13 @@ class BatchDecodeEngine:
                         f"[serving] fused paged-attention kernel "
                         f"unavailable ({reason}); serving the model's "
                         "cached attention\n")
+                    safe_inc("paddle_fused_kernel_fallbacks_total",
+                             "fused-kernel requests that fell back to the "
+                             "reference formulation",
+                             kernel="paged_attention",
+                             reason=reason.split(" ")[0])
+                    _flight.record("compile", "fused_fallback",
+                                   kernel="paged_attention", reason=reason)
             return
         if not want:
             self._attend = _pa.paged_attention_plain
@@ -520,9 +615,15 @@ class BatchDecodeEngine:
                     (" (the TPU kernel takes it: open coverage of ROADMAP "
                      "queue B row 1)" if w > 1 else ""))
         _build.check_device(self.device)
-        _pa.build()
         self.kernel = "cuda"
         self.fused = {"enabled": True, "paged_attention": "cuda"}
+
+    def kernel_libraries(self) -> List[str]:
+        """The kernel sources (``ops/kernels/csrc/<name>.cu``) this engine
+        launches: the paged-attention library where decode attends through
+        the kernel, none otherwise (prefill and the draft attend through
+        the model's cached attention)."""
+        return ["paged_attention"] if self.kernel == "cuda" else []
 
     def fused_info(self) -> Dict[str, object]:
         """``health()["fused"]``: which kernel this engine decodes through,
@@ -537,14 +638,27 @@ class BatchDecodeEngine:
         """``health()["mesh"]``: single card (mesh serving is A10)."""
         return {"enabled": False}
 
-    def compile_info(self) -> Dict[str, object]:
-        """``health()["compile"]``: the programs built so far and their
-        captures (the compile plan, warmup and bundles are A6)."""
-        return {"programs_built": len(self._programs),
-                "captured": self.capture_info(),
-                "bundle": {"loaded": False}}
-
     # -- KV observability ----------------------------------------------------
+    def _kv_gauges(self, total: bool = False) -> None:
+        """Pool occupancy gauges (reference :494-513), refreshed on the
+        per-request host paths (admit / release), never per token."""
+        if self.kv_layout != "paged":
+            return
+        if total:
+            safe_set("paddle_serving_kv_pages_total",
+                     "allocatable KV pages in the paged pool",
+                     self.pool.usable)
+        safe_set("paddle_serving_kv_pages_free",
+                 "KV pages currently on the free list", self.pool.free_count)
+        if self.kv_host is not None:
+            safe_set("paddle_serving_kv_host_bytes",
+                     "bytes of spilled prefix slabs resident in the "
+                     "host-RAM tier", self.kv_host.used_bytes)
+            safe_set("paddle_serving_kv_host_occupancy",
+                     "host-tier bytes used over its byte budget "
+                     "(the kv_host_tier_full alert input)",
+                     round(self.kv_host.occupancy, 4))
+
     def _restore_percentile(self, q: float) -> Optional[float]:
         """p-th percentile of recent host-tier restore latencies (ms)."""
         if not self._restore_ms:
@@ -821,8 +935,12 @@ class BatchDecodeEngine:
                 pages_capacity=self.pool.usable)
         if self.pool.free_count < need:
             spill = self._spill_prefix if self.kv_host is not None else None
-            self.prefix.evict_until(self.pool, need, exclude=exclude,
-                                    spill=spill)
+            evicted = self.prefix.evict_until(self.pool, need,
+                                              exclude=exclude, spill=spill)
+            if evicted:
+                safe_inc("paddle_serving_kv_prefix_evictions_total",
+                         "prefix-cache entries LRU-evicted for pages",
+                         evicted)
             if self.pool.free_count < need:
                 return None
         return self.pool.alloc(need)
@@ -857,9 +975,17 @@ class BatchDecodeEngine:
                   for t in self._pool_tensors(kc, vc)]
         meta = dict(self._slab_meta(), length=int(entry.length),
                     n_pages=len(entry.pages))
-        slab = HostSlab(serialize_page_slab(meta, arrays), entry.length,
-                        len(entry.pages), entry.last_used)
-        return self.kv_host.put(h, slab)
+        blob = serialize_page_slab(meta, arrays)
+        slab = HostSlab(blob, entry.length, len(entry.pages),
+                        entry.last_used)
+        ok = self.kv_host.put(h, slab)
+        if ok:
+            safe_inc("paddle_serving_kv_prefix_spills_total",
+                     "prefix entries spilled to the host-RAM tier instead "
+                     "of discarded")
+            _flight.record("kv", "prefix_spill", hash=h[:16],
+                           pages=len(entry.pages), bytes=len(blob))
+        return ok
 
     def _restore_prefix(self, h: str, slab: HostSlab,
                         pfx_pages: List[int]) -> bool:
@@ -890,12 +1016,20 @@ class BatchDecodeEngine:
                 t[idx] = a.to(self.device)
             entry = self.prefix.register(h, pfx_pages, int(meta["length"]))
             entry.refcount = 0
+            safe_inc("paddle_serving_kv_prefix_restores_total",
+                     "prefix entries restored from the host tier into "
+                     "device pages")
+            _flight.record("kv", "prefix_restore", hash=h[:16],
+                           pages=len(pfx_pages), bytes=len(slab.blob))
             return True
         except Exception as e:  # noqa: BLE001 — any bad slab is a miss
             self.stats["restore_failures"] += 1
             _log.warning("host-tier slab %s failed to restore (%s: %s); "
                          "serving the request as a full-prefill miss",
                          h[:16], type(e).__name__, e)
+            safe_inc("paddle_serving_kv_host_restore_failures_total",
+                     "host-tier slabs that failed validation/restore "
+                     "(request served as a miss)", reason=type(e).__name__)
             return False
 
     @torch.no_grad()
@@ -928,12 +1062,17 @@ class BatchDecodeEngine:
                 "(sampling-correct rejection resampling is a planned seam) "
                 "— send temperature=0 or serve without spec_k")
         eos_i = -1 if eos is None else int(eos)
+        budget = int(req.max_new_tokens)
+        bucket = min(_bucket(plen), self.L)
         if self.kv_layout != "paged":
-            first = self._admit_contiguous_impl(
-                ids, slot, temp, eos_i, int(req.max_new_tokens), top_k)
-            return self._admitted(req, slot, first)
+            first = self._run_admission(
+                _cp.admit_key(bucket),
+                lambda: self._admit_contiguous_impl(ids, slot, temp, eos_i,
+                                                    budget, top_k))
+            return self._admitted(req, slot, first, bucket, plen)
         aligned, n_pfx, h, entry = self._prefix_plan(req, ids, plen)
         hit = entry is not None
+        restored = False
         slab = None
         if not hit and h is not None and self.kv_host is not None:
             # device miss with a spilled copy: pop the slab BEFORE reserving
@@ -959,10 +1098,11 @@ class BatchDecodeEngine:
             t0 = time.perf_counter()
             if self._restore_prefix(h, slab, private[:n_pfx]):
                 entry = self.prefix.lookup(h)
-                hit = True
+                hit = restored = True
                 private = private[n_pfx:]
                 self._restore_ms.append((time.perf_counter() - t0) * 1e3)
                 del self._restore_ms[:-512]
+        pages_reserved = len(private)
         self._slot_pages[slot] = private
         row = np.zeros((self.P,), np.int32)
         if hit:
@@ -971,13 +1111,25 @@ class BatchDecodeEngine:
             row[:n_pfx] = entry.pages
             row[n_pfx:n_pfx + len(private)] = private
             self._slot_prefix[slot] = h
+            safe_inc("paddle_serving_kv_prefix_hits_total",
+                     "prefix-cache hits (prefill work skipped)")
         else:
             row[:len(private)] = private
         self.page_table[slot] = torch.from_numpy(row).to(self.device)
+        self._kv_gauges()
+        if hit:
+            tail = plen - aligned
+            tail_bucket = min(_bucket(tail),
+                              self.cfg.max_position_embeddings - aligned,
+                              self.P * self.page_size - aligned)
+            key = _cp.prefix_admit_key(n_pfx, tail_bucket)
+        else:
+            key = _cp.admit_key(bucket)
         try:
-            first = self._admit_paged_impl(
-                ids, slot, temp, eos_i, int(req.max_new_tokens), top_k,
-                n_pfx if hit else 0)
+            first = self._run_admission(
+                key, lambda: self._admit_paged_impl(
+                    ids, slot, temp, eos_i, budget, top_k,
+                    n_pfx if hit else 0))
         except BaseException:
             # the reservation must not outlive a failed admission
             self._release_kv(slot)
@@ -1000,14 +1152,56 @@ class BatchDecodeEngine:
                 # lane and return the pages, or the reservation leaks
                 self.reset_slots([slot])
                 raise
-        return self._admitted(req, slot, first)
+            self._warmed.add(_cp.draft_admit_key(bucket))
+        prefix = None
+        if h is not None:
+            prefix = {"prefix": ("restore" if restored
+                                 else "hit" if entry is not None else "miss"),
+                      "prefix_pages": n_pfx}
+        return self._admitted(req, slot, first, bucket, plen,
+                              pages=pages_reserved, prefix=prefix)
 
-    def _admitted(self, req, slot: int, first: torch.Tensor) -> bool:
-        """Host bookkeeping of an admission that succeeded."""
+    def _run_admission(self, key: str, impl) -> torch.Tensor:
+        """Run one admission ``impl()`` for plan key ``key``; with the perf
+        plane armed, the first admission at each key is counted as the
+        ``serving.admit`` program's cost (reference :1605-1616)."""
+        if _perf.enabled() and key not in self._costed:
+            self._costed.add(key)
+            kind, info = _cp.parse_key(key)
+            bucket = (f"pfx{info['n_pfx']}t{info['tail_bucket']}"
+                      if kind == "prefix" else f"p{info['bucket']}")
+            with _perf.counting("serving.admit", bucket=bucket,
+                                quant=self.quant or "off"):
+                first = impl()
+        else:
+            first = impl()
+        # only after it succeeded: a failed first admission must not mask
+        # the key from a later warmup()
+        self._warmed.add(key)
+        return first
+
+    def _admitted(self, req, slot: int, first: torch.Tensor, bucket: int,
+                  plen: int, pages: Optional[int] = None,
+                  prefix: Optional[Dict[str, object]] = None) -> bool:
+        """Host bookkeeping of an admission that succeeded, its journey
+        spans (reference :1664-1688) and its flight-recorder event."""
         self._host_slots[slot] = _Slot(req, budget=int(req.max_new_tokens))
         self.stats["peak_busy"] = max(self.stats["peak_busy"],
                                       self.busy_slots())
         _stamp(req, "_t_admit")
+        tr = _trace_of(req)
+        if tr is not None:
+            res = req.result
+            tr.event("queue.wait", t0=res._t_submit, t1=res._t_admit)
+            tr.event("admit", slot=slot, bucket=bucket, plen=plen,
+                     **({} if pages is None else {"pages": pages}),
+                     **(prefix or {}))
+            if self.spec is not None:
+                tr.event("spec.draft_prefill", bucket=bucket)
+        _flight.record("request", str(getattr(req, "id", "?")),
+                       phase="admit", slot=slot, bucket=bucket, plen=plen,
+                       **({} if prefix is None else
+                          {"prefix_hit": prefix["prefix"] != "miss"}))
         self._first_pending[slot] = first   # device scalar, synced at collect
         self.stats["requests"] += 1
         return True
@@ -1029,6 +1223,7 @@ class BatchDecodeEngine:
             self._slot_prefix[slot] = None
         if zero_row:
             self.page_table[slot] = 0
+        self._kv_gauges()
 
     def _retire(self, slot: int) -> None:
         s = self._host_slots[slot]
@@ -1038,6 +1233,17 @@ class BatchDecodeEngine:
             eos = getattr(s.req, "eos_token_id", None)
             if eos is not None and eos in gen:
                 gen = gen[: gen.index(eos) + 1]   # trim past eos, keep it
+            res = getattr(s.req, "result", None)
+            if res is not None and getattr(res, "_event", None) is not None \
+                    and res._event.is_set():
+                # a client cancel raced this retirement: nobody receives
+                # these tokens, so they all count as the cancel's kind
+                _goodput.account(getattr(res, "_cancel_kind", "cancel"),
+                         len(s.emitted))
+            else:
+                _goodput.account("useful", len(gen))
+                # emitted past eos / budget and trimmed here
+                _goodput.account("overshoot", len(s.emitted) - len(gen))
             _stamp(s.req, "_n_new", len(gen))
             if self.spec is not None:
                 # per-request tokens per target step for slo() consumers
@@ -1067,6 +1273,9 @@ class BatchDecodeEngine:
                 if getattr(s.req.result, "_t_first", 1) is None:
                     _stamp(s.req, "_t_first", now)
                     stamped.append(slot)
+                    tr = _trace_of(s.req)
+                    if tr is not None:
+                        tr.event("first_token", t0=now)
         self._first_pending.clear()
         return stamped
 
@@ -1097,7 +1306,10 @@ class BatchDecodeEngine:
         place, so a captured chunk replays over the same storage; the
         pages return; the caller owns failing the request's future.
         ``reason`` names the goodput kind the slot's decoded tokens are
-        wasted as, recorded once the goodput ledger is ported (A8)."""
+        wasted as."""
+        s = self._host_slots[int(slot)]
+        if s.req is not None:
+            _goodput.account(reason, len(s.emitted))
         self.reset_slots([slot])
         self._host_slots[int(slot)] = _Slot()
 
@@ -1152,12 +1364,56 @@ class BatchDecodeEngine:
 
     def _program(self, key: str):
         """Registry lookup with a lazy build, shared by the decode and the
-        speculative chunks."""
+        speculative chunks and warmup."""
         fn = self._programs.get(key)
         if fn is None:
             fn = self._build_program(key)
             self._programs[key] = fn
         return fn
+
+    def _cost_label(self, key: str):
+        """(program, bucket, meta) under which the perf plane records the
+        cost of one call of ``key``; None for the speculative programs,
+        which the reference does not cost either."""
+        if key != self._decode_key:
+            return None
+        bucket = (f"s{self.S}c{self.chunk}"
+                  + ("-fused" if self.fused.get("enabled") else ""))
+        return ("serving.decode", bucket,
+                {"quant": self.quant or "off", "slots": self.S,
+                 "chunk": self.chunk,
+                 "fused": self.fused.get("paged_attention", "off")})
+
+    def _cost_window(self, key: str):
+        """A context factory counting one execution of ``key`` as its
+        program cost (the perf plane, armed, first time only), or None."""
+        label = self._cost_label(key)
+        if label is None or not _perf.enabled() or key in self._costed:
+            return None
+        self._costed.add(key)
+        name, bucket, meta = label
+        return lambda: _perf.counting(name, bucket, **meta)
+
+    def _call_program(self, key: str) -> bool:
+        """Run program ``key`` once: a replay, or the first call's eager run
+        and capture (on the CPU, the body). With the perf plane armed the
+        first eager execution of the decode program is counted. Returns
+        whether this call captured the program."""
+        fn = self._program(key)
+        captured = isinstance(fn, _CapturedProgram) and fn.graph is None
+        window = (self._cost_window(key)
+                  if captured or not isinstance(fn, _CapturedProgram)
+                  else None)
+        if isinstance(fn, _CapturedProgram):
+            fn.count_ctx = window
+            fn()
+            fn.count_ctx = None
+        else:
+            with window() if window is not None else contextlib.nullcontext():
+                fn()
+        self._warmed.add(_cp.decode_key() if key == self._decode_key
+                         else key)
+        return captured
 
     def capture_info(self) -> Dict[str, object]:
         """Per captured program: capture seconds, graph-pool bytes, replays
@@ -1165,24 +1421,222 @@ class BatchDecodeEngine:
         return {key: fn.info() for key, fn in self._programs.items()
                 if isinstance(fn, _CapturedProgram)}
 
+    # -- compile plan: warmup and bundles (reference :1184-1354) ------------
+    def warmup(self, keys: Optional[List[str]] = None) -> Dict[str, object]:
+        """Do now what the first requests would otherwise pay for, so the
+        serve window after it builds and captures nothing: build the kernel
+        libraries the plan launches (on the card; loaded from the bundle
+        where one was loaded), capture each captured program of ``keys``
+        (default: the whole plan) without serving a chunk, and run one
+        throwaway admission per ``admit_p<b>`` / ``draft_admit_p<b>``
+        bucket into a free slot. A throwaway admission's pages return, its
+        slot is left as it was, and the sampling generator is restored, so
+        a warmed engine serves the tokens a cold one would. Idempotent per
+        key; needs an idle engine. Returns the summary also kept in
+        ``compile_info()["warmup"]``, with its wall split into
+        ``build_s``, ``capture_s`` and ``admit_s``."""
+        if keys is None:
+            keys = self.compile_plan.keys()
+        if self.busy_slots():
+            raise RuntimeError("warmup() needs an idle engine (no request "
+                               "in a decode slot)")
+        t0 = time.perf_counter()
+        done = skipped = 0
+        times = {"build_s": 0.0, "capture_s": 0.0, "admit_s": 0.0}
+        with _watchdog.expected_compiles("warmup"):
+            libs = self.compile_plan.libraries
+            if libs:
+                tb = time.perf_counter()
+                _build.build_all(libs)
+                times["build_s"] = time.perf_counter() - tb
+            # admissions first: the generator is not yet registered with a
+            # graph on a fresh engine when they save and restore its state
+            admits, captures = [], []
+            for key in keys:
+                kind, info = _cp.parse_key(key)
+                if key in self._warmed:
+                    skipped += 1
+                elif kind in ("admit", "draft_admit"):
+                    admits.append((key, kind, info["bucket"]))
+                else:
+                    captures.append((key, kind))
+            ta = time.perf_counter()
+            done += self._warm_admissions(admits)
+            times["admit_s"] = time.perf_counter() - ta
+            for key, kind in captures:
+                if kind in ("decode", "draft", "verify"):
+                    tc = time.perf_counter()
+                    prog = self._program(self._decode_key if kind == "decode"
+                                         else key)
+                    if isinstance(prog, _CapturedProgram) \
+                            and prog.graph is None:
+                        prog.count_ctx = self._cost_window(prog.key)
+                        prog.capture()
+                        prog.count_ctx = None
+                    times["capture_s"] += time.perf_counter() - tc
+                    self._warmed.add(key)
+                    done += 1
+                else:
+                    raise ValueError(f"warmup: {key!r} is traffic-shaped "
+                                     "(prefix hits), not a plan key")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warm_info = {
+            "programs": len(keys),
+            "compiled": done,
+            "skipped": skipped,
+            "wall_s": round(time.perf_counter() - t0, 3),
+            **{k: round(v, 3) for k, v in times.items()},
+        }
+        safe_set("paddle_serving_warmup_seconds",
+                 "wall seconds the last engine warmup spent compiling",
+                 self._warm_info["wall_s"])
+        safe_set("paddle_serving_warmup_programs",
+                 "programs compiled by the last engine warmup", done)
+        _flight.record("compile", "warmup", **self._warm_info)
+        return dict(self._warm_info)
+
+    @torch.no_grad()
+    def _warm_admissions(self, admits) -> int:
+        """One throwaway admission (and draft prefill) per bucket, each into
+        the first free slot: a prompt of ``min(bucket, max_len - 1)`` ones
+        with a budget of one token. Pages, the slot's device state and the
+        generator are restored; host bookkeeping is not touched. With the
+        perf plane armed, each target admission is counted as its bucket's
+        ``serving.admit`` cost, as the reference's warmup captures it."""
+        if not admits:
+            return 0
+        slot = next(i for i, s in enumerate(self._host_slots)
+                    if s.req is None)
+        state = self.gen.get_state()
+        n = 0
+        try:
+            for key, kind, bucket in admits:
+                plen = max(1, min(bucket, self.L - 1))
+                ids = np.ones((1, plen), np.int32)
+                if kind == "draft_admit":
+                    self.spec.draft_admit(ids, slot)
+                elif self.kv_layout != "paged":
+                    self._run_admission(key, lambda: (
+                        self._admit_contiguous_impl(ids, slot, 0.0, -1, 1,
+                                                    0)))
+                else:
+                    private = self._reserve_pages(plen, 1)
+                    if private is None:
+                        raise RuntimeError(
+                            f"warmup: no free pages for a {plen}-token "
+                            "admission")
+                    self._slot_pages[slot] = private
+                    row = np.zeros((self.P,), np.int32)
+                    row[:len(private)] = private
+                    self.page_table[slot] = torch.from_numpy(row).to(
+                        self.device)
+                    try:
+                        self._run_admission(key, lambda: (
+                            self._admit_paged_impl(ids, slot, 0.0, -1, 1,
+                                                   0)))
+                    finally:
+                        self._release_kv(slot)
+                self._warmed.add(key)
+                n += 1
+        finally:
+            self.active[slot] = False
+            self.gen.set_state(state)
+        return n
+
+    def save_serving_bundle(self, path: str,
+                            keys: Optional[List[str]] = None
+                            ) -> Dict[str, object]:
+        """Write this engine's bundle to ``path`` (:func:`.compile_plan.
+        save_bundle`: the manifest and the kernel libraries the plan
+        launches). An engine built with ``bundle=path`` on a fresh host
+        then loads the libraries instead of building them."""
+        with _watchdog.expected_compiles("bundle_save"):
+            manifest = _cp.save_bundle(self, path, keys=keys)
+        _flight.record("compile", "bundle_save", path=str(path),
+                       libraries=len(manifest["libraries"]),
+                       wall_s=manifest.get("save_wall_s"))
+        return manifest
+
+    def load_serving_bundle(self, path: str, strict: bool = False) -> bool:
+        """Load a bundle (the constructor's ``bundle=`` path). Non-strict:
+        any mismatch or corruption writes one stderr line, bumps
+        ``paddle_serving_bundle_fallbacks_total``, records the reason in
+        ``compile_info()["bundle"]`` and leaves the engine to build its
+        libraries as usual."""
+        try:
+            manifest = _cp.load_bundle(self, path)
+        except Exception as e:
+            if strict:
+                raise
+            sys.stderr.write(
+                f"[serving] bundle {path} not loaded "
+                f"({type(e).__name__}: {e}); building the kernel libraries "
+                "as usual\n")
+            safe_inc("paddle_serving_bundle_fallbacks_total",
+                     "serving bundles rejected at load (engine fell back "
+                     "to compiling)", reason=type(e).__name__)
+            self._bundle_info = {"loaded": False, "path": str(path),
+                                 "error": f"{type(e).__name__}: {e}"}
+            _flight.record("compile", "bundle_fallback", path=str(path),
+                           error=f"{type(e).__name__}: {str(e)[:200]}")
+            return False
+        self._bundle_info = {
+            "loaded": True,
+            "path": str(path),
+            "programs": len(manifest.get("keys", [])),
+            "libraries": [lib["file"] for lib in manifest.get("libraries",
+                                                              [])],
+            "fingerprint": str(manifest.get("fingerprint"))[:16],
+            "version": manifest.get("version"),
+        }
+        safe_set("paddle_serving_bundle_loaded",
+                 "an AOT serving bundle is live in this engine (1 = yes)", 1)
+        safe_set("paddle_serving_bundle_programs",
+                 "programs loaded from the serving bundle",
+                 self._bundle_info["programs"])
+        _flight.record("compile", "bundle_load", path=str(path),
+                       programs=self._bundle_info["programs"])
+        return True
+
+    def compile_info(self) -> Dict[str, object]:
+        """``health()["compile"]`` (reference :1338): the plan's size and
+        fingerprint, how many programs are built (captured programs in the
+        registry) and warm (plan keys whose first capture or admission has
+        run), the warmup summary, the bundle status, and the captures."""
+        plan = self.compile_plan
+        return {
+            "plan": {"entries": len(plan.entries),
+                     "fingerprint": plan.fingerprint()[:16]},
+            "programs_built": len(self._programs),
+            "programs_warmed": len(self._warmed),
+            "warmup": self._warm_info,
+            "bundle": self._bundle_info or {"loaded": False},
+            "captured": self.capture_info(),
+        }
+
     # -- host loop -----------------------------------------------------------
     @torch.no_grad()
     def _decode_chunk(self) -> None:
         """One decode chunk: the ``"decode"`` (``"decode_contig"``)
         program (a graph replay on the card), then ONE readback of the
         packed ``[slots, chunk+1]`` payload, then the host's emit / retire
-        bookkeeping. With speculative decoding armed, the spec chunk
-        instead."""
+        bookkeeping and each request's ``decode.chunk`` span. With
+        speculative decoding armed, the spec chunk instead."""
         if self.spec is not None:
             return self._spec_chunk()
         # first tokens of this cycle's admissions reach the host before the
         # chunk is queued, so time-to-first-token excludes the chunk
         self._collect_firsts()
         t0 = time.perf_counter()
-        self._program(self._decode_key)()
+        captured = self._call_program(self._decode_key)
         pk = self.packed.cpu().numpy()                 # the ONE sync per chunk
-        self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        t_sync = time.perf_counter()
+        self.chunk_ms.append((t_sync - t0) * 1e3)
         del self.chunk_ms[:-512]
+        if _perf.enabled() and not captured:
+            label = self._cost_label(self._decode_key)
+            _perf.observe(label[0], t_sync - t0, bucket=label[1])
         self.stats["decode_calls"] += 1
         self.stats["decode_steps"] += self.chunk
         em, act = pk[:, :-1], pk[:, -1].astype(bool)
@@ -1192,6 +1646,9 @@ class BatchDecodeEngine:
             toks = [int(t) for t in em[slot] if t >= 0]
             s.emitted.extend(toks)
             self.stats["tokens_out"] += len(toks)
+            tr = _trace_of(s.req)
+            if tr is not None and toks:
+                tr.event("decode.chunk", t0=t0, t1=t_sync, tokens=len(toks))
             if not act[slot] or len(s.emitted) >= s.budget:
                 self._retire(slot)
 
@@ -1203,16 +1660,16 @@ class BatchDecodeEngine:
         single transfer. As in the reference, the admissions' first tokens
         are collected after the chunk is queued, at the same sync as its
         tokens, and ``_n_at_first`` records how many arrived together, so
-        TPOT divides by the tokens that arrived after the first."""
+        TPOT divides by the tokens that arrived after the first. Rejected
+        proposals are wasted draft work (goodput ``spec_rejected``)."""
         spec = self.spec
         k = spec.k
         steps = self._spec_steps_per_chunk
         t0 = time.perf_counter()
-        draft = self._program(f"draft_k{k}")
-        verify = self._program(f"verify_k{k}")
+        dkey, vkey = _cp.draft_key(k), _cp.verify_key(k)
         for t in range(steps):
-            draft()
-            verify()
+            self._call_program(dkey)
+            self._call_program(vkey)
             self._spec_packed[:, t].copy_(spec.payload)
         stamped = self._collect_firsts()
         pk = self._spec_packed.cpu().numpy()           # the ONE chunk sync
@@ -1234,6 +1691,12 @@ class BatchDecodeEngine:
             summary = spec.round_summary(acc[slot])
             s.spec_steps += summary["steps"]
             s.spec_accepted += summary["accepted"]
+            _goodput.account("spec_rejected",
+                     summary["proposed"] - summary["accepted"])
+            tr = _trace_of(s.req)
+            if tr is not None and summary["steps"]:
+                tr.event("spec.round", t0=t0, t1=time.perf_counter(),
+                         tokens=len(toks), **summary)
             if slot in stamped and toks:
                 _stamp(s.req, "_n_at_first", 1 + len(toks))
             if not act[slot] or len(s.emitted) >= s.budget:

@@ -4,8 +4,9 @@ queue-wait estimation.
 The port's own copy of the jax-free ``paddlepaddle_tpu/inference/
 robustness.py``: the typed admission errors a client of ``ServingEngine``
 sees, :class:`CircuitBreaker` and :class:`QueueWaitEstimator`, unchanged.
-``safe_inc`` / ``safe_set`` keep their signatures but record nothing until
-observability is ported (ROADMAP A8). The fleet and wire errors
+``safe_inc`` / ``safe_set`` write the cold-path counters and gauges into
+the observability registry (:mod:`..observability`), always, and never
+raise. The fleet and wire errors
 (``FleetUnavailableError``, ``DeployError``, ``ReplicaStalledError``,
 ``WireCorruptionError``, ``error_to_wire`` / ``error_from_wire``) come with
 the fleet (ROADMAP A7).
@@ -28,11 +29,26 @@ __all__ = [
 
 
 def safe_inc(name: str, help_: str, n: float = 1, **labels) -> None:
-    """Cold-path event counter; a no-op until observability is ported."""
+    """Cold-path fault/event counter (sheds, breaker flips, drains, prefix
+    hits/evictions): always records, never raises, costs nothing on the
+    serve path. Shared by serving.py, decode_engine.py and speculative.py."""
+    try:
+        from ..observability import safe_inc as inc
+
+        inc(name, help_, n, **labels)
+    except Exception:
+        pass
 
 
 def safe_set(name: str, help_: str, value: float, **labels) -> None:
-    """Cold-path gauge write; a no-op until observability is ported."""
+    """Best-effort cold-path gauge write, same contract as
+    :func:`safe_inc`."""
+    try:
+        from ..observability import safe_set as set_
+
+        set_(name, help_, value, **labels)
+    except Exception:
+        pass
 
 
 class ServingError(RuntimeError):

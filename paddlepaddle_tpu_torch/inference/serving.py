@@ -31,11 +31,16 @@ the chunk ends at its one readback. The watchdog times each attempt from
 before the replay to after that readback, so a hung chunk shows as an
 attempt in flight.
 
-Not ported: ``bundle=`` (ROADMAP A6), ``mesh=`` / ``plan=`` (A10), and the
-observability hooks (A8): ``submit(trace=)`` raises, the metric writes go
-to the no-op ``safe_inc`` / ``safe_set``, and ``health()`` reads the
-blocks those planes fill as the reference reads them with observability
-off.
+Cold start: ``warmup()`` warms the engine's whole compile plan before the
+first request, ``save_serving_bundle()`` writes a bundle and ``bundle=``
+loads one (:mod:`.compile_plan`). Observability (:mod:`..observability`):
+the serving hook ``_obs_srv`` (request latency and outcome, the SLO
+histograms, batch size, queue depth, decode-attempt outcomes), request
+journeys (``submit(trace=)`` takes one; with tracing armed and none
+passed, the engine mints one), the goodput ledger's serving-side waste
+paths, the flight recorder, and the ``/healthz`` provider of a running
+exporter. Not ported: ``mesh=`` / ``plan=`` (ROADMAP A10) and the router's
+wrapper futures (A7).
 """
 
 from __future__ import annotations
@@ -45,14 +50,19 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..core import flags as _flags
-from ..core.errors import not_ported
 from ..device import DeviceLike
+from ..observability import exporter as _exporter
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
+from ..observability import reqtrace as _reqtrace
+from ..observability.recorder import trace_region
 from .decode_engine import BatchDecodeEngine
 from .kv_pool import pages_needed
 from .robustness import (
@@ -69,15 +79,29 @@ from .robustness import (
     safe_set,
 )
 
+# observability hook: _obs_srv(event, value) with events "latency" (seconds
+# submit-to-result for one completed request), "error"/"cancelled" (a request
+# failed / was cancelled), "slo" (one completed request's lifecycle numbers),
+# "batch_size" (decode slots / requests active in the current batch),
+# "queue_depth" (requests waiting, queue + deferred), "batch" (value
+# "ok"|"error": one decode attempt's outcome). None when observability is
+# off; observability.enable() installs it.
+_obs_srv = None
+
 _BREAKER_STATE_NUM = {"closed": 0, "half_open": 1, "open": 2}
 
+# process-wide request ids: the join key across SLO metrics, trace spans
+# (request#<id>) and flight-recorder lifecycle events
 _REQ_IDS = itertools.count(1)
 
 
 class GenerationResult:
     """Future for one request, carrying its lifecycle timestamps (submit
     -> admit -> first token on the host -> finish), so TTFT, TPOT and queue
-    wait are measured per request (:meth:`slo`)."""
+    wait are measured per request (:meth:`slo`); a completed request feeds
+    the ``paddle_serving_{ttft,tpot,queue_wait,deadline_margin}_seconds``
+    histograms, a ``request#<id>`` span, the flight recorder and, when it
+    owns one, closes its journey."""
 
     def __init__(self):
         self._event = threading.Event()
@@ -99,6 +123,8 @@ class GenerationResult:
         self._deadline: Optional[float] = None   # absolute monotonic
         self._streaming = True    # False: tokens arrive as one batch
         #                           (static mode), so TPOT is undefined
+        self._trace = None        # reqtrace Journey riding this request
+        self._trace_owner = False  # True on the future whose _set closes it
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -152,8 +178,45 @@ class GenerationResult:
                 return            # first outcome wins
             self._output = output
             self._error = error
-            self._t_done = time.perf_counter()
+            self._t_done = now = time.perf_counter()
             self._event.set()
+        obs = _obs_srv
+        outcome = ("ok" if error is None
+                   else "cancelled" if isinstance(error, RequestCancelledError)
+                   else "error")
+        if obs is not None:
+            if error is None:
+                obs("latency", now - self._t_submit)
+                s = self.slo()
+                obs("slo", {
+                    "id": self._req_id,
+                    "latency": s["latency_s"],
+                    "ttft": s["ttft_s"],
+                    "tpot": s["tpot_s"],
+                    "queue_wait": s["queue_wait_s"],
+                    "deadline_margin": (None if self._deadline is None
+                                        else self._deadline
+                                        - time.monotonic()),
+                    "tokens": self._n_new,
+                })
+            else:
+                obs(outcome, 1)
+        _flight.record(
+            "request", str(self._req_id or "?"), phase="finish",
+            outcome=outcome, tokens=self._n_new,
+            latency_ms=round((now - self._t_submit) * 1e3, 3),
+            **({} if self._t_first is None else
+               {"ttft_ms": round((self._t_first - self._t_submit) * 1e3,
+                                 3)}))
+        try:
+            if error is None and (_flags.flag_value("slo_ttft_ms") > 0
+                                  or _flags.flag_value("slo_tpot_ms") > 0):
+                s = self.slo()
+                _reqtrace.slo_observe(s["ttft_s"], s["tpot_s"])
+            if self._trace is not None and self._trace_owner:
+                _reqtrace.finish_future(self._trace, self, outcome)
+        except Exception:
+            pass       # observability must never break request delivery
 
 
 def slo_summary(results) -> Dict[str, Optional[float]]:
@@ -345,8 +408,23 @@ class ServingEngine:
             paged = kv_layout == "paged"
             self._kv_page_size = self._engine.page_size if paged else None
             self._kv_capacity = self._engine.pool.usable if paged else None
+            # a crash dump carries the pool state at the moment of death;
+            # weakly bound, so the annotation never pins a dropped engine
+            eng_ref = weakref.ref(self._engine)
+
+            def _kv_annotation():
+                eng = eng_ref()
+                return (eng.kv_stats() if eng is not None
+                        else {"layout": "engine-released"})
+
+            _flight.annotate("serving_kv", _kv_annotation)
+            if self._spec_enabled:
+                self._announce_spec()
             if quant is not None:
                 self._announce_quant(self._engine.quant_meta)
+            if (self._engine.kv_quant is not None
+                    or self._engine.kv_host is not None):
+                self._announce_kv_memory()
         else:
             self._max_len = max_len or getattr(
                 getattr(model, "config", None), "max_position_embeddings",
@@ -366,8 +444,8 @@ class ServingEngine:
 
     def _announce_quant(self, meta: Dict[str, object]) -> None:
         """One-time observability for quant mode (reference :556): the
-        ``paddle_serving_quant_*`` gauges (no-ops until A8) and a stderr
-        line."""
+        ``paddle_serving_quant_*`` gauges, the flight-recorder header
+        annotation and a stderr line."""
         safe_set("paddle_serving_quant_enabled",
                  "serving weight-only quantization armed (1 = on)", 1,
                  mode=self.quant)
@@ -377,11 +455,48 @@ class ServingEngine:
         safe_set("paddle_serving_quant_bytes_saved",
                  "HBM weight bytes a decode step no longer reads",
                  meta.get("bytes_saved", 0))
+        _flight.annotate("serving_quant", {
+            "mode": self.quant,
+            "group_size": meta.get("group_size", -1),
+            "weights": len(meta.get("quantized", ())),
+            "bytes_saved": meta.get("bytes_saved", 0)})
         sys.stderr.write(
             f"[serving] weight-only quant armed: {self.quant}, "
             f"{len(meta.get('quantized', ()))} weights, "
             f"{meta.get('bytes_saved', 0) / 1e6:.1f} MB HBM reads saved "
             "per full weight pass\n")
+
+    def _announce_kv_memory(self) -> None:
+        """One-time observability for int8 KV pages and the host tier
+        (reference :586)."""
+        eng = self._engine
+        parts = []
+        if eng.kv_quant is not None:
+            parts.append(f"kv_quant={eng.kv_quant}")
+        if eng.kv_host is not None:
+            safe_set("paddle_serving_kv_host_budget_bytes",
+                     "byte budget of the host-RAM prefix spill tier",
+                     eng.kv_host.max_bytes)
+            parts.append(f"host tier {eng.kv_host.max_bytes / 1e6:.1f} MB")
+        sys.stderr.write(
+            f"[serving] KV memory: {', '.join(parts)} "
+            f"({eng.pool.usable} device pages x "
+            f"{eng.kv_stats()['page_bytes']} B)\n")
+
+    def _announce_spec(self) -> None:
+        """One-time observability for speculative decoding (reference
+        :605): gauges and a stderr line."""
+        spec = self._engine.spec
+        draft = spec.describe_draft()
+        safe_set("paddle_serving_spec_enabled",
+                 "speculative decoding armed (1 = on)", 1,
+                 k=spec.k, draft_quant=spec.draft_quant or "off")
+        safe_set("paddle_serving_spec_k",
+                 "draft proposals per speculative target step", spec.k)
+        sys.stderr.write(
+            f"[serving] speculative decoding armed: k={spec.k}, draft "
+            f"{draft['params_m']}M params ({draft['hidden_size']}h x "
+            f"{draft['num_hidden_layers']}L, quant {draft['quant']})\n")
 
     # -- admission control ---------------------------------------------------
     def _on_breaker_transition(self, old: str, new: str) -> None:
@@ -391,12 +506,19 @@ class ServingEngine:
         safe_set("paddle_serving_breaker_state",
                  "serving breaker state (0 closed, 1 half-open, 2 open)",
                  _BREAKER_STATE_NUM[new])
+        _flight.record("breaker", "serving", **{"from": old, "to": new})
+        if new == "open" and _flight.is_enabled():
+            # capture the black box while the evidence is in the ring; on a
+            # thread, since this callback runs under the breaker's lock
+            threading.Thread(target=lambda: _flight.dump("breaker_open"),
+                             daemon=True, name="flight-breaker-dump").start()
 
     def _shed(self, reason: str, exc: BaseException) -> None:
         self._bump("shed")
         safe_inc("paddle_serving_shed_total",
                  "requests shed by serving admission control, by reason",
                  reason=reason)
+        _flight.record("shed", reason)
         raise exc
 
     def _queue_depth(self) -> int:
@@ -484,16 +606,29 @@ class ServingEngine:
         ``deadline_s`` (else ``default_deadline_s``) is relative to now.
         ``prefix_len`` declares the prompt's first tokens a shared prefix
         (a system prompt) for the paged engine's prompt cache; the static
-        scheduler and the contiguous layout ignore it. ``trace`` (a request
-        journey) raises until observability is ported (A8)."""
-        if trace is not None:
-            raise not_ported("trace", "A8")
+        scheduler and the contiguous layout ignore it. ``trace`` is a request
+        journey (:mod:`..observability.reqtrace`) minted by the caller, which
+        then owns it; with none passed and tracing armed, the engine mints
+        one and the future closes it."""
         dl = deadline_s if deadline_s is not None else self.default_deadline_s
         req = GenerationRequest(
             prompt_ids, max_new_tokens, temperature, top_k, eos_token_id,
             deadline=None if dl is None else time.monotonic() + dl,
             prefix_len=prefix_len)
         self._check_admission(req)
+        tr = trace
+        if tr is None and _reqtrace.enabled():
+            tr = _reqtrace.mint(req.id)
+            req.result._trace_owner = tr is not None
+        req.result._trace = tr
+        if tr is not None:
+            tr.event("engine.submit", prompt=req.prompt_ids.shape[1],
+                     budget=req.max_new_tokens,
+                     queue_depth=self._queue_depth())
+        _flight.record("request", str(req.id), phase="submit",
+                       prompt=req.prompt_ids.shape[1],
+                       budget=req.max_new_tokens,
+                       queue_depth=self._queue_depth())
         if self._thread is None:
             self.start()  # lazy start: a future must always have a server
         self._bump("requests")
@@ -505,6 +640,9 @@ class ServingEngine:
             if (t is None or not t.is_alive() or self._drained.is_set()) \
                     and not req.result.done():
                 self._bump("shed")
+                safe_inc("paddle_serving_shed_total",
+                         "requests shed by serving admission control, "
+                         "by reason", reason="draining")
                 req.result._set(error=EngineDrainingError(
                     "serving engine drained while the request was being "
                     "submitted"))
@@ -513,11 +651,29 @@ class ServingEngine:
     def generate(self, prompt_ids, timeout: float = 300.0, **kw) -> np.ndarray:
         return self.submit(prompt_ids, **kw).result(timeout)
 
+    # -- cold-start control --------------------------------------------------
+    def warmup(self) -> Dict[str, object]:
+        """Warm the continuous engine's whole compile plan before the first
+        request (:meth:`BatchDecodeEngine.warmup`). Static mode has no plan
+        (its programs are the model's own ``generate_cached``), so it
+        returns a no-op summary (reference :814)."""
+        if self._engine is None:
+            return {"programs": 0, "compiled": 0, "skipped": 0,
+                    "wall_s": 0.0, "mode": "static"}
+        return self._engine.warmup()
+
+    def save_serving_bundle(self, path: str) -> Dict[str, object]:
+        """Write the continuous engine's bundle to ``path``, the artifact
+        ``ServingEngine(..., bundle=path)`` loads."""
+        if self._engine is None:
+            raise ValueError(
+                "save_serving_bundle requires the continuous engine")
+        return self._engine.save_serving_bundle(path)
+
     def health(self) -> Dict[str, object]:
         """Readiness and liveness snapshot with the reference's keys
-        (:835-928). ``goodput``, ``slo_burn`` and the metric side of
-        ``compile`` belong to the observability planes (A8) and read as the
-        reference reads them with those planes off."""
+        (:835-928), including the goodput ledger, the SLO burn block and
+        the compile-plan / warmup / bundle block."""
         now = time.monotonic()
         alive = self._thread is not None and self._thread.is_alive()
         state = ("draining" if self._draining.is_set() and alive
@@ -533,9 +689,9 @@ class ServingEngine:
                                               self.max_batch_size)
         return {
             "state": state,
-            "goodput": {"kinds": {}},
+            "goodput": _goodput.snapshot(),
             "mode": self.mode,
-            "slo_burn": {"enabled": False},
+            "slo_burn": _reqtrace.burn_snapshot(),
             "quant": self.quant or "off",
             "kv": kv,
             "spec": (eng.spec_info() if eng is not None
@@ -545,7 +701,7 @@ class ServingEngine:
             "mesh": (eng.mesh_info() if eng is not None
                      else {"enabled": False}),
             "compile": (eng.compile_info() if eng is not None
-                        else {"programs_built": 0}),
+                        else {"programs_built": 0, "mode": "static"}),
             "ok": alive and not self._draining.is_set()
                   and breaker != "open",
             "queue_depth": self._queue_depth(),
@@ -589,6 +745,12 @@ class ServingEngine:
                 self._watchdog_thread.start()
             if self._drain_on_sigterm:
                 self.install_preemption_hook()
+            # a running telemetry exporter serves this engine's readiness
+            # under /healthz (unique: a second engine must not clobber it)
+            served = _exporter.get()
+            if served is not None:
+                self._health_reg_name = served.register_health(
+                    "serving", self.health, unique=True)
         return self
 
     def install_preemption_hook(self, timeout: Optional[float] = None):
@@ -626,6 +788,9 @@ class ServingEngine:
         safe_inc("paddle_serving_drains_total", "graceful drains completed",
                  outcome="clean" if finished else "timeout",
                  reason=self._drain_reason)
+        obs = _obs_srv
+        if obs is not None:
+            obs("queue_depth", 0)
         return {"clean": finished, "shed": shed,
                 "wall_s": round(time.monotonic() - t0, 3)}
 
@@ -656,7 +821,12 @@ class ServingEngine:
 
     def stop(self) -> None:
         """Stop the engine thread; fail whatever is still queued or in a
-        decode slot, so no caller blocks on a future nobody serves."""
+        decode slot, so no caller blocks on a future nobody serves. A
+        running exporter stops reporting this engine under /healthz."""
+        served = _exporter.get()
+        if served is not None:
+            served.unregister_health(
+                getattr(self, "_health_reg_name", "serving"), fn=self.health)
         self._shutdown(RuntimeError("serving engine stopped"))
 
     def _shutdown(self, shed_error: BaseException) -> None:
@@ -676,9 +846,13 @@ class ServingEngine:
         self._shed_waiting(shed_error)
         eng = self._engine
         if eng is not None:
+            kind = ("drain" if isinstance(shed_error, EngineDrainingError)
+                    else "stop")
             for i, s in enumerate(eng._host_slots):
                 if s.req is not None and not s.req.result.done():
                     s.req.result._set(error=shed_error)
+                    # mid-flight output abandoned by the shutdown
+                    _goodput.account(kind, len(s.emitted))
                     eng._host_slots[i] = type(s)()
             eng.reset_slots()  # no phantom active device lanes
         if overran:
@@ -813,7 +987,10 @@ class ServingEngine:
         self._hang_tripped = False
         self._decode_started_at = time.monotonic()
         try:
-            fn()
+            # a host span: a captured chunk's replay returns at once, so the
+            # span ends at the chunk's readback
+            with trace_region("serving.decode_chunk", "serving"):
+                fn()
         finally:
             dt = time.monotonic() - self._decode_started_at
             self._decode_started_at = None
@@ -835,6 +1012,9 @@ class ServingEngine:
         while not self._stop.is_set():
             if self._draining.is_set():
                 return   # current batch finished; drain() sheds the rest
+            obs = _obs_srv
+            if obs is not None:
+                obs("queue_depth", self._queue_depth())
             if not self._breaker.allow():
                 self._requeue_expired_sweep()
                 time.sleep(0.02)
@@ -851,6 +1031,8 @@ class ServingEngine:
                 self._bump("batches_failed")
                 self._bump("decode_failures")
                 self._breaker.record_failure()
+                if obs is not None:
+                    obs("batch", "error")
                 continue
             finally:
                 self._static_inflight = 0
@@ -858,18 +1040,27 @@ class ServingEngine:
             self._last_decode_ok = time.monotonic()
             self._bump("batches")
             self._bump("batched_requests", len(batch))
+            if obs is not None:
+                obs("batch_size", len(batch))
+                obs("batch", "ok")
 
     def _run_static_batch(self, batch: List[GenerationRequest]) -> None:
         """One ``generate_cached`` call over the batch's prompts (one
         length), at the largest budget; each row is trimmed to its own
         budget and eos (reference :1283). Every request's first token
         reaches the host with the whole batch: TTFT is the batch's
-        latency, TPOT is None."""
+        latency, TPOT is None. The lockstep tail past each row's eos or
+        budget is goodput ``overshoot``."""
         ids = np.concatenate([r.prompt_ids for r in batch], axis=0)
         leader = batch[0]
         t_admit = time.perf_counter()
         for req in batch:
             req.result._t_admit = t_admit
+            tr = req.result._trace
+            if tr is not None:
+                tr.event("queue.wait", t0=req.result._t_submit, t1=t_admit)
+                tr.event("admit", mode="static", batch=len(batch),
+                         plen=leader.prompt_ids.shape[1])
         out = self.model.generate_cached(
             ids, max_new_tokens=max(r.max_new_tokens for r in batch),
             temperature=leader.temperature, top_k=leader.top_k,
@@ -877,6 +1068,8 @@ class ServingEngine:
         out = np.asarray(out.numpy())
         t_first = time.perf_counter()
         plen = leader.prompt_ids.shape[1]
+        lockstep = max(r.max_new_tokens for r in batch)
+        useful = overshoot = 0
         for i, req in enumerate(batch):
             row = out[i, : plen + req.max_new_tokens]
             req.result._t_first = t_first
@@ -886,7 +1079,15 @@ class ServingEngine:
             if eos is not None and eos in gen:  # don't count post-eos pad
                 gen = gen[: int(np.argmax(gen == eos)) + 1]
             req.result._n_new = len(gen)
+            useful += len(gen)
+            overshoot += lockstep - len(gen)
+            tr = req.result._trace
+            if tr is not None:
+                tr.event("decode.batch", t0=t_admit, t1=t_first,
+                         tokens=len(gen))
             req.result._set(output=row)
+        _goodput.account("useful", useful)
+        _goodput.account("overshoot", overshoot)
 
     def _sweep_slots(self) -> None:
         """Release in-flight slots whose client cancelled or whose deadline
@@ -951,8 +1152,13 @@ class ServingEngine:
                     self._requeue_expired_sweep()
                     time.sleep(0.02)
                     continue
+            obs = _obs_srv
+            if obs is not None:
+                obs("queue_depth", self._queue_depth())
             if not busy:
                 continue
+            if obs is not None:
+                obs("batch_size", eng.busy_slots())
             before = eng.stats["tokens_out"]
             try:
                 self._decode_attempt(eng._decode_chunk)
@@ -960,14 +1166,20 @@ class ServingEngine:
                 for i, s in enumerate(eng._host_slots):
                     if s.req is not None:
                         s.req.result._set(error=e)
+                        # partial output discarded with the failed chunk
+                        _goodput.account("retry_discard", len(s.emitted))
                         eng._host_slots[i] = type(s)()
                 eng.reset_slots()  # clear phantom device lanes too
                 self._bump("batches_failed")
                 self._bump("decode_failures")
                 self._breaker.record_failure()
+                if obs is not None:
+                    obs("batch", "error")
                 continue
             self._breaker.record_success()
             self._last_decode_ok = time.monotonic()
             self._bump("decode_tokens", eng.stats["tokens_out"] - before)
+            if obs is not None:
+                obs("batch", "ok")
             if admitted:
                 self._bump("batches")

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..nn.quant import quantized_view
+from ..observability import flight as _flight
 from .robustness import safe_inc
 
 __all__ = ["SpeculativeDecoder", "resolve_draft"]
@@ -147,6 +148,14 @@ class SpeculativeDecoder:
         self.stats = {"target_steps": 0, "proposed": 0, "accepted": 0,
                       "rollbacks": 0, "emitted": 0}
         self.runlen = [0] * (self.k + 1)   # accepted-run-length histogram
+        # a crash dump carries the live acceptance (weakly bound)
+        ref = weakref.ref(self)
+
+        def _spec_annotation():
+            s = ref()
+            return s.info() if s is not None else {"enabled": "released"}
+
+        _flight.annotate("serving_spec", _spec_annotation)
 
     # -- facts ---------------------------------------------------------------
     def facts(self) -> Dict[str, object]:

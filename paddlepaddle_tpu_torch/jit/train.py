@@ -6,6 +6,13 @@ call is: ``loss_fn(model, *batch)``, ``backward()`` (the flash attention
 kernels run inside it on the card), then the optimizer's clip and update in
 place. There is no ``jax.jit`` counterpart to add; the model's parameters
 are the step's parameters, so there is nothing to sync back either.
+
+With the perf plane armed (``observability.perf``), the first call after
+arming is counted as the ``train.step`` program's cost (reference
+:107-130): its FLOPs and bytes, over every microbatch, the flash kernels'
+own reports included (:func:`..observability.perf.counting`). Wall time is
+not observed here; bracket steps with ``obs.perf.step()``, which closes in
+a device sync.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..observability import perf as _perf
 from ..optimizer.optimizer import Optimizer
 
 
@@ -58,13 +66,22 @@ class TrainStep:
         if not optimizer.parameters:
             optimizer.set_parameters(self.params)
         optimizer.init_state()
+        self._cost_captured = False
+
+    def __call__(self, *batch) -> torch.Tensor:
+        if self._cost_captured or not _perf.enabled():
+            return self._step(*batch)
+        self._cost_captured = True
+        with _perf.counting("train.step", bucket=f"accum{self.grad_accum}",
+                            model=type(self.model).__name__):
+            return self._step(*batch)
 
     def _to_device(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device)
 
-    def __call__(self, *batch) -> torch.Tensor:
+    def _step(self, *batch) -> torch.Tensor:
         batch = tuple(self._to_device(b) for b in batch)
         lr = self.optimizer.get_lr()
         params = self.optimizer.parameters

@@ -84,8 +84,8 @@ class Embedding(nn.Module):
             self.weight.normal_(0.0, 1.0,
                                 generator=random.torch_generator(dev))
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight, padding_idx=self.padding_idx)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"

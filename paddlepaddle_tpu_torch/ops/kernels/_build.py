@@ -9,7 +9,10 @@ builds anew and a rebuilt tree never loads a stale library. Sources that
 need building are compiled in parallel, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module, and a CPU
-host has no ``nvcc``.
+host has no ``nvcc``. Each ``nvcc`` run counts in :data:`nvcc_runs` and is
+reported to the capture/build watchdog (``observability.watchdog``) as a
+build of its source; a library already on disk (built earlier, or placed
+by a serving bundle) is no build.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # per-source record of the last build in this process: seconds, whether the
 # library was already on disk, and ptxas' register/shared-memory report
 build_log: Dict[str, Dict[str, object]] = {}
+nvcc_runs = 0    # nvcc processes this process started
 
 
 def build_dir() -> Path:
@@ -74,6 +78,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
     """Build every source in ``names`` (default: all) that is not on disk
     yet, one ``nvcc`` each, all started together. Raises with the
     compiler's output when any build fails."""
+    global nvcc_runs
     names = list(sources() if names is None else names)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -89,6 +94,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
+        nvcc_runs += 1
     errors = []
     for name, (proc, tmp, target) in procs.items():
         log, _ = proc.communicate()
@@ -99,6 +105,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
         os.replace(tmp, target)
         build_log[name] = {"seconds": round(time.perf_counter() - t0, 3),
                            "cached": False, "ptxas": log}
+        from ...observability import watchdog
+
+        watchdog.record_compile("build", name, build_log[name]["seconds"])
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: build_log[n] for n in names}

@@ -42,6 +42,7 @@ import torch
 
 from . import _build
 from ...amp import amp_cast
+from ...observability.perf import costs as _costs
 from ...core import random
 
 NEG_INF = -1e30
@@ -259,6 +260,31 @@ def _launch(kind: str, ptrs, q: torch.Tensor, sk: int, causal: bool,
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
+def flash_work(q, k, causal: bool) -> dict:
+    """``{kernel: (bytes, flops)}`` each kernel must move and do at these
+    shapes: every input read once, every output written once; U = 2 b h d
+    times the visible (query, key) pairs, and the forward does 2U, dQ 3U,
+    dK/dV 4U (bottom-right causal)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    off = sk - sq
+    pairs = (sum(max(0, min(i + off + 1, sk)) for i in range(sq))
+             if causal else sq * sk)
+    U = 2 * b * h * d * pairs
+    item = q.element_size()
+    t_q, t_k = q.numel() * item, k.numel() * item
+    rows = 4 * b * h * sq                         # one f32 lse / delta row set
+    return {"flash_fwd": (t_q + 2 * t_k + t_q + rows, 2 * U),
+            "flash_bwd_dq": (2 * t_q + 2 * t_k + 2 * rows + t_q, 3 * U),
+            "flash_bwd_dkv": (2 * t_q + 2 * t_k + 2 * rows + 2 * t_k, 4 * U)}
+
+
+def _report(name: str, q, k, causal: bool) -> None:
+    """This launch's work to an open perf-plane counting window."""
+    if _costs.counting_open():
+        _costs.kernel_work(name, *flash_work(q, k, causal)[name])
+
+
 def _require_cuda(q: torch.Tensor, name: str) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -283,6 +309,7 @@ def flash_fwd(q, k, v, causal: bool,
             lse.data_ptr())
     _launch("fwd", ptrs, q, k.shape[1], causal, scale)
     flash_fwd.launches += 1
+    _report("flash_fwd", q, k, causal)
     return out, lse
 
 
@@ -303,6 +330,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     _launch("dq", ptrs, q, k.shape[1], causal, scale)
     flash_bwd_dq.launches += 1
+    _report("flash_bwd_dq", q, k, causal)
     return dq
 
 
@@ -324,6 +352,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     _launch("dkv", ptrs, q, k.shape[1], causal, scale)
     flash_bwd_dkv.launches += 1
+    _report("flash_bwd_dkv", q, k, causal)
     return dk, dv
 
 

@@ -44,6 +44,7 @@ import torch
 
 from . import _build
 from ...core import random
+from ...observability.perf import costs as _costs
 from .flash_attention import (HEAD_DIMS, NEG_INF,
                               _require_cuda, reference_kernel_head_dim)
 
@@ -285,6 +286,44 @@ def _launch(kind: str, ptrs, q: torch.Tensor, tk: int, cu_q, cu_k,
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
 
 
+def varlen_pairs(cu_q, cu_k, causal: bool) -> int:
+    """Visible (query, key) pairs of one head: per segment, every pair, or
+    under causal masking min(len_k, i + len_k - len_q + 1) keys for row i.
+    ``cu_q`` / ``cu_k`` are arrays or tensors (read on the host)."""
+    cu_q = np.asarray(cu_q.cpu() if isinstance(cu_q, torch.Tensor) else cu_q)
+    cu_k = np.asarray(cu_k.cpu() if isinstance(cu_k, torch.Tensor) else cu_k)
+    total = 0
+    for lq, lk in zip(np.diff(cu_q).tolist(), np.diff(cu_k).tolist()):
+        if causal:
+            i = np.arange(lq)
+            total += int(np.clip(i + lk - lq + 1, 0, lk).sum())
+        else:
+            total += lq * lk
+    return total
+
+
+def varlen_work(q, k, cu_q, cu_k, causal: bool) -> dict:
+    """``{kernel: (bytes, flops)}`` of the three varlen kernels for this
+    packing, as ``flash_work`` counts the dense ones: every input read
+    once, every output written once; U = 2 h d times the visible pairs, and
+    the forward does 2U, dQ 3U, dK/dV 4U."""
+    t_q_rows, h, d = q.shape
+    item = q.element_size()
+    t_q, t_k = q.numel() * item, k.numel() * item
+    rows = 4 * h * t_q_rows
+    U = 2 * h * d * varlen_pairs(cu_q, cu_k, causal)
+    return {"varlen_fwd": (t_q + 2 * t_k + t_q + rows, 2 * U),
+            "varlen_bwd_dq": (2 * t_q + 2 * t_k + 2 * rows + t_q, 3 * U),
+            "varlen_bwd_dkv": (2 * t_q + 2 * t_k + 2 * rows + 2 * t_k,
+                               4 * U)}
+
+
+def _report(name: str, q, k, cu_q, cu_k, causal: bool) -> None:
+    """This launch's work to an open perf-plane counting window."""
+    if _costs.counting_open():
+        _costs.kernel_work(name, *varlen_work(q, k, cu_q, cu_k, causal)[name])
+
+
 def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
                scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: ``(out [t_q, h, d], lse [h, t_q] f32)``. CPU tensors take
@@ -303,6 +342,7 @@ def varlen_fwd(q, k, v, cu_q, cu_k, causal: bool,
                     lse.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)
     varlen_fwd.launches += 1
+    _report("varlen_fwd", q, k, cu_q, cu_k, causal)
     return out, lse
 
 
@@ -325,6 +365,7 @@ def varlen_bwd_dq(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)
     varlen_bwd_dq.launches += 1
+    _report("varlen_bwd_dq", q, k, cu_q, cu_k, causal)
     return dq
 
 
@@ -348,6 +389,7 @@ def varlen_bwd_dkv(q, k, v, dout, lse, delta, cu_q, cu_k, causal: bool,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             q, k.shape[0], cu_q, cu_k, causal, scale)
     varlen_bwd_dkv.launches += 1
+    _report("varlen_bwd_dkv", q, k, cu_q, cu_k, causal)
     return dk, dv
 
 

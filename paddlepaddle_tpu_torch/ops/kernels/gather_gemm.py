@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as _tF
 
+from ...observability.perf import costs as _costs
 from . import _build
 
 TILE = 128                  # d and h are walked in 128-column tiles
@@ -274,6 +275,7 @@ def gather_gateup(x: torch.Tensor, slot_entry: torch.Tensor,
             hmid.data_ptr(), T, E, C, d, h,
             torch.cuda.current_stream(x.device).cuda_stream)
     gather_gateup.launches += 1
+    _report("gather_gateup", slot_entry, T, E, C, d, h, x.element_size())
     return hmid
 
 
@@ -302,7 +304,38 @@ def expert_down(hmid: torch.Tensor, slot_entry: torch.Tensor,
             slot_entry.data_ptr(), wd.data_ptr(), out.data_ptr(), T, E, C, d,
             h, torch.cuda.current_stream(hmid.device).cuda_stream)
     expert_down.launches += 1
+    _report("expert_down", slot_entry, T, E, C, d, h, hmid.element_size())
     return out
+
+
+def gather_gemm_work(slot_entry: torch.Tensor, n_tokens: int, E: int,
+                     C: int, d: int, h: int, item: int) -> dict:
+    """``{phase: (bytes, flops)}`` this call's data needs, for
+    ``"gather_gateup"``, ``"expert_down"`` and the whole ``"call"``: every
+    weight read once, each token row a filled slot reads read once, the slot
+    indices read once, each output written once (``hmid`` written by the
+    first phase and read by the second); the products of the filled slots
+    only. Reads ``slot_entry`` on the host."""
+    slot = slot_entry.reshape(-1)
+    valid = slot < n_tokens
+    n_valid = int(valid.sum())
+    n_rows = int(torch.unique(slot[valid]).numel())
+    w_bytes = E * d * h * item
+    hmid_bytes = E * C * h * item
+    return {
+        "gather_gateup": (2 * w_bytes + n_rows * d * item + 4 * E * C
+                          + hmid_bytes, 2 * n_valid * 2 * d * h),
+        "expert_down": (w_bytes + hmid_bytes + 4 * E * C + E * C * d * item,
+                        2 * n_valid * d * h),
+        "call": (3 * w_bytes + n_rows * d * item + 4 * E * C
+                 + E * C * d * item, 2 * n_valid * 3 * d * h)}
+
+
+def _report(phase: str, slot_entry, n_tokens, E, C, d, h, item) -> None:
+    """This launch's work to an open perf-plane counting window."""
+    if _costs.counting_open():
+        _costs.kernel_work(phase, *gather_gemm_work(
+            slot_entry, n_tokens, E, C, d, h, item)[phase])
 
 
 def gather_gemm_ffn(x: torch.Tensor, slot_entry: torch.Tensor,

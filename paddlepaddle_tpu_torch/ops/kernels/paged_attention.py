@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...observability.perf import costs as _costs
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)        # a lane owns hd/32 dims in the p.v phase
@@ -310,6 +311,29 @@ def build() -> None:
     _library()
 
 
+def paged_work(lens, W, h, kvh, hd, ps, P, q_item, kv_item, scales=False):
+    """Bytes and operations the paged attention must move and do for these
+    ``lens`` (a list of ints): each visible key's K and V row read once (as
+    codes plus one f32 scale per visible page and KV head under int8), q
+    read and out written once, the page-table entries and lens read once;
+    ``flops``, the products of q.k and p.v over every visible key of every
+    query row (tensor-core work), and ``deq_flops``, under int8 one
+    dequantizing product per visible K/V element (f32 work outside the
+    tensor cores). Returns ``(bytes, flops, deq_flops)``."""
+    S = len(lens)
+    keys = [n + W for n in lens]
+    n_vis = [min(P, -(-k // ps)) for k in keys]
+    bytes_ = (sum(keys) * kvh * hd * 2 * kv_item + 2 * S * W * h * hd * q_item
+              + 4 * sum(n_vis) + 4 * S)
+    rows_keys = sum(n + w + 1 for n in lens for w in range(W))
+    flops = 2 * 2 * hd * h * rows_keys
+    deq_flops = 0
+    if scales:
+        bytes_ += 2 * 4 * kvh * sum(n_vis)
+        deq_flops = 2 * kvh * hd * sum(keys)
+    return bytes_, flops, deq_flops
+
+
 def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
                     scale: float, k_scale=None, v_scale=None) -> torch.Tensor:
     """Attend ``q [S, W, h, hd]`` over each slot's paged KV. Returns
@@ -354,6 +378,11 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
         paged_attention.int8_launches += 1
     else:
         paged_attention.launches += 1
+    if _costs.counting_open():
+        bytes_, flops, deq = paged_work(
+            lens.tolist(), W, h, kvh, hd, ps, P, q.element_size(),
+            k_pool.element_size(), scales=quant)
+        _costs.kernel_work("paged_attention", flops + deq, bytes_)
     return out
 
 

@@ -47,7 +47,9 @@ def _named(parameters) -> Tuple[List[str], List[torch.Tensor]]:
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        # ``name`` is accepted and never read, as in the reference
         self._lr = learning_rate
         self._names, self._params = _named(parameters)
         self._weight_decay = weight_decay

@@ -22,8 +22,12 @@ backward of plain indexing computes the same gradients, so they are plain
 indexing. The blocked bf16 prefix-sum matmul of ``_counting_sort`` is a TPU
 speed trick with the same result as the stable sort used here.
 
-Not ported: ``_sorted_moe_ffn`` (:114, a legacy path only tools use),
-``moe_sharding_rules`` and expert-parallel placement (ROADMAP A10; ``ep_axis``
+``_sorted_moe_ffn`` (:114) is the reference's legacy sorted dispatch that
+only its tools call: a stable argsort by expert, a ``bincount`` for the
+offsets and one scatter into ``[E*C + 1, d]`` rows whose last row takes the
+drops; no mode selects it.
+
+Not ported: ``moe_sharding_rules`` and expert-parallel placement (ROADMAP A10; ``ep_axis``
 is recorded and otherwise unused), and the reference's loud fallback from
 ``"fused"`` to ``"sorted"`` with its kill switch ``FLAGS_fused_gather_gemm``
 (:603-626): on the card an unsupported ``"fused"`` configuration raises at
@@ -135,6 +139,47 @@ class GShardGate(NaiveGate):
 # ---------------------------------------------------------------------------
 # routing and slot maps of the sorted, fused and dropless modes
 # ---------------------------------------------------------------------------
+
+
+def _sorted_moe_ffn(x, logits, wg, wu, wd, topk: int, capacity: int):
+    """The reference's LEGACY sorted (ragged) dispatch (:114), kept for
+    comparison as the reference keeps it: ``x [T, d]``, ``logits [T, E]``,
+    weights ``[E, d, h]`` / ``[E, h, d]``. Top-k of the softmax (GShard
+    renormalizes for k > 1), entries stably sorted by expert, each entry's
+    rank in its expert from the ``bincount`` offsets, entries past
+    ``capacity`` sent to the trash row ``E*C``. Returns ``(y [T, d],
+    aux_loss)``, the load-balance loss averaged over the k rounds."""
+    T, d = x.shape
+    E = logits.shape[1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, topk, dim=-1)       # [T, k]
+    if topk > 1:
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    flat_e = expert_idx.reshape(-1)                               # [T*k]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    token_of = order // topk
+    counts = torch.bincount(flat_e, minlength=E)
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * topk, device=x.device) - offsets[sorted_e]
+    keep = pos < capacity
+    slot = torch.where(keep, sorted_e * capacity + pos, E * capacity)
+    buf = torch.zeros((E * capacity + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), x[token_of])
+    xin = buf[:-1].reshape(E, capacity, d)
+    h = _tF.silu(torch.bmm(xin, wg)) * torch.bmm(xin, wu)
+    out = torch.bmm(h, wd).reshape(E * capacity, d)
+    out = torch.cat([out, out.new_zeros((1, d))])                 # trash row
+    gate_sorted = gate_vals.reshape(-1)[order].to(x.dtype)
+    contrib = out[slot] * (gate_sorted * keep.to(x.dtype))[:, None]
+    y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add(
+        0, token_of, contrib)
+    mean_prob = probs.mean(0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(topk):
+        aux = aux + E * torch.sum(_one_hot(expert_idx[:, r], E).mean(0)
+                                  * mean_prob)
+    return y, aux / topk
 
 
 def _route_topk_iter(logits, k: int, num_experts: int):

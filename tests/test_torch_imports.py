@@ -40,6 +40,21 @@ import paddlepaddle_tpu_torch.nn.norm
 import paddlepaddle_tpu_torch.optimizer.optimizers
 import paddlepaddle_tpu_torch.distributed
 import paddlepaddle_tpu_torch.distributed.fleet.recompute
+import paddlepaddle_tpu_torch.inference.compile_plan
+import paddlepaddle_tpu_torch.observability
+import paddlepaddle_tpu_torch.observability.exporter
+import paddlepaddle_tpu_torch.observability.flight
+import paddlepaddle_tpu_torch.observability.goodput
+import paddlepaddle_tpu_torch.observability.memledger
+import paddlepaddle_tpu_torch.observability.metrics
+import paddlepaddle_tpu_torch.observability.perf
+import paddlepaddle_tpu_torch.observability.perf.costs
+import paddlepaddle_tpu_torch.observability.perf.device
+import paddlepaddle_tpu_torch.observability.perf.steptime
+import paddlepaddle_tpu_torch.observability.profiler
+import paddlepaddle_tpu_torch.observability.recorder
+import paddlepaddle_tpu_torch.observability.reqtrace
+import paddlepaddle_tpu_torch.observability.watchdog
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -97,7 +112,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "ops.kernels.flash_varlen", "core.random", "nn.long_tail",
                 "incubate.nn.functional", "amp", "amp.amp_lists",
                 "amp.grad_scaler", "regularizer", "nn.loss", "nn.common",
-                "nn.norm", "distributed", "distributed.fleet.recompute"):
+                "nn.norm", "distributed", "distributed.fleet.recompute",
+                "inference.compile_plan", "observability",
+                "observability.exporter", "observability.flight",
+                "observability.goodput", "observability.memledger",
+                "observability.metrics", "observability.perf",
+                "observability.perf.costs", "observability.perf.device",
+                "observability.perf.steptime", "observability.profiler",
+                "observability.recorder", "observability.reqtrace",
+                "observability.watchdog"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

@@ -400,3 +400,28 @@ def test_moe_model_device_rules():
             tm(ids, attn_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool)),
             tm(ids), atol=1e-5, rtol=1e-5)
     assert tm(torch.zeros(2, 4, dtype=torch.long)).shape == (2, 4, 128)
+
+
+# top-2 with drops at a tight capacity and an empty expert; top-1 (Switch,
+# raw router probability) with drops
+@pytest.mark.parametrize("T,E,k,C,empty", [(48, 4, 2, 8, 3),
+                                           (64, 6, 1, 9, 5)])
+def test_sorted_moe_ffn_matches_reference(T, E, k, C, empty):
+    """The reference's legacy sorted dispatch (:114), f32: outputs 1e-5,
+    the load-balance loss 1e-6 (the FFN tolerance above)."""
+    d, h = 16, 24
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    wg, wu = (rng.standard_normal((E, d, h)).astype(np.float32) * 0.2
+              for _ in range(2))
+    wd = rng.standard_normal((E, h, d)).astype(np.float32) * 0.2
+    lg = _separated_logits(T, E, seed=T, empty=empty)
+    jy, jaux = jmoe._sorted_moe_ffn(*(jnp.asarray(a) for a in
+                                      (x, lg, wg, wu, wd)), k, C)
+    ty, taux = tmoe._sorted_moe_ffn(*(torch.from_numpy(a) for a in
+                                      (x, lg, wg, wu, wd)), k, C)
+    np.testing.assert_allclose(_np(ty), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(float(taux), float(jaux), atol=1e-6)
+    # the planted capacity drops some tokens entirely: their rows are zero
+    dropped = ~np.any(np.asarray(jy) != 0, axis=1)
+    assert dropped.any() and (_np(ty)[dropped] == 0).all()

@@ -130,13 +130,29 @@ def test_kv_capacity_error_at_submit(models):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(bundle="x.bundle"), "A6"),
-    (dict(mesh=object()), "A10"),
+    # bundle= (A6) is ported: test_missing_bundle_falls_back_and_serves
+    pytest.param(dict(mesh=object()), "A10", id="kwargs1-A10"),
 ])
 def test_unported_options_raise(models, kwargs, item):
     _, tm = models
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(tm, device="cpu", **kwargs)
+
+
+def test_missing_bundle_falls_back_and_serves(models, tmp_path):
+    """``bundle=`` naming no bundle is a logged fallback, as in the
+    reference: the engine records why and serves as usual."""
+    _, tm = models
+    se = ServingEngine(tm, max_batch_size=2, kv_page_size=16, device="cpu",
+                       bundle=str(tmp_path / "absent"))
+    try:
+        info = se.health()["compile"]["bundle"]
+        assert info["loaded"] is False
+        assert info["error"].startswith("FileNotFoundError")
+        out = se.generate(np.arange(6), max_new_tokens=3, timeout=60)
+        assert len(out) == 9
+    finally:
+        se.stop()
 
 
 def test_sampled_tokens_inside_top_k(models):

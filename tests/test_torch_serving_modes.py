@@ -30,6 +30,7 @@ from paddlepaddle_tpu_torch.inference.serving import (
     ServingEngine,
 )
 from paddlepaddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddlepaddle_tpu_torch.observability.reqtrace import Journey
 from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
 
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=192,
@@ -140,8 +141,14 @@ def test_speculative_decoder_and_submit_positional(models):
         # ..., eos_token_id, deadline_s, prefix_len, trace
         out = se.submit(p, 4, 0.0, 0, None, None, 16, None).result(60)
         assert len(out) == len(p) + 4
-        with pytest.raises(NotImplementedError, match="A8"):
-            se.submit(p, 4, 0.0, 0, None, None, 16, object())
+        # a caller's journey (the reference's router passes one) rides the
+        # request; the caller owns it, so the future does not close it
+        j = Journey(req_id="caller", max_spans=64)
+        out = se.submit(p, 4, 0.0, 0, None, None, 16, j).result(60)
+        assert len(out) == len(p) + 4
+        names = [sp["name"] for sp in j.spans]
+        assert names[:3] == ["engine.submit", "queue.wait", "admit"]
+        assert not j.done
         assert se.engine.pool.free_count >= se.engine.pool.usable - 1
 
 
