@@ -259,6 +259,31 @@ code is non-zero):
                TrainStep's counted FLOPs and its step-timeline MFU against
                ``perf/device.py``'s peak.
 
+9f. ``fleet_parity``  the serving fleet at Llama-3-8B widths, 2 of 32
+               layers, f32: a ``ServingRouter`` over two in-process
+               replicas sharing one model and one replica process
+               (``ProcessReplicaFactory`` -> ``replica_main`` on the card,
+               the same weights from seed 0). Every request's greedy tokens
+               equal one engine's; ``rolling_restart()`` with about ten
+               requests kept in flight: no request fails, each fresh
+               engine's capture begins while another replica decodes (the
+               busy slots are printed), each graph counts layers x chunk
+               launches a replay and this process's counter moves by
+               exactly the replays' launches; the replica process SIGKILLed
+               mid-stream: each request completes with its tokens on
+               another replica or fails typed, the supervisor respawns the
+               child (0 nvcc runs), whose health over the wire reports its
+               paged launches; no page leaked on any replica.
+9g. ``serve_fleet``  the serve model (Llama-3-8B, 32 layers, bf16) behind
+               a router over two in-process replicas that share its
+               weights, each with its own KV pool, beside one engine alone
+               in the same run: the serve workload's tok/s, TTFT p50/p99
+               and TPOT for each, with the metric history and the alert
+               rules on; each replica's paged launches (their sum equal to
+               layers x decode steps), the rules that fired or are pending,
+               and ``/query``'s answer for
+               ``paddle_router_replica_inflight``.
+
 Then the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -3963,6 +3988,353 @@ def phase_serve_robust(pt_pkg):
 
 
 # ---------------------------------------------------------------------------
+# the serving fleet: a router over in-process replicas and a replica process
+# ---------------------------------------------------------------------------
+
+FLEET_LAYERS = 2
+FLEET_ENGINE = dict(max_batch_size=4, kv_page_size=64, max_len=1024,
+                    decode_chunk=8)
+
+
+def _fleet_wait(pred, timeout):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end and not pred():
+        time.sleep(0.01)
+    return pred()
+
+
+def _fleet_settle(futs, wants):
+    """(requests equal to their expected tokens, typed failure names, other
+    failures) over ``futs``."""
+    import numpy as np
+
+    from paddlepaddle_tpu_torch.inference import robustness as rob
+
+    equal, typed, other = 0, [], []
+    for f, w in zip(futs, wants):
+        try:
+            equal += bool(np.array_equal(f.result(900), w))
+        except rob.ServingError as e:
+            typed.append(type(e).__name__)
+        except Exception as e:  # noqa: BLE001 — reported
+            other.append(f"{type(e).__name__}: {e}"[:200])
+    return equal, typed, other
+
+
+def phase_fleet_parity(pt_pkg):
+    """The fleet on the card at Llama-3-8B widths, 2 of 32 layers, f32 (see
+    the phase list). Returns the paged launches this process made."""
+    import dataclasses
+    import os
+    import signal
+    import threading
+
+    from paddlepaddle_tpu_torch.inference import (ProcessReplicaFactory,
+                                                  ReplicaClient,
+                                                  ServingRouter)
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    import numpy as np
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=FLEET_LAYERS,
+                              dtype="float32")
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    per_replay = {"launches": FLEET_LAYERS * FLEET_ENGINE["decode_chunk"]}
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),))
+               for n in rng.integers(32, 400, 12)]
+    budget, long_budget = 48, 320
+
+    def local():
+        return pt_pkg.ServingEngine(model, device="cuda", **FLEET_ENGINE)
+
+    ref = local()
+    ref.warmup()
+    want = [ref.generate(p, max_new_tokens=budget, timeout=600)
+            for p in prompts]
+    want_long = [ref.generate(p, max_new_tokens=long_budget, timeout=600)
+                 for p in prompts[:6]]
+    ref.stop()
+    del ref
+
+    overlap, engines = [], []
+
+    class Observed(ReplicaClient):
+        """An in-process replica whose warmup (the capture) records the
+        decode slots busy on the other in-process replicas when it began
+        and the graph replays they ran while it lasted."""
+
+        def warmup(self):
+            others = [rep.client.engine.engine for rep in router._replicas
+                      if isinstance(rep.client, Observed)
+                      and rep.client is not self]
+
+            def replays():
+                return sum(e.capture_info().get("decode", {}).get(
+                    "replays", 0) for e in others)
+
+            busy, r0 = sum(e.busy_slots() for e in others), replays()
+            info = super().warmup()
+            overlap.append({"replica": self.name,
+                            "busy_slots_elsewhere": busy,
+                            "replays_elsewhere_meanwhile": replays() - r0})
+            engines.append(self.engine.engine)
+            return info
+
+    factory = ProcessReplicaFactory(
+        preset="tiny", model_json=json.dumps(dataclasses.asdict(cfg)),
+        engine_json=json.dumps(FLEET_ENGINE), warmup="off",
+        supervisor_kw=dict(ready_timeout_s=600.0, term_grace_s=60.0),
+        client_kw=dict(read_timeout_s=600.0, heartbeat_timeout_s=30.0))
+    remote = factory(name="proc")
+    sup = remote.supervisor
+    router = ServingRouter([Observed(local, name="r0"),
+                            Observed(local, name="r1"), remote],
+                           probe_interval_s=0.05, hedge_after_s=None,
+                           breaker_reset_s=0.5)
+    problems, info = [], {}
+    t0 = time.perf_counter()
+    try:
+        router.start()
+        info["start_s"] = time.perf_counter() - t0
+        for rep in router._replicas[:2]:
+            rep.client.warmup()
+        overlap.clear()
+        launches0 = pa.paged_attention.launches
+
+        # 1. token parity through the router
+        futs = [router.submit(p, max_new_tokens=budget) for p in prompts]
+        equal, typed, other = _fleet_settle(futs, want)
+        info["parity"] = {"equal": equal, "requests": len(prompts),
+                          "typed": typed, "other": other,
+                          "served_by": {rep.name: rep.client.generation
+                                        for rep in router._replicas}}
+        if equal != len(prompts):
+            problems.append(f"parity: {info['parity']}")
+        direct = remote.submit(prompts[1], max_new_tokens=budget)
+        info["proc_direct_equal"] = bool(np.array_equal(direct.result(900),
+                                                        want[1]))
+        info["proc_paged_launches"] = \
+            remote.health()["kernels"]["paged_attention"]
+        if not info["proc_direct_equal"]:
+            problems.append("the replica process served other tokens")
+
+        # 2. rolling restart with traffic flowing (about 10 in flight)
+        stop, flow, refused = threading.Event(), [], []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                if sum(rep.inflight for rep in router._replicas) >= 10:
+                    time.sleep(0.005)
+                    continue
+                try:
+                    flow.append((router.submit(prompts[i % len(prompts)],
+                                               max_new_tokens=budget),
+                                 want[i % len(prompts)]))
+                except Exception as e:  # noqa: BLE001 — reported
+                    refused.append(f"{type(e).__name__}: {e}"[:200])
+                i += 1
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        _fleet_wait(lambda: len(flow) >= 10, 60)
+        t1 = time.perf_counter()
+        rr = router.rolling_restart(drain_timeout=600, health_timeout=600)
+        info["rolling_restart_s"] = time.perf_counter() - t1
+        stop.set()
+        th.join(60)
+        equal, typed, other = _fleet_settle([f for f, _ in flow],
+                                            [w for _, w in flow])
+        info["rolling"] = {
+            "ok": rr["ok"], "requests": len(flow), "equal": equal,
+            "typed": typed, "other": other, "refused_at_submit": refused,
+            "replicas": [{k: x[k] for k in ("replica", "ok", "generation",
+                                           "wall_s")} for x in rr["replicas"]],
+            "captures_began_with": list(overlap)}
+        if not rr["ok"] or equal != len(flow) or refused:
+            problems.append(f"rolling restart: {info['rolling']}")
+        graphs = {f"{rep.name}.gen{rep.client.generation}":
+                  rep.client.engine.engine.capture_info()["decode"]
+                  ["launches_per_replay"] for rep in router._replicas[:2]}
+        info["launches_per_replay"] = graphs
+        info["expected_launches_per_replay"] = per_replay
+        if any(g != per_replay for g in graphs.values()):
+            problems.append(f"launches a replay {graphs}, expected "
+                            f"{per_replay}")
+        if not any(o["replays_elsewhere_meanwhile"] for o in overlap):
+            problems.append(f"no capture overlapped another in-process "
+                            f"replica's decode: {overlap}")
+
+        # 3. SIGKILL the replica process while it streams
+        pid = sup.pid()
+        futs = [router.submit(p, max_new_tokens=long_budget)
+                for p in prompts[:6]]
+        _fleet_wait(lambda: router._replica("proc").inflight > 0, 120)
+        info["proc_inflight_at_kill"] = router._replica("proc").inflight
+        os.kill(pid, signal.SIGKILL)
+        equal, typed, other = _fleet_settle(futs, want_long)
+        info["kill"] = {"requests": len(futs), "completed_equal": equal,
+                        "typed": typed, "other": other,
+                        "failovers": router.stats["failovers"]}
+        if other or equal + len(typed) != len(futs):
+            problems.append(f"kill: {info['kill']}")
+        respawned = _fleet_wait(lambda: sup.pid() not in (None, pid)
+                                and sup.state == "serving", 600)
+        out = remote.submit(prompts[0], max_new_tokens=budget).result(900)
+        child = remote.health()
+        info["respawn"] = {"ok": respawned, "supervisor": sup.info(),
+                           "kernels": child["kernels"],
+                           "tokens_equal": bool(np.array_equal(out,
+                                                               want[0]))}
+        if not respawned or child["kernels"]["nvcc_runs"] != 0 \
+                or child["kernels"]["paged_attention"] <= 0 \
+                or not info["respawn"]["tokens_equal"] \
+                or not info["proc_paged_launches"]:
+            problems.append(f"respawn: {info['respawn']}")
+
+        # 4. no page leaked, and the counter is the replays' launches
+        _fleet_wait(lambda: all(e.busy_slots() == 0 for e in engines), 120)
+        leaked = {f"{i}": e.pool.used - e.prefix.cached_pages
+                  for i, e in enumerate(engines)}
+        kv = child["kv"]
+        leaked["proc"] = kv["pages_used"] - kv["prefix"]["cached_pages"]
+        info["leaked_pages"] = leaked
+        if any(leaked.values()):
+            problems.append(f"leaked pages: {leaked}")
+        launches = pa.paged_attention.launches - launches0
+        replays = sum(e.capture_info()["decode"]["replays"] for e in engines)
+        info["launches"] = launches
+        info["launches_from_replays"] = replays * per_replay["launches"]
+        if launches != replays * per_replay["launches"]:
+            problems.append(f"paged launches {launches} != replays x "
+                            f"{per_replay['launches']}")
+    finally:
+        router.stop()
+    info["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "fleet_parity", "model": "llama3_8b widths",
+          "layers": FLEET_LAYERS, "dtype": "float32", **info})
+    del model
+    gc.collect()
+    if problems:
+        raise AssertionError("fleet_parity: " + "; ".join(problems))
+    return info["launches"]
+
+
+def _fleet_run(submit, ctx):
+    """The serve workload through ``submit``: tok/s and the SLO block."""
+    prompts, budgets, sampled = ctx["prompts"], ctx["budgets"], ctx["sampled"]
+    t0 = time.perf_counter()
+    futs = [submit(p, max_new_tokens=int(b),
+                   temperature=0.8 if i in sampled else 0.0,
+                   top_k=50 if i in sampled else 0)
+            for i, (p, b) in enumerate(zip(prompts, budgets))]
+    outs = [f.result(900) for f in futs]
+    wall = time.perf_counter() - t0
+    new = int(sum(len(o) - len(p) for o, p in zip(outs, prompts)))
+    import paddlepaddle_tpu_torch as pt_pkg
+
+    slo = pt_pkg.slo_summary(futs)
+    greedy_equal = all(
+        outs[i].tolist() == ctx["greedy_outs"][i].tolist()
+        for i in ctx["greedy_outs"])
+    return {"tok_s": new / wall, "wall_s": wall, "new_tokens": new,
+            "ttft_p50_ms": slo["ttft_p50_ms"], "ttft_p99_ms":
+            slo["ttft_p99_ms"], "tpot_ms": slo["tpot_ms"],
+            "greedy_equal_serve": greedy_equal}
+
+
+def phase_serve_fleet(pt_pkg, ctx):
+    """Llama-3-8B (the serve model) behind a router over two in-process
+    replicas sharing its weights, each with its own KV pool, beside one
+    engine alone, in this run (see the phase list). Returns the router
+    run's paged launches."""
+    import json as _json
+
+    import torch
+
+    from paddlepaddle_tpu_torch import observability as obs
+    from paddlepaddle_tpu_torch.inference import ServingRouter
+    from paddlepaddle_tpu_torch.observability import alerts, tsdb
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    model = ctx["model"]
+    layers = model.config.num_hidden_layers
+    kw = dict(max_batch_size=8, kv_page_size=64, max_len=2048,
+              decode_chunk=16, device="cuda")
+    obs.reset()
+    obs.enable(trace=False, metrics=True, watchdog_=False)
+    obs.enable_history(interval_s=1.0)
+    runs, problems = {}, []
+    try:
+        single = pt_pkg.ServingEngine(model, **kw)
+        single.warmup()
+        runs["single"] = _fleet_run(single.submit, ctx)
+        single.stop()
+        del single
+        gc.collect()
+        router = ServingRouter([lambda: pt_pkg.ServingEngine(model, **kw)
+                                for _ in range(2)],
+                               probe_interval_s=0.25, hedge_after_s="auto")
+        try:
+            router.start()
+            for rep in router._replicas:
+                rep.client.warmup()
+            pa.paged_attention.launches = 0
+            steps0 = {rep.name: rep.client.engine.engine.stats[
+                "decode_steps"] for rep in router._replicas}
+            runs["router"] = _fleet_run(router.submit, ctx)
+            launches = pa.paged_attention.launches
+            per = {}
+            for rep in router._replicas:
+                eng = rep.client.engine.engine
+                d = eng.capture_info()["decode"]
+                per[rep.name] = {
+                    "requests": rep.client.engine.stats["requests"],
+                    "decode_steps": eng.stats["decode_steps"]
+                    - steps0[rep.name],
+                    "paged_launches": d["replays"]
+                    * d["launches_per_replay"].get("launches", 0),
+                    "pool_gb": eng.kv_stats()["kv_bytes"] / 1e9}
+            time.sleep(2.5)             # two history samples after the run
+            hist = tsdb.get()
+            hist.observe()
+            q = _json.loads(tsdb.query_body(
+                "paddle_router_replica_inflight", 60.0)[2])
+            fired = [s for s in alerts.get().snapshot()["rules"]
+                     if s.get("fired_total") or s.get("state") != "ok"]
+            router_health = router.health()["router"]
+        finally:
+            router.stop()
+    finally:
+        obs.disable_history()
+        obs.disable()
+        obs.reset()
+    expected = layers * sum(p["decode_steps"] for p in per.values())
+    emit({"phase": "serve_fleet", "model": "llama3_8b", "layers": layers,
+          "nvidia_smi": nvidia_smi_line(), "single": runs["single"],
+          "router": runs["router"],
+          "router_over_single_tok_s": runs["router"]["tok_s"]
+          / runs["single"]["tok_s"],
+          "replicas": per, "paged_launches": launches,
+          "expected_launches": expected, "router_stats": router_health,
+          "alerts_fired_or_pending": fired,
+          "query_paddle_router_replica_inflight": q,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if launches != expected or sum(p["paged_launches"]
+                                   for p in per.values()) != launches:
+        problems.append(f"paged launches {launches}, replicas "
+                        f"{per}, expected {expected}")
+    if router_health["failed"] or not q.get("series"):
+        problems.append(f"router {router_health}, /query {q}")
+    if problems:
+        raise AssertionError("serve_fleet: " + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the rest of the model zoo: ResNet-50, BERT-base, GPT-2 small
 # ---------------------------------------------------------------------------
 
@@ -4954,10 +5326,19 @@ def main() -> int:
     phase_serve_contiguous(pt_pkg, serve_ctx, small)
     phase_coldstart(pt_pkg, serve_ctx)
     phase_serve_observed(pt_pkg, serve_ctx)
-    del serve_ctx, small
-    gc.collect()                    # free the serving models
+    del small
+    gc.collect()                    # free the small serving model
     torch.cuda.empty_cache()
     phase_serve_robust(pt_pkg)
+    record["launches_by_phase"]["fleet_parity"] = \
+        phase_fleet_parity(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["launches_by_phase"]["serve_fleet"] = \
+        phase_serve_fleet(pt_pkg, serve_ctx)
+    del serve_ctx
+    gc.collect()                    # free the serving model
+    torch.cuda.empty_cache()
     phase_bundle_restart(pt_pkg, built["paged_attention"]["seconds"])
     gc.collect()
     torch.cuda.empty_cache()

@@ -51,6 +51,8 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .inference.decode_engine import BatchDecodeEngine  # noqa: F401
 from .inference.serving import (  # noqa: F401

@@ -60,6 +60,20 @@ def flag_value(name: str):
     return _registry[_key(name)].value
 
 
+def get_flags(flags) -> Dict[str, Any]:
+    """Current values of ``flags`` (one name or a list), keyed by the names
+    as given; an unknown name raises ``ValueError`` (reference :66)."""
+    if isinstance(flags, str):
+        flags = [flags]
+    out = {}
+    for k in flags:
+        key = _key(k)
+        if key not in _registry:
+            raise ValueError(f"Unknown flag {k}")
+        out[k] = _registry[key].value
+    return out
+
+
 def set_flags(flags: Dict[str, Any]) -> None:
     """Set flags at runtime (an unknown name is defined on the spot); a
     string value is parsed to the flag's type."""
@@ -184,6 +198,20 @@ define_flag("obs_prof_window_s", 120.0,
 define_flag("obs_memledger_interval_s", 5.0,
             "seconds between memory-ledger samples",
             env="PADDLE_OBS_MEMLEDGER_INTERVAL_S")
+
+# Metric history (observability/tsdb.py) and the alert rules' windows
+# (observability/alerts.py), reference core/flags.py:162, :197-203; the
+# history plane starts only when observability.enable_history() is called.
+define_flag("obs_tsdb_interval_s", 2.0,
+            "seconds between metric-history samples (and alert-rule "
+            "evaluations)", env="PADDLE_OBS_TSDB_INTERVAL_S")
+define_flag("obs_tsdb_points", 512,
+            "raw-tier ring capacity per series; the coarse tier keeps the "
+            "same point count at 10x the spacing, so total history = "
+            "points * interval * 11", env="PADDLE_OBS_TSDB_POINTS")
+define_flag("obs_publish_interval_s", 2.0,
+            "seconds between fleet snapshot publications (the staleness "
+            "alert's window reads it)", env="PADDLE_OBS_PUBLISH_INTERVAL_S")
 
 # SLO targets (observability/reqtrace.py burn tracker, reference
 # core/flags.py:259-277); 0 = target off.

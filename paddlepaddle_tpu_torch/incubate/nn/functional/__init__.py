@@ -1,4 +1,5 @@
-"""incubate.nn.functional subset of the port: the padded-batch varlen
+"""incubate.nn.functional subset of the port: ``swiglu`` (already fused,
+as in the reference) and the padded-batch varlen
 attention entry (counterpart of the JAX package's
 ``incubate/nn/functional/__init__.py`` :266)."""
 
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from ....nn import functional as F
+from ....nn.functional import swiglu  # noqa: F401
 
 
 def _lengths(lens, b: int, name: str) -> np.ndarray:

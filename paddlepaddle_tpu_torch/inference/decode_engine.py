@@ -264,19 +264,25 @@ class _CapturedProgram:
 
     ``generators`` are registered with the graph, so each replay draws new
     numbers from them (the engine's sampling generator). The kernels'
-    Python launch counters move while the body is captured, not when the
-    graph runs: the capture's moves are taken back, kept as the graph's
-    launches, and added on every replay. A capture that fails raises; there
-    is no return to the eager body.
+    launches are counted where the graph runs, not where it is captured:
+    the capture counts them into its own thread's tally
+    (``paged_attention.launch_tally``), kept as the graph's launches and
+    added to the counters on every replay. A capture that fails raises;
+    there is no return to the eager body.
+
+    Other engines in the process may decode while this one captures (a
+    fleet's in-process replicas, a rolling restart's warmup): the capture
+    runs in CUDA's thread-local mode, so only this thread is held to the
+    capture's rules, and the tallies are this thread's, so another
+    engine's launches never enter this graph's count.
 
     :meth:`capture` is warmup's form: the eager run is thrown away (the
-    generators' states and the launch counters are restored after it, so
-    a warmed engine samples and counts as a cold one would) and nothing
-    is replayed. Every capture is reported to the capture/build watchdog.
+    generators' states are restored after it and its launches go to a
+    discarded tally, so a warmed engine samples and counts as a cold one
+    would) and nothing is replayed. Every capture is reported to the
+    capture/build watchdog.
     ``count_ctx``, when set before the first call, is a context factory the
     eager run executes inside (the perf plane's cost count)."""
-
-    _COUNTERS = ("launches", "int8_launches")
 
     def __init__(self, key: str, body, device: torch.device, pool,
                  generators=()):
@@ -297,9 +303,7 @@ class _CapturedProgram:
             self._warm_up_and_capture()
             return
         self.graph.replay()
-        counter = _pa.paged_attention
-        for name, n in self.per_replay.items():
-            setattr(counter, name, getattr(counter, name) + n)
+        _pa.add_launches(self.per_replay)
         self.replays += 1
 
     def capture(self) -> None:
@@ -308,24 +312,21 @@ class _CapturedProgram:
             self._warm_up_and_capture(throwaway=True)
 
     def _warm_up_and_capture(self, throwaway: bool = False) -> None:
-        counter = _pa.paged_attention
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(cur)
         if throwaway:
-            counts0 = {n: getattr(counter, n) for n in self._COUNTERS}
             states = [g.get_state() for g in self.generators]
         with torch.cuda.stream(side):
             with (self.count_ctx() if self.count_ctx is not None
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), \
+                    (_pa.launch_tally() if throwaway
+                     else contextlib.nullcontext()):
                 self.body()
         cur.wait_stream(side)
         if throwaway:
-            for n, v in counts0.items():
-                setattr(counter, n, v)
             for g, st in zip(self.generators, states):
                 g.set_state(st)
-        before = {n: getattr(counter, n) for n in self._COUNTERS}
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -340,8 +341,9 @@ class _CapturedProgram:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=self.pool)
+            with torch.cuda.stream(side), _pa.launch_tally() as moved:
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
                     self.body()
                 finally:
@@ -353,10 +355,6 @@ class _CapturedProgram:
         finally:
             if gc_was_on:
                 gc.enable()
-            moved = {n: getattr(counter, n) - before[n]
-                     for n in self._COUNTERS}
-            for n in self._COUNTERS:
-                setattr(counter, n, before[n])
         cur.wait_stream(side)
         self.per_replay = {n: m for n, m in moved.items() if m}
         self.capture_s = time.perf_counter() - t0

@@ -6,10 +6,12 @@ robustness.py``: the typed admission errors a client of ``ServingEngine``
 sees, :class:`CircuitBreaker` and :class:`QueueWaitEstimator`, unchanged.
 ``safe_inc`` / ``safe_set`` write the cold-path counters and gauges into
 the observability registry (:mod:`..observability`), always, and never
-raise. The fleet and wire errors
-(``FleetUnavailableError``, ``DeployError``, ``ReplicaStalledError``,
-``WireCorruptionError``, ``error_to_wire`` / ``error_from_wire``) come with
-the fleet (ROADMAP A7).
+raise. The fleet and wire half (reference :127-248): the errors of the
+router (``FleetUnavailableError``), the deploy pipeline (``DeployError``)
+and the replica wire (``ReplicaStalledError``, ``WireCorruptionError``),
+and ``error_to_wire`` / ``error_from_wire``, whose document is the
+reference's key for key, so a port client and a reference server (or the
+reverse) rehydrate the same exception class.
 
 Everything here is plain host-side bookkeeping, safe to use from any thread.
 """
@@ -23,8 +25,10 @@ from typing import Callable, Optional
 __all__ = [
     "ServingError", "ServerOverloadedError", "DeadlineExceededError",
     "RequestCancelledError", "CircuitOpenError", "EngineDrainingError",
-    "RequestValidationError", "KVCapacityError", "CircuitBreaker",
-    "QueueWaitEstimator", "safe_inc", "safe_set",
+    "RequestValidationError", "KVCapacityError", "FleetUnavailableError",
+    "DeployError", "ReplicaStalledError", "WireCorruptionError",
+    "CircuitBreaker", "QueueWaitEstimator", "safe_inc",
+    "safe_set", "error_to_wire", "error_from_wire",
 ]
 
 
@@ -249,3 +253,125 @@ class QueueWaitEstimator:
         if self._ewma == 0.0:
             return 0.0
         return (depth / max(1, per_attempt)) * self._ewma
+
+
+class FleetUnavailableError(ServingError):
+    """Every replica behind the :class:`~.router.ServingRouter` is out of
+    rotation (evicted by its breaker, draining, or dead) — the fleet as a
+    whole cannot admit the request. Carries the replica census and a
+    retry-after hint (the soonest half-open probe window among the evicted
+    replicas) so clients back off instead of hammering a dead fleet."""
+
+    def __init__(self, msg: str, replicas: int = 0, healthy: int = 0,
+                 retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.replicas = int(replicas)
+        self.healthy = int(healthy)
+        self.retry_after_s = float(retry_after_s)
+
+
+class ReplicaStalledError(ServingError):
+    """The stream-progress watchdog tripped: a replica connection accepted
+    the request (or was mid-stream) but produced NO frame — chunk, progress
+    or heartbeat — within ``heartbeat_timeout_s``. A black-holed or
+    partitioned connection, not a slow decode: the server heartbeats every
+    ``heartbeat_interval_s`` even when there is nothing to report, so
+    silence means the wire (or the peer) is gone. Retryable — another
+    replica can serve the request, and the stalled connection is closed so
+    the server's disconnect probe releases the decode slot."""
+
+    def __init__(self, msg: str, stalled_after_s: float = 0.0):
+        super().__init__(msg)
+        self.stalled_after_s = float(stalled_after_s)
+
+
+class WireCorruptionError(ServingError):
+    """A frame failed its CRC32 payload check: bytes were damaged in
+    transit. The connection is abandoned (a desynced stream cannot be
+    trusted for one more frame) and the request is retryable — corruption
+    must surface as a typed infra failure, NEVER as wrong tokens."""
+
+
+class DeployError(ServingError):
+    """A :meth:`~.fleet.FleetController.deploy` could not START: the
+    candidate bundle failed pre-flight validation (missing/garbled
+    manifest, corrupt payload, unsupported format), or another deploy is
+    already in flight. Raised BEFORE any replica is touched — a rejected
+    candidate costs nothing. (A deploy that starts and then fails its
+    canary gate or regresses mid-rollout does NOT raise: it rolls back
+    and reports ``ok=False`` in its result, because a bad candidate is an
+    expected outcome the pipeline exists to absorb.) Carries the stage
+    that refused and the reasons."""
+
+    def __init__(self, msg: str, stage: str = "validate",
+                 reasons: Optional[list] = None):
+        super().__init__(msg)
+        self.stage = str(stage)
+        self.reasons = list(reasons or [])
+
+
+# ---------------------------------------------------------------------------
+# wire (de)serialization — the process boundary's half of the taxonomy.
+#
+# A remote replica (inference/replica_main.py) reports failures as a typed
+# error frame: {"type": <class name>, "msg": str(exc), "fields": {...}}.
+# error_from_wire rebuilds the SAME exception class with the SAME extra
+# fields (retry_after_s, queue_depth, ...) on the client side, so the
+# router's _retryable() classification, breaker evidence, and client
+# backoff hints are byte-identical whether the replica is a thread or a
+# process. An unknown type (a replica running newer code, or a raw engine
+# crash) rehydrates as an untyped RuntimeError — which the router treats
+# as retryable infra failure, exactly what a crashed process should be.
+# ---------------------------------------------------------------------------
+
+_WIRE_FIELDS = {
+    "ServerOverloadedError": ("queue_depth", "retry_after_s"),
+    "CircuitOpenError": ("retry_after_s",),
+    "KVCapacityError": ("pages_needed", "pages_capacity"),
+    "FleetUnavailableError": ("replicas", "healthy", "retry_after_s"),
+    "DeployError": ("stage", "reasons"),
+    "ReplicaStalledError": ("stalled_after_s",),
+}
+
+
+def error_to_wire(exc: BaseException) -> dict:
+    """One JSON-able dict per exception: class name, message, and the
+    class's extra constructor fields (so hints like ``retry_after_s``
+    survive the hop). Never raises — a serialization failure degrades to
+    an untyped record, not a lost error."""
+    doc = {"type": type(exc).__name__, "msg": str(exc)}
+    try:
+        fields = {}
+        for f in _WIRE_FIELDS.get(doc["type"], ()):
+            v = getattr(exc, f, None)
+            if v is not None:
+                fields[f] = v
+        if fields:
+            doc["fields"] = fields
+    except Exception:
+        pass
+    return doc
+
+
+def error_from_wire(doc: dict) -> BaseException:
+    """Rebuild the typed exception a replica process reported. Unknown
+    (or untyped) error types come back as ``RuntimeError`` — the router
+    classifies those as retryable infra failures, which is the correct
+    reading of \"the remote engine blew up\"."""
+    name = str(doc.get("type") or "RuntimeError")
+    msg = str(doc.get("msg") or "remote replica error")
+    fields = doc.get("fields") or {}
+    cls = globals().get(name)
+    if (not isinstance(cls, type) or not issubclass(cls, ServingError)):
+        # deliberate: client-side cancellation/timeouts keep their stdlib
+        # types so caller except-clauses (TimeoutError) still match
+        if name == "TimeoutError":
+            return TimeoutError(msg)
+        return RuntimeError(f"{name}: {msg}" if name != "RuntimeError"
+                            else msg)
+    try:
+        known = {f: fields[f] for f in _WIRE_FIELDS.get(name, ())
+                 if f in fields}
+        return cls(msg, **known)
+    except Exception:
+        return cls(msg)

@@ -39,8 +39,11 @@ histograms, batch size, queue depth, decode-attempt outcomes), request
 journeys (``submit(trace=)`` takes one; with tracing armed and none
 passed, the engine mints one), the goodput ledger's serving-side waste
 paths, the flight recorder, and the ``/healthz`` provider of a running
-exporter. Not ported: ``mesh=`` / ``plan=`` (ROADMAP A10) and the router's
-wrapper futures (A7).
+exporter. The fleet's seams (reference :99, :204-226): ``_flight_record``,
+and ``GenerationResult._add_done_callback``, on which the router
+(:mod:`.router`) hangs failover, hedging and its wrapper futures; the chaos
+seams ``serving.admit`` and ``serving.decode`` (:mod:`..resilience.chaos`).
+Not ported: ``mesh=`` / ``plan=`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from ..observability import flight as _flight
 from ..observability import goodput as _goodput
 from ..observability import reqtrace as _reqtrace
 from ..observability.recorder import trace_region
+from ..resilience.chaos import chaos_point
 from .decode_engine import BatchDecodeEngine
 from .kv_pool import pages_needed
 from .robustness import (
@@ -95,6 +99,11 @@ _BREAKER_STATE_NUM = {"closed": 0, "half_open": 1, "open": 2}
 _REQ_IDS = itertools.count(1)
 
 
+# the reference's name (:99) for the flight recorder's feed, which the
+# router and the fleet import from here
+_flight_record = _flight.record
+
+
 class GenerationResult:
     """Future for one request, carrying its lifecycle timestamps (submit
     -> admit -> first token on the host -> finish), so TTFT, TPOT and queue
@@ -111,6 +120,10 @@ class GenerationResult:
         self._error: Optional[BaseException] = None
         self._cancelled = False
         self._cancel_kind = "cancel"   # goodput kind a cancel wastes as
+        self._callbacks: List = []     # run once, after the outcome is set
+        self._obs_emit = True   # False on a router's wrapper future, whose
+        #   replica-side inner future already feeds the SLO histograms and
+        #   the flight recorder: one request, one record
         self._t_submit = time.perf_counter()
         self._t_admit: Optional[float] = None
         self._t_first: Optional[float] = None
@@ -125,6 +138,9 @@ class GenerationResult:
         #                           (static mode), so TPOT is undefined
         self._trace = None        # reqtrace Journey riding this request
         self._trace_owner = False  # True on the future whose _set closes it
+        self._t_dispatch: Optional[float] = None  # the winning attempt's
+        #   own submit time after a router failover: queue wait is per
+        #   attempt, not from the first submit across every retry
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -152,17 +168,43 @@ class GenerationResult:
             raise self._error
         return self._output
 
+    def _add_done_callback(self, fn) -> None:
+        """Run ``fn(self)`` exactly once when the outcome lands (now, if it
+        already has; reference :204). The router's failover, hedging and
+        wrapper futures hang off this. A callback runs on whichever thread
+        sets the outcome, often the engine's scheduler thread, so it must
+        not block there; an exception it raises is swallowed."""
+        self._callbacks.append(fn)
+        if self._event.is_set():
+            self._drain_callbacks()
+
+    def _drain_callbacks(self) -> None:
+        # pop one at a time: a drain racing another drain runs each
+        # callback once
+        while True:
+            try:
+                fn = self._callbacks.pop(0)
+            except IndexError:
+                return
+            try:
+                fn(self)
+            except Exception:
+                pass
+
     def slo(self) -> Dict[str, object]:
         """Per-request SLO numbers (None where the lifecycle point was never
         reached). TPOT is the per-token average over the tokens that
         arrived after the first one, and None in static mode, where there
-        is no streaming (reference :227-252)."""
+        is no streaming (reference :227-252). Queue wait is measured from
+        the winning attempt's own submit after a router failover."""
         end, t_first = self._t_done, self._t_first
+        t_base = (self._t_dispatch if self._t_dispatch is not None
+                  else self._t_submit)
         return {
             "req_id": self._req_id,
             "new_tokens": self._n_new,
             "queue_wait_s": (None if self._t_admit is None
-                             else self._t_admit - self._t_submit),
+                             else self._t_admit - t_base),
             "ttft_s": None if t_first is None else t_first - self._t_submit,
             "tpot_s": (None if (t_first is None or end is None
                                 or self._n_new <= self._n_at_first
@@ -180,7 +222,7 @@ class GenerationResult:
             self._error = error
             self._t_done = now = time.perf_counter()
             self._event.set()
-        obs = _obs_srv
+        obs = _obs_srv if self._obs_emit else None
         outcome = ("ok" if error is None
                    else "cancelled" if isinstance(error, RequestCancelledError)
                    else "error")
@@ -201,22 +243,25 @@ class GenerationResult:
                 })
             else:
                 obs(outcome, 1)
-        _flight.record(
-            "request", str(self._req_id or "?"), phase="finish",
-            outcome=outcome, tokens=self._n_new,
-            latency_ms=round((now - self._t_submit) * 1e3, 3),
-            **({} if self._t_first is None else
-               {"ttft_ms": round((self._t_first - self._t_submit) * 1e3,
-                                 3)}))
+        if self._obs_emit:
+            _flight.record(
+                "request", str(self._req_id or "?"), phase="finish",
+                outcome=outcome, tokens=self._n_new,
+                latency_ms=round((now - self._t_submit) * 1e3, 3),
+                **({} if self._t_first is None else
+                   {"ttft_ms": round((self._t_first - self._t_submit)
+                                     * 1e3, 3)}))
         try:
-            if error is None and (_flags.flag_value("slo_ttft_ms") > 0
-                                  or _flags.flag_value("slo_tpot_ms") > 0):
+            if error is None and self._obs_emit and (
+                    _flags.flag_value("slo_ttft_ms") > 0
+                    or _flags.flag_value("slo_tpot_ms") > 0):
                 s = self.slo()
                 _reqtrace.slo_observe(s["ttft_s"], s["tpot_s"])
             if self._trace is not None and self._trace_owner:
                 _reqtrace.finish_future(self._trace, self, outcome)
         except Exception:
             pass       # observability must never break request delivery
+        self._drain_callbacks()
 
 
 def slo_summary(results) -> Dict[str, Optional[float]]:
@@ -593,6 +638,7 @@ class ServingEngine:
                     f"estimated queue wait {est:.2f}s exceeds "
                     f"max_queue_wait_s {self.max_queue_wait_s:g}",
                     queue_depth=depth, retry_after_s=est))
+        chaos_point("serving.admit")
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
@@ -987,6 +1033,9 @@ class ServingEngine:
         self._hang_tripped = False
         self._decode_started_at = time.monotonic()
         try:
+            # the chaos seam fires on the host, before the chunk's replay
+            # (never inside a capture)
+            chaos_point("serving.decode")
             # a host span: a captured chunk's replay returns at once, so the
             # span ends at the chunk's readback
             with trace_region("serving.decode_chunk", "serving"):

@@ -3,7 +3,7 @@
 from .bert import (BertConfig, BertForSequenceClassification,  # noqa: F401
                    BertModel)
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401
-from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel  # noqa: F401
 from .moe import MoEConfig, MoEForCausalLM  # noqa: F401
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      resnet18, resnet34, resnet50, resnet101, resnet152,

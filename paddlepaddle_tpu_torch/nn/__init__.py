@@ -9,7 +9,8 @@ from .activation import (CELU, ELU, GELU, GLU, LeakyReLU,  # noqa: F401
                          Softplus, Softshrink, Softsign, Swish, Tanh,
                          Tanhshrink, ThresholdedReLU)
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
-                   ClipGradByValue, clip_grad_norm_)
+                   ClipGradByValue, GradientClipByGlobalNorm,
+                   GradientClipByNorm, GradientClipByValue, clip_grad_norm_)
 from .common import Dropout, Embedding, Linear  # noqa: F401
 from .container import LayerList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D  # noqa: F401

@@ -839,3 +839,9 @@ def triplet_margin_loss(input, positive, negative, margin=1.0, p=2,
     if swap:
         dn = torch.minimum(dn, dist(positive, negative))
     return _reduce(torch.clamp(dp - dn + margin, min=0.0), reduction)
+
+
+# the packed-QKV entries live in nn/long_tail.py, which imports this module;
+# the reference exposes them here (reference :1626)
+from .long_tail import (flash_attn_qkvpacked,  # noqa: E402,F401
+                        flash_attn_varlen_qkvpacked)

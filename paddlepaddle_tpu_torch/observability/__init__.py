@@ -23,8 +23,9 @@ The reference also hooks eager dispatch, autograd, collectives, comm tasks
 and the data loader (:304-318). The port has none of those modules yet, so
 it has none of those hooks and registers none of their metrics: dispatch
 and autograd come with ROADMAP A11, collectives and comm tasks with A10,
-the data loader with A11. The metric history (``tsdb``), the alert engine
-and the fleet aggregation wait as A8 leftovers.
+the data loader with A11. The metric history (:mod:`~.tsdb`) and the alert
+engine (:mod:`~.alerts`) start when :func:`enable_history` is called; the
+fleet aggregation waits for A10.
 
 Everything is gated by ``PADDLE_OBS_*`` env vars / ``FLAGS_obs_*`` flags and
 defaults OFF: the only cost on a hot path when disabled is one module-global
@@ -268,10 +269,33 @@ def disable() -> None:
     watchdog.uninstall()
 
 
+def enable_history(interval_s: Optional[float] = None, rules=None,
+                   start_thread: bool = True):
+    """Arm the metric-history plane (:mod:`~.tsdb`) and its alert engine
+    (:mod:`~.alerts`) over the package registry (reference :370).
+    ``start_thread=False`` leaves the sampler to be driven by hand
+    (``history.observe(now)``). Returns the :class:`~.tsdb.MetricHistory`."""
+    from . import alerts as _alerts
+    from . import tsdb as _tsdb
+
+    h = _tsdb.enable(interval_s=interval_s, start_thread=start_thread)
+    _alerts.install(history=h, rules=rules)
+    return h
+
+
+def disable_history() -> None:
+    """Stop the history sampler and detach the alert engine."""
+    from . import alerts as _alerts
+    from . import tsdb as _tsdb
+
+    _alerts.uninstall()
+    _tsdb.disable()
+
+
 def reset() -> None:
     """Clear the ring buffer, all metric values, watchdog state, the perf
-    plane, the journeys and the goodput ledger, and stop the profiler and
-    the memory ledger."""
+    plane, the journeys and the goodput ledger, and stop the profiler, the
+    memory ledger and the history and alert planes."""
     _recorder.clear()
     _registry.clear()
     watchdog.reset()
@@ -280,6 +304,7 @@ def reset() -> None:
     goodput.reset()
     profiler.reset()
     memledger.reset()
+    disable_history()
 
 
 # ---------------------------------------------------------------------------

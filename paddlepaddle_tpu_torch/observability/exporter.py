@@ -1,12 +1,11 @@
 """Per-rank HTTP telemetry exporter — the pull half of the fleet plane.
 
 The port's own copy of the jax-free ``paddlepaddle_tpu/observability/
-exporter.py``, with the reference's default routes (:161-172). Two planes
-it reads wait (ROADMAP A8 leftovers): the metric history (``tsdb``) and
-the alert engine, so ``/query`` and ``/alerts`` answer as the reference's
-routes do with those planes off (``{"enabled": false, ...}``), and
-``/healthz`` has no built-in alerts provider. The fleet aggregation
-(``/fleet/*`` on rank 0) waits too. Nothing starts at import: call
+exporter.py``, with the reference's default routes (:161-172): ``/query``
+reads the metric history (``tsdb``) and ``/alerts`` the alert engine, which
+``observability.enable_history()`` arms; ``/healthz`` carries the alert
+engine's block when one is installed. The fleet aggregation (``/fleet/*``
+on rank 0) waits for ROADMAP A10. Nothing starts at import: call
 :func:`start` (``observability.start_exporter()``).
 
 Reference surface: the reference serving stack exposes monitor stats over
@@ -226,19 +225,22 @@ class TelemetryExporter:
                                       allow_nan=False, default=str)
 
     def _query(self, params: Dict[str, str]):
-        # the reference's tsdb.query_body with the history plane off
+        from . import tsdb
+
         try:
-            if params.get("window"):
-                float(params["window"])
-            if params.get("max_points"):
-                int(params["max_points"])
+            window_s = (float(params["window"])
+                        if params.get("window") else None)
+            max_points = (int(params["max_points"])
+                          if params.get("max_points") else None)
         except ValueError as e:
             return 400, _JSON, json.dumps({"error": f"bad parameter: {e}"})
-        return 200, _JSON, json.dumps({"enabled": False, "series": []})
+        return tsdb.query_body(params.get("series") or None, window_s,
+                               max_points)
 
     def _alerts(self):
-        # the reference's alerts.alerts_body with no alert engine installed
-        return 200, _JSON, json.dumps({"enabled": False, "rules": []})
+        from . import alerts
+
+        return alerts.alerts_body()
 
     def _profile(self, params: Dict[str, str]):
         """Sampling-profiler read side: ``/profile?seconds=&format=
@@ -293,6 +295,19 @@ class TelemetryExporter:
 
         providers = {}
         ok = True
+        # built-in provider: the alert engine (when installed) — a firing
+        # page-severity rule must flip readiness without any registration
+        # ordering between engine install and exporter start
+        try:
+            from . import alerts as _alerts
+
+            eng = _alerts.get()
+            if eng is not None:
+                snap = eng.health()
+                providers["alerts"] = snap
+                ok = ok and bool(snap.get("ok", True))
+        except Exception:
+            pass
         for name, fn in list(self._health_providers.items()):
             try:
                 snap = fn()

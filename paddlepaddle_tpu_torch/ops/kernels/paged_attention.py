@@ -22,13 +22,18 @@ limits in its header). Shape contract, as on the TPU:
 :func:`paged_attention` runs the plain version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises. ``paged_attention.launches``
 counts full-precision kernel launches and ``paged_attention.int8_launches``
-int8 ones (never plain-version calls).
+int8 ones (never plain-version calls). Engines in several threads share
+the counters, so a launch counts under a lock; inside :func:`launch_tally`
+the calling thread's launches go to its own tally instead (a graph
+capture, whose launches count when the graph replays).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -374,10 +379,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({msg})")
-    if quant:
-        paged_attention.int8_launches += 1
-    else:
-        paged_attention.launches += 1
+    _count_launch("int8_launches" if quant else "launches")
     if _costs.counting_open():
         bytes_, flops, deq = paged_work(
             lens.tolist(), W, h, kvh, hd, ps, P, q.element_size(),
@@ -388,3 +390,36 @@ def paged_attention(q, k_pool, v_pool, page_table, lens, *, rep: int,
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+
+_count_lock = threading.Lock()
+_tally = threading.local()
+
+
+def _count_launch(name: str) -> None:
+    sink = getattr(_tally, "sink", None)
+    if sink is not None:
+        sink[name] = sink.get(name, 0) + 1
+        return
+    with _count_lock:
+        setattr(paged_attention, name, getattr(paged_attention, name) + 1)
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[Dict[str, int]]:
+    """Count the calling thread's launches into the yielded dict, not into
+    ``paged_attention.launches`` / ``int8_launches``; other threads keep
+    counting as before."""
+    prev = getattr(_tally, "sink", None)
+    _tally.sink = sink = {}
+    try:
+        yield sink
+    finally:
+        _tally.sink = prev
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (counter name -> launches) to the counters: a graph
+    replay's launches."""
+    with _count_lock:
+        for name, n in counts.items():
+            setattr(paged_attention, name, getattr(paged_attention, name) + n)

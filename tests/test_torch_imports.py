@@ -55,6 +55,19 @@ import paddlepaddle_tpu_torch.observability.profiler
 import paddlepaddle_tpu_torch.observability.recorder
 import paddlepaddle_tpu_torch.observability.reqtrace
 import paddlepaddle_tpu_torch.observability.watchdog
+import paddlepaddle_tpu_torch.observability.tsdb
+import paddlepaddle_tpu_torch.observability.alerts
+import paddlepaddle_tpu_torch.inference
+import paddlepaddle_tpu_torch.inference.robustness
+import paddlepaddle_tpu_torch.inference.router
+import paddlepaddle_tpu_torch.inference.fleet
+import paddlepaddle_tpu_torch.inference.remote_replica
+import paddlepaddle_tpu_torch.inference.replica_main
+import paddlepaddle_tpu_torch.inference.c_api_server
+import paddlepaddle_tpu_torch.resilience
+import paddlepaddle_tpu_torch.resilience.chaos
+import paddlepaddle_tpu_torch.resilience.retry
+import paddlepaddle_tpu_torch.resilience.netchaos
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -78,6 +91,8 @@ if not torch.cuda.is_available():
                 kv_host_bytes=1 << 20)),
             ("serving", lambda: pt.ServingEngine(
                 pt.LlamaForCausalLM(cfg, device="cpu"))),
+            ("replica_main", lambda: paddlepaddle_tpu_torch.inference
+             .replica_main.main(["--port", "0"])),
             ("train_step", lambda: pt.TrainStep(
                 pt.LlamaForCausalLM(cfg, device="cpu"), pt.AdamW(),
                 lambda m, ids, labels: m(ids, labels=labels)))):
@@ -120,7 +135,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "observability.perf.costs", "observability.perf.device",
                 "observability.perf.steptime", "observability.profiler",
                 "observability.recorder", "observability.reqtrace",
-                "observability.watchdog"):
+                "observability.watchdog", "observability.tsdb",
+                "observability.alerts", "inference.router",
+                "inference.fleet", "inference.remote_replica",
+                "inference.replica_main", "inference.c_api_server",
+                "resilience.chaos", "resilience.retry",
+                "resilience.netchaos"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

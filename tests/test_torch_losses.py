@@ -315,3 +315,58 @@ def test_model_loss_matches_reference_loss_from_logits():
     labels[0, 2] = -100
     _check(lambda a, b: jl.LlamaForCausalLM.loss_from_logits(a, b),
            lambda a, b: tl.loss_from_logits(a, b), [logits, labels])
+
+
+def _np_ce_axis1(x, lab, weight=None, ignore_index=-100, ls=0.0):
+    """Paddle's hard-label cross entropy over axis 1 of ``[N, C, ...]`` in
+    float64 numpy: ``-logp[label]`` mixed with the row's mean ``logp`` by
+    ``ls``, ignored rows 0, the mean over ``weight[label]`` of valid rows
+    (or their count)."""
+    x = x.astype(np.float64)
+    m = x.max(axis=1, keepdims=True)
+    logp = x - m - np.log(np.exp(x - m).sum(axis=1, keepdims=True))
+    valid = lab != ignore_index
+    safe = np.where(valid, lab, 0)
+    picked = np.take_along_axis(logp, safe[:, None], axis=1)[:, 0]
+    if ls:
+        picked = (1 - ls) * picked + ls * logp.mean(axis=1)
+    loss = -picked * valid
+    w = valid.astype(np.float64)
+    if weight is not None:
+        loss = loss * weight[safe]
+        w = weight[safe] * valid
+    return loss.sum() / w.sum()
+
+
+@pytest.mark.parametrize("case", ["plain", "weight", "ignore_index",
+                                  "label_smoothing"])
+def test_cross_entropy_class_axis_1_against_numpy(case):
+    """C15 (ROADMAP, the third reference divergence): with the classes on
+    axis 1 of ``[2, 3, 6, 6]`` logits, the port gives Paddle's cross
+    entropy (a numpy log-softmax over axis 1, within 2e-6); the reference's
+    ``take_along_axis`` broadcasts the label's trailing axis against W and
+    reads other entries, so its value differs."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 6, 6)).astype(np.float32)
+    lab = rng.integers(0, 3, size=(2, 6, 6)).astype(np.int64)
+    kw, oracle = {}, {}
+    if case == "weight":
+        w = np.array([0.2, 1.0, 2.5], np.float32)
+        kw["weight"], oracle["weight"] = w, w.astype(np.float64)
+    elif case == "ignore_index":
+        lab[0, :2] = 1
+        lab[1, 3] = -1
+        kw["ignore_index"] = oracle["ignore_index"] = -1
+    elif case == "label_smoothing":
+        kw["label_smoothing"] = oracle["ls"] = 0.1
+    want = _np_ce_axis1(x, lab, **oracle)
+    targs = {k: torch.tensor(v) if isinstance(v, np.ndarray) else v
+             for k, v in kw.items()}
+    got = float(TF.cross_entropy(torch.tensor(x), torch.tensor(lab), axis=1,
+                                 **targs))
+    assert abs(got - want) <= ATOL + RTOL * abs(want), (got, want)
+    jargs = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+             for k, v in kw.items()}
+    ref = float(np.asarray(unwrap(JF.cross_entropy(
+        paddle.to_tensor(x), paddle.to_tensor(lab), axis=1, **jargs))))
+    assert abs(ref - want) > 1e-2, (ref, want)
