@@ -284,6 +284,44 @@ code is non-zero):
                and ``/query``'s answer for
                ``paddle_router_replica_inflight``.
 
+10. Tensor and data parallelism (A10's core), after ``gpt2_small``. The
+    ranks are processes started by the port's own ``spawn``; the kernel
+    libraries are built by this process first, so the ranks only load them
+    (their ``nvcc`` runs are printed and must be 0). One card: multi-rank
+    phases share ``cuda:0`` over gloo given explicitly (the compute on the
+    card, the collectives through the host; NCCL refuses two ranks on one
+    device), and their times describe that rig, not TP on separate cards.
+    Every spawn has a process-group timeout and a join timeout; a failed or
+    hung rank fails the phase.
+10a. ``tp_parity``  a tiny f32 Llama (2 layers, 8 heads, 4 KV heads, head
+               dim 128: 2 KV heads a rank) from one seed: TP-2 greedy tokens equal the
+               plan-less engine's on the card and agree on both ranks, each
+               rank's paged launches = layers x decode steps; ``dp2`` (2
+               ranks) and ``dp2mp2`` (4 ranks) ``ShardedTrainStep`` losses
+               over 2 steps within the CPU tests' rtol (1e-5 / 1e-4) of a
+               one-process ``TrainStep``, with each rank's flash launches.
+10b. ``serve_tp``  Llama-3-8B widths at 8 layers, bf16, ``mp2``: 8
+               requests; the tokens agree on both ranks; the logits of
+               one paged decode step (kernel 1 on 4 KV heads a rank) after
+               prefilling the 8 prompts, equal on both ranks and within
+               0.25 (max abs, bf16: two rounding orders of the row-parallel
+               sums over 8 layers) of the one-process engine's at the same
+               input; kernel 1 on every rank (layers x
+               decode steps); tok/s beside a one-process engine at the
+               same depth in the same run, the chunk's wall, and the ms a
+               chunk spends in all-reduce (a second run with collective
+               timing on).
+10c. ``train_tp``  Llama-3-8B widths at 4 layers, bf16, AdamW + global-norm
+               clip, global batch 4 x 512: ``mp2`` and ``dp2``, 3 steps
+               each; losses within 0.02 of a one-process ``TrainStep``;
+               step ms, flash launches a rank, all-reduce ms a step (the
+               third step times its collectives), peak memory a rank.
+10d. ``nccl_world1``  one NCCL rank, Llama-3-8B widths at 2 layers, bf16,
+               ``decode_plan("mp1")``: the decode chunk is captured with the
+               NCCL all-reduce inside; tokens bit-equal to the plan-less
+               captured engine's; ``capture_info()`` and replays; tok/s of
+               both after each captured on a warm-up request.
+
 Then the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
@@ -5261,6 +5299,522 @@ def phase_serve_observed(pt_pkg, ctx):
                              f"{row} {specs}")
 
 
+# -- 10: tensor and data parallelism (A10's core) ------------------------------
+
+# 8 query / 4 KV heads: 2 KV heads of 2 query heads each on a rank at mp2
+TP_TINY = dict(vocab_size=1024, hidden_size=1024, intermediate_size=1024,
+               num_hidden_layers=2, num_attention_heads=8,
+               num_key_value_heads=4, max_position_embeddings=512,
+               dtype="float32")
+TP_SPAWN = dict(timeout=900, pg_timeout=300)   # join / process-group seconds
+SERVE_TP_LAYERS = 8        # Llama-3-8B widths at 8 of 32 layers
+SERVE_TP_LOGIT_TOL = 0.25  # max abs, bf16 paged decode-step logits, TP vs one
+TRAIN_TP_LAYERS = 4        # Llama-3-8B widths at 4 of 32 layers
+TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 3
+TRAIN_TP_LOSS_TOL = 0.02   # abs, bf16 losses, sharded vs one process
+NCCL1_LAYERS = 2
+
+
+def _rank_init(backend):
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import get_rank, init_parallel_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_parallel_env(backend=backend)
+    return get_rank()
+
+
+def _rank_counts():
+    from paddlepaddle_tpu_torch.ops.kernels import _build
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    return {"paged": pa.paged_attention.launches,
+            "flash": {"flash_fwd": fa.flash_fwd.launches,
+                      "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                      "flash_bwd_dkv": fa.flash_bwd_dkv.launches},
+            "nvcc": _build.nvcc_runs}
+
+
+def _reset_counts():
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddlepaddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    pa.paged_attention.launches = 0
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = 0
+
+
+def _tp_requests(prompts, budgets):
+    from paddlepaddle_tpu_torch.inference.serving import GenerationRequest
+
+    return [GenerationRequest(p, int(b)) for p, b in zip(prompts, budgets)]
+
+
+def _llm_loss(model, ids, labels):
+    return model(ids, labels=labels)
+
+
+def _tp_parity_decode_rank(prompts, n_new, ids):
+    """2 ranks: TP-2 decode of the tiny f32 model, then a dp2 step pair."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import decode_plan
+
+    rank = _rank_init("gloo")
+    model = pt.LlamaForCausalLM(pt.LlamaConfig(**TP_TINY), seed=0)
+    eng = pt.BatchDecodeEngine(model, max_slots=4, chunk=8, page_size=64,
+                               max_len=512, plan=decode_plan("mp2"))
+    _reset_counts()
+    out = {"rank": rank}
+    if eng.is_driver:
+        reqs = _tp_requests(prompts, [n_new] * len(prompts))
+        eng.serve(reqs, timeout=600)
+        eng.stop()
+        out["tokens"] = [r.result.result(5).tolist() for r in reqs]
+    else:
+        eng.follow()
+        out["tokens"] = None
+    c = _rank_counts()
+    out.update(paged=c["paged"], steps=eng.stats["decode_steps"],
+               capture=eng.capture_info())
+    if rank == 0:
+        one = pt.BatchDecodeEngine(model, max_slots=4, chunk=8,
+                                   page_size=64, max_len=512)
+        reqs = _tp_requests(prompts, [n_new] * len(prompts))
+        one.serve(reqs, timeout=600)
+        out["one_tokens"] = [r.result.result(5).tolist() for r in reqs]
+    out.update(_tp_parity_train(rank, "dp2", ids))
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def _tp_parity_train(rank, spec, ids, steps=2):
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    ids_t = torch.from_numpy(ids).cuda()
+    m = pt.LlamaForCausalLM(pt.LlamaConfig(**TP_TINY), seed=1)
+    step = ShardedTrainStep(m, pt.AdamW(learning_rate=1e-3,
+                                        parameters=m.parameters()),
+                            _llm_loss,
+                            plan=train_plan(spec, data_axes=("dp",)))
+    _reset_counts()
+    losses = [float(step(ids_t, ids_t)) for _ in range(steps)]
+    return {f"{spec}_losses": losses,
+            f"{spec}_flash": _rank_counts()["flash"]}
+
+
+def _tp_parity_train_rank(spec, ids):
+    rank = _rank_init("gloo")
+    out = {"rank": rank}
+    out.update(_tp_parity_train(rank, spec, ids))
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def phase_tp_parity(pt_pkg):
+    """10a: TP-2 decode and dp2 / dp2mp2 training of a tiny f32 Llama on
+    ranks that share the card over gloo, against one process."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, TP_TINY["vocab_size"], (int(n),))
+               .astype(np.int32) for n in (40, 129, 77, 200)]
+    ids = rng.integers(0, TP_TINY["vocab_size"], (4, 128)).astype(np.int64)
+    t0 = time.perf_counter()
+    dec = spawn(_tp_parity_decode_rank, args=(prompts, 24, ids), nprocs=2,
+                **TP_SPAWN)
+    grid = spawn(_tp_parity_train_rank, args=("dp2mp2", ids), nprocs=4,
+                 **TP_SPAWN)
+    wall = time.perf_counter() - t0
+    model = pt_pkg.LlamaForCausalLM(pt_pkg.LlamaConfig(**TP_TINY), seed=1)
+    ref = pt_pkg.TrainStep(model, pt_pkg.AdamW(
+        learning_rate=1e-3, parameters=model.parameters()), _llm_loss)
+    ids_t = torch.from_numpy(ids).cuda()
+    one_losses = [float(ref(ids_t, ids_t)) for _ in range(2)]
+    del model, ref
+    L = TP_TINY["num_hidden_layers"]
+    r0 = dec[0]
+    checks = {
+        "tokens_equal_one_process": r0["tokens"] == r0["one_tokens"],
+        "paged_equals_layers_x_steps": all(
+            r["paged"] == L * r["steps"] and r["steps"] > 0 for r in dec),
+        "eager_under_gloo": all(
+            r["capture"]["decode"]["captured"] is False for r in dec),
+        "dp2_rel_err": max(abs(a - b) / abs(b) for r in dec for a, b in
+                           zip(r["dp2_losses"], one_losses)),
+        "dp2mp2_rel_err": max(abs(a - b) / abs(b) for r in grid for a, b in
+                              zip(r["dp2mp2_losses"], one_losses)),
+        "nvcc_in_ranks": sum(r["nvcc"] for r in dec + grid),
+    }
+    emit({"phase": "tp_parity", "nvidia_smi": nvidia_smi_line(),
+          "backend": "gloo (ranks share cuda:0)", "wall_s": wall,
+          "paged_launches_by_rank": [r["paged"] for r in dec],
+          "decode_steps_by_rank": [r["steps"] for r in dec],
+          "flash_launches_by_rank": {
+              "dp2": [r["dp2_flash"] for r in dec],
+              "dp2mp2": [r["dp2mp2_flash"] for r in grid]},
+          "losses": {"one_process": one_losses,
+                     "dp2": [r["dp2_losses"] for r in dec],
+                     "dp2mp2": [r["dp2mp2_losses"] for r in grid]},
+          "capture": r0["capture"], **checks})
+    bad = [k for k in ("tokens_equal_one_process",
+                       "paged_equals_layers_x_steps", "eager_under_gloo")
+           if not checks[k]]
+    if bad or checks["dp2_rel_err"] > 1e-5 or checks["dp2mp2_rel_err"] > 1e-4 \
+            or checks["nvcc_in_ranks"]:
+        raise AssertionError(f"tp_parity failed: {bad} {checks}")
+    return {"tp_parity paged rank0": dec[0]["paged"],
+            "tp_parity paged rank1": dec[1]["paged"],
+            "tp_parity dp2 flash rank0": dec[0]["dp2_flash"],
+            "tp_parity dp2mp2 flash rank0": grid[0]["dp2mp2_flash"]}
+
+
+def _serve_tp_prompts():
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    plens = rng.integers(128, 513, 8)
+    budgets = rng.integers(48, 97, 8)
+    prompts = [rng.integers(0, 128256, (int(n),)).astype(np.int32)
+               for n in plens]
+    return prompts, [int(b) for b in budgets]
+
+
+def _serve_run(eng, prompts, budgets):
+    import torch
+
+    reqs = _tp_requests(prompts, budgets)
+    steps0, chunks0 = eng.stats["decode_steps"], len(eng.chunk_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.serve(reqs, timeout=900)
+    wall = time.perf_counter() - t0
+    toks = [r.result.result(5) for r in reqs]
+    new = sum(len(t) - len(p) for t, p in zip(toks, prompts))
+    chunk_ms = sorted(eng.chunk_ms[chunks0:])
+    return {"tokens": [t.tolist() for t in toks], "wall_s": wall,
+            "new_tokens": new, "tok_s": new / wall,
+            "steps": eng.stats["decode_steps"] - steps0,
+            "chunks": len(chunk_ms),
+            "chunk_ms_p50": chunk_ms[len(chunk_ms) // 2] if chunk_ms
+            else None}
+
+
+def _admit_all(eng, prompts, budgets):
+    """Prefill every prompt into its own slot (slot i <- prompt i)."""
+    for r in _tp_requests(prompts, budgets):
+        if not eng._admit(r):
+            raise AssertionError("no free slot or pages for the logit probe")
+
+
+def _paged_step_logits(eng, prompts):
+    """The logits of one decode step through the paged path (kernel 1 on
+    the card) for every admitted slot, each fed its prompt's last token so
+    that two engines are held on the same input whatever their first
+    tokens. Under a plan every rank calls it in step (after the driver's
+    ``stop()``, so outside the control protocol: the ranks' slot state is
+    the same). f32 numpy ``[slots, vocab]``."""
+    import torch
+
+    last = torch.tensor([int(p[-1]) for p in prompts],
+                        dtype=eng.tokens.dtype, device=eng.tokens.device)
+    eng.tokens[:len(prompts)].copy_(last)
+    with torch.no_grad():
+        rows = eng._forward_paged(eng.tokens[:, None], eng.lens)[:, 0]
+    return rows[:len(prompts)].float().cpu().numpy()
+
+
+def _serve_tp_rank():
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import collective as C
+    from paddlepaddle_tpu_torch.distributed import decode_plan
+
+    rank = _rank_init("gloo")
+    cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=SERVE_TP_LAYERS)
+    model = pt.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    eng = pt.BatchDecodeEngine(model, max_slots=8, chunk=16, page_size=64,
+                               max_len=1024, plan=decode_plan("mp2"))
+    prompts, budgets = _serve_tp_prompts()
+    out = {"rank": rank}
+    if eng.is_driver:
+        _serve_run(eng, prompts[:1], [2])            # warm-up
+        _reset_counts()
+        run = _serve_run(eng, prompts, budgets)
+        launches = _rank_counts()["paged"]
+        C.reset_collective_stats()
+        with C.timing():
+            timed = _serve_run(eng, prompts, budgets)
+        stats = C.collective_stats()
+        _admit_all(eng, prompts, budgets)      # led: the follower prefills
+        eng.stop()
+        out.update(run=run, launches=launches, steps=run["steps"],
+                   timed={"chunks": timed["chunks"],
+                          "tokens_equal": timed["tokens"] == run["tokens"],
+                          "collectives": stats})
+    else:
+        steps0 = eng.stats["decode_steps"]
+        _reset_counts()
+        # the warm-up's launches are counted here too; subtracted below
+        eng.follow()
+        out.update(launches=_rank_counts()["paged"],
+                   steps=eng.stats["decode_steps"] - steps0)
+    # after the counts: one paged decode step on both ranks in step
+    tp_logits = _paged_step_logits(eng, prompts)
+    out["tp_logits"] = tp_logits
+    if rank == 0:
+        one = pt.BatchDecodeEngine(model, max_slots=8, chunk=16,
+                                   page_size=64, max_len=1024)
+        _serve_run(one, prompts[:1], [2])
+        out["one"] = _serve_run(one, prompts, budgets)
+        out["one_capture"] = one.capture_info().get("decode", {})
+        _admit_all(one, prompts, budgets)
+        one_logits = _paged_step_logits(one, prompts)
+        out["logit_diff"] = float(np.abs(tp_logits - one_logits).max())
+        out["logit_scale"] = float(np.abs(one_logits).max())
+    out["capture"] = eng.capture_info()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def phase_serve_tp(pt_pkg):
+    """10b: Llama-3-8B widths at 8 layers, bf16, TP-2 on two ranks that
+    share the card over gloo, beside one engine alone."""
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    r0, r1 = spawn(_serve_tp_rank, nprocs=2, **TP_SPAWN)
+    wall = time.perf_counter() - t0
+    L = SERVE_TP_LAYERS
+    run, one = r0["run"], r0["one"]
+    coll = r0["timed"]["collectives"]
+    chunks = max(r0["timed"]["chunks"], 1)
+    ranks_agree = bool((r0["tp_logits"] == r1["tp_logits"]).all())
+    # the follower counted the warm-up's 1 decode chunk too (2 new tokens:
+    # the first from prefill, one decode chunk of 16 steps), and the timed
+    # second run; rank 0 counts the first measured run alone
+    follower_ok = r1["launches"] == L * r1["steps"]
+    checks = {
+        "tokens_agree_timed_rerun": r0["timed"]["tokens_equal"],
+        "logits_agree_on_ranks": ranks_agree,
+        "logit_diff_within_tol": r0["logit_diff"] <= SERVE_TP_LOGIT_TOL,
+        "paged_rank0_equals_layers_x_steps":
+            r0["launches"] == L * r0["steps"] and r0["steps"] > 0,
+        "paged_rank1_equals_layers_x_steps": follower_ok,
+        "nvcc_in_ranks": r0["nvcc"] + r1["nvcc"],
+    }
+    emit({"phase": "serve_tp", "nvidia_smi": nvidia_smi_line(),
+          "model": f"llama3_8b widths, {L} layers, bf16, mp2",
+          "backend": "gloo (2 ranks share cuda:0; collectives via host)",
+          "requests": len(run["tokens"]), "new_tokens": run["new_tokens"],
+          "tp_tok_s": run["tok_s"], "one_tok_s": one["tok_s"],
+          "tp_over_one": run["tok_s"] / one["tok_s"],
+          "tp_chunk_ms_p50": run["chunk_ms_p50"],
+          "one_chunk_ms_p50": one["chunk_ms_p50"],
+          "allreduce_ms_per_chunk":
+              coll.get("all_reduce", {}).get("seconds", 0.0) * 1e3 / chunks,
+          "allgather_ms_per_chunk":
+              coll.get("all_gather", {}).get("seconds", 0.0) * 1e3 / chunks,
+          "collectives_timed_run": coll,
+          "tokens_equal_one_process": run["tokens"] == one["tokens"],
+          "logit_diff": r0["logit_diff"], "logit_scale": r0["logit_scale"],
+          "logit_tol": SERVE_TP_LOGIT_TOL,
+          "paged_launches": [r0["launches"], r1["launches"]],
+          "decode_steps": [r0["steps"], r1["steps"]],
+          "capture_tp": r0["capture"].get("decode"),
+          "capture_one": r0["one_capture"],
+          "peak_gb_by_rank": [r0["peak_gb"], r1["peak_gb"]],
+          "wall_s": wall, **checks})
+    bad = [k for k, v in checks.items() if k != "nvcc_in_ranks" and not v]
+    if bad or checks["nvcc_in_ranks"]:
+        raise AssertionError(f"serve_tp failed: {bad} {checks}")
+    return {"serve_tp paged rank0": r0["launches"],
+            "serve_tp paged rank1": r1["launches"]}
+
+
+def _train_tp_rank(spec):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import collective as C
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    rank = _rank_init("gloo")
+    cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_TP_LAYERS)
+    model = pt.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    step = ShardedTrainStep(
+        model, pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                        grad_clip=pt.ClipGradByGlobalNorm(1.0)),
+        _llm_loss, plan=train_plan(spec, data_axes=("dp",)))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_TP_BATCH, TRAIN_TP_SEQ))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, ms = [], []
+    for i in range(TRAIN_TP_STEPS):
+        last = i == TRAIN_TP_STEPS - 1
+        # the last step times its collectives (a device sync around each)
+        C.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with C.timing(last):
+            losses.append(float(step(ids, ids)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    flash = _rank_counts()["flash"]
+    return {"rank": rank, "losses": losses, "step_ms": ms, "flash": flash,
+            "collectives": C.collective_stats(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "nvcc": _rank_counts()["nvcc"]}
+
+
+def phase_train_tp(pt_pkg):
+    """10c: Llama-3-8B widths at 4 layers, bf16, mp2 and dp2 on two ranks
+    that share the card over gloo, against a one-process TrainStep."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    runs = {spec: spawn(_train_tp_rank, args=(spec,), nprocs=2, **TP_SPAWN)
+            for spec in ("mp2", "dp2")}
+    wall = time.perf_counter() - t0
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_TP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
+                                    init_std=0.02)
+    ref = pt_pkg.TrainStep(model, pt_pkg.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0)), _llm_loss)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_TP_BATCH, TRAIN_TP_SEQ))).cuda()
+    one, one_ms = [], []
+    for _ in range(TRAIN_TP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one.append(float(ref(ids, ids)))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t1) * 1e3)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = TRAIN_TP_LAYERS
+    out, bad = {}, []
+    summary = {}
+    for spec, ranks in runs.items():
+        err = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one))
+        coll = ranks[0]["collectives"]
+        summary[spec] = {
+            "losses": [r["losses"] for r in ranks],
+            "max_abs_loss_err": err,
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "flash_launches_by_rank": [r["flash"] for r in ranks],
+            "allreduce_ms_per_step":
+                coll.get("all_reduce", {}).get("seconds", 0.0) * 1e3,
+            "allgather_ms_per_step":
+                coll.get("all_gather", {}).get("seconds", 0.0) * 1e3,
+            "collectives_one_step": coll,
+            "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+            "nvcc_in_ranks": sum(r["nvcc"] for r in ranks)}
+        want = {"flash_fwd": L * TRAIN_TP_STEPS,
+                "flash_bwd_dq": L * TRAIN_TP_STEPS,
+                "flash_bwd_dkv": L * TRAIN_TP_STEPS}
+        if err > TRAIN_TP_LOSS_TOL or summary[spec]["nvcc_in_ranks"] \
+                or any(r["flash"] != want for r in ranks):
+            bad.append(spec)
+        out[f"train_tp {spec} flash rank0"] = ranks[0]["flash"]
+    emit({"phase": "train_tp", "nvidia_smi": nvidia_smi_line(),
+          "model": f"llama3_8b widths, {L} layers, bf16",
+          "backend": "gloo (2 ranks share cuda:0; collectives via host)",
+          "batch": [TRAIN_TP_BATCH, TRAIN_TP_SEQ],
+          "one_process": {"losses": one, "step_ms": one_ms,
+                          "peak_gb": one_peak},
+          "loss_tol": TRAIN_TP_LOSS_TOL, "wall_s": wall, **summary})
+    if bad:
+        raise AssertionError(f"train_tp failed for {bad}: {summary}")
+    return out
+
+
+def _nccl_world1_rank():
+    import dataclasses
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import decode_plan
+    from paddlepaddle_tpu_torch.distributed.env import backend
+
+    rank = _rank_init(None)
+    cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=NCCL1_LAYERS)
+    model = pt.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    prompts, budgets = _serve_tp_prompts()
+    out = {"rank": rank, "backend": backend()}
+    engines = {name: pt.BatchDecodeEngine(model, max_slots=8, chunk=16,
+                                          page_size=64, max_len=1024, **kw)
+               for name, kw in (("plan", {"plan": decode_plan("mp1")}),
+                                ("one", {}))}
+    for eng in engines.values():      # each captures on its warm-up request
+        _serve_run(eng, prompts[:1], [17])
+    for name, eng in engines.items():
+        _reset_counts()
+        run = _serve_run(eng, prompts, budgets)
+        out[name] = {"tokens": run["tokens"], "tok_s": run["tok_s"],
+                     "paged": _rank_counts()["paged"], "steps": run["steps"],
+                     "capture": eng.capture_info().get("decode")}
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def phase_nccl_world1(pt_pkg):
+    """10d: one NCCL rank: the plan's decode chunk captured with the NCCL
+    all-reduce inside, tokens bit-equal to the plan-less engine's."""
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    (r,) = spawn(_nccl_world1_rank, nprocs=1, **TP_SPAWN)
+    cap = r["plan"]["capture"] or {}
+    checks = {
+        "backend_nccl": r["backend"] == "nccl",
+        "captured": bool(cap.get("captured")) and cap.get("replays", 0) > 0,
+        "tokens_bit_equal": r["plan"]["tokens"] == r["one"]["tokens"],
+        "paged_equals_layers_x_steps":
+            r["plan"]["paged"] == NCCL1_LAYERS * r["plan"]["steps"],
+        "nvcc_in_rank": r["nvcc"],
+    }
+    emit({"phase": "nccl_world1", "nvidia_smi": nvidia_smi_line(),
+          "model": f"llama3_8b widths, {NCCL1_LAYERS} layers, bf16, mp1",
+          "capture_info": cap, "capture_plan_less": r["one"]["capture"],
+          "tok_s": {"plan": r["plan"]["tok_s"], "one": r["one"]["tok_s"]},
+          "paged_launches": r["plan"]["paged"], **checks})
+    bad = [k for k, v in checks.items() if k != "nvcc_in_rank" and not v]
+    if bad or checks["nvcc_in_rank"]:
+        raise AssertionError(f"nccl_world1 failed: {bad} {checks}")
+    return {"nccl_world1 paged": r["plan"]["paged"]}
+
+
 def main() -> int:
     import torch
 
@@ -5380,6 +5934,21 @@ def main() -> int:
                                       gpt_launches[base],
                                       "gpt2_small generate":
                                       gpt_gen_launches[base]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_tp_parity(pt_pkg)
+    tp.update(phase_serve_tp(pt_pkg))
+    tp.update(phase_train_tp(pt_pkg))
+    tp.update(phase_nccl_world1(pt_pkg))
+    record["launches_by_phase"].update(
+        {k: v for k, v in tp.items() if k.startswith(("tp_parity",
+                                                      "serve_tp",
+                                                      "nccl_world1"))
+         and "paged" in k})
+    for r in flash_records:
+        r["launches_by_phase"].update(
+            {k: v[r["name"]] for k, v in tp.items()
+             if k.startswith("train_tp")})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records
           + d64_records + varlen_records + [gg_record]})

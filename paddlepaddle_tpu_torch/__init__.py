@@ -76,3 +76,4 @@ from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401
                         AdamW, Lamb, Lars, Momentum, NAdam, RAdam, RMSProp,
                         lr)
 from .parallel.moe import MoELayer  # noqa: F401
+from .distributed.parallel import DataParallel  # noqa: F401

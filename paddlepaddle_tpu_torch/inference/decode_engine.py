@@ -100,17 +100,40 @@ Head dims that the reference's kernel gate refuses (neither a multiple of
 128 nor 8/16/32/64) never reach a TPU kernel there; here they decode through
 the plain paged attention on either device (the kernel counters stay 0).
 
-``mesh=`` / ``plan=`` raise ``NotImplementedError`` naming ROADMAP A10;
-no option is silently ignored.
+* TENSOR PARALLEL (``mesh=`` / ``plan=``, reference :266-291, :396-403,
+  :470-491): SPMD, one engine per rank of a ``torch.distributed`` job
+  (:mod:`..distributed.shard_plan`). Each rank's engine holds its weight
+  shards (``plan.shard``: a column- / row-parallel view, the row-parallel
+  outputs all-reduced over ``mp``, the vocab-sharded logits gathered
+  before sampling) and a KV pool of ``[pages, ps, kvh/mp, hd]``; prefill
+  and decode run on its local heads, decode through kernel 1. Rank 0 is
+  the driver: it owns the queue and ``serve`` / ``submit`` / ``generate``,
+  and every device-touching step (admission, decode chunk, release,
+  reset, flush, warmup) is first broadcast to the followers on a CPU gloo
+  control group, so every rank runs the same body in the same order; the
+  host-side pool, prefix and slot decisions are deterministic, and the
+  sampling generator is seeded alike, so the tokens agree everywhere.
+  Ranks > 0 call :meth:`BatchDecodeEngine.follow` (a ``ServingEngine``
+  does it on ``start()``) until rank 0's :meth:`BatchDecodeEngine.stop`.
+  The decode chunk is captured when the plan's groups can be (NCCL, world
+  size 1 included); under gloo it runs eagerly and ``capture_info()`` says
+  so (a gloo collective cannot be captured). ``kv_quant="int8"`` with a
+  plan raises (reference :319-324); speculative decoding with a plan, and
+  a multi-rank plan in a process with no process group, raise naming
+  A10's later slices.
+
+No option is silently ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import logging
 import math
 import sys
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -369,6 +392,110 @@ class _CapturedProgram:
                 "launches_per_replay": dict(self.per_replay)}
 
 
+_STOP = "__stop__"
+# steps that touch no collective, so rank 0 may still run them alone after
+# the followers were released (a drain's reset, then stop()'s)
+_LOCAL_AFTER_STOP = ("reset_slots", "release_slot", "flush")
+
+
+class _WireRequest:
+    """What a follower needs of a request: its decode parameters, and a
+    result future that receives nothing (rank 0 delivers)."""
+
+    class _NullResult:
+        _trace = None
+        _event = None
+        _t_first = 0.0
+
+        def _set(self, output=None, error=None) -> None:
+            pass
+
+    def __init__(self, req):
+        self.prompt_ids = np.asarray(req.prompt_ids, np.int32)
+        self.max_new_tokens = int(req.max_new_tokens)
+        self.temperature = float(getattr(req, "temperature", 0.0) or 0.0)
+        self.top_k = int(getattr(req, "top_k", 0) or 0)
+        self.eos_token_id = getattr(req, "eos_token_id", None)
+        self.prefix_len = getattr(req, "prefix_len", None)
+        self.id = getattr(req, "id", None)
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.result = _WireRequest._NullResult()
+
+
+class _Control:
+    """Rank 0's step broadcasts to the followers over the plan's CPU gloo
+    control group (``broadcast_object_list``)."""
+
+    def __init__(self, plan):
+        import torch.distributed as dist
+
+        self.pg = plan.control_group()
+        self.driver = dist.get_rank() == 0
+        self.stopped = False
+        # rank 0 broadcasts and runs each step under one lock, so steps
+        # from two threads reach the followers in the order they run; the
+        # nesting depth is the calling thread's own
+        self.lock = threading.RLock()
+        self._local = threading.local()
+
+    @property
+    def depth(self) -> int:
+        return getattr(self._local, "depth", 0)
+
+    @depth.setter
+    def depth(self, value: int) -> None:
+        self._local.depth = value
+
+    def send(self, name: str, args, kwargs) -> None:
+        import torch.distributed as dist
+
+        args = tuple(_WireRequest(a) if hasattr(a, "prompt_ids")
+                     and hasattr(a, "max_new_tokens") else a for a in args)
+        dist.broadcast_object_list([(name, args, dict(kwargs))], src=0,
+                                   group=self.pg)
+
+    def receive(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.pg)
+        return box[0]
+
+
+def _led(fn):
+    """A device-touching engine step: on rank 0 of a plan it is broadcast
+    to the followers before it runs (not when one led step calls another);
+    on a follower it runs only from :meth:`BatchDecodeEngine.follow`."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        ctl = self._ctl
+        if ctl is None or ctl.depth:
+            return fn(self, *args, **kwargs)
+        if not ctl.driver:
+            raise RuntimeError(
+                f"{name}: this rank follows rank 0 under the plan; call "
+                "follow() (rank 0 owns serve / submit / generate)")
+        if ctl.stopped:
+            if name in _LOCAL_AFTER_STOP:
+                # host and slot bookkeeping only: no collective to pair
+                return fn(self, *args, **kwargs)
+            raise RuntimeError(f"{name}: the followers were released "
+                               "(stop()); build a new engine")
+        with ctl.lock:
+            ctl.send(name, args, kwargs)
+            ctl.depth += 1
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                ctl.depth -= 1
+
+    return wrapper
+
+
 class BatchDecodeEngine:
     """Slot-based continuous-batching decoder for a port
     ``LlamaForCausalLM``, in the reference's parameter order (:226-235);
@@ -416,8 +543,6 @@ class BatchDecodeEngine:
                 f"quant={quant!r}: 'weight_only_int8' is the supported "
                 "decode-engine scheme (int4/PTQ honestly absent — "
                 "PARITY.md)")
-        if mesh is not None or plan is not None:
-            raise not_ported("tensor-parallel serving (mesh=/plan=)", "A10")
         self.kv_quant = _resolve_kv_quant(kv_quant)
         if self.kv_quant is not None and not paged:
             raise ValueError(
@@ -439,6 +564,14 @@ class BatchDecodeEngine:
         if quant is not None:
             self.net, self.quant_meta = quantized_view(
                 model, algo=quant, group_size=quant_group_size)
+        # tensor parallel: quantize first (whole tensors), shard second
+        self.plan = None
+        self._ctl = None
+        if mesh is not None or plan is not None:
+            self._init_plan(mesh, plan, spec)
+        tp = self.plan.tp_degree if self.plan is not None else 1
+        self._nh = cfg.num_attention_heads // tp     # this rank's heads
+        self._kvh = cfg.num_key_value_heads // tp
         self.S = int(max_slots)
         self.L = int(max_len or cfg.max_position_embeddings)
         if self.L > cfg.max_position_embeddings:
@@ -446,7 +579,7 @@ class BatchDecodeEngine:
                              f"max_position_embeddings "
                              f"{cfg.max_position_embeddings}")
         self.chunk = int(chunk)
-        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        kvh, hd = self._kvh, cfg.head_dim
         dtype = model.dtype
         self._kv_dtype = dtype     # scratch / dequant dtype, also under int8
         dev = self.device
@@ -564,8 +697,7 @@ class BatchDecodeEngine:
         speculation): a configuration the kernel does not take raises now,
         never a quiet downgrade later."""
         cfg = self.cfg
-        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       cfg.head_dim)
+        nh, kvh, hd = self._nh, self._kvh, cfg.head_dim
         want = fused_kernels is None or bool(fused_kernels)
         self.kernel = "plain"
         self._attend = _pa.paged_attention
@@ -633,8 +765,97 @@ class BatchDecodeEngine:
         return {"enabled": False} if self.spec is None else self.spec.info()
 
     def mesh_info(self) -> Dict[str, object]:
-        """``health()["mesh"]``: single card (mesh serving is A10)."""
-        return {"enabled": False}
+        """``health()["mesh"]``: the plan's mesh (reference :473), or
+        ``{"enabled": False}`` without one."""
+        if self.plan is None:
+            return {"enabled": False}
+        return self.plan.describe()
+
+    # -- tensor parallel (reference :266-291, :470-491) ------------------------
+    def _init_plan(self, mesh, plan, spec: bool) -> None:
+        from ..distributed.shard_plan import ShardingPlan, decode_plan
+
+        if plan is None:
+            plan = mesh if isinstance(mesh, ShardingPlan) else decode_plan(mesh)
+        cfg = self.cfg
+        # loud: a head count tp does not divide would fit away to a full
+        # copy of the pool on every rank
+        plan.validate_divisible(
+            num_attention_heads=cfg.num_attention_heads,
+            num_key_value_heads=cfg.num_key_value_heads,
+            intermediate_size=cfg.intermediate_size,
+            vocab_size=cfg.vocab_size)
+        if self.kv_quant is not None:
+            raise ValueError(
+                "kv_quant with a tensor-parallel plan: sharding the "
+                "(codes, scale) pair per layer is a named follow-up seam "
+                "(shard_kv places plain pools only) — serve int8 KV "
+                "single-card or drop the plan")
+        if spec:
+            raise not_ported("speculative decoding under a plan (the "
+                             "reference replicates the draft on every rank)",
+                             "A10 slice 1")
+        plan.require_group()
+        self.plan = plan
+        self.net = plan.shard(self.net)
+        if plan.n_devices > 1:
+            self._ctl = _Control(plan)
+        self._mesh_gauges()
+
+    def _mesh_gauges(self) -> None:
+        """One-time mesh gauges (construction, cold path)."""
+        axes = "x".join(f"{a}{s}" for a, s in self.plan.axes.items())
+        safe_set("paddle_mesh_devices",
+                 "devices in the serving engine's mesh",
+                 self.plan.n_devices, axes=axes)
+        safe_set("paddle_mesh_axes",
+                 "named axes in the serving engine's mesh",
+                 len(self.plan.axes), axes=axes)
+        safe_set("paddle_tp_degree",
+                 "tensor-parallel degree of the decode engine",
+                 self.plan.tp_degree)
+
+    @property
+    def is_driver(self) -> bool:
+        """True on rank 0 of a plan (and on every engine without one)."""
+        return self._ctl is None or self._ctl.driver
+
+    def follow(self) -> int:
+        """A follower's loop (ranks > 0 of a plan): run each step rank 0
+        broadcasts, in its order, until rank 0's :meth:`stop`. A
+        ``ValueError`` (an unservable request) raised on rank 0 too, from
+        the same checks on the same state before any collective, and rank 0
+        failed that request alone: it is logged and the loop goes on. Any
+        other exception may be this rank's alone (device memory, a CUDA or
+        transport error) and leaves the step half run, so it propagates:
+        this rank dies, and its closed connections fail rank 0's next
+        collective at once. Returns the number of steps run."""
+        ctl = self._ctl
+        if ctl is None or ctl.driver:
+            raise RuntimeError("follow() is for ranks > 0 of a plan")
+        n = 0
+        while True:
+            name, args, kwargs = ctl.receive()
+            if name == _STOP:
+                return n
+            ctl.depth += 1
+            try:
+                getattr(self, name)(*args, **kwargs)
+            except ValueError as e:
+                _log.warning("follower step %s raised ValueError: %s",
+                             name, e)
+            finally:
+                ctl.depth -= 1
+            n += 1
+
+    def stop(self) -> None:
+        """On rank 0 of a plan: release the followers (their
+        :meth:`follow` returns). Idempotent; nothing to do without a
+        plan."""
+        ctl = self._ctl
+        if ctl is not None and ctl.driver and not ctl.stopped:
+            ctl.send(_STOP, (), {})
+            ctl.stopped = True
 
     # -- KV observability ----------------------------------------------------
     def _kv_gauges(self, total: bool = False) -> None:
@@ -669,8 +890,7 @@ class BatchDecodeEngine:
         scales under int8), prefix-cache hit data and the host tier's
         spill/restore counters (reference :522)."""
         cfg = self.cfg
-        kvh, hd, nl = (cfg.num_key_value_heads, cfg.head_dim,
-                       cfg.num_hidden_layers)
+        kvh, hd, nl = self._kvh, cfg.head_dim, cfg.num_hidden_layers
         quant = self.kv_quant == "int8"
         itemsize = 1 if quant else self._kv_dtype.itemsize
         per_tok = 2 * kvh * hd * itemsize * nl
@@ -721,9 +941,7 @@ class BatchDecodeEngine:
         ``[S, W, V]``."""
         S, ps, P, L = self.S, self.page_size, self.P, self.L
         W = toks.shape[1]
-        cfg = self.cfg
-        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       cfg.head_dim)
+        nh, kvh, hd = self._nh, self._kvh, self.cfg.head_dim
         rep, scale = nh // kvh, 1.0 / math.sqrt(hd)
         pos = lens.long()[:, None] + torch.arange(W, device=self.device)[None, :]
         page_idx = torch.clamp(pos // ps, max=P - 1)
@@ -820,7 +1038,7 @@ class BatchDecodeEngine:
         dev = self.device
         plen = ids.shape[1]
         cfg = self.cfg
-        kvh, hd, ps = cfg.num_key_value_heads, cfg.head_dim, self.page_size
+        kvh, hd, ps = self._kvh, cfg.head_dim, self.page_size
         dtype = self._kv_dtype
         quant = self.kv_quant == "int8"
         aligned = n_pfx * ps
@@ -873,7 +1091,7 @@ class BatchDecodeEngine:
         plen = ids.shape[1]
         bucket = min(_bucket(plen), self.L)
         cfg = self.cfg
-        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        kvh, hd = self._kvh, cfg.head_dim
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = ids[0]
         ids_t = torch.from_numpy(padded).to(dev)
@@ -950,7 +1168,7 @@ class BatchDecodeEngine:
         wrong KV."""
         cfg = self.cfg
         return {"page_size": self.page_size,
-                "kvh": cfg.num_key_value_heads, "hd": cfg.head_dim,
+                "kvh": self._kvh, "hd": cfg.head_dim,
                 "layers": cfg.num_hidden_layers,
                 "kv_quant": self.kv_quant or "off",
                 "dtype": str(self._kv_dtype).replace("torch.", "")}
@@ -1030,6 +1248,7 @@ class BatchDecodeEngine:
                      "(request served as a miss)", reason=type(e).__name__)
             return False
 
+    @_led
     @torch.no_grad()
     def _admit(self, req) -> bool:
         """Prefill ``req`` into a free slot; False when no slot (or no
@@ -1277,6 +1496,7 @@ class BatchDecodeEngine:
         self._first_pending.clear()
         return stamped
 
+    @_led
     def reset_slots(self, slots=None) -> None:
         """Deactivate device-side slot state (all slots, or the given list)
         and return their pages — required after a failed decode or a stop,
@@ -1298,6 +1518,7 @@ class BatchDecodeEngine:
                 self._first_pending.pop(int(i), None)
                 self._release_kv(int(i))
 
+    @_led
     def release_slot(self, slot: int, reason: str = "cancel") -> None:
         """Free one slot without delivering a result: the cancellation and
         deadline path (reference :1792). The device lane goes inactive, in
@@ -1355,10 +1576,21 @@ class BatchDecodeEngine:
             raise ValueError(f"unrecognized program key {key!r} (decode, "
                              "decode_contig under kv_layout='contiguous', or "
                              "draft_k<k> / verify_k<k> with spec_k=k armed)")
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._eager_reason() is not None:
             return body
         return _CapturedProgram(key, body, self.device, self._graph_pool,
                                 generators=gens)
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why the programs run eagerly on the card: a plan whose groups
+        cannot be captured (gloo), decided by the backend, never by a
+        failed capture. None when they are captured."""
+        if self.plan is not None and not self.plan.capturable():
+            return (f"the plan's collectives run over "
+                    f"{self.plan.backend()}, which a CUDA graph cannot "
+                    "capture; the chunk runs eagerly (the kernels run "
+                    "either way)")
+        return None
 
     def _program(self, key: str):
         """Registry lookup with a lazy build, shared by the decode and the
@@ -1415,11 +1647,22 @@ class BatchDecodeEngine:
 
     def capture_info(self) -> Dict[str, object]:
         """Per captured program: capture seconds, graph-pool bytes, replays
-        and the kernel launches one replay makes (empty on the CPU)."""
-        return {key: fn.info() for key, fn in self._programs.items()
-                if isinstance(fn, _CapturedProgram)}
+        and the kernel launches one replay makes (empty on the CPU). On the
+        card under a gloo plan each program reads ``{"captured": False,
+        "mode": "eager", "reason": ...}``."""
+        reason = (self._eager_reason() if self.device.type == "cuda"
+                  else None)
+        out = {}
+        for key, fn in self._programs.items():
+            if isinstance(fn, _CapturedProgram):
+                out[key] = fn.info()
+            elif reason is not None:
+                out[key] = {"captured": False, "mode": "eager",
+                            "reason": reason}
+        return out
 
     # -- compile plan: warmup and bundles (reference :1184-1354) ------------
+    @_led
     def warmup(self, keys: Optional[List[str]] = None) -> Dict[str, object]:
         """Do now what the first requests would otherwise pay for, so the
         serve window after it builds and captures nothing: build the kernel
@@ -1614,6 +1857,7 @@ class BatchDecodeEngine:
         }
 
     # -- host loop -----------------------------------------------------------
+    @_led
     @torch.no_grad()
     def _decode_chunk(self) -> None:
         """One decode chunk: the ``"decode"`` (``"decode_contig"``)
@@ -1701,6 +1945,7 @@ class BatchDecodeEngine:
                 self._retire(slot)
         spec.record_chunk(acc, chunk_emitted)
 
+    @_led
     def flush(self) -> None:
         """Deliver results for slots that finished at admission (first
         token hit eos / budget 1) without waiting for a decode chunk."""

@@ -43,7 +43,12 @@ exporter. The fleet's seams (reference :99, :204-226): ``_flight_record``,
 and ``GenerationResult._add_done_callback``, on which the router
 (:mod:`.router`) hangs failover, hedging and its wrapper futures; the chaos
 seams ``serving.admit`` and ``serving.decode`` (:mod:`..resilience.chaos`).
-Not ported: ``mesh=`` / ``plan=`` (ROADMAP A10).
+Tensor parallel (``mesh=`` / ``plan=``, reference :409-443): passed to the
+continuous engine, one ``ServingEngine`` per rank of the job. Rank 0
+serves (``submit`` / ``generate``); on ranks > 0 ``start()`` runs the
+engine's follower loop in the serving thread and ``stop()`` waits for rank
+0 to release it, so one script runs on every rank. Static mode with a mesh
+raises, naming the continuous engine.
 """
 
 from __future__ import annotations
@@ -401,6 +406,7 @@ class ServingEngine:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._drained = threading.Event()
+        self._follower_error: Optional[BaseException] = None
         self._drain_reason = "drain"
         self._thread: Optional[threading.Thread] = None
         self._watchdog_thread: Optional[threading.Thread] = None
@@ -641,6 +647,11 @@ class ServingEngine:
         chaos_point("serving.admit")
 
     # -- client API ----------------------------------------------------------
+    @property
+    def is_driver(self) -> bool:
+        """False on ranks > 0 of a tensor-parallel plan (followers)."""
+        return self._engine is None or self._engine.is_driver
+
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
                top_k=0, eos_token_id=None,
                deadline_s: Optional[float] = None,
@@ -656,6 +667,9 @@ class ServingEngine:
         journey (:mod:`..observability.reqtrace`) minted by the caller, which
         then owns it; with none passed and tracing armed, the engine mints
         one and the future closes it."""
+        if not self.is_driver:
+            raise RuntimeError("this rank follows rank 0 under the plan; "
+                               "submit on rank 0")
         dl = deadline_s if deadline_s is not None else self.default_deadline_s
         req = GenerationRequest(
             prompt_ids, max_new_tokens, temperature, top_k, eos_token_id,
@@ -878,6 +892,17 @@ class ServingEngine:
     def _shutdown(self, shed_error: BaseException) -> None:
         self._stop.set()
         overran = False
+        if not self.is_driver:
+            # a follower serves until rank 0 releases it, or until its
+            # loop fails, which ends this rank
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            err, self._follower_error = self._follower_error, None
+            if err is not None:
+                raise RuntimeError("this rank's follower loop failed; rank "
+                                   "0 cannot go on without it") from err
+            return
         if self._thread is not None:
             self._thread.join(timeout=30)
             if self._thread.is_alive():
@@ -901,6 +926,7 @@ class ServingEngine:
                     _goodput.account(kind, len(s.emitted))
                     eng._host_slots[i] = type(s)()
             eng.reset_slots()  # no phantom active device lanes
+            eng.stop()         # a plan's followers are released
         if overran:
             raise RuntimeError(
                 "serving engine thread did not stop within 30 s; "
@@ -1048,7 +1074,13 @@ class ServingEngine:
 
     def _loop(self) -> None:
         try:
-            if self.mode == "continuous":
+            if not self.is_driver:
+                try:
+                    self._engine.follow()
+                except BaseException as e:
+                    self._follower_error = e    # stop() raises it
+                    raise
+            elif self.mode == "continuous":
                 self._loop_continuous()
             else:
                 self._loop_static()

@@ -130,6 +130,22 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
+def gpt_sharding_rules(tp_axis="tp", fsdp_axis="fsdp"):
+    """The reference's placement table (reference :138), verbatim. The
+    port's GPT runs under no plan in this slice (its tied head is refused
+    under tensor parallelism, :meth:`~..distributed.shard_plan.
+    ShardingPlan.shard_module`)."""
+    return [
+        (r".*wte\.weight$", (tp_axis, fsdp_axis)),
+        (r".*wpe\.weight$", ()),
+        (r".*qkv_proj\.weight$", (fsdp_axis, tp_axis)),
+        (r".*out_proj\.weight$", (tp_axis, fsdp_axis)),
+        (r".*fc_in\.weight$", (fsdp_axis, tp_axis)),
+        (r".*fc_out\.weight$", (tp_axis, fsdp_axis)),
+        (r".*", ()),
+    ]
+
+
 class GPTForCausalLM(nn.Module):
     def __init__(self, config: GPTConfig, *, device: DeviceLike = None):
         super().__init__()

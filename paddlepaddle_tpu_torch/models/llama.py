@@ -31,6 +31,8 @@ their modules).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple, Union
@@ -265,7 +267,31 @@ def loss_from_logits(logits: torch.Tensor,
     nll = _CERows.apply(logits, lb_next.clamp_min(0).long())
     pos = torch.arange(seq, device=logits.device)[None, :]
     valid = ((lb_next >= 0) & (pos < seq - 1)).float()
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    count = valid.sum()
+    reduce_count = _token_count_reduce.get()
+    if reduce_count is not None:
+        count = reduce_count(count)
+    return (nll * valid).sum() / count.clamp_min(1.0)
+
+
+# set by a data-parallel step for its own thread: reduces the valid-token
+# count over the data group, so each rank's loss is its part of the global
+# token mean
+_token_count_reduce: contextvars.ContextVar = contextvars.ContextVar(
+    "token_count_reduce", default=None)
+
+
+@contextlib.contextmanager
+def global_token_mean(reduce_count):
+    """Inside the block (in this thread) :func:`loss_from_logits` divides
+    by ``reduce_count(local count)`` (the count summed over the
+    data-parallel ranks, :class:`~..parallel.sharded.ShardedTrainStep`);
+    None leaves the local mean."""
+    token = _token_count_reduce.set(reduce_count)
+    try:
+        yield
+    finally:
+        _token_count_reduce.reset(token)
 
 
 @torch.no_grad()
@@ -305,16 +331,18 @@ class LlamaAttention(nn.Module):
         cache: write-through at ``pos``, returns ``(output, new cache)``;
         a mask with a cache raises (reference :232-235)."""
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        # heads from the projections: a tensor-parallel view holds its
+        # rank's heads only (distributed.shard_plan)
+        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
         if cache is not None and attn_mask is not None:
             raise NotImplementedError(
                 "KV-cache decoding supports causal masking only; strip "
                 "padding (or use dense attention) when passing caches")
         q, k = _apply_rope(q, k, cos, sin, offset=pos)
         if cache is None:
-            rep = self.num_heads // self.num_kv_heads
+            rep = q.shape[2] // k.shape[2]
             if rep > 1:
                 k, v = amp_cast(None, k, v)
                 k = k.repeat_interleave(rep, dim=2)
@@ -327,7 +355,7 @@ class LlamaAttention(nn.Module):
             return self.o_proj(out.reshape(b, s, -1))
         out, kc, vc = _cached_attention(
             q, k, v, cache[0], cache[1], pos,
-            self.num_heads // self.num_kv_heads, 1.0 / math.sqrt(self.head_dim))
+            q.shape[2] // k.shape[2], 1.0 / math.sqrt(self.head_dim))
         return self.o_proj(out.reshape(b, s, -1)), (kc, vc)
 
 
@@ -598,6 +626,24 @@ class LlamaForCausalLM(nn.Module):
             gen_ids = np.where(posn > first[:, None], eos_token_id, gen_ids)
             out = np.concatenate([out[:, :prompt_len], gen_ids], axis=1)
         return torch.from_numpy(out)
+
+
+def llama_sharding_rules(tp_axis="tp", fsdp_axis="fsdp"):
+    """The reference's placement table (reference :575), verbatim:
+    parameter-name regex -> spec axes. Every matmul weight is sharded on
+    tp (column-parallel q/k/v, gate/up and the LM head on the out dim,
+    row-parallel o/down on the in dim) and on fsdp on the other dim, the
+    embedding's hidden dim on tp; norms replicated. Axes a mesh lacks fit
+    away (:func:`~..parallel.sharded._fit_spec`)."""
+    return [
+        (r".*embed_tokens\.weight$", (fsdp_axis, tp_axis)),
+        (r".*(q|k|v)_proj\.weight$", (fsdp_axis, tp_axis)),   # column-parallel
+        (r".*o_proj\.weight$", (tp_axis, fsdp_axis)),          # row-parallel
+        (r".*(gate|up)_proj\.weight$", (fsdp_axis, tp_axis)),  # column-parallel
+        (r".*down_proj\.weight$", (tp_axis, fsdp_axis)),       # row-parallel
+        (r".*lm_head\.weight$", (fsdp_axis, tp_axis)),
+        (r".*", ()),                                           # norms etc. replicated
+    ]
 
 
 def _sample_next(row: torch.Tensor, temperature: float, top_k: int,

@@ -223,12 +223,21 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None,
     return _tF.silu(x) * y
 
 
+def _softmax_dtype(dtype) -> torch.dtype:
+    """The ``dtype=`` of softmax / log_softmax: the model dtypes and
+    float64, which the reference computes in under x64 (reference
+    ``paddlepaddle_tpu/__init__.py:21``)."""
+    if dtype in ("float64", torch.float64):
+        return torch.float64
+    return to_torch_dtype(dtype)
+
+
 def softmax(x: torch.Tensor, axis: int = -1, dtype=None,
             name=None) -> torch.Tensor:
     """Softmax over ``axis``, in ``dtype`` when given (reference :144)."""
     (x,) = amp_cast("softmax", x)
     if dtype is not None:
-        x = x.to(to_torch_dtype(dtype))
+        x = x.to(_softmax_dtype(dtype))
     return torch.softmax(x, dim=axis)
 
 
@@ -238,25 +247,25 @@ def log_softmax(x: torch.Tensor, axis: int = -1, dtype=None,
     :153)."""
     (x,) = amp_cast("log_softmax", x)
     if dtype is not None:
-        x = x.to(to_torch_dtype(dtype))
+        x = x.to(_softmax_dtype(dtype))
     return torch.log_softmax(x, dim=axis)
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None, epsilon: float = 1e-6,
              begin_norm_axis: int = -1, name=None) -> torch.Tensor:
-    """RMS norm over the last axis in the reference's exact order (:336): f32
-    mean of squares -> rsqrt -> cast back to the input dtype -> multiply by
-    the weight -> add the bias. ``begin_norm_axis`` must name the last axis
-    (-1 or ``x.dim() - 1``); another axis raises ``NotImplementedError``.
-    ``name`` is accepted for API parity."""
-    if begin_norm_axis not in (-1, x.dim() - 1):
-        raise NotImplementedError(
-            f"rms_norm: begin_norm_axis={begin_norm_axis} (only the last "
-            f"axis, -1 or {x.dim() - 1}, is normalised)")
+    """RMS norm in the reference's exact order (:336): f32 mean of squares
+    -> rsqrt -> cast back to the input dtype -> multiply by the weight ->
+    add the bias. The mean runs over the axes ``begin_norm_axis .. -1``,
+    Paddle's definition, with a weight and bias of that trailing shape; the
+    reference always normalises the last axis alone, so the two differ for
+    an earlier axis (ROADMAP, reference divergences). ``name`` is accepted
+    for API parity."""
     x, weight, bias = amp_cast("rms_norm", x, weight, bias)
+    first = begin_norm_axis % x.dim() if x.dim() else 0
+    dims = tuple(range(first, x.dim())) if first < x.dim() - 1 else -1
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=dims, keepdim=True)
     out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight

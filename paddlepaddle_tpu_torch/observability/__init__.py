@@ -20,10 +20,11 @@ provides:
   :mod:`~.profiler` and :mod:`~.exporter` (``/metrics`` and friends).
 
 The reference also hooks eager dispatch, autograd, collectives, comm tasks
-and the data loader (:304-318). The port has none of those modules yet, so
-it has none of those hooks and registers none of their metrics: dispatch
-and autograd come with ROADMAP A11, collectives and comm tasks with A10,
-the data loader with A11. The metric history (:mod:`~.tsdb`) and the alert
+and the data loader (:304-318). Of those the port has the eager
+collectives (A10's core, :mod:`..distributed.collective`), whose hook
+counts calls, bytes and wall time as the reference's does; dispatch and
+autograd come with ROADMAP A11, comm tasks with a later A10 slice, the
+data loader with A11. The metric history (:mod:`~.tsdb`) and the alert
 engine (:mod:`~.alerts`) start when :func:`enable_history` is called; the
 fleet aggregation waits for A10.
 
@@ -142,11 +143,28 @@ def _slo_aligned_buckets(flag_name: str):
 
 
 def _make_hooks():
-    """The serving hook (reference :141-297, its ``srv`` half). The op,
-    AMP, autograd, comm-task, collective and data-loader hooks have no
-    instrumented module in the port (ROADMAP A10, A11)."""
+    """The serving and collective hooks (reference :141-297, its ``srv``
+    and ``coll`` halves). The op, AMP, autograd, comm-task and data-loader
+    hooks have no instrumented module in the port (ROADMAP A10, A11)."""
     reg = _registry
     rec = _recorder
+
+    coll_calls = reg.counter("paddle_collective_calls_total",
+                             "eager collective calls, by collective")
+    coll_bytes = reg.counter("paddle_collective_bytes_total",
+                             "tensor bytes moved by eager collectives")
+    coll_lat = reg.histogram("paddle_collective_seconds",
+                             "eager collective wall time, by collective")
+
+    def obs_coll(op, nbytes, dur):
+        if _metrics_on:
+            coll_calls.inc(coll=op)
+            if nbytes:
+                coll_bytes.inc(nbytes, coll=op)
+            coll_lat.observe(dur, coll=op)
+        if _trace_on:
+            rec.record_complete(op, "collective", dur,
+                                {"bytes": nbytes} if nbytes else None)
 
     srv_requests = reg.counter("paddle_serving_requests_total",
                                "generation requests completed, by outcome")
@@ -210,7 +228,7 @@ def _make_hooks():
                 {k: v for k, v in d.items()
                  if k != "latency" and v is not None})
 
-    return {"srv": obs_srv}
+    return {"srv": obs_srv, "coll": obs_coll}
 
 
 def _set_hooks(hooks: Optional[dict]) -> None:
@@ -221,6 +239,12 @@ def _set_hooks(hooks: Optional[dict]) -> None:
         from ..inference import serving as _srv
 
         _srv._obs_srv = g("srv")
+    except Exception:
+        pass
+    try:
+        from ..distributed import collective as _coll
+
+        _coll._obs_coll = g("coll")
     except Exception:
         pass
 

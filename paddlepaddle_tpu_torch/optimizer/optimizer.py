@@ -110,6 +110,14 @@ class Optimizer:
             raise ValueError("optimizer already has parameters")
         self._names, self._params = _named(parameters)
 
+    def _rebind(self, parameters) -> None:
+        """Bind ``parameters`` (name -> tensor) in place of the current
+        ones, with fresh state: a sharded step trains its own local
+        shards."""
+        self._names, self._params = _named(parameters)
+        self._slots.clear()
+        self._masters.clear()
+
     def _use_master(self, p: torch.Tensor) -> bool:
         return self._multi_precision and p.dtype in _LOW_PRECISION
 

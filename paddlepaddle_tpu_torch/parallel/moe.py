@@ -47,6 +47,7 @@ from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
 from ..device import DeviceLike, resolve_device
 from ..ops.kernels._build import check_device
+from .mpu import mark_placement  # noqa: F401  (the reference's path)
 from ..ops.kernels.gather_gemm import gather_gemm_ffn, gather_gemm_supported
 
 DISPATCH_MODES = ("einsum", "sorted", "dropless", "fused")

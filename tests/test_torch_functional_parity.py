@@ -102,10 +102,66 @@ def test_rms_norm_bias_matches_reference_bf16():
 
 
 def test_rms_norm_other_axis_raises():
-    x = torch.zeros(2, 3, 4)
+    """C17: an axis before the last no longer raises; it normalises the
+    trailing axes (numpy oracle in the next test)."""
+    x = torch.ones(2, 3, 4)
     assert tF.rms_norm(x, begin_norm_axis=2).shape == x.shape
-    with pytest.raises(NotImplementedError, match="begin_norm_axis=1"):
-        tF.rms_norm(x, begin_norm_axis=1)
+    np.testing.assert_allclose(tF.rms_norm(x, begin_norm_axis=1).numpy(),
+                               np.ones((2, 3, 4)), rtol=1e-6)
+
+
+def _rms_oracle(x, w, b, axis, eps=1e-6):
+    axes = tuple(range(axis, x.ndim))
+    var = np.mean(np.square(x.astype(np.float64)), axis=axes, keepdims=True)
+    return x / np.sqrt(var + eps) * w + b
+
+
+@pytest.mark.parametrize("axis", [1, 2, -1])
+def test_rms_norm_begin_norm_axis_against_numpy(axis):
+    """C17: ``begin_norm_axis=k`` normalises over the axes ``k..-1`` with a
+    weight and bias of that trailing shape (Paddle's definition), held
+    against numpy at 1e-5 (f32 mean and rsqrt against f64). The reference
+    always normalises the last axis alone: it differs at axis 1 by more
+    than 1e-2 and agrees at axis 2 (ROADMAP, reference divergences). For
+    the last axis the result is bit-equal to the last-axis formula."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    trail = x.shape[axis % 3:]
+    w = rng.standard_normal(trail).astype(np.float32)
+    b = rng.standard_normal(trail).astype(np.float32)
+    got = tF.rms_norm(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(b), begin_norm_axis=axis).numpy()
+    np.testing.assert_allclose(got, _rms_oracle(x, w, b, axis % 3),
+                               rtol=1e-5, atol=1e-5)
+    paddle = _paddle()
+    ref = np.asarray(paddle.nn.functional.rms_norm(
+        paddle.to_tensor(x), paddle.to_tensor(w), paddle.to_tensor(b),
+        begin_norm_axis=axis).numpy())
+    if axis % 3 == 1:
+        assert np.abs(ref - got).max() > 1e-2
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        xt = torch.from_numpy(x)
+        var = xt.square().mean(dim=-1, keepdim=True)
+        last = (xt * torch.rsqrt(var + 1e-6)) * torch.from_numpy(w) \
+            + torch.from_numpy(b)
+        assert torch.equal(torch.from_numpy(got), last)
+
+
+@pytest.mark.parametrize("fn", ["softmax", "log_softmax"])
+@pytest.mark.parametrize("dtype", ["float64", torch.float64])
+def test_softmax_float64_against_reference(fn, dtype):
+    """C18: ``dtype="float64"`` (or ``torch.float64``) computes in f64, as
+    the reference does with x64 on; held against it at 1e-12."""
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((3, 7)).astype(np.float32)
+    got = getattr(tF, fn)(torch.from_numpy(x), axis=-1, dtype=dtype)
+    assert got.dtype == torch.float64
+    paddle = _paddle()
+    ref = np.asarray(getattr(paddle.nn.functional, fn)(
+        paddle.to_tensor(x), axis=-1, dtype="float64").numpy())
+    assert ref.dtype == np.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
 def test_rmsnorm_module_passes_epsilon():

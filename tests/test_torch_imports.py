@@ -40,6 +40,18 @@ import paddlepaddle_tpu_torch.nn.norm
 import paddlepaddle_tpu_torch.optimizer.optimizers
 import paddlepaddle_tpu_torch.distributed
 import paddlepaddle_tpu_torch.distributed.fleet.recompute
+import paddlepaddle_tpu_torch.distributed.collective
+import paddlepaddle_tpu_torch.distributed.communication.stream
+import paddlepaddle_tpu_torch.distributed.env
+import paddlepaddle_tpu_torch.distributed.host_collectives
+import paddlepaddle_tpu_torch.distributed.launch
+import paddlepaddle_tpu_torch.distributed.mesh
+import paddlepaddle_tpu_torch.distributed.parallel
+import paddlepaddle_tpu_torch.distributed.placement
+import paddlepaddle_tpu_torch.distributed.shard_plan
+import paddlepaddle_tpu_torch.distributed.store
+import paddlepaddle_tpu_torch.parallel.mpu
+import paddlepaddle_tpu_torch.parallel.sharded
 import paddlepaddle_tpu_torch.inference.compile_plan
 import paddlepaddle_tpu_torch.observability
 import paddlepaddle_tpu_torch.observability.exporter

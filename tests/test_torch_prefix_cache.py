@@ -301,9 +301,13 @@ def test_kv_quant_validation_flags_and_page_bytes(models):
     with pytest.raises(ValueError, match="needs kv_layout='paged'"):
         BatchDecodeEngine(tm, device="cpu", max_slots=2,
                           kv_layout="contiguous", kv_quant="int8")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # int8 KV with a tensor-parallel plan raises, as in the reference
+    # (decode_engine.py:319-324); the plan itself is ported (A10, PR 17)
+    from paddlepaddle_tpu_torch.distributed import decode_plan
+
+    with pytest.raises(ValueError, match="kv_quant with a tensor-parallel"):
         BatchDecodeEngine(tm, device="cpu", max_slots=2, kv_quant="int8",
-                          plan=object())
+                          plan=decode_plan("mp2"))
     kw = dict(max_slots=2, chunk=4, page_size=8)
     for off in ("", "off"):
         assert BatchDecodeEngine(tm, device="cpu", kv_quant=off,
