@@ -300,18 +300,18 @@ code is non-zero):
                ranks) and ``dp2mp2`` (4 ranks) ``ShardedTrainStep`` losses
                over 2 steps within the CPU tests' rtol (1e-5 / 1e-4) of a
                one-process ``TrainStep``, with each rank's flash launches.
-10b. ``serve_tp``  Llama-3-8B widths at 8 layers, bf16, ``mp2``: 8
+10b. ``serve_tp``  Llama-3-8B widths at 4 layers, bf16, ``mp2``: 8
                requests; the tokens agree on both ranks; the logits of
                one paged decode step (kernel 1 on 4 KV heads a rank) after
                prefilling the 8 prompts, equal on both ranks and within
                0.25 (max abs, bf16: two rounding orders of the row-parallel
-               sums over 8 layers) of the one-process engine's at the same
+               sums over 4 layers) of the one-process engine's at the same
                input; kernel 1 on every rank (layers x
                decode steps); tok/s beside a one-process engine at the
                same depth in the same run, the chunk's wall, and the ms a
                chunk spends in all-reduce (a second run with collective
                timing on).
-10c. ``train_tp``  Llama-3-8B widths at 4 layers, bf16, AdamW + global-norm
+10c. ``train_tp``  Llama-3-8B widths at 2 layers, bf16, AdamW + global-norm
                clip, global batch 4 x 512: ``mp2`` and ``dp2``, 3 steps
                each; losses within 0.02 of a one-process ``TrainStep``;
                step ms, flash launches a rank, all-reduce ms a step (the
@@ -321,6 +321,45 @@ code is non-zero):
                NCCL all-reduce inside; tokens bit-equal to the plan-less
                captured engine's; ``capture_info()`` and replays; tok/s of
                both after each captured on a warm-up request.
+
+    The single-process form (the reference's one-controller call): this
+    process calls ``ServingEngine(model, mesh="mp2")`` and is rank 0; the
+    engine starts rank 1 itself, on ``cuda:0`` over gloo groups it owns.
+    Every such phase reads both ranks' kernel counters through the engine
+    (``_rank_counters``: the worker's gathered by a led step) and checks,
+    after ``stop()``, that the worker's pid is gone (and absent from
+    ``nvidia-smi --query-compute-apps``).
+10b'. ``serve_tp`` single-process arm, right after the SPMD arm, on its
+               model, prompts and settings: tokens equal the SPMD arm's,
+               to the bit; one paged decode step's logits (after
+               prefilling the 8 prompts) within 0.25 of the one-process
+               engine's; kernel 1 = layers x decode steps on each rank; 0
+               nvcc runs in the worker; tok/s beside the SPMD arm's, the
+               construction's seconds (the worker's start, imports and
+               hand-over; its groups; its engine) and each process's peak
+               memory.
+10e. ``spec_tp``  speculative decoding under mp2 in one process:
+               Llama-3-8B widths at 8 layers, bf16, ``spec_k`` 3 (W = 4),
+               greedy, 4 of serve_spec's prompts (budgets capped at 64),
+               the target as its own draft and serve_spec's "quarter"
+               draft, each replicated on both ranks. Every request at
+               full length; W = 4 launches = layers x target steps on each
+               rank; both ranks took the same accept lengths (their
+               checksums agree); no page leaked on either rank;
+               acceptance and tokens per target step.
+10f. ``router_tp``  the router drill at Llama-3-8B widths, 2 layers, bf16:
+               two ``mesh="mp2"`` engines in this process behind
+               ``ServingRouter`` (4 processes on the card), a
+               ``serving.decode`` fault storm over 8 requests (none lost,
+               at least 6 served), kernel 1 on every rank, a rolling
+               restart (old workers gone), both replicas healthy; then a
+               ``replica_main --engine-json '{"mesh": "mp2"}'`` replica
+               behind ``RemoteReplicaClient``: 2 requests, its health
+               shows each rank's launches; SIGKILLed, no process of the
+               phase is left.
+10g. ``tp_parity``'s single-process check (after 10a's spawns): the tiny
+               f32 model's speculative stream under mp2 (the target as
+               draft, k 3) equals the one-process non-spec engine's.
 
 Then the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -5307,9 +5346,12 @@ TP_TINY = dict(vocab_size=1024, hidden_size=1024, intermediate_size=1024,
                num_key_value_heads=4, max_position_embeddings=512,
                dtype="float32")
 TP_SPAWN = dict(timeout=900, pg_timeout=300)   # join / process-group seconds
-SERVE_TP_LAYERS = 8        # Llama-3-8B widths at 8 of 32 layers
+# serve_tp and train_tp are cut below their first depths (8 and 4 layers)
+# so that the whole script, with the single-process phases, stays well
+# inside its time limit
+SERVE_TP_LAYERS = 4        # Llama-3-8B widths at 4 of 32 layers
 SERVE_TP_LOGIT_TOL = 0.25  # max abs, bf16 paged decode-step logits, TP vs one
-TRAIN_TP_LAYERS = 4        # Llama-3-8B widths at 4 of 32 layers
+TRAIN_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
 TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 3
 TRAIN_TP_LOSS_TOL = 0.02   # abs, bf16 losses, sharded vs one process
 NCCL1_LAYERS = 2
@@ -5417,6 +5459,29 @@ def _tp_parity_train_rank(spec, ids):
     return out
 
 
+def _tp_spec_single(pt_pkg, prompts, n_new):
+    """10g: the tiny f32 model's speculative decoding under mp2 in this
+    process (the target as its own draft, k = SPEC_K), on 10a's engine
+    settings: tokens, both ranks' counters, and whether the worker is gone
+    after ``stop()``. Counters start at 0 here: the phases before leave
+    the paged counters as they were, so they are reset first."""
+    model = pt_pkg.LlamaForCausalLM(pt_pkg.LlamaConfig(**TP_TINY), seed=0)
+    eng = pt_pkg.BatchDecodeEngine(model, max_slots=4, chunk=8,
+                                   page_size=64, max_len=512, mesh="mp2",
+                                   draft=model, spec_k=SPEC_K)
+    pids = eng._tp.pids
+    eng._rank_counters(reset=True)
+    reqs = _tp_requests(prompts, [n_new] * len(prompts))
+    eng.serve(reqs, timeout=600)
+    counters = eng._rank_counters()
+    st = eng.spec.stats
+    eng.stop()
+    return {"tokens": [r.result.result(5).tolist() for r in reqs],
+            "counters": counters, "gone": _procs_gone(pids),
+            "acceptance": (st["accepted"] / st["proposed"]
+                           if st["proposed"] else None)}
+
+
 def phase_tp_parity(pt_pkg):
     """10a: TP-2 decode and dp2 / dp2mp2 training of a tiny f32 Llama on
     ranks that share the card over gloo, against one process."""
@@ -5435,6 +5500,7 @@ def phase_tp_parity(pt_pkg):
     grid = spawn(_tp_parity_train_rank, args=("dp2mp2", ids), nprocs=4,
                  **TP_SPAWN)
     wall = time.perf_counter() - t0
+    spec = _tp_spec_single(pt_pkg, prompts, 24)
     model = pt_pkg.LlamaForCausalLM(pt_pkg.LlamaConfig(**TP_TINY), seed=1)
     ref = pt_pkg.TrainStep(model, pt_pkg.AdamW(
         learning_rate=1e-3, parameters=model.parameters()), _llm_loss)
@@ -5454,6 +5520,14 @@ def phase_tp_parity(pt_pkg):
         "dp2mp2_rel_err": max(abs(a - b) / abs(b) for r in grid for a, b in
                               zip(r["dp2mp2_losses"], one_losses)),
         "nvcc_in_ranks": sum(r["nvcc"] for r in dec + grid),
+        "spec_mp2_single_process_equals_one_process":
+            spec["tokens"] == r0["one_tokens"],
+        "spec_mp2_w4_equals_layers_x_steps_each_rank": all(
+            c["paged_attention"] == L * c["decode_steps"] > 0
+            for c in spec["counters"]),
+        "spec_mp2_same_accept_lengths":
+            spec["counters"][0]["spec"] == spec["counters"][1]["spec"],
+        "spec_mp2_worker_gone": spec["gone"],
     }
     emit({"phase": "tp_parity", "nvidia_smi": nvidia_smi_line(),
           "backend": "gloo (ranks share cuda:0)", "wall_s": wall,
@@ -5465,9 +5539,16 @@ def phase_tp_parity(pt_pkg):
           "losses": {"one_process": one_losses,
                      "dp2": [r["dp2_losses"] for r in dec],
                      "dp2mp2": [r["dp2mp2_losses"] for r in grid]},
-          "capture": r0["capture"], **checks})
+          "capture": r0["capture"],
+          "spec_mp2_single_process": {
+              "acceptance": spec["acceptance"],
+              "w4_launches": [c["paged_attention"]
+                              for c in spec["counters"]]}, **checks})
     bad = [k for k in ("tokens_equal_one_process",
-                       "paged_equals_layers_x_steps", "eager_under_gloo")
+                       "paged_equals_layers_x_steps", "eager_under_gloo",
+                       "spec_mp2_single_process_equals_one_process",
+                       "spec_mp2_w4_equals_layers_x_steps_each_rank",
+                       "spec_mp2_same_accept_lengths", "spec_mp2_worker_gone")
            if not checks[k]]
     if bad or checks["dp2_rel_err"] > 1e-5 or checks["dp2mp2_rel_err"] > 1e-4 \
             or checks["nvcc_in_ranks"]:
@@ -5586,6 +5667,7 @@ def _serve_tp_rank():
         one_logits = _paged_step_logits(one, prompts)
         out["logit_diff"] = float(np.abs(tp_logits - one_logits).max())
         out["logit_scale"] = float(np.abs(one_logits).max())
+        out["one_logits"] = one_logits
     out["capture"] = eng.capture_info()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["nvcc"] = _rank_counts()["nvcc"]
@@ -5593,8 +5675,8 @@ def _serve_tp_rank():
 
 
 def phase_serve_tp(pt_pkg):
-    """10b: Llama-3-8B widths at 8 layers, bf16, TP-2 on two ranks that
-    share the card over gloo, beside one engine alone."""
+    """10b: Llama-3-8B widths at ``SERVE_TP_LAYERS`` layers, bf16, TP-2 on
+    two ranks that share the card over gloo, beside one engine alone."""
     from paddlepaddle_tpu_torch.distributed import spawn
 
     t0 = time.perf_counter()
@@ -5643,8 +5725,10 @@ def phase_serve_tp(pt_pkg):
     bad = [k for k, v in checks.items() if k != "nvcc_in_ranks" and not v]
     if bad or checks["nvcc_in_ranks"]:
         raise AssertionError(f"serve_tp failed: {bad} {checks}")
-    return {"serve_tp paged rank0": r0["launches"],
-            "serve_tp paged rank1": r1["launches"]}
+    out = {"serve_tp paged rank0": r0["launches"],
+           "serve_tp paged rank1": r1["launches"]}
+    out.update(_serve_tp_single(pt_pkg, r0))
+    return out
 
 
 def _train_tp_rank(spec):
@@ -5689,8 +5773,9 @@ def _train_tp_rank(spec):
 
 
 def phase_train_tp(pt_pkg):
-    """10c: Llama-3-8B widths at 4 layers, bf16, mp2 and dp2 on two ranks
-    that share the card over gloo, against a one-process TrainStep."""
+    """10c: Llama-3-8B widths at ``TRAIN_TP_LAYERS`` layers, bf16, mp2 and dp2
+    on two ranks that share the card over gloo, against a one-process
+    TrainStep."""
     import dataclasses
 
     import numpy as np
@@ -5813,6 +5898,409 @@ def phase_nccl_world1(pt_pkg):
     if bad or checks["nvcc_in_rank"]:
         raise AssertionError(f"nccl_world1 failed: {bad} {checks}")
     return {"nccl_world1 paged": r["plan"]["paged"]}
+
+
+# -- 10: the single-process form (ServingEngine(model, mesh="mp2") here) ------
+
+SPEC_TP_LAYERS = 8         # Llama-3-8B widths at 8 of 32 layers
+SPEC_TP_PROMPTS = 4        # serve_spec's first 4 greedy prompts
+ROUTER_TP_LAYERS = 2       # Llama-3-8B widths at 2 of 32 layers
+ROUTER_TP_ENGINE = dict(max_batch_size=2, decode_chunk=8, kv_page_size=64,
+                        max_len=1024)
+
+
+def _smi_pids() -> set:
+    """Pids of the processes ``nvidia-smi`` lists on the card (empty where
+    the container hides them)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _procs_gone(pids, timeout=15.0) -> bool:
+    """Every pid of ``pids`` has exited (a zombie counts as exited) within
+    ``timeout`` seconds, and none is on ``nvidia-smi``'s list."""
+    import os
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().split(")")[-1].split()[0] != "Z"
+        except (ProcessLookupError, OSError):
+            return False
+
+    deadline = time.monotonic() + timeout
+    while any(alive(p) for p in pids):
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.1)
+    return not (set(pids) & _smi_pids())
+
+
+HELD_GB_TOL = 0.25         # device memory an engine may leave behind, GB
+
+
+def _held_gb(before: int) -> float:
+    """GB of device memory this process still holds over ``before`` once
+    an engine's worker has gone and the engine is dropped (what the worker
+    mapped is freed when it released it)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated() - before) / 1e9
+
+
+def _launches_ok(before, after, layers, key="paged_attention") -> bool:
+    """Each rank's launches since ``before`` (its counters were reset
+    there) equal layers x its decode steps since then, and are > 0."""
+    return all(a[key] == layers * (a["decode_steps"] - b["decode_steps"])
+               and a[key] > 0 for b, a in zip(before, after))
+
+
+def _serve_tp_single(pt_pkg, r0):
+    """10b's single-process arm: ``ServingEngine(model, mesh="mp2")`` in
+    this process on the SPMD arm's model (the same seed), prompts and
+    engine settings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    L = SERVE_TP_LAYERS
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=L)
+    prompts, budgets = _serve_tp_prompts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = pt_pkg.ServingEngine(model, max_batch_size=8, decode_chunk=16,
+                               kv_page_size=64, max_len=1024, mesh="mp2")
+    ctor_s = time.perf_counter() - t0
+    eng = srv.engine
+    pids = eng._tp.pids
+    startup = eng._tp.startup
+    # the logit probe before the serve thread runs: every prompt prefilled
+    # into its own slot, one paged decode step on both ranks (led)
+    _admit_all(eng, prompts, budgets)
+    logits = eng._paged_step_logits(np.array([int(p[-1]) for p in prompts]))
+    for i in range(len(prompts)):
+        eng.release_slot(i)
+    try:
+        srv.start()
+        srv.generate(prompts[0], max_new_tokens=2, timeout=600)   # warm-up
+        before = eng._rank_counters(reset=True)
+        chunks0 = len(eng.chunk_ms)
+        t1 = time.perf_counter()
+        futs = [srv.submit(p, max_new_tokens=int(b))
+                for p, b in zip(prompts, budgets)]
+        outs = [f.result(900) for f in futs]
+        wall = time.perf_counter() - t1
+        while eng.busy_slots():
+            time.sleep(0.01)
+        after = eng._rank_counters()
+        chunk_ms = sorted(eng.chunk_ms[chunks0:])
+        info = srv.health()["mesh"]
+        capture = eng.capture_info().get("decode")
+    finally:
+        srv.stop()
+    gone = _procs_gone(pids)
+    peak0 = torch.cuda.max_memory_allocated() / 1e9
+    del srv, eng
+    held = _held_gb(alloc0)
+    new = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    tok_s = new / wall
+    checks = {
+        "tokens_equal_spmd": [o.tolist() for o in outs] == r0["run"]["tokens"],
+        "logit_diff_within_tol":
+            float(np.abs(logits - r0["one_logits"]).max())
+            <= SERVE_TP_LOGIT_TOL,
+        "paged_equals_layers_x_steps_each_rank":
+            _launches_ok(before, after, L),
+        "worker_gone_after_stop": gone,
+        "memory_released": held < HELD_GB_TOL,
+    }
+    record = {
+        "phase": "serve_tp", "arm": "single_process",
+        "nvidia_smi": nvidia_smi_line(),
+        "model": f"llama3_8b widths, {L} layers, bf16, mesh='mp2'",
+        "backend": info.get("backend"), "requests": len(outs),
+        "new_tokens": new, "tok_s": tok_s, "spmd_tok_s": r0["run"]["tok_s"],
+        "over_spmd": tok_s / r0["run"]["tok_s"],
+        "chunk_ms_p50": chunk_ms[len(chunk_ms) // 2] if chunk_ms else None,
+        "spmd_chunk_ms_p50": r0["run"]["chunk_ms_p50"],
+        "logit_diff": float(np.abs(logits - r0["one_logits"]).max()),
+        "logits_bit_equal_spmd": bool((logits == r0["tp_logits"]).all()),
+        "construction_s": ctor_s, "worker_startup_s": startup,
+        "held_gb_after_stop": held,
+        "paged_launches": [a["paged_attention"] for a in after],
+        "decode_steps": [a["decode_steps"] - b["decode_steps"]
+                         for b, a in zip(before, after)],
+        "nvcc_in_worker": after[1]["nvcc_runs"],
+        "peak_gb_by_process": [peak0, after[1].get("peak_bytes", 0) / 1e9],
+        "capture": capture, "worker_pids": pids, **checks}
+    emit(record)
+    bad = [k for k, v in checks.items() if not v]
+    if bad or after[1]["nvcc_runs"]:
+        raise AssertionError(f"serve_tp single-process arm failed: {bad} "
+                             f"{record}")
+    return {"serve_tp single paged rank0": after[0]["paged_attention"],
+            "serve_tp single paged rank1": after[1]["paged_attention"]}
+
+
+def serve_spec_prompts(cfg, n):
+    """The first ``n`` greedy prompts of the serve phase's workload (its
+    rng and draws, budgets capped as serve_spec caps them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(64, 1537, 24)
+    budgets = rng.integers(32, 129, 24)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(k),)) for k in plens]
+    greedy = [i for i in range(24) if i not in (5, 17)][:n]
+    return ([prompts[i] for i in greedy],
+            [min(int(budgets[i]), SPEC_BUDGET_CAP) for i in greedy])
+
+
+def phase_spec_tp(pt_pkg):
+    """10e: speculative decoding under mp2 in this process, the draft
+    replicated on both ranks."""
+    import dataclasses
+
+    import torch
+
+    L = SPEC_TP_LAYERS
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=L)
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    prompts, budgets = serve_spec_prompts(cfg, SPEC_TP_PROMPTS)
+    runs, bad, out = [], [], {}
+    for name, draft in (("self", model),
+                        ("quarter", quarter_draft_config(pt_pkg, cfg))):
+        alloc0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        srv = pt_pkg.ServingEngine(model, max_batch_size=SPEC_TP_PROMPTS,
+                                   kv_page_size=64, max_len=2048,
+                                   decode_chunk=16, draft=draft,
+                                   spec_k=SPEC_K, mesh="mp2")
+        ctor_s = time.perf_counter() - t0
+        eng = srv.engine
+        pids = eng._tp.pids
+        try:
+            srv.start()
+            srv.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+            before = eng._rank_counters(reset=True)
+            st0 = dict(eng.spec.stats)
+            t1 = time.perf_counter()
+            futs = [srv.submit(p, max_new_tokens=b)
+                    for p, b in zip(prompts, budgets)]
+            outs = [f.result(900) for f in futs]
+            wall = time.perf_counter() - t1
+            while eng.busy_slots():
+                time.sleep(0.01)
+            after = eng._rank_counters()
+            st = {k: eng.spec.stats[k] - st0[k] for k in st0}
+            draft_model = eng.spec.describe_draft()
+        finally:
+            srv.stop()
+        gone = _procs_gone(pids)
+        del srv, eng
+        held = _held_gb(alloc0)
+        full = all(len(o) == len(p) + b and ((o >= 0)
+                                             & (o < cfg.vocab_size)).all()
+                   for o, p, b in zip(outs, prompts, budgets))
+        checks = {
+            "full_length": full,
+            "w4_equals_layers_x_steps_each_rank":
+                _launches_ok(before, after, L),
+            "same_accept_lengths_on_ranks":
+                after[0]["spec"] == after[1]["spec"],
+            "no_page_leaked": all(a["pages_used"] == a["prefix_cached_pages"]
+                                  for a in after),
+            "worker_gone_after_stop": gone,
+            "nvcc_in_worker": after[1]["nvcc_runs"] == 0,
+            "memory_released": held < HELD_GB_TOL,
+        }
+        run = {"phase": "spec_tp", "nvidia_smi": nvidia_smi_line(),
+               "model": f"llama3_8b widths, {L} layers, bf16, mesh='mp2'",
+               "draft": name, "draft_model": draft_model,
+               "held_gb_after_stop": held,
+               "k": SPEC_K, "requests": len(outs),
+               "new_tokens": int(sum(budgets)), "wall_s": wall,
+               "tok_s": sum(budgets) / wall, "construction_s": ctor_s,
+               "acceptance": (st["accepted"] / st["proposed"]
+                              if st["proposed"] else None),
+               "tokens_per_target_step": (st["emitted"] / st["target_steps"]
+                                          if st["target_steps"] else None),
+               "w4_launches": [a["paged_attention"] for a in after],
+               "decode_steps": [a["decode_steps"] - b["decode_steps"]
+                                for b, a in zip(before, after)],
+               "accept_crc": [a["spec"]["accept_crc"] for a in after],
+               "peak_gb_worker": after[1].get("peak_bytes", 0) / 1e9, **checks}
+        emit(run)
+        runs.append(run)
+        if not all(checks.values()):
+            bad.append(name)
+        out[f"spec_tp {name} w4 rank0"] = after[0]["paged_attention"]
+        out[f"spec_tp {name} w4 rank1"] = after[1]["paged_attention"]
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"spec_tp failed for {bad}: {runs}")
+    return out
+
+
+def _router_launches_ok(base, drill, layers) -> bool:
+    """Kernel 1 on every rank of two engines that share this process as
+    rank 0: each worker launched layers x its decode steps (> 0); this
+    process's counter, shared by both engines' rank 0, layers x their
+    decode steps together."""
+    steps = [d[0]["decode_steps"] - b[0]["decode_steps"]
+             for b, d in zip(base, drill)]
+    workers = all(_launches_ok([b[1]], [d[1]], layers)
+                  for b, d in zip(base, drill))
+    return (workers and all(n > 0 for n in steps)
+            and drill[-1][0]["paged_attention"] == layers * sum(steps))
+
+
+def phase_router_tp(pt_pkg):
+    """10f: the router drill over two single-process mp2 engines, then an
+    mp2 replica process."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.inference.remote_replica import (
+        RemoteReplicaClient, ReplicaSupervisor)
+    from paddlepaddle_tpu_torch.inference.router import ServingRouter
+    from paddlepaddle_tpu_torch.resilience import chaos
+
+    L = ROUTER_TP_LAYERS
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=L)
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    alloc0 = torch.cuda.memory_allocated()
+    V = cfg.vocab_size
+    made = []
+
+    def factory():
+        srv = pt_pkg.ServingEngine(model, mesh="mp2", **ROUTER_TP_ENGINE)
+        made.append(srv)
+        return srv
+
+    t0 = time.perf_counter()
+    r = ServingRouter([factory, factory], probe_interval_s=0.1,
+                      breaker_threshold=3, breaker_reset_s=0.3)
+    r.start()
+    rng = np.random.default_rng(11)
+    try:
+        # the counters from here: rank 0's (this process, shared by both
+        # engines) and each worker's; then one request straight to each
+        # engine, so every rank decodes whatever the router picks
+        base = [s.engine._rank_counters(reset=True) for s in made]
+        for i in range(len(made)):     # no loop name left holding one
+            made[i].generate(rng.integers(0, V, (64,)), max_new_tokens=2,
+                             timeout=600)
+        r.submit(rng.integers(0, V, (64,)), max_new_tokens=2).result(600)
+        chaos.configure("serving.decode:exc:x2", seed=1234)
+        futs = [r.submit(rng.integers(0, V, (int(rng.integers(32, 256)),)),
+                         max_new_tokens=16) for _ in range(8)]
+        oks, errs = 0, []
+        for f in futs:
+            try:
+                f.result(600)
+                oks += 1
+            except Exception as e:  # noqa: BLE001 — counted, reported
+                errs.append(f"{type(e).__name__}: {e}")
+        chaos.disable()
+        drill = [s.engine._rank_counters() for s in made]
+        old = [p for s in made for p in s.engine._tp.pids]
+        t1 = time.perf_counter()
+        rr = r.rolling_restart()
+        restart_s = time.perf_counter() - t1
+        old_gone = _procs_gone(old)
+        after = r.submit(rng.integers(0, V, (64,)), max_new_tokens=2
+                         ).result(600)
+        healthy = r.health()["router"]["healthy"]
+    finally:
+        chaos.disable()
+        r.stop()
+    drill_s = time.perf_counter() - t0
+    all_gone = _procs_gone([p for s in made for p in s.engine._tp.pids])
+    n_made = len(made)
+    del made[:], r
+    held = _held_gb(alloc0)
+    checks = {
+        "no_future_lost": oks + len(errs) == 8,
+        "at_least_6_served": oks >= 6,
+        "kernel1_on_every_rank": _router_launches_ok(base, drill, L),
+        "rolling_restart_ok": rr["ok"] is True and n_made == 4,
+        "old_workers_gone": old_gone,
+        "served_after_restart": after.shape[0] == 66,
+        "both_healthy": healthy == 2,
+        "all_workers_gone_after_stop": all_gone,
+        "memory_released": held < HELD_GB_TOL,
+    }
+    torch.cuda.empty_cache()
+    # one replica process serving mp2 through replica_main
+    sup = ReplicaSupervisor(
+        preset="tiny", model_json=json.dumps(dataclasses.asdict(cfg)),
+        engine_json=json.dumps(dict(ROUTER_TP_ENGINE, mesh="mp2")),
+        warmup="off", name="router_tp", ready_timeout_s=600.0,
+        term_grace_s=60.0)
+    t2 = time.perf_counter()
+    sup.start()
+    replica_start_s = time.perf_counter() - t2
+    try:
+        cli = RemoteReplicaClient(address=sup.address(), name="router_tp",
+                                  read_timeout_s=600.0)
+        cli.start()
+        prompts = [rng.integers(0, V, (n,)) for n in (48, 200)]
+        outs = [cli.submit(p, max_new_tokens=8).result(600)
+                for p in prompts]
+        h = cli.health()
+        ranks = h["kernels"]["ranks"]
+        pids = [sup.pid()] + list(h["mesh"]["worker_pids"])
+        sup.kill()
+        replica_gone = _procs_gone(pids)
+    finally:
+        sup.stop(drain_timeout=5.0)
+    checks.update({
+        "replica_served": all(len(o) == len(p) + 8
+                              for o, p in zip(outs, prompts)),
+        "replica_tp2": h["mesh"]["tp"] == 2 and len(ranks) == 2,
+        "replica_kernel1_each_rank": all(
+            x["paged_attention"] == L * x["decode_steps"] > 0
+            and x["nvcc_runs"] == 0 for x in ranks),
+        "replica_processes_gone_after_sigkill": replica_gone,
+    })
+    emit({"phase": "router_tp", "nvidia_smi": nvidia_smi_line(),
+          "model": f"llama3_8b widths, {L} layers, bf16, mesh='mp2'",
+          "served": oks, "errors": errs, "drill_s": drill_s,
+          "rolling_restart_s": restart_s, "held_gb_after_stop": held,
+          "paged_launches_rank0_both_engines": drill[-1][0][
+              "paged_attention"],
+          "paged_launches_worker_by_engine": [d[1]["paged_attention"]
+                                              for d in drill],
+          "decode_steps_by_engine": [[x["decode_steps"] - y["decode_steps"]
+                                      for y, x in zip(b, d)]
+                                     for b, d in zip(base, drill)],
+          "replica_start_s": replica_start_s,
+          "replica_ranks": ranks, **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"router_tp failed: {bad}")
+    return {"router_tp paged rank0": drill[-1][0]["paged_attention"],
+            "router_tp paged workers": [d[1]["paged_attention"]
+                                        for d in drill],
+            "router_tp replica paged": [x["paged_attention"]
+                                        for x in ranks]}
 
 
 def main() -> int:
@@ -5938,13 +6426,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = phase_tp_parity(pt_pkg)
     tp.update(phase_serve_tp(pt_pkg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_tp = phase_spec_tp(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp.update(phase_router_tp(pt_pkg))
+    gc.collect()
+    torch.cuda.empty_cache()
     tp.update(phase_train_tp(pt_pkg))
     tp.update(phase_nccl_world1(pt_pkg))
     record["launches_by_phase"].update(
         {k: v for k, v in tp.items() if k.startswith(("tp_parity",
                                                       "serve_tp",
+                                                      "router_tp",
                                                       "nccl_world1"))
          and "paged" in k})
+    record["w4"]["launches_by_phase"] = spec_tp
     for r in flash_records:
         r["launches_by_phase"].update(
             {k: v[r["name"]] for k, v in tp.items()

@@ -21,7 +21,11 @@ Three forms, as in the reference:
 
 Transport rules. Every dtype goes to the backend as it is: gloo reduces,
 gathers and broadcasts bf16 / fp16 natively. A CUDA tensor under gloo
-crosses the host; P2P stages through a CPU copy. Eager calls pass the chaos
+crosses the host; P2P stages through a CPU copy. Ranks, sizes, backends and
+broadcast roots are asked of the group object itself, never of the default
+group's registry, so the transport primitives also run over groups that a
+single-process engine built from its own store (which nobody registered
+with ``torch.distributed``). Eager calls pass the chaos
 seam (``collective.launch``) and the flight recorder, as the reference's
 ``_collective_op`` does (:135-175). :func:`timing` turns on per-call device
 timing (a sync before and after each collective; never inside a CUDA-graph
@@ -165,11 +169,19 @@ def _resolve_pg(group):
 
 
 def _size(pg) -> int:
-    return dist.get_world_size(pg) if pg is not None else 1
+    return pg.size() if pg is not None else 1
+
+
+def _grank(pg) -> int:
+    """This process's rank in ``pg`` (0 without one). The group object's
+    own answer: ``torch.distributed.get_rank(pg)`` looks the group up in
+    the default group's registry, which holds no group an engine built
+    from its own store."""
+    return pg.rank() if pg is not None else 0
 
 
 def _gloo(pg) -> bool:
-    return dist.get_backend(pg) == "gloo"
+    return pg.name() == "gloo"
 
 
 def _all_reduce_(t: torch.Tensor, op: str, pg) -> torch.Tensor:
@@ -208,7 +220,7 @@ def _reduce_scatter(t: torch.Tensor, pg, dim: int = 0) -> torch.Tensor:
     if t.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of size {t.shape[dim]} "
                          f"does not split over {n} ranks")
-    me = dist.get_rank(pg)
+    me = _grank(pg)
 
     def run():
         if not _gloo(pg):
@@ -230,7 +242,9 @@ def _broadcast_(t: torch.Tensor, root: int, pg) -> torch.Tensor:
         return t
 
     def run():
-        dist.broadcast(t, dist.get_global_rank(pg, root), group=pg)
+        opts = dist.BroadcastOptions()
+        opts.rootRank = root
+        pg.broadcast([t], opts).wait()
         return t
 
     return _account("broadcast", t, run)
@@ -242,7 +256,7 @@ def _all_to_all(t: torch.Tensor, pg, split_axis: int,
     concatenate what arrives along ``concat_axis``."""
     if pg is None:
         return t
-    n, me = _size(pg), dist.get_rank(pg)
+    n, me = _size(pg), _grank(pg)
     if _gloo(pg):
         # gloo: every rank gathers every rank's chunks and keeps its own
         everyone = _all_gather(t.unsqueeze(0), pg, dim=0)
@@ -388,7 +402,7 @@ class _CConcat(torch.autograd.Function):
         pg = ctx.pg
         if pg is None:
             return g, None, None
-        part = g.chunk(_size(pg), dim=ctx.dim)[dist.get_rank(pg)]
+        part = g.chunk(_size(pg), dim=ctx.dim)[_grank(pg)]
         return part.contiguous(), None, None
 
 
@@ -400,7 +414,7 @@ class _CSplit(torch.autograd.Function):
         ctx.pg, ctx.dim = pg, dim
         if pg is None:
             return x
-        return x.chunk(_size(pg), dim=dim)[dist.get_rank(pg)].contiguous()
+        return x.chunk(_size(pg), dim=dim)[_grank(pg)].contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -462,7 +476,7 @@ def f_ppermute(x, axis: str, perm):
     pg = _axis_pg(axis)
     if pg is None:
         return x if any(s == d == 0 for s, d in perm) else torch.zeros_like(x)
-    me = dist.get_rank(pg)
+    me = _grank(pg)
     src = [s for s, d in perm if d == me]
     everyone = _AllGather.apply(x.unsqueeze(0), pg, 0)
     return everyone[src[0]] if src else torch.zeros_like(x)
@@ -475,7 +489,7 @@ def f_broadcast(x, axis: str, root: int = 0):
 
 def f_axis_index(axis: str) -> int:
     pg = _axis_pg(axis)
-    return dist.get_rank(pg) if pg is not None else 0
+    return _grank(pg)
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +625,7 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
     if op != ReduceOp.SUM:
         full = torch.stack(list(tensor_list))
         _all_reduce_(full, op, pg)
-        tensor.copy_(full[dist.get_rank(pg)])
+        tensor.copy_(full[_grank(pg)])
         return tensor
     tensor.copy_(_reduce_scatter(torch.cat(list(tensor_list)), pg, 0)
                  .reshape(tensor.shape))
@@ -639,13 +653,13 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
             tensor.copy_(tensor_list[0])
         return tensor
     gsrc = dist.get_group_rank(pg, src)
-    if dist.get_rank(pg) == gsrc:
+    if _grank(pg) == gsrc:
         full = torch.stack(list(tensor_list))
     else:
         full = torch.empty((_size(pg),) + tuple(tensor.shape),
                            dtype=tensor.dtype, device=tensor.device)
     _broadcast_(full, gsrc, pg)
-    tensor.copy_(full[dist.get_rank(pg)])
+    tensor.copy_(full[_grank(pg)])
     return tensor
 
 

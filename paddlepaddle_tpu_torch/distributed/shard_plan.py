@@ -36,14 +36,22 @@ rank holds its own shard, and the collectives are explicit.
 
 A plan is built and its rules resolved without any process group (the CPU
 tests resolve rules against the JAX plan). What needs ranks (``shard``,
-the collectives) needs the job's group, of exactly the mesh's size; with
-more than one rank and no initialized group it raises ``not_ported`` with
-the launch command (the reference's single-process form waits for a later
-A10 slice).
+the collectives) needs this rank, the plan's size, its backend, one
+process group per mesh axis (the slice through the rank) and a CPU gloo
+control group. Under the launcher (or ``spawn``) they come from the job's
+default group, which must span exactly the mesh. A single-process decode
+engine (the reference's one-controller form) builds its own
+:class:`RankContext`: :meth:`RankContext.from_store` makes the groups over
+a store the engine owns, registered nowhere, and
+:meth:`ShardingPlan.bind` gives the engine a copy of the plan over them.
+With more than one rank, no default group and no bound context, what else
+needs ranks (``ShardedTrainStep``) raises ``not_ported`` with the launch
+command.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -170,6 +178,53 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+class RankContext:
+    """The ranks a bound plan runs on, as one process sees them: ``rank``
+    (in the mesh), ``size``, ``backend``, ``groups`` (mesh axis -> the
+    process group of this rank's slice along it) and ``control`` (a CPU
+    gloo group over every rank, for host-side control messages). Every
+    collective on the decode engine's path asks a group object for its
+    rank and size, so groups that nobody registered with
+    ``torch.distributed`` work as well as the default group's."""
+
+    def __init__(self, rank: int, size: int, backend: str,
+                 groups: Dict[str, object], control):
+        self.rank = int(rank)
+        self.size = int(size)
+        self.backend = backend
+        self.groups = dict(groups)
+        self.control = control
+
+    @classmethod
+    def from_store(cls, mesh: ProcessMesh, store, rank: int, backend: str,
+                   timeout_s: float) -> "RankContext":
+        """Groups of rank ``rank`` over ``store`` (the caller's own
+        ``TCPStore``), one ``PrefixStore`` each: every axis slice through
+        the rank, in the mesh's axis order, then the control group. Each
+        constructor returns once every member of its group has connected,
+        so every rank builds its groups in the same order. ``backend`` is
+        ``"gloo"`` or ``"nccl"`` (the caller has set this rank's card); a
+        backend that fails to initialise raises."""
+        td = datetime.timedelta(seconds=float(timeout_s))
+
+        def make(tag, ranks, kind, timeout):
+            me, n = ranks.index(rank), len(ranks)
+            sub = dist.PrefixStore(f"{tag}/" + "-".join(map(str, ranks)),
+                                   store)
+            if kind == "gloo":
+                return dist.ProcessGroupGloo(sub, me, n, timeout)
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = timeout
+            return dist.ProcessGroupNCCL(sub, me, n, opts)
+
+        groups = {name: make(f"axis/{name}", mesh.slice_ranks(name, rank),
+                             backend, td)
+                  for name in mesh.dim_names}
+        control = make("control", mesh.process_ids, "gloo",
+                       _CONTROL_TIMEOUT)
+        return cls(rank, len(mesh.process_ids), backend, groups, control)
+
+
 class ShardingPlan:
     """Named mesh + per-layer partition rules (reference :154).
 
@@ -203,6 +258,7 @@ class ShardingPlan:
         self._path = path
         self.specs: Dict[str, tuple] = {}
         self._control = None
+        self._ctx: Optional[RankContext] = None
 
     # -- mesh facts ----------------------------------------------------------
     @property
@@ -243,9 +299,30 @@ class ShardingPlan:
         return self._use.__exit__(*exc)
 
     # -- ranks and groups ----------------------------------------------------
+    def bind(self, ctx: RankContext) -> "ShardingPlan":
+        """A copy of this plan over ``ctx``: what a single-process engine
+        and each of its worker ranks run under. The plan given by the
+        caller is left unbound, so one plan can build several engines."""
+        if ctx.size != self.n_devices:
+            raise ValueError(f"{self!r} spans {self.n_devices} ranks, the "
+                             f"context {ctx.size}")
+        out = copy.copy(self)
+        out.specs = dict(self.specs)
+        out._control = None
+        out._ctx = ctx
+        return out
+
+    @property
+    def bound(self) -> bool:
+        """True for a plan over a context of its own (:meth:`bind`)."""
+        return self._ctx is not None
+
     def require_group(self) -> None:
         """Raise unless this process can act as one rank of the plan: a
-        group of exactly ``n_devices`` ranks, or one rank without a group."""
+        bound context, a default group of exactly ``n_devices`` ranks, or
+        one rank without a group."""
+        if self._ctx is not None:
+            return
         if dist.is_initialized():
             if dist.get_world_size() != self.n_devices:
                 raise ValueError(
@@ -255,11 +332,14 @@ class ShardingPlan:
         if self.n_devices > 1:
             raise not_ported(
                 f"a {self.n_devices}-rank plan in a process with no "
-                f"initialized process group (the single-process form: "
-                f"{LAUNCH_HINT})", "A10 slice 1: the single-process TP engine")
+                f"initialized process group outside the decode engine "
+                f"(the single-process form: {LAUNCH_HINT})",
+                "A10: the single-process ShardedTrainStep")
 
     @property
     def rank(self) -> int:
+        if self._ctx is not None:
+            return self._ctx.rank
         self.require_group()
         return dist.get_rank() if dist.is_initialized() else 0
 
@@ -269,6 +349,8 @@ class ShardingPlan:
     def group(self, axis: str):
         """This rank's process group along ``axis`` (None in a one-rank
         process without a group)."""
+        if self._ctx is not None:
+            return self._ctx.groups[axis]
         self.require_group()
         if not dist.is_initialized():
             return None
@@ -286,6 +368,8 @@ class ShardingPlan:
         return self.group(self.data_axes[0]) if self.data_axes else None
 
     def backend(self) -> Optional[str]:
+        if self._ctx is not None:
+            return self._ctx.backend
         return dist.get_backend() if dist.is_initialized() else None
 
     def capturable(self) -> bool:
@@ -298,8 +382,11 @@ class ShardingPlan:
         (the decode engine's admissions). Its timeout is a fixed day: a
         follower waits on it while the driver sits idle between requests,
         and the timeout is not what catches a fault there, since a dead
-        rank fails the group at once (its sockets close). Collective on
-        first call."""
+        rank fails the group at once (its sockets close). Under the
+        default group it is collective on first call; a bound context
+        holds its own."""
+        if self._ctx is not None:
+            return self._ctx.control
         if self._control is None and dist.is_initialized():
             self._control = dist.new_group(backend="gloo",
                                            timeout=_CONTROL_TIMEOUT)
@@ -408,13 +495,34 @@ class ShardingPlan:
         from ..parallel import mpu
 
         self.require_group()
+        self._check_tied(model)
+        mp = self.mp_group
+        return mpu.parallel_view(model, self, mp, share=share)
+
+    def cut_module(self, model: torch.nn.Module, rank: int
+                   ) -> torch.nn.Module:
+        """Rank ``rank``'s view of ``model`` with no collective attached
+        (:func:`..parallel.mpu.cut_view`; replicated tensors are the
+        model's own): what a single-process engine hands each worker rank,
+        which wires it to its groups (:meth:`wire_module`)."""
+        from ..parallel import mpu
+
+        self._check_tied(model)
+        return mpu.cut_view(model, self, share=True, rank=rank)
+
+    def wire_module(self, view: torch.nn.Module) -> torch.nn.Module:
+        """Attach this rank's model-axis collectives to a view that
+        :meth:`cut_module` cut for this rank."""
+        from ..parallel import mpu
+
+        return mpu.wire_view(view, self.mp_group)
+
+    def _check_tied(self, model) -> None:
         cfg = getattr(model, "config", None)
         if (getattr(cfg, "tie_word_embeddings", False)
                 and self.tp_degree > 1):
             raise not_ported("tied word embeddings under a tensor-parallel "
                              "plan", "A10")
-        mp = self.mp_group
-        return mpu.parallel_view(model, self, mp, share=share)
 
     def shard_batch(self, arr, rank: Optional[int] = None):
         """This rank's rows of a global batch: dim 0 over the data axes

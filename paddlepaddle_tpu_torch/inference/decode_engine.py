@@ -4,8 +4,8 @@ Port of ``paddlepaddle_tpu/inference/decode_engine.py``: ``BatchDecodeEngine``
 with the paged layout (full-precision or int8 KV pages, shared-prefix hits,
 the host-RAM prefix tier, speculative decoding) and the slot-contiguous
 layout, over full-precision or weight-only int8 weights, with the
-reference's compile plan, warmup and bundles and its observability seams;
-no mesh.
+reference's compile plan, warmup and bundles and its observability seams,
+and tensor-parallel decode under a sharding plan.
 
 * PAGED KV POOL (``kv_layout="paged"``, the default): one ``[num_pages,
   page_size, kvh, hd]`` K and V buffer per layer plus a device page table
@@ -101,26 +101,37 @@ Head dims that the reference's kernel gate refuses (neither a multiple of
 the plain paged attention on either device (the kernel counters stay 0).
 
 * TENSOR PARALLEL (``mesh=`` / ``plan=``, reference :266-291, :396-403,
-  :470-491): SPMD, one engine per rank of a ``torch.distributed`` job
-  (:mod:`..distributed.shard_plan`). Each rank's engine holds its weight
-  shards (``plan.shard``: a column- / row-parallel view, the row-parallel
-  outputs all-reduced over ``mp``, the vocab-sharded logits gathered
-  before sampling) and a KV pool of ``[pages, ps, kvh/mp, hd]``; prefill
-  and decode run on its local heads, decode through kernel 1. Rank 0 is
-  the driver: it owns the queue and ``serve`` / ``submit`` / ``generate``,
-  and every device-touching step (admission, decode chunk, release,
-  reset, flush, warmup) is first broadcast to the followers on a CPU gloo
-  control group, so every rank runs the same body in the same order; the
-  host-side pool, prefix and slot decisions are deterministic, and the
-  sampling generator is seeded alike, so the tokens agree everywhere.
-  Ranks > 0 call :meth:`BatchDecodeEngine.follow` (a ``ServingEngine``
-  does it on ``start()``) until rank 0's :meth:`BatchDecodeEngine.stop`.
+  :470-491): one engine per rank (:mod:`..distributed.shard_plan`). Each
+  rank's engine holds its weight shards (a column- / row-parallel view,
+  the row-parallel outputs all-reduced over ``mp``, the vocab-sharded
+  logits gathered before sampling) and a KV pool of ``[pages, ps, kvh/mp,
+  hd]``; prefill and decode run on its local heads, decode through kernel
+  1. Rank 0 is the driver: it owns the queue and ``serve`` / ``submit`` /
+  ``generate``, and every device-touching step (admission, decode chunk,
+  release, reset, flush, warmup) is first broadcast to the followers on a
+  CPU gloo control group, so every rank runs the same body in the same
+  order; the host-side pool, prefix and slot decisions are deterministic,
+  and the sampling generator is seeded alike, so the tokens agree
+  everywhere. Ranks > 0 run :meth:`BatchDecodeEngine.follow` until rank
+  0's :meth:`BatchDecodeEngine.stop`. Three forms, by what the process has:
+
+  - a process group of exactly the plan's size (the launcher, ``spawn``):
+    SPMD, every rank builds the engine; ranks > 0 call ``follow()`` (a
+    ``ServingEngine`` does it on ``start()``);
+  - no process group and a plan of n > 1 ranks: the reference's
+    single-controller form. This process is rank 0; it quantizes
+    (``quant=``), cuts every rank's view, and starts ranks 1..n-1 itself
+    as worker processes on groups it owns (:mod:`.tp_worker`), which
+    follow it until ``stop()`` joins them. ``mesh_info()`` adds the
+    backend it chose and the workers' pids;
+  - a group of another size: ``ValueError``.
+
   The decode chunk is captured when the plan's groups can be (NCCL, world
   size 1 included); under gloo it runs eagerly and ``capture_info()`` says
-  so (a gloo collective cannot be captured). ``kv_quant="int8"`` with a
-  plan raises (reference :319-324); speculative decoding with a plan, and
-  a multi-rank plan in a process with no process group, raise naming
-  A10's later slices.
+  so (a gloo collective cannot be captured). Speculative decoding runs
+  under a plan with the draft replicated on every rank
+  (:mod:`.speculative`). ``kv_quant="int8"`` with a plan raises (reference
+  :319-324).
 
 No option is silently ignored.
 """
@@ -132,15 +143,17 @@ import functools
 import gc
 import logging
 import math
+import os
+import pickle
 import sys
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..core.errors import not_ported
 from ..core.flags import flag_value
 from ..device import DeviceLike, resolve_device
 from ..models.llama import rope_at, rotate
@@ -426,14 +439,19 @@ class _WireRequest:
 
 class _Control:
     """Rank 0's step broadcasts to the followers over the plan's CPU gloo
-    control group (``broadcast_object_list``)."""
+    control group: the pickled step, its length first, through the group
+    object's own ``broadcast`` (``broadcast_object_list`` maps ranks
+    through the default group's registry, which holds no group that a
+    single-process engine built from its own store). ``failed`` holds the
+    error that broke the channel (a rank lost); from then on only the host
+    bookkeeping steps run, on rank 0 alone."""
 
     def __init__(self, plan):
-        import torch.distributed as dist
-
         self.pg = plan.control_group()
-        self.driver = dist.get_rank() == 0
+        self.driver = plan.rank == 0
+        self.size = plan.n_devices
         self.stopped = False
+        self.failed: Optional[BaseException] = None
         # rank 0 broadcasts and runs each step under one lock, so steps
         # from two threads reach the followers in the order they run; the
         # nesting depth is the calling thread's own
@@ -448,20 +466,41 @@ class _Control:
     def depth(self, value: int) -> None:
         self._local.depth = value
 
-    def send(self, name: str, args, kwargs) -> None:
+    def _bcast(self, t: torch.Tensor) -> None:
         import torch.distributed as dist
 
+        opts = dist.BroadcastOptions()
+        opts.rootRank = 0
+        self.pg.broadcast([t], opts).wait()
+
+    def send(self, name: str, args, kwargs) -> None:
         args = tuple(_WireRequest(a) if hasattr(a, "prompt_ids")
                      and hasattr(a, "max_new_tokens") else a for a in args)
-        dist.broadcast_object_list([(name, args, dict(kwargs))], src=0,
-                                   group=self.pg)
+        blob = pickle.dumps((name, args, dict(kwargs)))
+        self._bcast(torch.tensor([len(blob)], dtype=torch.int64))
+        self._bcast(torch.frombuffer(bytearray(blob), dtype=torch.uint8))
 
     def receive(self):
-        import torch.distributed as dist
+        n = torch.zeros(1, dtype=torch.int64)
+        self._bcast(n)
+        buf = torch.empty(int(n[0]), dtype=torch.uint8)
+        self._bcast(buf)
+        return pickle.loads(buf.numpy().tobytes())
 
-        box = [None]
-        dist.broadcast_object_list(box, src=0, group=self.pg)
-        return box[0]
+    def gather(self, obj) -> list:
+        """Every rank's ``obj``, in rank order (inside a led step)."""
+        blob = pickle.dumps(obj)
+        n = torch.tensor([len(blob)], dtype=torch.int64)
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
+        self.pg.allgather([sizes], [n]).wait()
+        width = int(max(int(x[0]) for x in sizes))
+        mine = torch.zeros(width, dtype=torch.uint8)
+        mine[:len(blob)] = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+        outs = [torch.empty(width, dtype=torch.uint8)
+                for _ in range(self.size)]
+        self.pg.allgather([outs], [mine]).wait()
+        return [pickle.loads(o[:int(k[0])].numpy().tobytes())
+                for o, k in zip(outs, sizes)]
 
 
 def _led(fn):
@@ -479,14 +518,28 @@ def _led(fn):
             raise RuntimeError(
                 f"{name}: this rank follows rank 0 under the plan; call "
                 "follow() (rank 0 owns serve / submit / generate)")
-        if ctl.stopped:
+        if ctl.stopped or ctl.failed is not None:
             if name in _LOCAL_AFTER_STOP:
                 # host and slot bookkeeping only: no collective to pair
                 return fn(self, *args, **kwargs)
+            if ctl.failed is not None:
+                raise RuntimeError(
+                    f"{name}: a rank of the plan was lost ({ctl.failed}); "
+                    "build a new engine") from ctl.failed
             raise RuntimeError(f"{name}: the followers were released "
                                "(stop()); build a new engine")
         with ctl.lock:
-            ctl.send(name, args, kwargs)
+            try:
+                if self._tp is not None:
+                    self._tp.check()         # a dead worker fails at once
+                ctl.send(name, args, kwargs)
+            except Exception as e:
+                ctl.failed = e
+                if name in _LOCAL_AFTER_STOP:
+                    return fn(self, *args, **kwargs)
+                if self._tp is not None:
+                    self._tp.raise_lost(e)
+                raise
             ctl.depth += 1
             try:
                 return fn(self, *args, **kwargs)
@@ -561,14 +614,18 @@ class BatchDecodeEngine:
         self.quant = quant
         self.quant_meta: Dict[str, object] = {}
         self.net = model
-        if quant is not None:
+        # a worker rank of a single-process engine is handed its view, cut
+        # from rank 0's already quantized model: nothing to quantize here
+        if quant is not None and not (plan is not None and plan.bound):
             self.net, self.quant_meta = quantized_view(
                 model, algo=quant, group_size=quant_group_size)
         # tensor parallel: quantize first (whole tensors), shard second
         self.plan = None
         self._ctl = None
+        self._tp = None          # the worker ranks this engine started
+        self._tp_cuts = None     # every rank's view, until they start
         if mesh is not None or plan is not None:
-            self._init_plan(mesh, plan, spec)
+            self._init_plan(mesh, plan)
         tp = self.plan.tp_degree if self.plan is not None else 1
         self._nh = cfg.num_attention_heads // tp     # this rank's heads
         self._kvh = cfg.num_key_value_heads // tp
@@ -686,6 +743,17 @@ class BatchDecodeEngine:
             # build (or load) the kernel library now, so that a build error
             # surfaces at construction rather than mid-decode
             _pa.build()
+        if self._tp_cuts is not None:
+            # the single-process form: the workers start last, once this
+            # rank has built (or loaded) every kernel library they load
+            self._start_ranks(dict(
+                max_slots=max_slots, max_len=max_len, chunk=chunk,
+                quant=quant, quant_group_size=quant_group_size,
+                kv_layout=kv_layout, page_size=page_size,
+                num_pages=num_pages, prefix_cache=prefix_cache,
+                spec_k=spec_k, draft_quant=draft_quant,
+                fused_kernels=fused_kernels, kv_quant=kv_quant,
+                kv_host_bytes=kv_host_bytes, seed=seed))
 
     def _resolve_attention(self, fused_kernels: Optional[bool], paged: bool,
                            spec: bool, spec_k: int) -> None:
@@ -766,13 +834,25 @@ class BatchDecodeEngine:
 
     def mesh_info(self) -> Dict[str, object]:
         """``health()["mesh"]``: the plan's mesh (reference :473), or
-        ``{"enabled": False}`` without one."""
+        ``{"enabled": False}`` without one. An engine that started its own
+        worker ranks adds the backend it chose and the workers' pids."""
         if self.plan is None:
             return {"enabled": False}
-        return self.plan.describe()
+        info = self.plan.describe()
+        if self._tp is not None:
+            info["backend"] = self._tp.backend
+            info["worker_pids"] = self._tp.pids
+        return info
 
     # -- tensor parallel (reference :266-291, :470-491) ------------------------
-    def _init_plan(self, mesh, plan, spec: bool) -> None:
+    def _init_plan(self, mesh, plan) -> None:
+        """The plan's form, by what this process has (module docstring):
+        a bound plan (a worker rank, handed its view), a multi-rank plan
+        with no process group (the single-process form: this process is
+        rank 0 and cuts every rank's view; the workers start at the end of
+        construction), or the launcher's group (SPMD)."""
+        import torch.distributed as dist
+
         from ..distributed.shard_plan import ShardingPlan, decode_plan
 
         if plan is None:
@@ -791,16 +871,37 @@ class BatchDecodeEngine:
                 "(codes, scale) pair per layer is a named follow-up seam "
                 "(shard_kv places plain pools only) — serve int8 KV "
                 "single-card or drop the plan")
-        if spec:
-            raise not_ported("speculative decoding under a plan (the "
-                             "reference replicates the draft on every rank)",
-                             "A10 slice 1")
-        plan.require_group()
         self.plan = plan
-        self.net = plan.shard(self.net)
-        if plan.n_devices > 1:
+        if plan.bound:
+            self.net = plan.wire_module(self.net)
+        elif plan.n_devices > 1 and not dist.is_initialized():
+            self._tp_cuts = [plan.cut_module(self.net, r)
+                             for r in range(plan.n_devices)]
+            self.net = self._tp_cuts[0]
+        else:
+            plan.require_group()
+            self.net = plan.shard(self.net)
+        if plan.n_devices > 1 and self._tp_cuts is None:
             self._ctl = _Control(plan)
         self._mesh_gauges()
+
+    def _start_ranks(self, worker_kw: Dict[str, object]) -> None:
+        """Start ranks 1..n-1 (:mod:`.tp_worker`) on the views cut in
+        :meth:`_init_plan`, with the replicated draft under speculation,
+        then attach this rank's collectives to its own view over the groups
+        they share."""
+        from .tp_worker import _release, start_workers
+
+        cuts, self._tp_cuts = self._tp_cuts, None
+        draft = self.spec.draft_model if self.spec is not None else None
+        plan, ranks = start_workers(self.plan, cuts, draft, worker_kw,
+                                    self.device)
+        self._tp = ranks
+        # collected without stop(): the workers go with the engine
+        self._tp_finalizer = weakref.finalize(self, _release, ranks)
+        self.plan = plan
+        self.net = plan.wire_module(self.net)
+        self._ctl = _Control(plan)
 
     def _mesh_gauges(self) -> None:
         """One-time mesh gauges (construction, cold path)."""
@@ -850,12 +951,99 @@ class BatchDecodeEngine:
 
     def stop(self) -> None:
         """On rank 0 of a plan: release the followers (their
-        :meth:`follow` returns). Idempotent; nothing to do without a
-        plan."""
+        :meth:`follow` returns); an engine that started its worker ranks
+        then joins them (killing one that has not exited within 15 s, or
+        all of them at once when a step holds the channel past 10 s or a
+        rank was lost). Idempotent; nothing to do without a plan."""
         ctl = self._ctl
         if ctl is not None and ctl.driver and not ctl.stopped:
-            ctl.send(_STOP, (), {})
-            ctl.stopped = True
+            got = ctl.lock.acquire(timeout=10.0 if self._tp is not None
+                                   else -1)
+            try:
+                if got and ctl.failed is None:
+                    try:
+                        ctl.send(_STOP, (), {})
+                    except Exception as e:
+                        ctl.failed = e
+                        if self._tp is None:
+                            raise
+            finally:
+                ctl.stopped = True
+                if got:
+                    ctl.lock.release()
+        if self._tp is not None:
+            self._tp.close()
+            self._tp_finalizer.detach()
+
+    def _rank_counters(self, reset: bool = False) -> List[Optional[Dict]]:
+        """Every rank's kernel counters, in rank order: paged-attention
+        launches (full precision and int8), the ``nvcc`` runs its process
+        started, its decode steps, its pool's used and cached-prefix pages,
+        its peak device memory (on the card) and, under speculation, its
+        acceptance and a checksum of every accepted-run length it took.
+        On rank 0 of a plan the followers' are gathered by a led step;
+        after ``stop()`` or a lost rank their entries are None. ``reset``
+        zeroes each rank's launch counters after reading them."""
+        ctl = self._ctl
+        if ctl is None or not ctl.driver:
+            return self._gather_counters(reset)
+        if not ctl.stopped and ctl.failed is None:
+            try:
+                return self._gather_counters(reset)
+            except Exception:
+                if ctl.failed is None:
+                    raise
+        return [self._own_counters(reset)] + [None] * (ctl.size - 1)
+
+    @_led
+    @torch.no_grad()
+    def _forward_logits(self, ids: np.ndarray) -> np.ndarray:
+        """Full-sequence logits of ``ids [b, s]`` through this rank's view
+        (under a plan every rank runs it in step, a led step): f32 numpy
+        ``[b, s, vocab]``. A probe that holds a plan's model against the
+        one-process model; it touches no engine state."""
+        ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                                device=self.device)
+        return self.net(ids_t).float().cpu().numpy()
+
+    @_led
+    @torch.no_grad()
+    def _paged_step_logits(self, last: np.ndarray) -> np.ndarray:
+        """The logits of one paged decode step (kernel 1 on the card) over
+        every slot, slot i fed ``last[i]`` (the remaining slots their own
+        last token), at the slots' current lengths: f32 numpy ``[len(last),
+        vocab]``. A probe that holds two engines on the same input whatever
+        their sampled tokens; under a plan every rank runs it in step (a
+        led step). It writes this step's K/V into the slots' pages and
+        leaves ``lens`` as it was."""
+        n = len(last)
+        self.tokens[:n].copy_(torch.as_tensor(np.asarray(last),
+                                              dtype=self.tokens.dtype))
+        rows = self._forward_paged(self.tokens[:, None], self.lens)[:, 0]
+        return rows[:n].float().cpu().numpy()
+
+    @_led
+    def _gather_counters(self, reset: bool = False) -> List[Dict]:
+        mine = self._own_counters(reset)
+        return [mine] if self._ctl is None else self._ctl.gather(mine)
+
+    def _own_counters(self, reset: bool) -> Dict[str, object]:
+        fn = _pa.paged_attention
+        out = {"pid": os.getpid(), "paged_attention": fn.launches,
+               "paged_attention_int8": fn.int8_launches,
+               "nvcc_runs": _build.nvcc_runs,
+               "decode_steps": self.stats["decode_steps"]}
+        if self.kv_layout == "paged":
+            out["pages_used"] = self.pool.used
+            out["prefix_cached_pages"] = self.prefix.cached_pages
+        if self.device.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        if self.spec is not None:
+            out["spec"] = dict(self.spec.stats,
+                               accept_crc=self.spec.accept_crc)
+        if reset:
+            fn.launches = fn.int8_launches = 0
+        return out
 
     # -- KV observability ----------------------------------------------------
     def _kv_gauges(self, total: bool = False) -> None:

@@ -13,7 +13,10 @@ from seed 0 through the port's RNG. It serves on the card unless
 ``--device cpu`` is given. Its ``_OP_HEALTH`` answer adds a ``kernels``
 block: the paged-attention kernel's launches in this process and the
 ``nvcc`` runs it started (0 after a respawn: the libraries are on disk or
-come with ``--bundle``).
+come with ``--bundle``), and under a plan of several ranks the counters
+of every rank (``ranks``). ``--engine-json '{"mesh": "mp2"}'`` serves a
+tensor-parallel replica: this process is rank 0 and the engine starts its
+worker ranks, which end with it (SIGKILL included).
 
 Lifecycle contract (what :class:`~.remote_replica.ReplicaSupervisor`
 builds on):
@@ -64,17 +67,26 @@ def _build_model(preset: str, model_json: str | None, device):
 
 
 def _health_with_kernels(eng):
-    """``eng.health()`` plus this process's kernel counters, so a parent
-    can see over the wire that the decode ran through the paged kernel."""
+    """``eng.health()`` plus the kernel counters, so a parent can see over
+    the wire that the decode ran through the paged kernel: this process's
+    (rank 0's) paged launches, int8 launches and ``nvcc`` runs and, for an
+    engine over a plan of several ranks, under ``ranks`` the counters of
+    every rank in rank order (gathered from the worker ranks; None for a
+    rank that is gone)."""
     from paddlepaddle_tpu_torch.ops.kernels import _build
     from paddlepaddle_tpu_torch.ops.kernels import paged_attention as _pa
 
     def health():
         snap = eng.health()
         fn = _pa.paged_attention
-        snap["kernels"] = {"paged_attention": fn.launches,
-                           "paged_attention_int8": fn.int8_launches,
-                           "nvcc_runs": _build.nvcc_runs}
+        kernels = {"paged_attention": fn.launches,
+                   "paged_attention_int8": fn.int8_launches,
+                   "nvcc_runs": _build.nvcc_runs}
+        engine = eng._engine
+        if engine is not None and engine.plan is not None \
+                and engine.plan.n_devices > 1:
+            kernels["ranks"] = engine._rank_counters()
+        snap["kernels"] = kernels
         return snap
 
     return health

@@ -1247,9 +1247,10 @@ class ServingEngine:
                 for i, s in enumerate(eng._host_slots):
                     if s.req is not None:
                         s.req.result._set(error=e)
-                        # partial output discarded with the failed chunk
-                        _goodput.account("retry_discard", len(s.emitted))
-                        eng._host_slots[i] = type(s)()
+                        # partial output discarded with the failed chunk;
+                        # a led step, so a plan's followers free the slot
+                        # too and the ranks' slot choices stay in step
+                        eng.release_slot(i, reason="retry_discard")
                 eng.reset_slots()  # clear phantom device lanes too
                 self._bump("batches_failed")
                 self._bump("decode_failures")

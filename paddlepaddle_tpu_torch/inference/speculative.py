@@ -37,12 +37,24 @@ is left unchanged, which matters when the target is its own draft.
 
 Requests with temperature > 0 are refused at admission (sampling-correct
 rejection resampling is a seam of the reference too).
+
+Under a tensor-parallel plan (reference :156-175) the draft is replicated:
+every rank holds the whole draft (the target itself when it is its own
+draft, never the plan's sharded view) and its own slot-contiguous draft
+caches; ``draft_quant`` quantizes each rank's replica alike. The verify is
+the target's ``_forward_paged`` on the rank's local heads, its logits
+gathered before the accept/reject, so every rank decides on the same
+logits. Every rank must also decide on the same proposals, or their pools
+fall out of step: after the draft program, rank 0's ``[S, k]`` proposals
+are broadcast over the model group (a few hundred bytes a round), so the
+ranks agree by construction rather than by the draft kernels' determinism.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import weakref
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -148,6 +160,10 @@ class SpeculativeDecoder:
         self.stats = {"target_steps": 0, "proposed": 0, "accepted": 0,
                       "rollbacks": 0, "emitted": 0}
         self.runlen = [0] * (self.k + 1)   # accepted-run-length histogram
+        # CRC-32 of every accepted-run-length matrix this engine folded in,
+        # in order: two ranks of a plan that took the same accept lengths
+        # hold the same value
+        self.accept_crc = 0
         # a crash dump carries the live acceptance (weakly bound)
         ref = weakref.ref(self)
 
@@ -253,6 +269,11 @@ class SpeculativeDecoder:
             cur = lg[:, 0].float().argmax(dim=-1).to(torch.int32)
             props.append(cur)
         self.proposals.copy_(torch.stack(props, dim=1))
+        plan = eng.plan
+        if plan is not None and plan.tp_degree > 1:
+            from ..distributed.collective import _broadcast_
+
+            _broadcast_(self.proposals, 0, plan.mp_group)
 
     def verify_body(self) -> None:
         """ONE target forward at W = k+1 and the greedy accept/reject as
@@ -320,6 +341,9 @@ class SpeculativeDecoder:
                      emitted_count: int) -> None:
         """Fold one spec chunk's accepted-run lengths (``[S, steps]``, -1
         for inactive slot-steps) into ``stats`` and ``runlen``."""
+        self.accept_crc = zlib.crc32(
+            np.ascontiguousarray(acc_matrix, dtype=np.int32).tobytes(),
+            self.accept_crc)
         live = acc_matrix[acc_matrix >= 0]
         if live.size == 0:
             return

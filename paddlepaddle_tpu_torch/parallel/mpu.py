@@ -18,7 +18,10 @@ the f/g pair of :mod:`..distributed.collective` itself:
 
 :func:`parallel_view` applies the same roles to a model's own projections
 under a :class:`~..distributed.shard_plan.ShardingPlan` (what
-``plan.shard(model)`` returns). The sequence-parallel half of the reference
+``plan.shard(model)`` returns), in two halves: :func:`cut_view` (a rank's
+blocks, marked with their roles, picklable) and :func:`wire_view` (the
+collectives over the rank's group), which a single-process engine runs in
+different processes. The sequence-parallel half of the reference
 (:166-198) waits for an ``sp`` axis (a later A10 slice).
 
 The group of a layer built directly is ``mp_group`` (a
@@ -69,7 +72,7 @@ def _group(mp_group, mp_axis):
 def _size_rank(pg):
     if pg is None:
         return 1, 0
-    return dist.get_world_size(pg), dist.get_rank(pg)
+    return pg.size(), pg.rank()
 
 
 def _init_full(rows, cols, std, device, dtype):
@@ -304,7 +307,20 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
     ``c_identity``, the LM head's output gathered; a row one's output
     all-reduced), an embedding sharded on its hidden dim gathered after
     the lookup, one sharded on its vocabulary swapped for a
-    :class:`VocabParallelEmbedding`. Names are the model's own."""
+    :class:`VocabParallelEmbedding`. Names are the model's own. It is
+    :func:`cut_view` (this rank's blocks) then :func:`wire_view` (the
+    collectives)."""
+    return wire_view(cut_view(model, plan, share=share), pg)
+
+
+def cut_view(model: nn.Module, plan, share: bool = True, rank=None
+             ) -> nn.Module:
+    """The first half of :func:`parallel_view`: a view of ``model`` holding
+    rank ``rank``'s (default: this rank's) blocks under ``plan``, with no
+    collective attached. Each module that takes one is marked with its
+    tensor-parallel role (``_tp_wire``), which :func:`wire_view` reads. It
+    holds no hook and no process group, so it pickles: a single-process
+    engine cuts every rank's view and hands each worker its own."""
     from ..nn.common import Embedding
     from ..nn.quant.quantized_linear import WeightOnlyLinear
     from ..nn.quant.qweight import QuantizedWeight
@@ -326,7 +342,7 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
             if not spec and share:
                 params[pname] = p
                 continue
-            t = plan.local(p.detach(), spec).clone() if spec \
+            t = plan.local(p.detach(), spec, rank).clone() if spec \
                 else p.detach().clone()
             params[pname] = nn.Parameter(t, requires_grad=p.requires_grad)
         d["_parameters"] = params
@@ -335,7 +351,7 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
             qw = plan._shard_quantized(
                 prefix + "weight",
                 QuantizedWeight(mod.quant_weight, mod.weight_scale,
-                                group_size=mod.group_size))
+                                group_size=mod.group_size), rank)
             bufs["quant_weight"], bufs["weight_scale"] = qw.q, qw.scale
             full_shapes["weight"] = tuple(mod.quant_weight.shape)
         d["_buffers"] = bufs
@@ -348,24 +364,50 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
             probe = tuple(probe) + (None,) * (2 - len(probe))
             if plan.model_axis in plan._shape and \
                     plan.model_axis in _flat(probe[0]):
-                return VocabParallelEmbedding.from_local(
-                    new.weight, mod.num_embeddings, pg, mod.padding_idx)
-            if plan.model_axis in plan._shape and \
+                new._tp_wire = ("vocab", mod.num_embeddings)
+            elif plan.model_axis in plan._shape and \
                     plan.model_axis in _flat(probe[1]):
-                new.register_forward_hook(
-                    lambda m, args, out: c_concat(out, pg, -1))
+                new._tp_wire = ("gather",)
         elif "weight" in full_shapes and len(full_shapes["weight"]) == 2:
             role = plan.role_for(prefix + "weight", full_shapes["weight"])
             if (role == "row" and isinstance(mod, WeightOnlyLinear)
                     and mod.group_size == -1):
-                new.__class__ = _row_int8_class()
-                new._tp_pg = pg
+                new._tp_wire = ("row_int8",)
             elif role is not None:
-                _hooks_for(new, role, bool(_GATHER_OUTPUT.search(prefix)),
-                           pg)
+                new._tp_wire = (role, bool(_GATHER_OUTPUT.search(prefix)))
         return new
 
     return view(model, "")
+
+
+def wire_view(view: nn.Module, pg) -> nn.Module:
+    """The second half of :func:`parallel_view`: attach each marked
+    module's collectives over ``pg`` (the rank's model-axis group), in
+    place; returns the view (its root swapped when the root itself is a
+    vocab-sharded embedding)."""
+
+    def wire(mod: nn.Module) -> nn.Module:
+        for n, c in list(mod._modules.items()):
+            if c is not None:
+                mod._modules[n] = wire(c)
+        role = mod.__dict__.pop("_tp_wire", None)
+        if role is None:
+            return mod
+        kind = role[0]
+        if kind == "vocab":
+            return VocabParallelEmbedding.from_local(
+                mod.weight, role[1], pg, mod.padding_idx)
+        if kind == "gather":
+            mod.register_forward_hook(
+                lambda m, args, out: c_concat(out, pg, -1))
+        elif kind == "row_int8":
+            mod.__class__ = _row_int8_class()
+            mod._tp_pg = pg
+        else:
+            _hooks_for(mod, kind, role[1], pg)
+        return mod
+
+    return wire(view)
 
 
 def _flat(entry):

@@ -75,6 +75,7 @@ import paddlepaddle_tpu_torch.inference.router
 import paddlepaddle_tpu_torch.inference.fleet
 import paddlepaddle_tpu_torch.inference.remote_replica
 import paddlepaddle_tpu_torch.inference.replica_main
+import paddlepaddle_tpu_torch.inference.tp_worker
 import paddlepaddle_tpu_torch.inference.c_api_server
 import paddlepaddle_tpu_torch.resilience
 import paddlepaddle_tpu_torch.resilience.chaos

@@ -131,9 +131,10 @@ def test_kv_capacity_error_at_submit(models):
 
 @pytest.mark.parametrize("kwargs,item", [
     # bundle= (A6) is ported: test_missing_bundle_falls_back_and_serves;
-    # mesh= is ported for SPMD ranks (PR 17); a 2-rank mesh in a process
-    # with no process group (the single-process form) is a later A10 slice
-    pytest.param(dict(mesh="mp2"), "A10", id="kwargs1-A10"),
+    # mesh= is ported over dp / mp, in one process too (the engine starts
+    # its other ranks: tests/test_torch_tp_engine.py); an expert-parallel
+    # axis is a later A10 slice
+    pytest.param(dict(mesh="ep2"), "A10", id="kwargs1-A10"),
 ])
 def test_unported_options_raise(models, kwargs, item):
     _, tm = models

@@ -19,9 +19,11 @@ the JAX package (``paddlepaddle_tpu/distributed/shard_plan.py``,
   of the one-process model; prefix hits under TP; the local KV pool;
   ``ServingEngine(mesh="mp2")``'s health and gauges; a follower that
   fails alone failing the driver at once.
-* The refusals: axes outside ``dp`` / ``mp``, speculative decoding under a
-  plan, a multi-rank plan without a process group, ``kv_quant`` with a
-  plan, static mode with a mesh.
+* The refusals: axes outside ``dp`` / ``mp``, ``ShardedTrainStep`` over a
+  multi-rank plan without a process group, ``kv_quant`` with a plan,
+  static mode with a mesh; a multi-rank plan without a group and
+  speculative decoding under a plan serving (their single-process form is
+  held against the JAX package in ``tests/test_torch_tp_engine.py``).
 """
 
 import numpy as np
@@ -352,13 +354,30 @@ def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later):
 
 
 def test_multi_rank_plan_without_a_group_raises_with_the_launch_command():
+    """A multi-rank plan in a process with no group: the decode engine
+    serves it in one process (this process is rank 0 and the engine starts
+    the other rank), its greedy tokens the one-process engine's, and stops
+    its worker; ``ShardedTrainStep`` still raises with the launch command,
+    naming the A10 slice that ports its single-process form."""
     import paddlepaddle_tpu_torch as pt
 
     model = _port_tiny()
+    reqs = W._requests(_prompts(), 6)
+    pt.BatchDecodeEngine(model, max_slots=2, chunk=4, page_size=16,
+                         device="cpu").serve(reqs)
+    want = [r.result.result(5) for r in reqs]
     for kw in ({"plan": tsp.decode_plan("mp2")}, {"mesh": "mp2"}):
-        with pytest.raises(NotImplementedError,
-                           match="distributed.launch"):
-            pt.BatchDecodeEngine(model, max_slots=2, device="cpu", **kw)
+        eng = pt.BatchDecodeEngine(model, max_slots=2, chunk=4,
+                                   page_size=16, device="cpu", **kw)
+        assert eng.is_driver and eng.mesh_info()["backend"] == "gloo"
+        reqs = W._requests(_prompts(), 6)
+        eng.serve(reqs)
+        eng.stop()
+        for r, w in zip(reqs, want):
+            np.testing.assert_array_equal(r.result.result(5), w)
+        assert all(p.exitcode == 0 for p in eng._tp.procs)
+    with pytest.raises(NotImplementedError, match="distributed.launch"):
+        tsp.decode_plan("mp2").require_group()
     with pytest.raises(NotImplementedError, match="A10"):
         pt.parallel.ShardedTrainStep(
             model, pt.AdamW(parameters=model.parameters()),
@@ -367,13 +386,24 @@ def test_multi_rank_plan_without_a_group_raises_with_the_launch_command():
 
 
 def test_speculative_kv_int8_and_static_mode_refusals_under_a_plan():
+    """Speculative decoding under a plan serves (the draft replicated: the
+    target as its own draft here) with the plan-less greedy stream; int8
+    KV with a plan, static mode with a mesh and a head count the plan does
+    not divide stay refused."""
     import paddlepaddle_tpu_torch as pt
 
     model = _port_tiny()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        pt.BatchDecodeEngine(model, max_slots=2, page_size=16,
-                             plan=tsp.decode_plan("mp1"), draft=model,
-                             spec_k=2, device="cpu")
+    outs = []
+    for kw in ({}, {"plan": tsp.decode_plan("mp1"), "draft": model,
+                    "spec_k": 2}):
+        eng = pt.BatchDecodeEngine(model, max_slots=2, chunk=4,
+                                   page_size=16, device="cpu", **kw)
+        reqs = W._requests(_prompts(), 6)
+        eng.serve(reqs)
+        outs.append([r.result.result(5) for r in reqs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert eng.spec_info()["enabled"] and eng.mesh_info()["tp"] == 1
     with pytest.raises(ValueError, match="kv_quant"):
         pt.BatchDecodeEngine(model, max_slots=2, page_size=16,
                              mesh="mp1", kv_quant="int8", device="cpu")

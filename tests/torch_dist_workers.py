@@ -127,6 +127,22 @@ def decode_session(states, prompts, pfx_prompts):
     return out
 
 
+def spmd_tokens_session(cases, prompts, n):
+    """TP-2 greedy tokens of the launcher form (one engine a rank) for each
+    ``(label, state, dtype, cfg, quant)`` case; rank 0 returns
+    ``{label: tokens}``, rank 1 None. The single-process engine's tokens
+    are held against these to the bit."""
+    from paddlepaddle_tpu_torch.distributed import decode_plan
+
+    rank = _init()
+    out = {}
+    for label, state, dtype, cfg, quant in cases:
+        model = port_llama(state, dtype, cfg)
+        out[label], _ = _serve(model, prompts, n, plan=decode_plan("mp2"),
+                               quant=quant)
+    return out if rank == 0 else None
+
+
 def follower_fault_session(state, prompts, report_dir):
     """TP-2 decode where the follower fails alone: first an unservable
     request (both ranks raise ``ValueError`` and go on), then a fault
