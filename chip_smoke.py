@@ -360,6 +360,40 @@ code is non-zero):
 10g. ``tp_parity``'s single-process check (after 10a's spawns): the tiny
                f32 model's speculative stream under mp2 (the target as
                draft, k 3) equals the one-process non-spec engine's.
+10c'. ``train_tp`` single-process arms (after 10c's one-process step):
+               ``ShardedTrainStep(model, opt, loss, plan=train_plan(spec))``
+               for ``mp2`` and ``dp2`` built in this process (rank 0; the
+               step starts rank 1, hands it its view, the optimizer's
+               settings and the loss function by value): losses bit-equal
+               to the SPMD arm's; each rank's flash launches (read through
+               the step) = layers x steps; 0 nvcc runs in the worker;
+               construction seconds; the worker gone after ``close()``;
+               device memory left behind within 0.25 GB; peak memory of
+               each process.
+
+    Expert parallelism (A10 slice 2): ``moe_train_rules`` puts each MoE
+    layer's banks on ``ep``; the ranks of an ``ep`` group hold the same
+    tokens, route the global batch and run kernel 8 over their local
+    experts; the partial combine is all-reduced over ``ep``.
+10h. ``ep_parity``  the smallest f32 MoE kernel 8 takes (d 128, h 256, E 8,
+               top-2, 2 layers, capacity factor 0.5: entries drop, fused),
+               batch 4 x 256, 2 AdamW steps with global-norm clip:
+               ``ep2`` and ``dp2ep2`` in this process against a
+               one-process ``TrainStep`` on the same weights: losses
+               within 1e-5 relative, every synced parameter within 1e-4,
+               local banks E/ep, kernel 8 = layers x steps on every rank.
+10i. ``train_ep``  DeepSeekMoE-16B widths at 2 of 28 layers (bf16, fused,
+               multi-precision AdamW + clip), batch 4 x 2048: a one-process
+               ``TrainStep``, freed, then ``ep2`` in this process (32 of
+               64 experts a rank, C 320), 3 steps each: losses within
+               0.02; the first step's drop share of layer 0 equal and of
+               layer 1 within 0.002; kernels 8 and 2-4 = layers x steps on
+               each rank; step ms; the last step's ``ep`` all-reduces
+               (count, bytes, ms on rank 0); peak memory of each process;
+               the worker gone, memory left behind within 0.25 GB; then
+               kernel 8 alone at one rank's shape (T 8192, 32 local of 64
+               experts, C 320, the other experts' slots not its own)
+               against its plain version, timed beside its bound.
 
 Then the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1710,24 +1744,34 @@ MIXTRAL_E, MIXTRAL_C, MIXTRAL_T, MIXTRAL_D, MIXTRAL_H = 8, 640, 2048, 4096, \
     14336
 
 
-def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10):
+def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10,
+                          local=None):
     """One bf16 case at full width: slots from a routing of random x through
     a random gate (N(0, 0.02), as the model's init), both phases and the
     call checked, then CUDA-event medians (L2 flushed) of each phase, the
     call, the plain version and the sorted mode's composition, beside the
-    bounds of this run's work."""
+    bounds of this run's work. ``local``: the banks of one expert-parallel
+    rank, experts ``0..local-1`` of the ``E`` the routing chose from (the
+    slots of the other experts are not this rank's)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    E_b = local or E
     x = torch.randn(T, d, device="cuda", generator=gen).to(torch.bfloat16)
-    wg, wu = (torch.randn(E, d, h, device="cuda", generator=gen).mul_(0.02)
-              .to(torch.bfloat16) for _ in range(2))
-    wd = torch.randn(E, h, d, device="cuda", generator=gen).mul_(0.02) \
+    wg, wu = (torch.randn(E_b, d, h, device="cuda", generator=gen)
+              .mul_(0.02).to(torch.bfloat16) for _ in range(2))
+    wd = torch.randn(E_b, h, d, device="cuda", generator=gen).mul_(0.02) \
         .to(torch.bfloat16)
     gate_w = torch.randn(d, E, device="cuda", generator=gen).mul_(0.02)
-    _, _, _, valid, entry = tmoe._capacity_slot_maps(x.float() @ gate_w, 2,
-                                                     E, C, T)
-    slot = torch.where(valid, entry % T, T).to(torch.int32)
+    if local is None:
+        _, _, _, valid, entry = tmoe._capacity_slot_maps(
+            x.float() @ gate_w, 2, E, C, T)
+        slot = torch.where(valid, entry % T, T).to(torch.int32)
+    else:
+        _, _, _, valid, entry = tmoe._local_capacity_maps(
+            x.float() @ gate_w, 2, E, C, 0, T, 0, local)
+        slot = entry.to(torch.int32)
+    E = E_b
     checks = gather_gemm_check(gg, x, slot, wg, wu, wd, C)
     bad = {k: v for k, v in checks.items() if not v[1] <= 1.0}
     if bad:
@@ -1768,7 +1812,8 @@ def gather_gemm_full_case(gg, tmoe, T, E, C, d, h, seed, plain_reps=10):
                         else "operations",
                         "bound_share": max(t_bytes, t_ops) / ms[name],
                         "tflops": flops / ms[name] / 1e9}
-    return {"shape": f"T{T} E{E} C{C} d{d} h{h} bf16",
+    return {"shape": f"T{T} E{E}{'' if local is None else ' local'} "
+                     f"C{C} d{d} h{h} bf16",
             "filled_slots": int(valid.sum()),
             "rows_read": int(torch.unique(slot[valid]).numel()),
             "checks": {k: {"max_abs_err": v[0], "err_over_allowed": v[1]}
@@ -5808,6 +5853,8 @@ def phase_train_tp(pt_pkg):
     del model, ref
     gc.collect()
     torch.cuda.empty_cache()
+    single = {spec: _train_tp_single(pt_pkg, spec, cfg, ids)
+              for spec in runs}
     L = TRAIN_TP_LAYERS
     out, bad = {}, []
     summary = {}
@@ -5829,10 +5876,20 @@ def phase_train_tp(pt_pkg):
         want = {"flash_fwd": L * TRAIN_TP_STEPS,
                 "flash_bwd_dq": L * TRAIN_TP_STEPS,
                 "flash_bwd_dkv": L * TRAIN_TP_STEPS}
+        one_arm = single[spec]
+        one_arm["bit_equal_to_spmd"] = one_arm["losses"] == ranks[0]["losses"]
+        summary[f"{spec} single-process"] = one_arm
         if err > TRAIN_TP_LOSS_TOL or summary[spec]["nvcc_in_ranks"] \
                 or any(r["flash"] != want for r in ranks):
             bad.append(spec)
+        if not one_arm["bit_equal_to_spmd"] or not one_arm["workers_gone"] \
+                or one_arm["held_gb"] > HELD_GB_TOL or one_arm["nvcc_in_worker"] \
+                or any(r["launches"][k] != v for r in one_arm["ranks"]
+                       for k, v in want.items()):
+            bad.append(f"{spec} single-process")
         out[f"train_tp {spec} flash rank0"] = ranks[0]["flash"]
+        out[f"train_tp {spec} single-process flash by rank"] = [
+            {k: r["launches"][k] for k in want} for r in one_arm["ranks"]]
     emit({"phase": "train_tp", "nvidia_smi": nvidia_smi_line(),
           "model": f"llama3_8b widths, {L} layers, bf16",
           "backend": "gloo (2 ranks share cuda:0; collectives via host)",
@@ -5843,6 +5900,297 @@ def phase_train_tp(pt_pkg):
     if bad:
         raise AssertionError(f"train_tp failed for {bad}: {summary}")
     return out
+
+
+def _train_tp_single(pt_pkg, spec, cfg, ids):
+    """10c': ``spec``'s single-process arm: ``ShardedTrainStep`` over
+    ``train_plan(spec)`` built in this process (rank 0; the step starts rank
+    1 on ``cuda:0`` over gloo groups it owns) on the SPMD arm's seed,
+    optimizer and batch. Losses, each rank's launches and peak memory (read
+    through the step), construction seconds, whether the worker is gone
+    after ``close()`` and the memory this process still holds then."""
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    t0 = time.perf_counter()
+    step = ShardedTrainStep(
+        model, pt_pkg.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                            grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0)),
+        _llm_loss, plan=train_plan(spec, data_axes=("dp",)))
+    ctor_s = time.perf_counter() - t0
+    pids, startup = step.workers.pids, dict(step.workers.startup)
+    try:
+        step._rank_stats(reset=True)
+        losses, ms = [], []
+        for _ in range(TRAIN_TP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(step(ids, ids)))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        ranks = step._rank_stats()
+    finally:
+        step.close()
+    gone = _procs_gone(pids)
+    del step, model
+    held = _held_gb(before)
+    return {"losses": losses, "step_ms": ms, "construction_s": ctor_s,
+            "worker_startup_s": startup, "workers_gone": gone,
+            "held_gb": held, "nvcc_in_worker": sum(r["nvcc"]
+                                                   for r in ranks[1:]),
+            "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+            "ranks": [{"launches": r["launches"]} for r in ranks]}
+
+
+# -- 10h-10i: expert parallelism (A10 slice 2) --------------------------------
+
+# the smallest f32 MoE kernel 8 takes (d and h multiples of 128), capacity
+# factor 0.5 so that routed entries drop
+EP_PARITY = dict(vocab_size=1024, hidden_size=128, intermediate_size=256,
+                 num_hidden_layers=2, num_attention_heads=2,
+                 num_key_value_heads=2, num_experts=8, num_experts_per_tok=2,
+                 num_shared_experts=0, capacity_factor=0.5,
+                 max_position_embeddings=512, dtype="float32",
+                 dispatch_mode="fused")
+EP_PARITY_BATCH, EP_PARITY_STEPS = (4, 256), 2
+EP_PARITY_LOSS_RTOL = 1e-5   # f32: the partial combine's sum over ep and
+#                              the logits' gather over dp reorder sums only
+EP_PARITY_PARAM_ATOL = 1e-4  # a tenth of one AdamW step's move at lr 1e-3
+TRAIN_EP_LAYERS = 2          # DeepSeekMoE-16B widths at 2 of 28 layers
+TRAIN_EP_STEPS = 3
+TRAIN_EP_LOSS_TOL = 0.02     # abs, bf16 losses, ep2 vs one process
+# drop shares of a layer after the first: its input went through a bf16
+# combine summed over ep, which rounds apart from one process's
+TRAIN_EP_DROP_TOL = 0.002
+
+
+def _ep_opt(pt_pkg, model, lr, multi_precision=False):
+    return pt_pkg.AdamW(learning_rate=lr, weight_decay=0.01,
+                        multi_precision=multi_precision,
+                        parameters=model.named_parameters(),
+                        grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+
+
+def _first_drop_shares(layers):
+    """Pre-hooks on each MoE layer of ``layers`` that record, once, the
+    share of routed entries its capacity drops on its first input (the
+    global batch: under ``ep`` alone every rank holds it). Returns the list
+    they fill and their handles."""
+    from paddlepaddle_tpu_torch.parallel import moe as tmoe
+
+    shares, handles = [], []
+
+    def hook(mlp, args):
+        if len(shares) < len(layers):
+            x = args[0].reshape(-1, mlp.d_model)
+            soe = tmoe._capacity_slot_maps(
+                x.float() @ mlp.gate.weight.float(), mlp.gate.topk,
+                mlp.num_experts, mlp.capacity(x.shape[0]), x.shape[0])[2]
+            shares.append(float((soe < 0).float().mean()))
+
+    for layer in layers:
+        handles.append(layer.mlp.register_forward_pre_hook(hook))
+    return shares, handles
+
+
+def phase_ep_parity(pt_pkg):
+    """10h: the f32 MoE of ``EP_PARITY`` (fused) trained 2 steps by
+    ``ShardedTrainStep`` over ``ep2`` and ``dp2ep2`` in this process
+    (``moe_train_rules``; the step starts the other ranks on ``cuda:0``)
+    against a one-process ``TrainStep`` on the same weights and batch:
+    losses, synced parameters, kernel 8 on every rank."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import moe_train_rules, train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    cfg = pt_pkg.MoEConfig(**EP_PARITY)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, EP_PARITY_BATCH)).cuda()
+    m1 = pt_pkg.MoEForCausalLM(cfg, seed=0)
+    one = pt_pkg.TrainStep(m1, _ep_opt(pt_pkg, m1, 1e-3), _llm_loss)
+    shares, hs = _first_drop_shares(m1.layers)
+    want = [float(one(ids, ids)) for _ in range(EP_PARITY_STEPS)]
+    for hd in hs:
+        hd.remove()
+    ref = {n: p.detach().clone() for n, p in m1.named_parameters()}
+    out, bad = {"one_process": {"losses": want, "drop_share": shares}}, []
+    for spec in ("ep2", "dp2ep2"):
+        model = pt_pkg.MoEForCausalLM(cfg, seed=0)
+        t0 = time.perf_counter()
+        step = ShardedTrainStep(model, _ep_opt(pt_pkg, model, 1e-3),
+                                _llm_loss, plan=train_plan(
+                                    spec, rules=moe_train_rules(),
+                                    data_axes=("dp",)))
+        ctor_s = time.perf_counter() - t0
+        pids = step.workers.pids
+        ep = step.plan.axes["ep"]
+        try:
+            step._rank_stats(reset=True)
+            got = [float(step(ids, ids)) for _ in range(EP_PARITY_STEPS)]
+            ranks = step._rank_stats()
+            step.sync_to_model()
+            bank = tuple(step.params["layers.0.mlp.w_gate_proj"].shape)
+        finally:
+            step.close()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        param_err = max(float((p.detach() - ref[n]).abs().max())
+                        for n, p in model.named_parameters())
+        launches = [r["launches"]["gather_gemm_ffn"] for r in ranks]
+        rec = {"losses": got, "max_rel_loss_err": rel,
+               "max_abs_param_err": param_err, "local_bank": bank,
+               "kernel8_launches_by_rank": launches,
+               "expected_launches": L * EP_PARITY_STEPS,
+               "flash_fwd_by_rank": [r["launches"]["flash_fwd"]
+                                     for r in ranks],
+               "construction_s": ctor_s, "workers_gone": _procs_gone(pids),
+               "nvcc_in_workers": sum(r["nvcc"] for r in ranks[1:])}
+        out[spec] = rec
+        if rel > EP_PARITY_LOSS_RTOL or param_err > EP_PARITY_PARAM_ATOL \
+                or bank[0] != cfg.num_experts // ep \
+                or any(n != L * EP_PARITY_STEPS for n in launches) \
+                or not rec["workers_gone"] or rec["nvcc_in_workers"]:
+            bad.append(spec)
+        del step, model
+        gc.collect()
+    emit({"phase": "ep_parity", "model": "f32 MoE d 128, h 256, E 8, top-2, "
+          "2 layers, capacity factor 0.5, fused", "batch": EP_PARITY_BATCH,
+          "loss_rtol": EP_PARITY_LOSS_RTOL,
+          "param_atol": EP_PARITY_PARAM_ATOL, **out})
+    if bad or not min(shares) > 0:
+        raise AssertionError(f"ep_parity failed for {bad} (drop shares "
+                             f"{shares}): {out}")
+    return {f"ep_parity {spec} by rank": out[spec]["kernel8_launches_by_rank"]
+            for spec in ("ep2", "dp2ep2")}
+
+
+def phase_train_ep(pt_pkg):
+    """10i: DeepSeekMoE-16B widths at ``TRAIN_EP_LAYERS`` layers (bf16,
+    fused, multi-precision AdamW + clip), batch 4 x 2048: a one-process
+    ``TrainStep`` first (then freed), then ``ShardedTrainStep`` over
+    ``ep2`` in this process (each rank 32 of the 64 experts). Losses, drop
+    shares, kernel 8 and 2-4 launches on each rank, step ms, the ``ep``
+    all-reduces of the last step (count, bytes, ms), peak memory of each
+    process; then kernel 8 alone at one rank's shape (32 local experts of
+    64, C 320, T 8192) against its plain version, timed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import collective as C
+    from paddlepaddle_tpu_torch.distributed import moe_train_rules, train_plan
+    from paddlepaddle_tpu_torch.ops.kernels import gather_gemm as gg
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+    from paddlepaddle_tpu_torch.parallel import moe as tmoe
+
+    cfg = dataclasses.replace(moe_train_config(pt_pkg),
+                              num_hidden_layers=TRAIN_EP_LAYERS)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+
+    def run(step, layers):
+        shares, hs = _first_drop_shares(layers)
+        losses, ms = [], []
+        for i in range(TRAIN_EP_STEPS):
+            last = i == TRAIN_EP_STEPS - 1
+            C.reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with C.timing(last):
+                losses.append(float(step(ids, ids)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for hd in hs:
+            hd.remove()
+        return losses, ms, shares, C.collective_stats()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.MoEForCausalLM(cfg, device="cuda", seed=0, init_std=0.02)
+    one = pt_pkg.TrainStep(model, _ep_opt(pt_pkg, model, 1e-4, True),
+                           llm_loss)
+    one_losses, one_ms, one_shares, _ = run(one, model.layers)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.MoEForCausalLM(cfg, device="cuda", seed=0, init_std=0.02)
+    t0 = time.perf_counter()
+    step = ShardedTrainStep(model, _ep_opt(pt_pkg, model, 1e-4, True),
+                            llm_loss, plan=train_plan(
+                                "ep2", rules=moe_train_rules(),
+                                data_axes=("dp",)))
+    ctor_s = time.perf_counter() - t0
+    pids, startup = step.workers.pids, dict(step.workers.startup)
+    try:
+        step._rank_stats(reset=True)
+        losses, ms, shares, coll = run(step, step.net.layers)
+        ranks = step._rank_stats()
+        bank = tuple(step.params["layers.0.mlp.w_gate_proj"].shape)
+    finally:
+        step.close()
+    gone = _procs_gone(pids)
+    del step, model
+    held = _held_gb(before)
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = gather_gemm_full_case(gg, tmoe, MOE_T, MOE_E, MOE_C, MOE_D,
+                                  MOE_H, seed=2, local=MOE_E // 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    err = max(abs(a - b) for a, b in zip(losses, one_losses))
+    drop_err = [abs(a - b) for a, b in zip(shares, one_shares)]
+    n = L * TRAIN_EP_STEPS
+    want = {"gather_gemm_ffn": n, "gather_gateup": n, "expert_down": n,
+            "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    ar = coll.get("all_reduce", {})
+    rec = {"phase": "train_ep", "nvidia_smi": nvidia_smi_line(),
+           "model": f"deepseek-moe-16b widths, {L} layers, bf16, fused",
+           "backend": "gloo (2 ranks share cuda:0; collectives via host)",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "local_bank": bank,
+           "capacity": MOE_C,
+           "one_process": {"losses": one_losses, "step_ms": one_ms,
+                           "peak_gb": one_peak, "drop_share": one_shares},
+           "ep2": {"losses": losses, "step_ms": ms, "drop_share": shares,
+                   "max_abs_loss_err": err, "drop_share_diff": drop_err,
+                   "construction_s": ctor_s, "worker_startup_s": startup,
+                   "launches_by_rank": [r["launches"] for r in ranks],
+                   "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+                   "nvcc_in_worker": sum(r["nvcc"] for r in ranks[1:]),
+                   "last_step_collectives_rank0": coll,
+                   "ep_allreduce_ms_last_step": ar.get("seconds", 0.0) * 1e3,
+                   "workers_gone": gone, "held_gb": held},
+           "kernel8_local": local, "loss_tol": TRAIN_EP_LOSS_TOL,
+           "drop_tol_after_layer0": TRAIN_EP_DROP_TOL}
+    emit(rec)
+    checks = local["checks"]
+    if err > TRAIN_EP_LOSS_TOL or drop_err[0] != 0.0 \
+            or max(drop_err[1:] or [0.0]) > TRAIN_EP_DROP_TOL \
+            or not np.isfinite(losses).all() or bank[0] != MOE_E // 2 \
+            or any(r["launches"][k] != v for r in ranks
+                   for k, v in want.items()) \
+            or rec["ep2"]["nvcc_in_worker"] or not gone \
+            or held > HELD_GB_TOL \
+            or any(not v["err_over_allowed"] <= 1.0
+                   for v in checks.values()):
+        raise AssertionError(f"train_ep failed: {rec}")
+    return {"launches_by_rank": [r["launches"] for r in ranks],
+            "kernel8_local": local}
 
 
 def _nccl_world1_rank():
@@ -6436,6 +6784,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp.update(phase_train_tp(pt_pkg))
     tp.update(phase_nccl_world1(pt_pkg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_launches = phase_ep_parity(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_ep = phase_train_ep(pt_pkg)
+    gg_record["launches_by_phase"] = {
+        "moe_train": gg_record["launches"], **ep_launches,
+        "train_ep by rank": [r["gather_gemm_ffn"]
+                             for r in train_ep["launches_by_rank"]]}
+    local = train_ep["kernel8_local"]
+    gg_record["local_experts"] = {
+        "shape": local["shape"], "ms": local["ms"]["call"],
+        "plain_ms": local["ms"]["plain"],
+        "bound_ms": local["bounds"]["call"]["bound_ms"],
+        "bound_by": local["bounds"]["call"]["bound_by"],
+        "max_abs_err": local["checks"]["call"]["max_abs_err"]}
     record["launches_by_phase"].update(
         {k: v for k, v in tp.items() if k.startswith(("tp_parity",
                                                       "serve_tp",
@@ -6445,8 +6810,11 @@ def main() -> int:
     record["w4"]["launches_by_phase"] = spec_tp
     for r in flash_records:
         r["launches_by_phase"].update(
-            {k: v[r["name"]] for k, v in tp.items()
-             if k.startswith("train_tp")})
+            {k: (v[r["name"]] if isinstance(v, dict)
+                 else [x[r["name"]] for x in v])
+             for k, v in tp.items() if k.startswith("train_tp")})
+        r["launches_by_phase"]["train_ep by rank"] = [
+            x[r["name"]] for x in train_ep["launches_by_rank"]]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records
           + d64_records + varlen_records + [gg_record]})

@@ -10,10 +10,12 @@ mesh axes, and Megatron's f/g pair; :mod:`.collective`,
 ``DataParallel``, and the sharding plan (:mod:`.shard_plan`) that the
 decode engine (tensor-parallel decode) and
 :class:`~..parallel.sharded.ShardedTrainStep` (DP x TP training) run
-under. ``fleet.recompute`` is activation recompute. The rest of the
-reference's ``distributed`` (expert parallelism, fsdp and the sharding
-stages, pipelines, ring attention, checkpoints, elastic fleet) is queued
-in ROADMAP A10.
+under, with the expert-parallel axis ``ep`` (:func:`moe_train_rules`).
+In a process with no group, the engine and the train step start a plan's
+other ranks themselves (:mod:`.worker_ranks`; functions reach them by value,
+:mod:`.ship`). ``fleet.recompute`` is activation recompute. The rest of the
+reference's ``distributed`` (fsdp and the sharding stages, pipelines, ring
+attention, checkpoints, elastic fleet) is queued in ROADMAP A10.
 """
 
 from .collective import (  # noqa: F401

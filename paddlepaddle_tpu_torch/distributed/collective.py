@@ -437,6 +437,15 @@ def c_split(x, group=None, dim: int = -1):
     return _CSplit.apply(x, _resolve_pg(group), dim % x.dim())
 
 
+def c_allgather(x, group=None, dim: int = 0):
+    """The ranks' ``x`` concatenated along ``dim``; backward, the gradient
+    summed over the ranks and this rank's slice taken (a reduce-scatter):
+    for a tensor every rank goes on to use whole, where :func:`c_concat`'s
+    backward (the slice alone) serves a tensor each rank uses only its own
+    part of."""
+    return _AllGather.apply(x, _resolve_pg(group), dim % x.dim())
+
+
 # ---------------------------------------------------------------------------
 # functional collectives over mesh axes (reference :77-112)
 # ---------------------------------------------------------------------------

@@ -109,6 +109,14 @@ class ProcessMesh:
         return [[int(r) for r in row]
                 for row in moved.reshape(-1, moved.shape[-1])]
 
+    def require_ranks(self, world: int) -> None:
+        """Raise unless the mesh's entries are the ranks ``0..world-1``,
+        each once: a job's ranks under the launcher, or the ranks a
+        single-process plan starts (rank 0 the caller)."""
+        if sorted(self._process_ids) != list(range(world)):
+            raise ValueError(f"{self!r} must cover the job's {world} ranks "
+                             f"exactly, got {self._process_ids}")
+
     def init_groups(self, backend: Optional[str] = None,
                     timeout_s: Optional[float] = None) -> None:
         """Create a process group for every slice of every axis (collective:
@@ -123,9 +131,7 @@ class ProcessMesh:
             raise RuntimeError("ProcessMesh.init_groups needs an initialized "
                                "process group (init_parallel_env)")
         world = dist.get_world_size()
-        if sorted(self._process_ids) != list(range(world)):
-            raise ValueError(f"{self!r} must cover the job's {world} ranks "
-                             f"exactly, got {self._process_ids}")
+        self.require_ranks(world)
         me = dist.get_rank()
         td = datetime.timedelta(seconds=timeout_s or pg_timeout_s())
         groups = {}

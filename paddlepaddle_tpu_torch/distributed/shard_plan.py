@@ -25,9 +25,12 @@ rank holds its own shard, and the collectives are explicit.
   vocab-sharded LM head is gathered (``c_concat``) before sampling or the
   loss; a hidden-sharded embedding is gathered after the lookup. The
   collectives run whenever the mesh has the model axis, at size 1 too;
-* the mesh axes this slice takes are ``dp`` and ``mp``. An ``fsdp``,
-  ``ep``, ``sp`` or ``pp`` axis of size > 1 raises ``not_ported`` naming
-  the later A10 slice; ``seq_axis`` likewise;
+* the mesh axes the port takes are ``dp``, ``mp`` and ``ep`` (expert
+  parallelism: :func:`moe_train_rules` puts the MoE banks on ``ep``; the
+  batch shards over the data axes only, so the ranks of one ``ep`` group
+  hold the same tokens, :mod:`..parallel.moe`). An ``fsdp``, ``sp`` or
+  ``pp`` axis of size > 1 raises ``not_ported`` naming the later A10
+  slice; ``seq_axis`` likewise;
 * ``compile`` / ``compile_path``: the port has ONE path, per-rank eager or
   CUDA-graph-captured code with explicit collectives (``"spmd"``), where
   the reference chooses pjit or shard_map (ROADMAP, recorded deviations).
@@ -40,13 +43,12 @@ the collectives) needs this rank, the plan's size, its backend, one
 process group per mesh axis (the slice through the rank) and a CPU gloo
 control group. Under the launcher (or ``spawn``) they come from the job's
 default group, which must span exactly the mesh. A single-process decode
-engine (the reference's one-controller form) builds its own
+engine or train step (the reference's one-controller form) builds its own
 :class:`RankContext`: :meth:`RankContext.from_store` makes the groups over
-a store the engine owns, registered nowhere, and
-:meth:`ShardingPlan.bind` gives the engine a copy of the plan over them.
-With more than one rank, no default group and no bound context, what else
-needs ranks (``ShardedTrainStep``) raises ``not_ported`` with the launch
-command.
+a store it owns, registered nowhere, and :meth:`ShardingPlan.bind` gives it
+a copy of the plan over them (:mod:`.worker_ranks` starts the other
+ranks). With more than one rank, no default group and no bound context,
+:meth:`ShardingPlan.require_group` raises.
 """
 
 from __future__ import annotations
@@ -65,14 +67,13 @@ from .mesh import ProcessMesh
 
 _SPEC_TOKEN = re.compile(r"([a-z_]+?)(\d+)")
 
-# the later A10 slice that ports each axis this slice refuses
+# the later A10 slice that ports each axis the port refuses
 _LATER_AXES = {
     "fsdp": "A10 slice 3: the fsdp axis and distributed/sharding",
-    "ep": "A10 slice 2: expert parallelism",
     "sp": "A10 slice 5: sequence parallel and ring attention",
     "pp": "A10 slice 4: pipeline and the 4D hybrid",
 }
-_SUPPORTED_AXES = ("dp", "mp")
+_SUPPORTED_AXES = ("dp", "mp", "ep")
 _CONTROL_TIMEOUT = datetime.timedelta(days=1)
 
 LAUNCH_HINT = ("launch one process per rank: python -m "
@@ -161,10 +162,12 @@ def dp_tp_train_rules(mp_axis: str = "mp",
 
 
 def moe_train_rules(ep_axis: str = "ep", mp_axis: str = "mp"):
-    """MoE placement (expert banks on ``ep``): expert parallelism is a
-    later A10 slice."""
-    raise not_ported("moe_train_rules (expert-parallel placement)",
-                     _LATER_AXES["ep"])
+    """MoE placement (reference :139-144): expert banks sharded on
+    ``ep_axis`` (expert parallelism), the dense trunk as Llama on
+    ``mp_axis``."""
+    from ..parallel.moe import moe_sharding_rules
+
+    return moe_sharding_rules(ep_axis=ep_axis, tp_axis=mp_axis)
 
 
 def _is_quantized_weight(v) -> bool:
@@ -317,10 +320,27 @@ class ShardingPlan:
         """True for a plan over a context of its own (:meth:`bind`)."""
         return self._ctx is not None
 
+    @property
+    def single_process(self) -> bool:
+        """True when this process must start the plan's other ranks itself
+        (the reference's one-controller form): more than one rank, no
+        default process group and no bound context."""
+        return (self._ctx is None and self.n_devices > 1
+                and not dist.is_initialized())
+
+    def refuse_in_serving(self) -> None:
+        """Raise ``not_ported`` if this plan has an ``ep`` axis of size >
+        1: expert-parallel serving is a later A10 item (training only)."""
+        if self._shape.get("ep", 1) > 1:
+            raise not_ported("an expert-parallel (ep) axis in a serving "
+                             "plan", "A10: expert-parallel serving")
+
     def require_group(self) -> None:
         """Raise unless this process can act as one rank of the plan: a
         bound context, a default group of exactly ``n_devices`` ranks, or
-        one rank without a group."""
+        one rank without a group. The decode engine and
+        ``ShardedTrainStep`` bind a plan of several ranks in a process with
+        no group themselves; anything else raises here."""
         if self._ctx is not None:
             return
         if dist.is_initialized():
@@ -330,11 +350,11 @@ class ShardingPlan:
                     f"{dist.get_world_size()}")
             return
         if self.n_devices > 1:
-            raise not_ported(
+            raise RuntimeError(
                 f"a {self.n_devices}-rank plan in a process with no "
-                f"initialized process group outside the decode engine "
-                f"(the single-process form: {LAUNCH_HINT})",
-                "A10: the single-process ShardedTrainStep")
+                f"initialized process group: build the decode engine or "
+                f"ShardedTrainStep over it (each starts its ranks), or "
+                f"{LAUNCH_HINT}")
 
     @property
     def rank(self) -> int:
@@ -363,9 +383,14 @@ class ShardingPlan:
 
     @property
     def dp_group(self):
-        """The data-parallel group (the single data axis this slice
-        takes; None without one)."""
+        """The data-parallel group (the single data axis the port takes;
+        None without one)."""
         return self.group(self.data_axes[0]) if self.data_axes else None
+
+    @property
+    def ep_group(self):
+        """The expert-parallel group (None without an ``ep`` axis)."""
+        return self.group("ep") if "ep" in self._shape else None
 
     def backend(self) -> Optional[str]:
         if self._ctx is not None:
@@ -499,23 +524,26 @@ class ShardingPlan:
         mp = self.mp_group
         return mpu.parallel_view(model, self, mp, share=share)
 
-    def cut_module(self, model: torch.nn.Module, rank: int
-                   ) -> torch.nn.Module:
+    def cut_module(self, model: torch.nn.Module, rank: int,
+                   share: bool = True) -> torch.nn.Module:
         """Rank ``rank``'s view of ``model`` with no collective attached
-        (:func:`..parallel.mpu.cut_view`; replicated tensors are the
-        model's own): what a single-process engine hands each worker rank,
-        which wires it to its groups (:meth:`wire_module`)."""
+        (:func:`..parallel.mpu.cut_view`; with ``share`` replicated tensors
+        are the model's own, else copies): what a single-process engine or
+        train step hands each worker rank, which wires it to its groups
+        (:meth:`wire_module`)."""
         from ..parallel import mpu
 
         self._check_tied(model)
-        return mpu.cut_view(model, self, share=True, rank=rank)
+        return mpu.cut_view(model, self, share=share, rank=rank)
 
     def wire_module(self, view: torch.nn.Module) -> torch.nn.Module:
-        """Attach this rank's model-axis collectives to a view that
+        """Attach this rank's collectives (model axis, and an MoE layer's
+        data- and expert-parallel groups) to a view that
         :meth:`cut_module` cut for this rank."""
         from ..parallel import mpu
 
-        return mpu.wire_view(view, self.mp_group)
+        return mpu.wire_view(view, self.mp_group, dp=self.dp_group,
+                             ep=self.ep_group)
 
     def _check_tied(self, model) -> None:
         cfg = getattr(model, "config", None)
@@ -594,14 +622,18 @@ class ShardingPlan:
 def decode_plan(mesh, mp_axis: str = "mp") -> ShardingPlan:
     """Serving plan: tensor-parallel decode rules over ``mesh`` (commonly
     ``"mp2"`` / ``"mp4"``: every rank serves every request, holding 1/tp of
-    the weights and KV heads)."""
-    return ShardingPlan(mesh, rules=tp_decode_rules(mp_axis),
+    the weights and KV heads). An ``ep`` axis of size > 1 raises: expert
+    parallelism is ported for training only."""
+    plan = ShardingPlan(mesh, rules=tp_decode_rules(mp_axis),
                         data_axes=(), model_axis=mp_axis)
+    plan.refuse_in_serving()
+    return plan
 
 
 def train_plan(mesh, rules=None, data_axes=("dp", "fsdp"),
                mp_axis: str = "mp") -> ShardingPlan:
-    """Training plan: llama DP x TP rules by default."""
+    """Training plan: llama DP x TP rules by default; pass
+    :func:`moe_train_rules` for expert-parallel MoE meshes."""
     return ShardingPlan(
         mesh, rules=rules if rules is not None else dp_tp_train_rules(mp_axis),
         data_axes=data_axes, model_axis=mp_axis)

@@ -144,9 +144,7 @@ import gc
 import logging
 import math
 import os
-import pickle
 import sys
-import threading
 import time
 import weakref
 from typing import Dict, List, Optional
@@ -178,6 +176,7 @@ from .kv_pool import (
     serialize_page_slab,
 )
 from .robustness import KVCapacityError, safe_inc, safe_set
+from ..distributed.worker_ranks import STOP as _STOP, Control
 
 _log = logging.getLogger(__name__)
 
@@ -405,7 +404,6 @@ class _CapturedProgram:
                 "launches_per_replay": dict(self.per_replay)}
 
 
-_STOP = "__stop__"
 # steps that touch no collective, so rank 0 may still run them alone after
 # the followers were released (a drain's reset, then stop()'s)
 _LOCAL_AFTER_STOP = ("reset_slots", "release_slot", "flush")
@@ -437,70 +435,17 @@ class _WireRequest:
         self.result = _WireRequest._NullResult()
 
 
-class _Control:
-    """Rank 0's step broadcasts to the followers over the plan's CPU gloo
-    control group: the pickled step, its length first, through the group
-    object's own ``broadcast`` (``broadcast_object_list`` maps ranks
-    through the default group's registry, which holds no group that a
-    single-process engine built from its own store). ``failed`` holds the
-    error that broke the channel (a rank lost); from then on only the host
-    bookkeeping steps run, on rank 0 alone."""
-
-    def __init__(self, plan):
-        self.pg = plan.control_group()
-        self.driver = plan.rank == 0
-        self.size = plan.n_devices
-        self.stopped = False
-        self.failed: Optional[BaseException] = None
-        # rank 0 broadcasts and runs each step under one lock, so steps
-        # from two threads reach the followers in the order they run; the
-        # nesting depth is the calling thread's own
-        self.lock = threading.RLock()
-        self._local = threading.local()
-
-    @property
-    def depth(self) -> int:
-        return getattr(self._local, "depth", 0)
-
-    @depth.setter
-    def depth(self, value: int) -> None:
-        self._local.depth = value
-
-    def _bcast(self, t: torch.Tensor) -> None:
-        import torch.distributed as dist
-
-        opts = dist.BroadcastOptions()
-        opts.rootRank = 0
-        self.pg.broadcast([t], opts).wait()
+class _Control(Control):
+    """The engine's led steps over the plan's control group
+    (:class:`~..distributed.worker_ranks.Control`): a request argument is
+    sent as a :class:`_WireRequest` (its result future stays on rank 0).
+    Once ``failed`` holds the error that broke the channel (a rank lost),
+    only the host bookkeeping steps run, on rank 0 alone."""
 
     def send(self, name: str, args, kwargs) -> None:
         args = tuple(_WireRequest(a) if hasattr(a, "prompt_ids")
                      and hasattr(a, "max_new_tokens") else a for a in args)
-        blob = pickle.dumps((name, args, dict(kwargs)))
-        self._bcast(torch.tensor([len(blob)], dtype=torch.int64))
-        self._bcast(torch.frombuffer(bytearray(blob), dtype=torch.uint8))
-
-    def receive(self):
-        n = torch.zeros(1, dtype=torch.int64)
-        self._bcast(n)
-        buf = torch.empty(int(n[0]), dtype=torch.uint8)
-        self._bcast(buf)
-        return pickle.loads(buf.numpy().tobytes())
-
-    def gather(self, obj) -> list:
-        """Every rank's ``obj``, in rank order (inside a led step)."""
-        blob = pickle.dumps(obj)
-        n = torch.tensor([len(blob)], dtype=torch.int64)
-        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
-        self.pg.allgather([sizes], [n]).wait()
-        width = int(max(int(x[0]) for x in sizes))
-        mine = torch.zeros(width, dtype=torch.uint8)
-        mine[:len(blob)] = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
-        outs = [torch.empty(width, dtype=torch.uint8)
-                for _ in range(self.size)]
-        self.pg.allgather([outs], [mine]).wait()
-        return [pickle.loads(o[:int(k[0])].numpy().tobytes())
-                for o, k in zip(outs, sizes)]
+        super().send(name, args, kwargs)
 
 
 def _led(fn):
@@ -851,12 +796,11 @@ class BatchDecodeEngine:
         with no process group (the single-process form: this process is
         rank 0 and cuts every rank's view; the workers start at the end of
         construction), or the launcher's group (SPMD)."""
-        import torch.distributed as dist
-
         from ..distributed.shard_plan import ShardingPlan, decode_plan
 
         if plan is None:
             plan = mesh if isinstance(mesh, ShardingPlan) else decode_plan(mesh)
+        plan.refuse_in_serving()
         cfg = self.cfg
         # loud: a head count tp does not divide would fit away to a full
         # copy of the pool on every rank
@@ -874,7 +818,7 @@ class BatchDecodeEngine:
         self.plan = plan
         if plan.bound:
             self.net = plan.wire_module(self.net)
-        elif plan.n_devices > 1 and not dist.is_initialized():
+        elif plan.single_process:
             self._tp_cuts = [plan.cut_module(self.net, r)
                              for r in range(plan.n_devices)]
             self.net = self._tp_cuts[0]
@@ -890,15 +834,16 @@ class BatchDecodeEngine:
         :meth:`_init_plan`, with the replicated draft under speculation,
         then attach this rank's collectives to its own view over the groups
         they share."""
-        from .tp_worker import _release, start_workers
+        from ..distributed.worker_ranks import release
+        from .tp_worker import start_engine_workers
 
         cuts, self._tp_cuts = self._tp_cuts, None
         draft = self.spec.draft_model if self.spec is not None else None
-        plan, ranks = start_workers(self.plan, cuts, draft, worker_kw,
-                                    self.device)
+        plan, ranks = start_engine_workers(self.plan, cuts, draft,
+                                           worker_kw, self.device)
         self._tp = ranks
         # collected without stop(): the workers go with the engine
-        self._tp_finalizer = weakref.finalize(self, _release, ranks)
+        self._tp_finalizer = weakref.finalize(self, release, ranks)
         self.plan = plan
         self.net = plan.wire_module(self.net)
         self._ctl = _Control(plan)

@@ -151,7 +151,9 @@ class MoEForCausalLM(nn.Module):
         """Logits ``[b, s, vocab]``, or with ``labels`` the next-token loss
         plus ``aux_loss_weight`` times each layer's load-balance loss
         (reference :117-129). ``attn_mask`` takes the masked attention
-        route of the Llama layers (plain PyTorch, no flash launch)."""
+        route of the Llama layers (plain PyTorch, no flash launch). Under
+        a data-parallel plan each rank adds its ``aux_share`` of the global
+        load-balance loss, so the term counts once in the summed loss."""
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
             x = layer(x, self.rope_cos, self.rope_sin, attn_mask)
@@ -162,5 +164,6 @@ class MoEForCausalLM(nn.Module):
         if self.config.aux_loss_weight:
             for layer in self.layers:
                 if layer.mlp.l_aux is not None:
-                    loss = loss + self.config.aux_loss_weight * layer.mlp.l_aux
+                    loss = loss + (self.config.aux_loss_weight
+                                   * layer.mlp.l_aux * layer.mlp.aux_share)
         return loss

@@ -118,6 +118,29 @@ class Optimizer:
         self._slots.clear()
         self._masters.clear()
 
+    def _worker_copy(self) -> "Optimizer":
+        """This optimizer's class and settings with no parameters, no state
+        and the current learning rate as a number: what each worker rank of
+        a single-process sharded train step rebinds to its own shards
+        (:meth:`_rebind`). Rank 0 sends every step's learning rate, so a
+        scheduler stays on rank 0. A function-valued setting (AdamW's
+        ``apply_decay_param_fun``, Lamb's ``exclude_from_weight_decay_fn``)
+        is shipped by value (:func:`~..distributed.ship.ship`); one that
+        cannot be sent raises here."""
+        import copy
+        import types
+
+        from ..distributed.ship import ship
+
+        out = copy.copy(self)
+        out._names, out._params = [], []
+        out._slots, out._masters = {}, {}
+        out._lr = self.get_lr()
+        for k, v in vars(self).items():
+            if isinstance(v, types.FunctionType):
+                setattr(out, k, ship(v, f"the optimizer's {k.lstrip('_')}"))
+        return out
+
     def _use_master(self, p: torch.Tensor) -> bool:
         return self._multi_precision and p.dtype in _LOW_PRECISION
 

@@ -1,7 +1,9 @@
 """Parallel layers of the port (counterpart of ``paddlepaddle_tpu/parallel``):
-the MoE layer, the Megatron tensor-parallel layers (:mod:`.mpu`) and the
-sharded training step (:mod:`.sharded`). Expert-parallel placement, the
-sequence-parallel layers and pipelines are later A10 slices."""
+the MoE layer with its data- and expert-parallel forms and
+``moe_sharding_rules`` (:mod:`.moe`), the Megatron tensor-parallel layers
+(:mod:`.mpu`) and the sharded training step (:mod:`.sharded`, SPMD under
+the launcher or single-process). The sequence-parallel layers and
+pipelines are later A10 slices."""
 
 from .mpu import (  # noqa: F401
     ColumnParallelLinear,

@@ -27,11 +27,34 @@ only its tools call: a stable argsort by expert, a ``bincount`` for the
 offsets and one scatter into ``[E*C + 1, d]`` rows whose last row takes the
 drops; no mode selects it.
 
-Not ported: ``moe_sharding_rules`` and expert-parallel placement (ROADMAP A10; ``ep_axis``
-is recorded and otherwise unused), and the reference's loud fallback from
-``"fused"`` to ``"sorted"`` with its kill switch ``FLAGS_fused_gather_gemm``
-(:603-626): on the card an unsupported ``"fused"`` configuration raises at
-construction instead, so no configuration silently bypasses the kernel.
+Under a sharding plan (:meth:`~..distributed.shard_plan.ShardingPlan.
+wire_module` attaches the groups) the layer computes what the reference's
+one global step computes:
+
+* data parallel (``dp`` > 1): each rank holds its rows of the global batch.
+  The routing logits ``[T, E]`` are gathered over ``dp`` (backward: a
+  reduce-scatter, sum), so capacity (``capacity(global tokens)``), the drop
+  priority, the slot maps and ``l_aux`` are the global ones; each rank keeps
+  the decisions of its own tokens and runs its own tokens' slots, the
+  others' slots taking the sentinel the kernel zeroes. ``aux_share`` is
+  ``1/dp``: the model adds ``aux_share * l_aux`` on each rank, so the
+  load-balance term counts once in the loss the step sums over ``dp``. The
+  einsum mode gathers ``x`` over ``dp`` and routes it with the gate's own
+  ``routing()`` (a custom gate included);
+* expert parallel (``ep`` > 1, :func:`moe_sharding_rules`): the ranks of
+  one ``ep`` group hold the same tokens and ``E/ep`` experts each
+  (``w_*_proj [E/ep, ...]``). Each computes the global routing and runs
+  its local experts' slots only; the combine is partial over ``ep`` and is
+  all-reduced in the forward (Megatron's g). ``x`` and the gate values
+  enter the expert region through Megatron's f (all-reduce in backward),
+  so the gate and ``x`` get whole gradients on every rank. XLA's
+  partitioner emits an all_to_all here; the port replicates tokens and
+  all-reduces (ROADMAP, recorded deviations).
+
+Not ported: the reference's loud fallback from ``"fused"`` to ``"sorted"``
+with its kill switch ``FLAGS_fused_gather_gemm`` (:603-626): on the card an
+unsupported ``"fused"`` configuration raises at construction instead, so no
+configuration silently bypasses the kernel.
 """
 
 from __future__ import annotations
@@ -46,8 +69,10 @@ from torch import nn
 from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
 from ..device import DeviceLike, resolve_device
+from ..distributed.collective import (_grank, _size, c_allgather,
+                                      c_identity, mp_allreduce)
 from ..ops.kernels._build import check_device
-from .mpu import mark_placement  # noqa: F401  (the reference's path)
+from .mpu import mark_placement
 from ..ops.kernels.gather_gemm import gather_gemm_ffn, gather_gemm_supported
 
 DISPATCH_MODES = ("einsum", "sorted", "dropless", "fused")
@@ -242,19 +267,21 @@ def _capacity_slot_maps(logits, topk: int, E: int, C: int, T: int):
     return gate_vals, aux, slots_of_entry, slot_valid, slot_entry
 
 
+def _spread(idx, keep, n: int):
+    """Gather rows ``idx % n`` where ``keep``, and elsewhere (a read the
+    caller masks to zero) each position's own index mod ``n``. The
+    gather's backward is a sorted accumulation on the card that runs
+    serially over equal indices: masked reads all aimed at one row (a
+    sentinel, or -1 clamped to 0) cost it thousands of steps a layer."""
+    own = torch.arange(idx.numel(), device=idx.device).reshape(idx.shape)
+    return torch.where(keep, idx, own) % n
+
+
 def _slot_dispatch(x, slot_entry, slot_valid):
     """``xin[slot] = x[token of the slot's entry]`` (:275), zero rows in
     unfilled slots; the token of entry j is j % T."""
-    return torch.where(slot_valid[:, None], x[slot_entry % x.shape[0]], 0)
-
-
-def _slot_combine_weighted(x, out, gate_vals, slots_of_entry):
-    """Each entry reads its slot's expert output, zero if it was dropped
-    (``_slot_combine`` :298), and the k contributions are gate-weighted
-    onto their token (:342)."""
-    kept = (slots_of_entry >= 0)[..., None]
-    contrib = torch.where(kept, out[slots_of_entry.clamp(min=0)], 0)
-    return (contrib * gate_vals.T.to(x.dtype)[..., None]).sum(0)
+    rows = _spread(slot_entry, slot_valid, x.shape[0])
+    return torch.where(slot_valid[:, None], x[rows], 0)
 
 
 def _reference_expert_ffn(x, slot_entry, slot_valid, wg, wu, wd):
@@ -268,14 +295,31 @@ def _reference_expert_ffn(x, slot_entry, slot_valid, wg, wu, wd):
     return torch.bmm(hmid, wd).reshape(E * C, d)
 
 
+def _gate_weighted_sum(contrib, gate_vals, ep=None):
+    """``y[t] = sum_r gate_vals[t, r] * contrib[r, t]`` (:342). Under an
+    expert-parallel group ``ep`` the gate values enter through Megatron's f
+    (all-reduce in backward): each rank's combine covers its own experts'
+    entries only, so the gate's gradient is summed over ``ep``."""
+    if ep is not None:
+        gate_vals = c_identity(gate_vals, ep)
+    return (contrib * gate_vals.T.to(contrib.dtype)[..., None]).sum(0)
+
+
+def _slot_combine_weighted(out, gate_vals, slots_of_entry, ep=None):
+    """Each entry reads its slot's expert output, zero if it was dropped
+    or is another rank's (``_slot_combine`` :298), and the k contributions
+    are gate-weighted onto their token (:342)."""
+    kept = slots_of_entry >= 0
+    rows = _spread(slots_of_entry, kept, out.shape[0])
+    contrib = torch.where(kept[..., None], out[rows], 0)
+    return _gate_weighted_sum(contrib, gate_vals, ep)
+
+
 def _gathered_capacity_moe_ffn(x, logits, wg, wu, wd, topk: int,
                                capacity: int):
     """Mode ``"sorted"`` (:352): ``(y [T, d], aux)``."""
-    T = x.shape[0]
-    gate_vals, aux, slots_of_entry, slot_valid, slot_entry = \
-        _capacity_slot_maps(logits, topk, wg.shape[0], capacity, T)
-    out = _reference_expert_ffn(x, slot_entry, slot_valid, wg, wu, wd)
-    return _slot_combine_weighted(x, out, gate_vals, slots_of_entry), aux
+    return _moe_ffn_on_rank("sorted", x, logits, wg, wu, wd, topk, capacity,
+                            None, None)
 
 
 class _FusedExpertFFN(torch.autograd.Function):
@@ -312,18 +356,12 @@ def _fused_gather_gemm_moe_ffn(x, logits, wg, wu, wd, topk: int,
     """Mode ``"fused"`` (:436): the sorted mode's routing, slot maps and
     combine; the dispatch gather and expert FFN in the gather-GEMM kernel.
     Returns ``(y [T, d], aux)``."""
-    T = x.shape[0]
-    gate_vals, aux, slots_of_entry, slot_valid, slot_entry = \
-        _capacity_slot_maps(logits, topk, wg.shape[0], capacity, T)
-    # the kernel gathers by TOKEN row (entry j reads x[j % T]); the
-    # sentinel T marks unfilled slots, which the kernel zeroes
-    slot_token = torch.where(slot_valid, slot_entry % T, T).to(torch.int32)
-    out = _FusedExpertFFN.apply(x, slot_token, slot_entry, slot_valid,
-                                wg, wu, wd)
-    return _slot_combine_weighted(x, out, gate_vals, slots_of_entry), aux
+    return _moe_ffn_on_rank("fused", x, logits, wg, wu, wd, topk, capacity,
+                            None, None)
 
 
-def _dropless_moe_ffn(x, logits, wg, wu, wd, topk: int, align: int = 1):
+def _dropless_moe_ffn(x, logits, wg, wu, wd, topk: int, align: int = 1,
+                      t0: int = 0, e0: int = 0, ep=None):
     """Mode ``"dropless"`` (:499): no capacity bound, no drops. Entries are
     counting-sorted by expert (``_dispatch_gather``: ``x[sidx % T]``), each
     expert group runs its FFN as one ``torch.matmul`` per weight over its
@@ -333,32 +371,96 @@ def _dropless_moe_ffn(x, logits, wg, wu, wd, topk: int, align: int = 1):
     once per layer (one sync) to split the rows.
 
     ``align`` > 1 pads each group to a multiple of ``align`` with zero rows
-    (the ``_pad`` forms, sentinel N). Returns ``(y [T, d], aux)``."""
+    (the ``_pad`` forms, sentinel N). On one rank of a plan ``x [T_loc, d]``
+    holds the rows ``[t0, t0 + T_loc)`` of the batch that ``logits [T, E]``
+    route, and ``wg``/``wu``/``wd`` the experts ``[e0, e0 + E_loc)``;
+    entries routed to another rank's experts sort into one last group that
+    runs no FFN and contributes zeros (empty in one process), and ``ep``
+    passes to :func:`_gate_weighted_sum`. Returns ``(y [T_loc, d], aux)``,
+    ``y`` partial over ``ep``."""
     T, d = x.shape
     E = wg.shape[0]
     N = T * topk
-    gate_vals, expert_idx, aux = _route_topk_iter(logits, topk, E)
-    fe = expert_idx.T.reshape(-1)           # round-major (j = r*T + t)
-    dest, sidx, counts, offs = _counting_sort(fe, E)
+    gate_vals, expert_idx, aux = _route_topk_iter(logits, topk,
+                                                  logits.shape[1])
+    gate_vals, expert_idx = gate_vals[t0:t0 + T], expert_idx[t0:t0 + T]
+    fe = expert_idx.T.reshape(-1) - e0      # round-major (j = r*T + t)
+    fe = torch.where((fe >= 0) & (fe < E), fe, E)
+    dest, sidx, counts, offs = _counting_sort(fe, E + 1)
     if align > 1:
+        G = E + 1
         counts_p = (counts + align - 1) // align * align
-        counts_p[-1] += N + E * align - counts_p.sum()   # absorb the slack
+        counts_p[-1] += N + G * align - counts_p.sum()   # absorb the slack
         offs_p = torch.cumsum(counts_p, 0) - counts_p
         dest = offs_p[fe] + (dest - offs[fe])
-        sidx = torch.full((N + E * align,), N, dtype=dest.dtype,
+        sidx = torch.full((N + G * align,), N, dtype=dest.dtype,
                           device=dest.device)
         sidx[dest] = torch.arange(N, device=dest.device)
         counts = counts_p
         xin = torch.where((sidx < N)[:, None], x[sidx % T], 0)
     else:
         xin = x[sidx % T]
-    outs = []
-    for e, rows in enumerate(torch.split(xin, counts.tolist())):
-        hmid = _tF.silu(rows @ wg[e]) * (rows @ wu[e])
-        outs.append(hmid @ wd[e])
+    groups = torch.split(xin, counts.tolist())
+    outs = [(_tF.silu(rows @ wg[e]) * (rows @ wu[e])) @ wd[e]
+            for e, rows in enumerate(groups[:E])]
+    outs.append(torch.zeros_like(groups[E]))
     contrib = torch.cat(outs)[dest].reshape(topk, T, d)
-    y = (contrib * gate_vals.T.to(x.dtype)[..., None]).sum(0)
-    return y, aux
+    return _gate_weighted_sum(contrib, gate_vals, ep), aux
+
+
+def _local_capacity_maps(logits, topk: int, E: int, C: int, t0: int,
+                         T_loc: int, e0: int, E_loc: int):
+    """:func:`_capacity_slot_maps` over the GLOBAL logits ``[T, E]``, kept
+    for this rank's tokens ``[t0, t0 + T_loc)`` and experts ``[e0, e0 +
+    E_loc)``: ``(gate_vals [T_loc, k], aux, slots_of_entry [k, T_loc]
+    (local slot id or -1: dropped, or another rank's expert), slot_valid
+    [E_loc*C] (filled by one of this rank's tokens), slot_token [E_loc*C]
+    (local token row; the sentinel ``T_loc`` elsewhere))``."""
+    T = logits.shape[0]
+    gate_vals, aux, soe, slot_valid, slot_entry = _capacity_slot_maps(
+        logits, topk, E, C, T)
+    if T_loc == T and E_loc == E:
+        # every token and expert is this rank's: nothing to mask
+        return (gate_vals, aux, soe, slot_valid,
+                torch.where(slot_valid, slot_entry % T, T))
+    lo, hi = e0 * C, (e0 + E_loc) * C
+    tok = slot_entry[lo:hi] % T - t0
+    valid = slot_valid[lo:hi] & (tok >= 0) & (tok < T_loc)
+    slot_token = torch.where(valid, tok, T_loc)
+    soe = soe[:, t0:t0 + T_loc]
+    soe = torch.where((soe >= lo) & (soe < hi), soe - lo, -1)
+    return gate_vals[t0:t0 + T_loc], aux, soe, valid, slot_token
+
+
+def _moe_ffn_on_rank(mode: str, x, logits, wg, wu, wd, topk: int,
+                     capacity: int, dp, ep):
+    """The sorted, fused and dropless modes on one rank of a plan (or in
+    one process: ``dp`` and ``ep`` None): ``x [T_loc, d]`` this rank's
+    tokens, ``logits [T_loc, E]`` their routing logits, ``wg``/``wu``/``wd``
+    this rank's ``E/ep`` experts; ``dp`` and ``ep`` the groups (None for an
+    axis of one rank). Returns ``(y [T_loc, d], aux)`` with the global
+    ``aux``. The kernel gathers by token row; the sentinel ``T_loc`` marks
+    the slots that are not this rank's to fill, which the kernel zeroes."""
+    T_loc = x.shape[0]
+    t0 = _grank(dp) * T_loc
+    E_loc = wg.shape[0]
+    e0 = _grank(ep) * E_loc
+    if dp is not None:
+        logits = c_allgather(logits, dp, 0)
+    xe = c_identity(x, ep) if ep is not None else x
+    if mode == "dropless":
+        y, aux = _dropless_moe_ffn(xe, logits, wg, wu, wd, topk, t0=t0,
+                                   e0=e0, ep=ep)
+    else:
+        gate_vals, aux, soe, valid, slot_token = _local_capacity_maps(
+            logits, topk, logits.shape[1], capacity, t0, T_loc, e0, E_loc)
+        if mode == "fused":
+            out = _FusedExpertFFN.apply(xe, slot_token.to(torch.int32),
+                                        slot_token, valid, wg, wu, wd)
+        else:
+            out = _reference_expert_ffn(xe, slot_token, valid, wg, wu, wd)
+        y = _slot_combine_weighted(out, gate_vals, soe, ep)
+    return (mp_allreduce(y, ep) if ep is not None else y), aux
 
 
 class MoELayer(nn.Module):
@@ -370,8 +472,10 @@ class MoELayer(nn.Module):
     ``[E, h, d]`` and a gate made here are drawn N(0, ``init_std``) from a
     generator seeded with ``seed``; a gate passed in is left as it is. The
     experts are SwiGLU: ``activation`` is accepted and, as in the reference
-    (:593), never read. ``ep_axis`` is recorded for expert-parallel
-    placement (ROADMAP A10) and otherwise unused. Under AMP the fast modes'
+    (:593), never read. The banks carry the placement ``(ep_axis, None,
+    None)`` (``dist_spec``), which a plan reads ahead of its rule table, as
+    the reference's does (:629-637); a plan's groups are attached by
+    :meth:`wire` (see the module docstring). Under AMP the fast modes'
     inputs pass the cast hook as the reference's ``moe_ffn_<mode>`` op.
 
     With ``dispatch_mode="fused"`` on the card the gather-GEMM kernel's
@@ -407,10 +511,18 @@ class MoELayer(nn.Module):
                                dtype=dt) if own_gate else gate
         E, d, h = num_experts, d_model, d_hidden
         kw = dict(device=dev, dtype=dt)
-        self.w_gate_proj = nn.Parameter(torch.empty(E, d, h, **kw))
-        self.w_up_proj = nn.Parameter(torch.empty(E, d, h, **kw))
-        self.w_down_proj = nn.Parameter(torch.empty(E, h, d, **kw))
+        place = (ep_axis, None, None)
+        self.w_gate_proj = mark_placement(
+            nn.Parameter(torch.empty(E, d, h, **kw)), place)
+        self.w_up_proj = mark_placement(
+            nn.Parameter(torch.empty(E, d, h, **kw)), place)
+        self.w_down_proj = mark_placement(
+            nn.Parameter(torch.empty(E, h, d, **kw)), place)
         self.l_aux: Optional[torch.Tensor] = None   # set by each forward
+        # a plan's data- and expert-parallel groups (:meth:`wire`), and the
+        # share of ``l_aux`` each data-parallel rank adds to its loss
+        self._dp_pg = self._ep_pg = None
+        self.aux_share = 1.0
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         with torch.no_grad():
@@ -422,10 +534,31 @@ class MoELayer(nn.Module):
         per = num_tokens * max(self.gate.topk, 1) / self.num_experts
         return max(4, int(math.ceil(per * self.capacity_factor)))
 
+    def wire(self, dp, ep) -> None:
+        """Attach a plan's data-parallel group ``dp`` and expert-parallel
+        group ``ep`` (either None). A group of one rank is dropped, so such
+        a plan runs the one-process code. ``ep`` is kept only when the
+        banks are sharded over it (``E/ep`` experts here); banks left whole
+        (a rule table that replicates them) run every expert on every rank,
+        with nothing to reduce."""
+        dp = dp if _size(dp) > 1 else None
+        ep = ep if _size(ep) > 1 else None
+        local = self.w_gate_proj.shape[0]
+        if ep is not None and local == self.num_experts:
+            ep = None
+        elif local != self.num_experts and local * _size(ep) != \
+                self.num_experts:
+            raise ValueError(
+                f"{self.num_experts} experts do not split into {local} a "
+                f"rank over an expert-parallel group of {_size(ep)}")
+        self._dp_pg, self._ep_pg = dp, ep
+        self.aux_share = 1.0 / _size(dp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape[0], x.shape[1], self.d_model
         x_flat = x.reshape(b * s, d)
-        cap = self.capacity(b * s)
+        dp, ep = self._dp_pg, self._ep_pg
+        cap = self.capacity(b * s * _size(dp))
         wg, wu, wd = self.w_gate_proj, self.w_up_proj, self.w_down_proj
         # the fast modes inline softmax + top-k routing; a custom routing()
         # override keeps its behaviour through the einsum route
@@ -436,22 +569,47 @@ class MoELayer(nn.Module):
                 "moe_ffn_" + self.dispatch_mode, x_flat, self.gate.weight,
                 wg, wu, wd)
             logits = x_flat.float() @ gate_w.float()
-            if self.dispatch_mode == "dropless":
-                y, aux = _dropless_moe_ffn(x_flat, logits, wg, wu, wd, topk)
-            elif self.dispatch_mode == "fused":
-                y, aux = _fused_gather_gemm_moe_ffn(x_flat, logits, wg, wu,
-                                                    wd, topk, cap)
-            else:
-                y, aux = _gathered_capacity_moe_ffn(x_flat, logits, wg, wu,
-                                                    wd, topk, cap)
+            y, aux = _moe_ffn_on_rank(self.dispatch_mode, x_flat, logits, wg,
+                                      wu, wd, topk, cap, dp, ep)
             self.l_aux = aux
             return y.reshape(b, s, d)
-        dispatch, combine, aux = self.gate.routing(x_flat, cap)
+        if dp is None:
+            dispatch, combine, aux = self.gate.routing(x_flat, cap)
+        else:
+            # the gate routes the global batch; this rank keeps its rows
+            t0 = _grank(dp) * x_flat.shape[0]
+            dispatch, combine, aux = self.gate.routing(
+                c_allgather(x_flat, dp, 0), cap)
+            rows = slice(t0, t0 + x_flat.shape[0])
+            dispatch, combine = dispatch[rows], combine[rows]
         self.l_aux = aux
-        xin = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x_flat)
+        xe = x_flat
+        if ep is not None:
+            e0 = _grank(ep) * wg.shape[0]
+            mine = slice(e0, e0 + wg.shape[0])
+            dispatch = dispatch[:, mine]
+            # f on the whole tensor: each rank's gradient covers its own
+            # experts' columns, and the sum over ep assembles them
+            combine = c_identity(combine, ep)[:, mine]
+            xe = c_identity(x_flat, ep)
+        xin = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xe)
         hmid = _tF.silu(torch.einsum("ecd,edh->ech", xin, wg)) \
             * torch.einsum("ecd,edh->ech", xin, wu)
         out = torch.einsum("ech,ehd->ecd", hmid, wd)
         y = torch.einsum("tec,ecd->td", combine.to(x.dtype), out)
+        if ep is not None:
+            y = mp_allreduce(y, ep)
         return y.reshape(b, s, d)
+
+
+def moe_sharding_rules(ep_axis="ep", tp_axis="tp", fsdp_axis="fsdp"):
+    """Rules for MoE LMs (reference :708-716): the expert banks on
+    ``ep_axis`` (their ``dist_spec`` says so too; these are the fallback),
+    the router replicated, the dense trunk as Llama."""
+    from ..models.llama import llama_sharding_rules
+
+    return [
+        (r".*w_(gate|up|down)_proj$", (ep_axis,)),
+        (r".*gate\.weight$", ()),
+    ] + llama_sharding_rules(tp_axis=tp_axis, fsdp_axis=fsdp_axis)
 

@@ -307,23 +307,29 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
     ``c_identity``, the LM head's output gathered; a row one's output
     all-reduced), an embedding sharded on its hidden dim gathered after
     the lookup, one sharded on its vocabulary swapped for a
-    :class:`VocabParallelEmbedding`. Names are the model's own. It is
+    :class:`VocabParallelEmbedding`; an MoE layer takes the plan's data-
+    and expert-parallel groups. Names are the model's own. It is
     :func:`cut_view` (this rank's blocks) then :func:`wire_view` (the
     collectives)."""
-    return wire_view(cut_view(model, plan, share=share), pg)
+    return wire_view(cut_view(model, plan, share=share), pg,
+                     dp=plan.dp_group, ep=plan.ep_group)
 
 
 def cut_view(model: nn.Module, plan, share: bool = True, rank=None
              ) -> nn.Module:
     """The first half of :func:`parallel_view`: a view of ``model`` holding
     rank ``rank``'s (default: this rank's) blocks under ``plan``, with no
-    collective attached. Each module that takes one is marked with its
-    tensor-parallel role (``_tp_wire``), which :func:`wire_view` reads. It
-    holds no hook and no process group, so it pickles: a single-process
-    engine cuts every rank's view and hands each worker its own."""
+    collective attached. A parameter's own placement (``dist_spec``, as the
+    MoE banks carry) wins over the plan's rule table. Each module that
+    takes one is marked with its tensor-parallel role (``_tp_wire``), which
+    :func:`wire_view` reads. It holds no hook and no process group, so it
+    pickles: a single-process engine or train step cuts every rank's view
+    and hands each worker its own."""
     from ..nn.common import Embedding
     from ..nn.quant.quantized_linear import WeightOnlyLinear
     from ..nn.quant.qweight import QuantizedWeight
+    from .moe import MoELayer
+    from .sharded import _fit_spec
 
     def view(mod: nn.Module, prefix: str) -> nn.Module:
         new = copy.copy(mod)
@@ -337,7 +343,9 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
                 continue
             name = prefix + pname
             full_shapes[pname] = tuple(p.shape)
-            spec = plan.spec_for(name, p.shape)
+            own = getattr(p, "dist_spec", None)
+            spec = (_fit_spec(own, tuple(p.shape), plan.axes)
+                    if own is not None else plan.spec_for(name, p.shape))
             plan.specs[name] = spec
             if not spec and share:
                 params[pname] = p
@@ -357,7 +365,9 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
         d["_buffers"] = bufs
         d["_modules"] = {n: None if c is None else view(c, f"{prefix}{n}.")
                          for n, c in mod._modules.items()}
-        if isinstance(mod, Embedding):
+        if isinstance(mod, MoELayer):
+            new._tp_wire = ("moe",)
+        elif isinstance(mod, Embedding):
             spec = plan.specs[prefix + "weight"]
             raw = plan.raw_spec_for(prefix + "weight")
             probe = spec if plan.tp_degree > 1 else raw
@@ -380,11 +390,12 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
     return view(model, "")
 
 
-def wire_view(view: nn.Module, pg) -> nn.Module:
+def wire_view(view: nn.Module, pg, dp=None, ep=None) -> nn.Module:
     """The second half of :func:`parallel_view`: attach each marked
-    module's collectives over ``pg`` (the rank's model-axis group), in
-    place; returns the view (its root swapped when the root itself is a
-    vocab-sharded embedding)."""
+    module's collectives over ``pg`` (the rank's model-axis group) and an
+    MoE layer's over ``dp`` and ``ep`` (its data- and expert-parallel
+    groups), in place; returns the view (its root swapped when the root
+    itself is a vocab-sharded embedding)."""
 
     def wire(mod: nn.Module) -> nn.Module:
         for n, c in list(mod._modules.items()):
@@ -397,7 +408,9 @@ def wire_view(view: nn.Module, pg) -> nn.Module:
         if kind == "vocab":
             return VocabParallelEmbedding.from_local(
                 mod.weight, role[1], pg, mod.padding_idx)
-        if kind == "gather":
+        if kind == "moe":
+            mod.wire(dp, ep)
+        elif kind == "gather":
             mod.register_forward_hook(
                 lambda m, args, out: c_concat(out, pg, -1))
         elif kind == "row_int8":

@@ -5,8 +5,9 @@
 The reference compiles one ``jax.jit`` over the mesh and lets XLA insert
 the collectives. Here every rank runs the port's eager step on its LOCAL
 shards (``plan.shard_module``: column- and row-parallel projections over
-the ``mp`` group, :mod:`.mpu`) and makes the data-parallel collectives
-itself:
+the ``mp`` group, :mod:`.mpu`; an MoE layer's experts over ``ep`` and its
+routing over the global batch, :mod:`.moe`) and makes the data-parallel
+collectives itself:
 
 * each rank is given the same global batch, as the reference's one call
   is, and takes its ``dp`` rows (:meth:`ShardingPlan.shard_batch`);
@@ -20,19 +21,39 @@ itself:
   whenever masking leaves the ranks different counts;
 * gradients are summed over ``dp`` (each rank's loss already carries the
   global denominator), so replicated parameters (the norms, and the
-  embedding under the decode rules) get the one-device gradient;
-* a global-norm clip sums the squared norms of the ``mp``-sharded
-  gradients over ``mp`` and counts replicated ones once; a per-tensor norm
-  clip takes a sharded tensor's norm over its shards;
+  embedding under the decode rules) get the one-device gradient; the ranks
+  of one ``ep`` group compute the same loss, and their expert gradients
+  are their own experts' whole ones;
+* a global-norm clip sums the squared norms of the gradients sharded over
+  an axis (``mp``, ``ep``) over that axis and counts replicated ones once;
+  a per-tensor norm clip takes a sharded tensor's norm over its shards;
 * the optimizer (``AdamW`` with ``apply_decay_param_fun`` honoured, by the
   parameters' own names) updates the local shards;
-* :meth:`ShardedTrainStep.sync_to_model` gathers the full parameters back
-  into the model.
+* :meth:`ShardedTrainStep.full_params` and
+  :meth:`ShardedTrainStep.sync_to_model` gather the full parameters back.
+
+Two forms, by what the process has. Under the launcher (a default group
+spanning the mesh) every rank builds the step (SPMD). In a process with no
+group (the reference's one-controller form) the caller is rank 0: the
+step cuts every rank's view (:meth:`ShardingPlan.cut_module`), starts ranks
+1..n-1 as worker processes on groups it builds itself
+(:mod:`..distributed.worker_ranks`) and hands each its view, the optimizer's
+class and settings (:meth:`Optimizer._worker_copy`) and the loss function
+(shipped by value, :mod:`..distributed.ship`: a lambda works; one that
+cannot be sent raises at construction). Every step, :meth:`full_params`
+and :meth:`sync_to_model` is then a led step: rank 0 sends the global
+batch and its learning rate (a scheduler stepped on rank 0 holds on every
+rank), and every rank runs the same per-rank body. :meth:`close`, garbage
+collection and rank 0's exit end the workers; a worker's death fails rank
+0's next step, naming the rank.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import re
+import weakref
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -40,6 +61,7 @@ import torch
 
 from ..core.errors import not_ported
 from ..distributed.collective import _all_gather, _all_reduce_
+from ..distributed.worker_ranks import STOP, Control
 from ..optimizer.optimizer import Optimizer  # noqa: F401  (reference path)
 
 
@@ -98,6 +120,9 @@ def param_shardings(params: Dict[str, torch.Tensor], rules, mesh,
     return out
 
 
+_log = logging.getLogger(__name__)
+
+
 class _TokenMean:
     """Reduces a loss's valid-token count over the dp group (no
     gradient), and records that it did."""
@@ -111,60 +136,184 @@ class _TokenMean:
         return _all_reduce_(count.detach().clone(), "sum", self.pg)
 
 
-def _sharded_on(spec, axis: str) -> bool:
+def _axes_of_spec(spec) -> tuple:
+    """The mesh axes a fitted spec shards over."""
+    out = []
     for e in spec:
-        axes = e if isinstance(e, (tuple, list)) else (e,)
-        if axis in axes:
-            return True
-    return False
+        out.extend(e if isinstance(e, (tuple, list)) else
+                   (() if e is None else (e,)))
+    return tuple(out)
 
 
 class _PlanClip:
     """The optimizer's clip over local shards: global and per-tensor norms
-    taken over the whole parameters."""
+    taken over the whole parameters. ``axes[i]`` is the mesh axis the i-th
+    gradient is sharded over (None: replicated); ``groups`` maps each axis
+    to this rank's group along it."""
 
-    def __init__(self, clip, sharded, pg):
+    def __init__(self, clip, axes, groups):
         from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                                ClipGradByValue)
 
-        self.clip, self.sharded, self.pg = clip, sharded, pg
+        self.clip, self.axes, self.groups = clip, list(axes), dict(groups)
         if not isinstance(clip, (ClipGradByGlobalNorm, ClipGradByNorm,
                                  ClipGradByValue)):
-            raise not_ported(f"{type(clip).__name__} under a tensor-parallel "
-                             "plan", "A10")
+            raise not_ported(f"{type(clip).__name__} under a sharding plan",
+                             "A10")
         self.kind = type(clip).__name__
 
     @torch.no_grad()
     def clip_grads(self, grads):
         if self.kind == "ClipGradByValue":
             return self.clip.clip_grads(grads)
-        present = [(g, s) for g, s in zip(grads, self.sharded)
+        present = [(g, a) for g, a in zip(grads, self.axes)
                    if g is not None]
         if not present:
             return list(grads)
         cn = float(self.clip.clip_norm)
         if self.kind == "ClipGradByGlobalNorm":
             dev = present[0][0].device
-            sh = torch.zeros((), dtype=torch.float32, device=dev)
+            sh = {a: torch.zeros((), dtype=torch.float32, device=dev)
+                  for a in self.groups}
             rep = torch.zeros((), dtype=torch.float32, device=dev)
-            for g, s in present:
+            for g, a in present:
                 sq = g.float().square().sum()
-                if s:
-                    sh = sh + sq
+                if a is not None:
+                    sh[a] = sh[a] + sq
                 else:
                     rep = rep + sq
-            norm = (_all_reduce_(sh, "sum", self.pg) + rep).sqrt()
+            total = rep
+            for a, v in sh.items():
+                total = _all_reduce_(v, "sum", self.groups[a]) + total
+            norm = total.sqrt()
             scale = torch.clamp(cn / torch.clamp(norm, min=1e-12), max=1.0)
             for g, _ in present:
                 g.mul_(scale)
             return list(grads)
-        for g, s in present:
+        for g, a in present:
             sq = g.float().square().sum()
-            if s:
-                sq = _all_reduce_(sq, "sum", self.pg)
+            if a is not None:
+                sq = _all_reduce_(sq, "sum", self.groups[a])
             g.mul_(torch.clamp(cn / torch.clamp(sq.sqrt(), min=1e-12),
                                max=1.0))
         return list(grads)
+
+
+def _led(fn):
+    """A step every rank runs: on rank 0 of a single-process step it is
+    sent to the workers before it runs here (not when one led step calls
+    another); a worker runs it only from :meth:`ShardedTrainStep.follow`.
+    A worker found dead, or a collective that fails because one died,
+    raises naming the rank."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        ctl = self._ctl
+        if ctl is None or ctl.depth:
+            return fn(self, *args, **kwargs)
+        if not ctl.driver:
+            raise RuntimeError(f"{name}: this rank follows rank 0; rank 0 "
+                               "drives the step")
+        if ctl.stopped:
+            raise RuntimeError(f"{name}: the step was closed; build a new "
+                               "one")
+        with ctl.lock:
+            ranks = self._ranks
+            ranks.check()                    # a dead worker fails at once
+            try:
+                ctl.send(name, _to_host(args), kwargs)
+            except Exception as e:
+                ctl.failed = e
+                ranks.raise_lost(e)
+            ctl.depth += 1
+            try:
+                return fn(self, *args, **kwargs)
+            except Exception as e:
+                if not all(p.is_alive() for p in ranks.procs):
+                    ctl.failed = e
+                    ranks.raise_lost(e)
+                raise
+            finally:
+                ctl.depth -= 1
+
+    return wrapper
+
+
+def _to_host(args):
+    """A led step's arguments as the workers get them: each tensor a CPU
+    copy (pickled in any dtype, bf16 too); rank 0 keeps its own."""
+    return tuple(_to_host(a) if isinstance(a, tuple)
+                 else a.detach().cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+class _RefusedOnEveryRank(NotImplementedError):
+    """A refusal that every rank raises from the same check at the same
+    point of a led step, before any collective that could part them: a
+    worker's :meth:`ShardedTrainStep.follow` logs it and follows on."""
+
+
+def _own(net: torch.nn.Module, device: torch.device) -> None:
+    """Give every parameter and buffer of ``net`` a copy on ``device`` of
+    its own (a worker's view arrives mapped from rank 0's memory), a
+    tensor shared by two modules staying shared."""
+    done: Dict[int, torch.Tensor] = {}
+    for mod in net.modules():
+        for table in (mod._parameters, mod._buffers):
+            for k, t in table.items():
+                if t is None:
+                    continue
+                if id(t) not in done:
+                    c = t.detach().to(device, copy=True)
+                    done[id(t)] = (torch.nn.Parameter(
+                        c, requires_grad=t.requires_grad)
+                        if isinstance(t, torch.nn.Parameter) else c)
+                table[k] = done[id(t)]
+
+
+def _own_stats(device: torch.device, reset: bool) -> Dict[str, object]:
+    """This process's kernel launch counts (the MoE and flash wrappers),
+    ``nvcc`` runs, collective counts and peak device memory."""
+    import os
+
+    from ..distributed.collective import (collective_stats,
+                                          reset_collective_stats)
+    from ..ops.kernels import _build
+    from ..ops.kernels import flash_attention as fa
+    from ..ops.kernels import gather_gemm as gg
+
+    wrappers = {"gather_gemm_ffn": gg.gather_gemm_ffn,
+                "gather_gateup": gg.gather_gateup,
+                "expert_down": gg.expert_down, "flash_fwd": fa.flash_fwd,
+                "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv}
+    cuda = device.type == "cuda"
+    out = {"pid": os.getpid(), "nvcc": _build.nvcc_runs,
+           "launches": {k: w.launches for k, w in wrappers.items()},
+           "collectives": collective_stats(),
+           "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                       if cuda else None)}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+        reset_collective_stats()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+    return out
+
+
+def _build_worker_step(held, plan, device, optimizer, loss_fn, donate):
+    """Rank r's step over its view (``held["net"]``, copied here) under
+    the bound ``plan``: what :func:`~..distributed.worker_ranks.
+    start_workers` runs on each worker rank."""
+    net = held.pop("net")
+    _own(net, device)
+    step = ShardedTrainStep.__new__(ShardedTrainStep)
+    step._init(plan, None, loss_fn, donate)
+    step._bind(plan.wire_module(net), optimizer)
+    step._ctl = Control(plan)
+    return step
 
 
 class ShardedTrainStep:
@@ -178,6 +327,10 @@ class ShardedTrainStep:
         seq_axis: a sequence-parallel axis of size > 1 is a later A10
             slice (raises).
         donate: accepted and recorded (an eager step donates nothing).
+
+    In a process with no process group a plan of several ranks runs in the
+    single-process form (module docstring): call :meth:`close` (or let the
+    step be collected) to end its worker ranks.
     """
 
     def __init__(self, model, optimizer, loss_fn: Callable,
@@ -203,47 +356,104 @@ class ShardedTrainStep:
         if len(plan.data_axes) > 1:
             raise not_ported(f"data axes {plan.data_axes}",
                              "A10 slice 3: the fsdp axis")
-        plan.require_group()
+        self._init(plan, model, loss_fn, donate)
+        if plan.single_process:
+            self._start(model, optimizer, loss_fn)
+        else:
+            plan.require_group()
+            self._bind(plan.shard_module(model, share=False), optimizer)
+
+    def _init(self, plan, model, loss_fn, donate) -> None:
         self.plan = plan
         self.model = model
         self.loss_fn = loss_fn
         self.donate = bool(donate)
         self.rules = plan.rules
-        self.net = plan.shard_module(model, share=False)
+        self._ctl: Optional[Control] = None
+        self._ranks = None
+        self._finalizer = None
+        self._step_count = 0
+
+    def _bind(self, net, optimizer) -> None:
+        """This rank's view ``net`` and the optimizer over its shards."""
+        plan = self.plan
+        self.net = net
         self.params: Dict[str, torch.nn.Parameter] = dict(
-            self.net.named_parameters())
+            net.named_parameters())
         self.specs = {n: plan.specs.get(n, ()) for n in self.params}
-        self._mp = plan.mp_group
         self._dp = plan.dp_group
         self._dp_size = plan.dp_degree
-        sharded = [_sharded_on(self.specs[n], plan.model_axis)
-                   for n in self.params]
+        axes = []
+        for n in self.params:
+            on = [a for a in _axes_of_spec(self.specs[n])
+                  if plan.axes.get(a, 1) > 1]
+            if len(on) > 1:
+                raise not_ported(f"{n} sharded over {tuple(on)}",
+                                 "A10 slice 3: the fsdp axis")
+            axes.append(on[0] if on else None)
         optimizer._rebind(self.params)
-        if optimizer._grad_clip is not None and plan.tp_degree > 1:
-            optimizer._grad_clip = _PlanClip(optimizer._grad_clip, sharded,
-                                             self._mp)
+        if optimizer._grad_clip is not None and any(axes):
+            optimizer._grad_clip = _PlanClip(
+                optimizer._grad_clip, axes,
+                {a: plan.group(a) for a in set(axes) if a is not None})
         optimizer.init_state()
         self.optimizer = optimizer
         self.device = next(iter(self.params.values())).device
-        self._step_count = 0
+
+    def _start(self, model, optimizer, loss_fn) -> None:
+        """Rank 0 of the single-process form: cut every rank's view, start
+        the workers on them, bind this rank's own."""
+        from ..distributed.ship import ship
+        from ..distributed.worker_ranks import release, start_workers
+
+        plan = self.plan
+        kw = {"optimizer": optimizer._worker_copy(),
+              "loss_fn": ship(loss_fn, "loss_fn"), "donate": self.donate}
+        cuts = [plan.cut_module(model, r, share=False)
+                for r in range(plan.n_devices)]
+        held = [{"net": c} for c in cuts[1:]]
+        del cuts[1:]
+        device = next(model.parameters()).device
+        bound, ranks = start_workers(plan, held, _build_worker_step, kw,
+                                     device, what="train-step worker",
+                                     owned=True)
+        self.plan = bound
+        self._ranks = ranks
+        # collected without close(): the workers go with the step
+        self._finalizer = weakref.finalize(self, release, ranks)
+        self._bind(bound.wire_module(cuts[0]), optimizer)
+        self._ctl = Control(bound)
+
+    @property
+    def workers(self):
+        """The worker ranks this step started (None in the SPMD form)."""
+        return self._ranks
 
     def _local_batch(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
         x = x.to(self.device)
         if self._dp_size > 1:
-            if x.shape[0] % self._dp_size:
-                raise ValueError(
-                    f"batch dimension {x.shape[0]} does not split over "
-                    f"dp={self._dp_size}")
             x = self.plan.shard_batch(x)
         return x
 
+    def _check_batch(self, batch) -> None:
+        if self._dp_size > 1:
+            for x in batch:
+                if x.shape[0] % self._dp_size:
+                    raise ValueError(
+                        f"batch dimension {x.shape[0]} does not split over "
+                        f"dp={self._dp_size}")
+
     def __call__(self, *batch) -> torch.Tensor:
+        self._check_batch(batch)
+        return self._step(batch, self.optimizer.get_lr())
+
+    @_led
+    def _step(self, batch, lr: float) -> torch.Tensor:
         from ..models import llama as _llama
 
         batch = tuple(self._local_batch(b) for b in batch)
-        lr = self.optimizer.get_lr()
         params = self.optimizer.parameters
         for p in params:
             p.grad = None
@@ -253,11 +463,11 @@ class ShardedTrainStep:
             loss = self.loss_fn(self.net, *batch)
         if self._dp_size > 1 and not mean.used:
             # every rank ran the same loss_fn, so every rank raises here
-            raise not_ported(
+            raise _RefusedOnEveryRank(str(not_ported(
                 "a loss_fn under dp > 1 that does not report its valid-token "
                 "count (the global token mean needs it; the Llama, GPT and "
                 "MoE losses, LlamaForCausalLM.loss_from_logits, report it)",
-                "A10")
+                "A10")))
         loss.backward()
         loss = loss.detach().float()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -271,6 +481,7 @@ class ShardedTrainStep:
         self._step_count += 1
         return loss
 
+    @_led
     @torch.no_grad()
     def full_params(self) -> Dict[str, torch.Tensor]:
         """Every parameter whole: each sharded one gathered along its
@@ -288,10 +499,75 @@ class ShardedTrainStep:
             out[name] = t
         return out
 
+    @_led
     @torch.no_grad()
     def sync_to_model(self):
-        """Copy the trained parameters, gathered whole, into the model."""
+        """Copy the trained parameters, gathered whole, into the model (on
+        rank 0; a worker rank only takes part in the gather)."""
+        full = self.full_params()
+        if self.model is None:
+            return
         own = dict(self.model.named_parameters())
-        for name, t in self.full_params().items():
+        for name, t in full.items():
             if name in own:
                 own[name].copy_(t)
+
+    @_led
+    def _rank_stats(self, reset: bool = False) -> list:
+        """Every rank's kernel launch counts, ``nvcc`` runs, collective
+        counts and peak device memory, in rank order: gathered from the
+        workers of a single-process step (a led step), this rank's alone
+        under the launcher. ``reset`` zeroes the counts and the peak after
+        reading them."""
+        own = _own_stats(self.device, reset)
+        return [own] if self._ctl is None else self._ctl.gather(own)
+
+    def follow(self) -> int:
+        """A worker rank's loop: run each step rank 0 sends, in its order,
+        until rank 0's :meth:`close`. A refusal that every rank raises
+        at the same point (``_RefusedOnEveryRank``: a loss function that
+        reports no token count) is logged and the loop goes on. Anything
+        else may be this rank's alone and propagates: this rank dies, and
+        its closed connections fail rank 0's next collective at once.
+        Returns the number of steps run."""
+        ctl = self._ctl
+        if ctl is None or ctl.driver:
+            raise RuntimeError("follow() is for the worker ranks of a "
+                               "single-process step")
+        n = 0
+        while True:
+            name, args, kwargs = ctl.receive()
+            if name == STOP:
+                return n
+            ctl.depth += 1
+            try:
+                getattr(self, name)(*args, **kwargs)
+            except _RefusedOnEveryRank as e:
+                _log.warning("worker step %s raised %s: %s", name,
+                             type(e).__name__, e)
+            finally:
+                ctl.depth -= 1
+            n += 1
+
+    def close(self) -> None:
+        """End the worker ranks of a single-process step (their
+        :meth:`follow` returns and they exit; one that has not within 15 s
+        is killed). Idempotent; nothing to do in the SPMD form."""
+        ctl = self._ctl
+        if ctl is not None and ctl.driver and not ctl.stopped:
+            got = ctl.lock.acquire(timeout=10.0)
+            try:
+                if got and ctl.failed is None:
+                    try:
+                        ctl.send(STOP, (), {})
+                    except Exception as e:  # noqa: BLE001 — a rank lost
+                        ctl.failed = e
+            finally:
+                ctl.stopped = True
+                if got:
+                    ctl.lock.release()
+        if self._ranks is not None:
+            self._ranks.close()
+            self._finalizer.detach()
+
+    stop = close

@@ -76,6 +76,8 @@ import paddlepaddle_tpu_torch.inference.fleet
 import paddlepaddle_tpu_torch.inference.remote_replica
 import paddlepaddle_tpu_torch.inference.replica_main
 import paddlepaddle_tpu_torch.inference.tp_worker
+import paddlepaddle_tpu_torch.distributed.worker_ranks
+import paddlepaddle_tpu_torch.distributed.ship
 import paddlepaddle_tpu_torch.inference.c_api_server
 import paddlepaddle_tpu_torch.resilience
 import paddlepaddle_tpu_torch.resilience.chaos

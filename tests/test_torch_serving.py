@@ -133,8 +133,10 @@ def test_kv_capacity_error_at_submit(models):
     # bundle= (A6) is ported: test_missing_bundle_falls_back_and_serves;
     # mesh= is ported over dp / mp, in one process too (the engine starts
     # its other ranks: tests/test_torch_tp_engine.py); an expert-parallel
-    # axis is a later A10 slice
+    # axis (ported for training only) and a pipeline axis are later A10
+    # items
     pytest.param(dict(mesh="ep2"), "A10", id="kwargs1-A10"),
+    pytest.param(dict(mesh="pp2"), "A10", id="kwargs2-A10"),
 ])
 def test_unported_options_raise(models, kwargs, item):
     _, tm = models

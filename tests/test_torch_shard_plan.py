@@ -19,11 +19,14 @@ the JAX package (``paddlepaddle_tpu/distributed/shard_plan.py``,
   of the one-process model; prefix hits under TP; the local KV pool;
   ``ServingEngine(mesh="mp2")``'s health and gauges; a follower that
   fails alone failing the driver at once.
-* The refusals: axes outside ``dp`` / ``mp``, ``ShardedTrainStep`` over a
-  multi-rank plan without a process group, ``kv_quant`` with a plan,
-  static mode with a mesh; a multi-rank plan without a group and
-  speculative decoding under a plan serving (their single-process form is
-  held against the JAX package in ``tests/test_torch_tp_engine.py``).
+* The refusals: axes outside ``dp`` / ``mp`` / ``ep`` (``ep`` now builds,
+  with ``moe_train_rules``), ``require_group`` on a multi-rank plan
+  without a process group, ``kv_quant`` with a plan, static mode with a
+  mesh; a multi-rank plan without a group serving, training in one process
+  (``ShardedTrainStep``'s single-process form, held against the JAX
+  package in ``tests/test_torch_sharded_single.py``), and speculative
+  decoding under a plan serving (their single-process form is held
+  against the JAX package in ``tests/test_torch_tp_engine.py``).
 """
 
 import numpy as np
@@ -347,18 +350,31 @@ def _port_tiny():
                                         ("dp2sp2", "sequence parallel"),
                                         ("pp2", "pipeline")])
 def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later):
+    """fsdp, sp and pp raise naming their later A10 slice; ep (expert
+    parallelism) is ported for training: its plan builds, with the
+    reference's MoE rule table (the expert banks on ``ep``, the trunk as
+    Llama), and a serving plan over it still raises."""
+    if spec == "ep2":
+        plan = tsp.ShardingPlan(spec, rules=tsp.moe_train_rules())
+        assert plan.axes == {"ep": 2}
+        assert tsp.moe_train_rules() == jsp.moe_train_rules()
+        assert plan.spec_for("layers.0.mlp.w_gate_proj",
+                             (4, 32, 64)) == ("ep",)
+        with pytest.raises(NotImplementedError,
+                           match="expert-parallel serving"):
+            tsp.decode_plan(spec)
+        return
     with pytest.raises(NotImplementedError, match=later):
         tsp.ShardingPlan(spec)
-    with pytest.raises(NotImplementedError, match="expert"):
-        tsp.moe_train_rules()
 
 
 def test_multi_rank_plan_without_a_group_raises_with_the_launch_command():
     """A multi-rank plan in a process with no group: the decode engine
     serves it in one process (this process is rank 0 and the engine starts
     the other rank), its greedy tokens the one-process engine's, and stops
-    its worker; ``ShardedTrainStep`` still raises with the launch command,
-    naming the A10 slice that ports its single-process form."""
+    its worker; ``ShardedTrainStep`` trains over it in one process too
+    (its loss the one-process step's), and ends its worker on ``close()``;
+    ``require_group`` on such a plan raises with the launch command."""
     import paddlepaddle_tpu_torch as pt
 
     model = _port_tiny()
@@ -376,13 +392,21 @@ def test_multi_rank_plan_without_a_group_raises_with_the_launch_command():
         for r, w in zip(reqs, want):
             np.testing.assert_array_equal(r.result.result(5), w)
         assert all(p.exitcode == 0 for p in eng._tp.procs)
-    with pytest.raises(NotImplementedError, match="distributed.launch"):
+    with pytest.raises(RuntimeError, match="distributed.launch"):
         tsp.decode_plan("mp2").require_group()
-    with pytest.raises(NotImplementedError, match="A10"):
-        pt.parallel.ShardedTrainStep(
-            model, pt.AdamW(parameters=model.parameters()),
-            lambda m, i, l: m(i, labels=l),
-            plan=tsp.train_plan("dp2", data_axes=("dp",)))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, W.TINY["vocab_size"], (2, 8)))
+    m1 = _port_tiny()
+    want = float(pt.TrainStep(m1, pt.AdamW(parameters=m1.parameters()),
+                              lambda m, i, l: m(i, labels=l),
+                              device="cpu")(ids, ids))
+    step = pt.parallel.ShardedTrainStep(
+        model, pt.AdamW(parameters=model.parameters()),
+        lambda m, i, l: m(i, labels=l),
+        plan=tsp.train_plan("dp2", data_axes=("dp",)))
+    np.testing.assert_allclose(float(step(ids, ids)), want, rtol=1e-5)
+    step.close()
+    assert all(p.exitcode == 0 for p in step.workers.procs)
 
 
 def test_speculative_kv_int8_and_static_mode_refusals_under_a_plan():

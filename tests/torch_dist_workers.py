@@ -14,6 +14,10 @@ import time
 import numpy as np
 import torch
 
+from paddlepaddle_tpu_torch.optimizer import AdamW as _PortAdamW
+from paddlepaddle_tpu_torch.parallel.moe import NaiveGate as _PortGate
+from paddlepaddle_tpu_torch.parallel.moe import _topk_routing
+
 TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=192,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=96)
@@ -584,3 +588,85 @@ def card_train_session(spec, n_steps=2):
                                        parameters=m1.parameters()), loss_fn)
         out["one_losses"] = [float(s1(ids, ids)) for _ in range(n_steps)]
     return out
+
+
+# -- MoE under data and expert parallelism ------------------------------------
+
+class TapAdamW(_PortAdamW):
+    """The port's ``AdamW``, recording the gradients its first ``apply``
+    receives (summed over ``dp``, before the clip) in ``first``, by name,
+    as numpy, on each rank."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.first = {}
+
+    def apply(self, grads=None, lr=None):
+        if not self.first:
+            self.first = {n: g.detach().float().cpu().numpy().copy()
+                          for n, g in zip(self._names, grads)}
+        return super().apply(grads, lr)
+
+
+def port_moe(state, mode, capacity_factor):
+    """The port's tiny MoE (``MoEConfig.tiny()``) on the CPU in dispatch
+    ``mode`` holding ``state`` (the JAX model's, as numpy)."""
+    import dataclasses
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.convert import load_jax_state
+
+    cfg = dataclasses.replace(pt.MoEConfig.tiny(), dispatch_mode=mode,
+                              capacity_factor=capacity_factor)
+    model = pt.MoEForCausalLM(cfg, device="cpu")
+    load_jax_state(model, state)
+    return model
+
+
+def moe_train(step, opt, ids, n_steps):
+    """``n_steps`` of ``step`` on ``(ids, ids)``: the losses, the first
+    gradients ``opt`` recorded and every parameter whole afterwards."""
+    ids_t = torch.from_numpy(ids).long()
+    losses = [float(step(ids_t, ids_t)) for _ in range(n_steps)]
+    full = {n: t.float().cpu().numpy() for n, t in step.full_params().items()}
+    return {"losses": losses, "grads": opt.first, "params": full}
+
+
+def moe_dp_session(states, ids, capacity_factor, lr):
+    """The SPMD form of the tiny MoE's ``ShardedTrainStep`` over ``dp2``,
+    two AdamW steps in each dispatch mode (``states``: mode -> the JAX
+    model's state): every rank's losses, first gradients and parameters
+    after the steps."""
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    out = {"rank": _init()}
+    for mode, state in states.items():
+        model = port_moe(state, mode, capacity_factor)
+        opt = TapAdamW(learning_rate=lr, parameters=model.parameters())
+        step = ShardedTrainStep(model, opt, lambda m, i, l: m(i, labels=l),
+                                plan=train_plan("dp2", data_axes=("dp",)))
+        out[mode] = moe_train(step, opt, ids, 2)
+    return out
+
+
+class ScaledGate(_PortGate):
+    """A custom gate: it overrides ``routing()`` (GShard top-k over twice
+    the logits), so its layer takes the einsum route."""
+
+    def routing(self, x_flat, capacity):
+        logits = 2.0 * (x_flat.float() @ self.weight.float())
+        return _topk_routing(logits, capacity, self.topk)
+
+
+def with_scaled_gates(model):
+    """``model`` with each MoE layer's gate swapped for a
+    :class:`ScaledGate` holding the same weight."""
+    for layer in model.layers:
+        old = layer.mlp.gate
+        new = ScaledGate(old.weight.shape[0], old.num_experts,
+                         topk=old.topk, device=old.weight.device)
+        with torch.no_grad():
+            new.weight.copy_(old.weight)
+        layer.mlp.gate = new
+    return model

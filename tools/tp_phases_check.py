@@ -1,14 +1,17 @@
-"""Run ``chip_smoke.py``'s tensor-parallel phases alone on the card, after
-building the paged and flash kernel libraries: a quick check of the
-single-process engine (``ServingEngine(model, mesh="mp2")`` in this
-process) without the whole script.
+"""Run ``chip_smoke.py``'s tensor-, data- and expert-parallel phases alone
+on the card, after building the paged, flash and gather-GEMM kernel
+libraries: a quick check of the single-process engine
+(``ServingEngine(model, mesh="mp2")`` in this process) and train step
+(``ShardedTrainStep`` over a plan in this process) without the whole
+script.
 
     python3 tools/tp_phases_check.py [phase ...]
 
 Phases: ``tp_spec`` (tp_parity's spec-under-mp2 check beside a
 one-process engine), ``tp_parity``, ``serve_tp`` (its SPMD arm, then its
-single-process arm), ``spec_tp``, ``router_tp``, ``train_tp``,
-``nccl_world1``; default ``tp_spec serve_tp spec_tp router_tp``. Each
+single-process arm), ``spec_tp``, ``router_tp``, ``train_tp`` (its SPMD
+arms, then its single-process arms), ``nccl_world1``, ``ep_parity``,
+``train_ep``; default ``tp_spec serve_tp spec_tp router_tp``. Each
 phase prints its JSON lines and its seconds; a failed phase prints its
 error and the script goes on to the next, exiting 1 at the end.
 """
@@ -58,7 +61,7 @@ def main() -> int:
              "nvidia_smi": cs.nvidia_smi_line()})
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention", "flash_fwd_sm90",
-                      "flash_bwd_sm90"])
+                      "flash_bwd_sm90", "gather_gemm", "gather_gemm_sm90"])
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
     failed = []
     for name in sys.argv[1:] or DEFAULT:
