@@ -300,12 +300,12 @@ code is non-zero):
                ranks) and ``dp2mp2`` (4 ranks) ``ShardedTrainStep`` losses
                over 2 steps within the CPU tests' rtol (1e-5 / 1e-4) of a
                one-process ``TrainStep``, with each rank's flash launches.
-10b. ``serve_tp``  Llama-3-8B widths at 4 layers, bf16, ``mp2``: 8
+10b. ``serve_tp``  Llama-3-8B widths at 2 layers, bf16, ``mp2``: 8
                requests; the tokens agree on both ranks; the logits of
                one paged decode step (kernel 1 on 4 KV heads a rank) after
                prefilling the 8 prompts, equal on both ranks and within
                0.25 (max abs, bf16: two rounding orders of the row-parallel
-               sums over 4 layers) of the one-process engine's at the same
+               sums over 2 layers) of the one-process engine's at the same
                input; kernel 1 on every rank (layers x
                decode steps); tok/s beside a one-process engine at the
                same depth in the same run, the chunk's wall, and the ms a
@@ -339,7 +339,7 @@ code is non-zero):
                hand-over; its groups; its engine) and each process's peak
                memory.
 10e. ``spec_tp``  speculative decoding under mp2 in one process:
-               Llama-3-8B widths at 8 layers, bf16, ``spec_k`` 3 (W = 4),
+               Llama-3-8B widths at 4 layers, bf16, ``spec_k`` 3 (W = 4),
                greedy, 4 of serve_spec's prompts (budgets capped at 64),
                the target as its own draft and serve_spec's "quarter"
                draft, each replicated on both ranks. Every request at
@@ -395,7 +395,27 @@ code is non-zero):
                experts, C 320, the other experts' slots not its own)
                against its plain version, timed beside its bound.
 
-Then the run's total seconds, the ``{"kernels": [...]}`` line, the
+    The fsdp axis, ZeRO-3 (A10 slice 3): a parameter sharded over ``fsdp``
+    is gathered where its module uses it; its gradient comes back
+    reduce-scattered over a data axis, sliced over any other.
+10j. ``fsdp_parity``  10a's f32 Llama on ``fsdp2`` in this process and on
+               ``dp2fsdp2``, ``fsdp2mp2`` and the ``p_g_os`` arm over
+               ``dp2fsdp2`` with ``data_axes=("dp",)`` on four spawned
+               ranks, and 10h's MoE on ``dp2fsdp2`` (the trunk on fsdp,
+               the banks whole), 2 momentum steps (lr 0.2, no clip: each
+               parameter moves with its gradient's scale) against a
+               one-process ``TrainStep``: losses within 1e-5 relative,
+               parameters within 1e-4, kernels 2-4 (and 8) = layers x
+               steps on every rank.
+10k. ``train_fsdp``  Llama-3-8B widths at 2 layers, bf16, multi-precision
+               AdamW + clip, batch 4 x 512, 3 steps: a one-process
+               ``TrainStep``, freed, then ``fsdp2`` in this process:
+               losses within 0.02; each rank's resident bytes (parameter
+               shards + optimizer state) at most 0.55 of one process's;
+               kernels 2-4 on each rank; peak GB, step ms, the
+               all-gathers' and reduce-scatters' calls, bytes and ms.
+
+Then each phase's seconds, the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -2144,7 +2164,8 @@ def phase_train_parity_more(pt_pkg):
     * ``F.cross_entropy`` over the shifted labels against the model's
       ``loss_from_logits`` on the card's logits: 1e-5;
     * two steps of each new optimizer (``PARITY_MORE_OPTIMIZERS``) on the
-      first decoder layer's parameters (218 M) from the CPU's gradients,
+      first decoder layer's attention and norms (42 M) from the CPU's
+      gradients,
       the same on both devices: parameters within 1e-5 (elementwise f32
       rules; the norms of Lamb and Lars sum in other orders)."""
     import numpy as np
@@ -2237,9 +2258,12 @@ def phase_train_parity_more(pt_pkg):
     del logits
 
     # (4) two steps of each optimizer, the same gradients on both devices
+    # the first layer's attention and norms (the MLP's 176 M left out:
+    # the rules are elementwise or per-tensor norms, and the CPU's share of
+    # this phase's time is the optimizers' steps)
     prefix = "model.layers.0."
     names = [n for n, _ in cpu_model.named_parameters()
-             if n.startswith(prefix)]
+             if n.startswith(prefix) and ".mlp." not in n]
     cpu_params = dict(cpu_model.named_parameters())
     grads = {n: cpu_grads[n].clone() for n in names}
     del cpu_grads
@@ -5392,9 +5416,10 @@ TP_TINY = dict(vocab_size=1024, hidden_size=1024, intermediate_size=1024,
                dtype="float32")
 TP_SPAWN = dict(timeout=900, pg_timeout=300)   # join / process-group seconds
 # serve_tp and train_tp are cut below their first depths (8 and 4 layers)
-# so that the whole script, with the single-process phases, stays well
-# inside its time limit
-SERVE_TP_LAYERS = 4        # Llama-3-8B widths at 4 of 32 layers
+# so that the whole script, with the single-process and fsdp phases, stays
+# inside its time limit; a TP decode step over gloo crosses the host once a
+# layer, so serve_tp's time goes with its depth
+SERVE_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
 SERVE_TP_LOGIT_TOL = 0.25  # max abs, bf16 paged decode-step logits, TP vs one
 TRAIN_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
 TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 3
@@ -6250,7 +6275,8 @@ def phase_nccl_world1(pt_pkg):
 
 # -- 10: the single-process form (ServingEngine(model, mesh="mp2") here) ------
 
-SPEC_TP_LAYERS = 8         # Llama-3-8B widths at 8 of 32 layers
+SPEC_TP_LAYERS = 4         # Llama-3-8B widths at 4 of 32 layers (8 until
+#                            the fsdp phases came: host-bound, as serve_tp)
 SPEC_TP_PROMPTS = 4        # serve_spec's first 4 greedy prompts
 ROUTER_TP_LAYERS = 2       # Llama-3-8B widths at 2 of 32 layers
 ROUTER_TP_ENGINE = dict(max_batch_size=2, decode_chunk=8, kv_page_size=64,
@@ -6651,6 +6677,343 @@ def phase_router_tp(pt_pkg):
                                         for x in ranks]}
 
 
+# -- 10j-10k: the fsdp axis, ZeRO-3 (A10's fsdp slice) ------------------------
+
+FSDP_PARITY_STEPS = 2
+FSDP_PARITY_BATCH = (4, 256)
+FSDP_LOSS_RTOL = 1e-5      # f32: the gathers are exact, the data-group sums
+#                            reorder the gradients' sums only
+FSDP_PARAM_ATOL = 1e-4     # under the smallest matrix's move (2.7e-4)
+# (arm, mesh spec, data axes, group_sharded_parallel p_g_os)
+FSDP_LLAMA_ARMS = (("fsdp2", "fsdp2", ("dp", "fsdp"), False),
+                   ("dp2fsdp2", "dp2fsdp2", ("dp", "fsdp"), False),
+                   ("fsdp2mp2", "fsdp2mp2", ("dp", "fsdp"), False),
+                   ("p_g_os dp2fsdp2", "dp2fsdp2", ("dp",), True))
+FSDP_PARITY_LR = 0.2
+TRAIN_FSDP_RESIDENT = 0.55  # a rank's shards + optimizer state over one's
+_FSDP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "gather_gemm_ffn")
+
+
+def _fsdp_opt(pt_pkg, model, lr=1e-3, multi_precision=False):
+    return pt_pkg.AdamW(learning_rate=lr, multi_precision=multi_precision,
+                        parameters=model.named_parameters(),
+                        grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0))
+
+
+def _fsdp_parity_opt(pt_pkg, model):
+    """Momentum, no clip: each parameter moves with its gradient's scale
+    (the smallest matrix's largest move, 2.7e-4, is past the parameter
+    gate), so a gradient summed where it should be sliced shows. Adam
+    turns f32 rounding of near-cancelling gradients into moves of 1e-4 at
+    these widths, and a clip that binds would hide a uniform scale."""
+    return pt_pkg.Momentum(learning_rate=FSDP_PARITY_LR, momentum=0.9,
+                           parameters=model.named_parameters())
+
+
+def _fsdp_models(pt_pkg):
+    """fsdp_parity's two models: (label, config, a function that makes
+    the model from the config, rules)."""
+    from paddlepaddle_tpu_torch.distributed import moe_train_rules
+
+    return (("llama", pt_pkg.LlamaConfig(**TP_TINY),
+             lambda c: pt_pkg.LlamaForCausalLM(c, seed=1), None),
+            ("moe", pt_pkg.MoEConfig(**EP_PARITY),
+             lambda c: pt_pkg.MoEForCausalLM(c, seed=0), moe_train_rules()))
+
+
+def _fsdp_reference(pt_pkg, cfg, make, ids) -> dict:
+    """A one-process ``TrainStep``'s losses and parameters after
+    ``FSDP_PARITY_STEPS`` steps of :func:`_fsdp_parity_opt`."""
+    m1 = make(cfg)
+    one = pt_pkg.TrainStep(m1, _fsdp_parity_opt(pt_pkg, m1), _llm_loss)
+    losses = [float(one(ids, ids)) for _ in range(FSDP_PARITY_STEPS)]
+    return {"losses": losses,
+            "params": {n: p.detach().clone()
+                       for n, p in m1.named_parameters()}}
+
+
+def _fsdp_arm(model, step, ids, ref):
+    """Train one arm of fsdp_parity (``step`` over ``model``, on every
+    rank) and, on the rank that holds ``ref``, hold it against the one
+    process: this rank's launches of ``_FSDP_KERNELS`` and, there, the
+    losses, the parameter error and whether every gate held."""
+    step._rank_stats(reset=True)
+    got = [float(step(ids, ids)) for _ in range(FSDP_PARITY_STEPS)]
+    ranks = step._rank_stats()
+    step.sync_to_model()
+    rec = {"launches_by_rank": [{k: r["launches"][k] for k in _FSDP_KERNELS}
+                                for r in ranks],
+           "sharded_over": sorted({a for spec in step.specs.values()
+                                   for e in spec for a in (
+                                       (e,) if isinstance(e, str)
+                                       else (e or ()))})}
+    if ref is None:
+        return rec
+    want = FSDP_PARITY_STEPS * ref["layers"]
+    rec.update(losses=got, max_rel_loss_err=max(
+        abs(a - b) / abs(b) for a, b in zip(got, ref["losses"])),
+        max_abs_param_err=max(
+            float((p.detach() - ref["params"][n]).abs().max())
+            for n, p in model.named_parameters()),
+        expected_launches=want)
+    rec["ok"] = (rec["max_rel_loss_err"] <= FSDP_LOSS_RTOL
+                 and rec["max_abs_param_err"] <= FSDP_PARAM_ATOL
+                 and "fsdp" in rec["sharded_over"])
+    return rec
+
+
+def _fsdp_parity_rank(ids_np):
+    """fsdp_parity's four-rank arms in the SPMD form (every rank builds
+    the step; rank 0 also runs the one-process references): each arm's
+    record from rank 0, every rank's launches and ``nvcc`` runs."""
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.distributed.sharding import \
+        group_sharded_parallel
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    rank = _rank_init("gloo")
+    ids = torch.from_numpy(ids_np).cuda()
+    out = {"rank": rank}
+    for label, cfg, make, rules in _fsdp_models(pt):
+        ref = None
+        if rank == 0:
+            ref = _fsdp_reference(pt, cfg, make, ids)
+            ref["layers"] = cfg.num_hidden_layers
+        arms = FSDP_LLAMA_ARMS[1:] if label == "llama" else (
+            ("dp2fsdp2", "dp2fsdp2", ("dp", "fsdp"), False),)
+        for arm, spec, data_axes, p_g_os in arms:
+            model = make(cfg)
+            opt = _fsdp_parity_opt(pt, model)
+            if p_g_os:
+                model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+            step = ShardedTrainStep(model, opt, _llm_loss, plan=train_plan(
+                spec, rules=rules, data_axes=data_axes))
+            out[f"{label} {arm}"] = _fsdp_arm(model, step, ids, ref)
+            del step, model
+            gc.collect()
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def phase_fsdp_parity(pt_pkg):
+    """10j: ``ShardedTrainStep`` under an ``fsdp`` axis on ranks that share
+    ``cuda:0`` over gloo: the f32 Llama of ``TP_TINY`` on ``fsdp2`` (in
+    this process: the step starts rank 1), and on ``dp2fsdp2``,
+    ``fsdp2mp2`` (the Llama table: every matrix on fsdp, and on mp) and
+    the ``p_g_os`` arm over ``dp2fsdp2`` with ``data_axes=("dp",)`` (every
+    parameter's largest dim on fsdp, the batch on dp alone), and the f32
+    MoE of ``EP_PARITY`` (fused) on ``dp2fsdp2`` (``moe_train_rules``: the
+    trunk on fsdp, the banks whole), these four on four ranks the script
+    spawns (SPMD). Each against a one-process ``TrainStep`` on the card,
+    two momentum steps (:func:`_fsdp_parity_opt`) on the same weights and
+    batch: losses, synced parameters, kernels 2-4 on every rank, and
+    kernel 8 on every rank of the MoE."""
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import spawn, train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    ids_np = np.random.default_rng(0).integers(0, 1024, FSDP_PARITY_BATCH)
+    t0 = time.perf_counter()
+    ranks = spawn(_fsdp_parity_rank, args=(ids_np,), nprocs=4, **TP_SPAWN)
+    spmd_s = time.perf_counter() - t0
+    out = {"spmd_wall_s": spmd_s}
+    for key, rec in ranks[0].items():
+        if key not in ("rank", "nvcc"):
+            rec["launches_by_rank"] = [r[key]["launches_by_rank"][0]
+                                       for r in ranks]
+            out[key] = rec
+
+    # fsdp2 in this process: the single-process form
+    _, cfg, make, rules = _fsdp_models(pt_pkg)[0]
+    ids = torch.from_numpy(ids_np).cuda()
+    ref = _fsdp_reference(pt_pkg, cfg, make, ids)
+    ref["layers"] = cfg.num_hidden_layers
+    out["llama one_process"] = ref["losses"]
+    model = make(cfg)
+    t0 = time.perf_counter()
+    step = ShardedTrainStep(model, _fsdp_parity_opt(pt_pkg, model),
+                            _llm_loss, plan=train_plan("fsdp2"))
+    ctor_s = time.perf_counter() - t0
+    pids = step.workers.pids
+    try:
+        rec = _fsdp_arm(model, step, ids, ref)
+    finally:
+        step.close()
+    rec.update(construction_s=ctor_s, workers_gone=_procs_gone(pids))
+    out["llama fsdp2"] = rec
+    del step, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bad = []
+    for key, rec in out.items():
+        if not isinstance(rec, dict) or "ok" not in rec:
+            continue
+        kernels = _FSDP_KERNELS if key.startswith("moe") else \
+            _FSDP_KERNELS[:3]
+        if not rec["ok"] or any(r[k] != rec["expected_launches"]
+                                for r in rec["launches_by_rank"]
+                                for k in kernels) \
+                or rec.get("workers_gone") is False:
+            bad.append(key)
+    nvcc = sum(r["nvcc"] for r in ranks)
+    emit({"phase": "fsdp_parity", "nvidia_smi": nvidia_smi_line(),
+          "llama": "f32, hidden 1024, 8 heads / 4 KV, 2 layers",
+          "moe": "f32 MoE d 128, h 256, E 8, top-2, 2 layers, fused",
+          "batch": FSDP_PARITY_BATCH, "loss_rtol": FSDP_LOSS_RTOL,
+          "param_atol": FSDP_PARAM_ATOL, "nvcc_in_ranks": nvcc, **out})
+    if bad or nvcc:
+        raise AssertionError(f"fsdp_parity failed for {bad} (nvcc in the "
+                             f"ranks: {nvcc}): {out}")
+    return {f"fsdp_parity {k}": v["launches_by_rank"]
+            for k, v in out.items() if isinstance(v, dict)}
+
+
+def phase_train_fsdp(pt_pkg):
+    """10k: Llama-3-8B widths at ``TRAIN_TP_LAYERS`` layers, bf16,
+    multi-precision AdamW + global-norm clip, batch 4 x 512, 3 steps: a
+    one-process ``TrainStep`` (then freed), then ``ShardedTrainStep`` over
+    ``fsdp2`` in this process (rank 1 started on ``cuda:0``, gloo). Losses
+    within ``TRAIN_TP_LOSS_TOL``; each rank's resident bytes (parameter
+    shards + optimizer state, counted from the tensors) at most
+    ``TRAIN_FSDP_RESIDENT`` of one process's; kernels 2-4 on each rank;
+    each rank's peak GB, ms a step, and the all-gathers' and
+    reduce-scatters' counts, bytes and (rank 0, last step) ms."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import collective as C
+    from paddlepaddle_tpu_torch.distributed import train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+    from paddlepaddle_tpu_torch.parallel.sharded import resident_bytes
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_TP_LAYERS)
+    L = TRAIN_TP_LAYERS
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_TP_BATCH, TRAIN_TP_SEQ))).cuda()
+
+    def run(step):
+        # every rank counts its collectives over the steps; rank 0 times
+        # its own in the last step (a device sync around each)
+        losses, ms = [], []
+        for i in range(TRAIN_TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with C.timing(i == TRAIN_TP_STEPS - 1):
+                losses.append(float(step(ids, ids)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    one = pt_pkg.TrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
+                           _llm_loss)
+    one_losses, one_ms = run(one)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    one_bytes = resident_bytes(one.params.values(), one.optimizer)
+    del one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    t0 = time.perf_counter()
+    step = ShardedTrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
+                            _llm_loss, plan=train_plan("fsdp2"))
+    ctor_s = time.perf_counter() - t0
+    pids, startup = step.workers.pids, dict(step.workers.startup)
+    try:
+        step._rank_stats(reset=True)
+        losses, ms = run(step)
+        ranks = step._rank_stats()
+    finally:
+        step.close()
+    gone = _procs_gone(pids)
+    del step, model
+    held = _held_gb(before)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    err = max(abs(a - b) for a, b in zip(losses, one_losses))
+    share = [r["resident_bytes"] / one_bytes for r in ranks]
+    n = L * TRAIN_TP_STEPS
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    steps = TRAIN_TP_STEPS
+    per_step = {op: {"calls_by_rank": [r["collectives"].get(op, {}).get(
+                         "calls", 0) / steps for r in ranks],
+                     "bytes_by_rank": [r["collectives"].get(op, {}).get(
+                         "bytes", 0) / steps for r in ranks],
+                     "ms_rank0_last_step": ranks[0]["collectives"].get(
+                         op, {}).get("seconds", 0.0) * 1e3}
+                for op in ("all_gather", "reduce_scatter", "all_reduce")}
+    rec = {"phase": "train_fsdp", "nvidia_smi": nvidia_smi_line(),
+           "model": f"llama3_8b widths, {L} layers, bf16, multi-precision "
+                    "AdamW + clip",
+           "backend": "gloo (2 ranks share cuda:0; collectives via host)",
+           "batch": [TRAIN_TP_BATCH, TRAIN_TP_SEQ],
+           "one_process": {"losses": one_losses, "step_ms": one_ms,
+                           "peak_gb": one_peak,
+                           "resident_gb": one_bytes / 1e9},
+           "fsdp2": {"losses": losses, "step_ms": ms,
+                     "max_abs_loss_err": err, "construction_s": ctor_s,
+                     "worker_startup_s": startup,
+                     "resident_gb_by_rank": [r["resident_bytes"] / 1e9
+                                             for r in ranks],
+                     "resident_share_by_rank": share,
+                     "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+                     "launches_by_rank": [{k: r["launches"][k] for k in want}
+                                          for r in ranks],
+                     "collectives_per_step": per_step,
+                     "nvcc_in_worker": sum(r["nvcc"] for r in ranks[1:]),
+                     "workers_gone": gone, "held_gb": held},
+           "loss_tol": TRAIN_TP_LOSS_TOL,
+           "resident_share_max": TRAIN_FSDP_RESIDENT}
+    emit(rec)
+    if err > TRAIN_TP_LOSS_TOL or not np.isfinite(losses).all() \
+            or max(share) > TRAIN_FSDP_RESIDENT \
+            or any(r["launches"][k] != v for r in ranks
+                   for k, v in want.items()) \
+            or rec["fsdp2"]["nvcc_in_worker"] or not gone \
+            or held > HELD_GB_TOL:
+        raise AssertionError(f"train_fsdp failed: {rec}")
+    return {"launches_by_rank": rec["fsdp2"]["launches_by_rank"]}
+
+
+def _time_phases() -> dict:
+    """Wrap every ``phase_*`` function of this module so that its seconds
+    add up, by phase name, in the dict returned (printed before the
+    ``total`` line: where the script's time goes)."""
+    import functools
+
+    seconds: dict = {}
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("phase_") and callable(fn):
+            def timed(*args, _fn=fn, _name=name[len("phase_"):], **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    seconds[_name] = seconds.get(_name, 0.0) \
+                        + time.perf_counter() - t0
+
+            g[name] = functools.wraps(fn)(timed)
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -6659,6 +7022,7 @@ def main() -> int:
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_seconds = _time_phases()
     import paddlepaddle_tpu_torch as pt_pkg
     from paddlepaddle_tpu_torch.ops.kernels import _build
 
@@ -6790,10 +7154,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_ep = phase_train_ep(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_launches = phase_fsdp_parity(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_fsdp = phase_train_fsdp(pt_pkg)
     gg_record["launches_by_phase"] = {
         "moe_train": gg_record["launches"], **ep_launches,
         "train_ep by rank": [r["gather_gemm_ffn"]
-                             for r in train_ep["launches_by_rank"]]}
+                             for r in train_ep["launches_by_rank"]],
+        **{f"{k} by rank": [r["gather_gemm_ffn"] for r in v]
+           for k, v in fsdp_launches.items() if k.startswith(
+               "fsdp_parity moe")}}
     local = train_ep["kernel8_local"]
     gg_record["local_experts"] = {
         "shape": local["shape"], "ms": local["ms"]["call"],
@@ -6815,6 +7188,12 @@ def main() -> int:
              for k, v in tp.items() if k.startswith("train_tp")})
         r["launches_by_phase"]["train_ep by rank"] = [
             x[r["name"]] for x in train_ep["launches_by_rank"]]
+        r["launches_by_phase"].update(
+            {f"{k} by rank": [x[r["name"]] for x in v]
+             for k, v in fsdp_launches.items()})
+        r["launches_by_phase"]["train_fsdp by rank"] = [
+            x[r["name"]] for x in train_fsdp["launches_by_rank"]]
+    emit({"phase": "phase_seconds", "seconds": phase_seconds})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records
           + d64_records + varlen_records + [gg_record]})

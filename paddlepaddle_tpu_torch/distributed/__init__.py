@@ -9,13 +9,17 @@ mesh axes, and Megatron's f/g pair; :mod:`.collective`,
 :mod:`.communication`), host-side collectives over the store,
 ``DataParallel``, and the sharding plan (:mod:`.shard_plan`) that the
 decode engine (tensor-parallel decode) and
-:class:`~..parallel.sharded.ShardedTrainStep` (DP x TP training) run
-under, with the expert-parallel axis ``ep`` (:func:`moe_train_rules`).
-In a process with no group, the engine and the train step start a plan's
-other ranks themselves (:mod:`.worker_ranks`; functions reach them by value,
-:mod:`.ship`). ``fleet.recompute`` is activation recompute. The rest of the
-reference's ``distributed`` (fsdp and the sharding stages, pipelines, ring
-attention, checkpoints, elastic fleet) is queued in ROADMAP A10.
+:class:`~..parallel.sharded.ShardedTrainStep` (DP x TP x FSDP training)
+run under, with the expert-parallel axis ``ep`` (:func:`moe_train_rules`)
+and parameter-sharding (ZeRO-3) axes such as ``fsdp``. In a process with
+no group, the engine and the train step start a plan's other ranks
+themselves (:mod:`.worker_ranks`; functions reach them by value,
+:mod:`.ship`). :mod:`.sharding` (``group_sharded_parallel``, the ZeRO
+levels), :mod:`.sharding_api` (dist tensors over DTensor) and
+:mod:`.auto_parallel` (``parallelize``, ``DistModel``) sit on top.
+``fleet.recompute`` is activation recompute. The rest of the reference's
+``distributed`` (pipelines, ring attention, checkpoints, elastic fleet) is
+queued in ROADMAP A10.
 """
 
 from .collective import (  # noqa: F401
@@ -61,3 +65,23 @@ from .shard_plan import (  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
 from .placement import Partial, Placement, Replicate, Shard  # noqa: F401
 from .fleet.recompute import recompute, recompute_sequential  # noqa: F401
+from . import sharding  # noqa: F401
+from . import auto_parallel  # noqa: F401
+from .auto_parallel import (  # noqa: F401
+    ColWiseParallel,
+    DistModel,
+    RowWiseParallel,
+    parallelize,
+    shard_dataloader,
+    to_static,
+)
+from .sharding_api import (  # noqa: F401
+    ShardingStage1,
+    ShardingStage2,
+    ShardingStage3,
+    dist_attr,
+    reshard,
+    shard_layer,
+    shard_optimizer,
+    shard_tensor,
+)

@@ -199,7 +199,14 @@ def _all_reduce_(t: torch.Tensor, op: str, pg) -> torch.Tensor:
 
 
 def _all_gather(t: torch.Tensor, pg, dim: int = 0) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along ``dim`` in group-rank order."""
+    """The ranks' ``t`` concatenated along ``dim`` in group-rank order. A
+    sequence of groups (the axes of a tuple, majorest first) gathers over
+    each in turn, the minorest first: the blocks of ``dim`` run row-major
+    over the tuple."""
+    if isinstance(pg, (list, tuple)):
+        for g in reversed(pg):
+            t = _all_gather(t, g, dim)
+        return t
     if pg is None:
         return t
     t = t.contiguous()
@@ -213,7 +220,13 @@ def _all_gather(t: torch.Tensor, pg, dim: int = 0) -> torch.Tensor:
 
 
 def _reduce_scatter(t: torch.Tensor, pg, dim: int = 0) -> torch.Tensor:
-    """Sum over the group, then this rank's ``1/n`` slice along ``dim``."""
+    """Sum over the group, then this rank's ``1/n`` slice along ``dim``. A
+    sequence of groups (majorest first) reduce-scatters over each in turn,
+    the majorest first: the conjugate of :func:`_all_gather`'s order."""
+    if isinstance(pg, (list, tuple)):
+        for g in pg:
+            t = _reduce_scatter(t, g, dim)
+        return t
     if pg is None:
         return t
     n = _size(pg)
@@ -230,7 +243,7 @@ def _reduce_scatter(t: torch.Tensor, pg, dim: int = 0) -> torch.Tensor:
             dist.reduce_scatter_tensor(out, src, group=pg)
             return out.movedim(0, dim)
         full = t.clone()
-        _all_reduce_(full, "sum", pg)
+        dist.all_reduce(full, dist.ReduceOp.SUM, group=pg)
         return full.chunk(n, dim=dim)[me].contiguous()
 
     return _account("reduce_scatter", t, run)

@@ -32,7 +32,7 @@ class ProcessMesh:
             dim_names = [f"d{i}" for i in range(arr.ndim)]
         self._dim_names = list(dim_names)
         self._groups: Optional[Dict[str, object]] = None
-        self._device_mesh = None
+        self._device_meshes: Dict[str, object] = {}
 
     # -- reference API ------------------------------------------------------
     @property
@@ -95,19 +95,30 @@ class ProcessMesh:
             raise ValueError(f"rank {rank} is not in {self!r}")
         return {n: int(i) for n, i in zip(self._dim_names, where[0])}
 
-    def slice_ranks(self, dim_name: str, rank: int) -> List[int]:
-        """The ranks of ``dim_name``'s slice through ``rank``, in axis
-        order."""
-        axis = self._dim_names.index(dim_name)
-        idx = list(np.argwhere(self.mesh == rank)[0])
-        idx[axis] = slice(None)
-        return [int(r) for r in self.mesh[tuple(idx)]]
+    def _axes(self, dim_names) -> List[int]:
+        names = (dim_names,) if isinstance(dim_names, str) else dim_names
+        return [self._dim_names.index(n) for n in names]
 
-    def _all_slices(self, dim_name: str) -> List[List[int]]:
-        axis = self._dim_names.index(dim_name)
-        moved = np.moveaxis(self.mesh, axis, -1)
+    def _moved(self, axes: List[int]) -> np.ndarray:
+        """The mesh with ``axes`` moved last, in the given order."""
+        return np.moveaxis(self.mesh, axes,
+                           list(range(-len(axes), 0)))
+
+    def slice_ranks(self, dim_name, rank: int) -> List[int]:
+        """The ranks of ``dim_name``'s slice through ``rank``, in axis
+        order; for a tuple of axes, their product's slice, row-major over
+        the tuple (its first axis majorest)."""
+        axes = self._axes(dim_name)
+        where = np.argwhere(self.mesh == rank)[0]
+        rest = tuple(int(where[i]) for i in range(self.ndim)
+                     if i not in axes)
+        return [int(r) for r in self._moved(axes)[rest].reshape(-1)]
+
+    def _all_slices(self, dim_name) -> List[List[int]]:
+        axes = self._axes(dim_name)
+        n = int(np.prod([self._shape[a] for a in axes]))
         return [[int(r) for r in row]
-                for row in moved.reshape(-1, moved.shape[-1])]
+                for row in self._moved(axes).reshape(-1, n)]
 
     def require_ranks(self, world: int) -> None:
         """Raise unless the mesh's entries are the ranks ``0..world-1``,
@@ -130,34 +141,46 @@ class ProcessMesh:
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh.init_groups needs an initialized "
                                "process group (init_parallel_env)")
-        world = dist.get_world_size()
-        self.require_ranks(world)
-        me = dist.get_rank()
-        td = datetime.timedelta(seconds=timeout_s or pg_timeout_s())
-        groups = {}
+        self.require_ranks(dist.get_world_size())
+        self._group_args = (backend, datetime.timedelta(
+            seconds=timeout_s or pg_timeout_s()))
+        self._groups = {}
         for name in self._dim_names:
-            for ranks in self._all_slices(name):
-                g = dist.new_group(ranks, timeout=td, backend=backend)
-                if me in ranks:
-                    groups[name] = g
-        self._groups = groups
+            self._make_groups(name)
 
-    def group(self, dim_name: str):
+    def _make_groups(self, key) -> None:
+        import torch.distributed as dist
+
+        backend, td = self._group_args
+        me = dist.get_rank()
+        for ranks in self._all_slices(key):
+            g = dist.new_group(ranks, timeout=td, backend=backend)
+            if me in ranks:
+                self._groups[key] = g
+
+    def group(self, dim_name):
         """This rank's process group along ``dim_name`` (created on first
-        use by :meth:`init_groups`)."""
+        use by :meth:`init_groups`). A tuple of axes names their product,
+        whose groups are created on the first call for it (collective, as
+        :meth:`init_groups` is)."""
         self.init_groups()
-        return self._groups[dim_name]
+        key = dim_name if isinstance(dim_name, str) else (
+            dim_name[0] if len(dim_name) == 1 else tuple(dim_name))
+        if key not in self._groups:
+            self._make_groups(key)
+        return self._groups[key]
 
     def device_mesh(self, device_type: str = "cuda"):
-        """A ``torch.distributed.DeviceMesh`` over the same ranks and axis
-        names (collective on first call)."""
-        if self._device_mesh is None:
+        """A ``torch.distributed.DeviceMesh`` of ``device_type`` over the
+        same ranks and axis names (collective on the first call for each
+        device type)."""
+        if device_type not in self._device_meshes:
             from torch.distributed.device_mesh import DeviceMesh
 
-            self._device_mesh = DeviceMesh(
+            self._device_meshes[device_type] = DeviceMesh(
                 device_type, self.mesh.tolist(),
                 mesh_dim_names=tuple(self._dim_names))
-        return self._device_mesh
+        return self._device_meshes[device_type]
 
 
 _global_mesh: Optional[ProcessMesh] = None

@@ -25,12 +25,22 @@ rank holds its own shard, and the collectives are explicit.
   vocab-sharded LM head is gathered (``c_concat``) before sampling or the
   loss; a hidden-sharded embedding is gathered after the lookup. The
   collectives run whenever the mesh has the model axis, at size 1 too;
-* the mesh axes the port takes are ``dp``, ``mp`` and ``ep`` (expert
-  parallelism: :func:`moe_train_rules` puts the MoE banks on ``ep``; the
-  batch shards over the data axes only, so the ranks of one ``ep`` group
-  hold the same tokens, :mod:`..parallel.moe`). An ``fsdp``, ``sp`` or
-  ``pp`` axis of size > 1 raises ``not_ported`` naming the later A10
-  slice; ``seq_axis`` likewise;
+* an axis's role comes from the plan, not from its name (the reference
+  decides by the rules and ``data_axes`` alike): the DATA axes are the
+  members of ``data_axes`` the mesh has at a size above 1 (the batch
+  shards over them, majorest first, and :attr:`ShardingPlan.data_group`
+  spans their product); the MODEL (Megatron) axis is ``model_axis`` when
+  the rules name it, else the one axis the rules name that is neither a
+  data axis, ``ep``, nor a parameter-sharding name (``fsdp``,
+  ``sharding``), so ``tp`` and ``mp`` both work; ``ep`` is expert
+  parallelism (:func:`moe_train_rules` puts the MoE banks on it; the
+  ranks of one ``ep`` group hold the same tokens, :mod:`..parallel.moe`);
+  any other axis a parameter is sharded over is a PARAMETER-SHARDING
+  (ZeRO-3) axis, ``fsdp`` the usual one: the parameter is gathered over it
+  where its module uses it (:mod:`..parallel.mpu`). Axes of size 1 drop
+  out everywhere. An ``sp`` or ``pp`` axis of size > 1 raises
+  ``not_ported`` naming its later A10 slice; ``seq_axis`` likewise, and
+  ``ep`` beside a parameter-sharding axis of size > 1;
 * ``compile`` / ``compile_path``: the port has ONE path, per-rank eager or
   CUDA-graph-captured code with explicit collectives (``"spmd"``), where
   the reference chooses pjit or shard_map (ROADMAP, recorded deviations).
@@ -69,11 +79,13 @@ _SPEC_TOKEN = re.compile(r"([a-z_]+?)(\d+)")
 
 # the later A10 slice that ports each axis the port refuses
 _LATER_AXES = {
-    "fsdp": "A10 slice 3: the fsdp axis and distributed/sharding",
     "sp": "A10 slice 5: sequence parallel and ring attention",
     "pp": "A10 slice 4: pipeline and the 4D hybrid",
 }
-_SUPPORTED_AXES = ("dp", "mp", "ep")
+_EP_X_FSDP = "A10 slice 4: ep x fsdp, the 4D hybrid"
+# the names a parameter-sharding (ZeRO-3) axis usually goes by: never taken
+# for the model axis
+_ZERO_NAMES = ("fsdp", "sharding")
 _CONTROL_TIMEOUT = datetime.timedelta(days=1)
 
 LAUNCH_HINT = ("launch one process per rank: python -m "
@@ -181,6 +193,31 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def _rule_axes(rules) -> List[str]:
+    """The mesh axes the rules name, in order of first appearance."""
+    out: List[str] = []
+    for _, spec in rules:
+        for entry in spec:
+            out.extend(a for a in _axes_of(entry) if a not in out)
+    return out
+
+
+def _resolve_model_axis(rules, model_axis: str, data_axes) -> str:
+    """``model_axis`` when the rules name it; else the one axis they name
+    that is no data axis, not ``ep`` and no parameter-sharding name (the
+    Llama table's ``tp``); else ``model_axis`` (absent: no model axis)."""
+    named = _rule_axes(rules)
+    if model_axis in named:
+        return model_axis
+    left = [a for a in named if a not in data_axes and a != "ep"
+            and a not in _ZERO_NAMES]
+    if len(left) > 1:
+        raise ValueError(
+            f"the rules name {left} besides the data axes: which is the "
+            f"tensor-parallel axis? Pass model_axis= (or mp_axis=)")
+    return left[0] if left else model_axis
+
+
 class RankContext:
     """The ranks a bound plan runs on, as one process sees them: ``rank``
     (in the mesh), ``size``, ``backend``, ``groups`` (mesh axis -> the
@@ -200,10 +237,12 @@ class RankContext:
 
     @classmethod
     def from_store(cls, mesh: ProcessMesh, store, rank: int, backend: str,
-                   timeout_s: float) -> "RankContext":
+                   timeout_s: float, products=()) -> "RankContext":
         """Groups of rank ``rank`` over ``store`` (the caller's own
         ``TCPStore``), one ``PrefixStore`` each: every axis slice through
-        the rank, in the mesh's axis order, then the control group. Each
+        the rank, in the mesh's axis order, the slice of each tuple of
+        axes in ``products`` (a plan's data group over several axes:
+        :meth:`ShardingPlan.product_axes`), then the control group. Each
         constructor returns once every member of its group has connected,
         so every rank builds its groups in the same order. ``backend`` is
         ``"gloo"`` or ``"nccl"`` (the caller has set this rank's card); a
@@ -223,6 +262,10 @@ class RankContext:
         groups = {name: make(f"axis/{name}", mesh.slice_ranks(name, rank),
                              backend, td)
                   for name in mesh.dim_names}
+        for axes in products:
+            groups[tuple(axes)] = make("axes/" + "+".join(axes),
+                                       mesh.slice_ranks(axes, rank), backend,
+                                       td)
         control = make("control", mesh.process_ids, "gloo",
                        _CONTROL_TIMEOUT)
         return cls(rank, len(mesh.process_ids), backend, groups, control)
@@ -235,8 +278,11 @@ class ShardingPlan:
         mesh: ``"dp2mp4"`` spec string or a ProcessMesh.
         rules: ``[(name_regex, spec_tuple)]``; default
             :func:`tp_decode_rules` over ``model_axis``.
-        data_axes: mesh axes the batch dim shards over (present ones only).
-        model_axis: the tensor-parallel axis (``tp_degree`` is its size).
+        data_axes: mesh axes the batch dim shards over; those the mesh has
+            at a size above 1 are kept, in the mesh's order.
+        model_axis: the tensor-parallel axis (``tp_degree`` is its size)
+            when the rules name it; otherwise the rules decide (module
+            docstring), so the Llama table's ``tp`` works as it is.
         path: accepted for the reference's signature and recorded; the
             port has one execution path (``compile_path == "spmd"``).
     """
@@ -250,14 +296,18 @@ class ShardingPlan:
         shape = dict(zip(self.process_mesh.dim_names,
                          self.process_mesh.shape))
         for name, size in shape.items():
-            if size > 1 and name not in _SUPPORTED_AXES:
+            if size > 1 and name in _LATER_AXES:
                 raise not_ported(f"mesh axis {name!r} of size {size}",
-                                 _LATER_AXES.get(name, "A10"))
+                                 _LATER_AXES[name])
         self._shape = shape
-        self.model_axis = model_axis
-        self.data_axes = tuple(a for a in data_axes if a in shape)
         self.rules = list(rules) if rules is not None \
             else tp_decode_rules(model_axis)
+        self.model_axis = _resolve_model_axis(self.rules, model_axis,
+                                              tuple(data_axes))
+        self.data_axes = tuple(a for a in shape
+                               if a in tuple(data_axes) and shape[a] > 1)
+        self._refuse_ep_beside(
+            [a for a in _rule_axes(self.rules) if self.is_zero_axis(a)])
         self._path = path
         self.specs: Dict[str, tuple] = {}
         self._control = None
@@ -282,10 +332,43 @@ class ShardingPlan:
 
     @property
     def dp_degree(self) -> int:
+        """The size of the data group (the product of the data axes)."""
         d = 1
         for a in self.data_axes:
             d *= int(self._shape[a])
         return d
+
+    def is_zero_axis(self, axis: str) -> bool:
+        """Whether a parameter sharded over ``axis`` is sharded for memory
+        (ZeRO-3: gathered where it is used): an axis of the mesh of size >
+        1 that is neither the model axis nor ``ep``."""
+        return (self._shape.get(axis, 1) > 1 and axis != self.model_axis
+                and axis != "ep")
+
+    def _refuse_ep_beside(self, zero_axes) -> None:
+        if zero_axes and self._shape.get("ep", 1) > 1:
+            raise not_ported("an expert-parallel (ep) axis beside a "
+                             "parameter-sharding (fsdp) axis", _EP_X_FSDP)
+
+    def zero_dims(self, spec) -> tuple:
+        """``((dim, axes), ...)``: the parameter-sharding axes of each dim
+        of a fitted ``spec`` (majorest first), which a module gathers the
+        parameter over where it uses it. Within a dim they must follow
+        the model or ``ep`` axes, so that what is left after the gather is
+        the block the Megatron wiring expects."""
+        out = []
+        for dim, entry in enumerate(spec):
+            axes = _axes_of(entry)
+            zero = tuple(a for a in axes if self.is_zero_axis(a))
+            if not zero:
+                continue
+            self._refuse_ep_beside(zero)
+            if axes[len(axes) - len(zero):] != zero:
+                raise not_ported(f"dim {dim} sharded over {axes}: a "
+                                 f"parameter-sharding axis ahead of the "
+                                 f"model axis", "A10")
+            out.append((dim, zero))
+        return tuple(out)
 
     def __repr__(self):
         axes = "x".join(f"{a}{s}" for a, s in self._shape.items())
@@ -329,11 +412,18 @@ class ShardingPlan:
                 and not dist.is_initialized())
 
     def refuse_in_serving(self) -> None:
-        """Raise ``not_ported`` if this plan has an ``ep`` axis of size >
-        1: expert-parallel serving is a later A10 item (training only)."""
+        """Raise ``not_ported`` if this plan has an ``ep`` axis of size > 1
+        (expert-parallel serving is a later A10 item: training only) or a
+        parameter-sharding axis of size > 1 (the rules shard a parameter
+        over it, or it is named ``fsdp`` / ``sharding``)."""
         if self._shape.get("ep", 1) > 1:
             raise not_ported("an expert-parallel (ep) axis in a serving "
                              "plan", "A10: expert-parallel serving")
+        zero = [a for a in self._shape if self.is_zero_axis(a)
+                and (a in _ZERO_NAMES or a in _rule_axes(self.rules))]
+        if zero:
+            raise not_ported(f"a parameter-sharding axis ({zero[0]}) in a "
+                             "serving plan", "A10: fsdp in serving plans")
 
     def require_group(self) -> None:
         """Raise unless this process can act as one rank of the plan: a
@@ -366,9 +456,10 @@ class ShardingPlan:
     def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
         return self.process_mesh.coords(self.rank if rank is None else rank)
 
-    def group(self, axis: str):
-        """This rank's process group along ``axis`` (None in a one-rank
-        process without a group)."""
+    def group(self, axis):
+        """This rank's process group along ``axis`` (a mesh axis, or a
+        tuple of them: their product; None in a one-rank process without a
+        group)."""
         if self._ctx is not None:
             return self._ctx.groups[axis]
         self.require_group()
@@ -381,16 +472,35 @@ class ShardingPlan:
         return (self.group(self.model_axis)
                 if self.model_axis in self._shape else None)
 
+    def product_axes(self) -> List[Tuple[str, ...]]:
+        """The tuples of axes that need a group of their own: the data
+        axes, when there are several."""
+        return [self.data_axes] if len(self.data_axes) > 1 else []
+
     @property
-    def dp_group(self):
-        """The data-parallel group (the single data axis the port takes;
-        None without one)."""
-        return self.group(self.data_axes[0]) if self.data_axes else None
+    def data_group(self):
+        """One group over the product of the data axes (the reference's dp
+        x sharding product group): the batch's rows, the token count and
+        the gradients of replicated parameters are summed over it. None
+        without a data axis."""
+        if not self.data_axes:
+            return None
+        return self.group(self.data_axes if len(self.data_axes) > 1
+                          else self.data_axes[0])
 
     @property
     def ep_group(self):
         """The expert-parallel group (None without an ``ep`` axis)."""
         return self.group("ep") if "ep" in self._shape else None
+
+    def zero_groups(self) -> Dict[str, tuple]:
+        """``{axis: (group, is a data axis)}`` for each parameter-sharding
+        axis of the mesh: what a parameter's gather-on-use runs over, and
+        whether its backward sums the ranks' gradients (a data axis: each
+        rank's is a partial sum) or takes this rank's slice (the ranks
+        along it hold the same batch and compute equal gradients)."""
+        return {a: (self.group(a), a in self.data_axes)
+                for a in self._shape if self.is_zero_axis(a)}
 
     def backend(self) -> Optional[str]:
         if self._ctx is not None:
@@ -537,13 +647,14 @@ class ShardingPlan:
         return mpu.cut_view(model, self, share=share, rank=rank)
 
     def wire_module(self, view: torch.nn.Module) -> torch.nn.Module:
-        """Attach this rank's collectives (model axis, and an MoE layer's
-        data- and expert-parallel groups) to a view that
+        """Attach this rank's collectives (model axis, the gathers of
+        parameters sharded over a parameter-sharding axis, and an MoE
+        layer's data and expert-parallel groups) to a view that
         :meth:`cut_module` cut for this rank."""
         from ..parallel import mpu
 
-        return mpu.wire_view(view, self.mp_group, dp=self.dp_group,
-                             ep=self.ep_group)
+        return mpu.wire_view(view, self.mp_group, dp=self.data_group,
+                             ep=self.ep_group, zero=self.zero_groups())
 
     def _check_tied(self, model) -> None:
         cfg = getattr(model, "config", None)
@@ -553,9 +664,9 @@ class ShardingPlan:
                              "plan", "A10")
 
     def shard_batch(self, arr, rank: Optional[int] = None):
-        """This rank's rows of a global batch: dim 0 over the data axes
-        (the whole batch when they do not divide it, as ``_fit_spec``
-        fits the axis away)."""
+        """This rank's rows of a global batch: dim 0 over the data axes,
+        majorest first (the whole batch when they do not divide it, as
+        ``_fit_spec`` fits the axes away)."""
         from ..parallel.sharded import _fit_spec
 
         spec = self.data_axes if len(self.data_axes) > 1 else (

@@ -231,7 +231,7 @@ def start_workers(plan, held: List[Dict[str, object]], build: Callable,
         ranks.wait("hello", timeout_s)
         t1 = time.perf_counter()
         rctx = RankContext.from_store(plan.process_mesh, store, 0, backend,
-                                      timeout_s)
+                                      timeout_s, plan.product_axes())
         t2 = time.perf_counter()
         errors = [(r, v) for r, v in
                   enumerate(ranks.wait("ready", timeout_s), start=1)
@@ -382,7 +382,8 @@ def _worker_main(spec: Dict[str, object]) -> None:
         plan = spec["plan"]
         ctx = RankContext.from_store(plan.process_mesh, store, rank,
                                      spec["backend"],
-                                     float(spec["timeout_s"]))
+                                     float(spec["timeout_s"]),
+                                     plan.product_axes())
         obj = spec["build"](held, plan.bind(ctx), dev, **spec["build_kw"])
         gc.collect()             # what the build let go of is unmapped now
         store.set(f"ready/{rank}", "ok")

@@ -31,16 +31,22 @@ Under a sharding plan (:meth:`~..distributed.shard_plan.ShardingPlan.
 wire_module` attaches the groups) the layer computes what the reference's
 one global step computes:
 
-* data parallel (``dp`` > 1): each rank holds its rows of the global batch.
-  The routing logits ``[T, E]`` are gathered over ``dp`` (backward: a
+* data parallel (a data group of more than one rank: the product of the
+  plan's data axes, ``dp`` and ``fsdp`` under the default ``data_axes``):
+  each rank holds its rows of the global batch. The routing logits
+  ``[T, E]`` are gathered over the data group (backward: a
   reduce-scatter, sum), so capacity (``capacity(global tokens)``), the drop
   priority, the slot maps and ``l_aux`` are the global ones; each rank keeps
   the decisions of its own tokens and runs its own tokens' slots, the
   others' slots taking the sentinel the kernel zeroes. ``aux_share`` is
-  ``1/dp``: the model adds ``aux_share * l_aux`` on each rank, so the
-  load-balance term counts once in the loss the step sums over ``dp``. The
-  einsum mode gathers ``x`` over ``dp`` and routes it with the gate's own
-  ``routing()`` (a custom gate included);
+  ``1/dp`` (``dp`` the data group's size): the model adds ``aux_share *
+  l_aux`` on each rank, so the load-balance term counts once in the loss
+  the step sums over the data group. The einsum mode gathers ``x`` over
+  it and routes it with the gate's own ``routing()`` (a custom gate
+  included). The trunk's parameters may be sharded over ``fsdp``
+  (:func:`moe_sharding_rules`) and are gathered where they are used; the
+  banks, on ``ep`` alone, stay whole on a mesh without ``ep``, so kernel
+  8 runs on the full banks there;
 * expert parallel (``ep`` > 1, :func:`moe_sharding_rules`): the ranks of
   one ``ep`` group hold the same tokens and ``E/ep`` experts each
   (``w_*_proj [E/ep, ...]``). Each computes the global routing and runs
@@ -535,12 +541,12 @@ class MoELayer(nn.Module):
         return max(4, int(math.ceil(per * self.capacity_factor)))
 
     def wire(self, dp, ep) -> None:
-        """Attach a plan's data-parallel group ``dp`` and expert-parallel
-        group ``ep`` (either None). A group of one rank is dropped, so such
-        a plan runs the one-process code. ``ep`` is kept only when the
-        banks are sharded over it (``E/ep`` experts here); banks left whole
-        (a rule table that replicates them) run every expert on every rank,
-        with nothing to reduce."""
+        """Attach a plan's data group ``dp`` (over every data axis) and
+        expert-parallel group ``ep`` (either None). A group of one rank is
+        dropped, so such a plan runs the one-process code. ``ep`` is kept
+        only when the banks are sharded over it (``E/ep`` experts here);
+        banks left whole (a rule table that replicates them) run every
+        expert on every rank, with nothing to reduce."""
         dp = dp if _size(dp) > 1 else None
         ep = ep if _size(ep) > 1 else None
         local = self.w_gate_proj.shape[0]

@@ -21,8 +21,12 @@ under a :class:`~..distributed.shard_plan.ShardingPlan` (what
 ``plan.shard(model)`` returns), in two halves: :func:`cut_view` (a rank's
 blocks, marked with their roles, picklable) and :func:`wire_view` (the
 collectives over the rank's group), which a single-process engine runs in
-different processes. The sequence-parallel half of the reference
-(:166-198) waits for an ``sp`` axis (a later A10 slice).
+different processes. A parameter sharded over a parameter-sharding (ZeRO-3)
+axis, ``fsdp`` the usual one, is gathered over it where its module uses it
+(:func:`gather_scope`, :class:`_GatherOnUse`), whatever the module, and the
+whole tensor goes on to the module's Megatron wiring. The
+sequence-parallel half of the reference (:166-198) waits for an ``sp`` axis
+(a later A10 slice).
 
 The group of a layer built directly is ``mp_group`` (a
 :class:`~..distributed.collective.Group` or a process group), else the
@@ -32,17 +36,21 @@ group it is a layer of one rank.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import functools
 import re
+import threading
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..distributed.collective import (_all_reduce_, _resolve_pg, c_concat,
-                                      c_identity, c_split, mp_allreduce)
+from ..distributed.collective import (_all_gather, _all_reduce_, _grank,
+                                      _reduce_scatter, _resolve_pg, _size,
+                                      c_concat, c_identity, c_split,
+                                      mp_allreduce)
 from ..device import resolve_device
 from ..core.dtype import to_torch_dtype
 from ..nn import functional as F
@@ -312,7 +320,8 @@ def parallel_view(model: nn.Module, plan, pg, share: bool = True
     :func:`cut_view` (this rank's blocks) then :func:`wire_view` (the
     collectives)."""
     return wire_view(cut_view(model, plan, share=share), pg,
-                     dp=plan.dp_group, ep=plan.ep_group)
+                     dp=plan.data_group, ep=plan.ep_group,
+                     zero=plan.zero_groups())
 
 
 def cut_view(model: nn.Module, plan, share: bool = True, rank=None
@@ -321,8 +330,10 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
     rank ``rank``'s (default: this rank's) blocks under ``plan``, with no
     collective attached. A parameter's own placement (``dist_spec``, as the
     MoE banks carry) wins over the plan's rule table. Each module that
-    takes one is marked with its tensor-parallel role (``_tp_wire``), which
-    :func:`wire_view` reads. It holds no hook and no process group, so it
+    takes one is marked with its tensor-parallel role (``_tp_wire``), and
+    each that holds a parameter sharded over a parameter-sharding axis
+    with its dims and axes (``_zero_gather``), which :func:`wire_view`
+    reads. It holds no hook and no process group, so it
     pickles: a single-process engine or train step cuts every rank's view
     and hands each worker its own."""
     from ..nn.common import Embedding
@@ -337,6 +348,7 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
         _copy_hooks(d)
         params = {}
         full_shapes = {}
+        gathers = {}
         for pname, p in mod._parameters.items():
             if p is None:
                 params[pname] = None
@@ -347,6 +359,9 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
             spec = (_fit_spec(own, tuple(p.shape), plan.axes)
                     if own is not None else plan.spec_for(name, p.shape))
             plan.specs[name] = spec
+            zero = plan.zero_dims(spec)
+            if zero:
+                gathers[pname] = zero
             if not spec and share:
                 params[pname] = p
                 continue
@@ -365,6 +380,8 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
         d["_buffers"] = bufs
         d["_modules"] = {n: None if c is None else view(c, f"{prefix}{n}.")
                          for n, c in mod._modules.items()}
+        if gathers:
+            new._zero_gather = gathers
         if isinstance(mod, MoELayer):
             new._tp_wire = ("moe",)
         elif isinstance(mod, Embedding):
@@ -390,37 +407,131 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
     return view(model, "")
 
 
-def wire_view(view: nn.Module, pg, dp=None, ep=None) -> nn.Module:
+def wire_view(view: nn.Module, pg, dp=None, ep=None, zero=None
+              ) -> nn.Module:
     """The second half of :func:`parallel_view`: attach each marked
-    module's collectives over ``pg`` (the rank's model-axis group) and an
-    MoE layer's over ``dp`` and ``ep`` (its data- and expert-parallel
-    groups), in place; returns the view (its root swapped when the root
-    itself is a vocab-sharded embedding)."""
+    module's collectives over ``pg`` (the rank's model-axis group), an MoE
+    layer's over ``dp`` and ``ep`` (its data and expert-parallel groups)
+    and each parameter-sharded module's gathers over ``zero`` (``{axis:
+    (group, is a data axis)}``, :meth:`~..distributed.shard_plan.
+    ShardingPlan.zero_groups`), in place; returns the view (its root
+    swapped when the root itself is a vocab-sharded embedding)."""
 
     def wire(mod: nn.Module) -> nn.Module:
         for n, c in list(mod._modules.items()):
             if c is not None:
                 mod._modules[n] = wire(c)
-        role = mod.__dict__.pop("_tp_wire", None)
-        if role is None:
-            return mod
-        kind = role[0]
-        if kind == "vocab":
-            return VocabParallelEmbedding.from_local(
-                mod.weight, role[1], pg, mod.padding_idx)
-        if kind == "moe":
-            mod.wire(dp, ep)
-        elif kind == "gather":
-            mod.register_forward_hook(
-                lambda m, args, out: c_concat(out, pg, -1))
-        elif kind == "row_int8":
-            mod.__class__ = _row_int8_class()
-            mod._tp_pg = pg
-        else:
-            _hooks_for(mod, kind, role[1], pg)
-        return mod
+        gathers = mod.__dict__.pop("_zero_gather", None)
+        out = _wire_role(mod, mod.__dict__.pop("_tp_wire", None), pg, dp, ep)
+        if gathers:
+            _wire_gathers(out, gathers, zero)
+        return out
 
     return wire(view)
+
+
+def _wire_role(mod: nn.Module, role, pg, dp, ep) -> nn.Module:
+    if role is None:
+        return mod
+    kind = role[0]
+    if kind == "vocab":
+        return VocabParallelEmbedding.from_local(
+            mod.weight, role[1], pg, mod.padding_idx)
+    if kind == "moe":
+        mod.wire(dp, ep)
+    elif kind == "gather":
+        mod.register_forward_hook(
+            lambda m, args, out: c_concat(out, pg, -1))
+    elif kind == "row_int8":
+        mod.__class__ = _row_int8_class()
+        mod._tp_pg = pg
+    else:
+        _hooks_for(mod, kind, role[1], pg)
+    return mod
+
+
+# -- parameters sharded for memory (ZeRO-3): gathered where they are used ------
+
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def gather_scope():
+    """Inside the block (in this thread) a parameter sharded over a
+    parameter-sharding axis reads whole: the first read gathers it
+    (:class:`_GatherOnUse`) and later reads, a recomputed forward's in the
+    backward included, get the same tensor. Outside it the parameter reads
+    as this rank's shard, so looking at a view's ``device`` or ``dtype``
+    runs no collective. A sharded train step runs its forward and
+    backward inside one."""
+    old = getattr(_scope, "cache", None)
+    _scope.cache = {}
+    try:
+        yield
+    finally:
+        _scope.cache = old
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """A parameter's shard gathered whole over its parameter-sharding axes
+    (``dims``: ``((dim, ((group, is_data), ...)), ...)``, each dim's axes
+    majorest first). The backward gives the shard its gradient: over a
+    data axis the ranks' gradients are partial sums (each saw its own
+    rows), so they are summed and scattered (a reduce-scatter); over an
+    axis that is no data axis the ranks hold the same batch and compute
+    the same gradient, so the rank takes its own slice (a reduce-scatter
+    there would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, shard, dims):
+        ctx.dims = dims
+        t = shard
+        for dim, groups in dims:
+            t = _all_gather(t, [g for g, _ in groups], dim)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, groups in ctx.dims:
+            for pg, is_data in groups:
+                if is_data:
+                    g = _reduce_scatter(g.contiguous(), pg, dim)
+                else:
+                    g = g.chunk(_size(pg), dim=dim)[_grank(pg)]
+        return g.contiguous(), None
+
+
+def _read_gathered(mod: nn.Module, name: str):
+    shard = mod._parameters[name]
+    cache = getattr(_scope, "cache", None)
+    if cache is None:
+        return shard
+    whole = cache.get(id(shard))
+    if whole is None:
+        whole = cache[id(shard)] = _GatherOnUse.apply(
+            shard, mod._zero_dims[name])
+    return whole
+
+
+@functools.lru_cache(maxsize=None)
+def _gathering_class(cls, names):
+    """``cls`` with each parameter of ``names`` read through
+    :func:`_read_gathered` (a property ahead of ``nn.Module``'s lookup;
+    the shard stays in ``_parameters`` under its own name)."""
+    def reader(name):
+        return property(lambda self: _read_gathered(self, name))
+
+    body = {n: reader(n) for n in names}
+    body["__module__"] = cls.__module__
+    return type(cls.__name__, (cls,), body)
+
+
+def _wire_gathers(mod: nn.Module, gathers, zero) -> None:
+    mod._zero_dims = {
+        name: tuple((dim, tuple(zero[a] for a in axes))
+                    for dim, axes in dims)
+        for name, dims in gathers.items()}
+    mod.__class__ = _gathering_class(type(mod), tuple(sorted(gathers)))
 
 
 def _flat(entry):

@@ -5,30 +5,38 @@
 The reference compiles one ``jax.jit`` over the mesh and lets XLA insert
 the collectives. Here every rank runs the port's eager step on its LOCAL
 shards (``plan.shard_module``: column- and row-parallel projections over
-the ``mp`` group, :mod:`.mpu`; an MoE layer's experts over ``ep`` and its
-routing over the global batch, :mod:`.moe`) and makes the data-parallel
-collectives itself:
+the model axis, :mod:`.mpu`; parameters sharded over a parameter-sharding
+axis such as ``fsdp`` gathered where they are used, :func:`.mpu.
+gather_scope`; an MoE layer's experts over ``ep`` and its routing over the
+global batch, :mod:`.moe`) and makes the data-parallel collectives itself:
 
 * each rank is given the same global batch, as the reference's one call
-  is, and takes its ``dp`` rows (:meth:`ShardingPlan.shard_batch`);
+  is, and takes its rows over the data axes
+  (:meth:`ShardingPlan.shard_batch`);
 * the loss is the GLOBAL token mean: inside the step the Llama loss
   (``models.llama.loss_from_logits``) divides its local sum of token
-  losses by the count of valid tokens all-reduced over ``dp``, so label
-  masking that leaves the ranks different counts still gives the
+  losses by the count of valid tokens all-reduced over the data group, so
+  label masking that leaves the ranks different counts still gives the
   one-device mean; the reported loss is the all-reduced sum of the ranks'
-  parts. Under ``dp > 1`` a loss function that never reaches that loss
-  (so never reports its count) raises: averaging per-rank means is wrong
-  whenever masking leaves the ranks different counts;
-* gradients are summed over ``dp`` (each rank's loss already carries the
-  global denominator), so replicated parameters (the norms, and the
-  embedding under the decode rules) get the one-device gradient; the ranks
-  of one ``ep`` group compute the same loss, and their expert gradients
-  are their own experts' whole ones;
+  parts. With more than one data rank a loss function that never reaches
+  that loss (so never reports its count) raises: averaging per-rank means
+  is wrong whenever masking leaves the ranks different counts;
+* gradients are summed over the data group (each rank's loss already
+  carries the global denominator), so replicated parameters (the norms,
+  and the embedding under the decode rules) get the one-device gradient.
+  A parameter gathered over a data axis had its gradient reduce-scattered
+  over that axis by the gather's backward, and is summed over the other
+  data axes only; over an axis that is no data axis the gather's backward
+  took the rank's slice. The ranks of one ``ep`` group compute the same
+  loss, and their expert gradients are their own experts' whole ones;
 * a global-norm clip sums the squared norms of the gradients sharded over
-  an axis (``mp``, ``ep``) over that axis and counts replicated ones once;
-  a per-tensor norm clip takes a sharded tensor's norm over its shards;
+  axes (``mp``, ``ep``, ``fsdp``) over those axes and counts replicated
+  ones once; a per-tensor norm clip takes a sharded tensor's norm over its
+  shards;
 * the optimizer (``AdamW`` with ``apply_decay_param_fun`` honoured, by the
-  parameters' own names) updates the local shards;
+  parameters' own names) updates the local shards, so its state lives on
+  them (ZeRO-1/2/3 all follow, as the reference's
+  ``_opt_state_shardings``, :152-169, says);
 * :meth:`ShardedTrainStep.full_params` and
   :meth:`ShardedTrainStep.sync_to_model` gather the full parameters back.
 
@@ -61,6 +69,7 @@ import torch
 
 from ..core.errors import not_ported
 from ..distributed.collective import _all_gather, _all_reduce_
+from . import mpu
 from ..distributed.worker_ranks import STOP, Control
 from ..optimizer.optimizer import Optimizer  # noqa: F401  (reference path)
 
@@ -122,9 +131,19 @@ def param_shardings(params: Dict[str, torch.Tensor], rules, mesh,
 
 _log = logging.getLogger(__name__)
 
+# each model's sharded step (for ``save_group_sharded_model``)
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_of(model) -> Optional["ShardedTrainStep"]:
+    """The live :class:`ShardedTrainStep` last built over ``model`` on this
+    rank, or None."""
+    ref = _STEPS.get(model)
+    return ref() if ref is not None else None
+
 
 class _TokenMean:
-    """Reduces a loss's valid-token count over the dp group (no
+    """Reduces a loss's valid-token count over the data group (no
     gradient), and records that it did."""
 
     def __init__(self, pg):
@@ -147,9 +166,9 @@ def _axes_of_spec(spec) -> tuple:
 
 class _PlanClip:
     """The optimizer's clip over local shards: global and per-tensor norms
-    taken over the whole parameters. ``axes[i]`` is the mesh axis the i-th
-    gradient is sharded over (None: replicated); ``groups`` maps each axis
-    to this rank's group along it."""
+    taken over the whole parameters. ``axes[i]`` is the tuple of mesh axes
+    the i-th gradient is sharded over (empty: replicated); ``groups`` maps
+    each axis to this rank's group along it."""
 
     def __init__(self, clip, axes, groups):
         from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
@@ -162,6 +181,12 @@ class _PlanClip:
                              "A10")
         self.kind = type(clip).__name__
 
+    def _over(self, sq, axes):
+        """``sq`` summed over the shards: over each axis in turn."""
+        for a in axes:
+            sq = _all_reduce_(sq, "sum", self.groups[a])
+        return sq
+
     @torch.no_grad()
     def clip_grads(self, grads):
         if self.kind == "ClipGradByValue":
@@ -173,27 +198,21 @@ class _PlanClip:
         cn = float(self.clip.clip_norm)
         if self.kind == "ClipGradByGlobalNorm":
             dev = present[0][0].device
-            sh = {a: torch.zeros((), dtype=torch.float32, device=dev)
-                  for a in self.groups}
-            rep = torch.zeros((), dtype=torch.float32, device=dev)
+            by_axes: Dict[tuple, torch.Tensor] = {}
             for g, a in present:
-                sq = g.float().square().sum()
-                if a is not None:
-                    sh[a] = sh[a] + sq
-                else:
-                    rep = rep + sq
-            total = rep
-            for a, v in sh.items():
-                total = _all_reduce_(v, "sum", self.groups[a]) + total
+                by_axes[a] = by_axes.get(a, torch.zeros(
+                    (), dtype=torch.float32, device=dev)) \
+                    + g.float().square().sum()
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+            for a, v in by_axes.items():
+                total = self._over(v, a) + total
             norm = total.sqrt()
             scale = torch.clamp(cn / torch.clamp(norm, min=1e-12), max=1.0)
             for g, _ in present:
                 g.mul_(scale)
             return list(grads)
         for g, a in present:
-            sq = g.float().square().sum()
-            if a is not None:
-                sq = _all_reduce_(sq, "sum", self.groups[a])
+            sq = self._over(g.float().square().sum(), a)
             g.mul_(torch.clamp(cn / torch.clamp(sq.sqrt(), min=1e-12),
                                max=1.0))
         return list(grads)
@@ -270,6 +289,19 @@ def _own(net: torch.nn.Module, device: torch.device) -> None:
                         c, requires_grad=t.requires_grad)
                         if isinstance(t, torch.nn.Parameter) else c)
                 table[k] = done[id(t)]
+
+
+def resident_bytes(params, optimizer) -> int:
+    """Bytes a rank holds of ``params`` (its parameters or their shards)
+    and of ``optimizer``'s state over them (slots and f32 masters): what
+    parameter sharding (ZeRO-3) divides."""
+    n = sum(p.numel() * p.element_size() for p in params)
+    for slots in optimizer._slots.values():
+        n += sum(t.numel() * t.element_size() for t in slots.values())
+    for m in optimizer._masters.values():
+        if m is not None:
+            n += m.numel() * m.element_size()
+    return int(n)
 
 
 def _own_stats(device: torch.device, reset: bool) -> Dict[str, object]:
@@ -353,10 +385,9 @@ class ShardedTrainStep:
         if seq_axis is not None and plan.axes.get(seq_axis, 1) > 1:
             raise not_ported(f"seq_axis={seq_axis!r}",
                              "A10 slice 5: sequence parallel")
-        if len(plan.data_axes) > 1:
-            raise not_ported(f"data axes {plan.data_axes}",
-                             "A10 slice 3: the fsdp axis")
         self._init(plan, model, loss_fn, donate)
+        if model is not None:
+            _STEPS[model] = weakref.ref(self)
         if plan.single_process:
             self._start(model, optimizer, loss_fn)
         else:
@@ -381,21 +412,24 @@ class ShardedTrainStep:
         self.params: Dict[str, torch.nn.Parameter] = dict(
             net.named_parameters())
         self.specs = {n: plan.specs.get(n, ()) for n in self.params}
-        self._dp = plan.dp_group
+        self._data = plan.data_group
         self._dp_size = plan.dp_degree
-        axes = []
+        axes, self._reduce = [], []
         for n in self.params:
-            on = [a for a in _axes_of_spec(self.specs[n])
-                  if plan.axes.get(a, 1) > 1]
-            if len(on) > 1:
-                raise not_ported(f"{n} sharded over {tuple(on)}",
-                                 "A10 slice 3: the fsdp axis")
-            axes.append(on[0] if on else None)
+            on = tuple(a for a in _axes_of_spec(self.specs[n])
+                       if plan.axes.get(a, 1) > 1)
+            axes.append(on)
+            # the data axes the gather's backward has not summed over
+            rest = tuple(a for a in plan.data_axes
+                         if not (a in on and plan.is_zero_axis(a)))
+            self._reduce.append(
+                [self._data] if rest == plan.data_axes and rest
+                else [plan.group(a) for a in rest])
         optimizer._rebind(self.params)
         if optimizer._grad_clip is not None and any(axes):
             optimizer._grad_clip = _PlanClip(
                 optimizer._grad_clip, axes,
-                {a: plan.group(a) for a in set(axes) if a is not None})
+                {a: plan.group(a) for on in axes for a in on})
         optimizer.init_state()
         self.optimizer = optimizer
         self.device = next(iter(self.params.values())).device
@@ -457,26 +491,30 @@ class ShardedTrainStep:
         params = self.optimizer.parameters
         for p in params:
             p.grad = None
-        mean = _TokenMean(self._dp)
-        with self.plan, _llama.global_token_mean(
+        mean = _TokenMean(self._data)
+        with self.plan, mpu.gather_scope(), _llama.global_token_mean(
                 mean if self._dp_size > 1 else None):
             loss = self.loss_fn(self.net, *batch)
-        if self._dp_size > 1 and not mean.used:
-            # every rank ran the same loss_fn, so every rank raises here
-            raise _RefusedOnEveryRank(str(not_ported(
-                "a loss_fn under dp > 1 that does not report its valid-token "
-                "count (the global token mean needs it; the Llama, GPT and "
-                "MoE losses, LlamaForCausalLM.loss_from_logits, report it)",
-                "A10")))
-        loss.backward()
+            if self._dp_size > 1 and not mean.used:
+                # every rank ran the same loss_fn, so every rank raises here
+                raise _RefusedOnEveryRank(str(not_ported(
+                    "a loss_fn over more than one data rank that does not "
+                    "report its valid-token count (the global token mean "
+                    "needs it; the Llama, GPT and MoE losses, "
+                    "LlamaForCausalLM.loss_from_logits, report it)",
+                    "A10")))
+            # inside the scope: a recomputed forward reads the same
+            # gathered parameters
+            loss.backward()
         loss = loss.detach().float()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        # each rank's part carries the global denominator: sum them
+        for g, groups in zip(grads, self._reduce):
+            for pg in groups:
+                _all_reduce_(g, "sum", pg)
         if self._dp_size > 1:
-            # each rank's part carries the global denominator: sum them
-            for g in grads:
-                _all_reduce_(g, "sum", self._dp)
-            loss = _all_reduce_(loss.clone(), "sum", self._dp)
+            loss = _all_reduce_(loss.clone(), "sum", self._data)
         self.optimizer.apply(grads, lr=lr)
         self._step_count += 1
         return loss
@@ -485,18 +523,33 @@ class ShardedTrainStep:
     @torch.no_grad()
     def full_params(self) -> Dict[str, torch.Tensor]:
         """Every parameter whole: each sharded one gathered along its
-        sharded dims over the matching mesh axis."""
+        sharded dims over the matching mesh axis, or tuple of axes."""
+        return {name: self._whole(p.detach(), self.specs[name])
+                for name, p in self.params.items()}
+
+    def _whole(self, t: torch.Tensor, spec) -> torch.Tensor:
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, (tuple, list)) \
+                    else (entry,)
+                t = _all_gather(t, [self.plan.group(a) for a in axes], dim)
+        return t
+
+    @_led
+    @torch.no_grad()
+    def full_optimizer_state(self) -> Dict[str, object]:
+        """The optimizer's flat ``state_dict`` with every slot and master
+        copy whole: each of a parameter's local shape gathered as the
+        parameter is."""
         out = {}
         for name, p in self.params.items():
-            t = p.detach()
-            for dim, entry in enumerate(self.specs[name]):
-                if entry is None:
-                    continue
-                if isinstance(entry, (tuple, list)):
-                    raise not_ported("a dim sharded over two axes",
-                                     "A10 slice 3: the fsdp axis")
-                t = _all_gather(t, self.plan.group(entry), dim)
-            out[name] = t
+            state = dict(self.optimizer._slots.get(name, {}))
+            if self.optimizer._masters.get(name) is not None:
+                state["master"] = self.optimizer._masters[name]
+            for k, v in state.items():
+                out[f"{name}_{k}"] = (self._whole(v, self.specs[name])
+                                      if v.shape == p.shape else v.clone())
+        out["@step"] = self.optimizer._step_count
         return out
 
     @_led
@@ -515,11 +568,14 @@ class ShardedTrainStep:
     @_led
     def _rank_stats(self, reset: bool = False) -> list:
         """Every rank's kernel launch counts, ``nvcc`` runs, collective
-        counts and peak device memory, in rank order: gathered from the
-        workers of a single-process step (a led step), this rank's alone
-        under the launcher. ``reset`` zeroes the counts and the peak after
-        reading them."""
+        counts, peak device memory and resident bytes (its parameter
+        shards and optimizer state, :func:`resident_bytes`), in rank
+        order: gathered from the workers of a single-process step (a led
+        step), this rank's alone under the launcher. ``reset`` zeroes the
+        counts and the peak after reading them."""
         own = _own_stats(self.device, reset)
+        own["resident_bytes"] = resident_bytes(self.params.values(),
+                                               self.optimizer)
         return [own] if self._ctl is None else self._ctl.gather(own)
 
     def follow(self) -> int:

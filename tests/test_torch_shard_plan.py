@@ -19,8 +19,9 @@ the JAX package (``paddlepaddle_tpu/distributed/shard_plan.py``,
   of the one-process model; prefix hits under TP; the local KV pool;
   ``ServingEngine(mesh="mp2")``'s health and gauges; a follower that
   fails alone failing the driver at once.
-* The refusals: axes outside ``dp`` / ``mp`` / ``ep`` (``ep`` now builds,
-  with ``moe_train_rules``), ``require_group`` on a multi-rank plan
+* The refusals: ``sp`` and ``pp`` axes (``ep`` and ``fsdp`` build, with
+  ``moe_train_rules`` and the Llama training table, and refuse serving),
+  ``require_group`` on a multi-rank plan
   without a process group, ``kv_quant`` with a plan, static mode with a
   mesh; a multi-rank plan without a group serving, training in one process
   (``ShardedTrainStep``'s single-process form, held against the JAX
@@ -349,11 +350,14 @@ def _port_tiny():
                                         ("fsdp2mp2", "fsdp"),
                                         ("dp2sp2", "sequence parallel"),
                                         ("pp2", "pipeline")])
-def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later):
-    """fsdp, sp and pp raise naming their later A10 slice; ep (expert
-    parallelism) is ported for training: its plan builds, with the
-    reference's MoE rule table (the expert banks on ``ep``, the trunk as
-    Llama), and a serving plan over it still raises."""
+def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later,
+                                                         jax_models):
+    """sp and pp raise naming their later A10 slice. ep (expert
+    parallelism) and fsdp (parameter sharding) are ported for training:
+    their plans build with the reference's rule tables and resolve every
+    Llama parameter to the reference's spec (the MoE banks on ``ep``; the
+    matrices on ``(fsdp, mp)`` / ``(mp, fsdp)``), and a serving plan over
+    either still raises."""
     if spec == "ep2":
         plan = tsp.ShardingPlan(spec, rules=tsp.moe_train_rules())
         assert plan.axes == {"ep": 2}
@@ -364,8 +368,69 @@ def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later):
                            match="expert-parallel serving"):
             tsp.decode_plan(spec)
         return
+    if spec == "fsdp2mp2":
+        plan = tsp.train_plan(spec)
+        want = jsp.train_plan(spec)
+        assert plan.axes == {"fsdp": 2, "mp": 2}
+        assert plan.data_axes == ("fsdp",) and plan.model_axis == "mp"
+        assert plan.dp_degree == want.dp_degree == 2
+        assert plan.tp_degree == want.tp_degree == 2
+        state = jax_models["float32"].functional_state()
+        for name, v in state.items():
+            assert plan.spec_for(name, v.shape) == \
+                tuple(want.spec_for(name, v.shape)), name
+        assert plan.spec_for("model.layers.0.self_attn.o_proj.weight",
+                             (64, 64)) == ("mp", "fsdp")
+        with pytest.raises(NotImplementedError, match=later):
+            tsp.decode_plan(spec)
+        return
     with pytest.raises(NotImplementedError, match=later):
         tsp.ShardingPlan(spec)
+
+
+def test_c21_axis_roles_come_from_the_plan_not_the_names(jax_models):
+    """C21: the plan refused axis names the reference trains on. The
+    Llama table's own ``tp`` is the model axis (the reference's
+    ``llama_sharding_rules`` default); size-1 axes drop out, so ``[1, 1,
+    1]`` ``dp/fsdp/tp`` is one rank; every parameter resolves to the JAX
+    plan's spec. ``ep`` beside a parameter-sharding axis names the 4D
+    hybrid slice; rules naming two candidate model axes ask for
+    ``model_axis``. (Training on both meshes against the JAX
+    ``ShardedTrainStep``: ``tests/test_torch_fsdp.py``.)"""
+    from paddlepaddle_tpu.distributed.mesh import ProcessMesh as JMesh
+    from paddlepaddle_tpu.models.llama import llama_sharding_rules as jr
+
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.models.llama import llama_sharding_rules
+    from paddlepaddle_tpu_torch.parallel.moe import moe_sharding_rules
+
+    state = jax_models["float32"].functional_state()
+    for shape, names in (([1, 2], ["dp", "tp"]),
+                         ([1, 1, 1], ["dp", "fsdp", "tp"]),
+                         ([2, 2], ["fsdp", "tp"])):
+        plan = tsp.ShardingPlan(ProcessMesh(shape=shape, dim_names=names),
+                                rules=llama_sharding_rules(),
+                                data_axes=("dp", "fsdp"))
+        want = jsp.ShardingPlan(JMesh(shape=shape, dim_names=names),
+                                rules=jr(), data_axes=("dp", "fsdp"))
+        for name, v in state.items():
+            assert plan.spec_for(name, v.shape) == \
+                tuple(want.spec_for(name, v.shape)), (names, name)
+        assert plan.model_axis == "tp"
+        assert plan.dp_degree == want.dp_degree
+        assert plan.data_axes == tuple(a for a, n in zip(names, shape)
+                                       if a in ("dp", "fsdp") and n > 1)
+    one = tsp.ShardingPlan(ProcessMesh(shape=[1, 1, 1],
+                                       dim_names=["dp", "fsdp", "tp"]),
+                           rules=llama_sharding_rules())
+    assert one.n_devices == 1 and not one.single_process
+    assert one.tp_degree == 1 and one.data_axes == ()
+    assert tsp.decode_plan("mp2").model_axis == "mp"
+    with pytest.raises(NotImplementedError, match="4D hybrid"):
+        tsp.ShardingPlan(ProcessMesh(shape=[2, 2], dim_names=["fsdp", "ep"]),
+                         rules=moe_sharding_rules(), data_axes=("fsdp",))
+    with pytest.raises(ValueError, match="model_axis"):
+        tsp.ShardingPlan("dp2", rules=[(r".*q_proj.*", ("a", "b"))])
 
 
 def test_multi_rank_plan_without_a_group_raises_with_the_launch_command():

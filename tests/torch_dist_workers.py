@@ -670,3 +670,148 @@ def with_scaled_gates(model):
             new.weight.copy_(old.weight)
         layer.mlp.gate = new
     return model
+
+
+# -- the fsdp axis (ZeRO-3) and the sharding API ------------------------------
+
+FSDP_CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=96,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=64)
+
+
+def fsdp_case_step(case, model=None):
+    """The port's ``ShardedTrainStep`` of one ``case`` of
+    ``tests/test_torch_fsdp.py`` (a dict: ``state``, ``shape``, ``names``,
+    ``rules``, ``data_axes``, ``p_g_os``, ``opt`` (``"adamw"`` with a
+    global-norm clip at ``clip``, or ``"momentum"``), ``clip``, ``lr``),
+    with its optimizer, over a Llama holding ``case["state"]``."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.distributed.sharding import \
+        group_sharded_parallel
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    model = model or port_llama(case["state"], "float32", FSDP_CFG)
+    if case["opt"] == "momentum":
+        opt = pt.Momentum(learning_rate=case["lr"], momentum=0.9,
+                          parameters=model.parameters())
+    else:
+        opt = pt.AdamW(learning_rate=case["lr"],
+                       parameters=model.parameters(),
+                       grad_clip=pt.ClipGradByGlobalNorm(case["clip"]))
+    if case["p_g_os"]:
+        model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+    step = ShardedTrainStep(
+        model, opt, lambda m, i, l: m(i, labels=l),
+        mesh=ProcessMesh(shape=case["shape"], dim_names=case["names"]),
+        rules=case["rules"], data_axes=case["data_axes"])
+    return model, step
+
+
+def fsdp_run(step, ids, labels, n_steps):
+    """``n_steps`` losses, every parameter whole after them (numpy), and
+    this rank's local shapes."""
+    ids_t = torch.from_numpy(ids).long()
+    lab_t = torch.from_numpy(labels).long()
+    losses = [float(step(ids_t, lab_t)) for _ in range(n_steps)]
+    full = {n: t.numpy().copy() for n, t in step.full_params().items()}
+    shapes = {n: tuple(p.shape) for n, p in step.params.items()}
+    return {"losses": losses, "params": full, "shapes": shapes}
+
+
+def fsdp_session(cases, ids, labels, n_steps):
+    """The SPMD form of each case (every case's mesh spans this job's
+    ranks): losses, whole parameters (rank 0) and local shapes."""
+    rank = _init()
+    out = {}
+    for name, case in cases.items():
+        _, step = fsdp_case_step(case)
+        run = fsdp_run(step, ids, labels, n_steps)
+        if rank:
+            run.pop("params")
+        out[name] = run
+    return out
+
+
+def sharding_api_session(x, pairs, layer_state):
+    """``shard_tensor`` then ``reshard`` on this job's ranks for each
+    ``(mesh shape, names, src placements, dst placements)`` of ``pairs``
+    (placements as ``("S", d)``, ``("R",)``, ``("P", op)``): the global
+    value, its ``dist_attr`` and this rank's local block, and a default
+    ``shard_layer`` of a Linear holding ``layer_state``: its output on
+    ``x`` and its parameters' placements."""
+    import paddlepaddle_tpu_torch.distributed as D
+    from paddlepaddle_tpu_torch import nn
+
+    rank = _init()
+
+    def place(p):
+        return {"S": lambda d: D.Shard(d), "R": lambda: D.Replicate(),
+                "P": lambda op: D.Partial(op)}[p[0]](*p[1:])
+
+    xt = torch.from_numpy(x)
+    out = {"rank": rank, "pairs": []}
+    for shape, names, src, dst in pairs:
+        mesh = D.ProcessMesh(shape=shape, dim_names=names)
+        a = D.shard_tensor(xt, mesh, [place(p) for p in src])
+        b = D.reshard(a, mesh, [place(p) for p in dst])
+        attr = D.dist_attr(b)
+        out["pairs"].append({
+            "src_global": a.full_tensor().numpy().copy(),
+            "global": b.full_tensor().numpy().copy(),
+            "local": b.to_local().numpy().copy(),
+            "mesh": (attr[0].shape, attr[0].dim_names),
+            "placements": [repr(p) for p in attr[1]]})
+    lin = nn.Linear(x.shape[1], 3, device="cpu")
+    lin.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in layer_state.items()})
+    mesh = D.ProcessMesh(shape=[2], dim_names=["x"])
+    D.shard_layer(lin, mesh)
+    out["layer_out"] = lin(D.shard_tensor(xt, mesh, [D.Replicate()])) \
+        .full_tensor().detach().numpy().copy()
+    out["layer_attrs"] = {n: [repr(q) for q in D.dist_attr(p)[1]]
+                          for n, p in lin.named_parameters()}
+    return out
+
+
+def sharding_api_card_session(x, pairs, log_dir):
+    """:func:`sharding_api_session`'s ``shard_tensor`` / ``reshard`` pairs
+    with CUDA tensors on ranks that share ``cuda:0`` over gloo: each pair's
+    global value before and after (read back by a ``reshard`` to
+    ``Replicate``), its placements and the device of this rank's block.
+    Each rank notes its progress in ``log_dir/sharding_api_card_rank<r>``
+    (a fault that kills the process shows where it struck)."""
+    import os
+
+    import paddlepaddle_tpu_torch.distributed as D
+
+    rank = _init("gloo")
+    torch.cuda.set_device(0)
+    log = open(os.path.join(log_dir, f"sharding_api_card_rank{rank}"), "w")
+
+    def note(what):
+        log.write(what + "\n")
+        log.flush()
+
+    def place(p):
+        return {"S": lambda d: D.Shard(d), "R": lambda: D.Replicate(),
+                "P": lambda op: D.Partial(op)}[p[0]](*p[1:])
+
+    def whole(t, mesh):
+        return D.reshard(t, mesh, [D.Replicate()] * mesh.ndim).to_local()
+
+    xt = torch.from_numpy(x).cuda()
+    out = []
+    for shape, names, src, dst in pairs:
+        mesh = D.ProcessMesh(shape=shape, dim_names=names)
+        note(f"shard_tensor {src}")
+        a = D.shard_tensor(xt, mesh, [place(p) for p in src])
+        note(f"reshard {src} -> {dst}")
+        b = D.reshard(a, mesh, [place(p) for p in dst])
+        note("read back")
+        out.append({"src_global": whole(a, mesh).cpu().numpy(),
+                    "global": whole(b, mesh).cpu().numpy(),
+                    "placements": [repr(p) for p in D.dist_attr(b)[1]],
+                    "device": str(b.to_local().device)})
+    note("done")
+    return {"rank": rank, "pairs": out}
