@@ -11,7 +11,9 @@ code is non-zero):
                versions. TF32 is switched off for matmuls and cuDNN, so
                every f32 comparison below is full f32.
 2. ``build``   builds every kernel in ``ops/kernels/csrc`` (one nvcc per
-               source, in parallel) and reports time and ptxas' resource use.
+               source, all started together) and reports time and ptxas'
+               resource use. Phases 4-5 (no paged kernel) run while
+               ``paged_attention.cu``, the longest, builds; then phase 3.
 3. ``kernel``  paged attention (the context-split kernel and its merge)
                against its plain PyTorch version on the card: small shapes
                (W=1 and W=3, f32 atol 1e-5, bf16 atol 2e-2, ragged lens with
@@ -133,7 +135,8 @@ code is non-zero):
 9s. ``serve_spec``  the serve phase's model behind the same engine with
                ``spec_k=3`` (the verify attends W = 4 rows a slot through
                kernel 1), greedy, 8 of the serve phase's prompts with
-               budgets capped at 64, four runs: the target itself as the
+               budgets capped at 32 (64 before the pipeline phases), four
+               runs: the target itself as the
                draft, the "quarter" draft config (hidden 1024, 8 layers),
                the quarter draft over int8 KV (kernel 1q at W = 4), and the
                target as its own draft with ``draft_quant`` (int8 draft
@@ -312,10 +315,12 @@ code is non-zero):
                chunk spends in all-reduce (a second run with collective
                timing on).
 10c. ``train_tp``  Llama-3-8B widths at 2 layers, bf16, AdamW + global-norm
-               clip, global batch 4 x 512: ``mp2`` and ``dp2``, 3 steps
-               each; losses within 0.02 of a one-process ``TrainStep``;
-               step ms, flash launches a rank, all-reduce ms a step (the
-               third step times its collectives), peak memory a rank.
+               clip, global batch 4 x 512: ``mp2`` and ``dp2`` on one
+               pair of ranks, 2 steps each (3 before the pipeline
+               phases); losses within 0.02 of a one-process
+               ``TrainStep``; step ms, flash launches a rank, all-reduce
+               ms a step (the last step times its collectives), peak
+               memory a rank.
 10d. ``nccl_world1``  one NCCL rank, Llama-3-8B widths at 2 layers, bf16,
                ``decode_plan("mp1")``: the decode chunk is captured with the
                NCCL all-reduce inside; tokens bit-equal to the plan-less
@@ -339,10 +344,13 @@ code is non-zero):
                hand-over; its groups; its engine) and each process's peak
                memory.
 10e. ``spec_tp``  speculative decoding under mp2 in one process:
-               Llama-3-8B widths at 4 layers, bf16, ``spec_k`` 3 (W = 4),
-               greedy, 4 of serve_spec's prompts (budgets capped at 64),
-               the target as its own draft and serve_spec's "quarter"
-               draft, each replicated on both ranks. Every request at
+               Llama-3-8B widths at 2 layers (4 before the pipeline
+               phases), bf16, ``spec_k`` 3 (W = 4),
+               greedy, 4 of serve_spec's prompts (budgets capped at 32;
+               64 before the pipeline phases), the target as its own
+               draft and serve_spec's "quarter" draft (a rollback on
+               nearly every step), each replicated on both ranks. Every
+               request at
                full length; W = 4 launches = layers x target steps on each
                rank; both ranks took the same accept lengths (their
                checksums agree); no page leaked on either rank;
@@ -408,12 +416,32 @@ code is non-zero):
                parameters within 1e-4, kernels 2-4 (and 8) = layers x
                steps on every rank.
 10k. ``train_fsdp``  Llama-3-8B widths at 2 layers, bf16, multi-precision
-               AdamW + clip, batch 4 x 512, 3 steps: a one-process
+               AdamW + clip, batch 4 x 512, 2 steps (3 before the
+               pipeline phases): a one-process
                ``TrainStep``, freed, then ``fsdp2`` in this process:
                losses within 0.02; each rank's resident bytes (parameter
                shards + optimizer state) at most 0.55 of one process's;
                kernels 2-4 on each rank; peak GB, step ms, the
                all-gathers' and reduce-scatters' calls, bytes and ms.
+10l. ``pp_parity``  the pipeline gate: ``spmd_pipeline_train`` over the
+               hybrid's Llama stages (f32, hidden 256, head dim 64, batch
+               8 x 128, M 4) on 8 spawned ranks: ``dp1 fsdp2 tp2 pp2``
+               under 1F1B, GPipe, ZBH1, 1F1B at 2 layers a stage,
+               interleaved and ZBVPP at V 2; ``dp2 fsdp1 tp2 pp2`` under
+               1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``: loss
+               (1e-4) and gradients (2e-3 / 2e-4) against the unsharded
+               oracle on the card; kernels 2-4 on every rank as often as
+               ``pp_predicted_launches`` says.
+10m. ``train_pp``  Llama-3-8B widths, 2 layers a stage on ``pp2`` (two
+               spawned ranks), bf16, batch 8 x 1024, M 8: 1F1B, GPipe
+               and ZBH1 (a warm-up and 2 timed calls each) beside the
+               four layers and head on one rank: step ms (the schedule
+               walk and the sums over pp; the final gathers apart), the
+               schedule's bubble, P2P calls / bytes / ms, the head-grad
+               and ``dacts`` sums, peak GB beside ``memory_estimate`` +
+               the parameters, kernels 2-4 by rank; the loss (abs 1e-4)
+               and the head's weight, the stages' wq and the input
+               gradients (relative norm 1e-2) against the one-rank arm.
 
 Then each phase's seconds, the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -422,6 +450,7 @@ Without CUDA it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import itertools
 import json
@@ -432,7 +461,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-PAGED_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+PAGED_LIBRARY = "paged_attention"
+PAGED_SOURCE = f"paddlepaddle_tpu_torch/ops/kernels/csrc/{PAGED_LIBRARY}.cu"
 PAGED_REPLACES = "paddlepaddle_tpu/ops/kernels/paged_attention.py:104"
 FLASH_FWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_fwd_sm90.cu"
 FLASH_BWD_SOURCE = "paddlepaddle_tpu_torch/ops/kernels/csrc/flash_bwd_sm90.cu"
@@ -2134,7 +2164,8 @@ def phase_moe_parity(pt_pkg):
                              f"{cfg.num_hidden_layers} x 3")
 
 
-PARITY_MORE_LAYERS = 2    # Llama-3-8B widths at 2 of 32 layers, f32
+PARITY_MORE_LAYERS = 1    # Llama-3-8B widths at 1 of 32 layers, f32 (2
+#                           until the pipeline phases came)
 PARITY_MORE_OPTIMIZERS = {
     "SGD": dict(learning_rate=1e-3),
     "Momentum": dict(learning_rate=1e-3, momentum=0.9, use_nesterov=True,
@@ -2151,9 +2182,10 @@ PARITY_MORE_OPTIMIZERS = {
 
 
 def phase_train_parity_more(pt_pkg):
-    """The card against the CPU on a 2-layer f32 copy of the Llama-3-8B
-    widths (hidden 4096, MLP 14336, 32 q / 8 KV heads, vocab 128256), batch
-    2 x 64, within train_parity's bounds and these:
+    """The card against the CPU on a ``PARITY_MORE_LAYERS``-layer f32
+    copy of the Llama-3-8B widths (hidden 4096, MLP 14336, 32 q / 8 KV
+    heads, vocab 128256), batch 2 x 64, within train_parity's bounds and
+    these:
 
     * recompute (full and ``"dots"``) on the card against no recompute on
       the CPU: loss 1e-4; every gradient within 1e-4 of its parameter's
@@ -3274,7 +3306,7 @@ def phase_capture_parity(pt_pkg):
                              "replays and the eager body drew differently")
 
 
-SPEC_SLOTS, SPEC_BUDGET_CAP = 8, 64
+SPEC_SLOTS, SPEC_BUDGET_CAP = 8, 32   # cap 64 until the pipeline phases
 
 
 def quarter_draft_config(pt_pkg, cfg):
@@ -3349,9 +3381,10 @@ def phase_serve_spec(pt_pkg, ctx):
     (bf16, seeded) behind ``ServingEngine(max_batch_size=8,
     kv_page_size=64, max_len=2048, decode_chunk=16, spec_k=3)`` (W = 4),
     greedy, over 8 of the serve phase's greedy prompts with budgets capped
-    at 64, in four runs: the target itself as draft (every proposal
-    should be accepted), the "quarter" draft config (seeded, near-zero
-    acceptance: a rollback on nearly every step), the quarter draft over
+    at ``SPEC_BUDGET_CAP``, in four runs: the target itself as draft
+    (every proposal should be accepted), the "quarter" draft config
+    (seeded, near-zero acceptance: a rollback on nearly every step), the
+    quarter draft over
     int8 KV (kernel 1q at W = 4), and the target as draft with the draft's
     weights quantized (``draft_quant="weight_only_int8"``: an int8 view of
     the same model proposes, the bf16 target verifies). Each run: every
@@ -5422,7 +5455,8 @@ TP_SPAWN = dict(timeout=900, pg_timeout=300)   # join / process-group seconds
 SERVE_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
 SERVE_TP_LOGIT_TOL = 0.25  # max abs, bf16 paged decode-step logits, TP vs one
 TRAIN_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
-TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 3
+# 2 steps since the pipeline phases came (3 before; train_fsdp's too)
+TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 2
 TRAIN_TP_LOSS_TOL = 0.02   # abs, bf16 losses, sharded vs one process
 NCCL1_LAYERS = 2
 
@@ -5801,7 +5835,21 @@ def phase_serve_tp(pt_pkg):
     return out
 
 
-def _train_tp_rank(spec):
+def _train_tp_rank(specs):
+    """train_tp's SPMD arms on one pair of ranks: each spec of ``specs``
+    in turn (one spawn for all: a worker's start is 8-9 s)."""
+    import torch
+
+    rank = _rank_init("gloo")
+    out = {}
+    for spec in specs:
+        out[spec] = _train_tp_spec(rank, spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_tp_spec(rank, spec):
     import dataclasses
 
     import numpy as np
@@ -5812,7 +5860,6 @@ def _train_tp_rank(spec):
     from paddlepaddle_tpu_torch.distributed import train_plan
     from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
 
-    rank = _rank_init("gloo")
     cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(),
                               num_hidden_layers=TRAIN_TP_LAYERS)
     model = pt.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
@@ -5854,8 +5901,9 @@ def phase_train_tp(pt_pkg):
     from paddlepaddle_tpu_torch.distributed import spawn
 
     t0 = time.perf_counter()
-    runs = {spec: spawn(_train_tp_rank, args=(spec,), nprocs=2, **TP_SPAWN)
-            for spec in ("mp2", "dp2")}
+    specs = ("mp2", "dp2")
+    ranks = spawn(_train_tp_rank, args=(specs,), nprocs=2, **TP_SPAWN)
+    runs = {spec: [r[spec] for r in ranks] for spec in specs}
     wall = time.perf_counter() - t0
     cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
                               num_hidden_layers=TRAIN_TP_LAYERS)
@@ -6275,8 +6323,9 @@ def phase_nccl_world1(pt_pkg):
 
 # -- 10: the single-process form (ServingEngine(model, mesh="mp2") here) ------
 
-SPEC_TP_LAYERS = 4         # Llama-3-8B widths at 4 of 32 layers (8 until
-#                            the fsdp phases came: host-bound, as serve_tp)
+SPEC_TP_LAYERS = 2         # Llama-3-8B widths at 2 of 32 layers (8 until
+#                            the fsdp phases came, 4 until the pipeline
+#                            phases: host-bound, as serve_tp)
 SPEC_TP_PROMPTS = 4        # serve_spec's first 4 greedy prompts
 ROUTER_TP_LAYERS = 2       # Llama-3-8B widths at 2 of 32 layers
 ROUTER_TP_ENGINE = dict(max_batch_size=2, decode_chunk=8, kv_page_size=64,
@@ -6992,6 +7041,463 @@ def phase_train_fsdp(pt_pkg):
     return {"launches_by_rank": rec["fsdp2"]["launches_by_rank"]}
 
 
+# -- 10l-10m: the pipeline executor and the 4D hybrid (A10 slice 4) ----------
+
+PP_PARITY_CFG = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_kv_heads=2, layers_per_stage=1, vocab_size=512,
+                     max_seq_len=128)          # head dim 64: kernels 2-4
+PP_PARITY_BATCH, PP_PARITY_M = (8, 128), 4
+PP_LOSS_RTOL = 1e-4                            # tests/test_hybrid_4d.py's
+PP_GRAD_RTOL, PP_GRAD_ATOL = 2e-3, 2e-4
+PP_MOE = dict(E=4, topk=2, cf=8.0, eh=128, ep_size=2)
+_PP_D4 = ("dp", "fsdp", "tp", "pp")
+_PP_D5 = ("dp", "fsdp", "ep", "tp", "pp")
+# (arm, mesh shape, axis names, schedule, V, layers a stage, MoE stage)
+PP_PARITY_ARMS = (
+    ("dp1fsdp2tp2pp2 1f1b", (1, 2, 2, 2), _PP_D4, "1f1b", 1, 1, False),
+    ("dp1fsdp2tp2pp2 gpipe", (1, 2, 2, 2), _PP_D4, "gpipe", 1, 1, False),
+    ("dp1fsdp2tp2pp2 zbh1", (1, 2, 2, 2), _PP_D4, "zbh1", 1, 1, False),
+    ("dp1fsdp2tp2pp2 1f1b L2", (1, 2, 2, 2), _PP_D4, "1f1b", 1, 2, False),
+    ("dp1fsdp2tp2pp2 interleaved V2", (1, 2, 2, 2), _PP_D4, "interleaved",
+     2, 1, False),
+    ("dp1fsdp2tp2pp2 zbvpp V2", (1, 2, 2, 2), _PP_D4, "zbvpp", 2, 1, False),
+    ("dp2fsdp1tp2pp2 1f1b", (2, 1, 2, 2), _PP_D4, "1f1b", 1, 1, False),
+    ("moe dp1fsdp1ep2tp2pp2 1f1b", (1, 1, 2, 2, 2), _PP_D5, "1f1b", 1, 1,
+     True),
+)
+# Llama-3-8B widths, 2 layers a stage on pp2: 4 of 32 layers
+TRAIN_PP_LAYERS = 2
+TRAIN_PP_CFG = dict(hidden_size=4096, intermediate_size=14336, num_heads=32,
+                    num_kv_heads=8, layers_per_stage=TRAIN_PP_LAYERS,
+                    vocab_size=128256, max_seq_len=1024, rope_theta=500000.0,
+                    rms_norm_eps=1e-5)
+TRAIN_PP_BATCH, TRAIN_PP_M = (8, 1024), 8
+TRAIN_PP_SCHEDULES = ("1f1b", "gpipe", "zbh1")
+TRAIN_PP_TIMED = 2                 # after one warm-up call
+# abs, bf16 losses, pipeline vs one rank (read: 1.2e-7 to 1.1e-6)
+TRAIN_PP_LOSS_TOL = 1e-4
+# relative Frobenius norm of the difference, bf16: the head's weight grad,
+# the stages' wq grads and dacts, pipeline vs the one-rank arm's .grad.
+# Read: 0 for 1F1B and ZBH1 (the same bf16 sums in the same order); GPipe
+# runs its backwards last microbatch first, so its bf16 sums over the
+# microbatches differ (head 2.5e-3, wq 5.1e-3; dacts 0, a sum of none)
+TRAIN_PP_GRAD_RTOL = 1e-2
+
+
+def pp_predicted_launches(schedule: str, L: int, M: int, V: int, S: int,
+                          s: int) -> dict:
+    """Kernels 2-4 launched on pp rank ``s`` by one ``spmd_pipeline_train``
+    call of a remat stage block: per layer and microbatch, ``F`` runs the
+    forward once (not at the last virtual stage: its backward recomputes
+    it); a fused ``B`` runs it twice (its recompute and the checkpoint's)
+    and the backward pair once; a split ``BX`` + ``BW`` each of those."""
+    split = schedule in ("zbh1", "zbvpp")
+    fwd = sum((0 if (c == V - 1 and s == S - 1) else 1) + (4 if split else 2)
+              for c in range(V))
+    bwd = V * (2 if split else 1)
+    return {"flash_fwd": L * M * fwd, "flash_bwd_dq": L * M * bwd,
+            "flash_bwd_dkv": L * M * bwd}
+
+
+def _pp_problem(cfg, n_stages, seed, moe):
+    """Stage and head params (numpy f32, the reference's init scales), the
+    embedded batch and its ids, from ``seed``: what the JAX package's
+    pytrees look like before ``convert.convert_pytree``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, f, hd, L = (cfg.hidden_size, cfg.intermediate_size, cfg.head_dim,
+                   cfg.layers_per_stage)
+
+    def w(shape, fan_in):
+        return (rng.standard_normal((L,) + shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    stages = []
+    for _ in range(n_stages):
+        st = {"ln1": np.ones((L, h), np.float32),
+              "ln2": np.ones((L, h), np.float32),
+              "wq": w((h, cfg.num_heads * hd), h),
+              "wk": w((h, cfg.num_kv_heads * hd), h),
+              "wv": w((h, cfg.num_kv_heads * hd), h),
+              "wo": w((cfg.num_heads * hd, h), cfg.num_heads * hd)}
+        if moe:
+            E, eh = PP_MOE["E"], PP_MOE["eh"]
+            st.update(gate=w((h, E), h), eg=w((E, h, eh), h),
+                      eu=w((E, h, eh), h), ed=w((E, eh, h), eh))
+        else:
+            st.update(wg=w((h, f), h), wu=w((h, f), h), wd=w((f, h), f))
+        stages.append(st)
+    head = {"ln": np.ones((h,), np.float32),
+            "w": (rng.standard_normal((h, cfg.vocab_size)) / np.sqrt(h)
+                  ).astype(np.float32)}
+    b, s = PP_PARITY_BATCH
+    acts = rng.standard_normal((b, s, h)).astype(np.float32)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    return stages, head, acts, ids
+
+
+def _pp_oracle(H, cfg, stages, head, acts, ids, moe):
+    """The unsharded one-rank forward with plain attention (the parity
+    oracle: ``reference_forward``, or the MoE stages chained) and its
+    gradients."""
+    import torch
+
+    st = [{k: v.clone().requires_grad_() for k, v in s.items()}
+          for s in stages]
+    hp = {k: v.clone().requires_grad_() for k, v in head.items()}
+    a = acts.clone().requires_grad_()
+    if moe:
+        block = H.make_moe_block(cfg, PP_MOE["E"], topk=PP_MOE["topk"],
+                                 capacity_factor=PP_MOE["cf"], tp_axis=None,
+                                 fsdp_axis=None, ep_axis=None, ep_size=1,
+                                 remat=False, use_flash=False)
+        x = a
+        for sp in st:
+            x = block(sp, x)
+        loss = H.make_vocab_parallel_head(cfg, tp_axis=None)(hp, x, ids)
+    else:
+        loss = H.reference_forward(cfg, st, hp, a, ids)
+    loss.backward()
+    with torch.no_grad():
+        return (float(loss), [{k: v.grad for k, v in s.items()} for s in st],
+                {k: v.grad for k, v in hp.items()}, a.grad)
+
+
+def _pp_err(got, want) -> dict:
+    """The largest absolute error, and whether every element is within
+    ``PP_GRAD_ATOL + PP_GRAD_RTOL * |want|``."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= PP_GRAD_ATOL + PP_GRAD_RTOL * want.float().abs()).all())
+    return {"max_abs_err": float(d.max()), "ok": ok}
+
+
+def _pp_parity_rank():
+    """Every arm of ``PP_PARITY_ARMS`` on this rank: the executor's whole
+    outputs against the unsharded oracle on the card, and this rank's
+    kernel 2-4 launches against :func:`pp_predicted_launches`."""
+    import torch
+
+    from paddlepaddle_tpu_torch.convert import convert_pytree
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    rank = _rank_init("gloo")
+    dev = torch.device("cuda")
+    out = {"rank": rank}
+    meshes = {}              # one mesh (and its groups) for the arms it serves
+    M = PP_PARITY_M
+    for i, (arm, shape, names, sched, V, L, moe) in enumerate(
+            PP_PARITY_ARMS):
+        cfg = H.HybridStageConfig(**dict(PP_PARITY_CFG, layers_per_stage=L))
+        st_np, hd_np, a_np, ids_np = _pp_problem(cfg, 2 * V, i, moe)
+        stages = [convert_pytree(s_, device=dev) for s_ in st_np]
+        head = convert_pytree(hd_np, device=dev)
+        acts = convert_pytree(a_np, device=dev)
+        ids = torch.from_numpy(ids_np).to(dev)
+        if moe:
+            block = H.make_moe_block(
+                cfg, PP_MOE["E"], topk=PP_MOE["topk"],
+                capacity_factor=PP_MOE["cf"], ep_size=PP_MOE["ep_size"])
+            specs = H.moe_stage_specs()
+        else:
+            block, specs = H.make_llama_block(cfg), H.llama_stage_specs()
+        stacked = (ps.stack_stage_params(stages) if V == 1
+                   else ps.stack_virtual_stage_params(stages, 2))
+        if (shape, names) not in meshes:
+            meshes[(shape, names)] = ProcessMesh(shape=list(shape),
+                                                 dim_names=list(names))
+        mesh = meshes[(shape, names)]
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g_st, g_h, g_a = ps.spmd_pipeline_train(
+            stacked, head, acts, ids, block,
+            H.make_vocab_parallel_head(cfg), mesh, schedule=sched,
+            n_microbatches=M, num_virtual=V, data_axis=("dp", "fsdp"),
+            param_specs=specs, head_specs=H.llama_head_specs())
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = _rank_counts()["flash"]
+        want = pp_predicted_launches(sched, L, M, V, 2,
+                                     mesh.coords(rank)["pp"])
+        r_loss, r_st, r_h, r_a = _pp_oracle(H, cfg, stages, head, acts, ids,
+                                            moe)
+        r_st = (ps.stack_stage_params(r_st) if V == 1
+                else ps.stack_virtual_stage_params(r_st, 2))
+        errs = {f"stage.{k}": _pp_err(g_st[k], r_st[k]) for k in r_st}
+        errs.update({f"head.{k}": _pp_err(g_h[k], r_h[k]) for k in r_h})
+        errs["dacts"] = _pp_err(g_a, r_a)
+        loss_rel = abs(float(loss) - r_loss) / abs(r_loss)
+        out[arm] = {"loss": float(loss), "oracle_loss": r_loss,
+                    "loss_rel_err": loss_rel, "call_s": call_s,
+                    "max_abs_grad_err": max(e["max_abs_err"]
+                                            for e in errs.values()),
+                    "bad_trees": sorted(k for k, e in errs.items()
+                                        if not e["ok"]),
+                    "launches": launches, "predicted": want,
+                    "walk_s": ps.last_stats()["walk_s"]}
+        out[arm]["ok"] = (loss_rel <= PP_LOSS_RTOL
+                          and not out[arm]["bad_trees"]
+                          and launches == want)
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def phase_pp_parity(pt_pkg):
+    """10l: the pipeline gate. ``spmd_pipeline_train`` over the hybrid's
+    Llama stages (f32, hidden 256, head dim 64, ``PP_PARITY_CFG``) on 8
+    ranks the script spawns once (SPMD, gloo, all on ``cuda:0``):
+    ``dp1 fsdp2 tp2 pp2`` under 1F1B, GPipe and ZBH1, 1F1B at two layers
+    a stage, the interleaved and ZBVPP schedules at V 2; ``dp2 fsdp1 tp2
+    pp2`` under 1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``. Each
+    rank holds the whole loss (rtol ``PP_LOSS_RTOL``) and the stage, head
+    and input-cotangent gradients (``PP_GRAD_RTOL`` / ``PP_GRAD_ATOL``)
+    against the unsharded oracle with plain attention on the card, and
+    its kernel 2-4 launches against :func:`pp_predicted_launches`."""
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(_pp_parity_rank, nprocs=8, **TP_SPAWN)
+    wall = time.perf_counter() - t0
+    arms, bad = {}, []
+    for arm, *_ in PP_PARITY_ARMS:
+        recs = [r[arm] for r in ranks]
+        arms[arm] = {
+            "loss": recs[0]["loss"], "oracle_loss": recs[0]["oracle_loss"],
+            "max_loss_rel_err": max(r["loss_rel_err"] for r in recs),
+            "max_abs_grad_err": max(r["max_abs_grad_err"] for r in recs),
+            "bad_trees_by_rank": [r["bad_trees"] for r in recs],
+            "launches_by_rank": [r["launches"] for r in recs],
+            "predicted_by_rank": [r["predicted"] for r in recs],
+            "call_s_rank0": recs[0]["call_s"],
+            "walk_s_rank0": recs[0]["walk_s"]}
+        if not all(r["ok"] for r in recs):
+            bad.append(arm)
+    nvcc = sum(r["nvcc"] for r in ranks)
+    emit({"phase": "pp_parity", "nvidia_smi": nvidia_smi_line(),
+          "config": dict(PP_PARITY_CFG, dtype="float32"),
+          "batch": PP_PARITY_BATCH, "microbatches": PP_PARITY_M,
+          "moe": PP_MOE, "loss_rtol": PP_LOSS_RTOL,
+          "grad_rtol": PP_GRAD_RTOL, "grad_atol": PP_GRAD_ATOL,
+          "spawn_wall_s": wall, "nvcc_in_ranks": nvcc, "arms": arms})
+    if bad or nvcc:
+        raise AssertionError(f"pp_parity failed for {bad} (nvcc in the "
+                             f"ranks: {nvcc}): {arms}")
+    return {f"pp_parity {k}": v["launches_by_rank"] for k, v in arms.items()}
+
+
+def _train_pp_rank():
+    """train_pp on one of two ranks: every schedule of
+    ``TRAIN_PP_SCHEDULES`` (a warm-up call and ``TRAIN_PP_TIMED`` timed),
+    then, on rank 0, the one-rank arm."""
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+    from paddlepaddle_tpu_torch.parallel.schedules import build_schedule
+
+    rank = _rank_init("gloo")
+    dev = torch.device("cuda")
+    cfg = H.HybridStageConfig(**TRAIN_PP_CFG)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    stacked = ps.stack_stage_params(
+        [H.init_llama_stage(cfg, g, bf16) for _ in range(2)])
+    head = H.init_llama_head(cfg, g, bf16)
+    b, s = TRAIN_PP_BATCH
+    acts = torch.randn((b, s, cfg.hidden_size), generator=g, device=dev,
+                       dtype=torch.float32).to(bf16)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in list(stacked.values()) + list(head.values()))
+    block = H.make_llama_block(cfg, tp_axis=None, fsdp_axis=None,
+                               remat=True)
+    head_fn = H.make_vocab_parallel_head(cfg, tp_axis=None)
+    mesh = ProcessMesh(shape=[2], dim_names=["pp"])
+    M = TRAIN_PP_M
+    out = {"rank": rank, "init_s": init_s, "param_gb": param_bytes / 1e9}
+    kept = {}                # rank 0: each schedule's last gradients
+    for name in TRAIN_PP_SCHEDULES:
+        sched = build_schedule(name, 2, M)
+        calls = []
+        for i in range(1 + TRAIN_PP_TIMED):
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, g_st, g_h, g_a = ps.spmd_pipeline_train(
+                stacked, head, acts, ids, block, head_fn, mesh,
+                schedule=sched)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t1
+            st = ps.last_stats()
+            calls.append({
+                "loss": float(loss), "call_ms": total * 1e3,
+                "step_ms": (st["walk_s"] + st["reduce_s"]) * 1e3,
+                "walk_ms": st["walk_s"] * 1e3,
+                "gather_ms": st["gather_s"] * 1e3,
+                "head_sum": {"bytes": st["head_sum"]["bytes"],
+                             "ms": st["head_sum"]["s"] * 1e3},
+                "dacts_sum": {"bytes": st["dacts_sum"]["bytes"],
+                              "ms": st["dacts_sum"]["s"] * 1e3},
+                "p2p": {"calls": st["p2p"]["calls"],
+                        "bytes": st["p2p"]["bytes"],
+                        "post_ms": st["p2p"]["post_s"] * 1e3,
+                        "wait_ms": st["p2p"]["wait_s"] * 1e3},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "finite": bool(torch.isfinite(g_st["wq"]).all()
+                               and torch.isfinite(g_h["w"]).all()
+                               and torch.isfinite(g_a).all()),
+                "launches": _rank_counts()["flash"]})
+            if rank == 0 and i == TRAIN_PP_TIMED:
+                # held on the host, so the next calls' peaks leave them out
+                kept[name] = {"head.w": g_h["w"].cpu(),
+                              "stage.wq": g_st["wq"].cpu(), "dacts": g_a.cpu()}
+            del loss, g_st, g_h, g_a
+        est = sched.memory_estimate((b // M, s, cfg.hidden_size), 2)
+        out[name] = {
+            "bubble_fraction": sched.stats["bubble_fraction"],
+            "T": sched.T, "memory_estimate_gb": est["total"] / 1e9,
+            "estimate_plus_params_gb": (est["total"] + param_bytes) / 1e9,
+            "predicted": pp_predicted_launches(name, TRAIN_PP_LAYERS, M, 1,
+                                               2, rank),
+            "calls": calls}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["one_rank"], want = _train_pp_one_rank(H, cfg, block, head_fn,
+                                                   stacked, head, acts, ids)
+        for name, got in kept.items():
+            out[name]["grad_rel_err"] = {
+                k: float((g.to(dev).float() - want[k].float()).norm()
+                         / want[k].float().norm()) for k, g in got.items()}
+        del kept, want
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def _train_pp_one_rank(H, cfg, block, head_fn, stacked, head, acts, ids):
+    """The four layers and the head chained on one rank under autograd,
+    with flash and the same remat, microbatch by microbatch (each loss
+    over M): its loss and step ms (a warm-up, then ``TRAIN_PP_TIMED``),
+    and the last step's ``.grad`` of what train_pp holds the pipeline's
+    gradients against (the head's weight, the stages' wq, the input)."""
+    import torch
+
+    M = TRAIN_PP_M
+    stages = [{k: v[i].detach().requires_grad_() for k, v in stacked.items()}
+              for i in range(2)]
+    hp = {k: v.detach().requires_grad_() for k, v in head.items()}
+    a = acts.detach().requires_grad_()
+    leaves = [t for st in stages for t in st.values()] + list(hp.values()) \
+        + [a]
+    ys = ids.chunk(M)
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + TRAIN_PP_TIMED):
+        for t in leaves:
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = a.chunk(M)
+        total = 0.0
+        for m in range(M):
+            x = xs[m]
+            for st in stages:
+                x = block(st, x)
+            loss = head_fn(hp, x, ys[m]) / M
+            loss.backward()
+            total += float(loss.detach())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(total)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    grads = {"head.w": hp["w"].grad,
+             "stage.wq": torch.stack([st["wq"].grad for st in stages]),
+             "dacts": a.grad}
+    return {"losses": losses, "step_ms": ms, "peak_gb": peak}, grads
+
+
+def phase_train_pp(pt_pkg):
+    """10m: Llama-3-8B widths (hidden 4096, MLP 14336, 32 q / 8 KV heads,
+    vocab 128256), ``TRAIN_PP_LAYERS`` layers a stage on ``pp2`` (two
+    ranks the script spawns, sharing ``cuda:0`` over gloo), bf16, batch
+    ``TRAIN_PP_BATCH``, ``TRAIN_PP_M`` microbatches: 1F1B, GPipe and ZBH1,
+    each a warm-up call and ``TRAIN_PP_TIMED`` timed, beside the one-rank
+    arm. Per schedule and rank: step ms (the schedule walk and the sums
+    over ``pp``; the final gathers apart), the schedule's bubble, P2P
+    calls, bytes and ms, the head-grad and ``dacts`` sums over ``pp``,
+    peak GB beside ``memory_estimate`` + the parameters each rank holds,
+    kernels 2-4 against :func:`pp_predicted_launches`, the loss against
+    the one-rank arm's (``TRAIN_PP_LOSS_TOL``), and the head's weight
+    grad, the stages' wq grads and ``dacts`` against its ``.grad``
+    (relative norm, ``TRAIN_PP_GRAD_RTOL``)."""
+    import numpy as np
+
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(_train_pp_rank, nprocs=2, **TP_SPAWN)
+    wall = time.perf_counter() - t0
+    one = ranks[0]["one_rank"]
+    rec = {"phase": "train_pp", "nvidia_smi": nvidia_smi_line(),
+           "model": f"llama3_8b widths, {TRAIN_PP_LAYERS} layers a stage x "
+                    "pp2, bf16, remat", "config": TRAIN_PP_CFG,
+           "backend": "gloo (2 ranks share cuda:0; P2P and sums via host)",
+           "batch": TRAIN_PP_BATCH, "microbatches": TRAIN_PP_M,
+           "spawn_wall_s": wall, "init_s_by_rank":
+               [r["init_s"] for r in ranks],
+           "param_gb_per_rank": ranks[0]["param_gb"], "one_rank": one,
+           "loss_tol": TRAIN_PP_LOSS_TOL, "grad_rtol": TRAIN_PP_GRAD_RTOL,
+           "schedules": {}}
+    bad, launches = [], {}
+    for name in TRAIN_PP_SCHEDULES:
+        per = [r[name] for r in ranks]
+        timed = [[c for c in p["calls"][1:]] for p in per]
+        loss = per[0]["calls"][-1]["loss"]
+        err = abs(loss - one["losses"][-1])
+        s_rec = {
+            "bubble_fraction": per[0]["bubble_fraction"], "T": per[0]["T"],
+            "loss": loss, "abs_loss_err_vs_one_rank": err,
+            "grad_rel_err_vs_one_rank": per[0]["grad_rel_err"],
+            "step_ms_by_rank": [[c["step_ms"] for c in t] for t in timed],
+            "call_ms_by_rank": [[c["call_ms"] for c in t] for t in timed],
+            "walk_ms_by_rank": [[c["walk_ms"] for c in t] for t in timed],
+            "gather_ms_by_rank": [[c["gather_ms"] for c in t]
+                                  for t in timed],
+            "p2p_by_rank": [t[-1]["p2p"] for t in timed],
+            "head_sum_by_rank": [t[-1]["head_sum"] for t in timed],
+            "dacts_sum_by_rank": [t[-1]["dacts_sum"] for t in timed],
+            "peak_gb_by_rank": [max(c["peak_gb"] for c in t) for t in timed],
+            "memory_estimate_gb": per[0]["memory_estimate_gb"],
+            "estimate_plus_params_gb": per[0]["estimate_plus_params_gb"],
+            "launches_by_rank": [t[-1]["launches"] for t in timed],
+            "predicted_by_rank": [p["predicted"] for p in per]}
+        rec["schedules"][name] = s_rec
+        launches[name] = s_rec["launches_by_rank"]
+        if err > TRAIN_PP_LOSS_TOL or not np.isfinite(loss) \
+                or not max(per[0]["grad_rel_err"].values()) \
+                <= TRAIN_PP_GRAD_RTOL \
+                or not all(c["finite"] for p in per for c in p["calls"]) \
+                or s_rec["launches_by_rank"] != s_rec["predicted_by_rank"]:
+            bad.append(name)
+    nvcc = sum(r["nvcc"] for r in ranks)
+    rec["nvcc_in_ranks"] = nvcc
+    emit(rec)
+    if bad or nvcc or not np.isfinite(one["losses"]).all():
+        raise AssertionError(f"train_pp failed for {bad} (nvcc {nvcc}): "
+                             f"{rec}")
+    return {"launches_by_rank": launches}
+
+
 def _time_phases() -> dict:
     """Wrap every ``phase_*`` function of this module so that its seconds
     add up, by phase name, in the dict returned (printed before the
@@ -7035,9 +7541,23 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0)),
           "tf32": False})
 
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    # Every nvcc starts now. paged_attention.cu takes most of the build
+    # (~45 s, the others < 10 s), so the kernel phases that need no paged
+    # library run while it builds.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        paged = pool.submit(_build.build_all, [PAGED_LIBRARY])
+        built = _build.build_all([n for n in _build.sources()
+                                  if n != PAGED_LIBRARY])
+        flash_records = phase_flash_kernel()
+        fp16_records = phase_flash_fp16()
+        d64_records = phase_flash_d64()
+        varlen_records = phase_flash_varlen_kernel()
+        gc.collect()                # free the full-width varlen buffers
+        torch.cuda.empty_cache()
+        gg_record = phase_gather_gemm_kernel()
+        built.update(paged.result())
+    emit({"phase": "build",
+          "seconds": max(b["seconds"] for b in built.values()),
           "sources": {n: {"seconds": b["seconds"], "cached": b["cached"],
                           "ptxas": [ln.strip() for ln in
                                     str(b["ptxas"]).splitlines()
@@ -7046,13 +7566,6 @@ def main() -> int:
 
     record = phase_kernel()
     int8_record = phase_kernel_int8()
-    flash_records = phase_flash_kernel()
-    fp16_records = phase_flash_fp16()
-    d64_records = phase_flash_d64()
-    varlen_records = phase_flash_varlen_kernel()
-    gc.collect()                    # free the full-width varlen buffers
-    torch.cuda.empty_cache()
-    gg_record = phase_gather_gemm_kernel()
     phase_engine_parity(pt_pkg)
     phase_engine_parity_int8(pt_pkg)
     phase_train_parity(pt_pkg)
@@ -7160,6 +7673,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_fsdp = phase_train_fsdp(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_launches = phase_pp_parity(pt_pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_pp = phase_train_pp(pt_pkg)
     gg_record["launches_by_phase"] = {
         "moe_train": gg_record["launches"], **ep_launches,
         "train_ep by rank": [r["gather_gemm_ffn"]
@@ -7193,6 +7712,12 @@ def main() -> int:
              for k, v in fsdp_launches.items()})
         r["launches_by_phase"]["train_fsdp by rank"] = [
             x[r["name"]] for x in train_fsdp["launches_by_rank"]]
+        r["launches_by_phase"].update(
+            {f"{k} by rank (f32)": [x[r["name"]] for x in v]
+             for k, v in pp_launches.items()})
+        r["launches_by_phase"].update(
+            {f"train_pp {k} by rank": [x[r["name"]] for x in v]
+             for k, v in train_pp["launches_by_rank"].items()})
     emit({"phase": "phase_seconds", "seconds": phase_seconds})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records

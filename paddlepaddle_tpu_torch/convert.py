@@ -21,7 +21,9 @@ state; the parity tests hold the two tables against each other instead.
 :func:`load_jax_train_state` carries a JAX ``TrainStep``'s state
 (``paddlepaddle_tpu/jit/train.py:142``: params, the optimizer's ``slots``,
 ``master`` and ``step``) into the port's ``TrainStep``, so that training
-resumed in either package computes the same thing.
+resumed in either package computes the same thing. :func:`convert_pytree`
+carries the hybrid pipeline's stage and head pytrees
+(``paddlepaddle_tpu/parallel/hybrid.py``) across.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 SKIPPED = ("model.rope_cos", "model.rope_sin", "rope_cos", "rope_sin")
 
@@ -57,6 +60,21 @@ def load_jax_state(model: torch.nn.Module,
     """Copy converted weights into ``model`` (any device); every parameter
     must be covered and every shape must match (``strict=True``)."""
     model.load_state_dict(convert_state(jax_state), strict=True)
+
+
+def convert_pytree(tree, device=None, dtype: Optional[torch.dtype] = None):
+    """A JAX pytree of arrays (the hybrid pipeline's stage and head params:
+    dicts of numpy arrays with leading ``[L]`` / ``[S]`` / ``[V, S]`` dims,
+    nested dicts, lists or tuples of them) -> the same structure of port
+    tensors on ``device`` (default the CPU). ``dtype`` casts the floating
+    leaves (integer leaves, labels, keep theirs)."""
+    def leaf(a):
+        t = _to_tensor(a)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device) if device is not None else t
+
+    return pytree.tree_map(leaf, tree)
 
 
 def load_jax_train_state(step, jax_state: Mapping[str, object]) -> None:

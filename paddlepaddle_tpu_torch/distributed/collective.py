@@ -305,6 +305,9 @@ def _axis_pg(axis: str):
     from .mesh import get_mesh
 
     mesh = _mesh_stack[-1] if _mesh_stack else get_mesh()
+    axis_group = getattr(mesh, "axis_group", None)
+    if axis_group is not None:
+        return axis_group(axis)       # a plan's own groups (ShardingPlan)
     if mesh is None:
         raise ValueError(
             f"collective over axis {axis!r}: no mesh is active (enter a "
@@ -683,6 +686,36 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     _broadcast_(full, gsrc, pg)
     tensor.copy_(full[_grank(pg)])
     return tensor
+
+
+def _send_to(tensor: torch.Tensor, peer: int, pg, tag: int = 0) -> _Task:
+    """A waitable send of ``tensor`` to GROUP rank ``peer`` of ``pg``,
+    asked of the group object itself (so it runs over groups nobody
+    registered with ``torch.distributed`` too); gloo sends a CUDA tensor
+    from a CPU copy. The task holds the buffer until ``wait()``: leave
+    ``tensor`` unchanged until then."""
+    buf = _staged(tensor, pg).contiguous()
+
+    def run():
+        # the closure keeps the buffer alive until the task's wait()
+        return _Task(pg.send([buf], peer, tag), then=lambda: buf)
+
+    return _account("p2p_send", buf, run)
+
+
+def _recv_from(tensor: torch.Tensor, peer: int, pg, tag: int = 0) -> _Task:
+    """A task whose ``wait()`` completes the receive from GROUP rank
+    ``peer`` of ``pg`` into ``tensor`` (the counterpart of
+    :func:`_send_to`)."""
+    buf = _staged(tensor, pg)
+
+    def run():
+        work = pg.recv([buf], peer, tag)
+        if buf is tensor:
+            return _Task(work)
+        return _Task(work, then=lambda: tensor.copy_(buf))
+
+    return _account("p2p_recv", buf, run)
 
 
 def _p2p_pg(group):

@@ -38,9 +38,13 @@ rank holds its own shard, and the collectives are explicit.
   any other axis a parameter is sharded over is a PARAMETER-SHARDING
   (ZeRO-3) axis, ``fsdp`` the usual one: the parameter is gathered over it
   where its module uses it (:mod:`..parallel.mpu`). Axes of size 1 drop
-  out everywhere. An ``sp`` or ``pp`` axis of size > 1 raises
-  ``not_ported`` naming its later A10 slice; ``seq_axis`` likewise, and
-  ``ep`` beside a parameter-sharding axis of size > 1;
+  out everywhere. A ``pp`` axis is a pipeline axis, as in the reference:
+  no rule names it, so every parameter is replicated over it, and it is no
+  data axis (:mod:`..parallel.pipeline_spmd` runs the stages over it; a
+  serving plan refuses it). An
+  ``sp`` axis of size > 1 raises ``not_ported`` naming its later A10
+  slice; ``seq_axis`` likewise, and ``ep`` beside a parameter-sharding axis
+  of size > 1 in a sharded step;
 * ``compile`` / ``compile_path``: the port has ONE path, per-rank eager or
   CUDA-graph-captured code with explicit collectives (``"spmd"``), where
   the reference chooses pjit or shard_map (ROADMAP, recorded deviations).
@@ -80,9 +84,8 @@ _SPEC_TOKEN = re.compile(r"([a-z_]+?)(\d+)")
 # the later A10 slice that ports each axis the port refuses
 _LATER_AXES = {
     "sp": "A10 slice 5: sequence parallel and ring attention",
-    "pp": "A10 slice 4: pipeline and the 4D hybrid",
 }
-_EP_X_FSDP = "A10 slice 4: ep x fsdp, the 4D hybrid"
+_EP_X_FSDP = "A10 slice 5: ep beside fsdp in ShardedTrainStep"
 # the names a parameter-sharding (ZeRO-3) axis usually goes by: never taken
 # for the model axis
 _ZERO_NAMES = ("fsdp", "sharding")
@@ -341,9 +344,10 @@ class ShardingPlan:
     def is_zero_axis(self, axis: str) -> bool:
         """Whether a parameter sharded over ``axis`` is sharded for memory
         (ZeRO-3: gathered where it is used): an axis of the mesh of size >
-        1 that is neither the model axis nor ``ep``."""
+        1 that is neither the model axis, ``ep`` nor the pipeline axis
+        ``pp``."""
         return (self._shape.get(axis, 1) > 1 and axis != self.model_axis
-                and axis != "ep")
+                and axis not in ("ep", "pp"))
 
     def _refuse_ep_beside(self, zero_axes) -> None:
         if zero_axes and self._shape.get("ep", 1) > 1:
@@ -412,13 +416,17 @@ class ShardingPlan:
                 and not dist.is_initialized())
 
     def refuse_in_serving(self) -> None:
-        """Raise ``not_ported`` if this plan has an ``ep`` axis of size > 1
-        (expert-parallel serving is a later A10 item: training only) or a
-        parameter-sharding axis of size > 1 (the rules shard a parameter
-        over it, or it is named ``fsdp`` / ``sharding``)."""
+        """Raise ``not_ported`` if this plan has an ``ep`` or ``pp`` axis
+        of size > 1 (expert- and pipeline-parallel serving are later A10
+        items: training only) or a parameter-sharding axis of size > 1
+        (the rules shard a parameter over it, or it is named ``fsdp`` /
+        ``sharding``)."""
         if self._shape.get("ep", 1) > 1:
             raise not_ported("an expert-parallel (ep) axis in a serving "
                              "plan", "A10: expert-parallel serving")
+        if self._shape.get("pp", 1) > 1:
+            raise not_ported("a pipeline (pp) axis in a serving plan",
+                             "A10: pipeline-parallel serving")
         zero = [a for a in self._shape if self.is_zero_axis(a)
                 and (a in _ZERO_NAMES or a in _rule_axes(self.rules))]
         if zero:
@@ -466,6 +474,15 @@ class ShardingPlan:
         if not dist.is_initialized():
             return None
         return self.process_mesh.group(axis)
+
+    def axis_group(self, axis: str):
+        """The group the ``f_*`` collectives run over along ``axis`` while
+        this plan is the active mesh (``use_mesh(plan)``): this rank's
+        slice, or None for an axis of size 1 (a collective over one rank
+        is the identity)."""
+        if axis not in self._shape:
+            raise ValueError(f"axis {axis!r} is not in {self!r}")
+        return self.group(axis) if self._shape[axis] > 1 else None
 
     @property
     def mp_group(self):
@@ -733,8 +750,9 @@ class ShardingPlan:
 def decode_plan(mesh, mp_axis: str = "mp") -> ShardingPlan:
     """Serving plan: tensor-parallel decode rules over ``mesh`` (commonly
     ``"mp2"`` / ``"mp4"``: every rank serves every request, holding 1/tp of
-    the weights and KV heads). An ``ep`` axis of size > 1 raises: expert
-    parallelism is ported for training only."""
+    the weights and KV heads). An ``ep`` or ``pp`` axis of size > 1
+    raises: expert and pipeline parallelism are ported for training
+    only."""
     plan = ShardingPlan(mesh, rules=tp_decode_rules(mp_axis),
                         data_axes=(), model_axis=mp_axis)
     plan.refuse_in_serving()

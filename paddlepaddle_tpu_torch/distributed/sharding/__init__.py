@@ -11,11 +11,14 @@ parameter where its module uses it (:func:`...parallel.mpu.gather_scope`),
 its gradient reduce-scattered (over a data axis) or sliced (over an axis
 the batch is not sharded over).
 
-:func:`save_group_sharded_model` writes whole parameters (gathered by the
-model's sharded step, if it has one) and the optimizer's state with the
-port's own pickle of numpy arrays (``paddle.save`` is ROADMAP A11):
-``model.pdmodel`` and ``model.pdopt`` under ``output``, each a pickled
-``{name: numpy array}`` (bf16 and fp16 stored as float32); rank 0 writes.
+:func:`save_group_sharded_model` writes what the reference writes, the
+model's whole ``state_dict`` (parameters gathered by the model's sharded
+step, if it has one, and buffers) and the optimizer's whole ``state_dict``
+(``LR_Scheduler`` included), with the port's own pickle of numpy arrays
+(``paddle.save`` is ROADMAP A11): ``model.pdmodel`` and ``model.pdopt``
+under ``output``, each a pickled dict of numpy arrays (bf16 and fp16
+stored as float32; the scheduler's state a dict of numbers); rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import pickle
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 _LEVELS = ("os", "os_g", "p_g_os")
 
@@ -65,30 +69,36 @@ def _numpy(v):
     return v
 
 
+def _host(v):
+    """``v`` with every tensor as numpy, through dicts, lists and tuples."""
+    return pytree.tree_map(_numpy, v)
+
+
 def save_group_sharded_model(model, output: str, optimizer=None) -> None:
-    """Write ``model``'s whole parameters to ``output/model.pdmodel`` and,
-    with ``optimizer``, its state to ``output/model.pdopt``. When a
+    """Write ``model``'s whole ``state_dict`` (parameters and buffers, as
+    the reference's ``model.state_dict()``) to ``output/model.pdmodel``
+    and, with ``optimizer``, its whole ``state_dict`` (slots, masters,
+    ``LR_Scheduler``, ``@step``) to ``output/model.pdopt``. When a
     :class:`~...parallel.sharded.ShardedTrainStep` trains ``model`` the
     step's shards are gathered (every rank of an SPMD job calls this; rank
-    0 writes) and the state is the step's optimizer's, whole."""
+    0 writes) and the state is the step's, whole."""
     import torch.distributed as dist
 
     from ...parallel.sharded import step_of
 
     step = step_of(model)
     if step is not None:
-        params = step.full_params()
+        params = step.full_state_dict()
         state = step.full_optimizer_state() if optimizer is not None \
             else None
     else:
-        params = dict(model.named_parameters())
+        params = model.state_dict()
         state = optimizer.state_dict() if optimizer is not None else None
     if dist.is_initialized() and dist.get_rank() != 0:
         return
     os.makedirs(output, exist_ok=True)
     with open(os.path.join(output, "model.pdmodel"), "wb") as f:
-        pickle.dump({k: _numpy(v) for k, v in params.items()}, f)
+        pickle.dump(_host(dict(params)), f)
     if state is not None:
         with open(os.path.join(output, "model.pdopt"), "wb") as f:
-            pickle.dump({k: _numpy(v) for k, v in state.items()
-                         if not isinstance(v, dict)}, f)
+            pickle.dump(_host(dict(state)), f)

@@ -1,9 +1,11 @@
 """Parallel layers of the port (counterpart of ``paddlepaddle_tpu/parallel``):
 the MoE layer with its data- and expert-parallel forms and
 ``moe_sharding_rules`` (:mod:`.moe`), the Megatron tensor-parallel layers
-(:mod:`.mpu`) and the sharded training step (:mod:`.sharded`, SPMD under
-the launcher or single-process). The sequence-parallel layers and
-pipelines are later A10 slices."""
+(:mod:`.mpu`), the sharded training step (:mod:`.sharded`, SPMD under
+the launcher or single-process), the pipeline API (:mod:`.pipeline`), its
+schedules (:mod:`.schedules`) and executor (:mod:`.pipeline_spmd`), and
+the 4D hybrid stages (:mod:`.hybrid`). The sequence-parallel layers are a
+later A10 slice."""
 
 from .mpu import (  # noqa: F401
     ColumnParallelLinear,
@@ -11,6 +13,19 @@ from .mpu import (  # noqa: F401
     RowParallelLinear,
     VocabParallelEmbedding,
     mark_placement,
+)
+from .pipeline_spmd import (  # noqa: F401
+    spmd_pipeline,
+    spmd_pipeline_interleaved,
+    spmd_pipeline_train,
+    stack_stage_params,
+    stack_virtual_stage_params,
+)
+from .schedules import (  # noqa: F401
+    PipelineSchedule,
+    build_1f1b,
+    build_gpipe,
+    build_schedule,
 )
 from .sharded import (  # noqa: F401
     ShardedTrainStep,

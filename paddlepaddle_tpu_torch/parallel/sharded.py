@@ -38,7 +38,10 @@ global batch, :mod:`.moe`) and makes the data-parallel collectives itself:
   them (ZeRO-1/2/3 all follow, as the reference's
   ``_opt_state_shardings``, :152-169, says);
 * :meth:`ShardedTrainStep.full_params` and
-  :meth:`ShardedTrainStep.sync_to_model` gather the full parameters back.
+  :meth:`ShardedTrainStep.sync_to_model` gather the full parameters back;
+  :meth:`ShardedTrainStep.full_state_dict` adds the buffers, and
+  :meth:`ShardedTrainStep.full_optimizer_state` is the optimizer's whole
+  state with its scheduler's.
 
 Two forms, by what the process has. Under the launcher (a default group
 spanning the mesh) every rank builds the step (SPMD). In a process with no
@@ -537,10 +540,27 @@ class ShardedTrainStep:
 
     @_led
     @torch.no_grad()
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` as the step holds it: every parameter
+        whole (:meth:`full_params`) and every buffer (a batch norm's
+        running statistics) as this rank's view holds it, under the
+        model's names and in its order."""
+        full = self.full_params()
+        # a tied parameter appears under each of its names
+        param_of = {id(p): n for n, p in self.params.items()}
+        return {name: (full[param_of[id(t)]] if id(t) in param_of
+                       else t.detach().clone())
+                for name, t in self.net.state_dict(keep_vars=True).items()}
+
+    @_led
+    @torch.no_grad()
     def full_optimizer_state(self) -> Dict[str, object]:
         """The optimizer's flat ``state_dict`` with every slot and master
-        copy whole: each of a parameter's local shape gathered as the
-        parameter is."""
+        copy whole (each of a parameter's local shape gathered as the
+        parameter is), its ``LR_Scheduler`` state (rank 0's optimizer
+        holds the scheduler) and ``@step``."""
+        from ..optimizer.lr import LRScheduler
+
         out = {}
         for name, p in self.params.items():
             state = dict(self.optimizer._slots.get(name, {}))
@@ -549,6 +569,8 @@ class ShardedTrainStep:
             for k, v in state.items():
                 out[f"{name}_{k}"] = (self._whole(v, self.specs[name])
                                       if v.shape == p.shape else v.clone())
+        if isinstance(self.optimizer._lr, LRScheduler):
+            out["LR_Scheduler"] = self.optimizer._lr.state_dict()
         out["@step"] = self.optimizer._step_count
         return out
 

@@ -52,6 +52,10 @@ import paddlepaddle_tpu_torch.distributed.shard_plan
 import paddlepaddle_tpu_torch.distributed.store
 import paddlepaddle_tpu_torch.parallel.mpu
 import paddlepaddle_tpu_torch.parallel.sharded
+import paddlepaddle_tpu_torch.parallel.schedules
+import paddlepaddle_tpu_torch.parallel.pipeline
+import paddlepaddle_tpu_torch.parallel.pipeline_spmd
+import paddlepaddle_tpu_torch.parallel.hybrid
 import paddlepaddle_tpu_torch.inference.compile_plan
 import paddlepaddle_tpu_torch.observability
 import paddlepaddle_tpu_torch.observability.exporter
@@ -155,7 +159,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "inference.fleet", "inference.remote_replica",
                 "inference.replica_main", "inference.c_api_server",
                 "resilience.chaos", "resilience.retry",
-                "resilience.netchaos"):
+                "resilience.netchaos", "parallel.schedules",
+                "parallel.pipeline", "parallel.pipeline_spmd",
+                "parallel.hybrid"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

@@ -352,12 +352,31 @@ def _port_tiny():
                                         ("pp2", "pipeline")])
 def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later,
                                                          jax_models):
-    """sp and pp raise naming their later A10 slice. ep (expert
-    parallelism) and fsdp (parameter sharding) are ported for training:
-    their plans build with the reference's rule tables and resolve every
-    Llama parameter to the reference's spec (the MoE banks on ``ep``; the
-    matrices on ``(fsdp, mp)`` / ``(mp, fsdp)``), and a serving plan over
-    either still raises."""
+    """sp raises naming its later A10 slice. ep (expert parallelism) and
+    fsdp (parameter sharding) are ported for training: their plans build
+    with the reference's rule tables and resolve every Llama parameter to
+    the reference's spec (the MoE banks on ``ep``; the matrices on
+    ``(fsdp, mp)`` / ``(mp, fsdp)``), and a serving plan over either still
+    raises. pp (the pipeline axis) builds as the reference's plan does:
+    no data axis, every parameter replicated over it; a serving plan over
+    it raises (pipeline-parallel serving is a later A10 item)."""
+    if spec == "pp2":
+        state = jax_models["float32"].functional_state()
+        for mesh in ("pp2", "dp2pp2"):
+            plan, want = tsp.train_plan(mesh), jsp.train_plan(mesh)
+            assert plan.axes == dict(want.axes) == tsp.parse_mesh_spec(mesh)
+            assert plan.data_axes == tuple(want.data_axes) == (
+                ("dp",) if mesh == "dp2pp2" else ())
+            assert plan.dp_degree == want.dp_degree
+            assert plan.tp_degree == want.tp_degree == 1
+            assert not plan.is_zero_axis("pp")
+            for name, v in state.items():
+                assert plan.spec_for(name, v.shape) == \
+                    tuple(want.spec_for(name, v.shape)) == (), name
+        with pytest.raises(NotImplementedError,
+                           match="pipeline-parallel serving"):
+            tsp.decode_plan(spec)
+        return
     if spec == "ep2":
         plan = tsp.ShardingPlan(spec, rules=tsp.moe_train_rules())
         assert plan.axes == {"ep": 2}
@@ -393,8 +412,9 @@ def test_c21_axis_roles_come_from_the_plan_not_the_names(jax_models):
     Llama table's own ``tp`` is the model axis (the reference's
     ``llama_sharding_rules`` default); size-1 axes drop out, so ``[1, 1,
     1]`` ``dp/fsdp/tp`` is one rank; every parameter resolves to the JAX
-    plan's spec. ``ep`` beside a parameter-sharding axis names the 4D
-    hybrid slice; rules naming two candidate model axes ask for
+    plan's spec. ``ep`` beside a parameter-sharding axis names the
+    ROADMAP item that ports it (A10 slice 5); rules naming two candidate
+    model axes ask for
     ``model_axis``. (Training on both meshes against the JAX
     ``ShardedTrainStep``: ``tests/test_torch_fsdp.py``.)"""
     from paddlepaddle_tpu.distributed.mesh import ProcessMesh as JMesh
@@ -426,7 +446,8 @@ def test_c21_axis_roles_come_from_the_plan_not_the_names(jax_models):
     assert one.n_devices == 1 and not one.single_process
     assert one.tp_degree == 1 and one.data_axes == ()
     assert tsp.decode_plan("mp2").model_axis == "mp"
-    with pytest.raises(NotImplementedError, match="4D hybrid"):
+    with pytest.raises(NotImplementedError,
+                       match="A10 slice 5: ep beside fsdp"):
         tsp.ShardingPlan(ProcessMesh(shape=[2, 2], dim_names=["fsdp", "ep"]),
                          rules=moe_sharding_rules(), data_axes=("fsdp",))
     with pytest.raises(ValueError, match="model_axis"):

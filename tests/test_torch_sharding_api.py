@@ -26,6 +26,8 @@ two of its eight virtual CPU devices:
   loader's values.
 """
 
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -248,3 +250,122 @@ def test_shard_dataloader_yields_the_reference_values():
     for jb, tb in zip(jl, tl):
         for a, b in zip(jb, tb):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a.numpy()))
+
+
+# -- C22: save_group_sharded_model writes the reference's whole files ---------
+
+
+def _c22_models():
+    """The JAX and port ``Linear(4, 4)`` + ``BatchNorm1D(4)`` on the same
+    weights and running statistics (seeded, so the buffers carry values),
+    in eval mode (the JAX step never updates the statistics), each with
+    ``AdamW`` over ``StepDecay(0.1, step_size=2)``."""
+    paddle.seed(3)
+    jm = paddle.nn.Sequential(paddle.nn.Linear(4, 4),
+                              paddle.nn.BatchNorm1D(4))
+    rng = np.random.default_rng(6)
+    state = {k: np.asarray(v.numpy()).copy()
+             for k, v in jm.state_dict().items()}
+    state["1._mean"] = rng.standard_normal(4).astype(np.float32)
+    state["1._variance"] = rng.uniform(0.5, 2.0, 4).astype(np.float32)
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
+    tm = pt.nn.Sequential(pt.nn.Linear(4, 4, device="cpu"),
+                          pt.nn.BatchNorm1D(4, device="cpu"))
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    jm.eval()
+    tm.eval()
+    jsched = paddle.optimizer.lr.StepDecay(0.1, step_size=2)
+    tsched = pt.optimizer.lr.StepDecay(0.1, step_size=2)
+    jopt = JAdamW(learning_rate=jsched, parameters=jm.parameters())
+    topt = pt.AdamW(learning_rate=tsched,
+                    parameters=tm.named_parameters())
+    return jm, tm, jsched, tsched, jopt, topt
+
+
+def _c22_loss(m, x):
+    return (m(x) ** 2).mean()
+
+
+def _c22_files(save, model, opt, out):
+    save(model, str(out), opt)
+    return (pickle.loads((out / "model.pdmodel").read_bytes()),
+            pickle.loads((out / "model.pdopt").read_bytes()))
+
+
+def _jax_files(model, opt, out):
+    from paddlepaddle_tpu.distributed.sharding import \
+        save_group_sharded_model as jsave
+    from paddlepaddle_tpu.framework.io_api import load
+
+    jsave(model, str(out), opt)
+    return (load(str(out / "model.pdmodel"), return_numpy=True),
+            load(str(out / "model.pdopt"), return_numpy=True))
+
+
+@pytest.mark.parametrize("stepped", [False, True])
+def test_c22_saved_files_hold_what_the_reference_saves(tmp_path, stepped):
+    """The model's buffers (BatchNorm's ``_mean`` / ``_variance``) and the
+    optimizer's ``LR_Scheduler`` are in the files, with the reference's
+    keys and values: with no step taken, and after one step of a
+    single-process ``fsdp2`` ``ShardedTrainStep`` (the first weight
+    sharded over ``fsdp``; its gather, the buffers and the scheduler's
+    state come back through the step)."""
+    from paddlepaddle_tpu_torch.distributed.shard_plan import ShardingPlan
+    from paddlepaddle_tpu_torch.distributed.sharding import \
+        save_group_sharded_model as tsave
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    jm, tm, jsched, tsched, jopt, topt = _c22_models()
+    step = None
+    if stepped:
+        x = np.random.default_rng(8).standard_normal((8, 4)).astype(
+            np.float32)
+        loss = _c22_loss(jm, paddle.to_tensor(x))
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        jsched.step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        step = ShardedTrainStep(tm, topt, _c22_loss, plan=ShardingPlan(
+            "fsdp2", rules=[(r"0\.weight$", ("fsdp", None)), (r".*", ())],
+            data_axes=("dp",)))
+        try:
+            assert step.workers is not None
+            assert tuple(step.params["0.weight"].shape) == (2, 4)
+            got = float(step(torch.from_numpy(x)))
+            np.testing.assert_allclose(got, float(loss.numpy()), rtol=1e-6)
+            tsched.step()
+            tfiles = _c22_files(tsave, tm, topt, tmp_path / "port")
+        finally:
+            step.close()
+            torch.set_num_threads(threads)
+    else:
+        tfiles = _c22_files(tsave, tm, topt, tmp_path / "port")
+    jmodel, jopt_state = _jax_files(jm, jopt, tmp_path / "jax")
+    tmodel, topt_state = tfiles
+    assert list(tmodel) == list(jmodel)
+    assert {"1._mean", "1._variance"} <= set(tmodel)
+    for k, v in jmodel.items():
+        np.testing.assert_allclose(tmodel[k], np.asarray(v), rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    # the reference names slots by its parameters' generated names; the
+    # port by the parameters' structured names
+    names = dict(zip([p.name for p in jm.parameters()],
+                     [n for n, _ in tm.named_parameters()]))
+    want = {}
+    for k, v in jopt_state.items():
+        for jn, tn in names.items():
+            if k.startswith(jn + "_"):
+                k = tn + k[len(jn):]
+                break
+        want[k] = v
+    assert set(topt_state) == set(want)
+    assert topt_state["LR_Scheduler"] == want["LR_Scheduler"]
+    assert topt_state["@step"] == want["@step"] == int(stepped)
+    assert topt_state["LR_Scheduler"]["last_epoch"] == int(stepped)
+    for k, v in want.items():
+        if k not in ("LR_Scheduler", "@step"):
+            np.testing.assert_allclose(topt_state[k], np.asarray(v),
+                                       rtol=1e-6, atol=1e-8, err_msg=k)
+    assert len(want) == (2 + 16 * stepped)

@@ -815,3 +815,196 @@ def sharding_api_card_session(x, pairs, log_dir):
                     "device": str(b.to_local().device)})
     note("done")
     return {"rank": rank, "pairs": out}
+
+
+# -- the pipeline executor and the 4D hybrid (parallel/pipeline_spmd.py,
+# parallel/hybrid.py) ------------------------------------------------------
+
+
+def toy_block(p, a):
+    """The reference test's stage block (tests/test_pipeline_schedules.py)."""
+    return torch.tanh(a @ p["w"] + p["b"])
+
+
+def toy_head_loss(hp, a, y):
+    return ((a @ hp["wo"] - y) ** 2).mean()
+
+
+def toy_forward_block(p, a):
+    """The reference test's forward-only block (tests/test_pipeline.py)."""
+    return torch.tanh(a @ p["w"])
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors(v) for v in tree)
+    return torch.from_numpy(np.ascontiguousarray(tree))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().numpy()
+    return tree
+
+
+def pipeline_toy_session(train_arms, forward_arms):
+    """Every rank runs each arm: ``train_arms`` are ``(key, stacked, head,
+    x, y, schedule, V, mesh shape, mesh names, data_axis)`` through
+    ``spmd_pipeline_train`` with the toy block; ``forward_arms`` are
+    ``(key, stacked, x, M, shape, names, data_axis, interleaved)``
+    through ``spmd_pipeline`` / ``spmd_pipeline_interleaved``. Returns
+    ``{key: numpy outputs}``."""
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    _init()
+    torch.set_num_threads(1)
+    out = {}
+    for key, st, hp, x, y, sched, V, shape, names, dax in train_arms:
+        got = ps.spmd_pipeline_train(
+            _tensors(st), _tensors(hp), _tensors(x), _tensors(y), toy_block,
+            toy_head_loss, ProcessMesh(shape=shape, dim_names=names),
+            schedule=sched, n_microbatches=8, num_virtual=V,
+            data_axis=dax)
+        out[key] = _numpy(got)
+    for key, st, x, M, shape, names, dax, inter in forward_arms:
+        fn = ps.spmd_pipeline_interleaved if inter else ps.spmd_pipeline
+        out[key] = fn(_tensors(st), _tensors(x), toy_forward_block,
+                      ProcessMesh(shape=shape, dim_names=names), M,
+                      data_axis=dax).numpy()
+    return out
+
+
+def hybrid_blocks(cfg, moe):
+    """The executor's block and head for a hybrid case: the dense Llama
+    stage, or the MoE stage (``moe``: ``{"E", "topk", "cf", "ep_size"}``)."""
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+
+    cfg = H.HybridStageConfig(**cfg)
+    if moe:
+        block = H.make_moe_block(cfg, moe["E"], topk=moe["topk"],
+                                 capacity_factor=moe["cf"],
+                                 ep_size=moe["ep_size"], remat=True)
+        specs = H.moe_stage_specs()
+    else:
+        block = H.make_llama_block(cfg, remat=True)
+        specs = H.llama_stage_specs()
+    return block, H.make_vocab_parallel_head(cfg), specs, \
+        H.llama_head_specs()
+
+
+def hybrid_session(path):
+    """Every rank runs each case ``(key, cfg, stacked, head, acts, ids,
+    schedule, V, shape, names, moe)`` of the pickle at ``path`` through
+    ``spmd_pipeline_train`` over ``("dp", "fsdp")`` data axes with the
+    hybrid's block and head, and returns ``{key: (loss, stage grads, head
+    grads, dacts)}``."""
+    import pickle
+
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    with open(path, "rb") as f:
+        cases = pickle.load(f)
+    _init()
+    torch.set_num_threads(1)
+    out = {}
+    for key, cfg, st, hp, acts, ids, sched, V, shape, names, moe in cases:
+        block, head, specs, hspecs = hybrid_blocks(cfg, moe)
+        got = ps.spmd_pipeline_train(
+            _tensors(st), _tensors(hp), _tensors(acts),
+            _tensors(ids).long(), block, head,
+            ProcessMesh(shape=shape, dim_names=names), schedule=sched,
+            n_microbatches=4, num_virtual=V, data_axis=("dp", "fsdp"),
+            param_specs=specs, head_specs=hspecs)
+        out[key] = (float(got[0]),) + tuple(_numpy(g) for g in got[1:])
+    return out
+
+
+PP_CARD_CFG = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                   num_kv_heads=2, layers_per_stage=1, vocab_size=512,
+                   max_seq_len=128)
+
+
+def pp_card_problem(seed, n_stages, device, batch=(4, 128)):
+    """Seeded f32 stage and head params (the reference's init scales), an
+    embedded batch and its ids for :data:`PP_CARD_CFG`, on ``device``."""
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+
+    cfg = H.HybridStageConfig(**PP_CARD_CFG)
+    g = torch.Generator(device=device).manual_seed(seed)
+    stages = [H.init_llama_stage(cfg, g) for _ in range(n_stages)]
+    head = H.init_llama_head(cfg, g)
+    acts = torch.randn(batch + (cfg.hidden_size,), generator=g,
+                       device=device)
+    ids = torch.randint(0, cfg.vocab_size, batch, generator=g, device=device)
+    return cfg, stages, head, acts, ids
+
+
+def pp_card_oracle(cfg, stages, head, acts, ids):
+    """``reference_forward`` (plain attention) and its gradients, stacked
+    as the executor returns them."""
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    st = [{k: v.clone().requires_grad_() for k, v in s.items()}
+          for s in stages]
+    hp = {k: v.clone().requires_grad_() for k, v in head.items()}
+    a = acts.clone().requires_grad_()
+    loss = H.reference_forward(cfg, st, hp, a, ids)
+    loss.backward()
+    return (float(loss.detach()),
+            ps.stack_stage_params([{k: v.grad for k, v in s.items()}
+                                   for s in st]),
+            {k: v.grad for k, v in hp.items()}, a.grad)
+
+
+def pp_card_errors(got, want) -> dict:
+    """Loss relative error and the largest gradient error beyond
+    ``2e-4 + 2e-3 |want|`` (tests/test_hybrid_4d.py's tolerances)."""
+    loss, g_st, g_h, g_a = got
+    r_loss, r_st, r_h, r_a = want
+
+    def over(x, y):
+        return float(((x - y).abs() - (2e-4 + 2e-3 * y.abs())).max())
+
+    worst = max([over(g_st[k], r_st[k]) for k in r_st]
+                + [over(g_h[k], r_h[k]) for k in r_h] + [over(g_a, r_a)])
+    return {"loss_rel": abs(float(loss) - r_loss) / abs(r_loss),
+            "worst_over_tol": worst}
+
+
+def pipeline_card_session(schedule):
+    """tp2 pp2 on four ranks sharing ``cuda:0`` over gloo: the hybrid's
+    Llama stages through ``spmd_pipeline_train`` under ``schedule``, its
+    errors against the oracle on the card and this rank's kernel 2-4
+    launches."""
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddlepaddle_tpu_torch.parallel import hybrid as H
+    from paddlepaddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    rank = _init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg, stages, head, acts, ids = pp_card_problem(0, 2, dev)
+    mesh = ProcessMesh(shape=[2, 2], dim_names=["tp", "pp"])
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = 0
+    got = ps.spmd_pipeline_train(
+        ps.stack_stage_params(stages), head, acts, ids,
+        H.make_llama_block(cfg, fsdp_axis=None),
+        H.make_vocab_parallel_head(cfg), mesh, schedule=schedule,
+        n_microbatches=4, param_specs=H.llama_stage_specs(fsdp_axis=None),
+        head_specs=H.llama_head_specs())
+    launches = {w.__name__: w.launches
+                for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}
+    errs = pp_card_errors(got, pp_card_oracle(cfg, stages, head, acts, ids))
+    return {"rank": rank, "pp": mesh.coords(rank)["pp"],
+            "launches": launches, **errs}

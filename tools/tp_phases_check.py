@@ -11,7 +11,8 @@ Phases: ``tp_spec`` (tp_parity's spec-under-mp2 check beside a
 one-process engine), ``tp_parity``, ``serve_tp`` (its SPMD arm, then its
 single-process arm), ``spec_tp``, ``router_tp``, ``train_tp`` (its SPMD
 arms, then its single-process arms), ``nccl_world1``, ``ep_parity``,
-``train_ep``, ``fsdp_parity``, ``train_fsdp``; default ``tp_spec
+``train_ep``, ``fsdp_parity``, ``train_fsdp``, ``pp_parity``,
+``train_pp``; default ``tp_spec
 serve_tp spec_tp router_tp``. Each
 phase prints its JSON lines and its seconds; a failed phase prints its
 error and the script goes on to the next, exiting 1 at the end.
