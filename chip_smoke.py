@@ -316,12 +316,14 @@ code is non-zero):
                timing on).
 10c. ``train_tp``  Llama-3-8B widths at 2 layers, bf16, AdamW + global-norm
                clip, global batch 4 x 512: ``mp2`` and ``dp2`` on one
-               pair of ranks, 2 steps each (3 before the pipeline
-               phases); losses within 0.02 of a one-process
-               ``TrainStep``; step ms, flash launches a rank, all-reduce
-               ms a step (the last step times its collectives), peak
-               memory a rank.
-10d. ``nccl_world1``  one NCCL rank, Llama-3-8B widths at 2 layers, bf16,
+               pair of ranks, 1 step each (run beside the untimed parity
+               phases 10a, 10j, 10n and 10e, as 10d's rank, 10f, 10h and
+               train_parity_more are, each in processes of its own);
+               losses within 0.02 of a
+               one-process ``TrainStep``; flash launches and peak memory
+               a rank.
+10d. ``nccl_world1`` (its rank also runs beside those phases) one NCCL
+               rank, Llama-3-8B widths at 2 layers, bf16,
                ``decode_plan("mp1")``: the decode chunk is captured with the
                NCCL all-reduce inside; tokens bit-equal to the plan-less
                captured engine's; ``capture_info()`` and replays; tok/s of
@@ -344,10 +346,9 @@ code is non-zero):
                hand-over; its groups; its engine) and each process's peak
                memory.
 10e. ``spec_tp``  speculative decoding under mp2 in one process:
-               Llama-3-8B widths at 2 layers (4 before the pipeline
-               phases), bf16, ``spec_k`` 3 (W = 4),
-               greedy, 4 of serve_spec's prompts (budgets capped at 32;
-               64 before the pipeline phases), the target as its own
+               Llama-3-8B widths at 2 layers, bf16, ``spec_k`` 3 (W = 4),
+               greedy, 4 of serve_spec's prompts (budgets capped at 16),
+               the target as its own
                draft and serve_spec's "quarter" draft (a rollback on
                nearly every step), each replicated on both ranks. Every
                request at
@@ -355,8 +356,9 @@ code is non-zero):
                rank; both ranks took the same accept lengths (their
                checksums agree); no page leaked on either rank;
                acceptance and tokens per target step.
-10f. ``router_tp``  the router drill at Llama-3-8B widths, 2 layers, bf16:
-               two ``mesh="mp2"`` engines in this process behind
+10f. ``router_tp``  the router drill at Llama-3-8B widths, 2 layers, bf16,
+               in a process of its own: two ``mesh="mp2"`` engines there
+               behind
                ``ServingRouter`` (4 processes on the card), a
                ``serving.decode`` fault storm over 8 requests (none lost,
                at least 6 served), kernel 1 on every rank, a rolling
@@ -377,7 +379,10 @@ code is non-zero):
                the step) = layers x steps; 0 nvcc runs in the worker;
                construction seconds; the worker gone after ``close()``;
                device memory left behind within 0.25 GB; peak memory of
-               each process.
+               each process; rank 0's first gradients of the LM head, the
+               embedding, layer 0's wq (its mp slice) and two norms (whole:
+               summed over mp) within 0.03 (relative norm) of the one
+               process's; rank 0's collectives timed in the step.
 
     Expert parallelism (A10 slice 2): ``moe_train_rules`` puts each MoE
     layer's banks on ``ep``; the ranks of an ``ep`` group hold the same
@@ -385,15 +390,15 @@ code is non-zero):
     experts; the partial combine is all-reduced over ``ep``.
 10h. ``ep_parity``  the smallest f32 MoE kernel 8 takes (d 128, h 256, E 8,
                top-2, 2 layers, capacity factor 0.5: entries drop, fused),
-               batch 4 x 256, 2 AdamW steps with global-norm clip:
-               ``ep2`` and ``dp2ep2`` in this process against a
+               batch 4 x 256, 2 AdamW steps with global-norm clip, in a
+               process of its own: ``ep2`` and ``dp2ep2`` there against a
                one-process ``TrainStep`` on the same weights: losses
                within 1e-5 relative, every synced parameter within 1e-4,
                local banks E/ep, kernel 8 = layers x steps on every rank.
 10i. ``train_ep``  DeepSeekMoE-16B widths at 2 of 28 layers (bf16, fused,
                multi-precision AdamW + clip), batch 4 x 2048: a one-process
                ``TrainStep``, freed, then ``ep2`` in this process (32 of
-               64 experts a rank, C 320), 3 steps each: losses within
+               64 experts a rank, C 320), 2 steps each: losses within
                0.02; the first step's drop share of layer 0 equal and of
                layer 1 within 0.002; kernels 8 and 2-4 = layers x steps on
                each rank; step ms; the last step's ``ep`` all-reduces
@@ -410,16 +415,19 @@ code is non-zero):
                ``dp2fsdp2``, ``fsdp2mp2`` and the ``p_g_os`` arm over
                ``dp2fsdp2`` with ``data_axes=("dp",)`` on four spawned
                ranks, and 10h's MoE on ``dp2fsdp2`` (the trunk on fsdp,
-               the banks whole), 2 momentum steps (lr 0.2, no clip: each
+               the banks whole) and on ``fsdp2ep2`` (``data_axes=
+               ("fsdp",)``: the banks on ep beside fsdp, kernel 8 on each
+               rank's 4 of 8 experts), 2 momentum steps (lr 0.2, no clip: each
                parameter moves with its gradient's scale) against a
                one-process ``TrainStep``: losses within 1e-5 relative,
                parameters within 1e-4, kernels 2-4 (and 8) = layers x
                steps on every rank.
 10k. ``train_fsdp``  Llama-3-8B widths at 2 layers, bf16, multi-precision
-               AdamW + clip, batch 4 x 512, 2 steps (3 before the
-               pipeline phases): a one-process
+               AdamW + clip, batch 4 x 512, 1 step: a one-process
                ``TrainStep``, freed, then ``fsdp2`` in this process:
-               losses within 0.02; each rank's resident bytes (parameter
+               losses within 0.02; rank 0's first gradients (10c''s five,
+               its fsdp slices) within 0.03 of one process's; each rank's
+               resident bytes (parameter
                shards + optimizer state) at most 0.55 of one process's;
                kernels 2-4 on each rank; peak GB, step ms, the
                all-gathers' and reduce-scatters' calls, bytes and ms.
@@ -428,13 +436,16 @@ code is non-zero):
                8 x 128, M 4) on 8 spawned ranks: ``dp1 fsdp2 tp2 pp2``
                under 1F1B, GPipe, ZBH1, 1F1B at 2 layers a stage,
                interleaved and ZBVPP at V 2; ``dp2 fsdp1 tp2 pp2`` under
-               1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``: loss
-               (1e-4) and gradients (2e-3 / 2e-4) against the unsharded
+               1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``; the
+               5-D hybrid ``dp1 fsdp1 sp2 tp2 pp2`` (one causal flash call
+               a layer over the gathered K/V prefix): loss (1e-4) and
+               gradients (2e-3 / 2e-4) against the unsharded
                oracle on the card; kernels 2-4 on every rank as often as
-               ``pp_predicted_launches`` says.
+               ``pp_predicted_launches`` says. Its ranks run beside the
+               untimed parity phases 7-8.
 10m. ``train_pp``  Llama-3-8B widths, 2 layers a stage on ``pp2`` (two
                spawned ranks), bf16, batch 8 x 1024, M 8: 1F1B, GPipe
-               and ZBH1 (a warm-up and 2 timed calls each) beside the
+               and ZBH1 (one warm-up call, then 1 timed call each) beside the
                four layers and head on one rank: step ms (the schedule
                walk and the sums over pp; the final gathers apart), the
                schedule's bubble, P2P calls / bytes / ms, the head-grad
@@ -442,6 +453,25 @@ code is non-zero):
                the parameters, kernels 2-4 by rank; the loss (abs 1e-4)
                and the head's weight, the stages' wq and the input
                gradients (relative norm 1e-2) against the one-rank arm.
+10n. ``sp_parity``  context and sequence parallelism, f32, head dim 64
+               (the f32 kernels 2-4): ring attention over ``sp4`` and
+               ``sp2``, causal and full, forward and gradients, against
+               the plain dense attention on the card (1e-4); the
+               context-parallel Llama through ``ShardedTrainStep(
+               seq_axis="sp")`` on ``dp2 sp2`` (4 spawned ranks) and
+               ``dp1 sp2`` (this process), and ``SequenceParallelBegin``
+               / ``End`` on ``mp2`` (the norm weights' first gradients
+               within 1e-4): two momentum steps against one process
+               (losses 1e-5 relative, parameters 1e-4); kernels 2-4 on
+               every rank as ``ring_predicted_launches`` says.
+10o. ``train_cp``  Llama-3-8B widths at 2 layers, bf16, one 8192-token
+               sequence, multi-precision AdamW + clip, 2 steps: one rank,
+               then ``ShardedTrainStep(seq_axis="sp")`` over ``dp1 sp2``
+               (ring attention, K/V point to point): losses within 1e-3
+               and the first gradients of the head, layer 0's wq and the
+               embedding within 0.02 (relative norm) of one rank's; step
+               ms, the ring's bytes and ms, kernels 2-4 a rank against
+               the prediction, peak GB a rank beside one rank's.
 
 Then each phase's seconds, the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -2333,6 +2363,21 @@ def phase_train_parity_more(pt_pkg):
     emit(out)
 
 
+def _phase_alone(name):
+    """``phase_<name>`` in a process of its own (its kernel counters are its
+    own), so that it runs beside other untimed phases; returns its value
+    and its seconds."""
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = globals()[f"phase_{name}"](pt)
+    return out, time.perf_counter() - t0
+
+
 TRAIN_LAYERS = 8      # Llama-3-8B widths at 8 of 32 layers: AdamW with f32
 #                       masters costs 16 bytes a parameter (45 GB here)
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -3306,7 +3351,7 @@ def phase_capture_parity(pt_pkg):
                              "replays and the eager body drew differently")
 
 
-SPEC_SLOTS, SPEC_BUDGET_CAP = 8, 32   # cap 64 until the pipeline phases
+SPEC_SLOTS, SPEC_BUDGET_CAP = 8, 16
 
 
 def quarter_draft_config(pt_pkg, cfg):
@@ -5455,9 +5500,20 @@ TP_SPAWN = dict(timeout=900, pg_timeout=300)   # join / process-group seconds
 SERVE_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
 SERVE_TP_LOGIT_TOL = 0.25  # max abs, bf16 paged decode-step logits, TP vs one
 TRAIN_TP_LAYERS = 2        # Llama-3-8B widths at 2 of 32 layers
-# 2 steps since the pipeline phases came (3 before; train_fsdp's too)
-TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 2
+TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 512, 1
+TRAIN_TP_SPECS = ("mp2", "dp2")
 TRAIN_TP_LOSS_TOL = 0.02   # abs, bf16 losses, sharded vs one process
+# the first gradients train_tp's single-process arms and train_fsdp hold
+# against one process's: the LM head, the embedding and layer 0's wq
+# (rank 0's slice where mp or fsdp shards them) and two norms (whole under
+# mp: they take its sum)
+TRAIN_TP_GRADS = ("lm_head.weight", "model.embed_tokens.weight",
+                  "model.layers.0.self_attn.q_proj.weight",
+                  "model.layers.0.input_layernorm.weight",
+                  "model.norm.weight")
+# relative Frobenius norm, bf16 first gradients: train_cp's read 0.008-0.011
+# at 8192 tokens; a sum over 2 ranks left out reads 0.5 or more
+TRAIN_TP_GRAD_RTOL = 0.03
 NCCL1_LAYERS = 2
 
 
@@ -5592,18 +5648,15 @@ def phase_tp_parity(pt_pkg):
     import numpy as np
     import torch
 
-    from paddlepaddle_tpu_torch.distributed import spawn
-
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, TP_TINY["vocab_size"], (int(n),))
                .astype(np.int32) for n in (40, 129, 77, 200)]
     ids = rng.integers(0, TP_TINY["vocab_size"], (4, 128)).astype(np.int64)
     t0 = time.perf_counter()
-    dec = spawn(_tp_parity_decode_rank, args=(prompts, 24, ids), nprocs=2,
-                **TP_SPAWN)
-    grid = spawn(_tp_parity_train_rank, args=("dp2mp2", ids), nprocs=4,
-                 **TP_SPAWN)
-    wall = time.perf_counter() - t0
+    # both jobs' ranks start and run beside this process's single-process
+    # check and one-process reference (none of them is timed)
+    dec_job = _spawn_beside(_tp_parity_decode_rank, (prompts, 24, ids), 2)
+    grid_job = _spawn_beside(_tp_parity_train_rank, ("dp2mp2", ids), 4)
     spec = _tp_spec_single(pt_pkg, prompts, 24)
     model = pt_pkg.LlamaForCausalLM(pt_pkg.LlamaConfig(**TP_TINY), seed=1)
     ref = pt_pkg.TrainStep(model, pt_pkg.AdamW(
@@ -5611,6 +5664,8 @@ def phase_tp_parity(pt_pkg):
     ids_t = torch.from_numpy(ids).cuda()
     one_losses = [float(ref(ids_t, ids_t)) for _ in range(2)]
     del model, ref
+    dec, grid = dec_job.result(), grid_job.result()
+    wall = time.perf_counter() - t0
     L = TP_TINY["num_hidden_layers"]
     r0 = dec[0]
     checks = {
@@ -5856,7 +5911,6 @@ def _train_tp_spec(rank, spec):
     import torch
 
     import paddlepaddle_tpu_torch as pt
-    from paddlepaddle_tpu_torch.distributed import collective as C
     from paddlepaddle_tpu_torch.distributed import train_plan
     from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
 
@@ -5872,47 +5926,42 @@ def _train_tp_spec(rank, spec):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     losses, ms = [], []
-    for i in range(TRAIN_TP_STEPS):
-        last = i == TRAIN_TP_STEPS - 1
-        # the last step times its collectives (a device sync around each)
-        C.reset_collective_stats()
+    for _ in range(TRAIN_TP_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with C.timing(last):
-            losses.append(float(step(ids, ids)))
+        losses.append(float(step(ids, ids)))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     flash = _rank_counts()["flash"]
     return {"rank": rank, "losses": losses, "step_ms": ms, "flash": flash,
-            "collectives": C.collective_stats(),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "nvcc": _rank_counts()["nvcc"]}
 
 
-def phase_train_tp(pt_pkg):
+def phase_train_tp(pt_pkg, job):
     """10c: Llama-3-8B widths at ``TRAIN_TP_LAYERS`` layers, bf16, mp2 and dp2
-    on two ranks that share the card over gloo, against a one-process
-    TrainStep."""
+    against a one-process TrainStep. ``job``: the SPMD arms' spawn (two
+    ranks that share the card over gloo, :func:`_train_tp_rank`), started
+    beside the untimed parity phases and read here: losses and launches.
+    Then each spec's single-process arm in this process: losses (bit-equal
+    to the SPMD arm's), rank 0's first gradients of ``TRAIN_TP_GRADS``
+    against one process's, launches, and rank 0's collectives timed."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from paddlepaddle_tpu_torch.distributed import spawn
-
-    t0 = time.perf_counter()
-    specs = ("mp2", "dp2")
-    ranks = spawn(_train_tp_rank, args=(specs,), nprocs=2, **TP_SPAWN)
-    runs = {spec: [r[spec] for r in ranks] for spec in specs}
-    wall = time.perf_counter() - t0
+    ranks = job.result()
+    runs = {spec: [r[spec] for r in ranks] for spec in TRAIN_TP_SPECS}
     cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
                               num_hidden_layers=TRAIN_TP_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     model = pt_pkg.LlamaForCausalLM(cfg, device="cuda", seed=0,
                                     init_std=0.02)
     ref = pt_pkg.TrainStep(model, pt_pkg.AdamW(
-        learning_rate=1e-4, parameters=model.parameters(),
+        learning_rate=1e-4, parameters=model.named_parameters(),
         grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0)), _llm_loss)
+    want = _first_grads(ref.optimizer, TRAIN_TP_GRADS)
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (TRAIN_TP_BATCH, TRAIN_TP_SEQ))).cuda()
     one, one_ms = [], []
@@ -5926,64 +5975,80 @@ def phase_train_tp(pt_pkg):
     del model, ref
     gc.collect()
     torch.cuda.empty_cache()
-    single = {spec: _train_tp_single(pt_pkg, spec, cfg, ids)
+    single = {spec: _train_tp_single(pt_pkg, spec, cfg, ids, want)
               for spec in runs}
     L = TRAIN_TP_LAYERS
     out, bad = {}, []
     summary = {}
     for spec, ranks in runs.items():
         err = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], one))
-        coll = ranks[0]["collectives"]
         summary[spec] = {
             "losses": [r["losses"] for r in ranks],
             "max_abs_loss_err": err,
-            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "step_ms_by_rank_beside_parity": [r["step_ms"] for r in ranks],
             "flash_launches_by_rank": [r["flash"] for r in ranks],
-            "allreduce_ms_per_step":
-                coll.get("all_reduce", {}).get("seconds", 0.0) * 1e3,
-            "allgather_ms_per_step":
-                coll.get("all_gather", {}).get("seconds", 0.0) * 1e3,
-            "collectives_one_step": coll,
             "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
             "nvcc_in_ranks": sum(r["nvcc"] for r in ranks)}
-        want = {"flash_fwd": L * TRAIN_TP_STEPS,
-                "flash_bwd_dq": L * TRAIN_TP_STEPS,
-                "flash_bwd_dkv": L * TRAIN_TP_STEPS}
+        want_launches = {"flash_fwd": L * TRAIN_TP_STEPS,
+                         "flash_bwd_dq": L * TRAIN_TP_STEPS,
+                         "flash_bwd_dkv": L * TRAIN_TP_STEPS}
         one_arm = single[spec]
         one_arm["bit_equal_to_spmd"] = one_arm["losses"] == ranks[0]["losses"]
+        coll = one_arm["collectives_rank0"]
+        one_arm["allreduce_ms_per_step"] = \
+            coll.get("all_reduce", {}).get("seconds", 0.0) * 1e3
+        one_arm["allgather_ms_per_step"] = \
+            coll.get("all_gather", {}).get("seconds", 0.0) * 1e3
         summary[f"{spec} single-process"] = one_arm
         if err > TRAIN_TP_LOSS_TOL or summary[spec]["nvcc_in_ranks"] \
-                or any(r["flash"] != want for r in ranks):
+                or any(r["flash"] != want_launches for r in ranks):
             bad.append(spec)
         if not one_arm["bit_equal_to_spmd"] or not one_arm["workers_gone"] \
-                or one_arm["held_gb"] > HELD_GB_TOL or one_arm["nvcc_in_worker"] \
+                or one_arm["held_gb"] > HELD_GB_TOL \
+                or one_arm["nvcc_in_worker"] \
+                or max(one_arm["grad_rel_err"].values()) > TRAIN_TP_GRAD_RTOL \
                 or any(r["launches"][k] != v for r in one_arm["ranks"]
-                       for k, v in want.items()):
+                       for k, v in want_launches.items()):
             bad.append(f"{spec} single-process")
         out[f"train_tp {spec} flash rank0"] = ranks[0]["flash"]
         out[f"train_tp {spec} single-process flash by rank"] = [
-            {k: r["launches"][k] for k in want} for r in one_arm["ranks"]]
+            {k: r["launches"][k] for k in want_launches}
+            for r in one_arm["ranks"]]
     emit({"phase": "train_tp", "nvidia_smi": nvidia_smi_line(),
           "model": f"llama3_8b widths, {L} layers, bf16",
           "backend": "gloo (2 ranks share cuda:0; collectives via host)",
           "batch": [TRAIN_TP_BATCH, TRAIN_TP_SEQ],
           "one_process": {"losses": one, "step_ms": one_ms,
                           "peak_gb": one_peak},
-          "loss_tol": TRAIN_TP_LOSS_TOL, "wall_s": wall, **summary})
+          "loss_tol": TRAIN_TP_LOSS_TOL, "grad_rtol": TRAIN_TP_GRAD_RTOL,
+          **summary})
     if bad:
         raise AssertionError(f"train_tp failed for {bad}: {summary}")
     return out
 
 
-def _train_tp_single(pt_pkg, spec, cfg, ids):
+def _slice_err(got, want, rank=0) -> float:
+    """Rank ``rank``'s gradient ``got`` (whole, or its equal slice along the
+    dim whose size differs) against the same slice of the whole gradient
+    ``want``: the relative Frobenius norm of the difference."""
+    for dim, (a, b) in enumerate(zip(got.shape, want.shape)):
+        if a != b:
+            want = want.narrow(dim, rank * a, a)
+    return float((got - want).norm() / want.norm())
+
+
+def _train_tp_single(pt_pkg, spec, cfg, ids, want):
     """10c': ``spec``'s single-process arm: ``ShardedTrainStep`` over
     ``train_plan(spec)`` built in this process (rank 0; the step starts rank
     1 on ``cuda:0`` over gloo groups it owns) on the SPMD arm's seed,
-    optimizer and batch. Losses, each rank's launches and peak memory (read
-    through the step), construction seconds, whether the worker is gone
-    after ``close()`` and the memory this process still holds then."""
+    optimizer and batch. Losses, rank 0's first gradients against ``want``
+    (one process's), each rank's launches and peak memory (read through
+    the step), rank 0's collectives in the last step (timed), construction
+    seconds, whether the worker is gone after ``close()`` and the memory
+    this process still holds then."""
     import torch
 
+    from paddlepaddle_tpu_torch.distributed import collective as C
     from paddlepaddle_tpu_torch.distributed import train_plan
     from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
 
@@ -5994,19 +6059,25 @@ def _train_tp_single(pt_pkg, spec, cfg, ids):
     model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
     t0 = time.perf_counter()
     step = ShardedTrainStep(
-        model, pt_pkg.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+        model, pt_pkg.AdamW(learning_rate=1e-4,
+                            parameters=model.named_parameters(),
                             grad_clip=pt_pkg.ClipGradByGlobalNorm(1.0)),
         _llm_loss, plan=train_plan(spec, data_axes=("dp",)))
     ctor_s = time.perf_counter() - t0
+    got = _first_grads(step.optimizer, TRAIN_TP_GRADS)
     pids, startup = step.workers.pids, dict(step.workers.startup)
     try:
         step._rank_stats(reset=True)
         losses, ms = [], []
-        for _ in range(TRAIN_TP_STEPS):
+        for i in range(TRAIN_TP_STEPS):
+            C.reset_collective_stats()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            losses.append(float(step(ids, ids)))
+            with C.timing(i == TRAIN_TP_STEPS - 1):
+                losses.append(float(step(ids, ids)))
+            torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
+        coll = C.collective_stats()
         ranks = step._rank_stats()
     finally:
         step.close()
@@ -6014,6 +6085,9 @@ def _train_tp_single(pt_pkg, spec, cfg, ids):
     del step, model
     held = _held_gb(before)
     return {"losses": losses, "step_ms": ms, "construction_s": ctor_s,
+            "grad_rel_err": {n: _slice_err(got[n], want[n])
+                             for n in sorted(want)},
+            "collectives_rank0": coll,
             "worker_startup_s": startup, "workers_gone": gone,
             "held_gb": held, "nvcc_in_worker": sum(r["nvcc"]
                                                    for r in ranks[1:]),
@@ -6036,7 +6110,7 @@ EP_PARITY_LOSS_RTOL = 1e-5   # f32: the partial combine's sum over ep and
 #                              the logits' gather over dp reorder sums only
 EP_PARITY_PARAM_ATOL = 1e-4  # a tenth of one AdamW step's move at lr 1e-3
 TRAIN_EP_LAYERS = 2          # DeepSeekMoE-16B widths at 2 of 28 layers
-TRAIN_EP_STEPS = 3
+TRAIN_EP_STEPS = 2
 TRAIN_EP_LOSS_TOL = 0.02     # abs, bf16 losses, ep2 vs one process
 # drop shares of a layer after the first: its input went through a bf16
 # combine summed over ep, which rounds apart from one process's
@@ -6295,12 +6369,12 @@ def _nccl_world1_rank():
     return out
 
 
-def phase_nccl_world1(pt_pkg):
-    """10d: one NCCL rank: the plan's decode chunk captured with the NCCL
-    all-reduce inside, tokens bit-equal to the plan-less engine's."""
-    from paddlepaddle_tpu_torch.distributed import spawn
-
-    (r,) = spawn(_nccl_world1_rank, nprocs=1, **TP_SPAWN)
+def phase_nccl_world1(pt_pkg, job):
+    """10d: one NCCL rank (``job``: its spawn of :func:`_nccl_world1_rank`,
+    started beside the untimed parity phases): the plan's decode chunk
+    captured with the NCCL all-reduce inside, tokens bit-equal to the
+    plan-less engine's."""
+    (r,) = job.result()
     cap = r["plan"]["capture"] or {}
     checks = {
         "backend_nccl": r["backend"] == "nccl",
@@ -6633,7 +6707,7 @@ def phase_router_tp(pt_pkg):
         r.submit(rng.integers(0, V, (64,)), max_new_tokens=2).result(600)
         chaos.configure("serving.decode:exc:x2", seed=1234)
         futs = [r.submit(rng.integers(0, V, (int(rng.integers(32, 256)),)),
-                         max_new_tokens=16) for _ in range(8)]
+                         max_new_tokens=8) for _ in range(8)]
         oks, errs = 0, []
         for f in futs:
             try:
@@ -6782,11 +6856,12 @@ def _fsdp_reference(pt_pkg, cfg, make, ids) -> dict:
                        for n, p in m1.named_parameters()}}
 
 
-def _fsdp_arm(model, step, ids, ref):
+def _fsdp_arm(model, step, ids, ref, sharded="fsdp"):
     """Train one arm of fsdp_parity (``step`` over ``model``, on every
     rank) and, on the rank that holds ``ref``, hold it against the one
     process: this rank's launches of ``_FSDP_KERNELS`` and, there, the
-    losses, the parameter error and whether every gate held."""
+    losses, the parameter error and whether every gate held (a parameter
+    sharded over ``sharded`` among them, unless it is None)."""
     step._rank_stats(reset=True)
     got = [float(step(ids, ids)) for _ in range(FSDP_PARITY_STEPS)]
     ranks = step._rank_stats()
@@ -6808,7 +6883,7 @@ def _fsdp_arm(model, step, ids, ref):
         expected_launches=want)
     rec["ok"] = (rec["max_rel_loss_err"] <= FSDP_LOSS_RTOL
                  and rec["max_abs_param_err"] <= FSDP_PARAM_ATOL
-                 and "fsdp" in rec["sharded_over"])
+                 and (sharded is None or sharded in rec["sharded_over"]))
     return rec
 
 
@@ -6833,7 +6908,9 @@ def _fsdp_parity_rank(ids_np):
             ref = _fsdp_reference(pt, cfg, make, ids)
             ref["layers"] = cfg.num_hidden_layers
         arms = FSDP_LLAMA_ARMS[1:] if label == "llama" else (
-            ("dp2fsdp2", "dp2fsdp2", ("dp", "fsdp"), False),)
+            ("dp2fsdp2", "dp2fsdp2", ("dp", "fsdp"), False),
+            # ep beside fsdp: the trunk on fsdp, each rank's E/2 banks
+            ("fsdp2ep2", "fsdp2ep2", ("fsdp",), False))
         for arm, spec, data_axes, p_g_os in arms:
             model = make(cfg)
             opt = _fsdp_parity_opt(pt, model)
@@ -6856,7 +6933,9 @@ def phase_fsdp_parity(pt_pkg):
     the ``p_g_os`` arm over ``dp2fsdp2`` with ``data_axes=("dp",)`` (every
     parameter's largest dim on fsdp, the batch on dp alone), and the f32
     MoE of ``EP_PARITY`` (fused) on ``dp2fsdp2`` (``moe_train_rules``: the
-    trunk on fsdp, the banks whole), these four on four ranks the script
+    trunk on fsdp, the banks whole) and on ``fsdp2ep2`` with
+    ``data_axes=("fsdp",)`` (the trunk on fsdp, each rank's E/2 banks on
+    ep: kernel 8 on the local banks), these five on four ranks the script
     spawns (SPMD). Each against a one-process ``TrainStep`` on the card,
     two momentum steps (:func:`_fsdp_parity_opt`) on the same weights and
     batch: losses, synced parameters, kernels 2-4 on every rank, and
@@ -6864,19 +6943,15 @@ def phase_fsdp_parity(pt_pkg):
     import numpy as np
     import torch
 
-    from paddlepaddle_tpu_torch.distributed import spawn, train_plan
+    from paddlepaddle_tpu_torch.distributed import train_plan
     from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
 
     ids_np = np.random.default_rng(0).integers(0, 1024, FSDP_PARITY_BATCH)
     t0 = time.perf_counter()
-    ranks = spawn(_fsdp_parity_rank, args=(ids_np,), nprocs=4, **TP_SPAWN)
-    spmd_s = time.perf_counter() - t0
-    out = {"spmd_wall_s": spmd_s}
-    for key, rec in ranks[0].items():
-        if key not in ("rank", "nvcc"):
-            rec["launches_by_rank"] = [r[key]["launches_by_rank"][0]
-                                       for r in ranks]
-            out[key] = rec
+    # the four SPMD ranks start and run while this process runs the fsdp2
+    # arm (the phase's time is the longer of the two)
+    job = _spawn_beside(_fsdp_parity_rank, (ids_np,), 4)
+    out = {}
 
     # fsdp2 in this process: the single-process form
     _, cfg, make, rules = _fsdp_models(pt_pkg)[0]
@@ -6899,6 +6974,13 @@ def phase_fsdp_parity(pt_pkg):
     del step, model, ref
     gc.collect()
     torch.cuda.empty_cache()
+    ranks = job.result()
+    out["spmd_wall_s"] = time.perf_counter() - t0
+    for key, rec in ranks[0].items():
+        if key not in ("rank", "nvcc"):
+            rec["launches_by_rank"] = [r[key]["launches_by_rank"][0]
+                                       for r in ranks]
+            out[key] = rec
 
     bad = []
     for key, rec in out.items():
@@ -6926,11 +7008,13 @@ def phase_fsdp_parity(pt_pkg):
 
 def phase_train_fsdp(pt_pkg):
     """10k: Llama-3-8B widths at ``TRAIN_TP_LAYERS`` layers, bf16,
-    multi-precision AdamW + global-norm clip, batch 4 x 512, 3 steps: a
-    one-process ``TrainStep`` (then freed), then ``ShardedTrainStep`` over
-    ``fsdp2`` in this process (rank 1 started on ``cuda:0``, gloo). Losses
-    within ``TRAIN_TP_LOSS_TOL``; each rank's resident bytes (parameter
-    shards + optimizer state, counted from the tensors) at most
+    multi-precision AdamW + global-norm clip, batch 4 x 512,
+    ``TRAIN_TP_STEPS`` steps: a one-process ``TrainStep`` (then freed), then
+    ``ShardedTrainStep`` over ``fsdp2`` in this process (rank 1 started on
+    ``cuda:0``, gloo). Losses within ``TRAIN_TP_LOSS_TOL``; rank 0's first
+    gradients of ``TRAIN_TP_GRADS`` (its fsdp slices) within
+    ``TRAIN_TP_GRAD_RTOL`` of one process's; each rank's resident bytes
+    (parameter shards + optimizer state, counted from the tensors) at most
     ``TRAIN_FSDP_RESIDENT`` of one process's; kernels 2-4 on each rank;
     each rank's peak GB, ms a step, and the all-gathers' and
     reduce-scatters' counts, bytes and (rank 0, last step) ms."""
@@ -6969,6 +7053,7 @@ def phase_train_fsdp(pt_pkg):
     model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
     one = pt_pkg.TrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
                            _llm_loss)
+    want = _first_grads(one.optimizer, TRAIN_TP_GRADS)
     one_losses, one_ms = run(one)
     one_peak = torch.cuda.max_memory_allocated() / 1e9
     one_bytes = resident_bytes(one.params.values(), one.optimizer)
@@ -6983,6 +7068,7 @@ def phase_train_fsdp(pt_pkg):
     step = ShardedTrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
                             _llm_loss, plan=train_plan("fsdp2"))
     ctor_s = time.perf_counter() - t0
+    got = _first_grads(step.optimizer, TRAIN_TP_GRADS)
     pids, startup = step.workers.pids, dict(step.workers.startup)
     try:
         step._rank_stats(reset=True)
@@ -6997,6 +7083,7 @@ def phase_train_fsdp(pt_pkg):
     torch.cuda.empty_cache()
 
     err = max(abs(a - b) for a, b in zip(losses, one_losses))
+    grad_err = {n: _slice_err(got[n], want[n]) for n in sorted(want)}
     share = [r["resident_bytes"] / one_bytes for r in ranks]
     n = L * TRAIN_TP_STEPS
     want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
@@ -7017,7 +7104,8 @@ def phase_train_fsdp(pt_pkg):
                            "peak_gb": one_peak,
                            "resident_gb": one_bytes / 1e9},
            "fsdp2": {"losses": losses, "step_ms": ms,
-                     "max_abs_loss_err": err, "construction_s": ctor_s,
+                     "max_abs_loss_err": err, "grad_rel_err": grad_err,
+                     "construction_s": ctor_s,
                      "worker_startup_s": startup,
                      "resident_gb_by_rank": [r["resident_bytes"] / 1e9
                                              for r in ranks],
@@ -7028,10 +7116,11 @@ def phase_train_fsdp(pt_pkg):
                      "collectives_per_step": per_step,
                      "nvcc_in_worker": sum(r["nvcc"] for r in ranks[1:]),
                      "workers_gone": gone, "held_gb": held},
-           "loss_tol": TRAIN_TP_LOSS_TOL,
+           "loss_tol": TRAIN_TP_LOSS_TOL, "grad_rtol": TRAIN_TP_GRAD_RTOL,
            "resident_share_max": TRAIN_FSDP_RESIDENT}
     emit(rec)
     if err > TRAIN_TP_LOSS_TOL or not np.isfinite(losses).all() \
+            or max(grad_err.values()) > TRAIN_TP_GRAD_RTOL \
             or max(share) > TRAIN_FSDP_RESIDENT \
             or any(r["launches"][k] != v for r in ranks
                    for k, v in want.items()) \
@@ -7064,6 +7153,10 @@ PP_PARITY_ARMS = (
     ("dp2fsdp1tp2pp2 1f1b", (2, 1, 2, 2), _PP_D4, "1f1b", 1, 1, False),
     ("moe dp1fsdp1ep2tp2pp2 1f1b", (1, 1, 2, 2, 2), _PP_D5, "1f1b", 1, 1,
      True),
+    # the 5-D hybrid (tests/test_hybrid_4d.py:196): context parallelism in
+    # the stages (one causal flash call over the gathered K/V prefix)
+    ("5d dp1fsdp1sp2tp2pp2 1f1b", (1, 1, 2, 2, 2),
+     ("dp", "fsdp", "sp", "tp", "pp"), "1f1b", 1, 1, "sp"),
 )
 # Llama-3-8B widths, 2 layers a stage on pp2: 4 of 32 layers
 TRAIN_PP_LAYERS = 2
@@ -7073,7 +7166,8 @@ TRAIN_PP_CFG = dict(hidden_size=4096, intermediate_size=14336, num_heads=32,
                     rms_norm_eps=1e-5)
 TRAIN_PP_BATCH, TRAIN_PP_M = (8, 1024), 8
 TRAIN_PP_SCHEDULES = ("1f1b", "gpipe", "zbh1")
-TRAIN_PP_TIMED = 2                 # after one warm-up call
+# timed calls a schedule, after one warm-up call before the first schedule
+TRAIN_PP_TIMED = 1
 # abs, bf16 losses, pipeline vs one rank (read: 1.2e-7 to 1.1e-6)
 TRAIN_PP_LOSS_TOL = 1e-4
 # relative Frobenius norm of the difference, bf16: the head's weight grad,
@@ -7121,7 +7215,7 @@ def _pp_problem(cfg, n_stages, seed, moe):
               "wk": w((h, cfg.num_kv_heads * hd), h),
               "wv": w((h, cfg.num_kv_heads * hd), h),
               "wo": w((cfg.num_heads * hd, h), cfg.num_heads * hd)}
-        if moe:
+        if moe is True:
             E, eh = PP_MOE["E"], PP_MOE["eh"]
             st.update(gate=w((h, E), h), eg=w((E, h, eh), h),
                       eu=w((E, h, eh), h), ed=w((E, eh, h), eh))
@@ -7147,7 +7241,7 @@ def _pp_oracle(H, cfg, stages, head, acts, ids, moe):
           for s in stages]
     hp = {k: v.clone().requires_grad_() for k, v in head.items()}
     a = acts.clone().requires_grad_()
-    if moe:
+    if moe is True:
         block = H.make_moe_block(cfg, PP_MOE["E"], topk=PP_MOE["topk"],
                                  capacity_factor=PP_MOE["cf"], tp_axis=None,
                                  fsdp_axis=None, ep_axis=None, ep_size=1,
@@ -7198,13 +7292,16 @@ def _pp_parity_rank():
         head = convert_pytree(hd_np, device=dev)
         acts = convert_pytree(a_np, device=dev)
         ids = torch.from_numpy(ids_np).to(dev)
-        if moe:
+        sp = "sp" if moe == "sp" else None
+        if moe is True:
             block = H.make_moe_block(
                 cfg, PP_MOE["E"], topk=PP_MOE["topk"],
                 capacity_factor=PP_MOE["cf"], ep_size=PP_MOE["ep_size"])
             specs = H.moe_stage_specs()
         else:
-            block, specs = H.make_llama_block(cfg), H.llama_stage_specs()
+            block = H.make_llama_block(cfg, sp_axis=sp,
+                                       sp_size=2 if sp else 1)
+            specs = H.llama_stage_specs()
         stacked = (ps.stack_stage_params(stages) if V == 1
                    else ps.stack_virtual_stage_params(stages, 2))
         if (shape, names) not in meshes:
@@ -7216,9 +7313,10 @@ def _pp_parity_rank():
         t0 = time.perf_counter()
         loss, g_st, g_h, g_a = ps.spmd_pipeline_train(
             stacked, head, acts, ids, block,
-            H.make_vocab_parallel_head(cfg), mesh, schedule=sched,
-            n_microbatches=M, num_virtual=V, data_axis=("dp", "fsdp"),
-            param_specs=specs, head_specs=H.llama_head_specs())
+            H.make_vocab_parallel_head(cfg, sp_axis=sp), mesh,
+            schedule=sched, n_microbatches=M, num_virtual=V,
+            data_axis=("dp", "fsdp"), param_specs=specs,
+            head_specs=H.llama_head_specs(), seq_axis=sp)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
         launches = _rank_counts()["flash"]
@@ -7247,21 +7345,26 @@ def _pp_parity_rank():
     return out
 
 
-def phase_pp_parity(pt_pkg):
+def phase_pp_parity(pt_pkg, job=None):
     """10l: the pipeline gate. ``spmd_pipeline_train`` over the hybrid's
     Llama stages (f32, hidden 256, head dim 64, ``PP_PARITY_CFG``) on 8
     ranks the script spawns once (SPMD, gloo, all on ``cuda:0``):
     ``dp1 fsdp2 tp2 pp2`` under 1F1B, GPipe and ZBH1, 1F1B at two layers
     a stage, the interleaved and ZBVPP schedules at V 2; ``dp2 fsdp1 tp2
-    pp2`` under 1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``. Each
-    rank holds the whole loss (rtol ``PP_LOSS_RTOL``) and the stage, head
-    and input-cotangent gradients (``PP_GRAD_RTOL`` / ``PP_GRAD_ATOL``)
-    against the unsharded oracle with plain attention on the card, and
-    its kernel 2-4 launches against :func:`pp_predicted_launches`."""
-    from paddlepaddle_tpu_torch.distributed import spawn
-
+    pp2`` under 1F1B; the MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``; the
+    5-D hybrid ``dp1 fsdp1 sp2 tp2 pp2`` (context-parallel stages and
+    head, ``seq_axis="sp"``: one causal flash call a layer over the
+    gathered K/V prefix). Each rank holds the whole loss (rtol
+    ``PP_LOSS_RTOL``) and the stage, head and input-cotangent gradients
+    (``PP_GRAD_RTOL`` / ``PP_GRAD_ATOL``) against the unsharded oracle
+    with plain attention on the card, and its kernel 2-4 launches against
+    :func:`pp_predicted_launches`.
+    ``job``: the ranks already started (:func:`_spawn_beside`: ``main``
+    runs them beside the untimed parity phases), else they start here."""
     t0 = time.perf_counter()
-    ranks = spawn(_pp_parity_rank, nprocs=8, **TP_SPAWN)
+    if job is None:
+        job = _spawn_beside(_pp_parity_rank, (), 8)
+    ranks = job.result()
     wall = time.perf_counter() - t0
     arms, bad = {}, []
     for arm, *_ in PP_PARITY_ARMS:
@@ -7292,8 +7395,8 @@ def phase_pp_parity(pt_pkg):
 
 def _train_pp_rank():
     """train_pp on one of two ranks: every schedule of
-    ``TRAIN_PP_SCHEDULES`` (a warm-up call and ``TRAIN_PP_TIMED`` timed),
-    then, on rank 0, the one-rank arm."""
+    ``TRAIN_PP_SCHEDULES`` (``TRAIN_PP_TIMED`` timed calls, a warm-up
+    call before the first), then, on rank 0, the one-rank arm."""
     import torch
 
     from paddlepaddle_tpu_torch.distributed import ProcessMesh
@@ -7328,7 +7431,9 @@ def _train_pp_rank():
     for name in TRAIN_PP_SCHEDULES:
         sched = build_schedule(name, 2, M)
         calls = []
-        for i in range(1 + TRAIN_PP_TIMED):
+        # one warm-up call, before the first schedule's timed calls
+        n_calls = TRAIN_PP_TIMED + (name == TRAIN_PP_SCHEDULES[0])
+        for i in range(n_calls):
             _reset_counts()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -7357,7 +7462,7 @@ def _train_pp_rank():
                                and torch.isfinite(g_h["w"]).all()
                                and torch.isfinite(g_a).all()),
                 "launches": _rank_counts()["flash"]})
-            if rank == 0 and i == TRAIN_PP_TIMED:
+            if rank == 0 and i == n_calls - 1:
                 # held on the host, so the next calls' peaks leave them out
                 kept[name] = {"head.w": g_h["w"].cpu(),
                               "stage.wq": g_st["wq"].cpu(), "dacts": g_a.cpu()}
@@ -7431,15 +7536,16 @@ def phase_train_pp(pt_pkg):
     vocab 128256), ``TRAIN_PP_LAYERS`` layers a stage on ``pp2`` (two
     ranks the script spawns, sharing ``cuda:0`` over gloo), bf16, batch
     ``TRAIN_PP_BATCH``, ``TRAIN_PP_M`` microbatches: 1F1B, GPipe and ZBH1,
-    each a warm-up call and ``TRAIN_PP_TIMED`` timed, beside the one-rank
-    arm. Per schedule and rank: step ms (the schedule walk and the sums
-    over ``pp``; the final gathers apart), the schedule's bubble, P2P
-    calls, bytes and ms, the head-grad and ``dacts`` sums over ``pp``,
-    peak GB beside ``memory_estimate`` + the parameters each rank holds,
-    kernels 2-4 against :func:`pp_predicted_launches`, the loss against
-    the one-rank arm's (``TRAIN_PP_LOSS_TOL``), and the head's weight
-    grad, the stages' wq grads and ``dacts`` against its ``.grad``
-    (relative norm, ``TRAIN_PP_GRAD_RTOL``)."""
+    ``TRAIN_PP_TIMED`` timed calls each (one warm-up call before the
+    first), beside the one-rank arm. Per schedule and rank: step ms (the
+    schedule walk and the sums over ``pp``; the final gathers apart), the
+    schedule's bubble, P2P calls, bytes and ms, the head-grad and
+    ``dacts`` sums over ``pp``, peak GB beside ``memory_estimate`` + the
+    parameters each rank holds, kernels 2-4 against
+    :func:`pp_predicted_launches`, the loss against the one-rank arm's
+    (``TRAIN_PP_LOSS_TOL``), and the head's weight grad, the stages' wq
+    grads and ``dacts`` against its ``.grad`` (relative norm,
+    ``TRAIN_PP_GRAD_RTOL``)."""
     import numpy as np
 
     from paddlepaddle_tpu_torch.distributed import spawn
@@ -7461,7 +7567,7 @@ def phase_train_pp(pt_pkg):
     bad, launches = [], {}
     for name in TRAIN_PP_SCHEDULES:
         per = [r[name] for r in ranks]
-        timed = [[c for c in p["calls"][1:]] for p in per]
+        timed = [p["calls"][-TRAIN_PP_TIMED:] for p in per]
         loss = per[0]["calls"][-1]["loss"]
         err = abs(loss - one["losses"][-1])
         s_rec = {
@@ -7495,6 +7601,443 @@ def phase_train_pp(pt_pkg):
     if bad or nvcc or not np.isfinite(one["losses"]).all():
         raise AssertionError(f"train_pp failed for {bad} (nvcc {nvcc}): "
                              f"{rec}")
+    return {"launches_by_rank": launches}
+
+
+# -- context and sequence parallelism (A10 slice 5) ----------------------------
+
+# sp_parity: f32, head dim 64, so the f32 kernels 2-4 run (not the plain route)
+SP_TINY = dict(TP_TINY, num_attention_heads=16, num_key_value_heads=8)
+SP_RING = dict(b=2, s=1024, h=8, kvh=4, d=64)   # the ring cases' q [b, s, h, d]
+SP_RING_ATOL = 1e-4        # f32 kernels vs the plain dense attention, abs
+SP_PARITY_STEPS = 2
+SP_GRAD_RTOL = 1e-4        # a norm weight's first gradient, at its scale
+# (arm, mesh spec, data axes): the context-parallel step's SPMD arm
+SP_CP_ARMS = (("dp2sp2", "dp2sp2", ("dp",)),)
+# train_cp: Llama-3-8B widths at 2 of 32 layers, one 8192-token sequence
+TRAIN_CP_LAYERS = 2
+TRAIN_CP_SEQ = 8192        # Llama-3-8B's max_position_embeddings
+TRAIN_CP_STEPS = 2
+# abs, bf16 losses, sp2 vs one rank: read 1.6e-4 on every sound run
+TRAIN_CP_LOSS_TOL = 1e-3
+# relative Frobenius norm, bf16 first gradients: read 0.0081 (head), 0.0108
+# (wq), 0.0113 (embedding) on every sound run
+TRAIN_CP_GRAD_RTOL = 0.02
+
+
+def _spawn_beside(fn, args, nprocs, pool=None):
+    """Start ``spawn(fn, args)`` in a thread (the ranks' start and their
+    work overlap what this process does next); ``result()`` joins it and
+    returns the ranks' values, or raises what the spawn raised. Spawns
+    given the same one-thread ``pool`` run one after the other."""
+    from paddlepaddle_tpu_torch.distributed import spawn
+
+    own = pool is None
+    pool = pool or concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(spawn, fn, args=args, nprocs=nprocs, **TP_SPAWN)
+    if own:
+        pool.shutdown(wait=False)
+    return fut
+
+
+def ring_predicted_launches(n: int, r: int, causal: bool, calls: int = 1,
+                            layers: int = 1) -> dict:
+    """Kernels 2-4 launched on rank ``r`` of an ``n``-rank ring by
+    ``calls`` forward+backward passes over ``layers`` attention layers:
+    under ``causal`` the blocks ``j <= r`` (``r + 1`` of them), else all
+    ``n``; one forward, one dQ and one dK/dV launch a block."""
+    k = calls * layers * ((r + 1) if causal else n)
+    return {"flash_fwd": k, "flash_bwd_dq": k, "flash_bwd_dkv": k}
+
+
+def _first_grads(opt, names):
+    """Patch this rank's optimizer to keep the first gradients it is given
+    for ``names`` (on the host): ``{}`` filled at the first ``apply``."""
+    kept = {}
+    orig = opt.apply
+
+    def apply(grads=None, lr=None):
+        if not kept:
+            for n, g in zip(opt._names, grads):
+                if n in names:
+                    kept[n] = g.detach().float().cpu()
+        return orig(grads, lr)
+
+    opt.apply = apply
+    return kept
+
+
+def _grad_err(got, want) -> float:
+    """The largest absolute difference over the reference's largest entry."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _sp_ring_case(mesh, causal, q, k, v, cot):
+    """One ring case on this rank: its blocks through ``ring_attention``
+    (the kernel path), forward and backward, against the plain dense
+    attention on the whole tensors on the card; its launches."""
+    import torch
+
+    from paddlepaddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_plain
+    from paddlepaddle_tpu_torch.ops.kernels.ring_attention import (
+        ring_attention, ring_of)
+
+    ring = ring_of(mesh, "sp")
+    n, r = ring.n, ring.r
+    blocks = [t.chunk(n, 1)[r].contiguous().requires_grad_() for t in
+              (q, k, v)]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ring_attention(*blocks, mesh, causal=causal)
+    (out * cot.chunk(n, 1)[r]).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _rank_counts()["flash"]
+    whole = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    rep = q.shape[2] // k.shape[2]
+    dense = flash_attention_plain(
+        whole[0], whole[1].repeat_interleave(rep, 2),
+        whole[2].repeat_interleave(rep, 2), causal,
+        1.0 / float(q.shape[-1]) ** 0.5)[0]
+    (dense * cot).sum().backward()
+    errs = {"out": float((out.detach() - dense.detach().chunk(n, 1)[r])
+                         .abs().max())}
+    for name, b, w in zip(("dq", "dk", "dv"), blocks, whole):
+        errs[name] = float((b.grad - w.grad.chunk(n, 1)[r]).abs().max())
+    want = ring_predicted_launches(n, r, causal)
+    return {"max_abs_err": max(errs.values()), "errs": errs, "ms": ms,
+            "launches": launches, "predicted": want,
+            "ok": max(errs.values()) <= SP_RING_ATOL and launches == want}
+
+
+def _sp_models(pt_pkg):
+    """sp_parity's f32 Llama (``SP_TINY``) with and without the
+    context-parallel axis: the same weights (seed 1)."""
+    import dataclasses
+
+    cfg = pt_pkg.LlamaConfig(**SP_TINY)
+    return (dataclasses.replace(cfg, context_parallel_axis="sp"), cfg,
+            lambda c: pt_pkg.LlamaForCausalLM(c, seed=1))
+
+
+def _sp_parity_rank(ids_np):
+    """sp_parity's four SPMD ranks: the ring cases over ``sp4`` and over
+    ``sp2`` (mesh ``dp2 sp2``: two rings), then the context-parallel step
+    on ``dp2 sp2`` (rank 0 also runs the one-process reference)."""
+    import torch
+
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh, train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    rank = _rank_init("gloo")
+    dev = torch.device("cuda")
+    out = {"rank": rank}
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = SP_RING
+    q = torch.randn((c["b"], c["s"], c["h"], c["d"]), generator=g,
+                    device=dev)
+    k = torch.randn((c["b"], c["s"], c["kvh"], c["d"]), generator=g,
+                    device=dev)
+    v = torch.randn((c["b"], c["s"], c["kvh"], c["d"]), generator=g,
+                    device=dev)
+    cot = torch.randn(q.shape, generator=g, device=dev)
+    for mesh_name, mesh in (("sp4", ProcessMesh(shape=[4],
+                                                dim_names=["sp"])),
+                            ("dp2sp2", ProcessMesh(shape=[2, 2],
+                                                   dim_names=["dp", "sp"]))):
+        for causal in (True, False):
+            out[f"ring {mesh_name} causal={causal}"] = _sp_ring_case(
+                mesh, causal, q, k, v, cot)
+    cp_cfg, cfg, make = _sp_models(pt)
+    ids = torch.from_numpy(ids_np).cuda()
+    ref = None
+    if rank == 0:
+        ref = _fsdp_reference(pt, cfg, make, ids)
+        ref["layers"] = cfg.num_hidden_layers
+    for arm, spec, data_axes in SP_CP_ARMS:
+        model = make(cp_cfg)
+        step = ShardedTrainStep(model, _fsdp_parity_opt(pt, model),
+                                _llm_loss, plan=train_plan(
+                                    spec, data_axes=data_axes),
+                                seq_axis="sp")
+        sp_r = step.plan.coords()["sp"]
+        rec = _fsdp_arm(model, step, ids, ref, sharded=None)
+        rec["predicted"] = ring_predicted_launches(
+            2, sp_r, True, SP_PARITY_STEPS, cfg.num_hidden_layers)
+        mine = rec.pop("launches_by_rank")[0]
+        rec["launches"] = {k: mine[k] for k in _FSDP_KERNELS[:3]}
+        out[f"cp {arm}"] = rec
+        del step, model
+        gc.collect()
+    out["nvcc"] = _rank_counts()["nvcc"]
+    return out
+
+
+def _sp_single_arms(pt_pkg, ids):
+    """sp_parity's single-process arms in this process (rank 0; the step
+    starts rank 1): the context-parallel step on ``dp1 sp2``, and Megatron
+    sequence parallelism on ``mp2`` through ``parallelize`` with
+    ``SequenceParallelBegin`` / ``End`` (the norm weights' first gradients
+    against one process's)."""
+    import torch
+
+    import paddlepaddle_tpu_torch.distributed as D
+    from paddlepaddle_tpu_torch.distributed import ShardingPlan, train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    cp_cfg, cfg, make = _sp_models(pt_pkg)
+    ref = _fsdp_reference(pt_pkg, cfg, make, ids)
+    ref["layers"] = cfg.num_hidden_layers
+    m1 = make(cfg)
+    _llm_loss(m1, ids, ids).backward()
+    norms = {n for n, _ in m1.named_parameters() if n.endswith("norm.weight")}
+    ref_grads = {n: p.grad.detach().float().cpu()
+                 for n, p in m1.named_parameters() if n in norms}
+    del m1
+    out = {}
+    model = make(cp_cfg)
+    step = ShardedTrainStep(model, _fsdp_parity_opt(pt_pkg, model),
+                            _llm_loss, plan=train_plan("dp1sp2"),
+                            seq_axis="sp")
+    pids = step.workers.pids
+    try:
+        rec = _fsdp_arm(model, step, ids, ref, sharded=None)
+    finally:
+        step.close()
+    rec["predicted_by_rank"] = [ring_predicted_launches(
+        2, r, True, SP_PARITY_STEPS, cfg.num_hidden_layers) for r in (0, 1)]
+    rec["workers_gone"] = _procs_gone(pids)
+    out["cp dp1sp2"] = rec
+    del step, model
+    gc.collect()
+
+    ap = D.auto_parallel
+    plan = {"mp_config": {"parallelize_plan": {
+        "embed_tokens": ap.SequenceParallelBegin(),
+        r"model\.layers\.\d+\.self_attn\.(q|k|v)_proj": D.ColWiseParallel(),
+        r"model\.layers\.\d+\.self_attn\.o_proj": D.RowWiseParallel(),
+        r"model\.layers\.\d+\.mlp\.(gate|up)_proj": D.ColWiseParallel(),
+        r"model\.layers\.\d+\.mlp\.down_proj": D.RowWiseParallel(),
+        "lm_head": [D.ColWiseParallel(gather_output=True),
+                    ap.SequenceParallelEnd()]}}}
+    model = make(cfg)
+    D.parallelize(model, config=plan)
+    marked = sorted(n for n, p in model.named_parameters()
+                    if getattr(p, "sequence_parallel", False))
+    opt = _fsdp_parity_opt(pt_pkg, model)
+    step = ShardedTrainStep(model, opt, _llm_loss,
+                            plan=ShardingPlan("mp2", rules=[(r".*", ())],
+                                              data_axes=()))
+    kept = _first_grads(step.optimizer, norms)
+    pids = step.workers.pids
+    try:
+        rec = _fsdp_arm(model, step, ids, ref, sharded="mp")
+    finally:
+        step.close()
+    L = cfg.num_hidden_layers * SP_PARITY_STEPS
+    rec.update(
+        marked=marked, workers_gone=_procs_gone(pids),
+        predicted_by_rank=[{"flash_fwd": L, "flash_bwd_dq": L,
+                            "flash_bwd_dkv": L}] * 2,
+        norm_grad_rel_err={n: _grad_err(kept[n], ref_grads[n])
+                           for n in sorted(norms)})
+    rec["ok"] = (rec["max_rel_loss_err"] <= FSDP_LOSS_RTOL
+                 and rec["max_abs_param_err"] <= FSDP_PARAM_ATOL
+                 and set(marked) == norms
+                 and max(rec["norm_grad_rel_err"].values()) <= SP_GRAD_RTOL)
+    out["sequence_parallel mp2"] = rec
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_parity(pt_pkg):
+    """10n: context and sequence parallelism on ranks that share
+    ``cuda:0`` over gloo, f32, head dim 64 (the f32 kernels 2-4). Four
+    SPMD ranks the script spawns: ring attention (``SP_RING``, 8 query /
+    4 KV heads) over ``sp4`` and over ``sp2`` (``dp2 sp2``: two rings),
+    causal and full, forward and gradients against the plain dense
+    attention on the card (``SP_RING_ATOL``), kernels 2-4 against
+    :func:`ring_predicted_launches` on every rank; the context-parallel
+    Llama (``SP_TINY``) through ``ShardedTrainStep(seq_axis="sp")`` on
+    ``dp2 sp2``. In this process (single-process form): the same on
+    ``dp1 sp2``, and ``SequenceParallelBegin`` / ``End`` on ``mp2``. Each
+    step arm: two momentum steps against a one-process ``TrainStep`` on the
+    same weights and batch (losses, synced parameters: fsdp_parity's
+    gates), launches against the prediction; the ``mp2`` arm also holds
+    every norm weight's first gradient (summed over ``mp``) against the
+    one process's (``SP_GRAD_RTOL``)."""
+    import numpy as np
+    import torch
+
+    ids_np = np.random.default_rng(0).integers(0, 1024, FSDP_PARITY_BATCH)
+    t0 = time.perf_counter()
+    # the four SPMD ranks start and run while this process runs the
+    # single-process arms (the phase's time is the longer of the two)
+    job = _spawn_beside(_sp_parity_rank, (ids_np,), 4)
+    single = _sp_single_arms(pt_pkg, torch.from_numpy(ids_np).cuda())
+    single_s = time.perf_counter() - t0
+    ranks = job.result()
+    out, bad = {"spmd_wall_s": time.perf_counter() - t0,
+                "single_wall_s": single_s}, []
+    for key in ranks[0]:
+        if key in ("rank", "nvcc"):
+            continue
+        recs = [r[key] for r in ranks]
+        if key.startswith("ring"):
+            out[key] = {
+                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                "ms_by_rank": [r["ms"] for r in recs],
+                "launches_by_rank": [r["launches"] for r in recs],
+                "predicted_by_rank": [r["predicted"] for r in recs]}
+            ok = all(r["ok"] for r in recs)
+        else:
+            rec = dict(recs[0])
+            rec["launches_by_rank"] = [r["launches"] for r in recs]
+            rec["predicted_by_rank"] = [r["predicted"] for r in recs]
+            rec.pop("launches")
+            rec.pop("predicted")
+            out[key] = rec
+            ok = rec["ok"] and rec["launches_by_rank"] == \
+                rec["predicted_by_rank"]
+        if not ok:
+            bad.append(key)
+    for key, rec in single.items():
+        launches = [{k: r[k] for k in _FSDP_KERNELS[:3]}
+                    for r in rec["launches_by_rank"]]
+        rec["launches_by_rank"] = launches
+        out[key] = rec
+        if not rec["ok"] or launches != rec["predicted_by_rank"] \
+                or not rec["workers_gone"]:
+            bad.append(key)
+    nvcc = sum(r["nvcc"] for r in ranks)
+    emit({"phase": "sp_parity", "nvidia_smi": nvidia_smi_line(),
+          "ring": dict(SP_RING, dtype="float32"), "ring_atol": SP_RING_ATOL,
+          "llama": "f32, hidden 1024, 16 heads / 8 KV (head dim 64), 2 "
+                   "layers", "batch": FSDP_PARITY_BATCH,
+          "loss_rtol": FSDP_LOSS_RTOL, "param_atol": FSDP_PARAM_ATOL,
+          "norm_grad_rtol": SP_GRAD_RTOL, "nvcc_in_ranks": nvcc, **out})
+    if bad or nvcc:
+        raise AssertionError(f"sp_parity failed for {bad} (nvcc in the "
+                             f"ranks: {nvcc}): {out}")
+    return {f"sp_parity {k}": v["launches_by_rank"] for k, v in out.items()
+            if isinstance(v, dict)}
+
+
+def phase_train_cp(pt_pkg):
+    """10o: context parallelism at full width. Llama-3-8B widths (hidden
+    4096, 32 q / 8 KV heads, MLP 14336, vocab 128256) at
+    ``TRAIN_CP_LAYERS`` layers, bf16, one ``TRAIN_CP_SEQ``-token sequence,
+    multi-precision AdamW + global-norm clip, ``TRAIN_CP_STEPS`` steps:
+    first a one-rank ``TrainStep`` (then freed), then
+    ``ShardedTrainStep(seq_axis="sp")`` over ``dp1 sp2`` (this process is
+    rank 0 and starts rank 1; both share ``cuda:0`` over gloo, the ring's
+    K/V crossing the host). Losses against the one rank
+    (``TRAIN_CP_LOSS_TOL``), the first gradients of the LM head, layer 0's
+    ``wq`` and the embedding (relative norm, ``TRAIN_CP_GRAD_RTOL``), step
+    ms, each rank's peak GB beside the one rank's, kernels 2-4 a rank
+    against :func:`ring_predicted_launches`, and rank 0's ring bytes a
+    step and, from the last step (run under collective timing), seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import collective, train_plan
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=TRAIN_CP_LAYERS)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, TRAIN_CP_SEQ))).cuda()
+    names = {"lm_head.weight", "model.embed_tokens.weight",
+             "model.layers.0.self_attn.q_proj.weight"}
+
+    def opt(model):
+        return _fsdp_opt(pt_pkg, model, lr=1e-4, multi_precision=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0)
+    one = pt_pkg.TrainStep(model, opt(model), _llm_loss)
+    want = _first_grads(one.optimizer, names)
+    one_losses, one_ms = [], []
+    for _ in range(TRAIN_CP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one_losses.append(float(one(ids, ids)))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t1) * 1e3)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = pt_pkg.LlamaForCausalLM(
+        dataclasses.replace(cfg, context_parallel_axis="sp"), seed=0)
+    t0 = time.perf_counter()
+    step = ShardedTrainStep(model, opt(model), _llm_loss,
+                            plan=train_plan("dp1sp2"), seq_axis="sp")
+    ctor_s = time.perf_counter() - t0
+    got = _first_grads(step.optimizer, names)
+    pids = step.workers.pids
+    try:
+        step._rank_stats(reset=True)
+        losses, ms = [], []
+        for i in range(TRAIN_CP_STEPS):
+            # the last step with rank 0's collectives timed (a device sync
+            # around each): the ring's point-to-point seconds on rank 0
+            with collective.timing(i == TRAIN_CP_STEPS - 1):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses.append(float(step(ids, ids)))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+        ranks = step._rank_stats(reset=True)
+    finally:
+        step.close()
+    gone = _procs_gone(pids)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = TRAIN_CP_LAYERS
+    predicted = [ring_predicted_launches(2, r, True, TRAIN_CP_STEPS, L)
+                 for r in (0, 1)]
+    launches = [{k: r["launches"][k] for k in _FSDP_KERNELS[:3]}
+                for r in ranks]
+    err = max(abs(a - b) for a, b in zip(losses, one_losses))
+    grad_err = {n: float((got[n] - want[n]).norm() / want[n].norm())
+                for n in sorted(names)}
+    coll = ranks[0]["collectives"]
+    # calls and bytes over the steps; seconds of the last (timed) step
+    p2p = {k: coll.get(k, {}) for k in ("p2p_send", "p2p_recv",
+                                        "all_reduce", "all_gather")}
+    rec = {"phase": "train_cp", "nvidia_smi": nvidia_smi_line(),
+           "model": f"llama3_8b widths, {L} layers, bf16, dp1 sp2 (ring "
+                    "attention)", "tokens": [1, TRAIN_CP_SEQ],
+           "backend": "gloo (2 ranks share cuda:0; ring P2P and gradient "
+                      "sums via host)",
+           "one_rank": {"losses": one_losses, "step_ms": one_ms,
+                        "peak_gb": one_peak},
+           "losses": losses, "step_ms": ms, "construction_s": ctor_s,
+           "max_abs_loss_err": err, "loss_tol": TRAIN_CP_LOSS_TOL,
+           "grad_rel_err": grad_err, "grad_rtol": TRAIN_CP_GRAD_RTOL,
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "launches_by_rank": launches, "predicted_by_rank": predicted,
+           "rank0_collectives": p2p,
+           "ring_bytes_per_step_rank0": {
+               k: coll.get(k, {}).get("bytes", 0) // TRAIN_CP_STEPS
+               for k in ("p2p_send", "p2p_recv")},
+           "nvcc_in_worker": ranks[1]["nvcc"], "workers_gone": gone}
+    emit(rec)
+    if err > TRAIN_CP_LOSS_TOL or not np.isfinite(losses).all() \
+            or max(grad_err.values()) > TRAIN_CP_GRAD_RTOL \
+            or launches != predicted or not gone or ranks[1]["nvcc"]:
+        raise AssertionError(f"train_cp failed: {rec}")
     return {"launches_by_rank": launches}
 
 
@@ -7532,192 +8075,236 @@ def main() -> int:
     import paddlepaddle_tpu_torch as pt_pkg
     from paddlepaddle_tpu_torch.ops.kernels import _build
 
-    smi = nvidia_smi_line()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "device": torch.cuda.get_device_name(0),
-          "capability": list(torch.cuda.get_device_capability(0)),
-          "tf32": False})
+    try:
+        smi = nvidia_smi_line()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "python": sys.version.split()[0],
+              "device": torch.cuda.get_device_name(0),
+              "capability": list(torch.cuda.get_device_capability(0)),
+              "tf32": False})
 
-    # Every nvcc starts now. paged_attention.cu takes most of the build
-    # (~45 s, the others < 10 s), so the kernel phases that need no paged
-    # library run while it builds.
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        paged = pool.submit(_build.build_all, [PAGED_LIBRARY])
-        built = _build.build_all([n for n in _build.sources()
-                                  if n != PAGED_LIBRARY])
-        flash_records = phase_flash_kernel()
-        fp16_records = phase_flash_fp16()
-        d64_records = phase_flash_d64()
-        varlen_records = phase_flash_varlen_kernel()
-        gc.collect()                # free the full-width varlen buffers
+        # Every nvcc starts now. paged_attention.cu takes most of the build
+        # (~45 s, the others < 10 s), so the kernel phases that need no paged
+        # library run while it builds.
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            paged = pool.submit(_build.build_all, [PAGED_LIBRARY])
+            built = _build.build_all([n for n in _build.sources()
+                                      if n != PAGED_LIBRARY])
+            flash_records = phase_flash_kernel()
+            fp16_records = phase_flash_fp16()
+            d64_records = phase_flash_d64()
+            varlen_records = phase_flash_varlen_kernel()
+            gc.collect()                # free the full-width varlen buffers
+            torch.cuda.empty_cache()
+            gg_record = phase_gather_gemm_kernel()
+            built.update(paged.result())
+        emit({"phase": "build",
+              "seconds": max(b["seconds"] for b in built.values()),
+              "sources": {n: {"seconds": b["seconds"], "cached": b["cached"],
+                              "ptxas": [ln.strip() for ln in
+                                        str(b["ptxas"]).splitlines()
+                                        if "Used" in ln or "spill" in ln][:48]}
+                          for n, b in built.items()}})
+
+        record = phase_kernel()
+        int8_record = phase_kernel_int8()
+        phase_engine_parity(pt_pkg)
+        phase_engine_parity_int8(pt_pkg)
+        phase_train_parity(pt_pkg)
+        phase_moe_parity(pt_pkg)
+        # pp_parity's eight f32 ranks start and run beside the untimed
+        # parity phases that follow on the card; they are joined before
+        # the first timed phase (serve), and read at pp_parity's place
+        pp_job = _spawn_beside(_pp_parity_rank, (), 8)
+        phase_zoo_parity(pt_pkg)
+        gc.collect()                    # free the 2-layer f32 models
         torch.cuda.empty_cache()
-        gg_record = phase_gather_gemm_kernel()
-        built.update(paged.result())
-    emit({"phase": "build",
-          "seconds": max(b["seconds"] for b in built.values()),
-          "sources": {n: {"seconds": b["seconds"], "cached": b["cached"],
-                          "ptxas": [ln.strip() for ln in
-                                    str(b["ptxas"]).splitlines()
-                                    if "Used" in ln or "spill" in ln][:48]}
-                      for n, b in built.items()}})
-
-    record = phase_kernel()
-    int8_record = phase_kernel_int8()
-    phase_engine_parity(pt_pkg)
-    phase_engine_parity_int8(pt_pkg)
-    phase_train_parity(pt_pkg)
-    phase_moe_parity(pt_pkg)
-    phase_train_parity_more(pt_pkg)
-    phase_zoo_parity(pt_pkg)
-    gc.collect()                    # free the 2-layer f32 models
-    torch.cuda.empty_cache()
-    phase_capture_parity(pt_pkg)
-    gc.collect()                    # free the 2-layer model
-    torch.cuda.empty_cache()
-    phase_quant_parity(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    record["launches"], serve_ctx = phase_serve(pt_pkg)
-    wo_launches, wo_case = phase_serve_wo_int8(pt_pkg, serve_ctx)
-    record["launches_by_phase"] = {"serve": record["launches"],
-                                   "serve_wo_int8": wo_launches}
-    spec_launches = phase_serve_spec(pt_pkg, serve_ctx)
-    record["w4"]["launches"] = spec_launches["launches"]
-    record["w4"]["launches_by_run"] = spec_launches["by_run"]
-    int8_record["w4"]["launches"] = spec_launches["int8_launches"]
-    small = small_f32_model(pt_pkg)
-    generate_launches = phase_serve_static(pt_pkg, serve_ctx, small)
-    phase_serve_contiguous(pt_pkg, serve_ctx, small)
-    phase_coldstart(pt_pkg, serve_ctx)
-    phase_serve_observed(pt_pkg, serve_ctx)
-    del small
-    gc.collect()                    # free the small serving model
-    torch.cuda.empty_cache()
-    phase_serve_robust(pt_pkg)
-    record["launches_by_phase"]["fleet_parity"] = \
-        phase_fleet_parity(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    record["launches_by_phase"]["serve_fleet"] = \
-        phase_serve_fleet(pt_pkg, serve_ctx)
-    del serve_ctx
-    gc.collect()                    # free the serving model
-    torch.cuda.empty_cache()
-    phase_bundle_restart(pt_pkg, built["paged_attention"]["seconds"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    int8_record["launches"] = phase_serve_int8(pt_pkg)
-    gc.collect()                    # free the int8 serving model
-    torch.cuda.empty_cache()
-    launches = phase_train(pt_pkg)
-    gc.collect()                    # free the Llama training model
-    torch.cuda.empty_cache()
-    remat_launches, _ = phase_train_recompute(pt_pkg)
-    fp16_launches = phase_train_amp(pt_pkg)
-    for r in flash_records:
-        r["launches"] = launches[r["name"]]
-        r["launches_by_phase"] = {"train": launches[r["name"]],
-                                  "train_recompute":
-                                      remat_launches[r["name"]]}
-    flash_records[0]["launches_by_phase"]["generate"] = generate_launches
-    for r in fp16_records:
-        r["launches"] = fp16_launches[r["name"][:-len("_fp16")]]
-        r["launches_by_phase"] = {"train_amp fp16": r["launches"]}
-    gg_record["launches"] = phase_moe_train(pt_pkg)
-    gc.collect()                    # free the MoE training model
-    torch.cuda.empty_cache()
-    phase_resnet50_train(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    bert_launches = phase_bert_base(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    gpt_launches, gpt_gen_launches = phase_gpt2_small(pt_pkg)
-    for r in d64_records:
-        base = r["name"].split("_d64")[0]
-        if r["name"].endswith("_bert"):
-            r["launches"] = bert_launches
-            r["launches_by_phase"] = {"bert_base eval": bert_launches}
-        else:
-            r["launches"] = gpt_launches[base]
-            r["launches_by_phase"] = {"gpt2_small train":
-                                      gpt_launches[base],
-                                      "gpt2_small generate":
-                                      gpt_gen_launches[base]}
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp = phase_tp_parity(pt_pkg)
-    tp.update(phase_serve_tp(pt_pkg))
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec_tp = phase_spec_tp(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp.update(phase_router_tp(pt_pkg))
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp.update(phase_train_tp(pt_pkg))
-    tp.update(phase_nccl_world1(pt_pkg))
-    gc.collect()
-    torch.cuda.empty_cache()
-    ep_launches = phase_ep_parity(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_ep = phase_train_ep(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    fsdp_launches = phase_fsdp_parity(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_fsdp = phase_train_fsdp(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    pp_launches = phase_pp_parity(pt_pkg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_pp = phase_train_pp(pt_pkg)
-    gg_record["launches_by_phase"] = {
-        "moe_train": gg_record["launches"], **ep_launches,
-        "train_ep by rank": [r["gather_gemm_ffn"]
-                             for r in train_ep["launches_by_rank"]],
-        **{f"{k} by rank": [r["gather_gemm_ffn"] for r in v]
-           for k, v in fsdp_launches.items() if k.startswith(
-               "fsdp_parity moe")}}
-    local = train_ep["kernel8_local"]
-    gg_record["local_experts"] = {
-        "shape": local["shape"], "ms": local["ms"]["call"],
-        "plain_ms": local["ms"]["plain"],
-        "bound_ms": local["bounds"]["call"]["bound_ms"],
-        "bound_by": local["bounds"]["call"]["bound_by"],
-        "max_abs_err": local["checks"]["call"]["max_abs_err"]}
-    record["launches_by_phase"].update(
-        {k: v for k, v in tp.items() if k.startswith(("tp_parity",
-                                                      "serve_tp",
-                                                      "router_tp",
-                                                      "nccl_world1"))
-         and "paged" in k})
-    record["w4"]["launches_by_phase"] = spec_tp
-    for r in flash_records:
-        r["launches_by_phase"].update(
-            {k: (v[r["name"]] if isinstance(v, dict)
-                 else [x[r["name"]] for x in v])
-             for k, v in tp.items() if k.startswith("train_tp")})
-        r["launches_by_phase"]["train_ep by rank"] = [
-            x[r["name"]] for x in train_ep["launches_by_rank"]]
-        r["launches_by_phase"].update(
-            {f"{k} by rank": [x[r["name"]] for x in v]
-             for k, v in fsdp_launches.items()})
-        r["launches_by_phase"]["train_fsdp by rank"] = [
-            x[r["name"]] for x in train_fsdp["launches_by_rank"]]
-        r["launches_by_phase"].update(
-            {f"{k} by rank (f32)": [x[r["name"]] for x in v]
-             for k, v in pp_launches.items()})
-        r["launches_by_phase"].update(
-            {f"train_pp {k} by rank": [x[r["name"]] for x in v]
-             for k, v in train_pp["launches_by_rank"].items()})
+        phase_capture_parity(pt_pkg)
+        gc.collect()                    # free the 2-layer model
+        torch.cuda.empty_cache()
+        phase_quant_parity(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp_job.result()
+        record["launches"], serve_ctx = phase_serve(pt_pkg)
+        wo_launches, wo_case = phase_serve_wo_int8(pt_pkg, serve_ctx)
+        record["launches_by_phase"] = {"serve": record["launches"],
+                                       "serve_wo_int8": wo_launches}
+        spec_launches = phase_serve_spec(pt_pkg, serve_ctx)
+        record["w4"]["launches"] = spec_launches["launches"]
+        record["w4"]["launches_by_run"] = spec_launches["by_run"]
+        int8_record["w4"]["launches"] = spec_launches["int8_launches"]
+        small = small_f32_model(pt_pkg)
+        generate_launches = phase_serve_static(pt_pkg, serve_ctx, small)
+        phase_serve_contiguous(pt_pkg, serve_ctx, small)
+        phase_coldstart(pt_pkg, serve_ctx)
+        phase_serve_observed(pt_pkg, serve_ctx)
+        del small
+        gc.collect()                    # free the small serving model
+        torch.cuda.empty_cache()
+        phase_serve_robust(pt_pkg)
+        record["launches_by_phase"]["fleet_parity"] = \
+            phase_fleet_parity(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        record["launches_by_phase"]["serve_fleet"] = \
+            phase_serve_fleet(pt_pkg, serve_ctx)
+        del serve_ctx
+        gc.collect()                    # free the serving model
+        torch.cuda.empty_cache()
+        phase_bundle_restart(pt_pkg, built["paged_attention"]["seconds"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8_record["launches"] = phase_serve_int8(pt_pkg)
+        gc.collect()                    # free the int8 serving model
+        torch.cuda.empty_cache()
+        launches = phase_train(pt_pkg)
+        gc.collect()                    # free the Llama training model
+        torch.cuda.empty_cache()
+        remat_launches, _ = phase_train_recompute(pt_pkg)
+        fp16_launches = phase_train_amp(pt_pkg)
+        for r in flash_records:
+            r["launches"] = launches[r["name"]]
+            r["launches_by_phase"] = {"train": launches[r["name"]],
+                                      "train_recompute":
+                                          remat_launches[r["name"]]}
+        flash_records[0]["launches_by_phase"]["generate"] = generate_launches
+        for r in fp16_records:
+            r["launches"] = fp16_launches[r["name"][:-len("_fp16")]]
+            r["launches_by_phase"] = {"train_amp fp16": r["launches"]}
+        gg_record["launches"] = phase_moe_train(pt_pkg)
+        gc.collect()                    # free the MoE training model
+        torch.cuda.empty_cache()
+        phase_resnet50_train(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bert_launches = phase_bert_base(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gpt_launches, gpt_gen_launches = phase_gpt2_small(pt_pkg)
+        for r in d64_records:
+            base = r["name"].split("_d64")[0]
+            if r["name"].endswith("_bert"):
+                r["launches"] = bert_launches
+                r["launches_by_phase"] = {"bert_base eval": bert_launches}
+            else:
+                r["launches"] = gpt_launches[base]
+                r["launches_by_phase"] = {"gpt2_small train":
+                                          gpt_launches[base],
+                                          "gpt2_small generate":
+                                          gpt_gen_launches[base]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        # untimed: the parity phases here, and beside them, in processes
+        # of their own, two lanes of work one after the other: train_tp's
+        # SPMD arms, nccl_world1's rank, train_parity_more; ep_parity,
+        # router_tp. Joined before serve_tp
+        lanes = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
+        lane_t0 = time.perf_counter()
+        jobs = {"train_tp spmd": _spawn_beside(
+                    _train_tp_rank, (TRAIN_TP_SPECS,), 2, lanes[0]),
+                "nccl_world1": _spawn_beside(_nccl_world1_rank, (), 1,
+                                             lanes[0])}
+        for lane, name in ((0, "train_parity_more"), (1, "ep_parity"),
+                           (1, "router_tp")):
+            jobs[name] = _spawn_beside(_phase_alone, (name,), 1, lanes[lane])
+        for lane in lanes:
+            lane.shutdown(wait=False)
+        for name, job in jobs.items():
+            job.add_done_callback(
+                lambda _, name=name: phase_seconds.__setitem__(
+                    f"beside: {name} done at", time.perf_counter() - lane_t0))
+        tp = phase_tp_parity(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp_launches = phase_fsdp_parity(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_launches = phase_sp_parity(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec_tp = phase_spec_tp(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        beside = {}
+        for name in ("train_parity_more", "ep_parity", "router_tp"):
+            ((beside[name], phase_seconds[f"{name} (beside)"]),) = \
+                jobs[name].result()
+        ep_launches = beside["ep_parity"]
+        tp.update(beside["router_tp"])
+        phase_seconds["parity phases with the lanes"] = \
+            time.perf_counter() - lane_t0
+        tp.update(phase_serve_tp(pt_pkg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp.update(phase_train_tp(pt_pkg, jobs["train_tp spmd"]))
+        tp.update(phase_nccl_world1(pt_pkg, jobs["nccl_world1"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_ep = phase_train_ep(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_fsdp = phase_train_fsdp(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp_launches = phase_pp_parity(pt_pkg, pp_job)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_pp = phase_train_pp(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_cp = phase_train_cp(pt_pkg)
+        gg_record["launches_by_phase"] = {
+            "moe_train": gg_record["launches"], **ep_launches,
+            "train_ep by rank": [r["gather_gemm_ffn"]
+                                 for r in train_ep["launches_by_rank"]],
+            **{f"{k} by rank": [r["gather_gemm_ffn"] for r in v]
+               for k, v in fsdp_launches.items() if k.startswith(
+                   "fsdp_parity moe")}}
+        local = train_ep["kernel8_local"]
+        gg_record["local_experts"] = {
+            "shape": local["shape"], "ms": local["ms"]["call"],
+            "plain_ms": local["ms"]["plain"],
+            "bound_ms": local["bounds"]["call"]["bound_ms"],
+            "bound_by": local["bounds"]["call"]["bound_by"],
+            "max_abs_err": local["checks"]["call"]["max_abs_err"]}
+        record["launches_by_phase"].update(
+            {k: v for k, v in tp.items() if k.startswith(("tp_parity",
+                                                          "serve_tp",
+                                                          "router_tp",
+                                                          "nccl_world1"))
+             and "paged" in k})
+        record["w4"]["launches_by_phase"] = spec_tp
+        for r in flash_records:
+            r["launches_by_phase"].update(
+                {k: (v[r["name"]] if isinstance(v, dict)
+                     else [x[r["name"]] for x in v])
+                 for k, v in tp.items() if k.startswith("train_tp")})
+            r["launches_by_phase"]["train_ep by rank"] = [
+                x[r["name"]] for x in train_ep["launches_by_rank"]]
+            r["launches_by_phase"].update(
+                {f"{k} by rank": [x[r["name"]] for x in v]
+                 for k, v in fsdp_launches.items()})
+            r["launches_by_phase"]["train_fsdp by rank"] = [
+                x[r["name"]] for x in train_fsdp["launches_by_rank"]]
+            r["launches_by_phase"].update(
+                {f"{k} by rank (f32)": [x[r["name"]] for x in v]
+                 for k, v in pp_launches.items()})
+            r["launches_by_phase"].update(
+                {f"train_pp {k} by rank": [x[r["name"]] for x in v]
+                 for k, v in train_pp["launches_by_rank"].items()})
+            r["launches_by_phase"].update(
+                {f"{k} by rank (f32)": [x[r["name"]] for x in v]
+                 for k, v in sp_launches.items()})
+            r["launches_by_phase"]["train_cp by rank"] = [
+                x[r["name"]] for x in train_cp["launches_by_rank"]]
+    except BaseException:
+        # where the time went up to the failure
+        emit({"phase": "phase_seconds", "seconds": phase_seconds,
+              "failed": True})
+        raise
     emit({"phase": "phase_seconds", "seconds": phase_seconds})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [record, int8_record] + flash_records + fp16_records

@@ -16,8 +16,19 @@ per-layer plans and ``parallelize``, ``DistModel`` / ``to_static`` and
   takes the global batch on every rank and keeps its own rows
   (``ShardingPlan.shard_batch``), where the reference yields arrays placed
   over the data axes; the values are the same.
-* ``SequenceParallelBegin`` / ``End`` raise ``not_ported``: sequence
-  parallelism is a later A10 slice. The reference's ``completion``
+* ``SequenceParallelBegin`` / ``End`` mark where the activations become
+  sequence blocks over the model axis and where they are gathered again.
+  The reference registers ``scatter_to_sequence_parallel`` on the Begin
+  layer's output and ``gather_from_sequence_parallel`` on the End layer's
+  inputs, and GSPMD computes the dense values. Here a plan's view attaches
+  the same two collectives over its model-axis group (after the layer's
+  tensor-parallel hooks), and ``parallelize`` marks the modules between
+  them (:func:`~...parallel.mpu.mark_sequence_parallel_region`): the
+  column- and row-parallel projections there gather the sequence before
+  and reduce-scatter it after, and every other parameter there (the
+  norms) is a sequence-parallel parameter whose gradient
+  ``ShardedTrainStep`` sums over the model axis. In a process with no
+  group the marks change nothing. The reference's ``completion``
   (``complete_program`` over a static ``Program``) waits for A11's static
   graph.
 """
@@ -30,13 +41,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ...core.errors import not_ported
 from ..mesh import ProcessMesh, get_mesh
 from ..placement import Partial, Placement, Replicate, Shard  # noqa: F401
 from ..sharding_api import (dist_attr, reshard, shard_layer,  # noqa: F401
                             shard_optimizer, shard_tensor)
-
-_SP_SLICE = "A10 slice 5: sequence parallel"
 
 
 # -- parallelize plans (reference :34-102) ------------------------------------
@@ -92,13 +100,19 @@ class PrepareLayerOutput(_Plan):
 
 
 class SequenceParallelBegin(_Plan):
+    """The layer's output is scattered into sequence blocks over the model
+    axis (module docstring)."""
+
     def apply(self, layer, mp_axis):
-        raise not_ported("SequenceParallelBegin", _SP_SLICE)
+        layer._sp_begin = mp_axis
 
 
 class SequenceParallelEnd(_Plan):
+    """The layer's inputs are gathered from sequence blocks (module
+    docstring)."""
+
     def apply(self, layer, mp_axis):
-        raise not_ported("SequenceParallelEnd", _SP_SLICE)
+        layer._sp_end = mp_axis
 
 
 def parallelize(model, optimizer=None, mesh: Optional[ProcessMesh] = None,
@@ -123,6 +137,9 @@ def parallelize(model, optimizer=None, mesh: Optional[ProcessMesh] = None,
         if not matched:
             raise ValueError(f"parallelize plan pattern {pattern!r} "
                              "matched no sublayer")
+    from ...parallel.mpu import mark_sequence_parallel_region
+
+    mark_sequence_parallel_region(model)
     if optimizer is not None:
         return model, optimizer
     return model

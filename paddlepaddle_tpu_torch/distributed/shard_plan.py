@@ -41,10 +41,16 @@ rank holds its own shard, and the collectives are explicit.
   out everywhere. A ``pp`` axis is a pipeline axis, as in the reference:
   no rule names it, so every parameter is replicated over it, and it is no
   data axis (:mod:`..parallel.pipeline_spmd` runs the stages over it; a
-  serving plan refuses it). An
-  ``sp`` axis of size > 1 raises ``not_ported`` naming its later A10
-  slice; ``seq_axis`` likewise, and ``ep`` beside a parameter-sharding axis
-  of size > 1 in a sharded step;
+  serving plan refuses it). An ``sp`` axis is the sequence (context
+  parallel) axis, as in the reference: no rule names it, every parameter
+  is replicated over it and it is no data axis; a context-parallel
+  ``ShardedTrainStep(seq_axis="sp")`` shards the batch's columns over it
+  and ring attention runs over its group (``axis_group("sp")``, as the
+  pipeline runs over ``pp``'s; a serving plan refuses it). ``ep`` beside a parameter-sharding axis
+  composes: the trunk is gathered over ``fsdp`` and its gradient
+  reduce-scattered over the data axes, the banks live on ``ep`` alone and
+  their gradients are summed over the data group (:mod:`..parallel.moe`
+  names each collective's group);
 * ``compile`` / ``compile_path``: the port has ONE path, per-rank eager or
   CUDA-graph-captured code with explicit collectives (``"spmd"``), where
   the reference chooses pjit or shard_map (ROADMAP, recorded deviations).
@@ -81,11 +87,6 @@ from .mesh import ProcessMesh
 
 _SPEC_TOKEN = re.compile(r"([a-z_]+?)(\d+)")
 
-# the later A10 slice that ports each axis the port refuses
-_LATER_AXES = {
-    "sp": "A10 slice 5: sequence parallel and ring attention",
-}
-_EP_X_FSDP = "A10 slice 5: ep beside fsdp in ShardedTrainStep"
 # the names a parameter-sharding (ZeRO-3) axis usually goes by: never taken
 # for the model axis
 _ZERO_NAMES = ("fsdp", "sharding")
@@ -298,10 +299,6 @@ class ShardingPlan:
         self.process_mesh = mesh_from_spec(mesh)
         shape = dict(zip(self.process_mesh.dim_names,
                          self.process_mesh.shape))
-        for name, size in shape.items():
-            if size > 1 and name in _LATER_AXES:
-                raise not_ported(f"mesh axis {name!r} of size {size}",
-                                 _LATER_AXES[name])
         self._shape = shape
         self.rules = list(rules) if rules is not None \
             else tp_decode_rules(model_axis)
@@ -309,8 +306,6 @@ class ShardingPlan:
                                               tuple(data_axes))
         self.data_axes = tuple(a for a in shape
                                if a in tuple(data_axes) and shape[a] > 1)
-        self._refuse_ep_beside(
-            [a for a in _rule_axes(self.rules) if self.is_zero_axis(a)])
         self._path = path
         self.specs: Dict[str, tuple] = {}
         self._control = None
@@ -344,15 +339,11 @@ class ShardingPlan:
     def is_zero_axis(self, axis: str) -> bool:
         """Whether a parameter sharded over ``axis`` is sharded for memory
         (ZeRO-3: gathered where it is used): an axis of the mesh of size >
-        1 that is neither the model axis, ``ep`` nor the pipeline axis
-        ``pp``."""
+        1 that is neither the model axis, ``ep``, the pipeline axis ``pp``
+        nor the sequence axis ``sp`` (every parameter is replicated over
+        ``sp``, whose ranks hold other tokens of the same rows)."""
         return (self._shape.get(axis, 1) > 1 and axis != self.model_axis
-                and axis not in ("ep", "pp"))
-
-    def _refuse_ep_beside(self, zero_axes) -> None:
-        if zero_axes and self._shape.get("ep", 1) > 1:
-            raise not_ported("an expert-parallel (ep) axis beside a "
-                             "parameter-sharding (fsdp) axis", _EP_X_FSDP)
+                and axis not in ("ep", "pp", "sp"))
 
     def zero_dims(self, spec) -> tuple:
         """``((dim, axes), ...)``: the parameter-sharding axes of each dim
@@ -366,7 +357,6 @@ class ShardingPlan:
             zero = tuple(a for a in axes if self.is_zero_axis(a))
             if not zero:
                 continue
-            self._refuse_ep_beside(zero)
             if axes[len(axes) - len(zero):] != zero:
                 raise not_ported(f"dim {dim} sharded over {axes}: a "
                                  f"parameter-sharding axis ahead of the "
@@ -381,7 +371,7 @@ class ShardingPlan:
     def __enter__(self):
         from .collective import use_mesh
 
-        self._use = use_mesh(self.process_mesh)
+        self._use = use_mesh(self)
         self._use.__enter__()
         return self
 
@@ -416,17 +406,20 @@ class ShardingPlan:
                 and not dist.is_initialized())
 
     def refuse_in_serving(self) -> None:
-        """Raise ``not_ported`` if this plan has an ``ep`` or ``pp`` axis
-        of size > 1 (expert- and pipeline-parallel serving are later A10
-        items: training only) or a parameter-sharding axis of size > 1
-        (the rules shard a parameter over it, or it is named ``fsdp`` /
-        ``sharding``)."""
+        """Raise ``not_ported`` if this plan has an ``ep``, ``pp`` or ``sp``
+        axis of size > 1 (expert-, pipeline- and sequence-parallel serving
+        are later A10 items: training only) or a parameter-sharding axis of
+        size > 1 (the rules shard a parameter over it, or it is named
+        ``fsdp`` / ``sharding``)."""
         if self._shape.get("ep", 1) > 1:
             raise not_ported("an expert-parallel (ep) axis in a serving "
                              "plan", "A10: expert-parallel serving")
         if self._shape.get("pp", 1) > 1:
             raise not_ported("a pipeline (pp) axis in a serving plan",
                              "A10: pipeline-parallel serving")
+        if self._shape.get("sp", 1) > 1:
+            raise not_ported("a sequence-parallel (sp) axis in a serving "
+                             "plan", "A10: sequence-parallel serving")
         zero = [a for a in self._shape if self.is_zero_axis(a)
                 and (a in _ZERO_NAMES or a in _rule_axes(self.rules))]
         if zero:
@@ -565,15 +558,24 @@ class ShardingPlan:
                     return self.model_axis in self._shape
         return False
 
-    def role_for(self, name: str, shape) -> Optional[str]:
+    def role_for(self, name: str, shape, own=None) -> Optional[str]:
         """Megatron role of a 2-D ``[in, out]`` matmul weight:
         ``"column"`` (out dim on the model axis), ``"row"`` (in dim) or
-        None (replicated). At model-axis size 1 the raw rule decides, so
-        the collectives still run over the one-rank group."""
+        None (replicated). The parameter's own placement ``own`` (a
+        ``dist_spec``, as ``parallelize``'s plans set) wins over the rules,
+        as it does for the weight's shard. At model-axis size 1 the raw
+        placement decides, so the collectives still run over the one-rank
+        group."""
+        from ..parallel.sharded import _fit_spec
+
         if self.model_axis not in self._shape or len(shape) != 2:
             return None
-        spec = (self.spec_for(name, shape) if self.tp_degree > 1
-                else self.raw_spec_for(name))
+        if own is not None:
+            spec = (_fit_spec(own, tuple(shape), self._shape)
+                    if self.tp_degree > 1 else tuple(own))
+        else:
+            spec = (self.spec_for(name, shape) if self.tp_degree > 1
+                    else self.raw_spec_for(name))
         spec = tuple(spec) + (None,) * (2 - len(spec))
         if self.model_axis in _axes_of(spec[1]):
             return "column"

@@ -18,7 +18,12 @@ card, the plain version on the CPU. With an ``attn_mask`` it runs
 which the reference computes with XLA (a bool mask selects, a float mask
 adds): plain PyTorch on either device, no flash launch, since no TPU kernel
 takes a mask. With a cache it runs ``_cached_attention``, the path of the
-JAX engine's prefill; a mask with caches raises, as in the reference.
+JAX engine's prefill; a mask with caches raises, as in the reference. With
+``LlamaConfig.context_parallel_axis`` set (read at each call, reference
+:251) attention runs ring attention over that axis
+(:mod:`..ops.kernels.ring_attention`), and under a context-parallel
+``ShardedTrainStep`` the loss shifts its labels across the sequence blocks
+(:func:`sequence_sharded`).
 
 ``LlamaConfig.recompute`` runs each decoder layer under activation
 recompute (:mod:`..distributed.fleet.recompute`) with ``remat_policy``
@@ -43,7 +48,6 @@ from torch import nn
 
 from ..amp import amp_cast
 from ..core.dtype import to_torch_dtype
-from ..core.errors import not_ported
 from ..device import DeviceLike, resolve_device
 from ..nn import functional as F
 from ..nn.common import Embedding, Linear
@@ -69,9 +73,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "float32"
-    # ring attention over a context-parallel axis (reference :82-83, :251)
-    # is A10's: a value other than None raises at construction. The
-    # data-parallel axis is read only by that path, in the reference too
+    # ring attention over a context-parallel axis (reference :82-83, :251),
+    # read by each attention call, so it may be set after construction as
+    # the reference's tests do. The data-parallel axis is read only by that
+    # path, in the reference too
     context_parallel_axis: Optional[str] = None
     data_parallel_axis: str = "dp"
     # activation recompute per decoder layer (reference :84-92)
@@ -79,11 +84,6 @@ class LlamaConfig:
     # None = full remat; "dots" saves the matrix products' outputs,
     # "dots_no_batch" those without a batch dim
     remat_policy: Optional[str] = None
-
-    def __post_init__(self):
-        if self.context_parallel_axis is not None:
-            raise not_ported(f"LlamaConfig(context_parallel_axis="
-                             f"{self.context_parallel_axis!r})", "A10")
 
     @property
     def head_dim(self) -> int:
@@ -255,18 +255,37 @@ class _CERows(torch.autograd.Function):
         return grad.reshape(lg.shape), None
 
 
+def next_labels(labels: torch.Tensor, pg=None):
+    """The next-token targets of ``labels [b, s]``: ``(label of position
+    t + 1, global position of t, global length)``. With ``pg`` (the
+    sequence axis's group) ``labels`` is this rank's block ``[r * s, (r +
+    1) * s)`` of the sequence: its last position's target is the next
+    block's first label (the first columns are gathered, no gradient)."""
+    seq = labels.shape[1]
+    pos = torch.arange(seq, device=labels.device)[None, :]
+    if pg is None:
+        return torch.roll(labels, -1, dims=1), pos, seq
+    from ..distributed.collective import _all_gather, _grank, _size
+
+    n, r = _size(pg), _grank(pg)
+    firsts = _all_gather(labels[:, :1].contiguous(), pg, 1)       # [b, n]
+    nxt = (r + 1) % n
+    return (torch.cat([labels[:, 1:], firsts[:, nxt:nxt + 1]], dim=1),
+            pos + r * seq, seq * n)
+
+
 def loss_from_logits(logits: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy in f32 (reference ``loss_from_logits``
     :549, the ``cross_entropy`` op): the label of position t is token t+1
     (labels rolled by -1), labels < 0 are ignored, the last position has no
-    target, and the mean is over the valid positions."""
+    target, and the mean is over the valid positions. Inside
+    :func:`sequence_sharded` the arrays are this rank's sequence block and
+    the shift and the last position are the global ones."""
     logits, labels = amp_cast("cross_entropy", logits, labels)
-    seq = logits.shape[1]
-    lb_next = torch.roll(labels, -1, dims=1)
+    lb_next, pos, total = next_labels(labels, _seq_shard.get())
     nll = _CERows.apply(logits, lb_next.clamp_min(0).long())
-    pos = torch.arange(seq, device=logits.device)[None, :]
-    valid = ((lb_next >= 0) & (pos < seq - 1)).float()
+    valid = ((lb_next >= 0) & (pos < total - 1)).float()
     count = valid.sum()
     reduce_count = _token_count_reduce.get()
     if reduce_count is not None:
@@ -279,6 +298,23 @@ def loss_from_logits(logits: torch.Tensor,
 # token mean
 _token_count_reduce: contextvars.ContextVar = contextvars.ContextVar(
     "token_count_reduce", default=None)
+# set by a context-parallel step for its own thread: the group of the
+# sequence axis the batch's columns are sharded over
+_seq_shard: contextvars.ContextVar = contextvars.ContextVar(
+    "seq_shard", default=None)
+
+
+@contextlib.contextmanager
+def sequence_sharded(pg):
+    """Inside the block (in this thread) :func:`loss_from_logits` takes its
+    labels and logits as this rank's block of the sequence over ``pg``
+    (:class:`~..parallel.sharded.ShardedTrainStep` with ``seq_axis``);
+    None leaves them whole."""
+    token = _seq_shard.set(pg)
+    try:
+        yield
+    finally:
+        _seq_shard.reset(token)
 
 
 @contextlib.contextmanager
@@ -311,6 +347,7 @@ def init_weights(model: nn.Module, seed: int, init_std: float) -> None:
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
+        self.config = config
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
@@ -329,17 +366,29 @@ class LlamaAttention(nn.Module):
         through ``F.flash_attention``, or with ``attn_mask`` through
         ``F.scaled_dot_product_attention``; returns the output. With a
         cache: write-through at ``pos``, returns ``(output, new cache)``;
-        a mask with a cache raises (reference :232-235)."""
-        b, s = x.shape[0], x.shape[1]
-        # heads from the projections: a tensor-parallel view holds its
-        # rank's heads only (distributed.shard_plan)
-        q = self.q_proj(x).reshape(b, s, -1, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, -1, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, -1, self.head_dim)
+        a mask with a cache raises (reference :232-235). With
+        ``config.context_parallel_axis`` (and no cache) ``x`` is this
+        rank's block of the sequence under the active plan: rope at the
+        block's global positions and attention through
+        :func:`~..ops.kernels.ring_attention.ring_flash_attention`
+        (reference :251-260); a mask raises there, as in the reference."""
+        # heads and length from the projections: a tensor-parallel view
+        # holds its rank's heads only (distributed.shard_plan), and under
+        # Megatron sequence parallelism the projections gather the
+        # sequence blocks of ``x``
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        b, s = q.shape[0], q.shape[1]
+        q = q.reshape(b, s, -1, self.head_dim)
+        k = k.reshape(b, s, -1, self.head_dim)
+        v = v.reshape(b, s, -1, self.head_dim)
         if cache is not None and attn_mask is not None:
             raise NotImplementedError(
                 "KV-cache decoding supports causal masking only; strip "
                 "padding (or use dense attention) when passing caches")
+        cp = getattr(self.config, "context_parallel_axis", None)
+        if cache is None and cp is not None:
+            return self.o_proj(self._context_parallel(q, k, v, cos, sin,
+                                                      attn_mask, cp))
         q, k = _apply_rope(q, k, cos, sin, offset=pos)
         if cache is None:
             rep = q.shape[2] // k.shape[2]
@@ -357,6 +406,25 @@ class LlamaAttention(nn.Module):
             q, k, v, cache[0], cache[1], pos,
             q.shape[2] // k.shape[2], 1.0 / math.sqrt(self.head_dim))
         return self.o_proj(out.reshape(b, s, -1)), (kc, vc)
+
+    def _context_parallel(self, q, k, v, cos, sin, attn_mask, axis):
+        """Ring attention over ``axis``: in the SPMD form this rank holds
+        the sequence block ``[r * s, (r + 1) * s)``, so rope starts there;
+        in the one-process form ``x`` is the whole sequence. The K/V heads
+        ride the ring un-repeated."""
+        from ..ops.kernels.ring_attention import ring_flash_attention, ring_of
+
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "ring attention supports causal masking only; pad-free "
+                "batches (or dense attention) are required under context "
+                "parallelism")
+        ring = ring_of(None, axis)
+        offset = 0 if ring.local else ring.r * q.shape[1]
+        q, k = _apply_rope(q, k, cos, sin, offset=offset)
+        out = ring_flash_attention(q, k, v, sp_axis=axis, causal=True,
+                                   data_axis=self.config.data_parallel_axis)
+        return out.reshape(q.shape[0], q.shape[1], -1)
 
 
 class LlamaMLP(nn.Module):

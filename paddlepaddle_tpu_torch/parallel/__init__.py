@@ -4,13 +4,15 @@ the MoE layer with its data- and expert-parallel forms and
 (:mod:`.mpu`), the sharded training step (:mod:`.sharded`, SPMD under
 the launcher or single-process), the pipeline API (:mod:`.pipeline`), its
 schedules (:mod:`.schedules`) and executor (:mod:`.pipeline_spmd`), and
-the 4D hybrid stages (:mod:`.hybrid`). The sequence-parallel layers are a
-later A10 slice."""
+the hybrid stages with their context-parallel branch (:mod:`.hybrid`),
+and the Megatron sequence-parallel layers (:mod:`.mpu`)."""
 
 from .mpu import (  # noqa: F401
     ColumnParallelLinear,
+    ColumnSequenceParallelLinear,
     ParallelCrossEntropy,
     RowParallelLinear,
+    RowSequenceParallelLinear,
     VocabParallelEmbedding,
     mark_placement,
 )

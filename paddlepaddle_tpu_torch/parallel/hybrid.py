@@ -21,13 +21,26 @@ through the executor's plan, :mod:`..distributed.collective` ``f_*``):
 * **dp**: the batch over ``dp`` (and ``fsdp``: both are data axes);
 * **ep**: the MoE stage's expert banks (:func:`make_moe_block`).
 
+* **sp**: context parallelism: the activations' sequence dim is sharded
+  over ``sp_axis`` as well; rope takes the block's global positions, the
+  attention sees every earlier block's K/V (all-gathered over ``sp``,
+  un-repeated), and the head shifts its labels across the blocks and
+  takes its mean over the global positions.
+
 Attention runs :func:`~..ops.kernels.flash_attention.flash_attention_bshd`
 on the local heads after the GQA repeat: kernels 2-4 on the card (head
 dims 64 and 128; the plain version where ``routes_to_plain`` names the
 shape, as the JAX ``_use_pallas`` gate does), the plain version on CPU
-tensors. Blocks and heads are callable objects (they pickle by reference,
-so the single-process executor sends them to its ranks as they are).
-The context-parallel branch (``sp_axis``) is A10 slice 5.
+tensors. Under ``sp_axis`` the reference computes
+:func:`_sp_blockwise_attention` (the gathered blocks one by one, future
+blocks selected away), which is the plain version here (CPU tensors, or
+``use_flash=False``); on the card the same function is ONE causal flash
+call of the local queries over the gathered prefix ``[0, (r+1) s_loc)``:
+the kernels' bottom-right causal alignment puts local query ``i`` at
+global position ``r s_loc + i``, and the gather's backward (a summed
+reduce-scatter, zeros past the prefix) returns each block its dK/dV.
+Blocks and heads are callable objects (they pickle by reference, so the
+single-process executor sends them to its ranks as they are).
 """
 
 from __future__ import annotations
@@ -39,12 +52,10 @@ import torch
 import torch.nn.functional as tF
 from torch.utils.checkpoint import checkpoint
 
-from ..core.errors import not_ported
 from ..distributed import collective as C
-from ..models.llama import rope_tables, rotate_half
+from ..models.llama import next_labels, rope_tables, rotate_half
 from ..ops.kernels.flash_attention import flash_attention_bshd
-
-_SP_SLICE = "A10 slice 5: sequence parallel"
+from ..ops.kernels.ring_attention import _block_attn_update
 
 
 class HybridStageConfig(NamedTuple):
@@ -73,13 +84,6 @@ def _rms(x, g, eps):
 
 def _rope(x, cos, sin):
     return x * cos + rotate_half(x) * sin
-
-
-def _no_sp(sp_axis) -> None:
-    if sp_axis is not None:
-        raise not_ported(f"sp_axis={sp_axis!r} (allgather-KV context "
-                         "parallel attention inside the pipeline stages)",
-                         _SP_SLICE)
 
 
 class _F:
@@ -194,13 +198,54 @@ def llama_head_specs(tp_axis="tp") -> dict:
     return {"ln": (), "w": (None, tp_axis)}
 
 
+def _sp_blockwise_attention(q, k, v, sp_axis, n_shards, scale, rep=1):
+    """Context-parallel causal attention inside the pipeline executor
+    (reference :207-241), the plain version: the K/V blocks all-gathered
+    over ``sp_axis`` (un-repeated; backward, a summed reduce-scatter), then
+    the online softmax over them block by block against the local Q
+    block at global offsets, a block fully in the future selected away.
+    q ``[b, s_loc, h, d]``, k/v ``[b, s_loc, kvh, d]``."""
+    my = _axis_index(sp_axis)
+    b, s_loc, h, d = q.shape
+    kg = C.f_all_gather(k, sp_axis, concat_axis=1)      # [b, n*s_loc, ...]
+    vg = C.f_all_gather(v, sp_axis, concat_axis=1)
+    m = torch.full((b, h, s_loc, 1), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, s_loc, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s_loc, d), dtype=torch.float32, device=q.device)
+    for j in range(my + 1):               # later blocks: fully in the future
+        kj = kg[:, j * s_loc:(j + 1) * s_loc]
+        vj = vg[:, j * s_loc:(j + 1) * s_loc]
+        if rep > 1:                       # the GQA repeat AFTER the gather
+            kj = kj.repeat_interleave(rep, dim=2)
+            vj = vj.repeat_interleave(rep, dim=2)
+        m, l, acc = _block_attn_update(q, kj, vj, m, l, acc, my * s_loc,
+                                       j * s_loc, True, scale)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _sp_prefix_attention(q, k, v, sp_axis, rep):
+    """The same function on the card: the gathered K/V cut to the prefix
+    ``[0, (r+1) s_loc)`` and one causal flash call over it (module
+    docstring): kernels 2-4."""
+    my = _axis_index(sp_axis)
+    s_loc = q.shape[1]
+    end = (my + 1) * s_loc
+    kp = C.f_all_gather(k, sp_axis, concat_axis=1)[:, :end]
+    vp = C.f_all_gather(v, sp_axis, concat_axis=1)[:, :end]
+    if rep > 1:
+        kp = kp.repeat_interleave(rep, dim=2)
+        vp = vp.repeat_interleave(rep, dim=2)
+    return flash_attention_bshd(q, kp, vp, causal=True)
+
+
 def _attention_residual(x, lp, *, cfg, cos_t, sin_t, f_in, g_out, gather,
                         sp_axis=None, sp_size=1, use_flash=True):
     """x + attention(x): the residual attention sub-block SHARED by the
     dense (make_llama_block) and MoE (make_moe_block) stages: column qkv,
-    rope, flash or plain-softmax attention on the local heads, row o-proj
-    + tp sum."""
-    _no_sp(sp_axis)
+    rope at global positions, flash / plain-softmax / context-parallel
+    allgather-KV attention on the local heads, row o-proj + tp sum."""
     b, s, h = x.shape
     dt = x.dtype
     hd = cfg.head_dim
@@ -211,10 +256,26 @@ def _attention_residual(x, lp, *, cfg, cos_t, sin_t, f_in, g_out, gather,
     q = (hn @ wq).reshape(b, s, -1, hd)
     k = (hn @ wk).reshape(b, s, -1, hd)
     v = (hn @ wv).reshape(b, s, -1, hd)
-    cos = cos_t[:s][None, :, None, :].to(dt)
-    sin = sin_t[:s][None, :, None, :].to(dt)
+    off = 0
+    if sp_axis is not None:
+        # rope needs GLOBAL positions: this block holds rows [r*s, r*s + s)
+        # of the sequence; past the tables is an error, never a clamp
+        if sp_size * s > cfg.max_seq_len:
+            raise ValueError(
+                f"global sequence {sp_size * s} exceeds max_seq_len "
+                f"{cfg.max_seq_len} (s_local={s} x sp_size={sp_size})")
+        off = _axis_index(sp_axis) * s
+    cos = cos_t[off:off + s][None, :, None, :].to(dt)
+    sin = sin_t[off:off + s][None, :, None, :].to(dt)
     q, k = _rope(q, cos, sin), _rope(k, cos, sin)
     rep = q.shape[2] // k.shape[2]
+    if sp_axis is not None:
+        if use_flash and q.is_cuda:
+            out = _sp_prefix_attention(q, k, v, sp_axis, rep)
+        else:
+            out = _sp_blockwise_attention(q, k, v, sp_axis, sp_size, scale,
+                                          rep)
+        return x + g_out(out.to(dt).reshape(b, s, -1) @ wo)
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
@@ -245,9 +306,11 @@ class _Block:
     layer dim, each layer under ``torch.utils.checkpoint`` when ``remat``
     (and autograd is recording)."""
 
-    def __init__(self, cfg, tp_axis, fsdp_axis, remat, use_flash):
+    def __init__(self, cfg, tp_axis, fsdp_axis, remat, use_flash,
+                 sp_axis=None, sp_size=1):
         self.cfg = cfg
         self.tp_axis, self.fsdp_axis = tp_axis, fsdp_axis
+        self.sp_axis, self.sp_size = sp_axis, int(sp_size)
         self.remat, self.use_flash = remat, use_flash
         self.f_in, self.g_out = _fg_pair(tp_axis)
         self.gather = _Gather(fsdp_axis)
@@ -275,7 +338,8 @@ class _Block:
         cos_t, sin_t = self.tables(x.device)
         return _attention_residual(
             x, lp, cfg=self.cfg, cos_t=cos_t, sin_t=sin_t, f_in=self.f_in,
-            g_out=self.g_out, gather=self.gather, use_flash=self.use_flash)
+            g_out=self.g_out, gather=self.gather, sp_axis=self.sp_axis,
+            sp_size=self.sp_size, use_flash=self.use_flash)
 
     def layer(self, x, lp):
         raise NotImplementedError
@@ -307,23 +371,31 @@ def make_llama_block(cfg: HybridStageConfig, tp_axis="tp", fsdp_axis="fsdp",
     ``layers_per_stage`` decoder layers with explicit tp / fsdp
     collectives over the local shards (``llama_stage_specs``); activations
     are replicated over tp and batch-sharded over the data axes by the
-    executor. ``sp_axis`` (context parallelism) is A10 slice 5."""
-    _no_sp(sp_axis)
-    return _LlamaBlock(cfg, tp_axis, fsdp_axis, remat, use_flash)
+    executor. With ``sp_axis`` their sequence dim is sharded over that
+    context-parallel axis as well (``seq_axis`` of the executor) and
+    attention runs over the gathered K/V blocks (module docstring): the
+    full 5-D dp x fsdp x tp x pp x sp composition. ``sp_size`` must be
+    the mesh size of ``sp_axis``."""
+    return _LlamaBlock(cfg, tp_axis, fsdp_axis, remat, use_flash, sp_axis,
+                       sp_size)
 
 
 class _VocabParallelHead:
-    def __init__(self, cfg, tp_axis):
+    def __init__(self, cfg, tp_axis, sp_axis=None):
         self.eps = cfg.rms_norm_eps
         self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
         self.f_in, self.g_out = _fg_pair(tp_axis)
+        self.g_sp = _G(sp_axis)
 
     def __call__(self, hp, x, labels):
         xn = self.f_in(_rms(x, hp["ln"], self.eps))
         logits = (xn @ hp["w"]).float()                  # [b, s, V_local]
-        v_loc, s = logits.shape[-1], logits.shape[1]
+        v_loc = logits.shape[-1]
         off = _axis_index(self.tp_axis) * v_loc
-        lbl = torch.roll(labels, -1, dims=1).long()
+        lbl, pos, s_total = next_labels(labels, None if self.sp_axis is None
+                                        else C._axis_pg(self.sp_axis))
+        lbl = lbl.long()
         # the max shift is numerical stability only: no gradient
         with torch.no_grad():
             m = logits.max(dim=-1).values
@@ -336,9 +408,11 @@ class _VocabParallelHead:
         lab = logits.gather(-1, safe[..., None])[..., 0]
         lab = self.g_out(torch.where(mine, lab, torch.zeros_like(lab)))
         nll = lse - lab
-        pos = torch.arange(s, device=x.device)[None, :]
-        valid = ((lbl >= 0) & (pos < s - 1)).float()
-        return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+        valid = ((lbl >= 0) & (pos < s_total - 1)).float()
+        # g over sp (identity backward): each block's cotangent is whole
+        num = self.g_sp((nll * valid).sum())
+        den = self.g_sp(valid.sum())
+        return num / den.clamp(min=1.0)
 
 
 def make_vocab_parallel_head(cfg: HybridStageConfig, tp_axis="tp",
@@ -349,9 +423,11 @@ def make_vocab_parallel_head(cfg: HybridStageConfig, tp_axis="tp",
     c_softmax_with_cross_entropy): logits stay vocab-sharded over tp; the
     softmax normalizer and the label logit are assembled with sums and a
     max over tp, so the full [b, s, V] tensor never exists. Same shift /
-    mask as ``models.llama.loss_from_logits``."""
-    _no_sp(sp_axis)
-    return _VocabParallelHead(cfg, tp_axis)
+    mask as ``models.llama.loss_from_logits``. With ``sp_axis`` the
+    sequence dim is context-sharded: the label shift crosses the blocks,
+    positions and the valid mask are global, and numerator and denominator
+    are summed over sp (reference :244-300)."""
+    return _VocabParallelHead(cfg, tp_axis, sp_axis)
 
 
 def reference_forward(cfg: HybridStageConfig, per_stage_params, head_params,

@@ -55,7 +55,24 @@ one global step computes:
   enter the expert region through Megatron's f (all-reduce in backward),
   so the gate and ``x`` get whole gradients on every rank. XLA's
   partitioner emits an all_to_all here; the port replicates tokens and
-  all-reduces (ROADMAP, recorded deviations).
+  all-reduces (ROADMAP, recorded deviations);
+* ``ep`` beside a parameter-sharding axis (``fsdp2 ep2`` with data axes
+  ``("fsdp",)``, or ``dp x fsdp x ep`` under the default ones): the two
+  groups are orthogonal slices of the mesh. The data group (every data
+  axis, ``fsdp`` among them) joins ranks of one ``ep`` coordinate that
+  hold OTHER tokens; the ``ep`` group joins ranks of one data coordinate
+  that hold the SAME tokens. The routing logits are gathered over the
+  data group (their backward a summed reduce-scatter there), the capacity
+  maps (:func:`_local_capacity_maps`) keep this rank's rows of that global
+  batch and this rank's ``E/ep`` experts, the combine is summed over
+  ``ep`` and ``x`` / the gate values enter through f over ``ep``, and
+  ``aux_share`` is ``1/|data group|``: the ``ep`` ranks compute the same
+  ``l_aux``, which counts once when the step sums the loss over the data
+  group. The trunk's matrices are gathered over ``fsdp`` where they are
+  used (:class:`~.mpu._GatherOnUse`: a reduce-scatter of the gradient over
+  ``fsdp`` as a data axis, nothing over ``ep``, whose ranks compute equal
+  trunk gradients); the banks are sharded over ``ep`` alone and the step
+  sums their gradients over the data group and never over ``ep``.
 
 Not ported: the reference's loud fallback from ``"fused"`` to ``"sorted"``
 with its kill switch ``FLAGS_fused_gather_gemm`` (:603-626): on the card an
@@ -452,7 +469,11 @@ def _moe_ffn_on_rank(mode: str, x, logits, wg, wu, wd, topk: int,
     E_loc = wg.shape[0]
     e0 = _grank(ep) * E_loc
     if dp is not None:
+        # over the data group (its ranks hold other tokens): the global
+        # batch's logits; backward, a summed reduce-scatter over it
         logits = c_allgather(logits, dp, 0)
+    # over ep (its ranks hold the same tokens): each rank's experts give a
+    # part of x's gradient, summed here in the backward
     xe = c_identity(x, ep) if ep is not None else x
     if mode == "dropless":
         y, aux = _dropless_moe_ffn(xe, logits, wg, wu, wd, topk, t0=t0,
@@ -466,6 +487,7 @@ def _moe_ffn_on_rank(mode: str, x, logits, wg, wu, wd, topk: int,
         else:
             out = _reference_expert_ffn(xe, slot_token, valid, wg, wu, wd)
         y = _slot_combine_weighted(out, gate_vals, soe, ep)
+    # over ep: each rank combined its own experts' entries
     return (mp_allreduce(y, ep) if ep is not None else y), aux
 
 

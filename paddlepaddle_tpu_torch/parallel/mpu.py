@@ -25,8 +25,15 @@ different processes. A parameter sharded over a parameter-sharding (ZeRO-3)
 axis, ``fsdp`` the usual one, is gathered over it where its module uses it
 (:func:`gather_scope`, :class:`_GatherOnUse`), whatever the module, and the
 whole tensor goes on to the module's Megatron wiring. The
-sequence-parallel half of the reference (:166-198) waits for an ``sp`` axis
-(a later A10 slice).
+sequence-parallel half (reference :166-198): the activations between the
+sequence-parallel layers are sequence blocks on the ranks of the model
+axis (:func:`scatter_to_sequence_parallel`,
+:func:`gather_from_sequence_parallel`, :class:`ColumnSequenceParallelLinear`,
+:class:`RowSequenceParallelLinear`), and a parameter used on the blocks is
+marked (:func:`mark_as_sequence_parallel_parameter`) so the sharded step
+sums its gradient over that axis; ``SequenceParallelBegin`` / ``End``
+reach the same wiring through a plan's view
+(:func:`mark_sequence_parallel_region`).
 
 The group of a layer built directly is ``mp_group`` (a
 :class:`~..distributed.collective.Group` or a process group), else the
@@ -47,8 +54,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..distributed.collective import (_all_gather, _all_reduce_, _grank,
-                                      _reduce_scatter, _resolve_pg, _size,
+from ..distributed.collective import (_all_gather, _all_reduce_, _CConcat,
+                                      _CSplit, _grank, _reduce_scatter,
+                                      _ReduceScatter, _resolve_pg, _size,
                                       c_concat, c_identity, c_split,
                                       mp_allreduce)
 from ..device import resolve_device
@@ -260,6 +268,127 @@ class ParallelCrossEntropy(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# sequence parallel (Megatron SP over activations, reference :166-198)
+# ---------------------------------------------------------------------------
+#
+# The reference constrains the activations' sequence dim to the mp axis and
+# GSPMD computes the dense values. Here the ranks of the model-axis group
+# each hold one block of the sequence ``[b, s/n, h]`` between the
+# sequence-parallel layers, and the layers make the collectives themselves.
+# A parameter used on those blocks (a norm's weight) gets a partial gradient
+# on each rank: ``mark_as_sequence_parallel_parameter`` marks it, and
+# ``ShardedTrainStep`` sums its gradient over the model axis.
+
+
+def _sp_group(mp_axis):
+    """The group of ``mp_axis``: the active plan's (``with plan:``), else
+    the global mesh's or the world (None in a process without a group)."""
+    from ..distributed import collective as C
+
+    mesh = C._mesh_stack[-1] if C._mesh_stack else None
+    if mesh is not None and mp_axis in getattr(mesh, "axes", {}):
+        if getattr(mesh, "bound", False) or dist.is_initialized():
+            return mesh.axis_group(mp_axis)
+        return None
+    return _group(None, mp_axis)
+
+
+def scatter_to_sequence_parallel(x, mp_axis="mp", group=None):
+    """``[b, s, h]`` -> this rank's block ``[b, s/n, h]`` of the sequence
+    over ``mp_axis`` (reference ScatterOp, :166); backward, the blocks'
+    gradients all-gathered. ``group`` overrides the axis's group."""
+    pg = group if group is not None else _sp_group(mp_axis)
+    return _CSplit.apply(x, pg, 1)
+
+
+def gather_from_sequence_parallel(x, mp_axis="mp", group=None):
+    """The sequence blocks all-gathered back to ``[b, s, h]`` (reference
+    GatherOp, :171); backward, this rank's block of the cotangent."""
+    pg = group if group is not None else _sp_group(mp_axis)
+    return _CConcat.apply(x, pg, 1)
+
+
+class ColumnSequenceParallelLinear(ColumnParallelLinear):
+    """A column-parallel linear whose input arrives as sequence blocks: the
+    blocks are gathered, then the column product (reference :176). Its
+    input's gradient is the all-reduce of f, cut to this rank's block: a
+    reduce-scatter."""
+
+    def forward(self, x):
+        return super().forward(gather_from_sequence_parallel(
+            x, self.mp_axis, group=self.pg))
+
+
+class RowSequenceParallelLinear(RowParallelLinear):
+    """A row-parallel linear whose output leaves as sequence blocks: the
+    partial products are reduce-scattered over the sequence in place of
+    the all-reduce (reference :186), then the bias is added on the block.
+    The bias is a sequence-parallel parameter (its gradient is summed over
+    the group by ``ShardedTrainStep``)."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False,
+                 fuse_matmul_bias=False, mp_group=None, name=None,
+                 mp_axis="mp", *, device=None, dtype="float32"):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         input_is_parallel, fuse_matmul_bias, mp_group,
+                         name, mp_axis, device=device, dtype=dtype)
+        if self.bias is not None:
+            mark_as_sequence_parallel_parameter(self.bias)
+
+    def forward(self, x):
+        if not self.input_is_parallel:
+            x = c_split(x, self.pg, -1)
+        y = _ReduceScatter.apply(F.linear(x, self.weight), self.pg, 1)
+        return y + self.bias if self.bias is not None else y
+
+
+def mark_as_sequence_parallel_parameter(param):
+    """Mark a parameter used on sequence blocks (reference :194; a no-op
+    there, since GSPMD sums its gradient): ``param.sequence_parallel`` is
+    set, and ``ShardedTrainStep`` all-reduces its gradient over the model
+    axis, as Paddle's ``register_sequence_parallel_allreduce_hooks`` does.
+    Returns the parameter."""
+    param.sequence_parallel = True
+    return param
+
+
+_MPU_LAYERS = (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+
+def mark_sequence_parallel_region(model: nn.Module) -> None:
+    """What ``SequenceParallelBegin`` / ``End`` imply for the modules
+    between them (in ``named_modules`` order: after the subtree of a module
+    marked ``_sp_begin``, up to one marked ``_sp_end``), whose activations
+    are sequence blocks on each rank of the model axis. A module whose
+    weight carries a model-axis placement (``ColWiseParallel`` /
+    ``RowWiseParallel``) is marked ``_sp_seq``: a plan's view gathers the
+    sequence ahead of a column one and reduce-scatters it after a row one.
+    Every parameter of the other modules (the norms) is marked with
+    :func:`mark_as_sequence_parallel_parameter`."""
+    inside, begin = False, None
+    for name, mod in model.named_modules():
+        if getattr(mod, "_sp_begin", None):
+            inside, begin = True, name
+            continue
+        if begin is not None and name.startswith(begin + "."):
+            continue
+        if getattr(mod, "_sp_end", None):
+            inside, begin = False, None
+            continue
+        if not inside:
+            continue
+        w = mod._parameters.get("weight")
+        if w is not None and any(e is not None for e in
+                                 getattr(w, "dist_spec", None) or ()):
+            mod._sp_seq = True
+            continue
+        for p in mod._parameters.values():
+            if p is not None:
+                mark_as_sequence_parallel_parameter(p)
+
+
+# ---------------------------------------------------------------------------
 # a model's view under a plan
 # ---------------------------------------------------------------------------
 
@@ -274,15 +403,46 @@ def _copy_hooks(d: dict) -> None:
             d[k] = type(v)(v)
 
 
-def _hooks_for(new: nn.Module, role: str, gather: bool, pg) -> None:
+def _hooks_for(new: nn.Module, role: str, gather: bool, pg,
+               seq: bool = False) -> None:
+    """A column projection's input through f (after the sequence blocks
+    are gathered, ``seq``), its output gathered when ``gather``; a row
+    projection's output all-reduced, or reduce-scattered over the
+    sequence (``seq``)."""
     if role == "column":
-        new.register_forward_pre_hook(
-            lambda m, args: (c_identity(args[0], pg),) + tuple(args[1:]))
+        if seq:
+            new.register_forward_pre_hook(
+                lambda m, args: (c_identity(_CConcat.apply(args[0], pg, 1),
+                                            pg),) + tuple(args[1:]))
+        else:
+            new.register_forward_pre_hook(
+                lambda m, args: (c_identity(args[0], pg),) + tuple(args[1:]))
         if gather:
             new.register_forward_hook(
                 lambda m, args, out: c_concat(out, pg, -1))
     elif role == "row":
-        new.register_forward_hook(lambda m, args, out: mp_allreduce(out, pg))
+        if seq:
+            new.register_forward_hook(
+                lambda m, args, out: _ReduceScatter.apply(out, pg, 1))
+        else:
+            new.register_forward_hook(
+                lambda m, args, out: mp_allreduce(out, pg))
+
+
+def _wire_sequence(mod: nn.Module, pg) -> None:
+    """``SequenceParallelBegin``'s scatter after the module's output (after
+    its tensor-parallel hooks) and ``SequenceParallelEnd``'s gather ahead
+    of its input (ahead of a column projection's f too: f must sum the
+    whole sequence's partial gradients, which the gather's backward then
+    cuts to this rank's block)."""
+    if getattr(mod, "_sp_begin", None):
+        mod.register_forward_hook(
+            lambda m, args, out: _CSplit.apply(out, pg, 1))
+    if getattr(mod, "_sp_end", None):
+        mod.register_forward_pre_hook(
+            lambda m, args: tuple(_CConcat.apply(a, pg, 1)
+                                  if isinstance(a, torch.Tensor) else a
+                                  for a in args), prepend=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -349,6 +509,12 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
         params = {}
         full_shapes = {}
         gathers = {}
+        owns = {}
+        # a Megatron layer built over a group of several ranks holds its
+        # rank's block already; one built in one process holds the whole
+        local = isinstance(mod, _MPU_LAYERS) and _size(mod.pg) > 1
+        if isinstance(mod, _MPU_LAYERS):
+            new.pg = None
         for pname, p in mod._parameters.items():
             if p is None:
                 params[pname] = None
@@ -356,6 +522,13 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
             name = prefix + pname
             full_shapes[pname] = tuple(p.shape)
             own = getattr(p, "dist_spec", None)
+            owns[pname] = own
+            if local:
+                plan.specs[name] = _fit_spec(own or (), tuple(p.shape),
+                                             plan.axes)
+                params[pname] = p if share else nn.Parameter(
+                    p.detach().clone(), requires_grad=p.requires_grad)
+                continue
             spec = (_fit_spec(own, tuple(p.shape), plan.axes)
                     if own is not None else plan.spec_for(name, p.shape))
             plan.specs[name] = spec
@@ -382,7 +555,9 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
                          for n, c in mod._modules.items()}
         if gathers:
             new._zero_gather = gathers
-        if isinstance(mod, MoELayer):
+        if isinstance(mod, _MPU_LAYERS):
+            new._tp_wire = ("mpu",)
+        elif isinstance(mod, MoELayer):
             new._tp_wire = ("moe",)
         elif isinstance(mod, Embedding):
             spec = plan.specs[prefix + "weight"]
@@ -396,7 +571,8 @@ def cut_view(model: nn.Module, plan, share: bool = True, rank=None
                     plan.model_axis in _flat(probe[1]):
                 new._tp_wire = ("gather",)
         elif "weight" in full_shapes and len(full_shapes["weight"]) == 2:
-            role = plan.role_for(prefix + "weight", full_shapes["weight"])
+            role = plan.role_for(prefix + "weight", full_shapes["weight"],
+                                 own=owns.get("weight"))
             if (role == "row" and isinstance(mod, WeightOnlyLinear)
                     and mod.group_size == -1):
                 new._tp_wire = ("row_int8",)
@@ -423,6 +599,7 @@ def wire_view(view: nn.Module, pg, dp=None, ep=None, zero=None
                 mod._modules[n] = wire(c)
         gathers = mod.__dict__.pop("_zero_gather", None)
         out = _wire_role(mod, mod.__dict__.pop("_tp_wire", None), pg, dp, ep)
+        _wire_sequence(out, pg)
         if gathers:
             _wire_gathers(out, gathers, zero)
         return out
@@ -439,6 +616,11 @@ def _wire_role(mod: nn.Module, role, pg, dp, ep) -> nn.Module:
             mod.weight, role[1], pg, mod.padding_idx)
     if kind == "moe":
         mod.wire(dp, ep)
+    elif kind == "mpu":
+        # a Megatron layer makes its own collectives: over this rank's group
+        mod.pg = pg
+        if isinstance(mod, VocabParallelEmbedding):
+            mod._start = _grank(pg) * mod.weight.shape[0]
     elif kind == "gather":
         mod.register_forward_hook(
             lambda m, args, out: c_concat(out, pg, -1))
@@ -446,7 +628,8 @@ def _wire_role(mod: nn.Module, role, pg, dp, ep) -> nn.Module:
         mod.__class__ = _row_int8_class()
         mod._tp_pg = pg
     else:
-        _hooks_for(mod, kind, role[1], pg)
+        _hooks_for(mod, kind, role[1], pg,
+                   seq=bool(getattr(mod, "_sp_seq", False)))
     return mod
 
 

@@ -36,7 +36,12 @@ gradients and the input cotangents ``dacts`` are summed over ``pp``; over
 the data axes a gradient whose spec names a data axis (it arrives
 reduce-scattered by the block's gather) is divided by that axis's size and
 averaged over the others, and ``dacts`` is divided by each data axis's
-size. Then every value is gathered whole: loss, stage grads ``[S, ...]``
+size. With ``seq_axis`` (context parallelism, :346-355) each rank holds
+its block of the sequence (dim 1 of ``acts`` and ``labels``, after the
+batch rows), and the stage and head gradients, partial sums over its
+tokens, are summed over ``seq_axis`` first; the head's loss is already the
+global mean on every block. Then every value is gathered whole: loss,
+stage grads ``[S, ...]``
 or ``[V, S, ...]``, head grads, ``dacts [B, ...]``. :func:`last_stats`
 holds the last call's seconds (the walk, the sums, the gathers) and its
 transfers.
@@ -58,12 +63,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from ..core.errors import not_ported
 from .schedules import (OP_B, OP_B_LAST, OP_BW, OP_BW_LAST, OP_BX,
                         OP_BX_LAST, OP_F, OP_IDLE, PipelineSchedule,
                         _arrival_tables, build_schedule)
-
-_SEQ_SLICE = "A10 slice 5: sequence parallel"
 
 def _specs_like(tree, specs) -> list:
     """The placement tuple of each leaf of ``tree`` (in ``tree_flatten``'s
@@ -291,10 +293,15 @@ def _grad(root, inputs, seed):
 
 def _train_rank(plan, sched: PipelineSchedule, stacked_params, head_params,
                 acts, labels, block_fn, head_loss_fn, pp_axis, data_axes,
-                param_specs, head_specs):
+                param_specs, head_specs, seq_axis=None):
     from ..distributed.collective import _all_gather, _all_reduce_, use_mesh
 
     place = _Place(plan, pp_axis, data_axes)
+    n_sp = place.sizes[seq_axis] if seq_axis is not None else 1
+    sp_pg = plan.group(seq_axis) if n_sp > 1 else None
+    if n_sp > 1 and acts.shape[1] % n_sp:
+        raise ValueError(f"sequence {acts.shape[1]} does not split over "
+                         f"{seq_axis}={n_sp}")
     S, s = place.S, place.s
     if sched.S != S:
         raise ValueError(f"schedule built for S={sched.S}, mesh has {S}")
@@ -329,6 +336,12 @@ def _train_rank(plan, sched: PipelineSchedule, stacked_params, head_params,
     rows = place.index(place.data)
     x_l = acts.reshape(M, mb, *acts.shape[1:]).chunk(D, dim=1)[rows]
     y_l = labels.reshape(M, mb, *labels.shape[1:]).chunk(D, dim=1)[rows]
+    if sp_pg is not None:
+        # this rank's block of the sequence (dim 2 of [M, mb, s, ...])
+        cols = place.coords[seq_axis]
+        x_l = x_l.chunk(n_sp, dim=2)[cols].contiguous()
+        if y_l.dim() >= 3:
+            y_l = y_l.chunk(n_sp, dim=2)[cols].contiguous()
     a_shape = tuple(x_l.shape[1:])
     Cs, Cf, Cb = sched.stash_cap, sched.inbox_f_cap, sched.inbox_b_cap
     Cg = sched.gstash_entries
@@ -438,6 +451,8 @@ def _train_rank(plan, sched: PipelineSchedule, stacked_params, head_params,
             loss = _all_reduce_(loss, "avg", plan.group(a))
 
         def reduce_grad(gr, spec):
+            # the sequence blocks hold other tokens of the same rows
+            _all_reduce_(gr, "sum", sp_pg)
             inside = [a for a in place.data if a in _spec_axes(spec)]
             for a in place.data:
                 if a not in inside:
@@ -464,8 +479,10 @@ def _train_rank(plan, sched: PipelineSchedule, stacked_params, head_params,
                     if pp is not None else per_chunk.unsqueeze(1))
             st_out.append(full[0] if added_v else full)
         hd_out = [place.whole(gr, sp) for gr, sp in zip(hg, hd_specs)]
-        d_whole = _all_gather(dacts, place.groups(place.data), 1) \
-            if place.data else dacts
+        d_whole = (_all_gather(dacts, sp_pg, 2) if sp_pg is not None
+                   else dacts)
+        d_whole = _all_gather(d_whole, place.groups(place.data), 1) \
+            if place.data else d_whole
         _sync(dev)
     t_end = time.perf_counter()
     _LAST.clear()
@@ -528,21 +545,26 @@ def spmd_pipeline_train(stacked_params, head_params, acts, labels,
             is sharded over tp / fsdp / ep inside a stage
             (:func:`~.hybrid.llama_stage_specs`); the block and head make
             the matching collectives.
-        seq_axis: context parallelism inside the stages is A10 slice 5
-            (raises).
+        seq_axis: the mesh axis the sequence dim (dim 1 of ``acts`` and
+            ``labels``) shards over: context parallelism inside the stages
+            (the hybrid's ``sp_axis`` blocks and head).
     Returns:
         (loss, grads_stacked, grads_head, dacts), whole: the loss is the
         mean over the batch; the grads match their params' structure;
         dacts [B, ...] is the cotangent of ``acts``.
     """
-    if seq_axis is not None:
-        raise not_ported(f"seq_axis={seq_axis!r} (context parallelism "
-                         "inside the pipeline stages)", _SEQ_SLICE)
     data_axes = _data_axes(data_axis)
     plan = _plan_for(mesh, data_axes)
     S = plan.axes.get(pp_axis)
     if S is None:
         raise ValueError(f"the mesh has no pipeline axis {pp_axis!r}")
+    if seq_axis is not None:
+        if seq_axis not in plan.axes:
+            raise ValueError(f"seq_axis {seq_axis!r} is not in the mesh "
+                             f"{plan.axes}")
+        if acts.dim() < 3:
+            raise ValueError(f"seq_axis={seq_axis!r} needs activations "
+                             f"[B, seq, ...]; got rank {acts.dim()}")
     if isinstance(schedule, str):
         if n_microbatches is None:
             raise ValueError("n_microbatches required with a schedule name")
@@ -550,7 +572,7 @@ def spmd_pipeline_train(stacked_params, head_params, acts, labels,
                                   V=num_virtual)
     kw = dict(sched=schedule, block_fn=block_fn, head_loss_fn=head_loss_fn,
               pp_axis=pp_axis, data_axes=data_axes, param_specs=param_specs,
-              head_specs=head_specs)
+              head_specs=head_specs, seq_axis=seq_axis)
     trees = dict(stacked_params=stacked_params, head_params=head_params,
                  acts=acts, labels=labels)
     return _run(plan, "train", trees, kw)

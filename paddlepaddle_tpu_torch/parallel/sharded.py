@@ -29,6 +29,21 @@ global batch, :mod:`.moe`) and makes the data-parallel collectives itself:
   data axes only; over an axis that is no data axis the gather's backward
   took the rank's slice. The ranks of one ``ep`` group compute the same
   loss, and their expert gradients are their own experts' whole ones;
+* with ``seq_axis`` (context parallelism) each rank also takes its block
+  of the columns of every batch array with more than one dim (the
+  reference's ``_batch_sharding``, :171-175); the model's attention runs
+  ring attention over that axis (``LlamaConfig.context_parallel_axis``,
+  :mod:`..ops.kernels.ring_attention`), the loss takes the next block's
+  first label for its last position and counts validity at global
+  positions (``models.llama.sequence_sharded``), the token count and the
+  loss are summed over the data group and the sequence group, and every
+  gradient is summed over the sequence group (each rank's is a partial
+  sum over its tokens). The reference's GSPMD computes any model globally
+  under ``seq_axis``; a model with no context-parallel path over it
+  (``config.context_parallel_axis != seq_axis``) would give a per-block
+  answer here, so it gets its whole sequence on every rank instead (the
+  ranks of the axis compute the same step, and nothing is summed over
+  it);
 * a global-norm clip sums the squared norms of the gradients sharded over
   axes (``mp``, ``ep``, ``fsdp``) over those axes and counts replicated
   ones once; a per-tensor norm clip takes a sharded tensor's norm over its
@@ -146,16 +161,19 @@ def step_of(model) -> Optional["ShardedTrainStep"]:
 
 
 class _TokenMean:
-    """Reduces a loss's valid-token count over the data group (no
-    gradient), and records that it did."""
+    """Reduces a loss's valid-token count over the data group and the
+    sequence group (no gradient), and records that it did."""
 
-    def __init__(self, pg):
-        self.pg = pg
+    def __init__(self, groups):
+        self.groups = [g for g in groups if g is not None]
         self.used = False
 
     def __call__(self, count: torch.Tensor) -> torch.Tensor:
         self.used = True
-        return _all_reduce_(count.detach().clone(), "sum", self.pg)
+        count = count.detach().clone()
+        for pg in self.groups:
+            _all_reduce_(count, "sum", pg)
+        return count
 
 
 def _axes_of_spec(spec) -> tuple:
@@ -338,14 +356,23 @@ def _own_stats(device: torch.device, reset: bool) -> Dict[str, object]:
     return out
 
 
-def _build_worker_step(held, plan, device, optimizer, loss_fn, donate):
+def _sequence_parallel_names(model) -> tuple:
+    """The parameters marked ``mark_as_sequence_parallel_parameter``."""
+    if model is None:
+        return ()
+    return tuple(n for n, p in model.named_parameters()
+                 if getattr(p, "sequence_parallel", False))
+
+
+def _build_worker_step(held, plan, device, optimizer, loss_fn, donate,
+                       seq_axis, sp_params):
     """Rank r's step over its view (``held["net"]``, copied here) under
     the bound ``plan``: what :func:`~..distributed.worker_ranks.
     start_workers` runs on each worker rank."""
     net = held.pop("net")
     _own(net, device)
     step = ShardedTrainStep.__new__(ShardedTrainStep)
-    step._init(plan, None, loss_fn, donate)
+    step._init(plan, None, loss_fn, donate, seq_axis, sp_params)
     step._bind(plan.wire_module(net), optimizer)
     step._ctl = Control(plan)
     return step
@@ -359,8 +386,12 @@ class ShardedTrainStep:
             the optimizer is rebound to the step's local parameters.
         mesh / rules / data_axes: the plan's pieces, or ``plan=`` (a
             :class:`~..distributed.shard_plan.ShardingPlan`) for all three.
-        seq_axis: a sequence-parallel axis of size > 1 is a later A10
-            slice (raises).
+        seq_axis: the mesh axis the batch's sequence dim shards over
+            (context parallelism, reference :97-98, :171-175), when the
+            model has a context-parallel path over it
+            (``config.context_parallel_axis == seq_axis``, read here); a
+            model without one gets its whole sequence on every rank
+            (module docstring).
         donate: accepted and recorded (an eager step donates nothing).
 
     In a process with no process group a plan of several ranks runs in the
@@ -385,10 +416,12 @@ class ShardedTrainStep:
                                 else plan.rules,
                                 data_axes=plan.data_axes or data_axes,
                                 model_axis=plan.model_axis)
-        if seq_axis is not None and plan.axes.get(seq_axis, 1) > 1:
-            raise not_ported(f"seq_axis={seq_axis!r}",
-                             "A10 slice 5: sequence parallel")
-        self._init(plan, model, loss_fn, donate)
+        cfg = getattr(model, "config", None)
+        if (seq_axis is None or plan.axes.get(seq_axis, 1) == 1
+                or getattr(cfg, "context_parallel_axis", None) != seq_axis):
+            seq_axis = None
+        self._init(plan, model, loss_fn, donate, seq_axis,
+                   _sequence_parallel_names(model))
         if model is not None:
             _STEPS[model] = weakref.ref(self)
         if plan.single_process:
@@ -397,11 +430,14 @@ class ShardedTrainStep:
             plan.require_group()
             self._bind(plan.shard_module(model, share=False), optimizer)
 
-    def _init(self, plan, model, loss_fn, donate) -> None:
+    def _init(self, plan, model, loss_fn, donate, seq_axis=None,
+              sp_params=()) -> None:
         self.plan = plan
         self.model = model
         self.loss_fn = loss_fn
         self.donate = bool(donate)
+        self.seq_axis = seq_axis
+        self._sp_params = frozenset(sp_params)
         self.rules = plan.rules
         self._ctl: Optional[Control] = None
         self._ranks = None
@@ -417,6 +453,8 @@ class ShardedTrainStep:
         self.specs = {n: plan.specs.get(n, ()) for n in self.params}
         self._data = plan.data_group
         self._dp_size = plan.dp_degree
+        self._sp = plan.group(self.seq_axis) if self.seq_axis else None
+        self._sp_size = plan.axes[self.seq_axis] if self.seq_axis else 1
         axes, self._reduce = [], []
         for n in self.params:
             on = tuple(a for a in _axes_of_spec(self.specs[n])
@@ -425,9 +463,16 @@ class ShardedTrainStep:
             # the data axes the gather's backward has not summed over
             rest = tuple(a for a in plan.data_axes
                          if not (a in on and plan.is_zero_axis(a)))
+            # every parameter is replicated over the sequence axis, whose
+            # ranks saw other tokens: their partial gradients are summed; a
+            # sequence-parallel parameter (Megatron SP) saw this rank's
+            # sequence block of the model axis: summed over that axis
             self._reduce.append(
-                [self._data] if rest == plan.data_axes and rest
-                else [plan.group(a) for a in rest])
+                ([self._data] if rest == plan.data_axes and rest
+                 else [plan.group(a) for a in rest])
+                + ([self._sp] if self._sp is not None else [])
+                + ([plan.mp_group] if n in self._sp_params
+                   and plan.tp_degree > 1 else []))
         optimizer._rebind(self.params)
         if optimizer._grad_clip is not None and any(axes):
             optimizer._grad_clip = _PlanClip(
@@ -445,7 +490,8 @@ class ShardedTrainStep:
 
         plan = self.plan
         kw = {"optimizer": optimizer._worker_copy(),
-              "loss_fn": ship(loss_fn, "loss_fn"), "donate": self.donate}
+              "loss_fn": ship(loss_fn, "loss_fn"), "donate": self.donate,
+              "seq_axis": self.seq_axis, "sp_params": self._sp_params}
         cuts = [plan.cut_module(model, r, share=False)
                 for r in range(plan.n_devices)]
         held = [{"net": c} for c in cuts[1:]]
@@ -472,15 +518,22 @@ class ShardedTrainStep:
         x = x.to(self.device)
         if self._dp_size > 1:
             x = self.plan.shard_batch(x)
+        if self._sp is not None and x.dim() > 1:
+            x = x.chunk(self._sp_size, dim=1)[self.plan.coords()[
+                self.seq_axis]].contiguous()
         return x
 
     def _check_batch(self, batch) -> None:
-        if self._dp_size > 1:
-            for x in batch:
-                if x.shape[0] % self._dp_size:
-                    raise ValueError(
-                        f"batch dimension {x.shape[0]} does not split over "
-                        f"dp={self._dp_size}")
+        for x in batch:
+            if self._dp_size > 1 and x.shape[0] % self._dp_size:
+                raise ValueError(
+                    f"batch dimension {x.shape[0]} does not split over "
+                    f"dp={self._dp_size}")
+            if self._sp is not None and x.ndim > 1 \
+                    and x.shape[1] % self._sp_size:
+                # what the reference's ring attention raises
+                raise ValueError(f"seq {x.shape[1]} not divisible by "
+                                 f"{self.seq_axis}={self._sp_size}")
 
     def __call__(self, *batch) -> torch.Tensor:
         self._check_batch(batch)
@@ -494,15 +547,17 @@ class ShardedTrainStep:
         params = self.optimizer.parameters
         for p in params:
             p.grad = None
-        mean = _TokenMean(self._data)
+        mean = _TokenMean([self._data, self._sp])
+        shared = self._dp_size > 1 or self._sp is not None
         with self.plan, mpu.gather_scope(), _llama.global_token_mean(
-                mean if self._dp_size > 1 else None):
+                mean if shared else None), _llama.sequence_sharded(self._sp):
             loss = self.loss_fn(self.net, *batch)
-            if self._dp_size > 1 and not mean.used:
+            if shared and not mean.used:
                 # every rank ran the same loss_fn, so every rank raises here
                 raise _RefusedOnEveryRank(str(not_ported(
-                    "a loss_fn over more than one data rank that does not "
-                    "report its valid-token count (the global token mean "
+                    "a loss_fn over more than one data or sequence rank "
+                    "that does not report its valid-token count (the "
+                    "global token mean "
                     "needs it; the Llama, GPT and MoE losses, "
                     "LlamaForCausalLM.loss_from_logits, report it)",
                     "A10")))
@@ -516,8 +571,10 @@ class ShardedTrainStep:
         for g, groups in zip(grads, self._reduce):
             for pg in groups:
                 _all_reduce_(g, "sum", pg)
-        if self._dp_size > 1:
-            loss = _all_reduce_(loss.clone(), "sum", self._data)
+        if shared:
+            loss = loss.clone()
+            for pg in mean.groups:
+                _all_reduce_(loss, "sum", pg)
         self.optimizer.apply(grads, lr=lr)
         self._step_count += 1
         return loss

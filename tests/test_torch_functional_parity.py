@@ -796,8 +796,9 @@ def test_llama_config_takes_reference_positional_order():
     its defaults (``context_parallel_axis`` and ``data_parallel_axis``
     before ``recompute``), so a reference-order call binds alike: the 14th
     positional argument is ``recompute``. A context-parallel axis (ring
-    attention, ROADMAP A10) raises at construction; ``MoEConfig`` keeps the
-    reference's order too."""
+    attention) is taken, positionally too, as the reference takes it, and
+    read by each attention call (``tests/test_torch_context_parallel.py``
+    holds the values); ``MoEConfig`` keeps the reference's order too."""
     import inspect
 
     from paddlepaddle_tpu.models.llama import LlamaConfig as JConfig
@@ -818,7 +819,11 @@ def test_llama_config_takes_reference_positional_order():
     assert LlamaConfig(*args[:13]).recompute is False
     assert LlamaConfig(*args, "dots").remat_policy == "dots"
     assert LlamaConfig().data_parallel_axis == JConfig().data_parallel_axis
-    with pytest.raises(NotImplementedError, match="A10"):
-        LlamaConfig(*args[:11], "sp")
-    with pytest.raises(NotImplementedError, match="context_parallel_axis"):
-        LlamaConfig(context_parallel_axis="sp")
+    for cfg in (LlamaConfig(*args[:11], "sp"), JConfig(*args[:11], "sp")):
+        assert cfg.context_parallel_axis == "sp"
+        assert cfg.data_parallel_axis == "dp" and cfg.recompute is False
+    port = LlamaConfig(context_parallel_axis="sp")
+    ref = JConfig(context_parallel_axis="sp")
+    names = inspect.signature(LlamaConfig).parameters
+    assert [getattr(port, n) for n in names] == [getattr(ref, n)
+                                                 for n in names]

@@ -10,13 +10,19 @@ package's (``paddlepaddle_tpu/parallel/hybrid.py``):
   ``tests/torch_dist_workers.py:hybrid_session``) over the meshes of
   ``tests/test_hybrid_4d.py:69-298``: ``dp1 fsdp2 tp2 pp2`` under 1F1B
   and ZBH1, ``dp2 fsdp1 tp2 pp2`` under 1F1B, the V=2 interleaved
-  and ZBVPP schedules (four virtual stages), two layers a stage, and the
-  MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``: loss (rtol 1e-4), stage, head
-  and input-cotangent gradients (rtol 2e-3, atol 2e-4) on every rank
-  against the JAX unsharded oracle's (``reference_forward`` /
+  and ZBVPP schedules (four virtual stages), two layers a stage, the
+  MoE stage on ``dp1 fsdp1 ep2 tp2 pp2``, and the 5-D mesh ``dp1 fsdp1
+  sp2 tp2 pp2`` of ``tests/test_hybrid_4d.py:196`` (``sp_axis`` blocks
+  and head, ``seq_axis`` in the executor: allgather-KV context-parallel
+  attention and the label shift across the blocks): loss (rtol 1e-4),
+  stage, head and input-cotangent gradients (rtol 2e-3, atol 2e-4) on
+  every rank against the JAX unsharded oracle's (``reference_forward`` /
   the MoE chain);
-* the context-parallel branch (``sp_axis``, ``seq_axis``) raising the
-  A10 slice 5 message; specs and init shapes as the reference's.
+* the context-parallel attention block by block: the port's blockwise
+  attention and its prefix form (one causal flash call over the gathered
+  prefix, the card's route) against the JAX ``_sp_blockwise_attention``
+  on two sequence blocks; the ``max_seq_len`` check; specs and init
+  shapes as the reference's.
 """
 
 import pickle
@@ -44,7 +50,9 @@ CFG = dict(hidden_size=32, intermediate_size=64, num_heads=4, num_kv_heads=2,
 JCFG, TCFG = JH.HybridStageConfig(**CFG), TH.HybridStageConfig(**CFG)
 D4 = ["dp", "fsdp", "tp", "pp"]
 MOE = {"E": 4, "topk": 2, "cf": 8.0, "ep_size": 2, "eh": 48}
-# (key, layers per stage, seed, schedule, V, mesh shape, names, moe)
+SP = {"sp": 2}
+# (key, layers per stage, seed, schedule, V, mesh shape, names, moe or the
+# sequence axis's size)
 CASES = [
     ("dp1fsdp2 1f1b", 1, 0, "1f1b", 1, [1, 2, 2, 2], D4, None),
     ("dp2fsdp1 1f1b", 1, 0, "1f1b", 1, [2, 1, 2, 2], D4, None),
@@ -54,6 +62,8 @@ CASES = [
     ("two layers a stage", 2, 7, "1f1b", 1, [1, 2, 2, 2], D4, None),
     ("moe ep2tp2pp2", 1, 4, "1f1b", 1, [1, 1, 2, 2, 2],
      ["dp", "fsdp", "ep", "tp", "pp"], MOE),
+    ("5d sp2tp2pp2", 1, 2, "1f1b", 1, [1, 1, 2, 2, 2],
+     ["dp", "fsdp", "sp", "tp", "pp"], SP),
 ]
 
 
@@ -64,7 +74,7 @@ def _cfg(layers):
 def _problem(n_stages, seed, cfg, moe=None):
     """The reference test's problem (tests/test_hybrid_4d.py:40 and
     :243), as numpy."""
-    if moe:
+    if moe and "E" in moe:
         keys = jax.random.split(jax.random.PRNGKey(seed), 5)
         stages = [JH.init_moe_stage(cfg, keys[i], moe["E"], moe["eh"])
                   for i in range(n_stages)]
@@ -86,7 +96,7 @@ def _problem(n_stages, seed, cfg, moe=None):
 
 
 def _oracle(cfg, stages, head, acts, ids, moe):
-    if moe:
+    if moe and "E" in moe:
         block = JH.make_moe_block(cfg, moe["E"], topk=moe["topk"],
                                   capacity_factor=moe["cf"], tp_axis=None,
                                   fsdp_axis=None, ep_axis=None, ep_size=1,
@@ -126,9 +136,9 @@ def hybrid(tmp_path_factory):
         cases.append((key, dict(CFG, layers_per_stage=layers),
                       _np(stack(stages)), _np(head), np.asarray(acts),
                       np.asarray(ids), sched, V, shape, names,
-                      None if moe is None else {k: moe[k] for k in
-                                                ("E", "topk", "cf",
-                                                 "ep_size")}))
+                      moe if moe is None or "E" not in moe
+                      else {k: moe[k] for k in ("E", "topk", "cf",
+                                                "ep_size")}))
     # through a file: a large argument makes the ranks start one by one
     # (each rank's start blocks until the one before has read its pipe)
     path = tmp_path_factory.mktemp("hybrid") / "cases.pkl"
@@ -328,19 +338,109 @@ def test_specs_and_init_shapes_match_the_reference():
     assert TCFG.head_dim == JCFG.head_dim == 8
 
 
+def _jax_two_blocks(fn, *arrays):
+    """``fn`` on the two sequence blocks of a JAX ``sp2`` mesh (two of the
+    eight virtual devices) over whole arrays sharded on dim 1."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from paddlepaddle_tpu.core.jax_compat import shard_map
+
+    mesh = Mesh(np.array(jax.devices()[:2]), ("sp",))
+    spec = P(None, "sp")
+    return shard_map(fn, mesh=mesh, in_specs=(spec,) * len(arrays),
+                     out_specs=spec, check_vma=False)(*arrays)
+
+
+def test_context_parallel_attention_matches_the_reference_blocks():
+    """The port's ``_sp_blockwise_attention`` (plain) and
+    ``_sp_prefix_attention`` (the card's one causal flash call over the
+    gathered prefix; here the flash wrappers' plain version) on each of
+    two sequence blocks against the JAX ``_sp_blockwise_attention`` under
+    ``shard_map`` over two devices: outputs and the q, k, v gradients at
+    rtol 1e-5 (each tensor's scale). The gather is the whole K/V, which is
+    what the all-gather over ``sp`` gives each block."""
+    rng = np.random.default_rng(3)
+    b, s, h, kvh, d = 2, 16, 4, 2, 8
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    cot = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+
+    def jf(q_, k_, v_):
+        return JH._sp_blockwise_attention(q_, k_, v_, "sp", 2, scale, rep=2)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(_jax_two_blocks(jf, q_, k_, v_) * cot)
+
+    jout = np.asarray(_jax_two_blocks(jf, q, k, v))
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    for route in ("blockwise", "prefix"):
+        qt, kt, vt = (torch.from_numpy(a.copy()).requires_grad_()
+                      for a in (q, k, v))
+        outs = []
+        for r in range(2):
+            qr = qt.chunk(2, dim=1)[r]
+            with _TwoBlockGather(kt, vt, r):
+                if route == "blockwise":
+                    outs.append(TH._sp_blockwise_attention(
+                        qr, kt.chunk(2, 1)[r], vt.chunk(2, 1)[r], "sp", 2,
+                        float(scale), rep=2))
+                else:
+                    outs.append(TH._sp_prefix_attention(
+                        qr, kt.chunk(2, 1)[r], vt.chunk(2, 1)[r], "sp", 2))
+        out = torch.cat(outs, dim=1)
+        (out * torch.from_numpy(cot)).sum().backward()
+        _scaled_close(out.detach().numpy(), jout, err_msg=route)
+        for name, t, want in (("q", qt, jg[0]), ("k", kt, jg[1]),
+                              ("v", vt, jg[2])):
+            _scaled_close(t.grad.numpy(), want, err_msg=f"{route} d{name}")
+
+
+class _TwoBlockGather:
+    """Block ``r`` of a two-rank ``sp`` axis inside one process: the
+    all-gather of K/V over ``sp`` is the whole tensor (the other block is
+    the same data a second rank would hold, and the gradient that the
+    gather's reduce-scatter would return flows into the whole tensor
+    here), and the axis index is ``r``."""
+
+    def __init__(self, k, v, r):
+        self.by_shape = {}
+        self.k, self.v, self.r = k, v, r
+
+    def __enter__(self):
+        from paddlepaddle_tpu_torch.distributed import collective as C
+
+        self._saved = (C.f_all_gather, C.f_axis_index)
+        k, v, r = self.k, self.v, self.r
+
+        def gather(x, axis, concat_axis=0, tiled=True):
+            for whole in (k, v):
+                if x.data_ptr() == whole.chunk(2, 1)[r].data_ptr():
+                    return whole
+            raise AssertionError("gathered an unexpected tensor")
+
+        C.f_all_gather = gather
+        C.f_axis_index = lambda axis: r
+        return self
+
+    def __exit__(self, *exc):
+        from paddlepaddle_tpu_torch.distributed import collective as C
+
+        C.f_all_gather, C.f_axis_index = self._saved
+
+
 def test_context_parallel_raises_naming_the_later_slice():
-    with pytest.raises(NotImplementedError, match="A10 slice 5"):
-        TH.make_llama_block(TCFG, sp_axis="sp", sp_size=2)
-    with pytest.raises(NotImplementedError, match="A10 slice 5"):
-        TH.make_vocab_parallel_head(TCFG, sp_axis="sp")
-    st = TS.stack_stage_params([convert_pytree(_np(
-        JH.init_llama_stage(JCFG, jax.random.PRNGKey(i)))) for i in range(2)])
-    with pytest.raises(NotImplementedError, match="A10 slice 5"):
-        TS.spmd_pipeline_train(
-            st, {}, torch.zeros(8, 16, 32), torch.zeros(8, 16).long(),
-            TH.make_llama_block(TCFG), TH.make_vocab_parallel_head(TCFG),
-            ProcessMesh(shape=[2], dim_names=["pp"]), n_microbatches=4,
-            seq_axis="sp")
+    """The context-parallel branch runs since A10 slice 5 (its parity
+    cases: the 5-D arm of the eight-rank job and the block test above);
+    what it still raises is the reference's loud check (:485-492): a
+    global sequence past ``max_seq_len`` raises, never clamps."""
+    block = TH.make_llama_block(TCFG, tp_axis=None, fsdp_axis=None,
+                                sp_axis="sp", sp_size=4, remat=False)
+    st = convert_pytree(_np(JH.init_llama_stage(JCFG, jax.random.PRNGKey(0))))
+    with _TwoBlockGather(torch.zeros(1), torch.zeros(1), 0):
+        with pytest.raises(ValueError, match="exceeds max_seq_len"):
+            block(st, torch.zeros(1, 8, 32))
 
 
 def test_moe_block_refuses_a_bad_ep_size():

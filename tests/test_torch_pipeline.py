@@ -248,8 +248,25 @@ def test_single_process_form_refuses_an_unshippable_block():
 
 
 def test_seq_axis_raises_naming_the_later_slice():
+    """``seq_axis`` runs since A10 slice 5 (its parity case is the 5-D
+    hybrid of ``tests/test_torch_hybrid.py``); what it still refuses is
+    what the reference refuses: activations with no sequence dim raise
+    ``ValueError`` in both packages (reference :384-386), and an axis the
+    mesh lacks raises in the port before any rank starts."""
     stages, head, x, y = _toy(2, 0)
-    with pytest.raises(NotImplementedError, match="A10 slice 5"):
+    jmesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("sp", "pp"))
+    with pytest.raises(ValueError, match="needs activations"):
+        JS.spmd_pipeline_train(
+            _stack(stages, 2, 1, jnp.asarray), {}, jnp.asarray(x),
+            jnp.asarray(y), lambda p, a: a, lambda hp, a, t: jnp.sum(a),
+            jmesh, n_microbatches=M, seq_axis="sp")
+    with pytest.raises(ValueError, match="needs activations"):
+        TS.spmd_pipeline_train(
+            _stack(stages, 2, 1, torch.from_numpy), {}, torch.from_numpy(x),
+            torch.from_numpy(y), W.toy_block, W.toy_head_loss,
+            ProcessMesh(shape=[2, 2], dim_names=["sp", "pp"]),
+            n_microbatches=M, seq_axis="sp")
+    with pytest.raises(ValueError, match="not in the mesh"):
         TS.spmd_pipeline_train(
             _stack(stages, 2, 1, torch.from_numpy), {}, torch.from_numpy(x),
             torch.from_numpy(y), W.toy_block, W.toy_head_loss,

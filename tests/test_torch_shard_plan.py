@@ -352,7 +352,11 @@ def _port_tiny():
                                         ("pp2", "pipeline")])
 def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later,
                                                          jax_models):
-    """sp raises naming its later A10 slice. ep (expert parallelism) and
+    """sp (the sequence axis) builds as the reference's plan does: no
+    data axis, no parameter-sharding axis, every parameter replicated over
+    it; a serving plan over it raises
+    (sequence-parallel serving is a later A10 item). ep (expert
+    parallelism) and
     fsdp (parameter sharding) are ported for training: their plans build
     with the reference's rule tables and resolve every Llama parameter to
     the reference's spec (the MoE banks on ``ep``; the matrices on
@@ -375,6 +379,22 @@ def test_axes_outside_dp_mp_raise_naming_the_later_slice(spec, later,
                     tuple(want.spec_for(name, v.shape)) == (), name
         with pytest.raises(NotImplementedError,
                            match="pipeline-parallel serving"):
+            tsp.decode_plan(spec)
+        return
+    if spec == "dp2sp2":
+        state = jax_models["float32"].functional_state()
+        for mesh in ("sp2", "dp2sp2"):
+            plan, want = tsp.train_plan(mesh), jsp.train_plan(mesh)
+            assert plan.axes == dict(want.axes) == tsp.parse_mesh_spec(mesh)
+            assert plan.data_axes == tuple(want.data_axes) == (
+                ("dp",) if mesh == "dp2sp2" else ())
+            assert plan.dp_degree == want.dp_degree
+            assert not plan.is_zero_axis("sp")
+            for name, v in state.items():
+                assert plan.spec_for(name, v.shape) == \
+                    tuple(want.spec_for(name, v.shape)) == (), name
+        with pytest.raises(NotImplementedError,
+                           match="sequence-parallel serving"):
             tsp.decode_plan(spec)
         return
     if spec == "ep2":
@@ -412,11 +432,13 @@ def test_c21_axis_roles_come_from_the_plan_not_the_names(jax_models):
     Llama table's own ``tp`` is the model axis (the reference's
     ``llama_sharding_rules`` default); size-1 axes drop out, so ``[1, 1,
     1]`` ``dp/fsdp/tp`` is one rank; every parameter resolves to the JAX
-    plan's spec. ``ep`` beside a parameter-sharding axis names the
-    ROADMAP item that ports it (A10 slice 5); rules naming two candidate
+    plan's spec. ``ep`` beside a parameter-sharding axis (A10 slice 5)
+    builds as the reference's plan: the banks on ``ep``, the trunk on
+    ``fsdp``, the data axes the reference's; rules naming two candidate
     model axes ask for
-    ``model_axis``. (Training on both meshes against the JAX
-    ``ShardedTrainStep``: ``tests/test_torch_fsdp.py``.)"""
+    ``model_axis``. (Training on these meshes against the JAX
+    ``ShardedTrainStep``: ``tests/test_torch_fsdp.py`` and
+    ``tests/test_torch_ep_fsdp.py``.)"""
     from paddlepaddle_tpu.distributed.mesh import ProcessMesh as JMesh
     from paddlepaddle_tpu.models.llama import llama_sharding_rules as jr
 
@@ -446,10 +468,27 @@ def test_c21_axis_roles_come_from_the_plan_not_the_names(jax_models):
     assert one.n_devices == 1 and not one.single_process
     assert one.tp_degree == 1 and one.data_axes == ()
     assert tsp.decode_plan("mp2").model_axis == "mp"
-    with pytest.raises(NotImplementedError,
-                       match="A10 slice 5: ep beside fsdp"):
-        tsp.ShardingPlan(ProcessMesh(shape=[2, 2], dim_names=["fsdp", "ep"]),
-                         rules=moe_sharding_rules(), data_axes=("fsdp",))
+    from paddlepaddle_tpu.models.moe import MoEConfig, MoEForCausalLM
+    from paddlepaddle_tpu.parallel.moe import moe_sharding_rules as jmr
+
+    moe_state = MoEForCausalLM(MoEConfig.tiny()).functional_state()
+    for shape, names, data_axes in (([2, 2], ["fsdp", "ep"], ("fsdp",)),
+                                    ([1, 2, 2], ["dp", "fsdp", "ep"],
+                                     ("dp", "fsdp"))):
+        plan = tsp.ShardingPlan(ProcessMesh(shape=shape, dim_names=names),
+                                rules=moe_sharding_rules(),
+                                data_axes=data_axes)
+        want = jsp.ShardingPlan(JMesh(shape=shape, dim_names=names),
+                                rules=jmr(), data_axes=data_axes)
+        for name, v in moe_state.items():
+            assert plan.spec_for(name, v.shape) == \
+                tuple(want.spec_for(name, v.shape)), (names, name)
+        assert plan.spec_for("layers.0.mlp.w_gate_proj",
+                             (4, 32, 64)) == ("ep",)
+        assert plan.data_axes == ("fsdp",) == tuple(
+            a for a in want.data_axes if want.axes[a] > 1)
+        assert plan.is_zero_axis("fsdp") and not plan.is_zero_axis("ep")
+        assert plan.dp_degree == want.dp_degree == 2
     with pytest.raises(ValueError, match="model_axis"):
         tsp.ShardingPlan("dp2", rules=[(r".*q_proj.*", ("a", "b"))])
 

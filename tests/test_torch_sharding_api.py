@@ -18,8 +18,9 @@ two of its eight virtual CPU devices:
   two-dimensional meshes;
 * ``shard_layer``'s default (every parameter replicated): the output of a
   Linear on the JAX Linear's weights within 1e-6;
-* ``parallelize``: the same ``dist_spec`` by name on the Llama, and the
-  same refusal of a pattern that matches no sublayer;
+* ``parallelize``: the same ``dist_spec`` by name on the Llama, the
+  same refusal of a pattern that matches no sublayer, and a
+  ``SequenceParallelBegin`` that applies and marks what follows it;
 * ``DistModel`` (``to_static``) on ``fsdp2`` with the Llama table, in
   train, eval and predict mode, against the JAX ``DistModel``: losses at
   rtol 1e-5, logits within 1e-4; ``shard_dataloader`` yields the JAX
@@ -188,9 +189,19 @@ def test_parallelize_marks_the_reference_specs():
         with pytest.raises(ValueError, match="matched no sublayer"):
             pkg.parallelize(m, config={"mp_config": {"parallelize_plan": {
                 "no_such_layer": pkg.ColWiseParallel()}}})
-    with pytest.raises(NotImplementedError, match="sequence parallel"):
-        D.parallelize(tm, config={"mp_config": {"parallelize_plan": {
-            "o_proj": D.auto_parallel.SequenceParallelBegin()}}})
+    # sequence parallelism applies as the reference's does (its values:
+    # tests/test_torch_sequence_parallel.py): the layers between a Begin
+    # and the model's end are marked, and no placement changes
+    for pkg, m in ((JD, jm), (D, tm)):
+        pkg.parallelize(m, config={"mp_config": {"parallelize_plan": {
+            r"model\.layers\.1\.self_attn\.o_proj":
+                pkg.auto_parallel.SequenceParallelBegin()}}})
+    assert {n: getattr(p, "dist_spec", None)
+            for n, p in model.named_parameters()} == want
+    assert tm.model.layers[1].self_attn.o_proj._sp_begin == "mp"
+    assert getattr(tm.model.norm.weight, "sequence_parallel", False)
+    assert not getattr(tm.model.layers[0].input_layernorm.weight,
+                       "sequence_parallel", False)
 
 
 def test_dist_model_train_eval_predict_match_the_reference():

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from paddlepaddle_tpu_torch.optimizer import AdamW as _PortAdamW
+from paddlepaddle_tpu_torch.optimizer import Momentum as _PortMomentum
 from paddlepaddle_tpu_torch.parallel.moe import NaiveGate as _PortGate
 from paddlepaddle_tpu_torch.parallel.moe import _topk_routing
 
@@ -883,20 +884,24 @@ def pipeline_toy_session(train_arms, forward_arms):
 
 def hybrid_blocks(cfg, moe):
     """The executor's block and head for a hybrid case: the dense Llama
-    stage, or the MoE stage (``moe``: ``{"E", "topk", "cf", "ep_size"}``)."""
+    stage, the MoE stage (``moe``: ``{"E", "topk", "cf", "ep_size"}``), or
+    the dense stage and head over a context-parallel axis (``moe``:
+    ``{"sp": size}``)."""
     from paddlepaddle_tpu_torch.parallel import hybrid as H
 
     cfg = H.HybridStageConfig(**cfg)
-    if moe:
+    sp = (moe or {}).get("sp")
+    if moe and not sp:
         block = H.make_moe_block(cfg, moe["E"], topk=moe["topk"],
                                  capacity_factor=moe["cf"],
                                  ep_size=moe["ep_size"], remat=True)
         specs = H.moe_stage_specs()
     else:
-        block = H.make_llama_block(cfg, remat=True)
+        block = H.make_llama_block(cfg, sp_axis="sp" if sp else None,
+                                   sp_size=sp or 1, remat=True)
         specs = H.llama_stage_specs()
-    return block, H.make_vocab_parallel_head(cfg), specs, \
-        H.llama_head_specs()
+    return block, H.make_vocab_parallel_head(
+        cfg, sp_axis="sp" if sp else None), specs, H.llama_head_specs()
 
 
 def hybrid_session(path):
@@ -922,7 +927,8 @@ def hybrid_session(path):
             _tensors(ids).long(), block, head,
             ProcessMesh(shape=shape, dim_names=names), schedule=sched,
             n_microbatches=4, num_virtual=V, data_axis=("dp", "fsdp"),
-            param_specs=specs, head_specs=hspecs)
+            param_specs=specs, head_specs=hspecs,
+            seq_axis="sp" if (moe or {}).get("sp") else None)
         out[key] = (float(got[0]),) + tuple(_numpy(g) for g in got[1:])
     return out
 
@@ -1008,3 +1014,151 @@ def pipeline_card_session(schedule):
     errs = pp_card_errors(got, pp_card_oracle(cfg, stages, head, acts, ids))
     return {"rank": rank, "pp": mesh.coords(rank)["pp"],
             "launches": launches, **errs}
+
+
+# -- context parallelism: ring attention and the context-parallel step ---------
+
+CP_CFG = dict(FSDP_CFG, context_parallel_axis="sp")
+
+
+def ring_blocks(q, k, v, cot, causal, route):
+    """This rank's ring attention over its blocks of ``q``/``k``/``v``
+    (whole numpy arrays, sequence dim 1, the ``sp`` axis the job's world)
+    by ``route`` (``"plain"`` or ``"flash"``: the kernel path's function on
+    CPU tensors, whose blocks are the flash wrappers' plain versions):
+    the output block and this rank's blocks of the q, k, v gradients of
+    ``sum(out * cot)``."""
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh, get_rank
+    from paddlepaddle_tpu_torch.distributed import get_world_size
+    from paddlepaddle_tpu_torch.ops.kernels import ring_attention as RA
+
+    n, r = get_world_size(), get_rank()
+    mesh = ProcessMesh(shape=[1, n], dim_names=["dp", "sp"])
+    ts = [torch.from_numpy(a).chunk(n, dim=1)[r].contiguous()
+          .requires_grad_(True) for a in (q, k, v)]
+    ring = RA.ring_of(mesh, "sp")
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    if route == "plain":
+        out = RA.ring_attention(*ts, mesh, causal=causal)
+    else:
+        out = RA._RingFlash.apply(*ts, ring, causal, scale)
+    c = torch.from_numpy(cot).chunk(n, dim=1)[r]
+    (out * c).sum().backward()
+    return (out.detach().numpy(),) + tuple(t.grad.numpy() for t in ts)
+
+
+def cp_llama(state, cfg=None):
+    """The port's tiny context-parallel Llama on the CPU holding ``state``
+    (the JAX model's, as numpy)."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.convert import load_jax_state
+
+    model = pt.LlamaForCausalLM(pt.LlamaConfig(**(cfg or CP_CFG)),
+                                device="cpu")
+    load_jax_state(model, state)
+    return model
+
+
+def cp_step(state, shape, names, cfg=None, lr=1e-3):
+    """The port's ``ShardedTrainStep(seq_axis="sp")`` over the tiny
+    Llama (AdamW at ``lr``), data axes ``("dp",)``."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.models.llama import llama_sharding_rules
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    model = cp_llama(state, cfg)
+    return ShardedTrainStep(
+        model, pt.AdamW(learning_rate=lr, parameters=model.parameters()),
+        lambda m, i, l: m(i, labels=l),
+        mesh=ProcessMesh(shape=shape, dim_names=names),
+        rules=llama_sharding_rules(), data_axes=("dp",), seq_axis="sp")
+
+
+def cp_train(step, ids, labels, n_steps):
+    """``n_steps`` losses and every parameter whole after them."""
+    ids_t = torch.from_numpy(ids).long()
+    lab_t = torch.from_numpy(labels).long()
+    losses = [float(step(ids_t, lab_t)) for _ in range(n_steps)]
+    return {"losses": losses,
+            "params": {n: t.numpy().copy()
+                       for n, t in step.full_params().items()}}
+
+
+def context_parallel_session(ring_cases, state, ids, labels, n_steps):
+    """Four gloo ranks: each ring case ``(key, q, k, v, cot, causal,
+    route)`` over ``sp4`` (with the ring's point-to-point messages
+    counted), then the SPMD form of the context-parallel step over
+    ``dp2 sp2``."""
+    from paddlepaddle_tpu_torch.distributed.collective import (
+        collective_stats, reset_collective_stats)
+
+    rank = _init()
+    torch.set_num_threads(1)
+    out = {"rank": rank}
+    for key, q, k, v, cot, causal, route in ring_cases:
+        reset_collective_stats()
+        out[key] = ring_blocks(q, k, v, cot, causal, route)
+        out[key + " p2p"] = collective_stats().get("p2p_send", {})
+    step = cp_step(state, [2, 2], ["dp", "sp"])
+    run = cp_train(step, ids, labels, n_steps)
+    if rank:
+        run.pop("params")
+    out["dp2sp2"] = run
+    return out
+
+
+# -- Megatron sequence parallelism (mpu) ----------------------------------------
+
+
+class TapMomentum(_PortMomentum):
+    """The port's ``Momentum``, recording the gradients its first
+    ``apply`` receives (after the step's sums, before the update) in
+    ``first``, by name, as numpy."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.first = {}
+
+    def apply(self, grads=None, lr=None):
+        if not self.first:
+            self.first = {n: g.detach().float().cpu().numpy().copy()
+                          for n, g in zip(self._names, grads)}
+        return super().apply(grads, lr)
+
+
+class SPBlock(torch.nn.Module):
+    """The port's sequence-parallel block over the five ``mpu`` names, in
+    one process (whole weights): ``x`` scattered into sequence blocks, a
+    norm (a sequence-parallel parameter), ``ColumnSequenceParallelLinear``,
+    silu, ``RowSequenceParallelLinear``, the residual, the blocks
+    gathered."""
+
+    def __init__(self, h, f):
+        from paddlepaddle_tpu_torch.nn.norm import RMSNorm
+        from paddlepaddle_tpu_torch.parallel import mpu
+
+        super().__init__()
+        self.norm = RMSNorm(h, device="cpu")
+        mpu.mark_as_sequence_parallel_parameter(self.norm.weight)
+        self.col = mpu.ColumnSequenceParallelLinear(
+            h, f, has_bias=True, gather_output=False, device="cpu")
+        self.row = mpu.RowSequenceParallelLinear(
+            f, h, has_bias=True, input_is_parallel=True, device="cpu")
+
+    def forward(self, x):
+        from paddlepaddle_tpu_torch.parallel import mpu
+
+        x = mpu.scatter_to_sequence_parallel(x)
+        y = self.row(torch.nn.functional.silu(self.col(self.norm(x))))
+        return mpu.gather_from_sequence_parallel(x + y)
+
+
+def sp_mlp_net(state, h, f):
+    """An :class:`SPBlock` holding ``state`` (the JAX block's weights by
+    the same names)."""
+    net = SPBlock(h, f)
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(torch.from_numpy(state[n]))
+    return net

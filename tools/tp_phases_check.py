@@ -12,7 +12,7 @@ one-process engine), ``tp_parity``, ``serve_tp`` (its SPMD arm, then its
 single-process arm), ``spec_tp``, ``router_tp``, ``train_tp`` (its SPMD
 arms, then its single-process arms), ``nccl_world1``, ``ep_parity``,
 ``train_ep``, ``fsdp_parity``, ``train_fsdp``, ``pp_parity``,
-``train_pp``; default ``tp_spec
+``train_pp``, ``sp_parity``, ``train_cp``; default ``tp_spec
 serve_tp spec_tp router_tp``. Each
 phase prints its JSON lines and its seconds; a failed phase prints its
 error and the script goes on to the next, exiting 1 at the end.
@@ -28,6 +28,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 DEFAULT = ("tp_spec", "serve_tp", "spec_tp", "router_tp")
+JOBS = {"train_tp": (cs._train_tp_rank, (cs.TRAIN_TP_SPECS,), 2),
+        "nccl_world1": (cs._nccl_world1_rank, (), 1)}
 
 
 def _tp_spec(pt) -> None:
@@ -71,6 +73,11 @@ def main() -> int:
         try:
             if name == "tp_spec":
                 _tp_spec(pt)
+            elif name in JOBS:
+                # its ranks, which chip_smoke.py starts beside other phases
+                fn, args, n = JOBS[name]
+                getattr(cs, f"phase_{name}")(pt, cs._spawn_beside(fn, args,
+                                                                  n))
             else:
                 getattr(cs, f"phase_{name}")(pt)
         except Exception as e:  # noqa: BLE001 — reported, next phase runs
