@@ -431,6 +431,22 @@ code is non-zero):
                shards + optimizer state) at most 0.55 of one process's;
                kernels 2-4 on each rank; peak GB, step ms, the
                all-gathers' and reduce-scatters' calls, bytes and ms.
+
+    The distributed checkpoint (A10 slice 6): format v3, each rank writing
+    its blocks and rank 0 merging, reshard-on-load.
+10k'. ``ckpt_reshard``  on train_fsdp's ``fsdp2`` step after its step k:
+               an async ``save_state_dict`` of the whole step (~20.8 GB:
+               parameters, slots, f32 masters, ``@step``), step k+1 beside
+               the write (its loss L), ``wait_all_saves``,
+               ``validate_checkpoint`` with CRCs; loaded back into the
+               step, every rank's state bit-equal to step k's (digests)
+               and step k+1 again bit-equal to L with kernels 2-4 twice a
+               rank; then a one-process ``TrainStep`` loaded from the
+               ``fsdp2`` files (reshard to whole): step k+1 within 0.02 of
+               L, its first gradients within 0.03 of the rerun's. Prints
+               the blocked ms, write s and GB/s, validate and load s, the
+               directory's filesystem and free GB, host RSS peaks; the
+               directory is deleted.
 10l. ``pp_parity``  the pipeline gate: ``spmd_pipeline_train`` over the
                hybrid's Llama stages (f32, hidden 256, head dim 64, batch
                8 x 128, M 4) on 8 spawned ranks: ``dp1 fsdp2 tp2 pp2``
@@ -7074,6 +7090,10 @@ def phase_train_fsdp(pt_pkg):
         step._rank_stats(reset=True)
         losses, ms = run(step)
         ranks = step._rank_stats()
+        # the checkpoint phase trains on from this step's state; it closes
+        # the step and then trains `model` in one process
+        phase_ckpt_reshard(pt_pkg, step, model, ids, losses[-1],
+                           [r["peak_gb"] for r in ranks])
     finally:
         step.close()
     gone = _procs_gone(pids)
@@ -7128,6 +7148,207 @@ def phase_train_fsdp(pt_pkg):
             or held > HELD_GB_TOL:
         raise AssertionError(f"train_fsdp failed: {rec}")
     return {"launches_by_rank": rec["fsdp2"]["launches_by_rank"]}
+
+
+# -- 10k': the distributed checkpoint: async save, reshard-on-load (A10 6) ---
+
+CKPT_FREE_MARGIN = 1.25    # free disk needed over the checkpoint's bytes
+CKPT_PEAK_SLACK_GB = 0.25  # device memory an async save may add a rank
+
+
+def _ckpt_dir_facts(path: str) -> dict:
+    """The filesystem type and free GB of the directory ``path``."""
+    import os
+    import shutil
+
+    real, best = os.path.realpath(path), ("?", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _dev, mnt, fs = line.split()[:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best[1]):
+                best = (fs, mnt)
+    return {"dir": path, "fs_type": best[0], "mount": best[1],
+            "free_gb": shutil.disk_usage(path).free / 1e9}
+
+
+def phase_ckpt_reshard(pt_pkg, step, model, ids, loss_k, step_peaks):
+    """10k': train_fsdp's ``fsdp2`` step after its step k (Llama-3-8B
+    widths, ``TRAIN_TP_LAYERS`` layers, bf16, multi-precision AdamW + clip,
+    rank 1 on ``cuda:0`` over gloo). An async ``save_state_dict`` of the
+    whole step (parameters, slots, f32 masters, ``@step``), step k+1 at
+    once (its loss L), ``wait_all_saves``, ``validate_checkpoint`` with
+    CRCs; each rank's device peak over the save and step k+1 at most
+    ``CKPT_PEAK_SLACK_GB`` over its peak in train_fsdp's steps
+    (``step_peaks``: the snapshot goes to the host). The checkpoint loaded
+    back into the same step must give every rank the bits it held at step
+    k (digests), and step k+1 again the loss L bit for bit with kernels
+    2-4 ``TRAIN_TP_LAYERS`` times a rank; an async save of the parameters
+    then shows the call's cost once each rank's host buffer is locked.
+    Then the step is closed and a
+    one-process ``TrainStep`` over ``model`` loads the ``fsdp2``
+    checkpoint (reshard to whole; the optimizer through its
+    ``checkpoint_state()``): every tensor of it, parameters, f32 masters,
+    slots and ``@step``, cut to each rank's box, bit-equal to what that
+    rank held at step k (digests); its step k+1 within
+    ``TRAIN_TP_LOSS_TOL`` of L, its first gradients within
+    ``TRAIN_TP_GRAD_RTOL`` of the fsdp2 rerun's (rank 0's slices). The
+    directory is deleted. Prints the blocked ms of the async call, write s
+    and GB/s, validate s, load s a target, the directory's filesystem and
+    free GB, host RSS and device peaks and the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddlepaddle_tpu_torch.parallel.sharded import _digest, host_rss_gb
+    from paddlepaddle_tpu_torch.resilience import validate_checkpoint
+
+    L = TRAIN_TP_LAYERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    path = os.path.join(root, "step")
+    facts = _ckpt_dir_facts(root)
+    want_launch = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    try:
+        held = sum(t.numel() * t.element_size()
+                   for t in step.state_dict().values())
+        rec = {"phase": "ckpt_reshard", "nvidia_smi": nvidia_smi_line(),
+               "fs": facts, "loss_k": loss_k}
+        if facts["free_gb"] < CKPT_FREE_MARGIN * 2 * held / 1e9:
+            raise AssertionError(f"ckpt_reshard: {facts['free_gb']:.1f} GB "
+                                 f"free in {root}, the checkpoint needs "
+                                 f"~{2 * held / 1e9:.1f}")
+        rss = {"before": host_rss_gb()}
+        digests = step._rank_digests()
+        boxes = [{k: step._box(t, spec, step.plan.coords(r))[0]
+                  for k, (t, spec) in step._ckpt_entries("all").items()}
+                 for r in range(step.plan.n_devices)]
+        step._rank_stats(reset=True)
+        torch.cuda.synchronize()
+        t_save = time.perf_counter()
+        dckpt.save_state_dict(step.state_dict(), path, async_save=True)
+        t_saved = time.perf_counter()
+        loss = float(step(ids, ids))             # step k+1, beside the write
+        t_step = time.perf_counter()
+        dckpt.wait_all_saves()
+        write_s = time.perf_counter() - t_save
+        window_peaks = [r["peak_gb"] for r in step._rank_stats()]
+        blocked_ms = (t_saved - t_save) * 1e3
+        rss["written"] = host_rss_gb()
+        meta = dckpt.get_checkpoint_metadata(path)
+        files = sorted(os.listdir(path))
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in files)
+        t0 = time.perf_counter()
+        validate_checkpoint(path, verify_crc=True)
+        validate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dckpt.load_state_dict(step.state_dict(), path)
+        load_fsdp_s = time.perf_counter() - t0
+        rss["fsdp2_loaded"] = host_rss_gb()
+        same_bits = step._rank_digests() == digests
+        step._rank_stats(reset=True)
+        rerun_grads = _first_grads(step.optimizer, TRAIN_TP_GRADS)
+        rerun = float(step(ids, ids))
+        ranks = step._rank_stats()
+        # a second async save (the parameters) through the host buffer the
+        # first one locked on each rank: the call's cost once it exists
+        t0 = time.perf_counter()
+        dckpt.save_state_dict(step.params, path + ".params", async_save=True)
+        blocked_again_ms = (time.perf_counter() - t0) * 1e3
+        dckpt.wait_all_saves()
+        params_save_s = time.perf_counter() - t0
+        shutil.rmtree(path + ".params", ignore_errors=True)
+        step.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        one = pt_pkg.TrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
+                               _llm_loss)
+        t0 = time.perf_counter()
+        dckpt.load_state_dict(model.state_dict(), path)
+        dckpt.load_state_dict(one.optimizer.checkpoint_state(), path)
+        load_one_s = time.perf_counter() - t0
+        rss["one_loaded"] = host_rss_gb()
+        # every rank's box of every loaded tensor holds that rank's step-k
+        # bits: nothing zeroed, swapped between halves or put in the wrong
+        # box, the optimizer state included
+        whole = dict(model.state_dict())
+        whole.update(one.optimizer.checkpoint_state())
+        box_diff = [k for r, own in enumerate(digests) for k in own
+                    if k not in whole or _digest(whole[k][tuple(
+                        slice(lo, hi) for lo, hi in boxes[r][k])]) != own[k]]
+        del whole
+        _reset_counts()
+        one_grads = _first_grads(one.optimizer, TRAIN_TP_GRADS)
+        one_loss = float(one(ids, ids))
+        one_launches = _rank_counts()["flash"]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dckpt.release_snapshot_buffers()
+    grad_err = {n: _slice_err(rerun_grads[n], one_grads[n])
+                for n in sorted(one_grads)}
+    rec.update({
+        "checkpoint": {"gb": nbytes / 1e9, "files": len(files),
+                       "tensors": len(meta["tensors"]),
+                       "world_size": meta.get("world_size"),
+                       "held_gb_by_rank0": held / 1e9},
+        "blocked_ms": blocked_ms, "step_k1_s": t_step - t_saved,
+        "params_save": {"blocked_ms": blocked_again_ms,
+                        "gb": sum(t.numel() * t.element_size()
+                                  for t in model.parameters()) / 1e9,
+                        "write_s": params_save_s},
+        "wait_s": write_s - (t_step - t_save),
+        "write_s": write_s, "write_gb_per_s": nbytes / 1e9 / write_s,
+        "validate_s": validate_s,
+        "load_s": {"fsdp2": load_fsdp_s, "one_process": load_one_s},
+        "loss_k1": loss, "rerun_loss": rerun, "bit_equal": rerun == loss,
+        "state_bit_equal_by_digest": same_bits,
+        "one_process_state_by_rank_box_mismatches": box_diff,
+        "device_peak_gb_by_rank": {"steps": step_peaks,
+                                   "save_and_step_k1": window_peaks},
+        "peak_slack_gb": CKPT_PEAK_SLACK_GB,
+        "one_process_loss": one_loss,
+        "one_process_abs_err": abs(one_loss - loss),
+        "grad_rel_err": grad_err,
+        "launches_by_rank": [{k: r["launches"][k] for k in want_launch}
+                             for r in ranks],
+        "one_process_launches": one_launches,
+        "host_rss_gb_rank0": rss,
+        # a worker's peak falls back to ru_maxrss where the kernel gives
+        # no VmHWM, and then starts at rank 0's RSS when it was started
+        "host_rss_gb_by_rank": [host_rss_gb()]
+        + [r["host_rss_gb"] for r in ranks[1:]],
+        "loss_tol": TRAIN_TP_LOSS_TOL, "grad_rtol": TRAIN_TP_GRAD_RTOL})
+    emit(rec)
+    print(f"ckpt_reshard: {nbytes / 1e9:.3f} GB in {len(files)} files on "
+          f"{facts['fs_type']} ({facts['free_gb']:.1f} GB free); async call "
+          f"blocked {blocked_ms:.1f} ms (a second one, of the parameters, "
+          f"{blocked_again_ms:.1f} ms); write {write_s:.2f} s "
+          f"({nbytes / 1e9 / write_s:.3f} GB/s); validate {validate_s:.2f} "
+          f"s; load {load_fsdp_s:.2f} s (fsdp2), {load_one_s:.2f} s (one "
+          f"process); rerun loss bit-equal {rerun == loss}; device peak GB "
+          f"a rank over the save and step k+1 {window_peaks} (steps "
+          f"{step_peaks}); one-process boxes off {len(box_diff)}",
+          flush=True)
+    bad = (rerun != loss or not same_bits or not np.isfinite(loss)
+           or box_diff
+           or any(w > p + CKPT_PEAK_SLACK_GB
+                  for w, p in zip(window_peaks, step_peaks))
+           or abs(one_loss - loss) > TRAIN_TP_LOSS_TOL
+           or max(grad_err.values()) > TRAIN_TP_GRAD_RTOL
+           or any(r["launches"][k] != v for r in ranks
+                  for k, v in want_launch.items())
+           or any(one_launches[k] != v for k, v in want_launch.items())
+           or meta.get("world_size") != 2)
+    if bad:
+        raise AssertionError(f"ckpt_reshard failed: {rec}")
+    return rec
 
 
 # -- 10l-10m: the pipeline executor and the 4D hybrid (A10 slice 4) ----------
@@ -8199,16 +8420,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         # untimed: the parity phases here, and beside them, in processes
         # of their own, two lanes of work one after the other: train_tp's
-        # SPMD arms, nccl_world1's rank, train_parity_more; ep_parity,
-        # router_tp. Joined before serve_tp
+        # SPMD arms, nccl_world1's rank, router_tp; ep_parity,
+        # train_parity_more. Joined before serve_tp
         lanes = [concurrent.futures.ThreadPoolExecutor(1) for _ in range(2)]
         lane_t0 = time.perf_counter()
         jobs = {"train_tp spmd": _spawn_beside(
                     _train_tp_rank, (TRAIN_TP_SPECS,), 2, lanes[0]),
                 "nccl_world1": _spawn_beside(_nccl_world1_rank, (), 1,
                                              lanes[0])}
-        for lane, name in ((0, "train_parity_more"), (1, "ep_parity"),
-                           (1, "router_tp")):
+        for lane, name in ((0, "router_tp"), (1, "ep_parity"),
+                           (1, "train_parity_more")):
             jobs[name] = _spawn_beside(_phase_alone, (name,), 1, lanes[lane])
         for lane in lanes:
             lane.shutdown(wait=False)
@@ -8247,6 +8468,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_fsdp = phase_train_fsdp(pt_pkg)
+        # ckpt_reshard runs inside train_fsdp, on its step
+        phase_seconds["train_fsdp"] -= phase_seconds.get("ckpt_reshard", 0.0)
         gc.collect()
         torch.cuda.empty_cache()
         pp_launches = phase_pp_parity(pt_pkg, pp_job)

@@ -12,8 +12,10 @@ untouched), and then updates the scale: ``decr_ratio`` after
 ``step()`` has updated the scale, as in the reference.
 
 ``unscale_`` reads found-inf with one host synchronisation a step: the
-per-gradient checks reduce on the device into one flag. The reference's
-MAX of that flag over a multi-host group is not ported (ROADMAP A10).
+per-gradient checks reduce on the device into one flag. In a job of
+several processes (``PADDLE_TRAINERS_NUM`` > 1) the flag is then MAXed
+over the host group (``distributed.host_collectives.get_host_group``), so
+every rank skips or steps together, as in the reference.
 """
 
 from __future__ import annotations
@@ -68,7 +70,18 @@ class GradScaler:
             flag = ~torch.isfinite(gf).all()
             bad = flag if bad is None else bad | flag
             g.copy_(gf)
-        self._found_inf = bool(bad) if bad is not None else False
+        found = bool(bad) if bad is not None else False
+        # multi-process jobs must agree on skip-vs-step (reference :59-68):
+        # a MAX of the flag over the host group settles it
+        from ..distributed.host_collectives import get_host_group
+
+        hg = get_host_group()
+        if hg is not None:
+            import numpy as np
+
+            found = bool(hg.all_reduce(np.asarray(found, np.float32),
+                                       op="max") > 0)
+        self._found_inf = found
         self._unscaled = True
 
     def step(self, optimizer):

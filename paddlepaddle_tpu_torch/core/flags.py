@@ -4,7 +4,8 @@ Counterpart of ``paddlepaddle_tpu/core/flags.py`` (same semantics: typed
 flags, ``FLAGS_xxx`` env override at definition, settable at runtime). Only
 the flags the port's modules read are defined here: the ``serving_*``
 limits, the deadline, watchdog and drain defaults ``ServingEngine``
-resolves, the KV-memory pair ``BatchDecodeEngine`` resolves itself, and the
+resolves, the KV-memory pair ``BatchDecodeEngine`` resolves itself, the
+checkpoint's CRC check and the step watchdog's re-arm, and the
 ``obs_*`` / ``slo_*`` families of the observability planes; the rest
 arrive with the modules that read them.
 """
@@ -118,6 +119,17 @@ define_flag("serving_drain_timeout_s", 30.0,
             "default drain(timeout): how long a draining engine lets "
             "in-flight slots finish before shedding the remainder",
             env="PADDLE_SERVING_DRAIN_TIMEOUT_S")
+
+# Resilience family (reference core/flags.py:279-288): checkpoint integrity
+# verification, read by distributed.checkpoint and resilience.integrity,
+# and the step watchdog's re-arm (distributed.watchdog).
+define_flag("ckpt_verify_crc", True,
+            "verify per-shard CRC32 (checkpoint format v3) when loading; "
+            "corrupted shards raise CheckpointCorruptionError instead of "
+            "loading silently-wrong weights", env="PADDLE_CKPT_VERIFY")
+define_flag("watchdog_rearm", True,
+            "re-arm the step watchdog after a timed-out step retires, so "
+            "every hung step is reported (not only the first)")
 
 # KV-memory family (reference core/flags.py:321-333): int8 KV pages and the
 # host-RAM prefix tier. Constructor arguments win; "" / "off" and 0 are off.

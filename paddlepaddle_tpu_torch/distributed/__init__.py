@@ -2,24 +2,25 @@
 ``paddlepaddle_tpu/distributed``), SPMD over ``torch.distributed``: one
 process per rank, each on one device, explicit collectives.
 
-What is ported (A10's core): the process environment and launcher
+What is ported (A10): the process environment and launcher
 (:mod:`.env`, :mod:`.launch`, ``spawn``), the TCP store (:mod:`.store`),
 ``ProcessMesh`` and placements, the collectives (eager, functional over
 mesh axes, and Megatron's f/g pair; :mod:`.collective`,
 :mod:`.communication`), host-side collectives over the store,
 ``DataParallel``, and the sharding plan (:mod:`.shard_plan`) that the
 decode engine (tensor-parallel decode) and
-:class:`~..parallel.sharded.ShardedTrainStep` (DP x TP x FSDP training)
-run under, with the expert-parallel axis ``ep`` (:func:`moe_train_rules`)
-and parameter-sharding (ZeRO-3) axes such as ``fsdp``. In a process with
-no group, the engine and the train step start a plan's other ranks
-themselves (:mod:`.worker_ranks`; functions reach them by value,
-:mod:`.ship`). :mod:`.sharding` (``group_sharded_parallel``, the ZeRO
-levels), :mod:`.sharding_api` (dist tensors over DTensor) and
-:mod:`.auto_parallel` (``parallelize``, ``DistModel``) sit on top.
-``fleet.recompute`` is activation recompute. The rest of the reference's
-``distributed`` (pipelines, ring attention, checkpoints, elastic fleet) is
-queued in ROADMAP A10.
+:class:`~..parallel.sharded.ShardedTrainStep` (DP x TP x FSDP x EP x SP
+training) run under. In a process with no group, the engine and the train
+step start a plan's other ranks themselves (:mod:`.worker_ranks`;
+functions reach them by value, :mod:`.ship`). :mod:`.sharding`
+(``group_sharded_parallel``, the ZeRO levels), :mod:`.sharding_api` (dist
+tensors over DTensor) and :mod:`.auto_parallel` (``parallelize``,
+``DistModel``) sit on top. :mod:`.checkpoint` is the sharded checkpoint
+(format v3, reshard-on-load); :mod:`.comm_task` and :class:`Watchdog`
+attribute hangs; :mod:`.rpc` is control-plane RPC; :mod:`.fleet` is the
+hybrid-parallel API (topology, ``distributed_optimizer``, LocalSGD, the
+RNG tracker, recompute). ``compat``, ``io`` and ``AutoTuner`` are queued
+in ROADMAP A10.
 """
 
 from .collective import (  # noqa: F401
@@ -47,9 +48,13 @@ from .env import (  # noqa: F401
     is_initialized,
     parallel_device_count,
 )
+from . import checkpoint  # noqa: F401
 from . import communication  # noqa: F401
 from .communication import P2POp, batch_isend_irecv  # noqa: F401
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
 from . import launch  # noqa: F401
+from . import rpc  # noqa: F401
+from .watchdog import Watchdog  # noqa: F401
 from .launch import spawn  # noqa: F401
 from .mesh import ProcessMesh, auto_mesh, get_mesh, set_mesh  # noqa: F401
 from .shard_plan import (  # noqa: F401
@@ -64,6 +69,7 @@ from .shard_plan import (  # noqa: F401
 )
 from .parallel import DataParallel  # noqa: F401
 from .placement import Partial, Placement, Replicate, Shard  # noqa: F401
+from . import fleet  # noqa: F401
 from .fleet.recompute import recompute, recompute_sequential  # noqa: F401
 from . import sharding  # noqa: F401
 from . import auto_parallel  # noqa: F401

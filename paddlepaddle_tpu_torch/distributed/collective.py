@@ -45,6 +45,7 @@ import torch.distributed as dist
 
 from ..observability import flight as _flight
 from ..resilience.chaos import chaos_point
+from .comm_task import comm_task
 
 
 class ReduceOp:
@@ -144,20 +145,24 @@ def reset_collective_stats() -> None:
 
 
 def _account(op: str, t: torch.Tensor, fn):
+    """Count ``op``'s call and bytes, and run ``fn`` as a comm task (a
+    watchdog timeout names a collective that never returns); timed when
+    :func:`timing` is on."""
     rec = _stats.setdefault(op, [0, 0.0, 0])
     rec[0] += 1
     rec[2] += t.numel() * t.element_size()
-    if not _timing:
-        return fn()
-    cuda = t.is_cuda
-    if cuda:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    out = fn()
-    if cuda:
-        torch.cuda.synchronize(t.device)
-    rec[1] += time.perf_counter() - t0
-    return out
+    with comm_task(op, group="collective"):
+        if not _timing:
+            return fn()
+        cuda = t.is_cuda
+        if cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(t.device)
+        rec[1] += time.perf_counter() - t0
+        return out
 
 
 def _resolve_pg(group):
@@ -776,6 +781,8 @@ def irecv(tensor, src=0, group=None):
 def barrier(group=None):
     pg = _eager_pg(group)
     if pg is not None:
-        dist.barrier(group=pg)
+        with comm_task("barrier",
+                       group=getattr(group, "name", None) or "world"):
+            dist.barrier(group=pg)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()

@@ -6,17 +6,21 @@
 
 Every process must issue the same collectives in the same order (the
 standard process-group contract); a per-group sequence number keys each
-op's slots in the store.
+op's slots in the store. Each collective is a comm task
+(:mod:`.comm_task`) named by its op and sequence number.
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import os
 import pickle
 from typing import List, Optional
 
 import numpy as np
+
+from .comm_task import comm_task
 
 
 def _dumps(arr: np.ndarray) -> bytes:
@@ -39,6 +43,18 @@ _REDUCERS = {
 
 
 _SLOT_WINDOW = 64
+
+
+def _task(fn):
+    """Run a collective of :class:`HostProcessGroup` as a comm task."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with comm_task(f"host_collectives.{fn.__name__}#{self._seq + 1}",
+                       group=f"host/{self.gid}"):
+            return fn(self, *args, **kwargs)
+
+    return wrapper
 
 
 class HostProcessGroup:
@@ -124,6 +140,7 @@ class HostProcessGroup:
                 self.store.delete_key(self._key(seq - _SLOT_WINDOW, "done"))
 
     # -- primitives ---------------------------------------------------------
+    @_task
     def all_gather(self, arr: np.ndarray) -> List[np.ndarray]:
         seq = self._next()
         self.store.set(self._key(seq, f"r{self.rank}"), _dumps(arr))
@@ -133,10 +150,12 @@ class HostProcessGroup:
         self._finish(seq, [f"r{self.rank}"])
         return out
 
+    @_task
     def all_reduce(self, arr: np.ndarray, op: str = "sum") -> np.ndarray:
         parts = self.all_gather(arr)
         return _REDUCERS[op](np.stack(parts))
 
+    @_task
     def broadcast(self, arr: np.ndarray, src: int = 0) -> np.ndarray:
         seq = self._next()
         key = self._key(seq, f"src{src}")
@@ -149,6 +168,7 @@ class HostProcessGroup:
         self._finish(seq, [])
         return out
 
+    @_task
     def scatter(self, parts: Optional[List[np.ndarray]], src: int = 0) -> np.ndarray:
         seq = self._next()
         if self.rank == src:
@@ -162,6 +182,7 @@ class HostProcessGroup:
                      if self.rank == src else [])
         return out
 
+    @_task
     def all_to_all(self, parts: List[np.ndarray]) -> List[np.ndarray]:
         seq = self._next()
         assert len(parts) == self.world_size
@@ -184,6 +205,7 @@ class HostProcessGroup:
     def send(self, arr: np.ndarray, dst: int) -> None:
         self.store.set(self._p2p_key(self.rank, dst), _dumps(arr))
 
+    @_task
     def recv(self, src: int) -> np.ndarray:
         key = self._p2p_key(src, self.rank)
         self.store.wait([key])
@@ -191,6 +213,7 @@ class HostProcessGroup:
         self.store.delete_key(key)    # retire the payload: bound master memory
         return out
 
+    @_task
     def gather_object(self, obj) -> List[object]:
         seq = self._next()
         self.store.set(self._key(seq, f"o{self.rank}"), pickle.dumps(obj))
@@ -200,6 +223,7 @@ class HostProcessGroup:
         self._finish(seq, [f"o{self.rank}"])
         return out
 
+    @_task
     def barrier(self) -> None:
         # the ack/done machinery IS a barrier: done/{seq} appears only after
         # every rank has acked, and the window gate retires it later

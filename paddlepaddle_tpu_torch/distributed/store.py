@@ -8,6 +8,8 @@ a socket server, every rank connects a client; blocking ``get``, atomic
 ``add``) and needs no build. ``set`` / ``get`` retry transient failures
 under the reference's policy; ``add`` is never retried (rank assignment
 relies on exactly-once increments); ``wait`` raises ``TimeoutError``.
+A blocking ``get`` or ``wait`` is a comm task (:mod:`.comm_task`), so a
+watchdog timeout names the key a rank waits on.
 """
 
 from __future__ import annotations
@@ -75,11 +77,16 @@ class TCPStore:
     def get(self, key: str) -> bytes:
         """The value of ``key``, waiting for it up to the store's timeout."""
 
+        from .comm_task import comm_task
+
         def _get():
             chaos_point("store.get")
             return bytes(self._store.get(key))
 
-        return call_with_retry(_get, policy=_STORE_RETRY, name="store.get")
+        # a blocking get is a comm task: a hang names the key it waits on
+        with comm_task(f"store.get({key!r})", group="store"):
+            return call_with_retry(_get, policy=_STORE_RETRY,
+                                   name="store.get")
 
     def add(self, key: str, amount: int = 1) -> int:
         return int(self._store.add(key, int(amount)))
@@ -95,8 +102,11 @@ class TCPStore:
     def wait(self, keys, timeout: Optional[float] = None) -> None:
         keys = [keys] if isinstance(keys, str) else list(keys)
         t = self._timeout if timeout is None else float(timeout)
+        from .comm_task import comm_task
+
         try:
-            self._store.wait(keys, datetime.timedelta(seconds=t))
+            with comm_task(f"store.wait({keys!r})", group="store"):
+                self._store.wait(keys, datetime.timedelta(seconds=t))
         except dist.DistStoreError as e:
             raise TimeoutError(f"TCPStore.wait timed out on {keys}") from e
 

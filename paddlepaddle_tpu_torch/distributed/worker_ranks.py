@@ -299,7 +299,14 @@ class Control:
         return pickle.loads(buf.numpy().tobytes())
 
     def gather(self, obj) -> list:
-        """Every rank's ``obj``, in rank order (inside a led step)."""
+        """Every rank's ``obj``, in rank order (inside a led step; a comm
+        task, :mod:`.comm_task`)."""
+        from .comm_task import comm_task
+
+        with comm_task("worker_ranks.gather", group="control"):
+            return self._gather(obj)
+
+    def _gather(self, obj) -> list:
         blob = pickle.dumps(obj)
         n = torch.tensor([len(blob)], dtype=torch.int64)
         sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]

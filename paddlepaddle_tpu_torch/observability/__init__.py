@@ -22,9 +22,10 @@ provides:
 The reference also hooks eager dispatch, autograd, collectives, comm tasks
 and the data loader (:304-318). Of those the port has the eager
 collectives (A10's core, :mod:`..distributed.collective`), whose hook
-counts calls, bytes and wall time as the reference's does; dispatch and
-autograd come with ROADMAP A11, comm tasks with a later A10 slice, the
-data loader with A11. The metric history (:mod:`~.tsdb`) and the alert
+counts calls, bytes and wall time as the reference's does, and the comm
+tasks (:mod:`..distributed.comm_task`: ``paddle_comm_task_seconds`` by
+task and group); dispatch, autograd and the data loader come with ROADMAP
+A11. The metric history (:mod:`~.tsdb`) and the alert
 engine (:mod:`~.alerts`) start when :func:`enable_history` is called; the
 fleet aggregation waits for A10.
 
@@ -113,11 +114,30 @@ def safe_set(name: str, help_: str = "", value: float = 0.0,
 
 
 class RecordEvent(trace_region):
-    """Explicit host annotation: always records (no flags needed) and opens
-    a ``torch.profiler.record_function``."""
+    """Explicit host annotation: always records (no flags needed), opens
+    a ``torch.profiler.record_function``, and is a comm task of group
+    ``region`` while it is open, so a watchdog timeout names the region
+    (reference ``profiler/__init__.py:81-91``)."""
 
     def __init__(self, name: str, cat: str = "region"):
         super().__init__(name, cat, force=True)
+        self._task = None
+
+    def __enter__(self):
+        from ..distributed import comm_task as _ct
+
+        self._task = _ct.begin_task(self.name, group="region")
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from ..distributed import comm_task as _ct
+
+        try:
+            return super().__exit__(*exc)
+        finally:
+            if self._task is not None:
+                _ct.end_task(self._task)
+                self._task = None
 
 
 # ---------------------------------------------------------------------------
@@ -143,18 +163,29 @@ def _slo_aligned_buckets(flag_name: str):
 
 
 def _make_hooks():
-    """The serving and collective hooks (reference :141-297, its ``srv``
-    and ``coll`` halves). The op, AMP, autograd, comm-task and data-loader
-    hooks have no instrumented module in the port (ROADMAP A10, A11)."""
+    """The serving, collective and comm-task hooks (reference :141-297,
+    its ``srv``, ``coll`` and ``task`` parts). The op, AMP, autograd and
+    data-loader hooks have no instrumented module in the port (ROADMAP
+    A11)."""
     reg = _registry
     rec = _recorder
 
+    comm_lat = reg.histogram("paddle_comm_task_seconds",
+                             "host-blocking comm/region task latency")
     coll_calls = reg.counter("paddle_collective_calls_total",
                              "eager collective calls, by collective")
     coll_bytes = reg.counter("paddle_collective_bytes_total",
                              "tensor bytes moved by eager collectives")
     coll_lat = reg.histogram("paddle_collective_seconds",
                              "eager collective wall time, by collective")
+
+    def obs_task(name, group, elapsed):
+        if _metrics_on:
+            comm_lat.observe(elapsed, task=name, group=group or "")
+        # "region" tasks are RecordEvents, already recorder spans
+        if _trace_on and group != "region":
+            rec.record_complete(name, "comm", elapsed,
+                                {"group": group} if group else None)
 
     def obs_coll(op, nbytes, dur):
         if _metrics_on:
@@ -228,7 +259,7 @@ def _make_hooks():
                 {k: v for k, v in d.items()
                  if k != "latency" and v is not None})
 
-    return {"srv": obs_srv, "coll": obs_coll}
+    return {"srv": obs_srv, "coll": obs_coll, "task": obs_task}
 
 
 def _set_hooks(hooks: Optional[dict]) -> None:
@@ -243,8 +274,10 @@ def _set_hooks(hooks: Optional[dict]) -> None:
         pass
     try:
         from ..distributed import collective as _coll
+        from ..distributed import comm_task as _ct
 
         _coll._obs_coll = g("coll")
+        _ct._obs_task = g("task")
     except Exception:
         pass
 

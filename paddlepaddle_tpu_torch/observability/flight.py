@@ -3,10 +3,10 @@
 The port's own copy of the jax-free ``paddlepaddle_tpu/observability/
 flight.py``. The port feeds it from the seams it has: the serving engine
 (request lifecycle, breaker transitions, sheds, KV spills and restores,
-warmup and bundle events), preemption and the capture/build watchdog. The
-in-flight comm-task table of a dump (reference :226) waits for
-``distributed.comm_task`` (ROADMAP A10); the step watchdog, retries and
-chaos arrive with the fleet (A7).
+warmup and bundle events), preemption, the capture/build watchdog, the
+eager collectives, retries and chaos, and the step watchdog
+(``distributed.watchdog``); a dump carries the in-flight comm-task table
+(``distributed.comm_task``, reference :226).
 
 Reference surface: production training runs (MegaScale, §5 "diagnosis
 tools") keep a bounded in-memory log of recent runtime events per worker and
@@ -230,8 +230,17 @@ class FlightRecorder:
                 "began_s_before_dump":
                     round(time.monotonic() - ev["mono"], 3),
             })
-        # the in-flight comm-task table (reference :226) comes with
-        # distributed.comm_task, ROADMAP A10
+        try:
+            from ..distributed.comm_task import in_flight
+
+            lines.append({
+                "rec": "in_flight",
+                "tasks": [{"name": t[0], "group": t[1],
+                           "elapsed_s": round(t[2], 3), "thread": t[3]}
+                          for t in in_flight()],
+            })
+        except Exception:
+            pass
         try:
             # sampling-profiler context: the instantaneous stack snapshot
             # below says where the process IS; the last ~10 s of hot

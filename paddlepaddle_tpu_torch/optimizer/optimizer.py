@@ -241,6 +241,47 @@ class Optimizer:
         sd["@step"] = self._step_count
         return sd
 
+    def _checkpoint_items(self):
+        """``(key, parameter name or None, tensor)`` of what a checkpoint
+        holds of this optimizer: each slot ``{name}_{slot}`` and master
+        ``{name}_master`` (the live tensors, which a load fills in place),
+        then ``@step`` and the scheduler's numbers ``LR_Scheduler.{field}``
+        as 0-d tensors made here."""
+        for name in self._names:
+            for k, v in self._slots.get(name, {}).items():
+                yield f"{name}_{k}", name, v
+            m = self._masters.get(name)
+            if m is not None:
+                yield f"{name}_master", name, m
+        yield "@step", None, torch.tensor(self._step_count)
+        if isinstance(self._lr, LRScheduler):
+            for k, v in self._lr.state_dict().items():
+                if isinstance(v, (bool, int, float)):
+                    yield f"LR_Scheduler.{k}", None, torch.tensor(
+                        v, dtype=torch.float64 if isinstance(v, float)
+                        else None)
+
+    def checkpoint_state(self) -> Dict[str, torch.Tensor]:
+        """The optimizer's state for ``distributed.checkpoint``, under the
+        names a ``ShardedTrainStep``'s ``opt_state`` writes:
+        ``save_state_dict(opt.checkpoint_state(), path)`` writes it, and
+        ``load_state_dict(opt.checkpoint_state(), path)`` fills the slots
+        and masters in place, then sets ``@step`` and the scheduler from
+        the checkpoint (whatever mesh wrote it)."""
+        return _CheckpointState(self, ((k, t) for k, _, t in
+                                       self._checkpoint_items()))
+
+    def _load_checkpoint_scalars(self, state: Mapping[str, torch.Tensor]):
+        """Set ``@step`` and the scheduler from the 0-d tensors of a loaded
+        :meth:`checkpoint_state`."""
+        if "@step" in state:
+            self._step_count = int(state["@step"])
+        pre = "LR_Scheduler."
+        got = {k[len(pre):]: t.item() for k, t in state.items()
+               if k.startswith(pre)}
+        if got and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(got)
+
     @torch.no_grad()
     def set_state_dict(self, state_dict: Mapping[str, object]) -> None:
         for name, p in zip(self._names, self._params):
@@ -260,3 +301,15 @@ class Optimizer:
         if isinstance(self._lr, LRScheduler) and "LR_Scheduler" in state_dict:
             self._lr.set_state_dict(dict(state_dict["LR_Scheduler"]))
         self._step_count = int(state_dict.get("@step", 0))
+
+
+class _CheckpointState(dict):
+    """:meth:`Optimizer.checkpoint_state`: ``load_state_dict`` calls
+    :meth:`loaded` once it has filled the tensors."""
+
+    def __init__(self, opt: Optimizer, items):
+        super().__init__(items)
+        self._opt = opt
+
+    def loaded(self) -> None:
+        self._opt._load_checkpoint_scalars(self)

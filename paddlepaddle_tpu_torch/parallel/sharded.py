@@ -56,7 +56,14 @@ global batch, :mod:`.moe`) and makes the data-parallel collectives itself:
   :meth:`ShardedTrainStep.sync_to_model` gather the full parameters back;
   :meth:`ShardedTrainStep.full_state_dict` adds the buffers, and
   :meth:`ShardedTrainStep.full_optimizer_state` is the optimizer's whole
-  state with its scheduler's.
+  state with its scheduler's;
+* ``step.params``, ``step.opt_state`` and ``step.state_dict()`` are this
+  rank's local tensors by name (the optimizer's under the reference's
+  flat ``{param}_{slot}`` / ``{param}_master`` / ``@step`` names), and
+  :mod:`..distributed.checkpoint` saves and loads them through the step:
+  every rank writes and reads the boxes of its own blocks (from the
+  plan's spec and its coordinate), so a checkpoint is never gathered
+  whole and loads under any other mesh (reshard-on-load).
 
 Two forms, by what the process has. Under the launcher (a default group
 spanning the mesh) every rank builds the step (SPMD). In a process with no
@@ -325,9 +332,31 @@ def resident_bytes(params, optimizer) -> int:
     return int(n)
 
 
+def host_rss_gb() -> Dict[str, float]:
+    """This process's host RSS now (``VmRSS``) and at its peak, GB. The
+    peak is ``VmHWM`` where the kernel reports it, else ``ru_maxrss``,
+    which a process started by another carries over from it: then it is
+    at least the starter's RSS when it started this one."""
+    import resource
+
+    kb = {}
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                name, _, rest = line.partition(":")
+                if name in ("VmRSS", "VmHWM"):
+                    kb[name] = int(rest.split()[0])
+    except OSError:
+        pass
+    peak = kb.get("VmHWM") or resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss
+    return {"now": kb.get("VmRSS", 0) / 1e6, "peak": peak / 1e6}
+
+
 def _own_stats(device: torch.device, reset: bool) -> Dict[str, object]:
     """This process's kernel launch counts (the MoE and flash wrappers),
-    ``nvcc`` runs, collective counts and peak device memory."""
+    ``nvcc`` runs, collective counts, peak device memory, and its host RSS
+    now and at its peak (:func:`host_rss_gb`)."""
     import os
 
     from ..distributed.collective import (collective_stats,
@@ -343,6 +372,7 @@ def _own_stats(device: torch.device, reset: bool) -> Dict[str, object]:
                 "flash_bwd_dkv": fa.flash_bwd_dkv}
     cuda = device.type == "cuda"
     out = {"pid": os.getpid(), "nvcc": _build.nvcc_runs,
+           "host_rss_gb": host_rss_gb(),
            "launches": {k: w.launches for k, w in wrappers.items()},
            "collectives": collective_stats(),
            "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
@@ -376,6 +406,39 @@ def _build_worker_step(held, plan, device, optimizer, loss_fn, donate,
     step._bind(plan.wire_module(net), optimizer)
     step._ctl = Control(plan)
     return step
+
+
+class _StepState(dict):
+    """A flat state of a :class:`ShardedTrainStep`: this rank's local
+    tensors by name. :func:`~..distributed.checkpoint.save_state_dict` and
+    ``load_state_dict`` hand it to the step (``sharded_step``), which has
+    every rank of its plan write or read its own blocks."""
+
+    def __init__(self, step: "ShardedTrainStep", kind: str, items=()):
+        super().__init__(items)
+        self._step = weakref.ref(step)
+        self.kind = kind
+
+    @property
+    def sharded_step(self) -> Optional["ShardedTrainStep"]:
+        return self._step()
+
+
+def _digest(t: torch.Tensor) -> tuple:
+    """Two position-weighted sums of ``t``'s raw words (int64, wrapping):
+    equal for equal bits, and moved by any change of one word."""
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[t.element_size()]
+    flat = t.detach().contiguous().reshape(-1).view(words)
+    plain = weighted = 0
+    step = 1 << 24
+    for lo in range(0, flat.numel(), step):
+        w = flat[lo:lo + step].to(torch.int64)
+        pos = torch.arange(lo, lo + w.numel(), device=w.device,
+                           dtype=torch.int64) % 1000003 + 1
+        plain += int(w.sum())
+        weighted += int((w * pos).sum())
+    return plain, weighted
 
 
 class ShardedTrainStep:
@@ -448,8 +511,8 @@ class ShardedTrainStep:
         """This rank's view ``net`` and the optimizer over its shards."""
         plan = self.plan
         self.net = net
-        self.params: Dict[str, torch.nn.Parameter] = dict(
-            net.named_parameters())
+        self.params: Dict[str, torch.nn.Parameter] = _StepState(
+            self, "params", net.named_parameters())
         self.specs = {n: plan.specs.get(n, ()) for n in self.params}
         self._data = plan.data_group
         self._dp_size = plan.dp_degree
@@ -655,6 +718,131 @@ class ShardedTrainStep:
         own = _own_stats(self.device, reset)
         own["resident_bytes"] = resident_bytes(self.params.values(),
                                                self.optimizer)
+        return [own] if self._ctl is None else self._ctl.gather(own)
+
+    # -- checkpoint (distributed.checkpoint) ---------------------------------
+    @property
+    def opt_state(self) -> Dict[str, torch.Tensor]:
+        """The optimizer's state on this rank's shards under the
+        reference's flat names (``{param}_{slot}``, ``{param}_master``,
+        ``@step`` and the scheduler's numbers as ``LR_Scheduler.{field}``):
+        what ``save_state_dict(step.opt_state, path)`` writes."""
+        return _StepState(self, "opt",
+                          {k: t for k, (t, _) in self._ckpt_entries(
+                              "opt").items()})
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The parameters, persistent buffers and optimizer state of this
+        rank, by name: one checkpoint of the whole step."""
+        return _StepState(self, "all",
+                          {k: t for k, (t, _) in self._ckpt_entries(
+                              "all").items()})
+
+    def _ckpt_entries(self, kind: str) -> Dict[str, tuple]:
+        """``{name: (local tensor, fitted spec)}`` of ``kind`` (``params``,
+        ``opt`` or ``all``). ``@step`` and the scheduler's numbers are 0-d
+        tensors made here (the optimizer's ``_checkpoint_items``)."""
+        out: Dict[str, tuple] = {}
+        if kind in ("params", "all"):
+            out.update((n, (p, self.specs[n])) for n, p in
+                       self.params.items())
+        if kind == "all":
+            own = {id(p) for p in self.params.values()}
+            out.update((n, (b, ())) for n, b in
+                       self.net.state_dict(keep_vars=True).items()
+                       if id(b) not in own and n not in out)
+        if kind in ("opt", "all"):
+            for key, name, t in self.optimizer._checkpoint_items():
+                out[key] = (t, self.specs[name] if name is not None
+                            and t.shape == self.params[name].shape else ())
+        return out
+
+    def _box(self, t: torch.Tensor, spec, coords) -> tuple:
+        """``(box, global shape, writer)`` of this rank's block ``t`` under
+        a fitted ``spec`` (:meth:`ShardingPlan.local`'s cut: each sharded
+        dim's block at the rank's coordinate, row-major over a tuple of
+        axes); ``writer`` is True where the rank's coordinate is 0 on
+        every axis the block is replicated over."""
+        sizes = self.plan.axes
+        box, shape, on = [], [], set()
+        for dim, d in enumerate(t.shape):
+            entry = spec[dim] if dim < len(spec) else None
+            axes = _axes_of_spec((entry,))
+            n, idx = 1, 0
+            for a in axes:
+                idx = idx * sizes[a] + coords.get(a, 0)
+                n *= sizes[a]
+            on.update(axes)
+            box.append([idx * int(d), (idx + 1) * int(d)])
+            shape.append(n * int(d))
+        writer = all(c == 0 for a, c in coords.items() if a not in on)
+        return box, tuple(shape), writer
+
+    def _ckpt_record(self, spec) -> dict:
+        mesh = self.plan.process_mesh
+        return {"mesh_shape": list(mesh.shape),
+                "mesh_axes": list(mesh.dim_names),
+                "spec": [list(e) if isinstance(e, (tuple, list)) else e
+                         for e in spec]}
+
+    @_led
+    @torch.no_grad()
+    def _ckpt_save(self, path: str, kind: str, async_save: bool = False,
+                   coordinator_rank: int = 0,
+                   merge_timeout: float = 300.0) -> None:
+        """Every rank writes its blocks of ``kind`` as rank ``plan.rank``
+        of ``plan.n_devices``; the coordinator merges the records."""
+        from ..distributed.checkpoint import LocalShards, _dtype_name, _save
+
+        world = self.plan.n_devices
+        rank = self.plan.rank if world > 1 else 0
+        coords = self.plan.coords(rank)
+        sd = {}
+        for key, (t, spec) in self._ckpt_entries(kind).items():
+            box, shape, writer = self._box(t, spec, coords)
+            sd[key] = LocalShards(shape, _dtype_name(t.dtype),
+                                  [(box, t)] if writer else [],
+                                  self._ckpt_record(spec))
+        _save(sd, path, rank, world, coordinator_rank, async_save,
+              merge_timeout)
+
+    @_led
+    @torch.no_grad()
+    def _ckpt_load(self, path: str, kind: str) -> None:
+        """Every rank fills its blocks of ``kind`` in place from the files
+        that overlap them, whatever mesh wrote them."""
+        from ..distributed.checkpoint import (_read_into, wait_all_saves,
+                                              get_checkpoint_metadata)
+
+        wait_all_saves()
+        meta = get_checkpoint_metadata(path)
+        entries = self._ckpt_entries(kind)
+        missing = [k for k in entries if k not in meta["tensors"]]
+        if missing:
+            raise KeyError(f"checkpoint at {path} lacks keys: "
+                           f"{missing[:5]}...")
+        world = self.plan.n_devices
+        coords = self.plan.coords(self.plan.rank if world > 1 else 0)
+        targets = []
+        for key, (t, spec) in entries.items():
+            box, shape, _ = self._box(t, spec, coords)
+            if tuple(meta["tensors"][key]["shape"]) != shape:
+                raise ValueError(
+                    f"shape mismatch for {key}: ckpt "
+                    f"{tuple(meta['tensors'][key]['shape'])} vs {shape}")
+            targets.append((key, t, tuple(map(tuple, box))))
+        _read_into(targets, path, meta)
+        self.optimizer._load_checkpoint_scalars(
+            {k: t for k, (t, _) in entries.items()})
+
+    @_led
+    @torch.no_grad()
+    def _rank_digests(self, kind: str = "all") -> list:
+        """Every rank's ``{name: digest}`` of its tensors of ``kind``
+        (:func:`_digest`), in rank order: equal digests say a rank holds
+        the same bits."""
+        own = {k: _digest(t) for k, t in (
+            (k, t) for k, (t, _) in self._ckpt_entries(kind).items())}
         return [own] if self._ctl is None else self._ctl.gather(own)
 
     def follow(self) -> int:

@@ -8,9 +8,10 @@ register here through ``ServingEngine.install_preemption_hook()``: a
 SIGTERM'd server drains (in-flight requests finish within the drain
 timeout, the rest are shed with a typed error) before the exit.
 Cooperative loops install with ``exit_on_signal=False`` and poll
-:func:`preemption_requested`. The reference also flushes the distributed
-checkpoint writer here; the port has none yet (ROADMAP A10), and the flight
-recorder's dump waits for A8.
+:func:`preemption_requested`. After the callbacks the handler drains the
+distributed checkpoint's async writers (``distributed.checkpoint.
+wait_all_saves``, reference :118-131), so an emergency save registered as
+a callback is on disk, committed, before the exit.
 """
 
 from __future__ import annotations
@@ -79,14 +80,22 @@ class PreemptionHandler:
             os._exit(self.exit_code)
 
     def drain(self) -> None:
-        """Run the emergency callbacks; one that raises is reported and the
-        rest still run."""
+        """Run the emergency callbacks (one that raises is reported and the
+        rest still run), then flush pending async checkpoint writes.
+        Callable directly from cooperative (polling) loops."""
         for cb in self._callbacks:
             try:
                 cb()
             except Exception:
                 sys.stderr.write("[preemption] emergency callback failed:\n"
                                  + traceback.format_exc())
+        try:
+            from ..distributed import checkpoint as dist_ckpt
+
+            dist_ckpt.wait_all_saves()
+        except Exception as e:
+            sys.stderr.write(
+                f"[preemption] draining async saves failed: {e!r}\n")
         sys.stderr.flush()
 
 

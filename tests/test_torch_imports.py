@@ -87,6 +87,23 @@ import paddlepaddle_tpu_torch.resilience
 import paddlepaddle_tpu_torch.resilience.chaos
 import paddlepaddle_tpu_torch.resilience.retry
 import paddlepaddle_tpu_torch.resilience.netchaos
+import paddlepaddle_tpu_torch.distributed.checkpoint
+import paddlepaddle_tpu_torch.distributed.comm_task
+import paddlepaddle_tpu_torch.distributed.watchdog
+import paddlepaddle_tpu_torch.distributed.rpc
+import paddlepaddle_tpu_torch.distributed.utils
+import paddlepaddle_tpu_torch.distributed.fleet
+import paddlepaddle_tpu_torch.distributed.fleet.topology
+import paddlepaddle_tpu_torch.distributed.fleet.random
+import paddlepaddle_tpu_torch.distributed.fleet.localsgd
+import paddlepaddle_tpu_torch.distributed.fleet.data_generator
+import paddlepaddle_tpu_torch.distributed.fleet.base
+import paddlepaddle_tpu_torch.distributed.fleet.base.role_maker
+import paddlepaddle_tpu_torch.distributed.fleet.meta_optimizers
+import paddlepaddle_tpu_torch.distributed.fleet.meta_optimizers.dygraph_optimizer
+import paddlepaddle_tpu_torch.distributed.fleet.meta_parallel
+import paddlepaddle_tpu_torch.distributed.fleet.utils
+import paddlepaddle_tpu_torch.resilience.integrity
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -161,7 +178,27 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "resilience.chaos", "resilience.retry",
                 "resilience.netchaos", "parallel.schedules",
                 "parallel.pipeline", "parallel.pipeline_spmd",
-                "parallel.hybrid"):
+                "parallel.hybrid",
+                # A10 slice 6: the checkpoint, integrity, the watchdog,
+                # rpc and the collective fleet
+                "distributed.checkpoint",
+                "distributed.comm_task",
+                "distributed.watchdog",
+                "distributed.rpc",
+                "distributed.utils",
+                "distributed.fleet",
+                "distributed.fleet.topology",
+                "distributed.fleet.random",
+                "distributed.fleet.localsgd",
+                "distributed.fleet.data_generator",
+                "distributed.fleet.base",
+                "distributed.fleet.base.role_maker",
+                "distributed.fleet.meta_optimizers",
+                "distributed.fleet.meta_optimizers.dygraph_optimizer",
+                "distributed.fleet.meta_parallel",
+                "distributed.fleet.utils",
+                "resilience.integrity",
+                "resilience.preemption"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

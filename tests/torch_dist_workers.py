@@ -1162,3 +1162,232 @@ def sp_mlp_net(state, h, f):
         for n, p in net.named_parameters():
             p.copy_(torch.from_numpy(state[n]))
     return net
+
+
+# -- A10 slice 6: the distributed checkpoint and the collective fleet -------
+
+# vocab 65: the embedding's fsdp dim does not split over 2 ranks, so the
+# plan leaves it whole (an uneven fsdp cut: one box, the unpadded range)
+CKPT_CFG = dict(FSDP_CFG, vocab_size=65)
+
+
+def ckpt_step(state, shape, names, rules_axis, lr=1e-3, clip=0.5):
+    """A ``ShardedTrainStep`` over a ``CKPT_CFG`` Llama holding ``state``
+    (AdamW + global-norm clip) on the mesh ``shape`` / ``names``."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import ProcessMesh
+    from paddlepaddle_tpu_torch.models.llama import llama_sharding_rules
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+
+    model = port_llama(state, "float32", CKPT_CFG)
+    opt = pt.AdamW(learning_rate=lr, parameters=model.named_parameters(),
+                   grad_clip=pt.ClipGradByGlobalNorm(clip))
+    return ShardedTrainStep(
+        model, opt, lambda m, i, l: m(i, labels=l),
+        mesh=ProcessMesh(shape=shape, dim_names=names),
+        rules=llama_sharding_rules(tp_axis=rules_axis))
+
+
+def ckpt_fsdp_session(state, ids, labels, path):
+    """The SPMD ``fsdp2`` step: two steps, an async save of the whole step
+    to ``path`` (each rank its blocks, rank 0 merging), then a third step
+    beside the write; the checkpoint loaded back into the step gives every
+    rank the bits it held at the save (digests). Also ``step.params`` and
+    ``step.opt_state`` saved apart (the reference's user code). Losses,
+    the digests' agreement, the two saves' keys and this rank's local
+    shapes."""
+    from paddlepaddle_tpu_torch.distributed import checkpoint as dckpt
+
+    _init()
+    step = ckpt_step(state, [2], ["fsdp"], "tp")
+    ids_t, lab_t = torch.from_numpy(ids), torch.from_numpy(labels)
+    losses = [float(step(ids_t, lab_t)) for _ in range(2)]
+    digests = step._rank_digests()
+    dckpt.save_state_dict(step.state_dict(), path, async_save=True)
+    dckpt.save_state_dict(step.params, path + ".params")
+    dckpt.save_state_dict(step.opt_state, path + ".opt")
+    losses.append(float(step(ids_t, lab_t)))
+    dckpt.wait_all_saves()
+    moved = step._rank_digests() != digests
+    dckpt.load_state_dict(step.state_dict(), path)
+    return {"losses": losses, "moved": moved,
+            "restored": step._rank_digests() == digests,
+            "keys": {k: sorted(dckpt.get_checkpoint_metadata(
+                path + k)["tensors"]) for k in ("", ".params", ".opt")},
+            "shapes": {n: tuple(p.shape) for n, p in step.params.items()}}
+
+
+def fake_dtensor_load(path, mesh_shape, names, specs, shapes, out_path):
+    """Each rank of ``mesh_shape`` in turn, under a fake process group of
+    that world: ``DTensor`` targets of zeros placed by ``specs`` (``{key:
+    [("S", d) | ("R",), ...]}``) loaded from ``path``; the local blocks of
+    every rank, pickled to ``out_path``."""
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from paddlepaddle_tpu_torch.distributed import checkpoint as dckpt
+
+    world = int(np.prod(mesh_shape))
+    out = {}
+    for r in range(world):
+        dist.init_process_group("fake", rank=r, world_size=world,
+                                store=FakeStore())
+        try:
+            mesh = DeviceMesh("cpu", np.arange(world).reshape(
+                mesh_shape).tolist(), mesh_dim_names=tuple(names))
+            sd = {}
+            for key, spec in specs.items():
+                pl = [Shard(p[1]) if p[0] == "S" else Replicate()
+                      for p in spec]
+                full = torch.zeros(shapes[key])
+                local = full
+                coord = mesh.get_coordinate()
+                for axis, p in enumerate(pl):
+                    if isinstance(p, Shard):
+                        local = local.chunk(mesh_shape[axis],
+                                            dim=p.dim)[coord[axis]]
+                sd[key] = DTensor.from_local(
+                    local.contiguous().clone(), mesh, pl, run_check=False,
+                    shape=full.shape, stride=full.stride())
+            dckpt.load_state_dict(sd, path)
+            out[r] = {"coord": list(mesh.get_coordinate()),
+                      "local": {k: v.to_local().numpy().copy()
+                                for k, v in sd.items()}}
+        finally:
+            dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def fleet_topology_session(configs):
+    """``fleet.init`` on this job's ranks for each hybrid config: this
+    rank's coordinate from every accessor and the ranks of each of its
+    groups."""
+    from paddlepaddle_tpu_torch.distributed import fleet
+
+    rank = _init()
+    out = []
+    for hc in configs:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = dict(hc)
+        fleet.init(is_collective=True, strategy=strategy)
+        h = fleet.get_hybrid_communicate_group()
+        out.append({
+            "rank": rank, "global_rank": h.global_rank,
+            "worker_index": fleet.worker_index(),
+            "first": fleet.is_first_worker(),
+            "coord": {"data": h.get_data_parallel_rank(),
+                      "pipe": h.get_stage_id(),
+                      "sharding": h.get_sharding_parallel_rank(),
+                      "sep": h.get_sep_parallel_rank(),
+                      "model": h.get_model_parallel_rank()},
+            "groups": {"data": h.get_data_parallel_group().ranks,
+                       "pipe": h.get_pipe_parallel_group().ranks,
+                       "sharding": h.get_sharding_parallel_group().ranks,
+                       "sep": h.get_sep_parallel_group().ranks,
+                       "model": h.get_model_parallel_group().ranks},
+            "src": {"data": h.get_data_parallel_group_src_rank(),
+                    "model": h.get_model_parallel_group_src_rank()},
+            "stage1_rank": h.get_rank_from_stage(
+                min(1, h.get_pipe_parallel_world_size() - 1))})
+        out[-1]["dp_model"] = type(fleet.distributed_model(
+            torch.nn.Linear(2, 2))).__name__
+        # the model group is a working process group
+        t = torch.tensor([float(rank)])
+        from paddlepaddle_tpu_torch.distributed import all_reduce
+
+        all_reduce(t, group=h.get_model_parallel_group())
+        out[-1]["mp_sum"] = float(t)
+        fleet.barrier_worker()
+    return out
+
+
+def fleet_mp2_session(weights, x, y, clip, n_steps, grads):
+    """On ``mp2`` (``fleet.init``): the MLP ``relu(x W1 + b1) W2 + b2``
+    as a column- then a row-parallel layer holding this rank's blocks of
+    ``weights``; ``fleet.distributed_optimizer`` over AdamW, then over SGD
+    (a step that moves with the clip's scale), each with
+    ``ClipGradByGlobalNorm(clip)``: their losses and the whole weights
+    after ``n_steps``. Then ``GradScaler``'s skip-or-step with an inf in
+    rank 1's gradient alone (``grads``), and a ``LocalSGD`` average."""
+    import paddlepaddle_tpu_torch as pt
+    from paddlepaddle_tpu_torch.distributed import all_gather, fleet
+    from paddlepaddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+
+    rank = _init()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    out = {"rank": rank}
+    for name in ("adamw", "sgd"):
+        col = mpp.ColumnParallelLinear(x.shape[1], weights["w1"].shape[1],
+                                       has_bias=True, gather_output=False,
+                                       device="cpu")
+        row = mpp.RowParallelLinear(weights["w1"].shape[1], y.shape[1],
+                                    has_bias=True, input_is_parallel=True,
+                                    device="cpu")
+        r, n = hcg.get_model_parallel_rank(), 2
+        with torch.no_grad():
+            col.weight.copy_(torch.from_numpy(weights["w1"]).chunk(n, 1)[r])
+            col.bias.copy_(torch.from_numpy(weights["b1"]).chunk(n, 0)[r])
+            row.weight.copy_(torch.from_numpy(weights["w2"]).chunk(n, 0)[r])
+            row.bias.copy_(torch.from_numpy(weights["b2"]))
+        net = fleet.distributed_model(torch.nn.Sequential(
+            col, torch.nn.ReLU(), row))
+        params = list(net.named_parameters())
+        inner = (pt.AdamW(learning_rate=1e-2, parameters=params,
+                          grad_clip=pt.ClipGradByGlobalNorm(clip))
+                 if name == "adamw" else
+                 pt.SGD(learning_rate=0.1, parameters=params,
+                        grad_clip=pt.ClipGradByGlobalNorm(clip)))
+        opt = fleet.distributed_optimizer(inner)
+        losses = []
+        for _ in range(n_steps):
+            loss = ((net(xt) - yt) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        whole = {}
+        for key, p, dim in (("w1", col.weight, 1), ("b1", col.bias, 0),
+                            ("w2", row.weight, 0)):
+            parts = []
+            all_gather(parts, p.detach().contiguous(),
+                       group=hcg.get_model_parallel_group())
+            whole[key] = torch.cat(parts, dim).numpy().copy()
+        whole["b2"] = row.bias.detach().numpy().copy()
+        out[name] = {"losses": losses, "weights": whole,
+                     "wrapped": type(opt).__name__}
+    # GradScaler: only rank 1 sees an inf; both ranks must skip together
+    lin = torch.nn.Linear(grads.shape[1], 1, bias=False)
+    sgd = pt.SGD(learning_rate=0.5, parameters=list(lin.named_parameters()))
+    scaler = pt.amp.GradScaler(init_loss_scaling=4.0)
+    before = lin.weight.detach().clone()
+    g = torch.from_numpy(grads[rank:rank + 1]).float()
+    lin.weight.grad = g * 4.0
+    scaler.step(sgd)
+    out["scaler"] = {"found_inf": bool(scaler._found_inf),
+                     "stepped": not torch.equal(before, lin.weight.detach()),
+                     "scale": float(scaler._scale)}
+    # LocalSGD: lr 0 local steps, then the average of rank 1.0 and 2.0
+    w = torch.nn.Linear(2, 1)
+    with torch.no_grad():
+        w.weight.fill_(float(rank + 1))
+        w.bias.zero_()
+    lsgd = fleet.LocalSGD(pt.SGD(learning_rate=0.0,
+                                 parameters=list(w.named_parameters())),
+                          k_steps=2)
+    seen = []
+    for _ in range(2):
+        w(torch.ones(1, 2)).mean().backward()
+        lsgd.step()
+        lsgd.clear_grad()
+        seen.append(w.weight.detach().numpy().copy())
+    out["localsgd"] = seen
+    return out
