@@ -327,7 +327,10 @@ code is non-zero):
                ``decode_plan("mp1")``: the decode chunk is captured with the
                NCCL all-reduce inside; tokens bit-equal to the plan-less
                captured engine's; ``capture_info()`` and replays; tok/s of
-               both after each captured on a warm-up request.
+               both after each captured on a warm-up request; the median
+               host us of a one-float all-reduce (``AutoTuner``'s
+               ``collective_latency`` default); ``distributed.compat``'s
+               collectives over the NCCL group with CUDA tensors.
 
     The single-process form (the reference's one-controller call): this
     process calls ``ServingEngine(model, mesh="mp2")`` and is rank 0; the
@@ -488,6 +491,25 @@ code is non-zero):
                embedding within 0.02 (relative norm) of one rank's; step
                ms, the ring's bytes and ms, kernels 2-4 a rank against
                the prediction, peak GB a rank beside one rank's.
+10p. ``elastic_train``  an elastic job: two launchers on this machine
+               (``launch --nnodes 1:2 --obs_export``; node 1 dials node 0's
+               store), each running this script's ``--elastic-worker``
+               on ``cuda:0`` over gloo; train_fsdp's model and step,
+               ``fsdp`` over the live world, fed by a ``DataLoader`` (2
+               persistent workers, ``DistributedBatchSampler``) onto the
+               card. World 2 (version 1): ``compat``'s collectives against
+               numpy, steps 1-2, an async ``CheckpointManager`` save;
+               rank 0's merged ``/metrics``, ``/fleet/ranks`` and
+               ``/fleet/trace``. Node 1 killed: world 1 (version 2), its
+               worker restores the ``fsdp2`` checkpoint into one process
+               (every box of it, optimizer state included, bit-equal to
+               the world-2 rank's step-2 state) and takes steps 3-4. One
+               scale event; losses within 3e-3 of one process run beside
+               the job; kernels 2-4 2 / 2 / 2 a rank a step in each
+               incarnation; every batch the oracle's rows; every process
+               gone. Prints detection, relaunch and
+               resume times, step walls and data waits, the loader's
+               latency, peak GB and host RSS, ``AutoTuner`` estimates.
 
 Then each phase's seconds, the run's total seconds, the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -503,6 +525,8 @@ import json
 import subprocess
 import sys
 import time
+
+_PROCESS_T0 = time.time()      # when this process began the script
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -6382,7 +6406,53 @@ def _nccl_world1_rank():
                      "paged": _rank_counts()["paged"], "steps": run["steps"],
                      "capture": eng.capture_info().get("decode")}
     out["nvcc"] = _rank_counts()["nvcc"]
+    out["allreduce_1float_us"] = _collective_latency_us()
+    out["compat"] = _compat_world1()
     return out
+
+
+def _compat_world1() -> dict:
+    """distributed.compat over the NCCL group of one rank, CUDA tensors."""
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import compat as C
+
+    x = torch.arange(12.0, device="cuda").reshape(4, 3)
+    y = torch.empty(0, 3, device="cuda")
+    C.alltoall_single(y, x)
+    objs = [{"a": [1, 2]}, 3.5]
+    C.broadcast_object_list(objs)
+    got = []
+    C.scatter_object_list(got, [{"to": 0}])
+    gl = []
+    C.gather(x[0], gl)
+    return {"alltoall_single": bool(torch.equal(y, x)),
+            "broadcast_object_list": objs == [{"a": [1, 2]}, 3.5],
+            "scatter_object_list": got == [{"to": 0}],
+            "gather": len(gl) == 1 and bool(torch.equal(gl[0], x[0])),
+            "backend": C.get_backend()}
+
+
+def _collective_latency_us(reps: int = 200) -> float:
+    """Median host microseconds of one all-reduce of one float on the
+    card, synchronised (the world group's): a collective's launch cost,
+    which ``AutoTuner``'s ``collective_latency`` default is taken from."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(1, device="cuda")
+    for _ in range(20):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    us = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(us)
 
 
 def phase_nccl_world1(pt_pkg, job):
@@ -6399,12 +6469,16 @@ def phase_nccl_world1(pt_pkg, job):
         "paged_equals_layers_x_steps":
             r["plan"]["paged"] == NCCL1_LAYERS * r["plan"]["steps"],
         "nvcc_in_rank": r["nvcc"],
+        "compat_nccl": all(v for k, v in r["compat"].items()
+                           if k != "backend")
+        and r["compat"]["backend"] == "nccl",
     }
     emit({"phase": "nccl_world1", "nvidia_smi": nvidia_smi_line(),
           "model": f"llama3_8b widths, {NCCL1_LAYERS} layers, bf16, mp1",
           "capture_info": cap, "capture_plan_less": r["one"]["capture"],
           "tok_s": {"plan": r["plan"]["tok_s"], "one": r["one"]["tok_s"]},
-          "paged_launches": r["plan"]["paged"], **checks})
+          "paged_launches": r["plan"]["paged"],
+          "allreduce_1float_us": r["allreduce_1float_us"], **checks})
     bad = [k for k, v in checks.items() if k != "nvcc_in_rank" and not v]
     if bad or checks["nvcc_in_rank"]:
         raise AssertionError(f"nccl_world1 failed: {bad} {checks}")
@@ -8262,6 +8336,560 @@ def phase_train_cp(pt_pkg):
     return {"launches_by_rank": launches}
 
 
+# -- 10p: an elastic job (A10 slice 7) fed by io/ and resumed by save/load ----
+
+ELASTIC_LAYERS = 2         # Llama-3-8B widths at 2 of 32 layers (train_fsdp's)
+ELASTIC_BATCH, ELASTIC_SEQ = 4, 512     # the global batch: 4 x 512 tokens
+ELASTIC_ROWS = 16          # token rows: 4 global batches, one epoch
+ELASTIC_WORLD2_STEPS = 2   # steps 1-2 in the world of 2, steps 3-4 in the
+ELASTIC_STEPS = 4          # world of 1 after node 1 is lost
+ELASTIC_SEED = 0
+# bf16 losses against one process: a few times the largest error read
+# (7.0e-4, steps 1-3); step 4 reads the optimizer state the restore gave
+ELASTIC_LOSS_TOL = 3e-3
+ELASTIC_WAIT_S = 600       # each wait for an incarnation's record
+
+
+def _elastic_tokens(vocab: int):
+    """The dataset: seeded int64 token rows (numpy, from ELASTIC_SEED)."""
+    import numpy as np
+
+    return np.random.default_rng(ELASTIC_SEED).integers(
+        0, vocab, (ELASTIC_ROWS, ELASTIC_SEQ)).astype(np.int64)
+
+
+def _elastic_order():
+    """The sampler's epoch-0 order: numpy's default_rng(0) shuffle, as
+    ``DistributedBatchSampler(shuffle=True)`` draws it."""
+    import numpy as np
+
+    perm = np.arange(ELASTIC_ROWS)
+    np.random.default_rng(0).shuffle(perm)
+    return perm
+
+
+def _elastic_compat(rank: int, world: int) -> dict:
+    """distributed.compat's collectives over the job's gloo group with
+    CUDA tensors, each against numpy / the launcher's environment."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import compat as C
+
+    def sent(s):
+        splits = [s + 1 + j for j in range(world)]
+        x = np.arange(sum(splits) * 3, dtype=np.float32).reshape(-1, 3) \
+            + 100 * s
+        offs = np.cumsum([0] + splits)
+        return x, splits, [x[offs[j]:offs[j + 1]] for j in range(world)]
+
+    x, splits, _ = sent(rank)
+    x = torch.from_numpy(x).cuda()
+    got = torch.empty(0, 3, device=x.device)
+    C.alltoall_single(got, x, in_split_sizes=splits)
+    want = np.concatenate([sent(s)[2][rank] for s in range(world)])
+    objs = [{"from": rank, "tags": ["a", rank]}, rank * 2.5]
+    C.broadcast_object_list(objs, src=1)
+    recv = []
+    C.scatter_object_list(recv, [{"to": r, "n": list(range(r + 2))}
+                                 for r in range(world)] if rank == 0
+                          else None, src=0)
+    env = C.ParallelEnv()
+    return {
+        "alltoall_single": bool(np.array_equal(got.cpu().numpy(), want)),
+        "broadcast_object_list": objs == [{"from": 1, "tags": ["a", 1]},
+                                          2.5],
+        "scatter_object_list": recv == [{"to": rank,
+                                         "n": list(range(rank + 2))}],
+        "parallel_env": [env.rank, env.world_size, env.local_rank] == [
+            rank, world, int(os.environ["PADDLE_LOCAL_RANK"])]}
+
+
+def elastic_worker(out_dir: str) -> int:
+    """One incarnation of elastic_train's job, as the launcher starts it
+    (``chip_smoke.py --elastic-worker DIR``): restore the newest valid
+    checkpoint, train this world's steps on the loader's batches (the
+    world of 2 also checks compat, records each rank's digests of its
+    state by box and saves after its steps; the world of 1 holds the
+    state it restored against those digests), write its record
+    ``v{version}.rank{rank}.json`` and, in the world of 2, wait to be
+    relaunched."""
+    import dataclasses
+    import multiprocessing.forkserver as mpfs
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    # a relaunch terminates this process at once (its loader workers follow
+    # within a second: they watch their parent)
+    signal.signal(signal.SIGTERM, lambda *_: os._exit(143))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddlepaddle_tpu_torch as pt
+    import paddlepaddle_tpu_torch.observability as obs
+    from paddlepaddle_tpu_torch.distributed import (all_gather, get_rank,
+                                                    init_parallel_env,
+                                                    train_plan)
+    from paddlepaddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddlepaddle_tpu_torch.io import (DataLoader,
+                                           DistributedBatchSampler,
+                                           TensorDataset)
+    from paddlepaddle_tpu_torch.parallel import ShardedTrainStep
+    from paddlepaddle_tpu_torch.parallel.sharded import host_rss_gb
+    from paddlepaddle_tpu_torch.resilience import CheckpointManager
+
+    version = int(os.environ["PADDLE_WORLD_VERSION"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    rec = {"version": version, "world": world, "pid": os.getpid(),
+           "restart": int(os.environ["PADDLE_RESTART_NUM"]),
+           "t_exec": _PROCESS_T0, "t_imported": time.time()}
+    if world > 1:
+        init_parallel_env(backend="gloo")
+    rank = rec["rank"] = get_rank()
+    if world > 1:
+        rec["compat"] = _elastic_compat(rank, world)
+    cfg = dataclasses.replace(pt.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=ELASTIC_LAYERS)
+    tokens = _elastic_tokens(cfg.vocab_size)
+    local = _elastic_order()[rank::world]
+    b = ELASTIC_BATCH // world
+    ds = TensorDataset([tokens])
+    sampler = DistributedBatchSampler(ds, b, shuffle=True)
+    sampler.set_epoch(0)
+    loader = DataLoader(ds, batch_sampler=sampler, num_workers=2,
+                        persistent_workers=True, device="cuda")
+    # the first batch on a thread: the loader's workers start beside the
+    # model's build and the restore
+    it, first = iter(loader), {}
+
+    def prime():
+        t0 = time.perf_counter()
+        try:
+            first["batch"] = next(it)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            first["error"] = e
+        first["ms"] = (time.perf_counter() - t0) * 1e3
+
+    primer = threading.Thread(target=prime, daemon=True)
+    primer.start()
+    model = pt.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    opt = _fsdp_opt(pt, model, 1e-4, True)
+    step = (ShardedTrainStep(model, opt, _llm_loss, plan=train_plan("fsdp2"))
+            if world > 1 else pt.TrainStep(model, opt, _llm_loss))
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), keep_last_k=1)
+    rec["t_built"] = time.time()
+    start = 0
+    if mgr.latest_valid() is not None:
+        if world > 1:
+            start = mgr.restore(step.state_dict())
+        else:
+            start = mgr.restore(model.state_dict())
+            mgr.restore(step.optimizer.checkpoint_state())
+            rec["restored_box_mismatches"], rec["restored_boxes"] = \
+                _elastic_box_mismatches(out_dir, version - 1, model,
+                                        step.optimizer)
+    rec["start"], rec["t_restored"] = start, time.time()
+    primer.join()
+    if "error" in first:
+        raise first["error"]
+    pending, rec["first_batch_ms"] = [first["batch"]], first["ms"]
+    end = ELASTIC_WORLD2_STEPS if world > 1 else ELASTIC_STEPS
+    tl = obs.perf.timeline()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for k in range(end):
+        if k < start:
+            pending.pop() if pending else next(it)   # trained on before
+            continue
+        _reset_counts()
+        with tl.step("train_step"):
+            t0 = time.perf_counter()
+            (ids,) = pending.pop() if pending else next(it)
+            fetch_ms = (time.perf_counter() - t0) * 1e3
+            if world > 1:
+                parts = []
+                all_gather(parts, ids)
+                ids = torch.cat(parts)
+            loss = float(step(ids, ids))
+        last = tl.snapshot()["last"][-1]
+        mine = ids[rank * b:(rank + 1) * b].cpu().numpy()
+        steps.append({"step": k + 1, "loss": loss,
+                      "wall_ms": last["wall_s"] * 1e3,
+                      "data_wait_ms": last["phases"]["data_wait"] * 1e3,
+                      "fetch_ms": fetch_ms,
+                      "flash": _rank_counts()["flash"],
+                      "rows_equal": bool(np.array_equal(
+                          mine, tokens[local[k * b:(k + 1) * b]]))})
+        rec.setdefault("t_first_step", time.time())
+    rec["steps"] = steps
+    rec["nvcc"] = _rank_counts()["nvcc"]
+    if world > 1:
+        # this rank's bits of every tensor the save writes, by box
+        rec["digests"] = step._rank_digests()[0]
+        rec["boxes"] = {k: step._box(t, spec, step.plan.coords(rank))[0]
+                        for k, (t, spec) in step._ckpt_entries("all").items()}
+        t0 = time.perf_counter()
+        mgr.save(step.state_dict(), end, async_save=True)
+        rec["save_blocked_ms"] = (time.perf_counter() - t0) * 1e3
+        dckpt.wait_all_saves()
+        rec["save_s"] = time.perf_counter() - t0
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["host_rss_gb"] = host_rss_gb()
+    rec["loader_pids"] = [p.pid for p in loader._pool.procs]
+    fs = mpfs._forkserver._forkserver_pid
+    rec["forkserver_pid"] = fs
+    path = os.path.join(out_dir, f"v{version}.rank{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+    if end < ELASTIC_STEPS:
+        while True:       # the launcher relaunches this world's workers
+            time.sleep(0.5)
+    loader._pool.shutdown()
+    return 0
+
+
+def _elastic_box_mismatches(out_dir: str, version: int, model,
+                            optimizer) -> tuple:
+    """``(names, n)``: the tensors of the restored one-process state
+    (parameters, f32 masters, moments, ``@step``) whose box differs from
+    the digest a rank of world ``version`` recorded before its save, out
+    of the ``n`` compared: nothing zeroed, dropped or put in the wrong
+    box."""
+    import glob
+    import os
+
+    from paddlepaddle_tpu_torch.parallel.sharded import _digest
+
+    whole = dict(model.state_dict())
+    whole.update(optimizer.checkpoint_state())
+    bad, n = [], 0
+    for path in sorted(glob.glob(os.path.join(out_dir,
+                                              f"v{version}.rank*.json"))):
+        own = json.load(open(path))
+        for k, d in own["digests"].items():
+            n += 1
+            if k not in whole or list(_digest(whole[k][tuple(
+                    slice(lo, hi) for lo, hi in own["boxes"][k])])) != d:
+                bad.append(f"rank{own['rank']}:{k}")
+    return bad, n
+
+
+def _free_port(span: int = 1) -> int:
+    """A port p with p .. p + span - 1 free on localhost."""
+    import socket
+
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        try:
+            for q in range(port + 1, port + span):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", q))
+            return port
+        except OSError:
+            continue
+
+
+def _elastic_oracle(pt_pkg) -> dict:
+    """One process, the same init and the same global batches, the four
+    steps uninterrupted."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(pt_pkg.LlamaConfig.llama3_8b(),
+                              num_hidden_layers=ELASTIC_LAYERS)
+    model = pt_pkg.LlamaForCausalLM(cfg, seed=0, init_std=0.02)
+    one = pt_pkg.TrainStep(model, _fsdp_opt(pt_pkg, model, 1e-4, True),
+                           _llm_loss)
+    tokens, perm = _elastic_tokens(cfg.vocab_size), _elastic_order()
+    losses, ms = [], []
+    for k in range(ELASTIC_STEPS):
+        ids = torch.from_numpy(tokens[perm[k * ELASTIC_BATCH:
+                                           (k + 1) * ELASTIC_BATCH]]).cuda()
+        t0 = time.perf_counter()
+        losses.append(float(one(ids, ids)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms}
+
+
+def _elastic_fleet_view(obs_port: int) -> dict:
+    """Rank 0's merged /metrics, /fleet/ranks and /fleet/trace while the
+    world of 2 is up: series of both ranks, both ranks published, one pid
+    a rank, each with a train-step span."""
+    from paddlepaddle_tpu_torch.observability.metrics import (
+        parse_prometheus_text)
+
+    base = f"http://127.0.0.1:{obs_port}"
+    out, deadline = {}, time.monotonic() + 120
+    while time.monotonic() < deadline:
+        try:
+            fams = parse_prometheus_text(_scrape(base + "/metrics"))
+            series = fams.get("paddle_dataloader_batches_total",
+                              {}).get("samples", [])
+            out["metrics_ranks"] = sorted({lab.get("rank")
+                                           for _, lab, _ in series})
+            out["ranks_reporting"] = [v for _, _, v in fams.get(
+                "paddle_fleet_ranks_reporting", {}).get("samples", [])]
+            ranks = json.loads(_scrape(base + "/fleet/ranks"))["ranks"]
+            out["fleet_ranks"] = {r: v["published"] for r, v in
+                                  ranks.items()}
+            trace = json.loads(_scrape(base + "/fleet/trace"))
+            out["trace_pids"] = sorted({ev["pid"] for ev in
+                                        trace["traceEvents"]})
+            out["train_step_pids"] = sorted({
+                ev["pid"] for ev in trace["traceEvents"]
+                if ev.get("ph") == "X" and ev.get("name") == "train_step"})
+            out["trace_events"] = len(trace["traceEvents"])
+        except OSError as e:
+            out["error"] = repr(e)
+        if out.get("metrics_ranks") == ["0", "1"] \
+                and out.get("fleet_ranks") == {"0": True, "1": True} \
+                and out.get("trace_pids") == [0, 1] \
+                and out.get("train_step_pids") == [0, 1]:
+            out["ok"] = True
+            return out
+        time.sleep(0.5)
+    out["ok"] = False
+    return out
+
+
+def _elastic_wait(paths, procs, logs, timeout=ELASTIC_WAIT_S) -> list:
+    import os
+
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        dead = [p.args for p in procs if p.poll() not in (None,)]
+        if dead or time.monotonic() > deadline:
+            tails = {k: open(v).read()[-4000:] for k, v in logs.items()
+                     if os.path.exists(v)}
+            raise AssertionError(f"elastic_train: no {paths} "
+                                 f"(exited: {dead}): {tails}")
+        time.sleep(0.2)
+    return [json.load(open(p)) for p in paths]
+
+
+def phase_elastic_train(pt_pkg):
+    """10p: an elastic job on the card. Two launchers on this machine,
+    ``launch --nnodes 1:2 --nproc_per_node 1 --obs_export`` (node 0 hosts
+    the store, node 1 dials ``--master``), each running
+    ``chip_smoke.py --elastic-worker`` on ``cuda:0`` over gloo. The model
+    and step are train_fsdp's (Llama-3-8B widths, ``ELASTIC_LAYERS``
+    layers, bf16, multi-precision AdamW + clip, ``fsdp`` over the live
+    world; one process at world 1); the data a ``TensorDataset`` of seeded
+    int64 token rows through ``DataLoader(batch_sampler=
+    DistributedBatchSampler(...), num_workers=2, persistent_workers=True)``
+    onto ``cuda``, global batch 4 x 512. World 2 (version 1): compat's
+    collectives, steps 1-2, an async ``CheckpointManager`` save; meanwhile
+    rank 0's merged ``/metrics``, ``/fleet/ranks`` and ``/fleet/trace``
+    are read. Then node 1's launcher and worker are killed (SIGKILL); the
+    manager commits world 1 (version 2) and node 0 relaunches its worker,
+    which restores the fsdp2 checkpoint into one process and takes steps
+    3-4. Gates: one scale event; version 2 at world size 1; every box of
+    the restored state (optimizer state included) bit-equal to the world-2
+    rank's step-2 digest of it; losses of steps 1-4
+    within ``ELASTIC_LOSS_TOL`` of one process that runs them uninterrupted
+    here (beside the job), from the same init and global batches; kernels
+    2-4 ``ELASTIC_LAYERS`` times a rank a step in each incarnation; every
+    batch the oracle's rows; compat equal to numpy; the fleet routes; every
+    launcher, worker and loader process gone and under ``HELD_GB_TOL`` GB
+    held here. Prints the scale event's detection, relaunch and resume
+    times, each step's wall and data wait (the step-time decomposition),
+    the loader's batch latency, peak GB and host RSS a rank, and
+    ``AutoTuner`` estimates beside the measured step."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddlepaddle_tpu_torch.distributed import AutoTuner, TuneConfig
+    from paddlepaddle_tpu_torch.distributed.auto_tuner import ModelSpec
+    from paddlepaddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticManager)
+    from paddlepaddle_tpu_torch.distributed.store import TCPStore
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    facts = _ckpt_dir_facts(root)
+    if facts["free_gb"] < CKPT_FREE_MARGIN * 21:
+        raise AssertionError(f"elastic_train: {facts['free_gb']:.1f} GB free "
+                             f"in {root}; the checkpoint needs ~21")
+    port, obs_port = _free_port(), _free_port(2)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        ("PADDLE_TRAINER", "PADDLE_WORLD", "MASTER_", "PADDLE_OBS_"))}
+    env.update(PADDLE_OBS_TRACE="1",
+               PADDLE_OBS_PUBLISH_INTERVAL_S="0.5",
+               PADDLE_PG_TIMEOUT_S="600",
+               PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""))
+    logs = {f"node{r}": os.path.join(root, f"node{r}.log") for r in (0, 1)}
+
+    def launcher(r):
+        cmd = [sys.executable, "-m",
+               "paddlepaddle_tpu_torch.distributed.launch",
+               "--nnodes", "1:2", "--nproc_per_node", "1",
+               "--node_rank", str(r), "--master", f"127.0.0.1:{port}",
+               "--obs_export", "--obs_port", str(obs_port),
+               os.path.abspath(__file__), "--elastic-worker", root]
+        # its own session: SIGKILL to the group is a lost host
+        return subprocess.Popen(cmd, env=env, cwd=repo,
+                                stdout=open(logs[f"node{r}"], "w"),
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    node1 = launcher(1)
+    node0 = launcher(0)
+    launched = [node0, node1]
+    try:
+        oracle = _elastic_oracle(pt_pkg)        # beside the world of 2
+        v1 = _elastic_wait([os.path.join(root, f"v1.rank{r}.json")
+                            for r in (0, 1)], launched, logs)
+        fleet = _elastic_fleet_view(obs_port)
+        client = TCPStore("127.0.0.1", port, timeout=60.0)
+        t_kill = time.time()
+        os.killpg(node1.pid, signal.SIGKILL)
+        node1.wait(timeout=60)
+        t_commit = None
+        while time.time() - t_kill < 120:
+            version, members = ElasticManager.read_world(client)
+            if version >= 2:
+                t_commit = time.time()
+                break
+            time.sleep(0.05)
+        (v2,) = _elastic_wait([os.path.join(root, "v2.rank0.json")],
+                              [node0], logs)
+        rc0 = node0.wait(timeout=300)
+        del client
+    finally:
+        for p in launched:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=60)
+        log0 = open(logs["node0"]).read()
+        shutil.rmtree(root, ignore_errors=True)
+    recs = v1 + [v2]
+    pids = {p.pid for p in launched}
+    for r in recs:
+        pids |= {r["pid"], r["forkserver_pid"], *r["loader_pids"]}
+    pids.discard(None)
+    gone = _procs_gone(pids, timeout=30)
+    held = _held_gb(before)
+
+    losses = [s["loss"] for s in v1[0]["steps"]] + \
+        [s["loss"] for s in v2["steps"]]
+    err = max(abs(a - b) for a, b in zip(losses, oracle["losses"]))
+    want = {"flash_fwd": ELASTIC_LAYERS, "flash_bwd_dq": ELASTIC_LAYERS,
+            "flash_bwd_dkv": ELASTIC_LAYERS}
+    kernels_ok = all(s["flash"] == want for r in recs for s in r["steps"])
+    rows_ok = all(s["rows_equal"] for r in recs for s in r["steps"])
+    compat_ok = all(all(r["compat"].values()) for r in v1)
+    events = log0.count("elastic scale event")
+    # the plan's own estimate beside the step, and the tuner's top
+    # survivors for the whole model on two cards of this one's memory
+    cfg = pt_pkg.LlamaConfig.llama3_8b()
+    h, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    per_layer = 4 * h * h - 2 * h * h * (1 - cfg.num_key_value_heads
+                                         / cfg.num_attention_heads) \
+        + 3 * h * inter + 2 * h
+    head = 2 * v * h + h
+
+    def spec(layers):
+        return dict(num_params=int(head + layers * per_layer),
+                    batch_size=ELASTIC_BATCH, seq_len=ELASTIC_SEQ, hidden=h,
+                    layers=layers, heads=cfg.num_attention_heads,
+                    kv_heads=cfg.num_key_value_heads, vocab=v)
+
+    tuner = AutoTuner(num_devices=2)
+    own = tuner.estimate(TuneConfig(dp=1, fsdp=2, tp=1, pp=1),
+                         ModelSpec(**spec(ELASTIC_LAYERS)))
+    full = tuner.tune(**spec(cfg.num_hidden_layers))
+    rec = {"phase": "elastic_train", "nvidia_smi": nvidia_smi_line(),
+           "model": f"llama3_8b widths, {ELASTIC_LAYERS} layers, bf16, "
+                    "multi-precision AdamW + clip; fsdp2 (gloo, 2 ranks "
+                    "on cuda:0), then one process",
+           "batch": [ELASTIC_BATCH, ELASTIC_SEQ], "fs": facts,
+           "scale_events": events, "exit_code_node0": rc0,
+           "worlds": [{k: r[k] for k in ("version", "world", "rank",
+                                         "restart", "start")}
+                      for r in recs],
+           "losses": losses, "oracle": oracle, "max_abs_loss_err": err,
+           "restored_box_mismatches": v2["restored_box_mismatches"],
+           "restored_boxes_compared": v2["restored_boxes"],
+           "steps_by_incarnation": [
+               {"version": r["version"], "rank": r["rank"],
+                "steps": r["steps"]} for r in recs],
+           "compat": [r["compat"] for r in v1], "fleet": fleet,
+           "scale_event_s": {
+               "detection": None if t_commit is None else t_commit - t_kill,
+               "relaunch": None if t_commit is None
+               else v2["t_exec"] - t_commit,
+               "import_build_restore": v2["t_restored"] - v2["t_exec"],
+               "restore": v2["t_restored"] - v2["t_built"],
+               "resume": v2["t_first_step"] - t_kill},
+           "first_batch_ms": {f"v{r['version']}.rank{r['rank']}":
+                              r["first_batch_ms"] for r in recs},
+           "world2_s": {"start_to_first_step": v1[0]["t_first_step"] - t0,
+                        "save_blocked_ms": v1[0]["save_blocked_ms"],
+                        "save_s": v1[0]["save_s"]},
+           "peak_gb_by_rank": {f"v{r['version']}.rank{r['rank']}":
+                               r["peak_gb"] for r in recs},
+           "host_rss_gb_by_rank": {f"v{r['version']}.rank{r['rank']}":
+                                   r["host_rss_gb"] for r in recs},
+           "nvcc_in_workers": sum(r["nvcc"] for r in recs),
+           "auto_tuner": {
+               "own_plan_fsdp2": {"est_step_ms": own.est_step_time * 1e3,
+                                  "est_gb_per_card":
+                                      own.est_total_bytes_per_chip / 1e9,
+                                  "measured_step_ms": [
+                                      s["wall_ms"] for s in
+                                      v1[0]["steps"]]},
+               "full_8b_on_2_cards": [repr(c) for c in full],
+               "hbm_gb": tuner.hbm_bytes / 1e9},
+           "gone": gone, "held_gb": held, "loss_tol": ELASTIC_LOSS_TOL}
+    emit(rec)
+    print(f"elastic_train: losses {losses} vs one process "
+          f"{oracle['losses']} (max err {err:.4f}); scale events {events}; "
+          f"detection {rec['scale_event_s']['detection']} s, relaunch "
+          f"{rec['scale_event_s']['relaunch']} s, resume "
+          f"{rec['scale_event_s']['resume']:.1f} s after the kill; step ms "
+          f"{[round(s['wall_ms'], 1) for r in recs for s in r['steps']]}, "
+          f"data wait ms {[round(s['data_wait_ms'], 2) for r in recs for s in r['steps']]}",
+          flush=True)
+    checks = {
+        "one_scale_event": events == 1, "node0_exit_0": rc0 == 0,
+        "world2_is_v1": [(r["version"], r["world"]) for r in v1]
+        == [(1, 2)] * 2,
+        "world1_is_v2": (v2["version"], v2["world"]) == (2, 1),
+        "resumed_at_step": v2["start"] == ELASTIC_WORLD2_STEPS,
+        "restored_state_bits": not v2["restored_box_mismatches"]
+        and v2["restored_boxes"] > 0,
+        "losses": len(losses) == ELASTIC_STEPS
+        and bool(np.isfinite(losses).all()) and err <= ELASTIC_LOSS_TOL,
+        "kernels_2_4": kernels_ok, "rows": rows_ok, "compat": compat_ok,
+        "fleet_routes": bool(fleet.get("ok")), "gone": gone,
+        "held": held <= HELD_GB_TOL, "no_nvcc": not rec["nvcc_in_workers"]}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"elastic_train failed {bad}: {rec}")
+    return {"launches_by_rank": [{"version": r["version"], "rank": r["rank"],
+                                  "per_step": [s["flash"] for s in
+                                               r["steps"]]} for r in recs]}
+
+
 def _time_phases() -> dict:
     """Wrap every ``phase_*`` function of this module so that its seconds
     add up, by phase name, in the dict returned (printed before the
@@ -8479,6 +9107,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_cp = phase_train_cp(pt_pkg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        elastic = phase_elastic_train(pt_pkg)
         gg_record["launches_by_phase"] = {
             "moe_train": gg_record["launches"], **ep_launches,
             "train_ep by rank": [r["gather_gemm_ffn"]
@@ -8523,6 +9154,10 @@ def main() -> int:
                  for k, v in sp_launches.items()})
             r["launches_by_phase"]["train_cp by rank"] = [
                 x[r["name"]] for x in train_cp["launches_by_rank"]]
+            r["launches_by_phase"]["elastic_train a step, by incarnation"] \
+                = {f"v{x['version']}.rank{x['rank']}":
+                   [c[r["name"]] for c in x["per_step"]]
+                   for x in elastic["launches_by_rank"]}
     except BaseException:
         # where the time went up to the failure
         emit({"phase": "phase_seconds", "seconds": phase_seconds,
@@ -8540,4 +9175,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv[2]))
     sys.exit(main())

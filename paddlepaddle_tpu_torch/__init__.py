@@ -43,6 +43,11 @@ MoE decoder and one of the rest of the model zoo:
   over ``nn.TransformerEncoder`` and ``GPTForCausalLM``, the last two on the
   flash kernels at head dim 64, all trained by the same ``TrainStep``.
 
+The input pipeline and files: ``io`` (``Dataset``, the samplers with
+``DistributedBatchSampler``, ``DataLoader`` with worker processes, copying
+batches to the card beside the step) and ``save`` / ``load``
+(``framework``), which read and write the JAX package's files.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA and no device given they raise (:mod:`.device`).
 """
@@ -70,6 +75,8 @@ from .models.gpt import GPTConfig, GPTForCausalLM  # noqa: F401
 from .models.resnet import ResNet, resnet50  # noqa: F401
 from . import models, nn  # noqa: F401
 from . import amp, distributed, regularizer  # noqa: F401
+from . import framework, io  # noqa: F401
+from .framework import load, save  # noqa: F401
 from .nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                       ClipGradByValue)
 from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401

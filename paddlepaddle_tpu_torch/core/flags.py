@@ -147,10 +147,10 @@ define_flag("serving_kv_host_bytes", 0,
 
 # Observability family (reference core/flags.py:128-241; observability/):
 # each flag also reads its PADDLE_OBS_* spelling; all default off so the
-# hot paths carry no instrumentation. The planes that run a thread or a
-# socket (profiler, memory ledger, exporter) are started by their
-# enable() / start_exporter() calls, never at import, so they have no
-# arming flag here.
+# hot paths carry no instrumentation. The profiler and the memory ledger
+# (planes that run a thread) are started by their enable() calls, never at
+# import, so they have no arming flag here; the exporter has one,
+# obs_export, which distributed.launch --obs_export sets for every worker.
 define_flag("obs_trace", False,
             "record host spans into the observability ring buffer for "
             "chrome-trace export", env="PADDLE_OBS_TRACE")
@@ -167,6 +167,12 @@ define_flag("obs_buffer_size", 100000,
 define_flag("obs_recompile_threshold", 3,
             "unplanned captures or builds of one program before the "
             "watchdog flags a storm", env="PADDLE_OBS_RECOMPILE_THRESHOLD")
+define_flag("obs_export", False,
+            "start the per-rank HTTP telemetry exporter (/metrics /healthz "
+            "/vars /trace) when observability is imported, and under a "
+            "multi-process launch the fleet publisher (rank 0 serves the "
+            "merged view); distributed.launch --obs_export sets this for "
+            "every worker", env="PADDLE_OBS_EXPORT")
 define_flag("obs_port", 9470,
             "base port for the telemetry exporter; a worker listens on "
             "obs_port + rank (falls back to an ephemeral port if taken)",

@@ -19,8 +19,12 @@ tensors over DTensor) and :mod:`.auto_parallel` (``parallelize``,
 (format v3, reshard-on-load); :mod:`.comm_task` and :class:`Watchdog`
 attribute hangs; :mod:`.rpc` is control-plane RPC; :mod:`.fleet` is the
 hybrid-parallel API (topology, ``distributed_optimizer``, LocalSGD, the
-RNG tracker, recompute). ``compat``, ``io`` and ``AutoTuner`` are queued
-in ROADMAP A10.
+RNG tracker, recompute) and :mod:`.fleet.elastic` the elastic membership
+that ``launch --nnodes lo:hi`` runs. :mod:`.compat` is the reference-parity
+tail (object and single-tensor collectives, ``ParallelEnv``, the gloo
+shims, ``spawn``) and :mod:`.auto_tuner` the parallel-config search
+(``AutoTuner``). ``distributed.io`` waits for ROADMAP A11's static
+``Program``.
 """
 
 from .collective import (  # noqa: F401
@@ -52,8 +56,37 @@ from . import checkpoint  # noqa: F401
 from . import communication  # noqa: F401
 from .communication import P2POp, batch_isend_irecv  # noqa: F401
 from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
+from .compat import (  # noqa: F401
+    CountFilterEntry,
+    DistAttr,
+    ReduceType,
+    Strategy,
+    dtensor_from_fn,
+    shard_scaler,
+    unshard_dtensor,
+    InMemoryDataset,
+    ParallelEnv,
+    ParallelMode,
+    ProbabilityEntry,
+    QueueDataset,
+    ShowClickEntry,
+    alltoall,
+    alltoall_single,
+    broadcast_object_list,
+    destroy_process_group,
+    gather,
+    get_backend,
+    gloo_barrier,
+    gloo_init_parallel_env,
+    gloo_release,
+    is_available,
+    scatter_object_list,
+    split,
+    wait,
+)
 from . import launch  # noqa: F401
 from . import rpc  # noqa: F401
+from .auto_tuner import AutoTuner, TuneConfig  # noqa: F401
 from .watchdog import Watchdog  # noqa: F401
 from .launch import spawn  # noqa: F401
 from .mesh import ProcessMesh, auto_mesh, get_mesh, set_mesh  # noqa: F401

@@ -22,6 +22,7 @@ only the collectives cross the host. A rank's device is
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Optional
@@ -125,6 +126,24 @@ def init_parallel_env(backend: Optional[str] = None):
         kw["device_id"] = dev
     dist.init_process_group(chosen, store=store, rank=rank, world_size=world,
                             timeout=timeout, **kw)
+    # an orderly teardown at exit: a group left to the interpreter's
+    # finalizers can abort the process ("terminate called without an
+    # active exception") while its transport threads still run
+    global _teardown_registered
+    if not _teardown_registered:
+        atexit.register(_destroy_at_exit)
+        _teardown_registered = True
+
+
+_teardown_registered = False
+
+
+def _destroy_at_exit() -> None:
+    if dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            pass
 
 
 def is_initialized() -> bool:

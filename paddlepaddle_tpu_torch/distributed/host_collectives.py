@@ -87,12 +87,17 @@ class HostProcessGroup:
         self.rank = int(rank)
         self.world_size = int(world_size)
         self.gid = gid
+        # an elastic world's ops never alias an earlier world's on the same
+        # store (the launcher sets PADDLE_WORLD_VERSION, 0 without one)
+        version = os.environ.get("PADDLE_WORLD_VERSION", "0") or "0"
+        world = "" if version == "0" else f"w{version}/"
+        self._prefix, self._p2p_prefix = f"hcoll/{world}", f"hp2p/{world}"
         self._seq = 0
         self._p2p: dict = {}          # (src, dst) -> per-pair sequence
         self._posted: dict = {}       # seq -> data tags THIS rank wrote
 
     def _key(self, seq: int, tag: str) -> str:
-        return f"hcoll/{self.gid}/{seq}/{tag}"
+        return f"{self._prefix}{self.gid}/{seq}/{tag}"
 
     def rejoin(self, op_index: int) -> None:
         """Elastic re-admission: a restarted worker resuming from a
@@ -200,7 +205,7 @@ class HostProcessGroup:
         # pair participates; bumping _seq would desync the other ranks)
         n = self._p2p.get((src, dst), 0) + 1
         self._p2p[(src, dst)] = n
-        return f"hp2p/{self.gid}/{src}to{dst}/{n}"
+        return f"{self._p2p_prefix}{self.gid}/{src}to{dst}/{n}"
 
     def send(self, arr: np.ndarray, dst: int) -> None:
         self.store.set(self._p2p_key(self.rank, dst), _dumps(arr))

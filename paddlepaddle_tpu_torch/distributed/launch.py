@@ -11,8 +11,23 @@ rendezvous store itself (``PADDLE_LAUNCH_STORE=1``: it outlives worker
 restarts), and watches them: a worker that fails is restarted up to
 ``--max_restarts`` times (``PADDLE_RESTART_NUM`` counts its incarnations),
 after which the job is stopped with the worker's exit code; SIGTERM drains
-the workers and restarts none. Elastic membership (``--nnodes lo:hi``)
-waits for a later A10 slice.
+the workers and restarts none.
+
+Elastic membership (``--nnodes lo:hi``, reference
+``launch/__init__.py``:124-175, :237-262, over
+:mod:`.fleet.elastic`): node 0's launcher hosts the store and runs the
+``ElasticManager``; every node's launcher registers an ``ElasticNode`` and
+heartbeats. The first committed world sets the world size; a node's index
+is its place in the member list, so ranks stay contiguous. Workers get
+``PADDLE_WORLD_VERSION``. On a scale event (a node's heartbeat stops, or a
+node joins) every local worker is stopped and relaunched into the new
+world, where it resumes from the newest checkpoint; a node outside the
+committed world (past ``hi``) runs no workers until a world includes it.
+A silent node counts as alive for the manager's 5 s. The first world
+waits up to ``_LAST_CALL_S`` (30 s) for all ``hi`` nodes before it settles
+for ``lo``, so nodes started together begin in one world instead of a
+world of ``lo`` that the others' joins then resize (the JAX package
+commits as soon as ``lo`` nodes are alive; ROADMAP lists the divergence).
 
 ``spawn(func, args, nprocs)`` runs ``func(*args)`` in ``nprocs`` fresh
 processes (the multiprocessing spawn context: nothing of the parent's CUDA
@@ -33,6 +48,10 @@ import time
 
 # a SIGTERMed launcher (preemption) exits 143 itself after draining workers
 _SIGNAL_EXIT = {signal.SIGTERM: 143, signal.SIGINT: 130}
+# how long the first elastic world waits for all hi nodes once node 0 is
+# up (torchrun's rendezvous waits as long past its minimum); a node that
+# registered waits 60 s for that world
+_LAST_CALL_S = 30.0
 
 
 def _parse_args(argv=None):
@@ -40,7 +59,7 @@ def _parse_args(argv=None):
         prog="paddlepaddle_tpu_torch.distributed.launch",
         description="launch distributed training")
     p.add_argument("--nnodes", type=str, default="1",
-                   help="number of nodes (elastic ranges wait for A10)")
+                   help="number of nodes, or range 'lo:hi' for elastic")
     p.add_argument("--node_rank", type=int,
                    default=int(os.environ.get("PADDLE_NODE_RANK", "0")))
     p.add_argument("--nproc_per_node", type=int, default=1)
@@ -97,6 +116,14 @@ def _worker_env(args, local_rank: int, world_size: int, master_addr,
     return env
 
 
+def _count_scale_event() -> None:
+    from ..observability import safe_inc
+
+    safe_inc("paddle_launch_scale_events_total",
+             "elastic worlds the launch watch loop relaunched its workers "
+             "into")
+
+
 def _count_restart(local_rank: int, rc: int) -> None:
     """Restart events feed the observability registry."""
     from ..observability import safe_inc
@@ -106,15 +133,50 @@ def _count_restart(local_rank: int, rc: int) -> None:
              exit_code=rc)
 
 
+def _elastic_start(args, store, master_addr, master_port, lo, hi):
+    """Register this node (node 0 also starts the manager) and wait for the
+    first committed world: ``(node, manager or None, version, members)``."""
+    from .fleet.elastic import ElasticManager, ElasticNode
+    from .store import TCPStore
+
+    # a non-master node routinely dials before the master's store is up:
+    # the connect retry backs off under this timeout
+    client = store or TCPStore(master_addr, master_port, timeout=60.0)
+    enode = ElasticNode(client, node_id=f"node{args.node_rank}")
+    enode.register()
+    manager = None
+    if store is not None:  # the master node runs the membership watcher
+        manager = ElasticManager(client, (lo, hi))
+        deadline = time.monotonic() + _LAST_CALL_S
+        while time.monotonic() < deadline and \
+                len(manager.alive_nodes()) < hi:
+            time.sleep(manager.poll_interval)
+        manager.wait_for_np(lo)
+        manager.start()
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        version, members = ElasticManager.read_world(client)
+        if version > 0:
+            return enode, manager, version, members
+        time.sleep(0.2)
+    raise RuntimeError("elastic rendezvous: no world committed within 60s "
+                       "(is the master node up?)")
+
+
 def launch(argv=None) -> int:
     args = _parse_args(argv)
-    spec = str(args.nnodes)
-    if ":" in spec and spec.split(":")[0] != spec.split(":")[1]:
-        from ..core.errors import not_ported
+    # PADDLE_OBS_EXPORT in the launcher's own environment starts an
+    # exporter here at import, on rank 0's port (obs_port + 0): the
+    # launcher serves no telemetry, so it lets the port go before any
+    # worker starts
+    from ..observability import stop_exporter
 
-        raise not_ported(f"elastic --nnodes {spec}", "A10 (fleet/elastic)")
-    nnodes = int(spec.split(":")[0])
-    world_size = nnodes * args.nproc_per_node
+    stop_exporter()
+    spec = str(args.nnodes)
+    lo = int(spec.split(":")[0])
+    hi = int(spec.split(":")[1]) if ":" in spec else lo
+    elastic = hi > lo
+    world_size = lo * args.nproc_per_node
     if args.master:
         master_addr, master_port = args.master.split(":")
         master_port = int(master_port)
@@ -127,6 +189,12 @@ def launch(argv=None) -> int:
         store = TCPStore(master_addr if args.master else "127.0.0.1",
                          master_port, is_master=True, world_size=world_size)
         master_port = store.port
+    me = f"node{args.node_rank}"
+    enode, manager, world_version, members = None, None, 0, []
+    if elastic:
+        enode, manager, world_version, members = _elastic_start(
+            args, store, master_addr, master_port, lo, hi)
+        world_size = len(members) * args.nproc_per_node
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
 
@@ -134,8 +202,10 @@ def launch(argv=None) -> int:
     restarts = {i: 0 for i in range(args.nproc_per_node)}
 
     def start(local_rank):
+        node_index = members.index(me) if enode is not None else None
         env = _worker_env(args, local_rank, world_size, master_addr,
-                          master_port)
+                          master_port, node_index=node_index)
+        env["PADDLE_WORLD_VERSION"] = str(world_version)
         # incarnation counter: a script tells a fresh start from a resume
         env["PADDLE_RESTART_NUM"] = str(restarts[local_rank])
         cmd = [sys.executable, args.training_script] + args.training_script_args
@@ -147,8 +217,15 @@ def launch(argv=None) -> int:
             cmd, env=env, stdout=stdout,
             stderr=subprocess.STDOUT if stdout else None)
 
-    for i in range(args.nproc_per_node):
-        start(i)
+    def start_all():
+        if enode is not None and me not in members:
+            print(f"[launch] {me} is outside elastic world "
+                  f"v{world_version} {members}; waiting", file=sys.stderr)
+            return
+        for i in range(args.nproc_per_node):
+            start(i)
+
+    start_all()
 
     stopping = {"requested": False, "code": 0}
 
@@ -176,10 +253,46 @@ def launch(argv=None) -> int:
 
     exit_code = 0
     try:
-        while procs:
+        while procs or (enode is not None and me not in members):
             if stopping["requested"]:
                 return stopping["code"]
             time.sleep(0.5)
+            if stopping["requested"]:
+                return stopping["code"]
+            # elastic scale event: the membership changed, so every local
+            # worker is relaunched into the new world (reference
+            # manager.py:237-316)
+            changed = False
+            if enode is not None:
+                try:
+                    changed = enode.world_changed(world_version)
+                except (RuntimeError, OSError):
+                    # node 0's store is gone: the job's master has ended;
+                    # this node's workers end on their own and are reaped
+                    if me not in members:
+                        return exit_code
+            if changed:
+                from .fleet.elastic import ElasticManager
+
+                world_version, members = ElasticManager.read_world(
+                    enode.store)
+                world_size = len(members) * args.nproc_per_node
+                print(f"[launch] elastic scale event v{world_version}: "
+                      f"{len(members)} nodes; relaunching workers",
+                      file=sys.stderr, flush=True)
+                _count_scale_event()
+                for p in procs.values():
+                    if p.poll() is None:
+                        p.terminate()
+                for p in procs.values():
+                    try:
+                        p.wait(timeout=10)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait()
+                procs.clear()
+                start_all()
+                continue
             for lr, p in list(procs.items()):
                 if stopping["requested"]:
                     return stopping["code"]
@@ -203,6 +316,10 @@ def launch(argv=None) -> int:
                     return exit_code
     finally:
         shutdown()
+        if manager is not None:
+            manager.stop()
+        if enode is not None:
+            enode.stop()
         del store
     return exit_code
 

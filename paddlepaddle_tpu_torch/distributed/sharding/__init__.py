@@ -15,7 +15,9 @@ the batch is not sharded over).
 model's whole ``state_dict`` (parameters gathered by the model's sharded
 step, if it has one, and buffers) and the optimizer's whole ``state_dict``
 (``LR_Scheduler`` included), with the port's own pickle of numpy arrays
-(``paddle.save`` is ROADMAP A11): ``model.pdmodel`` and ``model.pdopt``
+(the reference writes them through ``paddle.save``; writing
+:mod:`...framework`'s payloads here is left open in ROADMAP A10):
+``model.pdmodel`` and ``model.pdopt``
 under ``output``, each a pickled dict of numpy arrays (bf16 and fp16
 stored as float32; the scheduler's state a dict of numbers); rank 0
 writes.

@@ -22,12 +22,18 @@ provides:
 The reference also hooks eager dispatch, autograd, collectives, comm tasks
 and the data loader (:304-318). Of those the port has the eager
 collectives (A10's core, :mod:`..distributed.collective`), whose hook
-counts calls, bytes and wall time as the reference's does, and the comm
-tasks (:mod:`..distributed.comm_task`: ``paddle_comm_task_seconds`` by
-task and group); dispatch, autograd and the data loader come with ROADMAP
-A11. The metric history (:mod:`~.tsdb`) and the alert
-engine (:mod:`~.alerts`) start when :func:`enable_history` is called; the
-fleet aggregation waits for A10.
+counts calls, bytes and wall time as the reference's does, the comm tasks
+(:mod:`..distributed.comm_task`: ``paddle_comm_task_seconds`` by task and
+group) and the data loader (:mod:`..io.dataloader`: the wait histogram and
+a ``dataloader`` span a batch, which the step-time decomposition reads as
+``data_wait``, the prefetch depth and the batches delivered); dispatch and
+autograd come with ROADMAP A11. The metric history (:mod:`~.tsdb`) and the
+alert engine (:mod:`~.alerts`) start when :func:`enable_history` is called.
+The fleet view (:mod:`~.aggregate`): with ``PADDLE_OBS_EXPORT=1`` (what
+``distributed.launch --obs_export`` sets) every worker starts its exporter
+at import and, under a multi-process launch, a publisher into the job's
+store; rank 0's exporter serves the merged ``/metrics`` and ``/fleet/*``
+(:func:`_autostart_fleet`).
 
 Everything is gated by ``PADDLE_OBS_*`` env vars / ``FLAGS_obs_*`` flags and
 defaults OFF: the only cost on a hot path when disabled is one module-global
@@ -42,8 +48,9 @@ defaults OFF: the only cost on a hot path when disabled is one module-global
 
 or set ``PADDLE_OBS_TRACE=1 PADDLE_OBS_METRICS=1 PADDLE_OBS_RECOMPILE_WATCH=1``
 (and ``PADDLE_OBS_BLACKBOX``, ``PADDLE_OBS_REQTRACE``, ``PADDLE_OBS_PERF``)
-before import. The planes that run a thread or a socket start only when
-called: ``profiler.enable()``, ``memledger.enable()``, ``start_exporter()``.
+before import (``PADDLE_OBS_EXPORT`` also starts the exporter). The
+profiler and the memory ledger start only when called:
+``profiler.enable()``, ``memledger.enable()``.
 """
 
 from __future__ import annotations
@@ -163,10 +170,10 @@ def _slo_aligned_buckets(flag_name: str):
 
 
 def _make_hooks():
-    """The serving, collective and comm-task hooks (reference :141-297,
-    its ``srv``, ``coll`` and ``task`` parts). The op, AMP, autograd and
-    data-loader hooks have no instrumented module in the port (ROADMAP
-    A11)."""
+    """The serving, collective, comm-task and data-loader hooks (reference
+    :141-297, its ``srv``, ``coll``, ``task`` and ``io`` parts). The op,
+    AMP and autograd hooks have no instrumented module in the port
+    (ROADMAP A11)."""
     reg = _registry
     rec = _recorder
 
@@ -196,6 +203,29 @@ def _make_hooks():
         if _trace_on:
             rec.record_complete(op, "collective", dur,
                                 {"bytes": nbytes} if nbytes else None)
+
+    io_wait = reg.histogram("paddle_dataloader_wait_seconds",
+                            "time the loop blocked waiting on the loader")
+    io_depth = reg.gauge("paddle_dataloader_queue_depth",
+                         "prefetched batches sitting in the data queue")
+    io_batches = reg.counter("paddle_dataloader_batches_total",
+                             "batches delivered to the training loop")
+
+    def obs_io(event, value):
+        if event == "wait":
+            if _metrics_on:
+                io_wait.observe(value)
+            if _trace_on:
+                # a "dataloader" span so the step timeline attributes
+                # blocked-on-input time as its own phase
+                rec.record_complete("dataloader_wait", "dataloader", value)
+            return
+        if not _metrics_on:
+            return
+        if event == "qdepth":
+            io_depth.set(value)
+        elif event == "batch":
+            io_batches.inc(value)
 
     srv_requests = reg.counter("paddle_serving_requests_total",
                                "generation requests completed, by outcome")
@@ -259,7 +289,8 @@ def _make_hooks():
                 {k: v for k, v in d.items()
                  if k != "latency" and v is not None})
 
-    return {"srv": obs_srv, "coll": obs_coll, "task": obs_task}
+    return {"srv": obs_srv, "coll": obs_coll, "task": obs_task,
+            "io": obs_io}
 
 
 def _set_hooks(hooks: Optional[dict]) -> None:
@@ -278,6 +309,12 @@ def _set_hooks(hooks: Optional[dict]) -> None:
 
         _coll._obs_coll = g("coll")
         _ct._obs_task = g("task")
+    except Exception:
+        pass
+    try:
+        from ..io import dataloader as _dl
+
+        _dl._obs_io = g("io")
     except Exception:
         pass
 
@@ -407,6 +444,16 @@ def summary(top: int = 30) -> str:
              f"watchdog={'on' if _watchdog_on else 'off'})",
              f"rank {flight._rank()}/{flight._world()}  pid {os.getpid()}"]
 
+    io = snap.get("paddle_dataloader_wait_seconds", {})
+    if io or snap.get("paddle_dataloader_batches_total"):
+        _section(lines, "DataLoader")
+        h = io.get((), {})
+        batches = snap.get("paddle_dataloader_batches_total", {}).get((), 0)
+        depth = snap.get("paddle_dataloader_queue_depth", {}).get((), 0)
+        lines.append(f"batches={int(batches)}  queue_depth={depth:g}  "
+                     f"wait_total={h.get('sum', 0.0) * 1e3:.1f}ms  "
+                     f"waits={h.get('count', 0)}")
+
     srv = snap.get("paddle_serving_request_seconds", {})
     if srv or snap.get("paddle_serving_requests_total") \
             or snap.get("paddle_serving_shed_total"):
@@ -480,6 +527,10 @@ def summary(top: int = 30) -> str:
 # telemetry exporter
 # ---------------------------------------------------------------------------
 
+_fleet_publisher = None  # the autostarted FleetPublisher, so it can be stopped
+_fleet_stopped = False  # stop_exporter() may race the autostart thread
+
+
 def start_exporter(port: Optional[int] = None, host: Optional[str] = None):
     """Start (or return) this process's HTTP telemetry exporter — serves
     ``/metrics``, ``/healthz``, ``/vars``, ``/trace`` & co. on
@@ -490,11 +541,67 @@ def start_exporter(port: Optional[int] = None, host: Optional[str] = None):
 
 
 def stop_exporter() -> None:
-    """Stop the exporter (the fleet publisher of the reference arrives with
-    the fleet aggregation, an A8 leftover)."""
+    """Stop the exporter AND the autostarted fleet publisher (if any):
+    tearing telemetry down must not leave a thread publishing to the store.
+    Safe against the autostart thread still dialling the store: the flag
+    makes a late-arriving publisher stop itself."""
+    global _fleet_publisher, _fleet_stopped
     from . import exporter
 
+    _fleet_stopped = True
     exporter.stop()
+    pub, _fleet_publisher = _fleet_publisher, None
+    if pub is not None:
+        pub.stop(final_publish=False)
+
+
+def _autostart_fleet() -> None:
+    """Under a multi-process launch, publish snapshots into the launcher's
+    TCPStore and (on rank 0) serve the merged fleet view (reference
+    :651-701). Runs on a daemon thread: the store dial must never block (or
+    break) the worker's import."""
+    global _fleet_publisher
+    world = flight._world()
+    if world <= 1 or _fleet_stopped:
+        return
+    try:
+        from ..distributed.store import create_or_get_global_tcp_store
+        from . import aggregate as _aggregate
+        from . import exporter as _exporter
+
+        rank = flight._rank()
+        # torch-style jobs (RANK/WORLD_SIZE only): pin the PADDLE_* names
+        # BEFORE touching the global store, as host_collectives does, or
+        # the store factory would see rank 0 / world 1 and cache a wrong
+        # (self-hosted) store; if the dial fails, unpin: telemetry must not
+        # leave the process lying about its rank
+        pinned = []
+        for k, v in (("PADDLE_TRAINER_ID", rank),
+                     ("PADDLE_TRAINERS_NUM", world)):
+            if k not in os.environ:
+                os.environ[k] = str(v)
+                pinned.append(k)
+        try:
+            store = create_or_get_global_tcp_store()
+        except BaseException:
+            for k in pinned:
+                os.environ.pop(k, None)
+            raise
+        _fleet_publisher = _aggregate.FleetPublisher(store, rank).start()
+        if _fleet_stopped:  # stop_exporter() won the race mid-dial
+            pub, _fleet_publisher = _fleet_publisher, None
+            if pub is not None:  # stop_exporter may have swapped it first
+                pub.stop(final_publish=False)
+            return
+        if rank == 0:
+            served = _exporter.get()
+            if served is not None:
+                _aggregate.install_fleet_routes(served, store, world,
+                                                local_rank=0)
+    except Exception as e:
+        import sys as _sys
+
+        _sys.stderr.write(f"[obs] fleet telemetry autostart failed: {e!r}\n")
 
 
 # arm from env: PADDLE_OBS_* / FLAGS_obs_* read at define_flag time
@@ -509,6 +616,18 @@ if _flags.flag_value("obs_blackbox"):
 
 if _flags.flag_value("obs_reqtrace"):
     reqtrace.enable()
+
+if _flags.flag_value("obs_export"):
+    try:
+        start_exporter()
+    except Exception as _e:
+        import sys as _sys
+
+        _sys.stderr.write(f"[obs] exporter autostart failed: {_e!r}\n")
+    import threading as _threading
+
+    _threading.Thread(target=_autostart_fleet, daemon=True,
+                      name="obs-fleet-autostart").start()
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "Recorder", "Event",

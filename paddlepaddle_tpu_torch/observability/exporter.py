@@ -4,9 +4,11 @@ The port's own copy of the jax-free ``paddlepaddle_tpu/observability/
 exporter.py``, with the reference's default routes (:161-172): ``/query``
 reads the metric history (``tsdb``) and ``/alerts`` the alert engine, which
 ``observability.enable_history()`` arms; ``/healthz`` carries the alert
-engine's block when one is installed. The fleet aggregation (``/fleet/*``
-on rank 0) waits for ROADMAP A10. Nothing starts at import: call
-:func:`start` (``observability.start_exporter()``).
+engine's block when one is installed. On rank 0 of a launched job
+:mod:`~.aggregate` adds the fleet view (``/fleet/*``, the merged
+``/metrics``). Nothing starts at import unless ``PADDLE_OBS_EXPORT=1``
+(``observability`` then calls :func:`start`); otherwise call it
+(``observability.start_exporter()``).
 
 Reference surface: the reference serving stack exposes monitor stats over
 an HTTP scrape endpoint per process; Prometheus convention is one exporter

@@ -6,10 +6,10 @@ with ``torch.cuda.synchronize()`` (when this process has initialised a
 card) before it reads the clock; the step's wall, and so its ``compute``
 phase, then include the device work the step queued, as the reference's
 wall does once the caller materializes the loss. Of the recorder
-categories below, the port's hooks record none yet: eager dispatch,
-autograd, collectives and the data loader wait for their modules (ROADMAP
-A10, A11), so today a step reads as ``compute`` plus whatever spans the
-caller records in those categories.
+categories below, the port's hooks record the collectives and comm tasks
+(:mod:`...distributed`) and the data loader's waits (:mod:`...io`);
+eager dispatch and autograd wait for ROADMAP A11, so their time reads as
+``compute``.
 
 Reference surface: the reference profiler's timeline summary buckets
 (``paddle.profiler`` statistic categories: Operator / CudaRuntime /

@@ -2,9 +2,9 @@
 
 The port's own copy of the jax-free ``paddlepaddle_tpu/observability/
 tsdb.py``, unchanged but for where it starts: nothing runs at import;
-``observability.enable_history()`` (or :func:`enable`) arms it. The rank-0
-fleet view that publishes this history (``aggregate``) waits for ROADMAP
-A10.
+``observability.enable_history()`` (or :func:`enable`) arms it. Under a
+launched job each rank's ``FleetPublisher`` (:mod:`~.aggregate`) publishes
+this history, and rank 0 serves every rank's at ``/fleet/query``.
 
 Every other surface in the observability family answers "what is the value
 *now*" — ``/metrics`` is an instantaneous scrape, ``/healthz`` a live

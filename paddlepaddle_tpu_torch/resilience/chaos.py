@@ -3,9 +3,9 @@
 The port's own copy of the jax-free ``paddlepaddle_tpu/resilience/
 chaos.py``: the same specs, schedules and per-point seeded streams, so one
 spec and seed fire on the same hits in both packages. The port's seams are
-``serving.admit`` and ``serving.decode`` (:mod:`..inference.serving`); the
-store, collective, checkpoint, data-loader and step seams come with their
-modules (ROADMAP A10, A11).
+``serving.admit`` and ``serving.decode`` (:mod:`..inference.serving`), the
+store's, ``collective.launch``, ``ckpt.write_shard``, ``step`` (the
+watchdog) and ``dataloader.worker`` (:mod:`..io.dataloader`).
 
 Reference surface: the reference stack treats failure as a first-class event
 (CommTaskManager timeout/abort, paddle/phi/core/distributed/

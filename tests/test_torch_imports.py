@@ -104,6 +104,16 @@ import paddlepaddle_tpu_torch.distributed.fleet.meta_optimizers.dygraph_optimize
 import paddlepaddle_tpu_torch.distributed.fleet.meta_parallel
 import paddlepaddle_tpu_torch.distributed.fleet.utils
 import paddlepaddle_tpu_torch.resilience.integrity
+import paddlepaddle_tpu_torch.framework
+import paddlepaddle_tpu_torch.framework.io_api
+import paddlepaddle_tpu_torch.io
+import paddlepaddle_tpu_torch.io.dataset
+import paddlepaddle_tpu_torch.io.sampler
+import paddlepaddle_tpu_torch.io.dataloader
+import paddlepaddle_tpu_torch.distributed.compat
+import paddlepaddle_tpu_torch.distributed.auto_tuner
+import paddlepaddle_tpu_torch.distributed.fleet.elastic
+import paddlepaddle_tpu_torch.observability.aggregate
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -131,7 +141,11 @@ if not torch.cuda.is_available():
              .replica_main.main(["--port", "0"])),
             ("train_step", lambda: pt.TrainStep(
                 pt.LlamaForCausalLM(cfg, device="cpu"), pt.AdamW(),
-                lambda m, ids, labels: m(ids, labels=labels)))):
+                lambda m, ids, labels: m(ids, labels=labels))),
+            ("dataloader", lambda: pt.io.DataLoader(
+                pt.io.TensorDataset([__import__("numpy").zeros((4, 2))]),
+                batch_size=2)),
+            ("load", lambda: pt.load("never_opened.pd"))):
         try:
             make()
             errors[name] = None
@@ -198,7 +212,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "distributed.fleet.meta_parallel",
                 "distributed.fleet.utils",
                 "resilience.integrity",
-                "resilience.preemption"):
+                "resilience.preemption",
+                # A10 slice 7 and the input pipeline
+                "framework", "framework.io_api", "io", "io.dataset",
+                "io.sampler", "io.dataloader", "distributed.compat",
+                "distributed.auto_tuner", "distributed.fleet.elastic",
+                "observability.aggregate"):
         assert f"paddlepaddle_tpu_torch.{mod}" in got["ports"], mod
     if got["cuda"]:
         pytest.skip("entry points legitimately default to the card here")

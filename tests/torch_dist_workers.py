@@ -1391,3 +1391,54 @@ def fleet_mp2_session(weights, x, y, clip, n_steps, grads):
         seen.append(w.weight.detach().numpy().copy())
     out["localsgd"] = seen
     return out
+
+
+# ---------------------------------------------------------------------------
+# distributed.compat (tests/test_torch_compat.py)
+# ---------------------------------------------------------------------------
+
+def compat_session(device="cpu"):
+    """Every compat collective over 2 gloo ranks on ``device`` tensors;
+    returns this rank's results as numpy / plain values."""
+    from paddlepaddle_tpu_torch.distributed import compat as C
+
+    rank = _init()
+    dev = torch.device(device)
+    out = {"rank": rank, "backend": C.get_backend(),
+           "available": C.is_available()}
+    # uneven splits: rank r sends r + 1 + j rows of width 3 to rank j
+    splits = [rank + 1, rank + 2]
+    rows = sum(splits)
+    x = (torch.arange(rows * 3, dtype=torch.float32, device=dev)
+         .reshape(rows, 3) + 100 * rank)
+    y = torch.empty(0, 3, device=dev)
+    C.alltoall_single(y, x, in_split_sizes=splits)
+    out["alltoall_single"] = y.cpu().numpy()
+    even = torch.arange(4, dtype=torch.int64, device=dev) + 10 * rank
+    z = torch.empty(4, dtype=torch.int64, device=dev)
+    C.alltoall_single(z, even)
+    out["alltoall_single_even"] = z.cpu().numpy()
+    got = []
+    C.alltoall(got, [torch.full((2,), 10.0 * rank + j, device=dev)
+                     for j in range(2)])
+    out["alltoall"] = [t.cpu().numpy() for t in got]
+    gl = []
+    C.gather(torch.tensor([rank * 1.5], device=dev), gl, dst=0)
+    out["gather"] = [t.cpu().numpy() for t in gl]
+    objs = [{"from": rank, "tags": ["a", rank]}, (rank, 2.5)]
+    C.broadcast_object_list(objs, src=1)
+    out["broadcast_object_list"] = objs
+    recv = []
+    C.scatter_object_list(recv, [{"to": r, "payload": list(range(r + 2))}
+                                 for r in range(2)] if rank == 0 else None,
+                          src=0)
+    out["scatter_object_list"] = recv
+    env = C.ParallelEnv()
+    out["env"] = [env.rank, env.world_size, env.nranks, env.local_rank,
+                  env.device_id]
+    out["wait_is_identity"] = C.wait(x) is x
+    C.destroy_process_group()
+    import torch.distributed as dist
+
+    out["destroyed"] = not dist.is_initialized()
+    return out

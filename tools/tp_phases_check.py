@@ -13,7 +13,8 @@ single-process arm), ``spec_tp``, ``router_tp``, ``train_tp`` (its SPMD
 arms, then its single-process arms), ``nccl_world1``, ``ep_parity``,
 ``train_ep``, ``fsdp_parity``, ``train_fsdp`` (with ``ckpt_reshard``
 on its step), ``pp_parity``,
-``train_pp``, ``sp_parity``, ``train_cp``; default ``tp_spec
+``train_pp``, ``sp_parity``, ``train_cp``, ``elastic_train`` (two
+launchers, ``--nnodes 1:2``, a scale event); default ``tp_spec
 serve_tp spec_tp router_tp``. Each
 phase prints its JSON lines and its seconds; a failed phase prints its
 error and the script goes on to the next, exiting 1 at the end.
